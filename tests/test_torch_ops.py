@@ -1,0 +1,257 @@
+"""The port's attention kernels' plain twins (lwm_tpu_torch.ops) against the
+JAX kernels they replace, run in interpret mode on the CPU, and against the
+JAX oracle `lwm_tpu.ops.reference_attention`.
+
+Inputs are made with numpy from a seed and fed to both packages. fp32
+comparisons hold 1e-5 (the JAX suite's own kernel tolerance); bf16 ones 2e-2.
+Every compared row has at least one valid key: the TPU kernels leave a
+fully masked row as a mean of v, where the module contract (and the port)
+gives 0 — that case is checked against the contract separately.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lwm_tpu.ops import reference_attention as jax_reference_attention
+from lwm_tpu.ops.pallas_decode import flash_decode_pallas
+from lwm_tpu.ops.pallas_flash import flash_attention_fwd_pallas
+from lwm_tpu_torch.ops import decode, flash
+from lwm_tpu_torch.ops.reference import BIG_NEG, reference_attention
+
+FP32_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _t(x, dtype=None):
+    x = torch.from_numpy(np.ascontiguousarray(x))
+    return x if dtype is None else x.to(dtype)
+
+
+# ------------------------------------------------------------------ K1
+
+K1_CASES = {
+    # name: (h, h_kv, sq, skv, causal, q_offset, kv_offset, bias kind, head-major)
+    "causal_at_q_offset": (4, 4, 32, 256, True, 224, 0, None, False),
+    "left_pad_holes": (4, 4, 32, 256, True, 64, 0, "holes", False),
+    "full_tile_bias": (4, 4, 32, 256, True, 100, 0, "full", False),
+    "non_causal": (4, 4, 32, 256, False, 0, 0, "holes", False),
+    "kv_offset": (4, 4, 32, 256, True, 120, 50, "holes", False),
+    "gqa": (8, 2, 32, 256, True, 224, 0, "holes", False),
+    "head_major_gqa": (8, 4, 32, 256, True, 64, 0, "holes", True),
+}
+
+
+def _k1_inputs(h, h_kv, sq, skv, causal, q_offset, kv_offset, bias_kind, seed=0, b=2, d=64):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d), np.float32)
+    k = rng.standard_normal((b, skv, h_kv, d), np.float32)
+    v = rng.standard_normal((b, skv, h_kv, d), np.float32)
+    bias = None
+    if bias_kind == "holes":
+        # per-key bias: left-pad holes at the front of row 0, a random
+        # additive term elsewhere; every query still sees key 30
+        valid = np.ones((b, skv), bool)
+        valid[0, :24] = False
+        valid[1, rng.integers(0, skv, 40)] = False
+        valid[:, 30] = True
+        bias = np.where(valid, rng.standard_normal((b, skv)).astype(np.float32), BIG_NEG)
+        bias = bias[:, None, None, :].astype(np.float32)
+    elif bias_kind == "full":
+        valid = rng.random((b, sq, skv)) > 0.3
+        valid[:, :, 0] = True
+        bias = np.where(valid, rng.standard_normal((b, sq, skv)), BIG_NEG)
+        bias = bias[:, None].astype(np.float32)
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_k1_twin_matches_pallas_kernel(case):
+    h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind, head_major = K1_CASES[case]
+    q, k, v, bias = _k1_inputs(h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind)
+    if head_major:
+        k, v = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+    want_out, want_lse = flash_attention_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if bias is None else jnp.asarray(bias),
+        causal=causal, q_offset=q_off, kv_offset=kv_off, block_k=128,
+        interpret=True, kv_head_major=head_major,
+    )
+    out, lse = flash.flash_attention_fwd_plain(
+        _t(q), _t(k), _t(v), None if bias is None else _t(bias),
+        causal=causal, q_offset=q_off, kv_offset=kv_off, kv_head_major=head_major,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **FP32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FP32_TOL)
+
+
+@pytest.mark.parametrize("case", ["causal_at_q_offset", "kv_offset", "gqa", "full_tile_bias"])
+def test_k1_twin_and_reference_match_jax_reference(case):
+    h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind, _ = K1_CASES[case]
+    q, k, v, bias = _k1_inputs(h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind, seed=1)
+    g = h // h_kv
+    want = jax_reference_attention(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, g, axis=2)),
+        jnp.asarray(np.repeat(v, g, axis=2)),
+        None if bias is None else jnp.asarray(bias),
+        causal=causal, q_offset=q_off, kv_offset=kv_off,
+    )
+    tb = None if bias is None else _t(bias)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    twin, _ = flash.flash_attention_fwd_plain(_t(q), _t(k), _t(v), tb, **kw)
+    ref, _ = reference_attention(_t(q), _t(k), _t(v), tb, **kw)
+    np.testing.assert_allclose(twin.numpy(), np.asarray(want), **FP32_TOL)
+    np.testing.assert_allclose(ref.numpy(), np.asarray(want), **FP32_TOL)
+
+
+def test_fully_masked_rows_give_zero():
+    """The module contract (pallas_flash.py:35-37, reference.py:46-50):
+    a row with no valid key gives 0 and lse BIG_NEG."""
+    q, k, v, _ = _k1_inputs(4, 4, 8, 64, False, 0, 0, None, b=1)
+    bias = np.zeros((1, 1, 8, 64), np.float32)
+    bias[0, 0, 3] = BIG_NEG
+    out, lse = flash.flash_attention_fwd_plain(_t(q), _t(k), _t(v), _t(bias), causal=False)
+    assert torch.all(out[0, 3] == 0) and torch.all(lse[0, :, 3] == BIG_NEG)
+    assert torch.all(out[0, 2] != 0)
+    out, lse = reference_attention(_t(q), _t(k), _t(v), causal=True, q_offset=-1)
+    assert torch.all(out[0, 0] == 0) and torch.all(out[0, 1] != 0)
+
+
+def test_k1_twin_bf16_matches_pallas_kernel():
+    q, k, v, bias = _k1_inputs(8, 2, 32, 256, True, 224, 0, "holes", seed=2)
+    bf = [x.astype(jnp.bfloat16) for x in map(jnp.asarray, (q, k, v))]
+    want, want_lse = flash_attention_fwd_pallas(
+        *bf, jnp.asarray(bias), causal=True, q_offset=224, block_k=128, interpret=True,
+    )
+    out, lse = flash.flash_attention_fwd_plain(
+        *(_t(x, torch.bfloat16) for x in (q, k, v)), _t(bias), causal=True, q_offset=224,
+    )
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2
+    )
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-4, rtol=1e-5)
+
+
+# ------------------------------------------------------------------ K4
+
+
+def _quantize(x):
+    """Per-(head, token) int8 as lwm_tpu/models/llama.py:464-472 (numpy)."""
+    scale = np.maximum(np.abs(x).max(-1) / 127.0, 1e-8).astype(np.float32)
+    return np.clip(np.round(x / scale[..., None]), -127, 127).astype(np.int8), scale
+
+
+K4_CASES = {
+    # name: (h, h_kv, quantized, dtype, kv_len = max(lengths) + 1?)
+    "fp32_mha": (4, 4, False, "fp32", False),
+    "fp32_gqa_kv_len_skip": (8, 2, False, "fp32", True),
+    "int8_mha": (4, 4, True, "fp32", True),
+    "int8_gqa": (8, 4, True, "fp32", False),
+    "bf16_gqa": (8, 2, False, "bf16", True),
+    "bf16_int8_mha": (4, 4, True, "bf16", True),
+}
+
+
+def _k4_inputs(h, h_kv, seed=0, b=3, T=512, d=64):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, 1, h, d), np.float32)
+    k = rng.standard_normal((b, h_kv, T, d), np.float32)
+    v = rng.standard_normal((b, h_kv, T, d), np.float32)
+    lengths = np.asarray([100, 300, 45])[:b]
+    mask = np.arange(T)[None] <= lengths[:, None]     # per-row frontiers
+    mask[1, :40] = False                              # left-pad holes
+    return q, k, v, mask, lengths
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_twin_matches_pallas_kernel(case):
+    h, h_kv, quant, dt, skip = K4_CASES[case]
+    q, k, v, mask, lengths = _k4_inputs(h, h_kv, seed=len(case))
+    T = k.shape[2]
+    kv_len = int(lengths.max()) + 1 if skip else T
+    ks = vs = None
+    if quant:
+        k, ks = _quantize(k)
+        v, vs = _quantize(v)
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    kv_j = (lambda x: jnp.asarray(x)) if quant else (lambda x: jnp.asarray(x).astype(jdt))
+    want = flash_decode_pallas(
+        jnp.asarray(q).astype(jdt), kv_j(k), kv_j(v), jnp.asarray(mask), kv_len,
+        None if ks is None else jnp.asarray(ks), None if vs is None else jnp.asarray(vs),
+        block_k=128, interpret=True,
+    )
+    kv_t = (lambda x: _t(x)) if quant else (lambda x: _t(x, tdt))
+    got = decode.flash_decode_plain(
+        _t(q, tdt), kv_t(k), kv_t(v), _t(mask), kv_len,
+        None if ks is None else _t(ks), None if vs is None else _t(vs),
+    )
+    assert got.dtype == tdt
+    tol = FP32_TOL if dt == "fp32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("h,h_kv", [(4, 4), (8, 2)])
+def test_k4_twin_matches_jax_reference(h, h_kv):
+    q, k, v, mask, lengths = _k4_inputs(h, h_kv, seed=11)
+    g = h // h_kv
+    k_sm = np.repeat(k.transpose(0, 2, 1, 3), g, axis=2)   # seq-major, expanded
+    v_sm = np.repeat(v.transpose(0, 2, 1, 3), g, axis=2)
+    bias = np.where(mask, 0.0, BIG_NEG).astype(np.float32)[:, None, None, :]
+    want = jax_reference_attention(
+        jnp.asarray(q), jnp.asarray(k_sm), jnp.asarray(v_sm), jnp.asarray(bias), causal=False
+    )
+    got = decode.flash_decode_plain(_t(q), _t(k), _t(v), _t(mask), int(lengths.max()) + 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+
+
+# ------------------------------------------------------------- wrappers
+
+
+def test_wrappers_run_twins_on_cpu_without_launching():
+    q, k, v, bias = _k1_inputs(4, 2, 16, 128, True, 112, 0, "holes")
+    n1, n4 = flash.flash_attention_fwd.launches, decode.flash_decode.launches
+    out, lse = flash.flash_attention_fwd(_t(q), _t(k), _t(v), _t(bias), q_offset=112)
+    ref, ref_lse = flash.flash_attention_fwd_plain(_t(q), _t(k), _t(v), _t(bias), q_offset=112)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    q4, k4, v4, mask, _ = _k4_inputs(4, 2)
+    got = decode.flash_decode(_t(q4), _t(k4), _t(v4), _t(mask), 512)
+    assert torch.equal(got, decode.flash_decode_plain(_t(q4), _t(k4), _t(v4), _t(mask), 512))
+    assert (flash.flash_attention_fwd.launches, decode.flash_decode.launches) == (n1, n4)
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    q = torch.empty((1, 4, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="no flash_attention_fwd kernel"):
+        flash.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="no flash_decode kernel"):
+        decode.flash_decode(q[:, :1], q, q, torch.ones(1, 2, dtype=torch.bool), 2)
+
+
+def test_kernel_argument_checks():
+    bf = torch.bfloat16
+    q = torch.zeros((1, 8, 4, 64), dtype=bf)
+    k = torch.zeros((1, 2, 32, 64), dtype=bf)
+    assert flash.check_fwd_args(q, k, k, kv_head_major=True) == (32, 2)
+    with pytest.raises(TypeError):
+        flash.check_fwd_args(q.float(), k.float(), k.float(), True)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.check_fwd_args(q[..., :48], k[..., :48], k[..., :48], True)
+    with pytest.raises(ValueError, match="multiple"):
+        flash.check_fwd_args(torch.zeros((1, 8, 3, 64), dtype=bf), k, k, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.check_fwd_args(torch.zeros((1, 8, 4, 128), dtype=bf)[..., ::2], k, k, True)
+    with pytest.raises(ValueError, match="per-head"):
+        flash._normalize_bias(torch.zeros(1, 4, 1, 32), 1, 8, 32)
+
+    mask = torch.ones((1, 32), dtype=torch.bool)
+    decode.check_decode_args(q[:, :1], k, k, mask, None, None)
+    k8 = k.to(torch.int8)
+    sc = torch.ones((1, 2, 32))
+    decode.check_decode_args(q[:, :1], k8, k8, mask, sc, sc)
+    with pytest.raises(ValueError, match="exactly when"):
+        decode.check_decode_args(q[:, :1], k8, k8, mask, None, None)
+    with pytest.raises(ValueError, match="group"):
+        decode.check_decode_args(torch.zeros((1, 1, 32, 64), dtype=bf), k, k, mask, None, None)
+    with pytest.raises(ValueError, match="mask"):
+        decode.check_decode_args(q[:, :1], k, k, mask[:, :16], None, None)
