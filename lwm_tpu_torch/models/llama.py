@@ -1,28 +1,45 @@
-"""LWM-Text (LLaMA architecture) in PyTorch: the single-device serving forward.
+"""LWM-Text (LLaMA architecture) in PyTorch: the single-device serving and
+training forwards.
 
 Counterpart of `lwm_tpu/models/llama.py`; each piece names its JAX source.
 Parameter names mirror the flax tree (`wte`, `h.{i}.attention.wq/wk/wv/wo`,
 `h.{i}.feed_forward.w1/w2/w3`, `attention_norm`, `ffn_norm`, `ln_f`,
 `lm_head`); dense weights are stored in torch's [out, in] layout
-(`utils/convert.py` transposes flax's [in, out] kernels). Weights live in
-the model dtype, as the JAX serving CLI casts params at load
-(`lwm_tpu/apps/serve.py:140-144`), so a bf16 model runs bf16 products with
-fp32 accumulation, like flax `nn.Dense(dtype=bf16)`.
+(`utils/convert.py` transposes flax's [in, out] kernels).
+
+Weights live in `param_dtype` and every product runs in `dtype`, as flax
+`nn.Dense(dtype, param_dtype)` casts: the JAX train step keeps fp32 params
+and computes in bf16 (`lwm_tpu/train.py:187-189`), so each weight is cast
+to bf16 at use, the residual stream and the logits are bf16. The serving
+CLI casts params to the model dtype at load (`lwm_tpu/apps/serve.py:
+140-144`): there `param_dtype` defaults to `dtype` and the casts are no-ops.
 
 Attention (`attn_impl`):
 - "auto": the port's kernels. Decode (q = 1 over a cache) → K4
-  `ops.decode.flash_decode`; every other forward → K1
-  `ops.flash.flash_attention_fwd` (causal, q_offset = kv_len − q). On CPU
-  tensors those wrappers run their plain twins.
-- "plain": full-materialization attention over the complete mask, the twin
-  of the JAX `"xla"` path (`llama.py:948-988`).
+  `ops.decode.flash_decode`; a forward over a cache → K1
+  `ops.flash.flash_attention_fwd` (causal, q_offset = kv_len − q); a forward
+  without a cache (training, `_ring_train`'s single-device branch) →
+  `ops.ring.flash_attention`, K1 forward and K2/K3 backward, with the JAX
+  per-key bias (`finfo(dtype).min` on padded keys, `llama.py:1114-1119`).
+  On CPU tensors those wrappers run their plain twins.
+- "plain": full-materialization attention (`ops.reference`), the twin of
+  the JAX `"xla"` path (`llama.py:948-988`); differentiable by autograd.
 
-Not in this slice: training (dropout, remat, segment ids), meshes, shared
-prefixes, int8 weights (`quant_dense`), vision.
+Training: `forward` and `forward_hidden` build an autograd graph when called
+without a cache (with a cache they run under `torch.no_grad()`). Blocks are
+rematerialized by `torch.utils.checkpoint` per `remat_block`
+(`llama.py:1362-1394`): "none"; "nothing_saveable" (the backward replays the
+whole block, K1 included); "save_flash" (selective checkpointing keeps K1's
+(out, lse): `ops.ring.save_flash_policy`). With `scan_mlp` the feed-forward
+runs in rematerialized sequence chunks (`llama.py:1308-1329`).
+
+Not in this slice: dropout (`*_pdrop` > 0 raise in training), segment ids,
+meshes, shared prefixes, int8 weights (`quant_dense`), vision.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 from dataclasses import dataclass
@@ -32,10 +49,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from lwm_tpu_torch.ops.decode import flash_decode
 from lwm_tpu_torch.ops.flash import flash_attention_fwd
 from lwm_tpu_torch.ops.reference import BIG_NEG, reference_attention
+from lwm_tpu_torch.ops.ring import flash_attention, save_flash_policy
+
+REMAT_BLOCKS = ("none", "nothing_saveable", "save_flash")
 
 # Public LLaMA/LWM model dimensions (lwm_tpu/models/llama.py:52-85).
 LLAMA_STANDARD_CONFIGS = {
@@ -81,11 +102,13 @@ class LLaMAConfig:
     names and defaults, so a JAX config dict or json loads unchanged.
 
     The port's forward reads the model shape, `rms_norm_eps`, `theta`,
-    `tie_word_embeddings`, `kv_cache_dtype`, `attn_impl`, `decode_index`
-    and `logits_tail`. The training and layout fields (dropouts, `scan_*`,
-    `remat_block`) describe the JAX checkpoint or training step and are
-    kept only so configs round-trip; `param_scan_axis` tells
-    `utils/convert.py` how a scanned tree is stacked."""
+    `tie_word_embeddings`, `kv_cache_dtype`, `attn_impl`, `decode_index`,
+    `logits_tail`, `remat_block`, `scan_mlp` and `scan_mlp_chunk_size`, and
+    the dropouts (only to refuse them in training). `scan_attention` and the
+    query/key chunk sizes only tune the JAX kernels' blocking (every
+    forward without a cache takes the flash path here); `scan_layers` and
+    `param_scan_axis` tell `utils/convert.py` how a scanned tree is
+    stacked."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -136,6 +159,10 @@ class LLaMAConfig:
             raise NotImplementedError("int8 dense weights (quant_dense) are not ported yet")
         if self.prefix_len:
             raise NotImplementedError("shared-prefix serving (prefix_len) is not ported yet")
+        if self.remat_block not in REMAT_BLOCKS:
+            raise NotImplementedError(
+                f"remat_block {self.remat_block!r}: the port has {REMAT_BLOCKS}"
+            )
 
     @classmethod
     def from_dict(cls, d):
@@ -178,17 +205,43 @@ def round_cache_length(config, max_length):
 
 
 class RMSNorm(nn.Module):
-    """RMS norm computed in fp32 (`lwm_tpu/models/llama.py:305-321`)."""
+    """RMS norm computed in fp32, the weight held in `param_dtype`, the
+    output in `dtype` (`lwm_tpu/models/llama.py:305-321`)."""
 
-    def __init__(self, dim, eps=1e-6, *, dtype=torch.float32, device=None):
+    def __init__(self, dim, eps=1e-6, *, dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, dtype=param_dtype or dtype, device=device))
 
     def forward(self, x):
         x32 = x.float()
         x32 = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + self.eps)
-        return (x32 * self.weight.float()).to(x.dtype)
+        return (x32 * self.weight.float()).to(self.dtype)
+
+
+class Dense(nn.Linear):
+    """Bias-free `nn.Linear` holding its weight in `param_dtype` and
+    multiplying in `dtype` (flax `nn.Dense(dtype, param_dtype)`)."""
+
+    def __init__(self, d_in, d_out, *, dtype, param_dtype=None, device=None):
+        super().__init__(d_in, d_out, bias=False, dtype=param_dtype or dtype, device=device)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class Embed(nn.Embedding):
+    """`nn.Embedding` holding its table in `param_dtype`, looked up in
+    `dtype` (`embed_lookup`, `lwm_tpu/models/llama.py:1444-1460`)."""
+
+    def __init__(self, n, dim, *, dtype, param_dtype=None, device=None):
+        super().__init__(n, dim, dtype=param_dtype or dtype, device=device)
+        self.dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight.to(self.dtype))
 
 
 FREQS_FACTOR = 4096  # fine-table period of the factored RoPE table
@@ -297,15 +350,14 @@ class LLaMAAttention(nn.Module):
     """`FlaxLLaMAAttention` (`lwm_tpu/models/llama.py:402-1223`), the
     single-device inference branches of `_inference_attn` (`:803-947`)."""
 
-    def __init__(self, config, *, dtype, device=None):
+    def __init__(self, config, **kw):
         super().__init__()
         self.config = config
         h, hkv, d = config.num_attention_heads, config.kv_heads, config.head_dim
-        kw = dict(bias=False, dtype=dtype, device=device)
-        self.wq = nn.Linear(config.hidden_size, h * d, **kw)
-        self.wk = nn.Linear(config.hidden_size, hkv * d, **kw)
-        self.wv = nn.Linear(config.hidden_size, hkv * d, **kw)
-        self.wo = nn.Linear(h * d, config.hidden_size, **kw)
+        self.wq = Dense(config.hidden_size, h * d, **kw)
+        self.wk = Dense(config.hidden_size, hkv * d, **kw)
+        self.wv = Dense(config.hidden_size, hkv * d, **kw)
+        self.wo = Dense(h * d, config.hidden_size, **kw)
 
     def _write_cache(self, cache, k, v, position_ids):
         """Per-row write of k, v [b, q, h_kv, d] at position_ids[:, 0] + j."""
@@ -321,31 +373,37 @@ class LLaMAAttention(nn.Module):
         cache.v[rows, :, idx] = v.to(cache.v.dtype)
 
     def forward(self, x, mask, position_ids, rope, layer_cache=None, kv_len=None):
-        """x [b, q, hidden]; mask bool [b, q, kv] (key validity ∧ causal);
-        rope (cos, sin) [b, q, d/2]; with layer_cache, kv_len bounds the
-        keys any row reads."""
+        """x [b, q, hidden]; rope (cos, sin) [b, q, d/2]. With layer_cache:
+        mask bool [b, q, kv] (key validity ∧ causal), kv_len bounds the keys
+        any row reads. Without: mask is the additive per-key bias
+        [b, 1, 1, q] and attention is causal self-attention."""
         cfg = self.config
         b, q, _ = x.shape
         d = cfg.head_dim
         xq = apply_rotary(self.wq(x).view(b, q, -1, d), *rope)
         xk = apply_rotary(self.wk(x).view(b, q, -1, d), *rope)
         xv = self.wv(x).view(b, q, -1, d)
-        k_sc = v_sc = None
-        if layer_cache is not None:
-            self._write_cache(layer_cache, xk, xv, position_ids)
-            keys, values = layer_cache.k, layer_cache.v
-            k_sc, v_sc = layer_cache.k_scale, layer_cache.v_scale
+        if layer_cache is None:
+            out = self._self_attend(xq, xk, xv, mask)
         else:
-            keys, values = xk.transpose(1, 2), xv.transpose(1, 2)
-            kv_len = q
-        out = self._attend(xq, keys, values, k_sc, v_sc, mask, kv_len, layer_cache is not None)
+            self._write_cache(layer_cache, xk, xv, position_ids)
+            out = self._attend(xq, layer_cache, mask, kv_len)
         return self.wo(out.reshape(b, q, -1))
 
-    def _attend(self, xq, keys, values, k_sc, v_sc, mask, kv_len, cached):
-        """xq [b, q, h, d]; keys/values head-major [b, h_kv, kv, d]."""
+    def _self_attend(self, xq, xk, xv, bias):
+        """Causal self-attention, seq-major kv [b, s, h_kv, d] (the JAX
+        training branch, `llama.py:1083-1122`)."""
+        if self.config.attn_impl == "plain":
+            return reference_attention(xq, xk, xv, bias, causal=True)[0]
+        return flash_attention(xq, xk, xv, bias, causal=True)
+
+    def _attend(self, xq, layer_cache, mask, kv_len):
+        """xq [b, q, h, d] over the head-major cache [b, h_kv, kv, d]."""
+        keys, values = layer_cache.k, layer_cache.v
+        k_sc, v_sc = layer_cache.k_scale, layer_cache.v_scale
         dtype = xq.dtype
         q = xq.shape[1]
-        if self.config.attn_impl != "plain" and cached and q == 1:
+        if self.config.attn_impl != "plain" and q == 1:
             return flash_decode(xq, keys, values, mask[:, 0], kv_len, k_sc, v_sc)
         if k_sc is not None:
             keys = dequantize_kv(keys, k_sc, dtype)
@@ -355,7 +413,7 @@ class LLaMAAttention(nn.Module):
             return reference_attention(
                 xq, keys, values, bias, causal=False, kv_head_major=True
             )[0]
-        if cached and q <= 64:
+        if q <= 64:
             # short blocks may carry per-row frontiers: exactness from the
             # full-tile bias (`lwm_tpu/models/llama.py:905-914`)
             bias = torch.where(mask, 0.0, BIG_NEG)[:, None]
@@ -373,23 +431,22 @@ class LLaMAAttention(nn.Module):
 class LLaMAMLP(nn.Module):
     """SwiGLU (`lwm_tpu/models/llama.py:1226-1251`)."""
 
-    def __init__(self, config, *, dtype, device=None):
+    def __init__(self, config, **kw):
         super().__init__()
-        kw = dict(bias=False, dtype=dtype, device=device)
-        self.w1 = nn.Linear(config.hidden_size, config.intermediate_size, **kw)
-        self.w2 = nn.Linear(config.intermediate_size, config.hidden_size, **kw)
-        self.w3 = nn.Linear(config.hidden_size, config.intermediate_size, **kw)
+        self.w1 = Dense(config.hidden_size, config.intermediate_size, **kw)
+        self.w2 = Dense(config.intermediate_size, config.hidden_size, **kw)
+        self.w3 = Dense(config.hidden_size, config.intermediate_size, **kw)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
 class LLaMABlock(nn.Module):
-    """`lwm_tpu/models/llama.py:1254-1336` (inference: no dropout, no remat)."""
+    """`lwm_tpu/models/llama.py:1254-1336` (no dropout)."""
 
-    def __init__(self, config, *, dtype, device=None):
+    def __init__(self, config, **kw):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        self.config = config
         self.attention = LLaMAAttention(config, **kw)
         self.feed_forward = LLaMAMLP(config, **kw)
         self.attention_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
@@ -399,25 +456,35 @@ class LLaMABlock(nn.Module):
         x = x + self.attention(
             self.attention_norm(x), mask, position_ids, rope, layer_cache, kv_len
         )
-        return x + self.feed_forward(self.ffn_norm(x))
+        h = self.ffn_norm(x)
+        chunk = self.config.scan_mlp_chunk_size
+        if (self.config.scan_mlp and torch.is_grad_enabled() and h.shape[1] >= chunk
+                and h.shape[1] % chunk == 0):
+            # sequence chunks, each rematerialized (`llama.py:1308-1327`);
+            # the same values, only fewer MLP activations kept at a time
+            return x + torch.cat(
+                [checkpoint(self.feed_forward, c, use_reentrant=False) for c in h.split(chunk, 1)],
+                dim=1,
+            )
+        return x + self.feed_forward(h)
 
 
 class LLaMAForCausalLM(nn.Module):
     """Embedding → blocks → ln_f → lm_head (`lwm_tpu/models/llama.py:1463-1634`)."""
 
-    def __init__(self, config, *, dtype=torch.float32, device=None):
+    def __init__(self, config, *, dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        kw = dict(dtype=dtype, device=device)
-        self.wte = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
+        kw = dict(dtype=dtype, param_dtype=param_dtype or dtype, device=device)
+        self.wte = Embed(config.vocab_size, config.hidden_size, **kw)
         self.h = nn.ModuleList(
             LLaMABlock(config, **kw) for _ in range(config.num_hidden_layers)
         )
         self.ln_f = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         self.lm_head = (
             None if config.tie_word_embeddings
-            else nn.Linear(config.hidden_size, config.vocab_size, bias=False, **kw)
+            else Dense(config.hidden_size, config.vocab_size, **kw)
         )
         self._rope = {}  # device → factored RoPE table, built at first use
 
@@ -459,16 +526,41 @@ class LLaMAForCausalLM(nn.Module):
             )
         return self._rope[device]
 
-    @torch.no_grad()
-    def forward(self, input_ids, attention_mask=None, position_ids=None, cache=None):
+    def forward(self, input_ids, attention_mask=None, position_ids=None, cache=None,
+                segment_ids=None):
         """input_ids [b, s]. Without a cache: attention_mask [b, s] (1 =
-        real token), causal self-attention. With a cache (`init_cache`,
-        config.decode_index='per_row'): attention_mask [b, T] key validity
-        over the cache, position_ids [b, s] the rows' write positions; the
-        new keys are written in place, then every query i of row r sees the
-        valid keys at positions ≤ position_ids[r, i]. Returns logits
-        [b, s | logits_tail, vocab] in the model dtype."""
+        real token), causal self-attention, differentiable. With a cache
+        (`init_cache`, config.decode_index='per_row'; no autograd):
+        attention_mask [b, T] key validity over the cache, position_ids
+        [b, s] the rows' write positions; the new keys are written in place,
+        then every query i of row r sees the valid keys at positions ≤
+        position_ids[r, i]. Returns logits [b, s | logits_tail, vocab] in
+        the model dtype (`lwm_tpu/models/llama.py:1583-1634`)."""
+        with torch.no_grad() if cache is not None else contextlib.nullcontext():
+            x = self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids)
+            tail = self.config.logits_tail
+            if tail and x.shape[1] > tail:
+                x = x[:, -tail:]
+            if self.lm_head is None:
+                return F.linear(x, self.wte.weight.to(self.dtype))
+            return self.lm_head(x)
+
+    def forward_hidden(self, input_ids, attention_mask=None, position_ids=None, cache=None,
+                       segment_ids=None):
+        """The final (ln_f) hidden states [b, s, hidden] in the model dtype,
+        without the lm_head (`lwm_tpu/models/llama.py:1539-1562`); arguments
+        as `forward`."""
+        with torch.no_grad() if cache is not None else contextlib.nullcontext():
+            return self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids)
+
+    def _hidden(self, input_ids, attention_mask, position_ids, cache, segment_ids):
         cfg = self.config
+        if segment_ids is not None:
+            raise NotImplementedError("segment ids are not ported yet (K1 has no segment masking)")
+        if self.training and torch.is_grad_enabled() and max(
+            cfg.attn_pdrop, cfg.embd_pdrop, cfg.resid_pdrop
+        ) > 0:
+            raise NotImplementedError("dropout in training is not ported yet (K1 has no dropout)")
         b, s = input_ids.shape
         dev = input_ids.device
         if s > cfg.max_sequence_length:
@@ -480,26 +572,35 @@ class LLaMAForCausalLM(nn.Module):
         kv = s if cache is None else cache.length
         if attention_mask is None:
             attention_mask = torch.ones(b, kv, dtype=torch.bool, device=dev)
-        # mask construction (`lwm_tpu/models/llama.py:1124-1173`)
         if cache is not None:
+            # mask construction (`lwm_tpu/models/llama.py:1124-1173`)
             if cfg.decode_index != "per_row":
                 raise NotImplementedError("the port's cache writes are per-row: set decode_index='per_row'")
             causal = torch.arange(kv, device=dev)[None, None, :] <= position_ids[:, :, None]
+            mask = attention_mask.bool()[:, None, :] & causal          # [b, s, kv]
             kv_len = cache.index + s
         else:
-            causal = (torch.arange(kv, device=dev)[None, :] <= torch.arange(s, device=dev)[:, None])[None]
+            # the training branch's per-key bias (`llama.py:1114-1119`)
+            mask = torch.where(
+                attention_mask.bool(), 0.0, torch.finfo(self.dtype).min
+            )[:, None, None, :]
             kv_len = None
-        mask = attention_mask.bool()[:, None, :] & causal          # [b, s, kv]
 
         rope = take_freqs(self._rope_table(dev), position_ids)
         x = self.wte(input_ids)
+        remat = cfg.remat_block != "none" and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
-            x = block(x, mask, position_ids, rope,
-                      None if cache is None else cache.layers[i], kv_len)
-        x = self.ln_f(x)
-        if cfg.logits_tail and s > cfg.logits_tail:
-            x = x[:, -cfg.logits_tail:]
+            args = (x, mask, position_ids, rope, None if cache is None else cache.layers[i], kv_len)
+            if remat:
+                x = checkpoint(block, *args, use_reentrant=False, context_fn=self._remat_context)
+            else:
+                x = block(*args)
         if cache is not None:
             cache.index += s
-        head = self.wte.weight if self.lm_head is None else self.lm_head.weight
-        return F.linear(x, head)
+        return self.ln_f(x)
+
+    def _remat_context(self):
+        """Checkpoint contexts of `remat_block` (`llama.py:1369-1394`)."""
+        if self.config.remat_block == "save_flash":
+            return create_selective_checkpoint_contexts(save_flash_policy)
+        return contextlib.nullcontext(), contextlib.nullcontext()

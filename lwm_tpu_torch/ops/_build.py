@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-At first use, every `lwm_tpu_torch/csrc/*.cu` is compiled by one nvcc call
-into one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds, not minutes) under `lwm_tpu_torch/_build/`, named by a
-hash of the sources and flags so an edited source rebuilds. Nothing is built
+At first use, every `lwm_tpu_torch/csrc/*.cu` is compiled by its own nvcc
+process, all started together, and the objects are linked into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds, not minutes) under `lwm_tpu_torch/_build/`, named by a hash of the
+sources and flags so an edited source rebuilds. Nothing is built
 when a module is imported; this machine-independent module needs no GPU
 until `load()` is called.
 
@@ -29,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",  # -v: per-kernel registers and spills
 ]
 
@@ -59,6 +60,19 @@ _SIGNATURES = {
         _P,                               # cudaStream_t
     ],
 }
+_BWD_INPUTS = [_P] * 7                    # q, k, v, g, lse, delta, bias (or NULL)
+_BWD_DIMS = [
+    _I, _I, _I, _I, _I, _I,               # b, sq, skv, h, h_kv, d
+    _L, _L, _L,                           # q strides (batch, seq, head)
+    _L, _L, _L,                           # k strides
+    _L, _L, _L,                           # v strides
+    _L, _L, _L,                           # g strides
+    _L, _L,                               # bias strides (batch, q row)
+    _I, _I, _I, _F,                       # causal, q_offset, kv_offset, scale
+    _P,                                   # cudaStream_t
+]
+_SIGNATURES["lwm_flash_bwd_dq"] = [*_BWD_INPUTS, _P, *_BWD_DIMS]         # + dq
+_SIGNATURES["lwm_flash_bwd_dkv"] = [*_BWD_INPUTS, _P, _P, *_BWD_DIMS]    # + dk, dv
 
 
 def _nvcc():
@@ -98,16 +112,30 @@ def build():
     if so.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report = [proc.communicate()[0] for _, _, proc in jobs]  # wait for every nvcc first
+    for (cmd, _, proc), out in zip(jobs, report):
+        _check_nvcc(proc.returncode, cmd, out)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    cmd = [nvcc, "-shared", *NVCC_FLAGS, "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _check_nvcc(proc.returncode, cmd, proc.stdout)
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    return proc.stdout + proc.stderr
+    return "".join(report)
+
+
+def _check_nvcc(rc, cmd, out):
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
 
 
 @functools.cache

@@ -11,6 +11,11 @@ Flax dense kernels are [in, out]; they are TRANSPOSED here to torch's
 [out, in] `nn.Linear` layout. RoPE stays on interleaved pairs in both
 packages, so no q/k row permutation is applied (`_permute_rotary` is for
 HF's rotate-half layout only).
+
+Any tree shaped like the params converts the same way: a gradient tree
+from `jax.grad`, optax's moments. `convert_optax_state` maps the state of
+the JAX train step's optimizer (`lwm_tpu/optim.py`: clip + adamw, possibly
+inside `optax.MultiSteps`) onto `lwm_tpu_torch.optim.AdamW.named_state`.
 """
 
 from __future__ import annotations
@@ -40,8 +45,12 @@ def convert_flax_params(params, config, dtype=None):
 
     def t(x, transpose=False):
         x = np.asarray(x)
-        x = torch.from_numpy(np.array(x.T if transpose else x, order="C"))  # a writable copy
-        return x if dtype is None else x.to(dtype)
+        bf16 = x.dtype.name == "bfloat16"   # numpy's bfloat16 has no torch counterpart
+        x = np.array(x.T if transpose else x, dtype=np.float32 if bf16 else None, order="C")
+        x = torch.from_numpy(x)  # a writable copy
+        if dtype is not None:
+            return x.to(dtype)
+        return x.to(torch.bfloat16) if bf16 else x
 
     sd = {
         "wte.weight": t(tr["wte"]["embedding"]),
@@ -58,3 +67,35 @@ def convert_flax_params(params, config, dtype=None):
         sd[pre + "attention_norm.weight"] = t(blk["attention_norm"]["kernel"])
         sd[pre + "ffn_norm.weight"] = t(blk["ffn_norm"]["kernel"])
     return sd
+
+
+def _find(node, fields):
+    """The first namedtuple in an optax state tree that has all `fields`."""
+    if all(hasattr(node, f) for f in fields):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find(child, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def convert_optax_state(opt_state, config):
+    """optax state of clip_by_global_norm + adamw (optionally inside
+    MultiSteps) → {"count", "mini_step", "gradient_step", "mu", "nu", "acc"}
+    as `AdamW.named_state` gives it: counts as ints, moments as state dicts
+    (mu keeps its dtype: bf16 with `bf16_momentum`)."""
+    adam = _find(opt_state, ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in the optax state")
+    multi = _find(opt_state, ("mini_step", "gradient_step", "acc_grads"))
+    out = dict(
+        count=int(np.asarray(adam.count)),
+        mini_step=0 if multi is None else int(np.asarray(multi.mini_step)),
+        gradient_step=0 if multi is None else int(np.asarray(multi.gradient_step)),
+        mu=convert_flax_params(adam.mu, config),
+        nu=convert_flax_params(adam.nu, config),
+        acc={} if multi is None else convert_flax_params(multi.acc_grads, config),
+    )
+    return out

@@ -1,6 +1,6 @@
 """lwm_tpu_torch runs where JAX is not installed: importing every one of its
-modules pulls in none of jax, flax, transformers, absl or ml_collections,
-and builds no kernel."""
+modules pulls in none of jax, flax, optax, transformers, absl or
+ml_collections, and builds no kernel."""
 
 import subprocess
 import sys
@@ -17,9 +17,10 @@ def test_port_imports_no_jax():
         names = [m.name for m in pkgutil.walk_packages(lwm_tpu_torch.__path__, "lwm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        assert "lwm_tpu_torch.serve" in names and "lwm_tpu_torch.ops.flash" in names, names
-        bad = [m for m in ("jax", "flax", "transformers", "absl", "ml_collections", "lwm_tpu")
-               if m in sys.modules]
+        for want in ("serve", "ops.flash", "ops.ring", "optim", "train", "utils.losses"):
+            assert "lwm_tpu_torch." + want in names, names
+        bad = [m for m in ("jax", "flax", "optax", "transformers", "absl", "ml_collections",
+                           "lwm_tpu") if m in sys.modules]
         assert not bad, bad
         from lwm_tpu_torch.ops import _build
         assert _build.load.cache_info().currsize == 0
@@ -29,4 +30,4 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 9
+    assert int(out.stdout.split()[-1]) >= 13

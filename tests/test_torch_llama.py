@@ -74,7 +74,7 @@ def test_logits_match_jax_with_padding(case, impl):
     jm, ids, mask, want = _jax_padded_logits(case)
     got = port_model(jm, impl, **LOGIT_CASES[case])(
         torch.from_numpy(ids).long(), torch.from_numpy(mask)
-    )
+    ).detach()
     real = mask.astype(bool)
     np.testing.assert_allclose(got.numpy()[real], want[real], **TOL)
 
@@ -96,7 +96,7 @@ def test_convert_scanned_layouts(layout):
     want = np.asarray(jm(jnp.asarray(ids)).logits)
     m = port.LLaMAForCausalLM(cfg)
     m.load_state_dict(scanned)
-    np.testing.assert_allclose(m(torch.from_numpy(ids).long()).numpy(), want, **TOL)
+    np.testing.assert_allclose(m(torch.from_numpy(ids).long()).detach().numpy(), want, **TOL)
 
 
 def test_convert_transposes_dense_kernels():
@@ -129,6 +129,7 @@ def test_logits_at_positions_past_4096():
     pos = (np.arange(8, dtype=np.int32) + 5000)[None]
     want = np.asarray(jm(jnp.asarray(ids), position_ids=jnp.asarray(pos)).logits)
     got = port_model(jm, **kw)(torch.from_numpy(ids).long(), position_ids=torch.from_numpy(pos))
+    got = got.detach()
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 

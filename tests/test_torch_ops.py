@@ -1,6 +1,9 @@
 """The port's attention kernels' plain twins (lwm_tpu_torch.ops) against the
 JAX kernels they replace, run in interpret mode on the CPU, and against the
-JAX oracle `lwm_tpu.ops.reference_attention`.
+JAX oracle `lwm_tpu.ops.reference_attention`; the training attention
+(`lwm_tpu_torch.ops.ring.flash_attention`, K1 forward + K2/K3 backward under
+autograd) against autograd through the plain attention and against
+`jax.vjp` of `lwm_tpu.ops.ring.flash_attention`.
 
 Inputs are made with numpy from a seed and fed to both packages. fp32
 comparisons hold 1e-5 (the JAX suite's own kernel tolerance); bf16 ones 2e-2.
@@ -9,6 +12,9 @@ fully masked row as a mean of v, where the module contract (and the port)
 gives 0 — that case is checked against the contract separately.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +22,9 @@ import torch
 
 from lwm_tpu.ops import reference_attention as jax_reference_attention
 from lwm_tpu.ops.pallas_decode import flash_decode_pallas
-from lwm_tpu.ops.pallas_flash import flash_attention_fwd_pallas
-from lwm_tpu_torch.ops import decode, flash
+from lwm_tpu.ops.pallas_flash import flash_attention_bwd_pallas, flash_attention_fwd_pallas
+from lwm_tpu.ops.ring import flash_attention as jax_flash_attention
+from lwm_tpu_torch.ops import decode, flash, ring
 from lwm_tpu_torch.ops.reference import BIG_NEG, reference_attention
 
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -133,6 +140,121 @@ def test_k1_twin_bf16_matches_pallas_kernel():
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-4, rtol=1e-5)
 
 
+# ------------------------------------------------------------- K2 / K3
+
+BWD_CASES = {
+    # name: (h, h_kv, sq, skv, causal, q_offset, kv_offset, bias kind)
+    "mha_causal_q_offset": (4, 4, 32, 256, True, 224, 0, "holes"),
+    "gqa_h4_hkv2_full_tile_bias": (4, 2, 32, 256, True, 100, 0, "full"),
+    "mqa_hkv1": (4, 1, 32, 256, True, 224, 0, "holes"),
+    "gqa_non_causal": (4, 2, 32, 256, False, 0, 0, "holes"),
+    "kv_offset_no_bias": (4, 4, 32, 256, True, 120, 50, None),
+}
+
+
+def _bwd_inputs(case, seed):
+    """(q, k, v, g, lse, delta, bias) in numpy fp32, lse and delta from the
+    fp32 forward twin (held to the JAX kernel above), fed to both packages."""
+    h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind = BWD_CASES[case]
+    q, k, v, bias = _k1_inputs(h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind, seed=seed)
+    g = np.random.default_rng(seed + 100).standard_normal(q.shape, np.float32)
+    out, lse = flash.flash_attention_fwd_plain(
+        _t(q), _t(k), _t(v), None if bias is None else _t(bias),
+        causal=causal, q_offset=q_off, kv_offset=kv_off,
+    )
+    delta = np.einsum("bqhd,bqhd->bhq", g, out.numpy())
+    return q, k, v, g, lse.numpy(), delta, bias
+
+
+# bf16 inputs: one bf16 rounding of p and ds (the TPU kernels' order) in
+# both, summed in another order over 256 keys: held to 2e-2 like the fwd
+BWD_TOL = {"fp32": FP32_TOL, "bf16": dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_k2_k3_twin_matches_pallas_kernels(case, dt):
+    h, h_kv, sq, skv, causal, q_off, kv_off, _ = BWD_CASES[case]
+    q, k, v, g, lse, delta, bias = _bwd_inputs(case, seed=len(case))
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    want = flash_attention_bwd_pallas(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v, g)), jnp.asarray(lse),
+        jnp.asarray(delta), None if bias is None else jnp.asarray(bias),
+        block_q=128, block_k=128, interpret=True, **kw,
+    )
+    got = flash.flash_attention_bwd_plain(
+        *(_t(x, tdt) for x in (q, k, v, g)), _t(lse), _t(delta),
+        None if bias is None else _t(bias), **kw,
+    )
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == tdt and a.shape == b.shape, name
+        np.testing.assert_allclose(
+            a.float().numpy(), np.asarray(b, np.float32), err_msg=name, **BWD_TOL[dt]
+        )
+
+
+def _train_attention_inputs(h_kv, seed=0, b=2, s=48, h=4, d=16):
+    """fp32 q/k/v/cotangent and the model's per-key bias: finfo.min on
+    padded keys at the front of row 1 (`lwm_tpu/models/llama.py:1114-1119`)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, d), np.float32)
+    k = rng.standard_normal((b, s, h_kv, d), np.float32)
+    v = rng.standard_normal((b, s, h_kv, d), np.float32)
+    w = rng.standard_normal((b, s, h, d), np.float32)
+    mask = np.ones((b, s), bool)
+    mask[1, :5] = False
+    bias = np.where(mask, 0.0, np.finfo(np.float32).min).astype(np.float32)[:, None, None, :]
+    return q, k, v, w, bias, mask
+
+
+def _port_grads(attend, q, k, v, w, bias):
+    qt, kt, vt = (_t(x).requires_grad_() for x in (q, k, v))
+    out = attend(qt, kt, vt, _t(bias))
+    (out * _t(w)).sum().backward()
+    return out.detach(), [x.grad for x in (qt, kt, vt)]
+
+
+@pytest.mark.parametrize("h_kv", [4, 2])
+def test_flash_attention_autograd_matches_plain_autograd(h_kv):
+    """Grads of the autograd Function (K1 fwd, K2/K3 bwd twins) equal
+    autograd through the plain attention, fp32, 1e-5. Padded query rows
+    (row 1, positions < 5) see no valid key; both give them 0."""
+    q, k, v, w, bias, _ = _train_attention_inputs(h_kv)
+    out, grads = _port_grads(lambda *a: ring.flash_attention(*a, causal=True), q, k, v, w, bias)
+    ref, ref_grads = _port_grads(
+        lambda *a: reference_attention(*a, causal=True)[0], q, k, v, w, bias
+    )
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **FP32_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **FP32_TOL)
+
+
+@pytest.mark.parametrize("h_kv", [4, 2, 1])
+def test_flash_attention_matches_jax_vjp(h_kv):
+    """Against `jax.vjp` of the JAX custom-VJP flash attention (XLA path on
+    the CPU), fp32, 1e-5, at the rows that see a valid key (JAX leaves a
+    fully masked row as a mean of v, the port 0: see the K1 tests)."""
+    q, k, v, w, bias, mask = _train_attention_inputs(h_kv, seed=3)
+    real = mask.copy()          # causal: a query at p sees keys ≤ p, so a
+    real[1, :5] = False         # left-padded row's first real query is 5
+    w_real = w * real[:, :, None, None]
+    out, grads = _port_grads(lambda *a: ring.flash_attention(*a, causal=True), q, k, v, w_real,
+                             bias)
+
+    def f(q, k, v):
+        return jax_flash_attention(
+            q, k, v, jnp.asarray(bias), causal=True, query_chunk_size=16,
+            key_chunk_size=16, dtype=jnp.float32,
+        )
+
+    want, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(w_real))
+    np.testing.assert_allclose(out.numpy()[real], np.asarray(want)[real], **FP32_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **FP32_TOL)
+
+
 # ------------------------------------------------------------------ K4
 
 
@@ -220,10 +342,32 @@ def test_wrappers_run_twins_on_cpu_without_launching():
     assert (flash.flash_attention_fwd.launches, decode.flash_decode.launches) == (n1, n4)
 
 
+def test_bwd_wrappers_run_twin_on_cpu_without_launching():
+    q, k, v, g, lse, delta, bias = (
+        None if x is None else _t(x) for x in _bwd_inputs("gqa_h4_hkv2_full_tile_bias", 1)
+    )
+    n2, n3 = flash.flash_attention_bwd_dq.launches, flash.flash_attention_bwd_dkv.launches
+    kw = dict(causal=True, q_offset=100)
+    want = flash.flash_attention_bwd_plain(q, k, v, g, lse, delta, bias, **kw)
+    got = flash.flash_attention_bwd(q, k, v, g, lse, delta, bias, **kw)
+    dq = flash.flash_attention_bwd_dq(q, k, v, g, lse, delta, bias, **kw)
+    dkv = flash.flash_attention_bwd_dkv(q, k, v, g, lse, delta, bias, **kw)
+    for a, b in zip((*got, dq, *dkv), (*want, *want)):
+        assert torch.equal(a, b)
+    assert got[1].shape == k.shape and got[2].shape == v.shape
+    assert (flash.flash_attention_bwd_dq.launches,
+            flash.flash_attention_bwd_dkv.launches) == (n2, n3)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     q = torch.empty((1, 4, 2, 64), device="meta")
     with pytest.raises(ValueError, match="no flash_attention_fwd kernel"):
         flash.flash_attention_fwd(q, q, q)
+    lse = torch.empty((1, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="no flash_attention_bwd_dq kernel"):
+        flash.flash_attention_bwd_dq(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="no flash_attention_bwd_dkv kernel"):
+        flash.flash_attention_bwd_dkv(q, q, q, q, lse, lse)
     with pytest.raises(ValueError, match="no flash_decode kernel"):
         decode.flash_decode(q[:, :1], q, q, torch.ones(1, 2, dtype=torch.bool), 2)
 
@@ -243,6 +387,22 @@ def test_kernel_argument_checks():
         flash.check_fwd_args(torch.zeros((1, 8, 4, 128), dtype=bf)[..., ::2], k, k, True)
     with pytest.raises(ValueError, match="per-head"):
         flash._normalize_bias(torch.zeros(1, 4, 1, 32), 1, 8, 32)
+
+    # the backward kernels refuse before anything is built or launched
+    ks = torch.zeros((1, 32, 2, 64), dtype=bf)               # seq-major kv
+    lse = torch.zeros((1, 4, 8))
+    bwd = functools.partial(flash._bwd_launch, "lwm_flash_bwd_dq", (q,), q, ks, ks,
+                            causal=True, q_offset=0, kv_offset=0, scale=None, bias=None)
+    with pytest.raises(ValueError, match="g .* must match"):
+        bwd(g=q.float(), lse=lse, delta=lse)
+    with pytest.raises(ValueError, match="lse must be contiguous fp32"):
+        bwd(g=q, lse=lse[:, :2], delta=lse)
+    with pytest.raises(ValueError, match="delta must be contiguous fp32"):
+        bwd(g=q, lse=lse, delta=lse.double())
+    with pytest.raises(ValueError, match="lse must be .* on cpu, got .* on meta"):
+        bwd(g=q, lse=lse.to("meta"), delta=lse)
+    with pytest.raises(ValueError, match="g: head dim"):
+        bwd(g=torch.zeros((1, 8, 4, 128), dtype=bf)[..., ::2], lse=lse, delta=lse)
 
     mask = torch.ones((1, 32), dtype=torch.bool)
     decode.check_decode_args(q[:, :1], k, k, mask, None, None)
