@@ -13,20 +13,33 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
   4. K4 flash_decode vs its plain twin: 8 slots, bf16 and int8, MHA and GQA.
   5. K2/K3 flash_attention_bwd_dq/_dkv vs their plain twin at the training
      shapes (b 2, seq 4096, 32 heads, d 128; GQA; a ragged seq).
-  6. Serve 12 requests through InflightServer with the 7b preset at the
+  6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
+     serving shapes: decode (8 slots) and admission (m 2048, ragged 2000).
+  7. Serve 12 requests through InflightServer with the 7b preset at the
      scripts/run_serve.sh settings (bf16, theta 5e7, 8 slots, cache 4096,
      buckets 256/1024/2048), random weights from a seed; check every
-     request and that K1 and K4 ran on that path; hold kernel-path
+     request and the K1/K4 launch counts of that path; hold kernel-path
      admission logits against an attn_impl="plain" model on the same
      weight tensors and against an fp32 copy of them.
-  7. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
+  8. The same weights quantized on the card (`quantize_params_int8`, the
+     run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
+     quant_dense="int8" (K5 for every dense product) and 4 with
+     "int8_w8a8" and an int8 cache (K6, K5 for lm_head); exact launch
+     counts; admission logits of K5 against the "int8_xla" dequant arm on
+     the same int8 tensors, and of both (and W8A8) against an fp32 copy
+     of the dequantized weights.
+  9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
      grads of the kernel path against an attn_impl="plain" bf16 model and
      an fp32 copy (the noise floor), on the same weights and batch.
-  8. Train the 7b width at 16 of its 32 layers (fp32 master weights, bf16
+ 10. Train the 7b width at 16 of its 32 layers (fp32 master weights, bf16
      compute, remat save_flash, AdamW as scripts/run_train_text.sh), batch
      2 x 4096, 6 steps on one fixed batch from the seed: finite, falling
      loss, and K1/K2/K3 launched layers x steps times on that path.
-The last lines: the card, one JSON object per kernel run, and
+Each kernel phase times the kernel, its plain twin and one PyTorch call that
+computes the same function (the yardstick; the port never calls it) beside
+the kernel's bound: the larger of its bytes over 3.35 TB/s and its
+operations over the peak rate of their type (H100 SXM data sheet).
+The last lines: the card, one JSON object listing every kernel, and
 {"ok": true, "device": {...}}.
 """
 
@@ -39,10 +52,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lwm_tpu_torch import train
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM, quantize_kv
-from lwm_tpu_torch.ops import _build, decode, flash
+from lwm_tpu_torch.ops import _build, decode, flash, quant
 from lwm_tpu_torch.ops.reference import BIG_NEG
 from lwm_tpu_torch.serve import InflightServer, prefill_logits
 
@@ -55,6 +69,14 @@ LSE_TOL = 1e-3    # fp32 lse; only the summation order differs
 # most 1.25x the plain bf16 path's
 COS_MIN = 0.997
 FLOOR_RATIO = 1.25
+# K5 vs the "int8_xla" arm on the same int8 weights: that arm rounds twice
+# (the bf16 product, then x bf16 scale), so it sits further from the fp32
+# result than a bf16 path does (1 - cosine 0.0023 vs K5's 0.0018 at prompt
+# 50 on an H100 80GB HBM3 at 700 W, PERF.md), and two independent noises add:
+# ~0.0042 expected, more at longer prompts. The floor-ratio and argmax
+# checks are the guards; where the arm's argmax misses the fp32 one, K5 may
+# pick the fp32 token (prompt 700: K5 and fp32 19947, int8_xla 16244)
+INT8_ARM_COS_MIN = 0.994
 # K2/K3 vs their twin, per output: max|Δ| / max|ref| (bf16 outputs, p and ds
 # rounded to bf16 at the same points, fp32 sums over 4096 keys in another
 # order) and cosine
@@ -66,8 +88,37 @@ BWD_COS_MIN = 0.9999
 # path's, plus GRAD_COS_SLACK for parameters where both are at fp32 noise
 LOSS_TOL = 1e-2
 GRAD_COS_SLACK = 1e-6
+# K5 vs its twin: max|Δ| / max|ref| (bf16 output, fp32 sums in another order)
+QUANT_REL_TOL = 1e-2
+# W8A8 serving with the int8 cache: admission-logit cosine to an fp32 run of
+# the dequantized weights. Per-row int8 activations add ~1-3% rounding noise
+# at each of the 224 quantized products (bf16 adds ~0.4% per op and lands at
+# 0.998), and 32 random layers amplify it: measured 0.959-0.969 at prompts
+# 50/700/2000 (H100 80GB HBM3 at 700 W, PERF.md). The bound sits below that;
+# K6 itself is held bit for bit to its twin, and to JAX on the CPU
+W8A8_COS_MIN = 0.93
 H100_BF16_PEAK = 989e12   # dense bf16 FLOP/s, H100 SXM data sheet
+H100_INT8_PEAK = 1979e12  # dense int8 OP/s
+H100_HBM = 3.35e12        # bytes/s
+L2_FLUSH_BYTES = 150e6    # weight copies cycled in a timing: 3x the 50 MB L2
 SEED = 0
+# K5/K6 vs their twins: name, m, d (in), f (out). Decode is m = 8 slots;
+# admission is m = the 2048 bucket (and a ragged 2000); the edges exercise
+# the masked m, d and f tails and both of the decode kernel's token tiles
+QUANT_SHAPES = [
+    ("decode_m8_wq_4096x4096", 8, 4096, 4096),
+    ("decode_m8_w1_4096x11008", 8, 4096, 11008),
+    ("decode_m8_w2_11008x4096", 8, 11008, 4096),
+    ("decode_m8_head_4096x32000", 8, 4096, 32000),
+    ("admit_m2048_w1_4096x11008", 2048, 4096, 11008),
+    ("admit_m2048_head_4096x32000", 2048, 4096, 32000),
+    ("admit_m2000_w1_4096x11008", 2000, 4096, 11008),
+    ("admit_m2000_head_4096x32000", 2000, 4096, 32000),
+    ("edge_m13_d4112_f999", 13, 4112, 999),
+    ("edge_m130_d4112_f999", 130, 4112, 999),
+]
+# the shape the kernels line reports for K5/K6: w1 (and w3) of every decode round
+QUANT_REPORT = "decode_m8_w1_4096x11008"
 
 
 def log(msg):
@@ -82,17 +133,36 @@ def card():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20):
-    """Mean ms per call on the device (CUDA events, after a warm-up)."""
-    fn()
+def time_ms(fn, iters=20, arg_sets=((),)):
+    """Mean ms per call on the device (CUDA events, after a warm-up). Calls
+    cycle through `arg_sets`: copies of a large operand keep a weight
+    stream out of the 50 MB L2, as in a forward where every layer's weights
+    are new."""
+    fn(*arg_sets[0])
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes, n_ops, peak):
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over `peak`. Returns (ms, what bounds it)."""
+    t_bytes, t_ops = n_bytes / H100_HBM, n_ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_pairs(valid_keys, sq, q_offset):
+    """(query, key) pairs attention needs: key j is seen by query i when it
+    is valid and j <= q_offset + i. valid_keys: bool [T] or [b, T]."""
+    v = valid_keys.reshape(-1, valid_keys.shape[-1]).long()
+    seen = torch.cumsum(v, -1)                                  # valid keys <= j
+    last = (q_offset + torch.arange(sq, device=v.device)).clamp(max=v.shape[-1] - 1)
+    return int(seen[:, last].sum())
 
 
 def phase_env():
@@ -117,7 +187,8 @@ def _randn(shape, gen, dtype=BF16):
 
 
 def phase_k1(gen):
-    """K1 at the admission shapes. Returns (max_abs_err, ms, plain_ms)."""
+    """K1 at the admission shapes. Returns (max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by), the times at the first case."""
     b, h, d, T = 1, 32, 128, 4096
     worst, timing = 0.0, None
     cases = [
@@ -153,14 +224,26 @@ def phase_k1(gen):
         if timing is None:
             ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw))
             plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 5)
-            log(f"K1 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            timing = (ms, plain_ms)
+            # yardstick: SDPA with the same float bias, causal by position
+            causal = keys[None] <= (q_off + torch.arange(sq, device="cuda"))[:, None]
+            mask = torch.where(causal, bias, BIG_NEG).to(BF16)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=h_kv != h))
+            pairs = attn_pairs(bias.reshape(-1) == 0, sq, q_off)
+            n_keys = int((bias.reshape(-1) == 0).sum())
+            n_bytes = 2 * q.numel() * 2 + 2 * n_keys * h_kv * d * 2 + b * h * sq * 4 + T * 4
+            bnd = bound_ms(n_bytes, 4 * d * h * pairs, H100_BF16_PEAK)
+            log(f"K1 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{card()}]")
+            timing = (ms, plain_ms, lib_ms, *bnd)
+            del mask
         del q, k, v, out, ref
     return worst, *timing
 
 
 def phase_k4(gen):
-    """K4 at the decode shapes. Returns (max_abs_err, ms, plain_ms)."""
+    """K4 at the decode shapes. Returns (max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by), the times at the first case."""
     b, h, d, T = 8, 32, 128, 4096
     lengths = torch.tensor([4000, 17, 2048, 3000, 0, 513, 1024, 3999], device="cuda")
     mask = torch.arange(T, device="cuda")[None] <= lengths[:, None]
@@ -188,9 +271,16 @@ def phase_k4(gen):
         if timing is None:
             ms = time_ms(lambda: decode.flash_decode(*args), 50)
             plain_ms = time_ms(lambda: decode.flash_decode_plain(*args), 20)
-            log(f"K4 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-                f"(b={b} h={h} T={T} kv_len={kv_len})")
-            timing = (ms, plain_ms)
+            # yardstick: SDPA at q = 1 with the same keys (bool mask, GQA)
+            seen = (mask & (torch.arange(T, device="cuda") < kv_len)[None])[:, None, None, :]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k, v, attn_mask=seen, enable_gqa=h_kv != h), 50)
+            n_valid = int(seen.sum())
+            n_bytes = n_valid * h_kv * d * 2 * 2 + 2 * q.numel() * 2 + b * kv_len
+            bnd = bound_ms(n_bytes, 4 * n_valid * h * d, H100_BF16_PEAK)
+            log(f"K4 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]}) (b={b} h={h} T={T} kv_len={kv_len}) [{card()}]")
+            timing = (ms, plain_ms, lib_ms, *bnd)
     return worst, *timing
 
 
@@ -234,12 +324,103 @@ def phase_k23(gen):
             dq_ms = time_ms(lambda: flash.flash_attention_bwd_dq(*args), 10)
             dkv_ms = time_ms(lambda: flash.flash_attention_bwd_dkv(*args), 10)
             plain_ms = time_ms(lambda: flash.flash_attention_bwd_plain(*args), 3)
-            log(f"K2/K3 {name}: K2 {dq_ms:.3f} ms, K3 {dkv_ms:.3f} ms, plain backward "
-                f"{plain_ms:.3f} ms [{card()}]")
-            timing = (dq_ms, dkv_ms), plain_ms
+            # yardstick: SDPA's backward (dq, dk and dv together) with the
+            # same per-key bias, causal
+            pos = torch.arange(S, device="cuda")
+            mask = torch.where(pos[None] <= pos[:, None], bias, BIG_NEG).to(BF16)
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=h_kv != h)
+            gt = g.transpose(1, 2)
+            lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), gt, retain_graph=True), 10)
+            pairs = attn_pairs(valid, S, 0)
+            ins = (2 * q.numel() + 2 * k.numel()) * 2             # q, g, k, v in bf16
+            ins += 2 * b * h * S * 4 + b * S * 4                  # lse, delta, bias
+            bnd_dq = bound_ms(ins + q.numel() * 2, 6 * d * h * pairs, H100_BF16_PEAK)
+            bnd_dkv = bound_ms(ins + 2 * k.numel() * 2, 8 * d * h * pairs, H100_BF16_PEAK)
+            log(f"K2/K3 {name}: K2 {dq_ms:.3f} ms (bound {bnd_dq[0]:.3f}, {bnd_dq[1]}), K3 "
+                f"{dkv_ms:.3f} ms (bound {bnd_dkv[0]:.3f}, {bnd_dkv[1]}), plain backward "
+                f"{plain_ms:.3f} ms, SDPA backward {lib_ms:.3f} ms [{card()}]")
+            timing = (dq_ms, dkv_ms), plain_ms, lib_ms, (bnd_dq, bnd_dkv)
+            del mask, qt, kt, vt, o
         del q, k, v, g, out, got, want, args
         torch.cuda.empty_cache()
     return (worst["dq"], worst["dkv"]), *timing
+
+
+def _int_mm_scaled(x_q, x_s, w, w_s):
+    """K6's function by one PyTorch call (the yardstick): torch._int_mm,
+    which refuses m <= 16, on x_q padded to 32 rows, then the scales."""
+    m = x_q.shape[0]
+    if m <= 16:
+        x_q = F.pad(x_q, (0, 0, 0, 32 - m))
+    acc = torch._int_mm(x_q, w.t())[:m]
+    return (acc.float() * x_s * w_s).to(BF16)
+
+
+def phase_k56(gen):
+    """K5 int8_matmul and K6 w8a8_matmul at the int8 serving shapes against
+    their twins: K5 to QUANT_REL_TOL, K6 bit for bit. Times every shape
+    but the edges, weights cycled through copies so a decode stream comes
+    from HBM. Returns {"int8_matmul": row, "w8a8_matmul": row}, each row
+    (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by) with the
+    times at QUANT_REPORT."""
+    worst = {"int8_matmul": 0.0, "w8a8_matmul": 0.0}
+    report = {}
+    for name, m, d, f in QUANT_SHAPES:
+        x = _randn((m, d), gen)
+        w, s = quant.quantize_weight(torch.randn((f, d), generator=gen, device="cuda") * 0.02)
+        x_q, x_s = quant.quantize_activations(x)
+        got5, want5 = quant.int8_matmul(x, w, s), quant.int8_matmul_plain(x, w, s)
+        got6 = quant.w8a8_matmul_quantized(x_q, x_s, w, s, out_dtype=BF16)
+        want6 = quant.w8a8_matmul_plain(x_q, x_s, w, s, out_dtype=BF16)
+        torch.cuda.synchronize()
+        err5 = (got5.float() - want5.float()).abs().max().item()
+        rel5 = err5 / want5.float().abs().max().item()
+        err6 = (got6.float() - want6.float()).abs().max().item()
+        log(f"K5 {name}: max|Δ|/max|ref| {rel5:.3e} (tol {QUANT_REL_TOL}); "
+            f"K6 max|Δ| {err6:.3e} (bit-identical wanted)")
+        if not rel5 <= QUANT_REL_TOL:
+            raise AssertionError(f"K5 {name} disagrees with its plain twin")
+        if not torch.equal(got6, want6):
+            raise AssertionError(f"K6 {name} is not bit-identical to its plain twin")
+        worst["int8_matmul"] = max(worst["int8_matmul"], err5)
+        worst["w8a8_matmul"] = max(worst["w8a8_matmul"], err6)
+        del got5, want5, got6, want6
+        if name.startswith("edge"):
+            continue
+
+        n = max(1, math.ceil(L2_FLUSH_BYTES / w.numel()))
+        ws = [(w.clone(), s.clone()) for _ in range(n - 1)] + [(w, s)]
+        w16 = [(wc.float() * sc[:, None]).to(BF16) for wc, sc in ws]   # the bf16 product
+        k5 = dict(
+            ms=time_ms(lambda w, s: quant.int8_matmul(x, w, s), 20, ws),
+            plain_ms=time_ms(lambda w, s: quant.int8_matmul_plain(x, w, s), 3, ws),
+            library_ms=time_ms(lambda w: F.linear(x, w), 20, [(t,) for t in w16]),
+        )
+        deq_ms = time_ms(lambda w, s: quant.int8_matmul_dequant(x, w, s), 20, ws)
+        k6 = dict(
+            ms=time_ms(lambda w, s: quant.w8a8_matmul_quantized(x_q, x_s, w, s, out_dtype=BF16),
+                       20, ws),
+            plain_ms=time_ms(lambda w, s: quant.w8a8_matmul_plain(x_q, x_s, w, s, out_dtype=BF16),
+                             3, ws),
+            library_ms=time_ms(lambda w, s: _int_mm_scaled(x_q, x_s, w, s), 20, ws),
+        )
+        out_b, w_b = m * f * 2, f * d + f * 4
+        k5["bound_ms"], k5["bound_by"] = bound_ms(m * d * 2 + w_b + out_b, 2 * m * d * f,
+                                                  H100_BF16_PEAK)
+        k6["bound_ms"], k6["bound_by"] = bound_ms(m * d + m * 4 + w_b + out_b, 2 * m * d * f,
+                                                  H100_INT8_PEAK)
+        log(f"K5 {name}: kernel {k5['ms']:.4f} ms, plain {k5['plain_ms']:.4f} ms, F.linear bf16 "
+            f"{k5['library_ms']:.4f} ms, int8_matmul_dequant {deq_ms:.4f} ms, bound "
+            f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}) [{card()}]")
+        log(f"K6 {name}: kernel {k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, _int_mm + scales "
+            f"{k6['library_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}) "
+            f"({n} weight copies cycled)")
+        if name == QUANT_REPORT:
+            report = {"int8_matmul": k5, "w8a8_matmul": k6}
+        del x, x_q, x_s, w, s, ws, w16
+        torch.cuda.empty_cache()
+    return {k: dict(max_abs_err=worst[k], **report[k]) for k in worst}
 
 
 def serving_config():
@@ -252,38 +433,63 @@ def serving_config():
     )
 
 
-def phase_serve():
-    """Returns (launch counts of the serving run, summary dict)."""
-    cfg = serving_config()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    model = LLaMAForCausalLM(cfg, dtype=BF16, device="cuda")
-    model.init_weights(gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"serve: 7b model ({n_params / 1e9:.2f}B params, bf16, random seed {SEED}) "
-        f"built in {time.perf_counter() - t0:.1f}s")
+BUCKETS = (256, 1024, 2048)
+PROMPT_LENS = [50, 1900, 700, 130, 2000, 999, 256, 1500, 64, 1200, 400, 1800]
+CHECKED_PROMPTS = (0, 2, 4)   # lengths 50, 700, 2000: one per bucket
 
-    srv = InflightServer(
-        model, slots=8, cache_len=4096, prompt_buckets=(256, 1024, 2048),
-        stop_tokens=(cfg.eos_token_id,), seed=SEED,
-    )
+
+def serving_requests(cfg):
+    """The 12 requests of the serving mix: prompt lengths 50-2000 over the
+    three buckets, budgets 64-80, two sampled rows."""
     rng = np.random.default_rng(SEED)
-    lens = [50, 1900, 700, 130, 2000, 999, 256, 1500, 64, 1200, 400, 1800]
-    prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in lens]
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
     budgets = [64 + (i % 3) * 8 for i in range(12)]
     temps = [0.0] * 12
     temps[3], temps[8] = 0.8, 1.0
+    return prompts, budgets, temps
+
+
+def serving_model(cfg):
+    """The 7b model in bf16 on the card with random weights from SEED."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = LLaMAForCausalLM(cfg, dtype=BF16, device="cuda")
+    model.init_weights(gen)
+    return model
+
+
+def expected_launches(cfg, admitted, rounds):
+    """Kernel launches of a serving run: one forward per admission and per
+    decode round; per forward K1 (admission) or K4 (decode) once a layer,
+    and one dense product per wq wk wv wo w1 w2 w3 of each layer plus
+    lm_head: all K5 under "int8", all but lm_head K6 under "int8_w8a8"."""
+    L, forwards = cfg.num_hidden_layers, admitted + rounds
+    body, head = 7 * L, 0 if cfg.tie_word_embeddings else 1
+    k5 = {"int8": body + head, "int8_w8a8": head}.get(cfg.quant_dense, 0)
+    k6 = body if cfg.quant_dense == "int8_w8a8" else 0
+    return dict(flash_fwd=L * admitted, flash_bwd_dq=0, flash_bwd_dkv=0,
+                flash_decode=L * rounds, int8_matmul=k5 * forwards, w8a8_matmul=k6 * forwards)
+
+
+def serve(model, name, n_requests=12):
+    """The first `n_requests` of the mix through InflightServer (8 slots,
+    cache 4096, run_serve.sh's buckets), launch counts set to 0 just before
+    the run and read just after. Checks every request and the exact launch
+    counts; returns (launches, summary)."""
+    cfg = model.config
+    srv = InflightServer(model, slots=8, cache_len=4096, prompt_buckets=BUCKETS,
+                         stop_tokens=(cfg.eos_token_id,), seed=SEED)
+    prompts, budgets, temps = (r[:n_requests] for r in serving_requests(cfg))
     rids = [srv.submit(p, n, t) for p, n, t in zip(prompts, budgets, temps)]
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     t0 = time.perf_counter()
     done = {f.req_id: f for f in srv.run()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts()
-    log(f"serve: {srv.stats_line()}; wall {wall:.2f}s; launches {launches}")
+    log(f"serve {name}: {srv.stats_line()}; wall {wall:.2f}s; launches {launches}")
 
     if sorted(done) != sorted(rids):
         raise AssertionError(f"served {sorted(done)}, submitted {sorted(rids)}")
@@ -295,19 +501,77 @@ def phase_serve():
         ok_eos = done[rid].stopped == "eos" and toks[-1] == cfg.eos_token_id and len(toks) <= n
         if not (ok_len or ok_eos):
             raise AssertionError(f"request {rid}: {len(toks)} tokens, stopped {done[rid].stopped}")
-    if min(launches["flash_fwd"], launches["flash_decode"]) <= 0:
-        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
     s = srv.stats
+    want = expected_launches(cfg, s["admitted"], s["rounds"])
+    if launches != want:
+        raise AssertionError(f"serve {name}: launches {launches}, want {want}")
     decode_tokens = s["emitted"] - s["admitted"]
     summary = dict(
         prefill_s=s["prefill_s"], decode_s=s["decode_s"], rounds=s["rounds"],
         decode_tokens=decode_tokens, decode_tok_s=decode_tokens / s["decode_s"],
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    log(f"serve: prefill {s['prefill_s']:.3f}s over {s['admitted']} admissions, decode "
+    log(f"serve {name}: prefill {s['prefill_s']:.3f}s over {s['admitted']} admissions, decode "
         f"{s['decode_s']:.3f}s for {decode_tokens} tokens in {s['rounds']} rounds = "
         f"{summary['decode_tok_s']:.1f} tok/s; peak {summary['peak_gib']:.1f} GiB "
         f"[{card()}]")
+    return launches, summary
+
+
+def admission_logits(models, cfg):
+    """{name: fp32 last-token logits of CHECKED_PROMPTS} for each model,
+    each prompt prefilled into a fresh batch-1 cache of that model."""
+    prompts = serving_requests(cfg)[0]
+    out = {}
+    for name, m in models.items():
+        out[name] = []
+        for i in CHECKED_PROMPTS:
+            bucket = next(b for b in BUCKETS if b >= len(prompts[i]))
+            out[name].append(prefill_logits(m, m.init_cache(1, 4096), prompts[i], bucket))
+    return out
+
+
+def _cos(a, b):
+    return F.cosine_similarity(a, b, dim=0).item()
+
+
+def hold_to_noise_floor(logits, kernel, arm, truth, cos_min=COS_MIN, argmax_of_truth=False):
+    """The serving noise-floor rule, per checked prompt: the `kernel` path agrees
+    with the `arm` path (the same tensors another way) at cosine >= cos_min
+    and on argmax (or, with `argmax_of_truth`, on the fp32 `truth`'s argmax
+    where the arm misses it), and is at most FLOOR_RATIO x as far from
+    `truth` (1 - cosine) as `arm` is. Every prompt is logged before any is
+    held."""
+    lens = [PROMPT_LENS[i] for i in CHECKED_PROMPTS]
+    failed = []
+    for n, got, want, ref in zip(lens, logits[kernel], logits[arm], logits[truth]):
+        c_ka, c_kt, c_at = _cos(got, want), _cos(got, ref), _cos(want, ref)
+        log(f"admission logits, prompt {n}: {kernel} vs {arm} max|diff| "
+            f"{(got - want).abs().max().item():.4f} cosine {c_ka:.6f} (min {cos_min}); cosine "
+            f"to {truth}: {kernel} {c_kt:.6f} {arm} {c_at:.6f}; argmax {kernel}/{arm}/{truth} "
+            f"{int(got.argmax())}/{int(want.argmax())}/{int(ref.argmax())}")
+        picks = {int(want.argmax())} | ({int(ref.argmax())} if argmax_of_truth else set())
+        if int(got.argmax()) not in picks:
+            failed.append(f"prompt {n}: {kernel} and {arm} pick different admission tokens")
+        if not (c_ka >= cos_min and 1 - c_kt <= FLOOR_RATIO * (1 - c_at)):
+            failed.append(f"prompt {n}: {kernel} admission logits are off the bf16 noise floor")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def phase_serve():
+    """bf16 serving of the 12 requests; kernel-path admission logits held
+    to the noise floor against attn_impl="plain". Returns (launches,
+    summary)."""
+    cfg = serving_config()
+    t0 = time.perf_counter()
+    model = serving_model(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: 7b model ({n_params / 1e9:.2f}B params, bf16, random seed {SEED}) "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    launches, summary = serve(model, "bf16")
+    torch.cuda.empty_cache()
 
     # The same weight tensors through the plain attention path, and an fp32
     # upcast copy through it as the reference both bf16 paths are held to:
@@ -317,29 +581,67 @@ def phase_serve():
     plain = LLaMAForCausalLM(cfg.replace(attn_impl="plain"), dtype=BF16, device="meta")
     plain.load_state_dict(model.state_dict(), assign=True)
     ref32 = LLaMAForCausalLM(cfg.replace(attn_impl="plain"), dtype=torch.float32, device="meta")
-    del srv
-    torch.cuda.empty_cache()
     ref32.load_state_dict({k: v.float() for k, v in model.state_dict().items()}, assign=True)
-
-    def cos(a, b):
-        return torch.nn.functional.cosine_similarity(a, b, dim=0).item()
-
-    for i in (0, 2, 4):
-        bucket = next(b for b in (256, 1024, 2048) if b >= len(prompts[i]))
-        got, want, truth = (
-            prefill_logits(m, m.init_cache(1, 4096), prompts[i], bucket)
-            for m in (model, plain, ref32)
-        )
-        c_kp, c_k32, c_p32 = cos(got, want), cos(got, truth), cos(want, truth)
-        log(f"admission logits, prompt {len(prompts[i])} (bucket {bucket}): kernel vs plain "
-            f"max|diff| {(got - want).abs().max().item():.4f} cosine {c_kp:.6f}; cosine to fp32: "
-            f"kernel {c_k32:.6f} plain {c_p32:.6f}; argmax kernel/plain/fp32 "
-            f"{int(got.argmax())}/{int(want.argmax())}/{int(truth.argmax())}")
-        if int(got.argmax()) != int(want.argmax()):
-            raise AssertionError("kernel and plain paths pick different admission tokens")
-        if not (c_kp >= COS_MIN and 1 - c_k32 <= FLOOR_RATIO * (1 - c_p32)):
-            raise AssertionError("kernel-path admission logits are off the bf16 noise floor")
+    logits = admission_logits({"kernel": model, "plain": plain, "fp32": ref32}, cfg)
+    hold_to_noise_floor(logits, "kernel", "plain", "fp32")
     return launches, summary
+
+
+def phase_serve_int8(bf16):
+    """The bf16 phase's weights quantized on the card by the port's
+    quantize_params_int8 (the bf16 model freed), then served: all 12
+    requests with quant_dense="int8" (K5), the first 4 with "int8_w8a8" and
+    an int8 cache (K6, K5 for lm_head). Admission logits: K5 held to the
+    noise floor against the "int8_xla" dequant arm on the same int8 tensors,
+    W8A8 to W8A8_COS_MIN, both against an fp32 copy of the dequantized
+    weights. `bf16`: the bf16 run's summary, logged beside. Returns
+    (int8 launches, w8a8 launches)."""
+    cfg = serving_config()
+    model = serving_model(cfg)
+    t0 = time.perf_counter()
+    sd = quant.quantize_params_int8(model.state_dict())
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_q = sum(v.numel() for v in sd.values() if v.dtype == torch.int8)
+    log(f"serve int8: {n_q:,} weights quantized on the card in {time.perf_counter() - t0:.2f}s "
+        f"({n_q / 1e9:.2f} GB int8 vs {2 * n_q / 1e9:.2f} GB bf16)")
+
+    def build(quant_dense, **kw):
+        m = LLaMAForCausalLM(cfg.replace(quant_dense=quant_dense, **kw), dtype=BF16,
+                             device="meta")
+        m.load_state_dict(sd, assign=True)
+        return m
+
+    int8, w8a8, xla = build("int8"), build("int8_w8a8", kv_cache_dtype="int8"), build("int8_xla")
+    launches, summary = serve(int8, "int8")
+    torch.cuda.empty_cache()
+    for key, unit in (("prefill_s", "s"), ("decode_tok_s", " tok/s"), ("peak_gib", " GiB")):
+        log(f"serve int8 vs bf16: {key} {summary[key]:.3f}{unit} vs {bf16[key]:.3f}{unit}")
+    w_launches, _ = serve(w8a8, "int8_w8a8 (int8 cache)", n_requests=4)
+    torch.cuda.empty_cache()
+
+    deq = {}
+    for k, v in sd.items():
+        if v.dtype == torch.int8:
+            deq[k] = v.float() * sd[k[: -len("weight")] + "scale"][:, None]
+        elif not k.endswith(".scale"):
+            deq[k] = v.float()
+    ref32 = LLaMAForCausalLM(cfg.replace(attn_impl="plain"), dtype=torch.float32, device="meta")
+    ref32.load_state_dict(deq, assign=True)
+    logits = admission_logits({"int8": int8, "int8_xla": xla, "int8_w8a8": w8a8,
+                               "fp32_dequant": ref32}, cfg)
+    w8a8_cos = [_cos(got, ref) for got, ref in zip(logits["int8_w8a8"], logits["fp32_dequant"])]
+    for i, got, ref, c in zip(CHECKED_PROMPTS, logits["int8_w8a8"], logits["fp32_dequant"],
+                              w8a8_cos):
+        log(f"admission logits, prompt {PROMPT_LENS[i]}: int8_w8a8 (int8 cache) cosine to "
+            f"fp32_dequant {c:.6f} (min {W8A8_COS_MIN}), argmax "
+            f"{int(got.argmax())}/{int(ref.argmax())}")
+    hold_to_noise_floor(logits, "int8", "int8_xla", "fp32_dequant", INT8_ARM_COS_MIN,
+                        argmax_of_truth=True)
+    if not min(w8a8_cos) >= W8A8_COS_MIN:
+        raise AssertionError("int8_w8a8 admission logits are too far from the fp32 result")
+    return launches, w_launches
 
 
 def _lm_batch(b, s, vocab, seed):
@@ -352,16 +654,22 @@ def _lm_batch(b, s, vocab, seed):
     )
 
 
+KERNEL_WRAPPERS = {   # kernel name → the wrapper that counts its launches
+    "flash_fwd": flash.flash_attention_fwd,
+    "flash_bwd_dq": flash.flash_attention_bwd_dq,
+    "flash_bwd_dkv": flash.flash_attention_bwd_dkv,
+    "flash_decode": decode.flash_decode,
+    "int8_matmul": quant.int8_matmul,
+    "w8a8_matmul": quant.w8a8_matmul_quantized,
+}
+
+
 def _launch_counts():
-    return {"flash_fwd": flash.flash_attention_fwd.launches,
-            "flash_bwd_dq": flash.flash_attention_bwd_dq.launches,
-            "flash_bwd_dkv": flash.flash_attention_bwd_dkv.launches,
-            "flash_decode": decode.flash_decode.launches}
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
 def _reset_launch_counts():
-    for fn in (flash.flash_attention_fwd, flash.flash_attention_bwd_dq,
-               flash.flash_attention_bwd_dkv, decode.flash_decode):
+    for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
 
 
@@ -539,29 +847,39 @@ def main():
     k1 = phase_k1(gen)
     k4 = phase_k4(gen)
     k23 = phase_k23(gen)
+    k56 = phase_k56(gen)
     torch.cuda.empty_cache()
-    _reset_launch_counts()
-    serve_launches, _ = phase_serve()
+    # each main path's counts, set to 0 just before its run and read just after
+    path_launches = []
+    launches, bf16_summary = phase_serve()
+    path_launches.append(launches)
+    torch.cuda.empty_cache()
+    path_launches.extend(phase_serve_int8(bf16_summary))
     torch.cuda.empty_cache()
     phase_train_compare()
-    train_launches = phase_train_full(profile)
+    path_launches.append(phase_train_full(profile))
+    total = {k: sum(p[k] for p in path_launches) for k in KERNEL_WRAPPERS}
+
+    def row(name, source, replaces, max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by):
+        return dict(name=name, route="cuda", source="lwm_tpu_torch/csrc/" + source,
+                    replaces=replaces, launches=total[name], max_abs_err=max_abs_err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms)
+
+    (dq_err, dkv_err), (dq_ms, dkv_ms), bwd_plain_ms, bwd_lib_ms, (bnd_dq, bnd_dkv) = k23
     kernels = [
-        dict(name="flash_fwd", route="cuda", source="lwm_tpu_torch/csrc/flash_fwd.cu",
-             replaces="lwm_tpu/ops/pallas_flash.py:199",
-             launches=serve_launches["flash_fwd"] + train_launches["flash_fwd"],
-             max_abs_err=k1[0], ms=k1[1], plain_ms=k1[2]),
-        dict(name="flash_bwd_dq", route="cuda", source="lwm_tpu_torch/csrc/flash_bwd.cu",
-             replaces="lwm_tpu/ops/pallas_flash.py:288",
-             launches=train_launches["flash_bwd_dq"],
-             max_abs_err=k23[0][0], ms=k23[1][0], plain_ms=k23[2]),
-        dict(name="flash_bwd_dkv", route="cuda", source="lwm_tpu_torch/csrc/flash_bwd.cu",
-             replaces="lwm_tpu/ops/pallas_flash.py:356",
-             launches=train_launches["flash_bwd_dkv"],
-             max_abs_err=k23[0][1], ms=k23[1][1], plain_ms=k23[2]),
-        dict(name="flash_decode", route="cuda", source="lwm_tpu_torch/csrc/flash_decode.cu",
-             replaces="lwm_tpu/ops/pallas_decode.py:66", launches=serve_launches["flash_decode"],
-             max_abs_err=k4[0], ms=k4[1], plain_ms=k4[2]),
+        row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
+        row("flash_bwd_dq", "flash_bwd.cu", "lwm_tpu/ops/pallas_flash.py:288",
+            dq_err, dq_ms, bwd_plain_ms, bwd_lib_ms, *bnd_dq),
+        row("flash_bwd_dkv", "flash_bwd.cu", "lwm_tpu/ops/pallas_flash.py:356",
+            dkv_err, dkv_ms, bwd_plain_ms, bwd_lib_ms, *bnd_dkv),
+        row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
+        row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107", **k56["int8_matmul"]),
+        row("w8a8_matmul", "w8a8_matmul.cu", "lwm_tpu/ops/quant.py:182", **k56["w8a8_matmul"]),
     ]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} never launched on a main path")
     log(card())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

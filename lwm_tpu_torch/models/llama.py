@@ -33,14 +33,27 @@ whole block, K1 included); "save_flash" (selective checkpointing keeps K1's
 (out, lse): `ops.ring.save_flash_policy`). With `scan_mlp` the feed-forward
 runs in rematerialized sequence chunks (`llama.py:1308-1329`).
 
+Int8 weights (`quant_dense`, serving only; `lwm_tpu/models/llama.py:376-399`):
+every dense product becomes an `Int8Dense` holding an int8 [out, in] weight
+and an fp32 per-output-channel scale (`ops.quant.quantize_params_int8` makes
+them from a bf16/fp32 state dict). "int8" → K5 `ops.quant.int8_matmul`;
+"int8_w8a8" → K6 `ops.quant.w8a8_matmul` (per-row activation quant), with
+the logits head on K5 (`W8A8_EXCLUDE`); "int8_xla" → the dequant matmul
+`int8_matmul_dequant`, never chosen by default. A tied head stays the
+embedding's product.
+
+The model is built on the card unless the caller names another device
+(`device="cpu"` in the tests, `"meta"` to load tensors with `assign=True`).
+
 Not in this slice: dropout (`*_pdrop` > 0 raise in training), segment ids,
-meshes, shared prefixes, int8 weights (`quant_dense`), vision.
+meshes, shared prefixes, vision.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 from dataclasses import dataclass
 from typing import Optional
@@ -53,10 +66,15 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from lwm_tpu_torch.ops.decode import flash_decode
 from lwm_tpu_torch.ops.flash import flash_attention_fwd
+from lwm_tpu_torch.ops.quant import (
+    W8A8_EXCLUDE, int8_matmul, int8_matmul_dequant, w8a8_matmul,
+)
 from lwm_tpu_torch.ops.reference import BIG_NEG, reference_attention
 from lwm_tpu_torch.ops.ring import flash_attention, save_flash_policy
 
 REMAT_BLOCKS = ("none", "nothing_saveable", "save_flash")
+# quant_dense spelling → Int8Dense impl (`lwm_tpu/models/llama.py:385-396`)
+QUANT_DENSE = {"int8": "auto", "int8_xla": "xla", "int8_w8a8": "w8a8"}
 
 # Public LLaMA/LWM model dimensions (lwm_tpu/models/llama.py:52-85).
 LLAMA_STANDARD_CONFIGS = {
@@ -102,7 +120,7 @@ class LLaMAConfig:
     names and defaults, so a JAX config dict or json loads unchanged.
 
     The port's forward reads the model shape, `rms_norm_eps`, `theta`,
-    `tie_word_embeddings`, `kv_cache_dtype`, `attn_impl`, `decode_index`,
+    `tie_word_embeddings`, `kv_cache_dtype`, `quant_dense`, `attn_impl`, `decode_index`,
     `logits_tail`, `remat_block`, `scan_mlp` and `scan_mlp_chunk_size`, and
     the dropouts (only to refuse them in training). `scan_attention` and the
     query/key chunk sizes only tune the JAX kernels' blocking (every
@@ -155,8 +173,11 @@ class LLaMAConfig:
             raise ValueError(f"attn_impl {self.attn_impl!r}: the port has 'auto' and 'plain'")
         if self.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: use 'auto' or 'int8'")
-        if self.quant_dense != "none":
-            raise NotImplementedError("int8 dense weights (quant_dense) are not ported yet")
+        if self.quant_dense not in ("none", *QUANT_DENSE):
+            raise ValueError(
+                f"unknown quant_dense {self.quant_dense!r}; expected 'none' or one of "
+                f"{sorted(QUANT_DENSE)}"
+            )
         if self.prefix_len:
             raise NotImplementedError("shared-prefix serving (prefix_len) is not ported yet")
         if self.remat_block not in REMAT_BLOCKS:
@@ -230,6 +251,42 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class Int8Dense(nn.Module):
+    """Serving dense layer over an int8 weight [out, in] and an fp32 scale
+    per output channel [out], both buffers (the flax `kernel`/`scale` of
+    `Int8Dense`, `lwm_tpu/ops/quant.py:281-337`; filled by
+    `quantize_params_int8` or the converter). `impl`: "auto" → K5, "xla" →
+    the dequant matmul, "w8a8" → K6; a logits head (`W8A8_EXCLUDE`) takes
+    "auto" under "w8a8", as the JAX layer does by its name."""
+
+    def __init__(self, d_in, d_out, *, impl="auto", name=None, dtype, param_dtype=None,
+                 device=None):
+        super().__init__()
+        del param_dtype  # the weight is int8 and the scale fp32 whatever the params are
+        self.impl = "auto" if impl == "w8a8" and name in W8A8_EXCLUDE else impl
+        self.dtype = dtype
+        self.register_buffer("weight", torch.zeros(d_out, d_in, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(d_out, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        if self.impl == "xla":
+            return int8_matmul_dequant(x, self.weight, self.scale)
+        if self.impl == "w8a8":
+            return w8a8_matmul(x, self.weight, self.scale)
+        lead = x.shape[:-1]
+        y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), self.weight, self.scale)
+        return y.reshape(*lead, self.weight.shape[0])
+
+
+def _dense_cls(config, name):
+    """The dense layer for `name` under `config.quant_dense`
+    (`lwm_tpu/models/llama.py:376-399`)."""
+    if config.quant_dense == "none":
+        return Dense
+    return functools.partial(Int8Dense, impl=QUANT_DENSE[config.quant_dense], name=name)
 
 
 class Embed(nn.Embedding):
@@ -354,10 +411,10 @@ class LLaMAAttention(nn.Module):
         super().__init__()
         self.config = config
         h, hkv, d = config.num_attention_heads, config.kv_heads, config.head_dim
-        self.wq = Dense(config.hidden_size, h * d, **kw)
-        self.wk = Dense(config.hidden_size, hkv * d, **kw)
-        self.wv = Dense(config.hidden_size, hkv * d, **kw)
-        self.wo = Dense(h * d, config.hidden_size, **kw)
+        self.wq = _dense_cls(config, "wq")(config.hidden_size, h * d, **kw)
+        self.wk = _dense_cls(config, "wk")(config.hidden_size, hkv * d, **kw)
+        self.wv = _dense_cls(config, "wv")(config.hidden_size, hkv * d, **kw)
+        self.wo = _dense_cls(config, "wo")(h * d, config.hidden_size, **kw)
 
     def _write_cache(self, cache, k, v, position_ids):
         """Per-row write of k, v [b, q, h_kv, d] at position_ids[:, 0] + j."""
@@ -433,9 +490,9 @@ class LLaMAMLP(nn.Module):
 
     def __init__(self, config, **kw):
         super().__init__()
-        self.w1 = Dense(config.hidden_size, config.intermediate_size, **kw)
-        self.w2 = Dense(config.intermediate_size, config.hidden_size, **kw)
-        self.w3 = Dense(config.hidden_size, config.intermediate_size, **kw)
+        self.w1 = _dense_cls(config, "w1")(config.hidden_size, config.intermediate_size, **kw)
+        self.w2 = _dense_cls(config, "w2")(config.intermediate_size, config.hidden_size, **kw)
+        self.w3 = _dense_cls(config, "w3")(config.hidden_size, config.intermediate_size, **kw)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
@@ -470,10 +527,16 @@ class LLaMABlock(nn.Module):
 
 
 class LLaMAForCausalLM(nn.Module):
-    """Embedding → blocks → ln_f → lm_head (`lwm_tpu/models/llama.py:1463-1634`)."""
+    """Embedding → blocks → ln_f → lm_head (`lwm_tpu/models/llama.py:1463-1634`),
+    built on `device`: the card unless the caller names another."""
 
-    def __init__(self, config, *, dtype=torch.float32, param_dtype=None, device=None):
+    def __init__(self, config, *, dtype=torch.float32, param_dtype=None, device="cuda"):
         super().__init__()
+        if device is not None and torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "LLaMAForCausalLM is built on the card by default and CUDA is not "
+                "available: pass device='cpu' (or 'meta') to build it elsewhere"
+            )
         self.config = config
         self.dtype = dtype
         kw = dict(dtype=dtype, param_dtype=param_dtype or dtype, device=device)
@@ -482,9 +545,10 @@ class LLaMAForCausalLM(nn.Module):
             LLaMABlock(config, **kw) for _ in range(config.num_hidden_layers)
         )
         self.ln_f = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
+        # a tied head is the embedding's product and is never quantized
         self.lm_head = (
             None if config.tie_word_embeddings
-            else Dense(config.hidden_size, config.vocab_size, **kw)
+            else _dense_cls(config, "lm_head")(config.hidden_size, config.vocab_size, **kw)
         )
         self._rope = {}  # device → factored RoPE table, built at first use
 

@@ -59,6 +59,16 @@ _SIGNATURES = {
         _F,                               # scale
         _P,                               # cudaStream_t
     ],
+    "lwm_int8_matmul": [
+        _P, _P, _P, _P,                   # x (bf16), w (int8), scale (fp32), out (bf16)
+        _I, _I, _I,                       # m, f, d
+        _P,                               # cudaStream_t
+    ],
+    "lwm_w8a8_matmul": [
+        _P, _P, _P, _P, _P,               # x_q (int8), x_scale, w (int8), w_scale, out (bf16)
+        _I, _I, _I,                       # m, f, d
+        _P,                               # cudaStream_t
+    ],
 }
 _BWD_INPUTS = [_P] * 7                    # q, k, v, g, lse, delta, bias (or NULL)
 _BWD_DIMS = [

@@ -9,7 +9,11 @@ masks. Greedy rows emit exactly what a batch-1 greedy rollout would.
 
 Device work per admission: one forward of the prompt bucket over the slot's
 cache row (K1 `ops.flash` on CUDA). Per decode round: one forward of one
-token per slot over the whole pool (K4 `ops.decode` on CUDA), with
+token per slot over the whole pool (K4 `ops.decode` on CUDA). A model with
+int8 weights (`quant_dense`, `--quantize_weights` of the JAX CLI) serves
+unchanged: its dense products run K5 `ops.quant.int8_matmul` ("int8") or K6
+`ops.quant.w8a8_matmul` ("int8_w8a8"), at m = bucket in an admission and
+m = slots in a decode round. Decode rounds run with
 `cache.index = max(lengths)` as the kernels' scan bound (the per-row mask
 does the exact part). The host loop holds the scheduler (admission, stop
 tokens, budgets) and syncs once per round to read the emitted tokens.

@@ -12,6 +12,11 @@ Flax dense kernels are [in, out]; they are TRANSPOSED here to torch's
 packages, so no q/k row permutation is applied (`_permute_rotary` is for
 HF's rotate-half layout only).
 
+A tree from `quantize_params_int8` (`lwm_tpu/ops/quant.py:340-362`) converts
+as it is: each quantized int8 kernel [d, f] becomes an int8 [f, d] `weight`
+and its fp32 `scale` [f] (one layer's slice of a stacked scale) is kept, for
+a model built with `quant_dense` set. `dtype=` casts neither.
+
 Any tree shaped like the params converts the same way: a gradient tree
 from `jax.grad`, optax's moments. `convert_optax_state` maps the state of
 the JAX train step's optimizer (`lwm_tpu/optim.py`: clip + adamw, possibly
@@ -38,32 +43,38 @@ def _layer_tree(h, layer, scan_axis):
 
 def convert_flax_params(params, config, dtype=None):
     """Returns {name: tensor} for `LLaMAForCausalLM.load_state_dict`
-    (cast to `dtype` when given)."""
+    (float weights cast to `dtype` when given; int8 weights and their
+    scales keep their types)."""
     if "params" in params:
         params = params["params"]
     tr = params["transformer"]
 
-    def t(x, transpose=False):
+    def t(x, transpose=False, cast=True):
         x = np.asarray(x)
         bf16 = x.dtype.name == "bfloat16"   # numpy's bfloat16 has no torch counterpart
         x = np.array(x.T if transpose else x, dtype=np.float32 if bf16 else None, order="C")
         x = torch.from_numpy(x)  # a writable copy
-        if dtype is not None:
+        if dtype is not None and cast and x.dtype != torch.int8:
             return x.to(dtype)
         return x.to(torch.bfloat16) if bf16 else x
+
+    def dense(sd, name, node):
+        sd[name + ".weight"] = t(node["kernel"], transpose=True)
+        if "scale" in node:  # int8 kernel from quantize_params_int8
+            sd[name + ".scale"] = t(node["scale"], cast=False).float()
 
     sd = {
         "wte.weight": t(tr["wte"]["embedding"]),
         "ln_f.weight": t(tr["ln_f"]["kernel"]),
     }
     if not config.tie_word_embeddings:
-        sd["lm_head.weight"] = t(params["lm_head"]["kernel"], transpose=True)
+        dense(sd, "lm_head", params["lm_head"])
     for i in range(config.num_hidden_layers):
         blk = _layer_tree(tr["h"], i, config.param_scan_axis)
         pre = f"h.{i}."
         for mod, names in (("attention", "wq wk wv wo"), ("feed_forward", "w1 w2 w3")):
             for n in names.split():
-                sd[f"{pre}{mod}.{n}.weight"] = t(blk[mod][n]["kernel"], transpose=True)
+                dense(sd, f"{pre}{mod}.{n}", blk[mod][n])
         sd[pre + "attention_norm.weight"] = t(blk["attention_norm"]["kernel"])
         sd[pre + "ffn_norm.weight"] = t(blk["ffn_norm"]["kernel"])
     return sd

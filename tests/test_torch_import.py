@@ -17,7 +17,8 @@ def test_port_imports_no_jax():
         names = [m.name for m in pkgutil.walk_packages(lwm_tpu_torch.__path__, "lwm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for want in ("serve", "ops.flash", "ops.ring", "optim", "train", "utils.losses"):
+        for want in ("serve", "ops.flash", "ops.ring", "ops.quant", "optim", "train",
+                     "utils.losses"):
             assert "lwm_tpu_torch." + want in names, names
         bad = [m for m in ("jax", "flax", "optax", "transformers", "absl", "ml_collections",
                            "lwm_tpu") if m in sys.modules]
@@ -30,4 +31,4 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 13
+    assert int(out.stdout.split()[-1]) >= 14

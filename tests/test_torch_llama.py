@@ -43,7 +43,7 @@ def port_model(jm, impl="auto", **kw):
     cfg.pop("mesh_dim", None)
     cfg["attn_impl"] = impl
     config = port.LLaMAConfig.from_dict(cfg)
-    m = port.LLaMAForCausalLM(config)
+    m = port.LLaMAForCausalLM(config, device="cpu")
     m.load_state_dict(convert_flax_params(jax.device_get(jm.params), config))
     return m
 
@@ -94,7 +94,7 @@ def test_convert_scanned_layouts(layout):
         assert torch.equal(scanned[name], unscanned[name]), name
     ids = np.random.default_rng(1).integers(0, 128, (1, 12)).astype(np.int32)
     want = np.asarray(jm(jnp.asarray(ids)).logits)
-    m = port.LLaMAForCausalLM(cfg)
+    m = port.LLaMAForCausalLM(cfg, device="cpu")
     m.load_state_dict(scanned)
     np.testing.assert_allclose(m(torch.from_numpy(ids).long()).detach().numpy(), want, **TOL)
 
@@ -201,7 +201,7 @@ def test_per_row_writes_land_at_their_positions():
     cfg = port.LLaMAConfig.from_dict(dict(BASE, decode_index="per_row", attn_impl="auto",
                                           kv_cache_dtype="int8"))
     torch.manual_seed(0)
-    m = port.LLaMAForCausalLM(cfg)
+    m = port.LLaMAForCausalLM(cfg, device="cpu")
     cache = m.init_cache(2, 16)
     lengths = torch.tensor([[4], [7]])
     cache.index = 7
@@ -228,11 +228,27 @@ def test_config_presets_and_json(tmp_path):
         port.LLaMAConfig.load_config("pickle::/x.pkl")
 
 
+def test_model_is_built_on_the_card_by_default():
+    """Without a device the model goes to the card; with no card it raises
+    rather than landing on the CPU."""
+    cfg = port.LLaMAConfig.from_dict(dict(BASE, attn_impl="auto"))
+    if torch.cuda.is_available():
+        assert port.LLaMAForCausalLM(cfg).wte.weight.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.LLaMAForCausalLM(cfg)
+    assert port.LLaMAForCausalLM(cfg, device="cpu").wte.weight.device.type == "cpu"
+
+
 def test_config_rejects_what_the_port_lacks():
     with pytest.raises(ValueError, match="attn_impl"):
         port.LLaMAConfig(attn_impl="pallas")
-    with pytest.raises(NotImplementedError):
-        port.LLaMAConfig(quant_dense="int8")
+    with pytest.raises(ValueError, match="quant_dense"):
+        port.LLaMAConfig(quant_dense="int4")
+    with pytest.raises(ValueError, match="quant_dense"):
+        port.LLaMAConfig(quant_dense="int8_pallas")
+    for spelling in ("none", "int8", "int8_xla", "int8_w8a8"):
+        assert port.LLaMAConfig(quant_dense=spelling).quant_dense == spelling
     with pytest.raises(NotImplementedError):
         port.LLaMAConfig(prefix_len=128)
     with pytest.raises(ValueError, match="divide"):

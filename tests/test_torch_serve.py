@@ -34,7 +34,7 @@ def models(kv_cache_dtype="auto"):
         JaxConfig(**kw, mesh_dim=None, attn_impl="xla"), input_shape=(1, 8), seed=0
     )
     cfg = port.LLaMAConfig.from_dict(dict(kw, attn_impl="auto"))
-    pm = port.LLaMAForCausalLM(cfg)
+    pm = port.LLaMAForCausalLM(cfg, device="cpu")
     pm.load_state_dict(convert_flax_params(jax.device_get(jm.params), cfg))
     return jm, pm
 
@@ -142,6 +142,6 @@ def test_validation():
     for kw in (dict(prefix_ids=[1, 2]), dict(lookup_k=2), dict(admit_chunk=8)):
         with pytest.raises(NotImplementedError):
             InflightServer(pm, slots=1, cache_len=64, **kw)
-    shared = port.LLaMAForCausalLM(pm.config.replace(decode_index="shared"))
+    shared = port.LLaMAForCausalLM(pm.config.replace(decode_index="shared"), device="cpu")
     with pytest.raises(ValueError, match="per_row"):
         InflightServer(shared, slots=1, cache_len=64)

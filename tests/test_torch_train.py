@@ -90,7 +90,7 @@ def _jax_side(case, dtype="fp32"):
 
 def _port_model(case, params, dtype=torch.float32, **kw):
     cfg = LLaMAConfig.from_dict(dict(BASE, **MODEL_CASES[case], **kw))
-    model = LLaMAForCausalLM(cfg, dtype=dtype, param_dtype=torch.float32)
+    model = LLaMAForCausalLM(cfg, dtype=dtype, param_dtype=torch.float32, device="cpu")
     model.load_state_dict(convert_flax_params(params, cfg))
     return model
 
