@@ -14,7 +14,9 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
   5. K2/K3 flash_attention_bwd_dq/_dkv vs their plain twin at the training
      shapes (b 2, seq 4096, 32 heads, d 128; GQA; a ragged seq).
   6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
-     serving shapes: decode (8 slots) and admission (m 2048, ragged 2000).
+     serving shapes: decode (8 slots), admission at every bucket and
+     product the mix runs (m 256/1024/2048, ragged 2000) and ragged edges
+     sized to K5's GEMM tiles (m 65/129/130/300/1000, d 4112, f 999/4001).
   7. Serve 12 requests through InflightServer with the 7b preset at the
      scripts/run_serve.sh settings (bf16, theta 5e7, 8 slots, cache 4096,
      buckets 256/1024/2048), random weights from a seed; check every
@@ -25,7 +27,7 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
      "int8_w8a8" and an int8 cache (K6, K5 for lm_head); exact launch
-     counts; admission logits of K5 against the "int8_xla" dequant arm on
+     counts, K5's admission GEMM counted apart; admission logits of K5 against the "int8_xla" dequant arm on
      the same int8 tensors, and of both (and W8A8) against an fp32 copy
      of the dequantized weights.
   9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
@@ -103,22 +105,36 @@ H100_HBM = 3.35e12        # bytes/s
 L2_FLUSH_BYTES = 150e6    # weight copies cycled in a timing: 3x the 50 MB L2
 SEED = 0
 # K5/K6 vs their twins: name, m, d (in), f (out). Decode is m = 8 slots;
-# admission is m = the 2048 bucket (and a ragged 2000); the edges exercise
-# the masked m, d and f tails and both of the decode kernel's token tiles
+# admission is m = a bucket (256, 1024, 2048; and a ragged 2000) at each
+# product shape (wq/wk/wv/wo 4096→4096, w1/w3 4096→11008, w2 11008→4096,
+# lm_head 4096→32000). The edges exercise the masked m, d and f tails, both
+# of the decode kernel's token tiles and each of K5's GEMM tiles: m 65, 129
+# and 130 at f 999 take its 64-row tile, m 300 at f 4001 its 128-row one,
+# m 1000 at f 4001 its 256-row one
 QUANT_SHAPES = [
     ("decode_m8_wq_4096x4096", 8, 4096, 4096),
     ("decode_m8_w1_4096x11008", 8, 4096, 11008),
     ("decode_m8_w2_11008x4096", 8, 11008, 4096),
     ("decode_m8_head_4096x32000", 8, 4096, 32000),
+    ("admit_m256_wq_4096x4096", 256, 4096, 4096),
+    ("admit_m256_head_4096x32000", 256, 4096, 32000),
+    ("admit_m1024_w1_4096x11008", 1024, 4096, 11008),
     ("admit_m2048_w1_4096x11008", 2048, 4096, 11008),
+    ("admit_m2048_w2_11008x4096", 2048, 11008, 4096),
     ("admit_m2048_head_4096x32000", 2048, 4096, 32000),
     ("admit_m2000_w1_4096x11008", 2000, 4096, 11008),
     ("admit_m2000_head_4096x32000", 2000, 4096, 32000),
     ("edge_m13_d4112_f999", 13, 4112, 999),
+    ("edge_m65_d4112_f999", 65, 4112, 999),
+    ("edge_m129_d4112_f999", 129, 4112, 999),
     ("edge_m130_d4112_f999", 130, 4112, 999),
+    ("edge_m300_d4112_f4001", 300, 4112, 4001),
+    ("edge_m1000_d4112_f4001", 1000, 4112, 4001),
 ]
-# the shape the kernels line reports for K5/K6: w1 (and w3) of every decode round
+# the shapes the kernels line reports for K5/K6: w1 (and w3) of every decode
+# round; and for K5 also w1 of a 2048-token admission (its GEMM)
 QUANT_REPORT = "decode_m8_w1_4096x11008"
+QUANT_ADMIT_REPORT = "admit_m2048_w1_4096x11008"
 
 
 def log(msg):
@@ -178,7 +194,7 @@ def phase_build():
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f}s -> {_build.library_path().name}")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "wgmma" in line:
             log(f"  ptxas {line.strip()}")
 
 
@@ -361,11 +377,12 @@ def phase_k56(gen):
     """K5 int8_matmul and K6 w8a8_matmul at the int8 serving shapes against
     their twins: K5 to QUANT_REL_TOL, K6 bit for bit. Times every shape
     but the edges, weights cycled through copies so a decode stream comes
-    from HBM. Returns {"int8_matmul": row, "w8a8_matmul": row}, each row
-    (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by) with the
-    times at QUANT_REPORT."""
+    from HBM. Returns ({"int8_matmul": row, "w8a8_matmul": row}, admit):
+    each row (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)
+    with the times at QUANT_REPORT, `admit` K5's ms, library_ms and
+    bound_ms at QUANT_ADMIT_REPORT."""
     worst = {"int8_matmul": 0.0, "w8a8_matmul": 0.0}
-    report = {}
+    report, admit = {}, None
     for name, m, d, f in QUANT_SHAPES:
         x = _randn((m, d), gen)
         w, s = quant.quantize_weight(torch.randn((f, d), generator=gen, device="cuda") * 0.02)
@@ -418,9 +435,11 @@ def phase_k56(gen):
             f"({n} weight copies cycled)")
         if name == QUANT_REPORT:
             report = {"int8_matmul": k5, "w8a8_matmul": k6}
+        if name == QUANT_ADMIT_REPORT:
+            admit = {k: k5[k] for k in ("ms", "library_ms", "bound_ms")}
         del x, x_q, x_s, w, s, ws, w16
         torch.cuda.empty_cache()
-    return {k: dict(max_abs_err=worst[k], **report[k]) for k in worst}
+    return {k: dict(max_abs_err=worst[k], **report[k]) for k in worst}, admit
 
 
 def serving_config():
@@ -461,13 +480,16 @@ def expected_launches(cfg, admitted, rounds):
     """Kernel launches of a serving run: one forward per admission and per
     decode round; per forward K1 (admission) or K4 (decode) once a layer,
     and one dense product per wq wk wv wo w1 w2 w3 of each layer plus
-    lm_head: all K5 under "int8", all but lm_head K6 under "int8_w8a8"."""
+    lm_head: all K5 under "int8", all but lm_head K6 under "int8_w8a8".
+    An admission's K5 products (m = its bucket) take K5's GEMM, a decode
+    round's (m = 8 slots) its GEMV."""
     L, forwards = cfg.num_hidden_layers, admitted + rounds
     body, head = 7 * L, 0 if cfg.tie_word_embeddings else 1
     k5 = {"int8": body + head, "int8_w8a8": head}.get(cfg.quant_dense, 0)
     k6 = body if cfg.quant_dense == "int8_w8a8" else 0
     return dict(flash_fwd=L * admitted, flash_bwd_dq=0, flash_bwd_dkv=0,
-                flash_decode=L * rounds, int8_matmul=k5 * forwards, w8a8_matmul=k6 * forwards)
+                flash_decode=L * rounds, int8_matmul=k5 * forwards, w8a8_matmul=k6 * forwards,
+                int8_matmul_gemm=k5 * admitted)
 
 
 def serve(model, name, n_requests=12):
@@ -665,12 +687,16 @@ KERNEL_WRAPPERS = {   # kernel name → the wrapper that counts its launches
 
 
 def _launch_counts():
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """Each wrapper's launches, and K5's admission-GEMM launches apart."""
+    counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    counts["int8_matmul_gemm"] = quant.int8_matmul.gemm_launches
+    return counts
 
 
 def _reset_launch_counts():
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    quant.int8_matmul.gemm_launches = 0
 
 
 def phase_train_compare():
@@ -847,7 +873,7 @@ def main():
     k1 = phase_k1(gen)
     k4 = phase_k4(gen)
     k23 = phase_k23(gen)
-    k56 = phase_k56(gen)
+    k56, k5_admit = phase_k56(gen)
     torch.cuda.empty_cache()
     # each main path's counts, set to 0 just before its run and read just after
     path_launches = []
@@ -874,7 +900,8 @@ def main():
         row("flash_bwd_dkv", "flash_bwd.cu", "lwm_tpu/ops/pallas_flash.py:356",
             dkv_err, dkv_ms, bwd_plain_ms, bwd_lib_ms, *bnd_dkv),
         row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
-        row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107", **k56["int8_matmul"]),
+        dict(row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107",
+                 **k56["int8_matmul"]), **{QUANT_ADMIT_REPORT: k5_admit}),
         row("w8a8_matmul", "w8a8_matmul.cu", "lwm_tpu/ops/quant.py:182", **k56["w8a8_matmul"]),
     ]
     for k in kernels:

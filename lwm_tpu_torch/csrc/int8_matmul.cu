@@ -22,18 +22,43 @@
 //   output channels and splits d among its warps, so more bytes are in flight
 //   at small f; the warps' fp32 partials are summed in shared memory. The next
 //   chunk's loads are issued before the current chunk's mmas.
-// - Admission (m up to 2048, `int8_gemm_kernel`): 2·m flops per weight byte,
+// - Admission (m > kGemvMaxM, `int8_gemm_kernel`): 2·m flops per weight byte,
 //   above the ridge, so the tensor cores bound it (w1 at m 2048 is 185 GFLOP:
-//   at least 0.187 ms at 989 TFLOP/s). 128 × 128 output tiles, 8 warps of
-//   64 × 32, k tiles of 32 staged in shared memory by a 3-stage cp.async
-//   pipeline (x as bf16, w as int8: the weight tile costs half the bytes of a
-//   bf16 one). Each thread's 8 k values of a row are again contiguous, so its
-//   fragments come from one 16-byte (x) and one 8-byte (w) shared-memory load
-//   with no bank conflicts, and int8 → bf16 happens in registers.
-// Ragged m, f and d edges are zero-filled at the loads and masked at the
-// stores; d is a multiple of 16 (16-byte weight rows; the wrapper checks).
-// Not yet: wgmma, TMA, split-K for decode at small f.
+//   at least 0.187 ms at 989 TFLOP/s), and on Hopper only `wgmma` reaches
+//   their full rate. `wgmma` reads both operands from shared memory, so the
+//   int8 weight has to be there as bf16 first, and that convert (not the
+//   tensor cores) is what the block's time follows. The design:
+//   * Each block owns a BM × 128 output tile and walks d in k tiles of 64
+//     through a ring of stages in dynamic shared memory. A stage holds x
+//     [BM, 64] bf16 and the weight [128, 64] twice: int8, as TMA brings it
+//     (half a bf16 tile's bytes from HBM and L2), and bf16. x and the bf16
+//     weight are K-major with the 128-byte swizzle (a 64-wide row is 128
+//     bytes: 16-byte chunk c of row r sits at chunk c ^ (r % 8)), the layout
+//     TMA writes and `wgmma` reads without bank conflicts.
+//   * Warp specialisation: one producer warpgroup, whose thread 0 issues the
+//     TMA loads (x and int8 w, completion counted in bytes on an mbarrier)
+//     up to `kStages - 1` tiles ahead, and whose 128 threads convert each
+//     landed int8 tile into the stage's bf16 tile, once per weight element
+//     per block (`i8x4_to_bf16`, 16-byte shared loads and stores), then
+//     `fence.proxy.async` and arrive on the stage's `full` barrier. WG
+//     consumer warpgroups (64 rows each) only wait on `full`, issue four
+//     m64n128k16 `wgmma`s (bf16 × bf16 → fp32 in registers), wait for them
+//     and arrive on the stage's `empty` barrier. The scale is applied in the
+//     epilogue, with one rounding to bf16.
+//   * The convert costs per block what the weight tile costs, and a taller
+//     tile shares it among more rows of x: BM = 256 (4 consumer
+//     warpgroups) halves the convert per product of BM = 128. Tile pick:
+//     the tallest of BM 256 / 128 / 64 whose grid covers at least half the
+//     SMs (the 256-token bucket at f 4096 has 32 / 64 / 128 blocks: BM 64).
+//     Blocks walk m first, so each weight tile comes from HBM about once.
+// Ragged m, f and d edges are zero-filled at the loads (TMA fills out-of-
+// bounds boxes with zeros) and masked at the stores; d is a multiple of 16
+// (16-byte weight rows and TMA strides; the wrapper checks).
+// Not yet: a persistent grid (the epilogue overlapping the next tile's
+// loads), pairs of blocks sharing one converted weight tile, split-K for
+// decode at small f.
 
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,7 +68,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGemvRows = 32;  // output channels per decode block: 2 row tiles
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
+constexpr int kGemvMaxM = 16;  // m ≤ this: the decode GEMV; above: the GEMM
+constexpr int kBN = 128;       // admission GEMM: output channels per block
+constexpr int kBK = 64;        // and its k tile: one 128-byte swizzled bf16 row
 
 struct Args {
   const __nv_bfloat16* x;
@@ -85,19 +112,6 @@ __device__ __forceinline__ void i8x4_to_bf16(uint32_t q4, uint32_t& lo, uint32_t
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* src, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // ----------------------------------------------------------------- decode
@@ -211,100 +225,275 @@ __global__ void __launch_bounds__(kThreads) int8_gemv_kernel(const Args a) {
 
 // -------------------------------------------------------------- admission
 
-__global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const Args a) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kStages][kBM][kBK];
-  __shared__ __align__(16) int8_t ws[kStages][kBN][kBK];
+template <int WG>  // WG consumer warpgroups: BM = 64·WG rows of x per block
+struct GemmTile {
+  static constexpr int kBM = 64 * WG;
+  static constexpr int kThreads = 128 * (WG + 1);  // + the producer warpgroup
+  static constexpr int kX = kBM * kBK * 2;         // x, bf16, swizzled (TMA)
+  static constexpr int kWb = kBN * kBK * 2;        // weight, bf16, swizzled (the convert)
+  static constexpr int kWq = kBN * kBK;            // weight, int8, row-major (TMA)
+  static constexpr int kStage = kX + kWb + kWq;
+  static constexpr int kFit = (232448 - 2048) / kStage;  // 227 KB less alignment and barriers
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr int kSmem = kStages * kStage + 2048;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows 64·wm.., columns 32·wn..
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c (0..7) of row r in a 128-byte-swizzled tile
+// (TMA's CU_TENSOR_MAP_SWIZZLE_128B layout for 128-byte rows)
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile whose
+// 1024-byte swizzle atoms (8 rows) are 1024 bytes apart (SBO); the leading
+// offset is unused for this layout. Adding 2 moves the start 32 bytes (k 16).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[64] (+)= A (64 × 16, K-major, shared) · B (128 × 16, K-major, shared)ᵀ;
+// scale_d 0 ignores d's old value
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across a wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// TMA: box at (column c0, row c1) of `map` into shared memory, completion
+// (bytes) reported to `bar`; out-of-bounds elements arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+template <int WG>
+__global__ void __launch_bounds__(128 * (WG + 1), 1)
+    int8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap w_map, const Args a) {
+  using T = GemmTile<WG>;
+  constexpr int S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // stage s at base + s·kStage, 1024-aligned
+  uint8_t* smem = smem_raw + (base - raw);
+  // per stage: `loaded` (TMA bytes of x and int8 w), `full` (bf16 w written
+  // by every producer thread), `empty` (every consumer warp is done with it)
+  const uint32_t bars = base + S * T::kStage;
+  auto loaded = [&](int s) { return bars + 8 * s; };
+  auto full = [&](int s) { return bars + 8 * (S + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * S + s); };
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * T::kBM, n0 = blockIdx.y * kBN;
   const int nk = (a.d + kBK - 1) / kBK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kBK;
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {  // x: 8 bf16 per copy
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const bool ok = m0 + r < a.m && k0 + c < a.d;
-      cp_async16(&xs[stage][r][c], a.x + (ok ? (long long)(m0 + r) * a.d + k0 + c : 0), ok);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(loaded(s), 1);
+      mbar_init(full(s), 128);
+      mbar_init(empty(s), 4 * WG);
     }
-    for (int i = tid; i < kBN * (kBK / 16); i += kThreads) {  // w: 16 int8 per copy
-      const int r = i / (kBK / 16), c = (i % (kBK / 16)) * 16;
-      const bool ok = n0 + r < a.f && k0 + c < a.d;
-      cp_async16(&ws[stage][r][c], a.w + (ok ? (long long)(n0 + r) * a.d + k0 + c : 0), ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
-    const int pf = kt + kStages - 1;
-    if (pf < nk) load_stage(pf % kStages, pf);
-    cp_async_commit();
+  __syncthreads();
 
-    const int st = kt % kStages;
-    uint4 xa[4][2];  // rows g and g + 8 of each 16-row tile: k 8t..8t+7
+  if (tid < 128) {  // producer warpgroup: TMA (thread 0) and the convert (every thread)
+    auto issue = [&](int t) {  // TMA of tile t once its stage is free
+      const int s = t % S;
+      if (t >= S) mbar_wait(empty(s), (t / S + 1) & 1);
+      const uint32_t st = base + s * T::kStage;
+      mbar_expect_tx(loaded(s), T::kX + T::kWq);
+      tma_load(st, &x_map, loaded(s), t * kBK, m0);
+      tma_load(st + T::kX + T::kWb, &w_map, loaded(s), t * kBK, n0);
+    };
+    // tiles in flight ahead of the one converted: S - 1, the next issued
+    // after this tile's convert (it waits for the consumers' tile t - 1)
+    if (tid == 0)
+      for (int t = 0; t < S - 1 && t < nk; ++t) issue(t);
+    constexpr int kPer = kBN * 4 / 128;  // 16-byte int8 chunks per thread per tile
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % S;
+      mbar_wait(loaded(s), (t / S) & 1);
+      uint8_t* st = smem + s * T::kStage;
+      uint4 q[kPer];  // every chunk loaded before the first is converted
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        xa[mt][hh] = *reinterpret_cast<const uint4*>(&xs[st][wm * 64 + mt * 16 + 8 * hh + g][8 * t]);
-    uint2 wb[4];  // weight row g of each 8-column tile: k 8t..8t+7
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      wb[nt] = *reinterpret_cast<const uint2*>(&ws[st][wn * 32 + nt * 8 + g][8 * t]);
-    // step j: physical k 8t+4j+{0,1} stand for logical 2t+{0,1}, 8t+4j+{2,3}
-    // for 2t+8+{0,1}, in x's A fragments and w's B fragments alike
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) i8x4_to_bf16(j ? wb[nt].y : wb[nt].x, bf[nt][0], bf[nt][1]);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const uint32_t a0 = word(xa[mt][0], 2 * j), a1 = word(xa[mt][1], 2 * j);
-        const uint32_t a2 = word(xa[mt][0], 2 * j + 1), a3 = word(xa[mt][1], 2 * j + 1);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], a0, a1, a2, a3, bf[nt][0], bf[nt][1]);
+      for (int j = 0; j < kPer; ++j) {
+        const int i = tid + 128 * j;
+        q[j] = *reinterpret_cast<const uint4*>(st + T::kX + T::kWb + (i >> 2) * kBK + 16 * (i & 3));
       }
+      // 16 int8 of a row → the row's swizzled bf16 chunks 2c and 2c + 1
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int i = tid + 128 * j, r = i >> 2, c = i & 3;
+        uint4 lo, hi;
+        i8x4_to_bf16(q[j].x, lo.x, lo.y);
+        i8x4_to_bf16(q[j].y, lo.z, lo.w);
+        i8x4_to_bf16(q[j].z, hi.x, hi.y);
+        i8x4_to_bf16(q[j].w, hi.z, hi.w);
+        *reinterpret_cast<uint4*>(st + T::kX + swz(r, 2 * c)) = lo;
+        *reinterpret_cast<uint4*>(st + T::kX + swz(r, 2 * c + 1)) = hi;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes → wgmma
+      mbar_arrive(full(s));
+      if (tid == 0 && t + S - 1 < nk) issue(t + S - 1);
     }
+    return;
   }
 
+  // consumer warpgroups: wgmma only
+  const int ct = tid - 128, wg = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  float acc[64];
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % S;
+    mbar_wait(full(s), (t / S) & 1);
+    const uint32_t st = base + s * T::kStage;
+    const uint64_t da = smem_desc(st + wg * 64 * 128), db = smem_desc(st + T::kX);
+    wgmma_fence();
+    fence_acc(acc);
+#pragma unroll
+    for (int k = 0; k < kBK / 16; ++k) wgmma_m64n128k16(acc, da + 2 * k, db + 2 * k, t > 0 || k > 0);
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait_all();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+  fence_acc(acc);
+  if (nk == 0)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  // accumulator i of a thread: row 16·warp + lane/4 + 8·((i/2)%2) of the
+  // warpgroup's 64, column 8·(i/4) + 2·(lane%4) + i%2
+  const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
   const bool pairs = (a.f & 1) == 0;  // bf16x2 stores stay 4-byte aligned
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+    const float s0 = col < a.f ? a.scale[col] : 0.f;
+    const float s1 = col + 1 < a.f ? a.scale[col + 1] : 0.f;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + wm * 64 + mt * 16 + 8 * hh + g;
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
       if (row >= a.m) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-        __nv_bfloat16* o = a.out + (long long)row * a.f + col;
-        const float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
-        if (pairs && col + 1 < a.f) {
-          *reinterpret_cast<__nv_bfloat162*>(o) =
-              __floats2bfloat162_rn(v0 * a.scale[col], v1 * a.scale[col + 1]);
-        } else {
-          if (col < a.f) o[0] = __float2bfloat16_rn(v0 * a.scale[col]);
-          if (col + 1 < a.f) o[1] = __float2bfloat16_rn(v1 * a.scale[col + 1]);
-        }
+      const float v0 = acc[4 * j + 2 * h] * s0, v1 = acc[4 * j + 2 * h + 1] * s1;
+      __nv_bfloat16* o = a.out + (long long)row * a.f + col;
+      if (pairs && col + 1 < a.f) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (col < a.f) o[0] = __float2bfloat16_rn(v0);
+        if (col + 1 < a.f) o[1] = __float2bfloat16_rn(v1);
       }
     }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// a row-major [rows, cols] tensor cut into [box_rows, kBK] boxes
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+                       int rows, int cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int WG>
+cudaError_t launch_gemm(const Args& a, cudaStream_t s) {
+  using T = GemmTile<WG>;
+  CUtensorMap x_map, w_map;
+  cudaError_t e = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, a.m, a.d, T::kBM,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.f, a.d, kBN,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(int8_gemm_kernel<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::kSmem);
+  if (e != cudaSuccess) return e;
+  // consecutive blocks walk m first, so a wave shares few weight tiles and
+  // each weight tile is read from HBM about once
+  const dim3 grid((a.m + T::kBM - 1) / T::kBM, (a.f + kBN - 1) / kBN);
+  int8_gemm_kernel<WG><<<grid, T::kThreads, T::kSmem, s>>>(x_map, w_map, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+// The m at and below which lwm_int8_matmul runs the decode GEMV (the
+// wrapper reads it to count the GEMM's launches apart).
+extern "C" int lwm_int8_gemv_max_m() { return kGemvMaxM; }
 
 extern "C" int lwm_int8_matmul(const void* x, const void* w, const void* scale, void* out, int m,
                                int f, int d, void* stream) {
@@ -321,11 +510,18 @@ extern "C" int lwm_int8_matmul(const void* x, const void* w, const void* scale, 
   if (d % 16) return cudaErrorInvalidValue;
   if (m <= 8) {
     int8_gemv_kernel<1><<<(f + kGemvRows - 1) / kGemvRows, kThreads, 0, s>>>(a);
-  } else if (m <= 16) {
+  } else if (m <= kGemvMaxM) {
     int8_gemv_kernel<2><<<(f + kGemvRows - 1) / kGemvRows, kThreads, 0, s>>>(a);
   } else {
-    const dim3 grid((f + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-    int8_gemm_kernel<<<grid, kThreads, 0, s>>>(a);
+    // the tallest tile (the least convert per product) whose grid still
+    // covers half the card
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int cols = (f + kBN - 1) / kBN;
+    if (2 * ((m + 255) / 256) * cols >= sms) return launch_gemm<4>(a, s);
+    if (2 * ((m + 127) / 128) * cols >= sms) return launch_gemm<2>(a, s);
+    return launch_gemm<1>(a, s);
   }
   return cudaGetLastError();
 }

@@ -64,6 +64,7 @@ _SIGNATURES = {
         _I, _I, _I,                       # m, f, d
         _P,                               # cudaStream_t
     ],
+    "lwm_int8_gemv_max_m": [],            # K5's m threshold: the GEMV at or below, the GEMM above
     "lwm_w8a8_matmul": [
         _P, _P, _P, _P, _P,               # x_q (int8), x_scale, w (int8), w_scale, out (bf16)
         _I, _I, _I,                       # m, f, d

@@ -10,7 +10,10 @@ layout: a weight is int8 [f, d], its scale fp32 [f] (the flax kernel is
 
 - `int8_matmul` (K5, replaces `_int8_matmul_kernel`, `quant.py:107-122`):
   y = (x · bf16(w)ᵀ accumulated in fp32) · scale, rounded to x's type once.
-  CUDA: `csrc/int8_matmul.cu`; twin `int8_matmul_plain`.
+  CUDA: `csrc/int8_matmul.cu` (a GEMV for decode, m ≤ the library's
+  `lwm_int8_gemv_max_m()`, and a `wgmma` GEMM for admission above it; the
+  latter's launches are also counted in `.gemm_launches`); twin
+  `int8_matmul_plain`.
 - `w8a8_matmul_quantized` (K6, replaces `_w8a8_matmul_kernel`,
   `quant.py:182-202`): int8 x_q · int8 wᵀ summed exactly in int32, then
   (float(acc) · x_scale) · w_scale. CUDA: `csrc/w8a8_matmul.cu`; twin
@@ -28,6 +31,8 @@ own tiles and masks ragged edges.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -105,9 +110,18 @@ def _on_cuda(name, x):
         raise ValueError(f"no {name} kernel for device {x.device}")
 
 
+@functools.cache
+def _gemv_max_m():
+    """The largest m K5's C dispatch gives its decode GEMV (the admission
+    GEMM takes every larger m): one constant, read from the library."""
+    return _build.load().lwm_int8_gemv_max_m()
+
+
 def int8_matmul(x, w, scale):
     """K5: x [m, d] @ int8 w [f, d]ᵀ, × per-output-channel fp32 scale [f]
-    → [m, f] in x.dtype (the kernel takes bf16 x; the CPU twin also fp32)."""
+    → [m, f] in x.dtype (the kernel takes bf16 x; the CPU twin also fp32).
+    Counts every launch in `.launches`, and those of the admission GEMM
+    (m above the GEMV's range) also in `.gemm_launches`."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w, scale)
     _on_cuda("int8_matmul", x)
@@ -124,6 +138,8 @@ def int8_matmul(x, w, scale):
     )
     _build.check(rc, "lwm_int8_matmul")
     int8_matmul.launches += 1
+    if m > _gemv_max_m():
+        int8_matmul.gemm_launches += 1
     return out
 
 
@@ -165,6 +181,7 @@ def w8a8_matmul(x, w, w_scale):
 
 
 int8_matmul.launches = 0
+int8_matmul.gemm_launches = 0
 w8a8_matmul_quantized.launches = 0
 
 

@@ -86,10 +86,14 @@ def test_quantize_activations_matches_jax(dtype):
 # ----------------------------------------------------------- kernel twins
 
 MATMUL_SHAPES = {
-    # name: (m, d, f, Pallas block overrides) — tests/test_quant.py:47-72
+    # name: (m, d, f, Pallas block overrides) — tests/test_quant.py:47-72;
+    # m 65 and 129 take K5's admission GEMM on the card (m > 16) with a
+    # ragged last 64-row tile
     "8x256x384": (8, 256, 384, {}),
     "3x128x128": (3, 128, 128, {}),
     "130x512x640": (130, 512, 640, {}),
+    "65x256x384": (65, 256, 384, {}),
+    "129x512x256": (129, 512, 256, {}),
     "blocked_8x1536x1280": (8, 1536, 1280, dict(block_d=512, block_f=256)),
 }
 
@@ -113,10 +117,12 @@ def test_int8_matmul_twin_matches_pallas(shape):
                                  interpret=True, **blocks)
     got = quant.int8_matmul_plain(_t(x), _t(w.T), _t(s))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
-    # the wrapper takes the twin for CPU tensors and launches nothing
-    launches = quant.int8_matmul.launches
+    # the wrapper takes the twin for CPU tensors and launches nothing, on
+    # either route
+    launches, gemm = quant.int8_matmul.launches, quant.int8_matmul.gemm_launches
     assert torch.equal(quant.int8_matmul(_t(x), _t(w.T), _t(s)), got)
     assert quant.int8_matmul.launches == launches
+    assert quant.int8_matmul.gemm_launches == gemm
 
 
 @pytest.mark.parametrize("shape", sorted(MATMUL_SHAPES))
