@@ -11,15 +11,18 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
   2. Build the CUDA kernels from lwm_tpu_torch/csrc with nvcc (sm_90a).
   3. K1 flash_attention_fwd vs its plain twin at the serving shapes (bf16).
   4. K4 flash_decode vs its plain twin: 8 slots, bf16 and int8, MHA and GQA.
-  5. K2/K3 flash_attention_bwd_dq/_dkv vs their plain twin at the training
-     shapes (b 2, seq 4096, 32 heads, d 128; GQA; a ragged seq).
+  5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
+     its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
+     GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
+     and a full-tile bias, causal or not; d 64 at 8 kv heads).
   6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
      serving shapes: decode (8 slots), admission at every bucket and
      product the mix runs (m 256/1024/2048, ragged 2000) and ragged edges
      sized to K5's GEMM tiles (m 65/129/130/300/1000, d 4112, f 999/4001).
   7. Serve 12 requests through InflightServer with the 7b preset at the
      scripts/run_serve.sh settings (bf16, theta 5e7, 8 slots, cache 4096,
-     buckets 256/1024/2048), random weights from a seed; check every
+     buckets 256/1024/2048), random weights from a seed, after one untimed
+     warm-up admission at each bucket (as every serving arm); check every
      request and the K1/K4 launch counts of that path; hold kernel-path
      admission logits against an attn_impl="plain" model on the same
      weight tensors and against an fp32 copy of them.
@@ -36,11 +39,15 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
  10. Train the 7b width at 16 of its 32 layers (fp32 master weights, bf16
      compute, remat save_flash, AdamW as scripts/run_train_text.sh), batch
      2 x 4096, 6 steps on one fixed batch from the seed: finite, falling
-     loss, and K1/K2/K3 launched layers x steps times on that path.
+     loss, and K1 and the backward launched layers x steps times on that
+     path.
 Each kernel phase times the kernel, its plain twin and one PyTorch call that
 computes the same function (the yardstick; the port never calls it) beside
 the kernel's bound: the larger of its bytes over 3.35 TB/s and its
-operations over the peak rate of their type (H100 SXM data sheet).
+operations over the peak rate of their type (H100 SXM data sheet). Decode-
+shape kernels (K4, K5/K6 at 8 slots) and their library calls are timed by
+replaying the calls from a captured CUDA graph, so a 20-40 us kernel is not
+timed at the host's launch rate.
 The last lines: the card, one JSON object listing every kernel, and
 {"ok": true, "device": {...}}.
 """
@@ -79,9 +86,10 @@ FLOOR_RATIO = 1.25
 # checks are the guards; where the arm's argmax misses the fp32 one, K5 may
 # pick the fp32 token (prompt 700: K5 and fp32 19947, int8_xla 16244)
 INT8_ARM_COS_MIN = 0.994
-# K2/K3 vs their twin, per output: max|Δ| / max|ref| (bf16 outputs, p and ds
-# rounded to bf16 at the same points, fp32 sums over 4096 keys in another
-# order) and cosine
+# the fused backward vs its twin, per output: max|Δ| / max|ref| (bf16
+# outputs, p and ds rounded to bf16 at the same points, fp32 sums over 4096
+# keys in another order; dq is summed across key tiles by fp32 atomics, whose
+# order changes from run to run) and cosine
 BWD_REL_TOL = 2e-2
 BWD_COS_MIN = 0.9999
 # kernel vs plain train step at 2 random 7b-width layers: the losses agree to
@@ -149,17 +157,30 @@ def card():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20, arg_sets=((),)):
+def time_ms(fn, iters=20, arg_sets=((),), graph=False):
     """Mean ms per call on the device (CUDA events, after a warm-up). Calls
     cycle through `arg_sets`: copies of a large operand keep a weight
     stream out of the 50 MB L2, as in a forward where every layer's weights
-    are new."""
+    are new. With `graph`, the `iters` calls are captured once in a CUDA
+    graph and the replay is timed, so the device never waits on the host's
+    Python and ctypes launch path (the wrappers launch on the current
+    stream and allocate through torch, so they are capture-safe)."""
+    def run():
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+
     fn(*arg_sets[0])
     torch.cuda.synchronize()
+    if graph:
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph):
+            run()
+        cuda_graph.replay()
+        torch.cuda.synchronize()
+        run = cuda_graph.replay
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -194,7 +215,7 @@ def phase_build():
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f}s -> {_build.library_path().name}")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line or "wgmma" in line:
+        if any(t in line for t in ("entry function", "registers", "spill", "wgmma")):
             log(f"  ptxas {line.strip()}")
 
 
@@ -285,17 +306,19 @@ def phase_k4(gen):
             raise AssertionError(f"K4 {name} disagrees with its plain twin")
         worst = max(worst, err)
         if timing is None:
-            ms = time_ms(lambda: decode.flash_decode(*args), 50)
+            ms = time_ms(lambda: decode.flash_decode(*args), 50, graph=True)
+            eager_ms = time_ms(lambda: decode.flash_decode(*args), 50)
             plain_ms = time_ms(lambda: decode.flash_decode_plain(*args), 20)
             # yardstick: SDPA at q = 1 with the same keys (bool mask, GQA)
             seen = (mask & (torch.arange(T, device="cuda") < kv_len)[None])[:, None, None, :]
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k, v, attn_mask=seen, enable_gqa=h_kv != h), 50)
+                q.transpose(1, 2), k, v, attn_mask=seen, enable_gqa=h_kv != h), 50, graph=True)
             n_valid = int(seen.sum())
             n_bytes = n_valid * h_kv * d * 2 * 2 + 2 * q.numel() * 2 + b * kv_len
             bnd = bound_ms(n_bytes, 4 * n_valid * h * d, H100_BF16_PEAK)
-            log(f"K4 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
-                f"bound {bnd[0]:.4f} ms ({bnd[1]}) (b={b} h={h} T={T} kv_len={kv_len}) [{card()}]")
+            log(f"K4 {name}: kernel {ms:.4f} ms (graph; eager launches {eager_ms:.4f}), plain "
+                f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms (graph), bound {bnd[0]:.4f} ms "
+                f"({bnd[1]}) (b={b} h={h} T={T} kv_len={kv_len}) [{card()}]")
             timing = (ms, plain_ms, lib_ms, *bnd)
     return worst, *timing
 
@@ -305,24 +328,53 @@ def _cosine(a, b):
     return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
 
 
-def phase_k23(gen):
-    """K2/K3 at the training shapes against the plain twin. Returns
-    ((K2 max_abs_err, K3 max_abs_err), (dq_ms, dkv_ms), plain_ms) — plain_ms
-    is the twin's whole backward, which computes dq, dk and dv at once."""
-    b, h, d = 2, 32, 128
-    worst, timing = {"dq": 0.0, "dkv": 0.0}, None
-    for name, h_kv, S in [("b2_S4096_h32_causal_padkeys", 32, 4096),
-                          ("gqa_hkv8_S4096", 8, 4096), ("ragged_S4000_hkv8", 8, 4000)]:
+# the fused backward's cases: name, h_kv, d, seq, causal, q_offset,
+# kv_offset, bias kind. The first is the train step's attention (7b width,
+# batch 2 x 4096, the model's per-key bias with 300 right-padded keys in row
+# 1) and the timed one; the seq-1000 cases end in a ragged key tile (104 of
+# 128) and query tile (40 of 64), and their offsets move the causal start
+# off the tile grid
+BWD_CASES = [
+    ("b2_S4096_h32_causal_padkeys", 32, 128, 4096, True, 0, 0, "per_key"),
+    ("gqa_hkv8_S4096", 8, 128, 4096, True, 0, 0, "per_key"),
+    ("ragged_S4000_hkv8", 8, 128, 4000, True, 0, 0, "per_key"),
+    ("S1000_noncausal_offsets_fulltile", 32, 128, 1000, False, 700, 300, "full"),
+    ("S1000_causal_offsets_fulltile_hkv8", 8, 128, 1000, True, 700, 300, "full"),
+    ("d64_hkv8_S4096", 8, 64, 4096, True, 0, 0, "per_key"),
+]
+
+
+def _bwd_bias(kind, b, S, gen):
+    """The model's per-key bias (finfo.min on 300 right-padded keys of row
+    1), or a full-tile one: random values with 20% random holes, key 0
+    always valid."""
+    if kind == "per_key":
+        valid = torch.ones((b, S), dtype=torch.bool, device="cuda")
+        valid[1, S - 300:] = False
+        return torch.where(valid, 0.0, torch.finfo(BF16).min)[:, None, None, :], valid
+    holes = torch.rand((b, S, S), generator=gen, device="cuda") < 0.2
+    holes[:, :, 0] = False
+    vals = torch.randn((b, S, S), generator=gen, device="cuda")
+    return torch.where(holes, BIG_NEG, vals)[:, None], None
+
+
+def phase_bwd(gen):
+    """The fused backward at the training shapes and the tile edges against
+    the plain twin. Returns (max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by), the times at the first case; plain_ms is the twin's whole
+    backward, library_ms SDPA's backward (dq, dk, dv) with the same mask."""
+    b, h = 2, 32
+    worst, timing = 0.0, None
+    for name, h_kv, d, S, causal, q_off, kv_off, kind in BWD_CASES:
         q, g = _randn((b, S, h, d), gen), _randn((b, S, h, d), gen)
         k, v = _randn((b, S, h_kv, d), gen), _randn((b, S, h_kv, d), gen)
-        valid = torch.ones((b, S), dtype=torch.bool, device="cuda")
-        valid[1, S - 300:] = False                     # right-padded row
-        bias = torch.where(valid, 0.0, torch.finfo(BF16).min)[:, None, None, :]
-        out, lse = flash.flash_attention_fwd(q, k, v, bias, causal=True)
+        bias, valid = _bwd_bias(kind, b, S, gen)
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+        out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
         delta = torch.einsum("bqhd,bqhd->bhq", g.float(), out.float()).contiguous()
         args = (q, k, v, g, lse, delta, bias)
-        got = (flash.flash_attention_bwd_dq(*args), *flash.flash_attention_bwd_dkv(*args))
-        want = flash.flash_attention_bwd_plain(*args)
+        got = flash.flash_attention_bwd(*args, **kw)
+        want = flash.flash_attention_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
         parts = []
         for oname, a, r in zip(("dq", "dk", "dv"), got, want):
@@ -331,15 +383,13 @@ def phase_k23(gen):
             cos = _cosine(a, r)
             parts.append(f"{oname} max|Δ|/max|ref| {rel:.3e} cos {cos:.6f}")
             if not (rel <= BWD_REL_TOL and cos >= BWD_COS_MIN):
-                raise AssertionError(f"K2/K3 {name} {oname} disagrees with its plain twin")
-            kernel = "dq" if oname == "dq" else "dkv"
-            worst[kernel] = max(worst[kernel], diff)
-        log(f"K2/K3 {name}: " + "; ".join(parts) +
+                raise AssertionError(f"flash_bwd {name} {oname} disagrees with its plain twin")
+            worst = max(worst, diff)
+        log(f"flash_bwd {name}: " + "; ".join(parts) +
             f" (bounds {BWD_REL_TOL}, cos {BWD_COS_MIN})")
         if timing is None:
-            dq_ms = time_ms(lambda: flash.flash_attention_bwd_dq(*args), 10)
-            dkv_ms = time_ms(lambda: flash.flash_attention_bwd_dkv(*args), 10)
-            plain_ms = time_ms(lambda: flash.flash_attention_bwd_plain(*args), 3)
+            ms = time_ms(lambda: flash.flash_attention_bwd(*args, **kw), 10)
+            plain_ms = time_ms(lambda: flash.flash_attention_bwd_plain(*args, **kw), 3)
             # yardstick: SDPA's backward (dq, dk and dv together) with the
             # same per-key bias, causal
             pos = torch.arange(S, device="cuda")
@@ -349,18 +399,21 @@ def phase_k23(gen):
             gt = g.transpose(1, 2)
             lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), gt, retain_graph=True), 10)
             pairs = attn_pairs(valid, S, 0)
-            ins = (2 * q.numel() + 2 * k.numel()) * 2             # q, g, k, v in bf16
-            ins += 2 * b * h * S * 4 + b * S * 4                  # lse, delta, bias
-            bnd_dq = bound_ms(ins + q.numel() * 2, 6 * d * h * pairs, H100_BF16_PEAK)
-            bnd_dkv = bound_ms(ins + 2 * k.numel() * 2, 8 * d * h * pairs, H100_BF16_PEAK)
-            log(f"K2/K3 {name}: K2 {dq_ms:.3f} ms (bound {bnd_dq[0]:.3f}, {bnd_dq[1]}), K3 "
-                f"{dkv_ms:.3f} ms (bound {bnd_dkv[0]:.3f}, {bnd_dkv[1]}), plain backward "
-                f"{plain_ms:.3f} ms, SDPA backward {lib_ms:.3f} ms [{card()}]")
-            timing = (dq_ms, dkv_ms), plain_ms, lib_ms, (bnd_dq, bnd_dkv)
+            # q, g, k, v read and dq, dk, dv written in bf16; lse, delta and
+            # the bias read; dq's fp32 sum zeroed and read once. Five
+            # products of 2·d flops a (query, key) pair and head
+            n_bytes = (2 * q.numel() + 2 * k.numel()) * 2 * 2 + 2 * b * h * S * 4 + b * S * 4
+            n_bytes += q.numel() * 4 * 2
+            bnd = bound_ms(n_bytes, 10 * d * h * pairs, H100_BF16_PEAK)
+            log(f"flash_bwd {name}: kernel {ms:.3f} ms ({100 * bnd[0] / ms:.1f}% of the bound), "
+                f"plain backward {plain_ms:.3f} ms, SDPA backward {lib_ms:.3f} ms, bound "
+                f"{bnd[0]:.3f} ms ({bnd[1]}; {10 * d * h * pairs / 1e12:.2f} TFLOP, "
+                f"{n_bytes / 1e9:.3f} GB) [{card()}]")
+            timing = ms, plain_ms, lib_ms, *bnd
             del mask, qt, kt, vt, o
-        del q, k, v, g, out, got, want, args
+        del q, k, v, g, out, got, want, args, bias
         torch.cuda.empty_cache()
-    return (worst["dq"], worst["dkv"]), *timing
+    return worst, *timing
 
 
 def _int_mm_scaled(x_q, x_s, w, w_s):
@@ -409,19 +462,25 @@ def phase_k56(gen):
         n = max(1, math.ceil(L2_FLUSH_BYTES / w.numel()))
         ws = [(w.clone(), s.clone()) for _ in range(n - 1)] + [(w, s)]
         w16 = [(wc.float() * sc[:, None]).to(BF16) for wc, sc in ws]   # the bf16 product
+        graph = m <= 16   # decode: time CUDA-graph replays, not the host's launch rate
+        k5_call = lambda w, s: quant.int8_matmul(x, w, s)                       # noqa: E731
+        k6_call = lambda w, s: quant.w8a8_matmul_quantized(x_q, x_s, w, s, out_dtype=BF16)  # noqa: E731
         k5 = dict(
-            ms=time_ms(lambda w, s: quant.int8_matmul(x, w, s), 20, ws),
+            ms=time_ms(k5_call, 20, ws, graph),
             plain_ms=time_ms(lambda w, s: quant.int8_matmul_plain(x, w, s), 3, ws),
-            library_ms=time_ms(lambda w: F.linear(x, w), 20, [(t,) for t in w16]),
+            library_ms=time_ms(lambda w: F.linear(x, w), 20, [(t,) for t in w16], graph),
         )
-        deq_ms = time_ms(lambda w, s: quant.int8_matmul_dequant(x, w, s), 20, ws)
+        deq_ms = time_ms(lambda w, s: quant.int8_matmul_dequant(x, w, s), 20, ws, graph)
         k6 = dict(
-            ms=time_ms(lambda w, s: quant.w8a8_matmul_quantized(x_q, x_s, w, s, out_dtype=BF16),
-                       20, ws),
+            ms=time_ms(k6_call, 20, ws, graph),
             plain_ms=time_ms(lambda w, s: quant.w8a8_matmul_plain(x_q, x_s, w, s, out_dtype=BF16),
                              3, ws),
-            library_ms=time_ms(lambda w, s: _int_mm_scaled(x_q, x_s, w, s), 20, ws),
+            library_ms=time_ms(lambda w, s: _int_mm_scaled(x_q, x_s, w, s), 20, ws, graph),
         )
+        eager = ""
+        if graph:
+            eager = (f"; eager launches: K5 {time_ms(k5_call, 20, ws):.4f} ms, K6 "
+                     f"{time_ms(k6_call, 20, ws):.4f} ms")
         out_b, w_b = m * f * 2, f * d + f * 4
         k5["bound_ms"], k5["bound_by"] = bound_ms(m * d * 2 + w_b + out_b, 2 * m * d * f,
                                                   H100_BF16_PEAK)
@@ -432,7 +491,7 @@ def phase_k56(gen):
             f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}) [{card()}]")
         log(f"K6 {name}: kernel {k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, _int_mm + scales "
             f"{k6['library_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}) "
-            f"({n} weight copies cycled)")
+            f"({n} weight copies cycled; {'CUDA-graph replay' if graph else 'eager'}{eager})")
         if name == QUANT_REPORT:
             report = {"int8_matmul": k5, "w8a8_matmul": k6}
         if name == QUANT_ADMIT_REPORT:
@@ -487,7 +546,7 @@ def expected_launches(cfg, admitted, rounds):
     body, head = 7 * L, 0 if cfg.tie_word_embeddings else 1
     k5 = {"int8": body + head, "int8_w8a8": head}.get(cfg.quant_dense, 0)
     k6 = body if cfg.quant_dense == "int8_w8a8" else 0
-    return dict(flash_fwd=L * admitted, flash_bwd_dq=0, flash_bwd_dkv=0,
+    return dict(flash_fwd=L * admitted, flash_bwd=0,
                 flash_decode=L * rounds, int8_matmul=k5 * forwards, w8a8_matmul=k6 * forwards,
                 int8_matmul_gemm=k5 * admitted)
 
@@ -495,9 +554,19 @@ def expected_launches(cfg, admitted, rounds):
 def serve(model, name, n_requests=12):
     """The first `n_requests` of the mix through InflightServer (8 slots,
     cache 4096, run_serve.sh's buckets), launch counts set to 0 just before
-    the run and read just after. Checks every request and the exact launch
-    counts; returns (launches, summary)."""
+    the run and read just after. Before it, one untimed warm-up admission at
+    each bucket, so that no arm pays the first use of a kernel in its timed
+    run (cuBLAS loads and picks its kernels at the first product of a
+    shape). Checks every request and the exact launch counts; returns
+    (launches, summary)."""
     cfg = model.config
+    warm = serving_requests(cfg)[0]
+    with torch.no_grad():
+        for i in CHECKED_PROMPTS:   # one prompt in each bucket
+            bucket = next(b for b in BUCKETS if b >= len(warm[i]))
+            prefill_logits(model, model.init_cache(1, 4096), warm[i], bucket)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     srv = InflightServer(model, slots=8, cache_len=4096, prompt_buckets=BUCKETS,
                          stop_tokens=(cfg.eos_token_id,), seed=SEED)
     prompts, budgets, temps = (r[:n_requests] for r in serving_requests(cfg))
@@ -678,8 +747,7 @@ def _lm_batch(b, s, vocab, seed):
 
 KERNEL_WRAPPERS = {   # kernel name → the wrapper that counts its launches
     "flash_fwd": flash.flash_attention_fwd,
-    "flash_bwd_dq": flash.flash_attention_bwd_dq,
-    "flash_bwd_dkv": flash.flash_attention_bwd_dkv,
+    "flash_bwd": flash.flash_attention_bwd,
     "flash_decode": decode.flash_decode,
     "int8_matmul": quant.int8_matmul,
     "w8a8_matmul": quant.w8a8_matmul_quantized,
@@ -733,7 +801,7 @@ def phase_train_compare():
         f"kernel {t_k:.2f} plain {t_p:.2f} fp32 {t_32:.2f}; kernel-path launches {n_k}")
     if not (math.isfinite(l_k) and abs(l_k - l_p) <= LOSS_TOL):
         raise AssertionError("kernel-path loss disagrees with the plain path")
-    if min(n_k[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")) <= 0:
+    if min(n_k[k] for k in ("flash_fwd", "flash_bwd")) <= 0:
         raise AssertionError(f"a training kernel never launched: {n_k}")
     worst = (0.0, "")
     for n in g_k:
@@ -800,7 +868,7 @@ def phase_train_full(profile=None):
         f"of 989 TFLOP/s; peak memory {peak:.1f} GiB [{card()}]")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"training loss not finite and falling: {losses}")
-    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for k in ("flash_fwd", "flash_bwd"):
         if launches[k] != layers * steps:
             raise AssertionError(f"{k} launched {launches[k]} times, want {layers * steps}")
     if profile:
@@ -811,10 +879,8 @@ def phase_train_full(profile=None):
 def _kernel_kind(name):
     if "flash_fwd_kernel" in name:
         return "K1 flash_fwd"
-    if "flash_bwd_dq_kernel" in name:
-        return "K2 flash_bwd_dq"
-    if "flash_bwd_dkv_kernel" in name:
-        return "K3 flash_bwd_dkv"
+    if "flash_bwd_kernel" in name:
+        return "flash_bwd (dq, dk, dv)"
     if any(t in name.lower() for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "dot_kernel")):
         return "dense (cuBLAS)"
     if name.startswith("Memcpy") or name.startswith("Memset"):
@@ -872,7 +938,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1 = phase_k1(gen)
     k4 = phase_k4(gen)
-    k23 = phase_k23(gen)
+    bwd = phase_bwd(gen)
     k56, k5_admit = phase_k56(gen)
     torch.cuda.empty_cache()
     # each main path's counts, set to 0 just before its run and read just after
@@ -892,13 +958,10 @@ def main():
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=library_ms)
 
-    (dq_err, dkv_err), (dq_ms, dkv_ms), bwd_plain_ms, bwd_lib_ms, (bnd_dq, bnd_dkv) = k23
     kernels = [
         row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
-        row("flash_bwd_dq", "flash_bwd.cu", "lwm_tpu/ops/pallas_flash.py:288",
-            dq_err, dq_ms, bwd_plain_ms, bwd_lib_ms, *bnd_dq),
-        row("flash_bwd_dkv", "flash_bwd.cu", "lwm_tpu/ops/pallas_flash.py:356",
-            dkv_err, dkv_ms, bwd_plain_ms, bwd_lib_ms, *bnd_dkv),
+        row("flash_bwd", "flash_bwd.cu",
+            "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
         row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
         dict(row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107",
                  **k56["int8_matmul"]), **{QUANT_ADMIT_REPORT: k5_admit}),

@@ -1,34 +1,52 @@
-// K2 and K3: flash-attention backward for Hopper (sm_90a), bf16 in, fp32 math.
+// Flash-attention backward for Hopper (sm_90a): dq, dk and dv in one pass,
+// bf16 in, fp32 math.
 //
-// Replaces the TPU kernels `_bwd_dq_kernel` (K2, lwm_tpu/ops/pallas_flash.py:
-// 288-353) and `_bwd_dkv_kernel` (K3, :356-445), both launched by
+// Replaces the TPU kernels `_bwd_dq_kernel` (lwm_tpu/ops/pallas_flash.py:
+// 288-353) and `_bwd_dkv_kernel` (:356-445), both launched by
 // `_flash_attention_bwd_single` (:903-1127). Same contract, the backward of
 // K1 (flash_fwd.cu):
 //   logits = q·kᵀ·scale + bias, masked (causal by global position: query i
 //            at q_offset + i, key j at kv_offset + j; keys ≥ skv, rows ≥ sq)
 //   p  = logits > MASK_GUARD ? exp(logits − lse) : 0     (lse from K1)
 //   dp = g·vᵀ,  ds = p·(dp − delta)·scale                  (delta = Σ g·out)
-//   K2: dq = ds·k                     (ds rounded to bf16 before the product)
-//   K3: dv = pᵀ·g, dk = dsᵀ·q         (p and ds rounded to bf16 likewise)
+//   dv = pᵀ·g, dk = dsᵀ·q, dq = ds·k   (p and ds rounded to bf16 before these)
 // with fp32 accumulation, GQA (query head qh reads kv head qh / g) and
 // dk/dv returned at h_kv heads, every group member summed in fp32.
 //
-// What bounds it on the card: at training widths (seq 4096, d 128) each
-// kernel does 6·sq·skv·d flops per head (three products) on O((sq + skv)·d)
-// bytes, far above the H100's ~295 flop/byte ridge, so tensor-core
-// throughput bounds it. Design, as simple as K1's:
-// - K2: one block of 4 warps per (b·h, 64-query tile); each warp owns 16 query
-//   rows. The block walks the kv tiles up to the causal frontier itself, so
-//   dq sums in registers with no cross-block reduction. q and g stay in
-//   shared memory; each 64-key tile of k and v is staged there.
-// - K3: one block per (b·h_kv, 64-key tile); each warp owns 16 keys and keeps
-//   their dk and dv in fp32 registers. It walks every (group member, 32-query
-//   tile) from the causal start, recomputing pᵀ and dsᵀ with the keys as mma
-//   rows, and writes dk/dv once: no atomics, and kv is never expanded to h
-//   heads (the TPU grid (b·h_kv, nk, group·nq) does the same).
-// All products are mma.sync.m16n8k16 (bf16 in, fp32 accumulate); p/ds feed
-// the second products straight from the first products' accumulators, as K1
-// feeds p·v. Not yet: TMA, wgmma, a fused dq/dkv pass.
+// What bounds it on the card: at training widths (seq 4096, d 128) the pass
+// does 10·sq·skv·d flops per head (five products, two of them recomputing
+// the forward's q·kᵀ and g·vᵀ) on O((sq + skv)·d) bytes, far above the
+// H100's ~295 flop/byte ridge, so tensor-core throughput bounds it, and only
+// `wgmma` reaches the tensor cores' full rate. The design (the usual
+// FlashAttention-2/3 backward):
+// - One block of two warpgroups per (b·h_kv, 128-key tile); each warpgroup
+//   owns 64 keys, the `wgmma` M rows. The block's k and v tiles stay in
+//   128-byte-swizzled shared memory for the whole block.
+// - The block walks every (group member, 64-query tile) from the causal
+//   start. q, g, lse and delta of the next tile are loaded by `cp.async`
+//   (every thread) into the other of two stages while this tile computes.
+// - Per query tile, each warpgroup computes sᵀ = k·qᵀ and dpᵀ = v·gᵀ
+//   (m64n64k16, both operands from shared memory), forms pᵀ and dsᵀ in
+//   registers, and adds dv += pᵀ·g and dk += dsᵀ·q with pᵀ and dsᵀ as the
+//   register A operand: an m64nNk16 accumulator is, rounded to bf16 in
+//   pairs, exactly the A fragment of the next product. q and g are read as
+//   N-major B (bf16 allows it), so the tiles are never transposed.
+// - dk and dv stay in fp32 registers for the whole block and are written
+//   once, with no atomics (the group of query heads is summed there too).
+// - dq: dsᵀ goes to shared memory once; each warpgroup then computes one
+//   64-wide half of the tile's dq over all 128 keys (d 128; at d 64, its
+//   own 64 keys over the whole row) and adds it into an fp32 dq_accum
+//   [b, sq, h, d] with vector atomics. The wrapper zeroes dq_accum before
+//   and rounds it to bf16 after. The order of those sums changes from run
+//   to run, so dq is not bit-reproducible (dk and dv are).
+// - The heaviest key tiles (causally, the first: they see the most queries)
+//   of every (b, kv head) launch in the first waves and the lightest in the
+//   last, so the card does not wait on a few long blocks at the end.
+// Not yet: dq summed across a cluster before the atomics (they take ~0.5
+// ms of the ~2.5 at the training shape on an H100 80GB HBM3 at 700 W).
+// Tried and slower there: TMA loads from a producer warpgroup with
+// `setmaxnreg` (384 threads: ptxas kept the 168-register budget for the
+// consumers, which need 250, spilled and serialized the wgmmas).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,11 +56,10 @@ namespace {
 
 constexpr float kBigNeg = -1e30f;
 constexpr float kMaskGuard = -1e29f;
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kPad = 8;        // bf16 elements of padding per smem row
-constexpr int kBM = 64;        // K2: query rows per block (16 per warp)
-constexpr int kBN = 64;        // K2: keys per kv tile; K3: keys per block (16 per warp)
-constexpr int kBQ = 32;        // K3: query rows per inner tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kBK = 128;       // keys per block: 64 per warpgroup
+constexpr int kBQ = 64;        // queries per inner tile
 
 struct BwdParams {
   const __nv_bfloat16* q;
@@ -52,7 +69,7 @@ struct BwdParams {
   const float* lse;    // [b, h, sq]
   const float* delta;  // [b, h, sq]
   const float* bias;   // [bb, rows, skv] or null
-  __nv_bfloat16* dq;   // [b, sq, h, d]
+  float* dq_accum;     // [b, sq, h, d] fp32, zeroed by the caller
   __nv_bfloat16* dk;   // [b, skv, h_kv, d]
   __nv_bfloat16* dv;
   int sq, skv, h, h_kv;
@@ -62,14 +79,136 @@ struct BwdParams {
   float scale;
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
+// Shared memory of one block, byte offsets from a 1024-aligned base. A tile
+// of R rows × D bf16 is D / 64 column halves of R rows × 128 bytes, each
+// row's eight 16-byte chunks swizzled (chunk c of row r at c ^ (r % 8)): the
+// layout `wgmma` reads without bank conflicts, K-major or N-major alike.
+template <int D>
+struct Smem {
+  static constexpr int kKV = kBK * D * 2;   // the k (or v) tile
+  static constexpr int kQG = kBQ * D * 2;   // a q (or g) tile, per stage
+  static constexpr int kK = 0;
+  static constexpr int kV = kKV;
+  static constexpr int kQ = 2 * kKV;        // two stages
+  static constexpr int kG = kQ + 2 * kQG;   // two stages
+  static constexpr int kDS = kG + 2 * kQG;  // dsᵀ [128 keys × 64 queries], one half
+  static constexpr int kStat = kDS + kBK * kBQ * 2;  // lse, delta: [stage][2][kBQ] fp32
+  static constexpr int kBytes = kStat + 2 * 2 * kBQ * 4;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+// byte offset of element (r, c) of an R-row swizzled tile (see Smem)
+template <int R>
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * R * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// generic-proxy writes (cp.async, st.shared) → visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ROWS × D tile of bf16 into its swizzled slot, 16 bytes per thread per
+// step; rows at or past `rows_valid` are zero-filled so masked rows never
+// carry garbage into a product (0 · NaN would poison it)
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
+                                          long long row_stride, int rows_valid, int tid) {
+  constexpr int kChunks = D / 8;
+  static_assert(ROWS * kChunks % kThreads == 0, "whole steps of 16 bytes a thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * kChunks / kThreads; ++j) {
+    const int i = tid + j * kThreads;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool in = r < rows_valid;
+    cp_async16(dst + swz<ROWS>(r, c), src + (in ? r * row_stride + c : 0), in ? 16 : 0);
+  }
+}
+
+// ------------------------------------------------------------------ wgmma
+
+// shared-memory descriptor of a 128-byte-swizzled tile whose 8-row groups
+// are 1024 bytes apart. K-major (rows are M or N, 64 k per row): the
+// stride is SBO, LBO is unused; adding 2 moves the start 32 bytes (k 16).
+// N-major (rows are k, 64 of M or N per row, one 64-wide atom): the 8-row
+// groups are again SBO apart; LBO (the next 64-wide atom) is never used at
+// M, N = 64, and is set to the same stride. 16 k rows are 2048 bytes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+#define LWM_ACC32                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define LWM_REGS32                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 × 64] (+)= A (64 × 16) · B (16 × 64), both from shared memory; TA /
+// TB: the operand is M- / N-major. scale_d 0 ignores d's old value.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LWM_REGS32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : LWM_ACC32
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 × 64] (+)= A (64 × 16, four bf16x2 fragments a) · B (16 × 64, N-major
+// in shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LWM_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : LWM_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across a wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // two floats → packed bf16x2, the lower index in the low half
@@ -78,282 +217,248 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&t);
 }
 
-// ROWS × D tile of bf16 into smem (row stride D + kPad), 16 bytes per
-// thread per step; rows at or past `rows_valid` are zero-filled so masked
-// rows never carry garbage into a product (0 · NaN would poison it)
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* g,
-                                          long long row_stride, int rows_valid, int tid) {
-  constexpr int kChunks = D / 8;
-  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) val = *reinterpret_cast<const uint4*>(g + r * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(smem + r * (D + kPad) + c * 8) = val;
-  }
-}
-
-// acc[16 × 8·NT] = A[row0 .. row0+16, 0..D) · B[0 .. 8·NT, 0..D)ᵀ, both
-// row-major in smem (A's rows are the mma rows, B's rows its columns)
-template <int D, int NT>
-__device__ __forceinline__ void mma_rows(float (&acc)[NT][4], const __nv_bfloat16* a_s,
-                                         int row0, const __nv_bfloat16* b_s, int gid, int t4) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < D; kc += 16) {
-    const __nv_bfloat16* pa = a_s + (row0 + gid) * LD + kc + 2 * t4;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(pa);
-    const uint32_t a1 = *reinterpret_cast<const uint32_t*>(pa + 8 * LD);
-    const uint32_t a2 = *reinterpret_cast<const uint32_t*>(pa + 8);
-    const uint32_t a3 = *reinterpret_cast<const uint32_t*>(pa + 8 * LD + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* pb = b_s + (nt * 8 + gid) * LD + kc + 2 * t4;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(pb);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(pb + 8);
-      mma_bf16_16816(acc[nt], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
-// out[16 × D] += X[16 × 16·KK] · B[0 .. 16·KK, 0..D), X given as the fp32
-// accumulators of a previous mma_rows (n-tiles 2kk, 2kk+1 are exactly the A
-// fragment of k chunk kk) and rounded to bf16 here; B row-major in smem
-template <int D, int KK>
-__device__ __forceinline__ void mma_acc(float (&out)[D / 8][4], const float (&x)[2 * KK][4],
-                                        const __nv_bfloat16* b_s, int gid, int t4) {
-  constexpr int LD = D + kPad;
-  const unsigned short* bits = reinterpret_cast<const unsigned short*>(b_s);
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    const uint32_t a0 = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const int base = (kk * 16 + 2 * t4) * LD + dt * 8 + gid;
-      const uint32_t b0 = (uint32_t)bits[base] | ((uint32_t)bits[base + LD] << 16);
-      const uint32_t b1 = (uint32_t)bits[base + 8 * LD] | ((uint32_t)bits[base + 9 * LD] << 16);
-      mma_bf16_16816(out[dt], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
-// the masked, scaled logit of (query qrow, key) from the raw product s
-__device__ __forceinline__ float masked_logit(const BwdParams& p, const float* bias_g, float s,
-                                              int qrow, int key) {
-  bool valid = key < p.skv && qrow < p.sq;
-  float x = s * p.scale;
-  if (valid && bias_g) x += bias_g[qrow * p.bias_sr + key];
-  if (p.causal && p.kv_offset + key > p.q_offset + qrow) valid = false;
-  return valid ? x : kBigNeg;
-}
+// ----------------------------------------------------------------- kernel
+//
+// Accumulator element i of an m64n64 tile, in a thread of warp w (of its
+// warpgroup), lane (g8, t4) = (lane / 4, lane % 4): row 16·w + g8 +
+// 8·((i / 2) % 2), column 8·(i / 4) + 2·t4 + i % 2. Elements 8j .. 8j + 7,
+// packed in pairs, are the A fragments (a0 .. a3) of k chunk j.
 
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[D / 8][4],
-                                           int r, int t4) {
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(dst + dt * 8 + 2 * t4) =
-        pack_bf16(acc[dt][2 * r], acc[dt][2 * r + 1]);
-  }
-}
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams p) {
+  using L = Smem<D>;
+  constexpr int kHalves = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const float* stat_s = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kStat);
 
-// K2: dq for one (b, h, 64-query tile)
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* g_s = q_s + kBM * LD;
-  __nv_bfloat16* k_s = g_s + kBM * LD;
-  __nv_bfloat16* v_s = k_s + kBN * LD;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
-  const int bi = blockIdx.y / p.h, hi = blockIdx.y % p.h;
-  const int kvh = hi / (p.h / p.h_kv);
-  const int q0 = blockIdx.x * kBM;
-
-  const __nv_bfloat16* k_g = p.k + bi * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* v_g = p.v + bi * p.v_sb + kvh * p.v_sh;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int bi = blockIdx.x / p.h_kv, kvh = blockIdx.x % p.h_kv;
+  const int group = p.h / p.h_kv;
+  const int k0 = blockIdx.y * kBK;
   const float* bias_g = p.bias ? p.bias + bi * p.bias_sb : nullptr;
-  const int rows_valid = min(kBM, p.sq - q0);
-  load_tile<D, kBM>(q_s, p.q + bi * p.q_sb + (long long)q0 * p.q_ss + hi * p.q_sh, p.q_ss,
-                    rows_valid, tid);
-  load_tile<D, kBM>(g_s, p.g + bi * p.g_sb + (long long)q0 * p.g_ss + hi * p.g_sh, p.g_ss,
-                    rows_valid, tid);
 
-  // this thread's two rows (fragment rows gid and gid + 8 of its warp)
-  int qrow[2];
-  float lse[2], delta[2];
-  const long long stat0 = ((long long)bi * p.h + hi) * p.sq;
+  // the (group member, query tile) walk: from the first query that sees
+  // any key of this tile
+  const int q_start = p.causal ? max(0, p.kv_offset + k0 - p.q_offset) : 0;
+  const int qt0 = q_start / kBQ;
+  const int per = max(0, (p.sq + kBQ - 1) / kBQ - qt0);
+  const int n_iter = group * per;
+
+  auto load_q = [&](int it, int s) {
+    const int qh = kvh * group + it / per, q0 = (qt0 + it % per) * kBQ;
+    const int rows = min(kBQ, p.sq - q0);
+    load_tile<D, kBQ>(base + L::kQ + s * L::kQG,
+                      p.q + bi * p.q_sb + (long long)q0 * p.q_ss + qh * p.q_sh, p.q_ss, rows, tid);
+    load_tile<D, kBQ>(base + L::kG + s * L::kQG,
+                      p.g + bi * p.g_sb + (long long)q0 * p.g_ss + qh * p.g_sh, p.g_ss, rows, tid);
+    if (tid < 2 * kBQ) {  // lse (threads 0..63) and delta (64..127)
+      const int r = tid % kBQ;
+      const float* src = (tid < kBQ ? p.lse : p.delta) + ((long long)bi * p.h + qh) * p.sq + q0;
+      cp_async4(base + L::kStat + (s * 2 * kBQ + tid) * 4, src + (r < rows ? r : 0),
+                r < rows ? 4 : 0);
+    }
+  };
+
+  load_tile<D, kBK>(base + L::kK, p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh,
+                    p.k_ss, min(kBK, p.skv - k0), tid);
+  load_tile<D, kBK>(base + L::kV, p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh,
+                    p.v_ss, min(kBK, p.skv - k0), tid);
+  if (n_iter > 0) load_q(0, 0);
+  cp_async_commit();
+
+  // this thread's two keys (accumulator rows g8 and g8 + 8 of its warp)
+  const int key_row = wg * 64 + warp * 16 + g8;  // within the tile
+  int key[2];
+  float key_bias[2] = {0.f, 0.f};  // the per-key bias, when the bias has one row
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qrow[r] = q0 + warp * 16 + gid + 8 * r;
-    const bool in = qrow[r] < p.sq;
-    lse[r] = in ? p.lse[stat0 + qrow[r]] : 0.f;
-    delta[r] = in ? p.delta[stat0 + qrow[r]] : 0.f;
+    key[r] = k0 + key_row + 8 * r;
+    if (bias_g && p.bias_sr == 0 && key[r] < p.skv) key_bias[r] = bias_g[key[r]];
   }
-  float acc[D / 8][4];
+  const bool full_bias = bias_g && p.bias_sr != 0;
+
+  float dk[kHalves][32], dv[kHalves][32];
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it & 1;
+    const int qh = kvh * group + it / per, q0 = (qt0 + it % per) * kBQ;
+    cp_async_wait_all();  // this thread's copies of stage s (and of k, v)
+    fence_async_smem();
+    __syncthreads();      // stage s complete; iteration it − 1 is done with stage s ^ 1 and dsᵀ
+    if (it + 1 < n_iter) load_q(it + 1, s ^ 1);
+    cp_async_commit();
+
+    const uint32_t q_s = base + L::kQ + s * L::kQG, g_s = base + L::kG + s * L::kQG;
+    const uint32_t k_s = base + L::kK + wg * 64 * 128, v_s = base + L::kV + wg * 64 * 128;
+
+    // sᵀ = k·qᵀ, dpᵀ = v·gᵀ: this warpgroup's 64 keys × 64 queries, k = d
+    float sa[32], da[32];
+    wgmma_fence();
+    fence_acc(sa);
+    fence_acc(da);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk >> 2) * kBK * 128 + (kk & 3) * 32;   // k tile: 128 rows a half
+      const int qoff = (kk >> 2) * kBQ * 128 + (kk & 3) * 32;  // q, g tiles: 64 rows a half
+      wgmma_ss<0, 0>(sa, smem_desc(k_s + off), smem_desc(q_s + qoff), kk > 0);
+      wgmma_ss<0, 0>(da, smem_desc(v_s + off), smem_desc(g_s + qoff), kk > 0);
+    }
+    wgmma_commit();
+    fence_acc(sa);
+    fence_acc(da);
+    wgmma_wait_all();
 
-  int kv_end = p.skv;
-  if (p.causal) {  // last key any row of this tile can see
-    const int last_q = p.q_offset + q0 + rows_valid - 1;
-    kv_end = min(kv_end, last_q - p.kv_offset + 1);
-  }
-  const int n_tiles = kv_end > 0 ? (kv_end + kBN - 1) / kBN : 0;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBN;
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<D, kBN>(k_s, k_g + (long long)k0 * p.k_ss, p.k_ss, min(kBN, p.skv - k0), tid);
-    load_tile<D, kBN>(v_s, v_g + (long long)k0 * p.v_ss, p.v_ss, min(kBN, p.skv - k0), tid);
-    __syncthreads();
-
-    float s[kBN / 8][4], dp[kBN / 8][4];
-    mma_rows<D, kBN / 8>(s, q_s, warp * 16, k_s, gid, t4);   // q·kᵀ
-    mma_rows<D, kBN / 8>(dp, g_s, warp * 16, v_s, gid, t4);  // g·vᵀ
+    // pᵀ and dsᵀ in place
+    const float* lse_s = stat_s + s * 2 * kBQ;
+    const float* delta_s = lse_s + kBQ;
+    const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv ||
+                      (p.causal && p.kv_offset + k0 + kBK - 1 > p.q_offset + q0);
+    uint32_t pa[4][4], dsa[4][4];  // bf16 A fragments of the 4 query chunks of 16
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 8 * j; i < 8 * j + 8; ++i) {
+        const int r = (i >> 1) & 1, qi = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int qrow = q0 + qi;
+        float x = fmaf(sa[i], p.scale, key_bias[r]);
+        if (edge || full_bias) {
+          bool valid = key[r] < p.skv && qrow < p.sq;
+          if (valid && full_bias) x += bias_g[qrow * p.bias_sr + key[r]];
+          if (p.causal && p.kv_offset + key[r] > p.q_offset + qrow) valid = false;
+          x = valid ? x : kBigNeg;
+        }
+        const float pe = x > kMaskGuard ? exp2f((x - lse_s[qi]) * kLog2e) : 0.f;
+        sa[i] = pe;
+        da[i] = pe * (da[i] - delta_s[qi]) * p.scale;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-        const float x = masked_logit(p, bias_g, s[nt][e], qrow[r], key);
-        const float pe = x > kMaskGuard ? expf(x - lse[r]) : 0.f;
-        s[nt][e] = pe * (dp[nt][e] - delta[r]) * p.scale;  // ds
+        pa[j][e] = pack_bf16(sa[8 * j + 2 * e], sa[8 * j + 2 * e + 1]);
+        dsa[j][e] = pack_bf16(da[8 * j + 2 * e], da[8 * j + 2 * e + 1]);
       }
     }
-    mma_acc<D, kBN / 16>(acc, s, k_s, gid, t4);  // dq += ds·k
-  }
-
+    // dsᵀ → shared memory, [128 keys × 64 queries] (fragment e: rows g8 /
+    // g8 + 8 for e even / odd, columns 16j + 8·(e / 2) + 2·t4)
+    uint8_t* ds_s = smem_raw + (base - raw) + L::kDS;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qrow[r] >= p.sq) continue;
-    store_rows<D>(p.dq + (((long long)bi * p.sq + qrow[r]) * p.h + hi) * D, acc, r, t4);
-  }
-}
-
-// K3: dk and dv for one (b, kv head, 64-key tile), summed over the group
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + kBN * LD;
-  __nv_bfloat16* q_s = v_s + kBN * LD;
-  __nv_bfloat16* g_s = q_s + kBQ * LD;
-  float* lse_s = reinterpret_cast<float*>(g_s + kBQ * LD);
-  float* delta_s = lse_s + kBQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, t4 = lane & 3;
-  const int bi = blockIdx.y / p.h_kv, kvh = blockIdx.y % p.h_kv;
-  const int group = p.h / p.h_kv;
-  const int k0 = blockIdx.x * kBN;
-
-  const float* bias_g = p.bias ? p.bias + bi * p.bias_sb : nullptr;
-  load_tile<D, kBN>(k_s, p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss,
-                    min(kBN, p.skv - k0), tid);
-  load_tile<D, kBN>(v_s, p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss,
-                    min(kBN, p.skv - k0), tid);
-
-  int key[2];
-  key[0] = k0 + warp * 16 + gid;
-  key[1] = key[0] + 8;
-  float dk[D / 8][4], dv[D / 8][4];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-  }
+      for (int e = 0; e < 4; ++e)
+        *reinterpret_cast<uint32_t*>(ds_s + swz<kBK>(key_row + 8 * (e & 1),
+                                                     16 * j + 8 * (e >> 1) + 2 * t4)) = dsa[j][e];
+    fence_async_smem();
 
-  // first query that sees any key of this tile
-  const int q_start = p.causal ? max(0, p.kv_offset + k0 - p.q_offset) : 0;
-  const int n_qt = (p.sq + kBQ - 1) / kBQ;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int qh = kvh * group + gi;
-    const __nv_bfloat16* q_g = p.q + bi * p.q_sb + qh * p.q_sh;
-    const __nv_bfloat16* g_g = p.g + bi * p.g_sb + qh * p.g_sh;
-    const long long stat0 = ((long long)bi * p.h + qh) * p.sq;
-    for (int qt = q_start / kBQ; qt < n_qt; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // the previous tile's reads are done
-      load_tile<D, kBQ>(q_s, q_g + (long long)q0 * p.q_ss, p.q_ss, min(kBQ, p.sq - q0), tid);
-      load_tile<D, kBQ>(g_s, g_g + (long long)q0 * p.g_ss, p.g_ss, min(kBQ, p.sq - q0), tid);
-      if (tid < kBQ) {
-        const bool in = q0 + tid < p.sq;
-        lse_s[tid] = in ? p.lse[stat0 + q0 + tid] : 0.f;
-        delta_s[tid] = in ? p.delta[stat0 + q0 + tid] : 0.f;
+    // dv += pᵀ·g, dk += dsᵀ·q: A from registers, g and q N-major
+    wgmma_fence();
+    fence_frag(pa);
+    fence_frag(dsa);
+#pragma unroll
+    for (int hh = 0; hh < kHalves; ++hh) {
+      fence_acc(dv[hh]);
+      fence_acc(dk[hh]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < kHalves; ++hh) {
+        const int off = hh * kBQ * 128 + j * 16 * 128;
+        wgmma_rs(dv[hh], pa[j], smem_desc(g_s + off), it > 0 || j > 0);
+        wgmma_rs(dk[hh], dsa[j], smem_desc(q_s + off), it > 0 || j > 0);
       }
-      __syncthreads();
+    wgmma_commit();
+    __syncthreads();  // both warpgroups' dsᵀ are in shared memory
+    // dv and dk finish before dq starts, so that pᵀ's and dsᵀ's registers
+    // are free for dq's accumulators (at d 128 they would not all fit)
+#pragma unroll
+    for (int hh = 0; hh < kHalves; ++hh) {
+      fence_acc(dv[hh]);
+      fence_acc(dk[hh]);
+    }
+    wgmma_wait_all();
+    fence_frag(pa);
+    fence_frag(dsa);
 
-      // transposed products: rows are this warp's 16 keys, columns queries
-      float s[kBQ / 8][4], dp[kBQ / 8][4];
-      mma_rows<D, kBQ / 8>(s, k_s, warp * 16, q_s, gid, t4);   // k·qᵀ
-      mma_rows<D, kBQ / 8>(dp, v_s, warp * 16, g_s, gid, t4);  // v·gᵀ
+    // dq = ds·k: A = dsᵀ read M-major, B = the k tile N-major. d 128: this
+    // warpgroup's half of d over all 128 keys; d 64: all of d over its own
+    // 64 keys (both warpgroups add into the same dq rows)
+    float qa[32];
+    constexpr int kSteps = D == 128 ? kBK / 16 : 4;
+    const uint32_t ds_a = base + L::kDS + (D == 128 ? 0 : wg * 64 * 128);
+    const uint32_t kb = base + L::kK + (D == 128 ? wg * kBK * 128 : wg * 64 * 128);
+    wgmma_fence();
+    fence_acc(qa);
 #pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) {
+    for (int kk = 0; kk < kSteps; ++kk)
+      wgmma_ss<1, 1>(qa, smem_desc(ds_a + kk * 2048), smem_desc(kb + kk * 2048), kk > 0);
+    wgmma_commit();
+    fence_acc(qa);
+    wgmma_wait_all();
+
+    // rows are queries here, columns d
+    const int col0 = D == 128 ? wg * 64 : 0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = nt * 8 + 2 * t4 + (e & 1);
-          const float x = masked_logit(p, bias_g, s[nt][e], q0 + qi, key[e >> 1]);
-          const float pe = x > kMaskGuard ? expf(x - lse_s[qi]) : 0.f;
-          s[nt][e] = pe;
-          dp[nt][e] = pe * (dp[nt][e] - delta_s[qi]) * p.scale;  // dsᵀ
-        }
-      }
-      mma_acc<D, kBQ / 16>(dv, s, g_s, gid, t4);   // dv += pᵀ·g
-      mma_acc<D, kBQ / 16>(dk, dp, q_s, gid, t4);  // dk += dsᵀ·q
+    for (int i = 0; i < 32; i += 2) {
+      const int qrow = q0 + warp * 16 + g8 + 8 * ((i >> 1) & 1);
+      const int col = col0 + 8 * (i >> 2) + 2 * t4;
+      if (qrow < p.sq)
+        atomicAdd(reinterpret_cast<float2*>(p.dq_accum +
+                                            (((long long)bi * p.sq + qrow) * p.h + qh) * D + col),
+                  make_float2(qa[i], qa[i + 1]));
     }
   }
 
+  cp_async_wait_all();  // no copy is left in flight when the block exits
+#pragma unroll
+  for (int hh = 0; hh < kHalves; ++hh) {
+    fence_acc(dv[hh]);
+    fence_acc(dk[hh]);
+    if (n_iter == 0)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[hh][i] = dv[hh][i] = 0.f;
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= p.skv) continue;
     const long long off = (((long long)bi * p.skv + key[r]) * p.h_kv + kvh) * D;
-    store_rows<D>(p.dk + off, dk, r, t4);
-    store_rows<D>(p.dv + off, dv, r, t4);
+#pragma unroll
+    for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = hh * 64 + 8 * j + 2 * t4, i = 4 * j + 2 * r;
+        *reinterpret_cast<uint32_t*>(p.dk + off + col) = pack_bf16(dk[hh][i], dk[hh][i + 1]);
+        *reinterpret_cast<uint32_t*>(p.dv + off + col) = pack_bf16(dv[hh][i], dv[hh][i + 1]);
+      }
   }
 }
 
 template <int D>
-cudaError_t launch_dq(const BwdParams& p, int b, cudaStream_t stream) {
-  const int smem = (2 * kBM + 2 * kBN) * (D + kPad) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch(const BwdParams& p, int b, cudaStream_t stream) {
+  constexpr int smem = Smem<D>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + kBM - 1) / kBM, b * p.h);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  // blockIdx.x walks (b, kv head), blockIdx.y the key tiles: the heaviest
+  // (causal) tiles of every head first
+  const dim3 grid(b * p.h_kv, (p.skv + kBK - 1) / kBK);
+  flash_bwd_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv(const BwdParams& p, int b, cudaStream_t stream) {
-  const int smem = (2 * kBN + 2 * kBQ) * (D + kPad) * (int)sizeof(__nv_bfloat16) +
-                   2 * kBQ * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.skv + kBN - 1) / kBN, b * p.h_kv);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
+}  // namespace
 
-BwdParams make_params(const void* q, const void* k, const void* v, const void* g,
-                      const void* lse, const void* delta, const void* bias, int sq, int skv,
-                      int h, int h_kv, long long q_sb, long long q_ss, long long q_sh,
-                      long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-                      long long v_ss, long long v_sh, long long g_sb, long long g_ss,
-                      long long g_sh, long long bias_sb, long long bias_sr, int causal,
-                      int q_offset, int kv_offset, float scale) {
+// dq_accum [b, sq, h, d] fp32 must be zero; dk, dv [b, skv, h_kv, d] bf16
+// are written whole
+extern "C" int lwm_flash_bwd(const void* q, const void* k, const void* v, const void* g,
+                             const void* lse, const void* delta, const void* bias, void* dq_accum,
+                             void* dk, void* dv, int b, int sq, int skv, int h, int h_kv, int d,
+                             long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                             long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                             long long v_sh, long long g_sb, long long g_ss, long long g_sh,
+                             long long bias_sb, long long bias_sr, int causal, int q_offset,
+                             int kv_offset, float scale, void* stream) {
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -362,7 +467,9 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* g
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.bias = static_cast<const float*>(bias);
-  p.dq = p.dk = p.dv = nullptr;
+  p.dq_accum = static_cast<float*>(dq_accum);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
   p.sq = sq;
   p.skv = skv;
   p.h = h;
@@ -385,51 +492,13 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* g
   p.q_offset = q_offset;
   p.kv_offset = kv_offset;
   p.scale = scale;
-  return p;
-}
-
-}  // namespace
-
-#define LWM_BWD_ARGS                                                                          \
-  const void *q, const void *k, const void *v, const void *g, const void *lse,               \
-      const void *delta, const void *bias
-#define LWM_BWD_DIMS                                                                          \
-  int b, int sq, int skv, int h, int h_kv, int d, long long q_sb, long long q_ss,            \
-      long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,        \
-      long long v_ss, long long v_sh, long long g_sb, long long g_ss, long long g_sh,        \
-      long long bias_sb, long long bias_sr, int causal, int q_offset, int kv_offset,         \
-      float scale, void *stream
-#define LWM_BWD_PARAMS                                                                        \
-  make_params(q, k, v, g, lse, delta, bias, sq, skv, h, h_kv, q_sb, q_ss, q_sh, k_sb, k_ss,  \
-              k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh, bias_sb, bias_sr, causal, q_offset,  \
-              kv_offset, scale)
-
-extern "C" int lwm_flash_bwd_dq(LWM_BWD_ARGS, void* dq, LWM_BWD_DIMS) {
-  BwdParams p = LWM_BWD_PARAMS;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sq <= 0 || b <= 0) return cudaSuccess;
+  if (b <= 0 || skv <= 0) return cudaSuccess;  // nothing to write (dq stays 0)
   switch (d) {
     case 64:
-      return launch_dq<64>(p, b, s);
+      return launch<64>(p, b, s);
     case 128:
-      return launch_dq<128>(p, b, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int lwm_flash_bwd_dkv(LWM_BWD_ARGS, void* dk, void* dv, LWM_BWD_DIMS) {
-  BwdParams p = LWM_BWD_PARAMS;
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (skv <= 0 || b <= 0) return cudaSuccess;
-  switch (d) {
-    case 64:
-      return launch_dkv<64>(p, b, s);
-    case 128:
-      return launch_dkv<128>(p, b, s);
+      return launch<128>(p, b, s);
     default:
       return cudaErrorInvalidValue;
   }

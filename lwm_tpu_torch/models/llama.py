@@ -19,7 +19,7 @@ Attention (`attn_impl`):
   `ops.decode.flash_decode`; a forward over a cache → K1
   `ops.flash.flash_attention_fwd` (causal, q_offset = kv_len − q); a forward
   without a cache (training, `_ring_train`'s single-device branch) →
-  `ops.ring.flash_attention`, K1 forward and K2/K3 backward, with the JAX
+  `ops.ring.flash_attention`, K1 forward and the fused backward, with the JAX
   per-key bias (`finfo(dtype).min` on padded keys, `llama.py:1114-1119`).
   On CPU tensors those wrappers run their plain twins.
 - "plain": full-materialization attention (`ops.reference`), the twin of

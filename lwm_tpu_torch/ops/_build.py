@@ -82,8 +82,7 @@ _BWD_DIMS = [
     _I, _I, _I, _F,                       # causal, q_offset, kv_offset, scale
     _P,                                   # cudaStream_t
 ]
-_SIGNATURES["lwm_flash_bwd_dq"] = [*_BWD_INPUTS, _P, *_BWD_DIMS]         # + dq
-_SIGNATURES["lwm_flash_bwd_dkv"] = [*_BWD_INPUTS, _P, _P, *_BWD_DIMS]    # + dk, dv
+_SIGNATURES["lwm_flash_bwd"] = [*_BWD_INPUTS, _P, _P, _P, *_BWD_DIMS]  # + dq_accum (fp32), dk, dv
 
 
 def _nvcc():

@@ -1,26 +1,25 @@
-"""K1: flash-attention forward (admission prefill, training forward); K2 and
-K3: its backward (training).
+"""K1: flash-attention forward (admission prefill, training forward); the
+fused backward (training).
 
 K1 replaces the TPU kernel `_fwd_kernel` (`lwm_tpu/ops/pallas_flash.py:199-285`)
-reached through `flash_attention_fwd_pallas` (`:624-795`); K2 and K3 replace
-`_bwd_dq_kernel` (`:288-353`) and `_bwd_dkv_kernel` (`:356-445`) reached
-through `flash_attention_bwd_pallas` (`:798`). The CUDA kernels are
-`lwm_tpu_torch/csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`; their source notes
-say what bounds them on the card (tensor-core flops at these widths) and how
-they are laid out.
+reached through `flash_attention_fwd_pallas` (`:624-795`); the backward
+replaces `_bwd_dq_kernel` (`:288-353`) and `_bwd_dkv_kernel` (`:356-445`)
+reached through `flash_attention_bwd_pallas` (`:798`) with one kernel that
+writes dq, dk and dv. The CUDA kernels are `lwm_tpu_torch/csrc/flash_fwd.cu`
+and `csrc/flash_bwd.cu`; their source notes say what bounds them on the card
+(tensor-core flops at these widths) and how they are laid out.
 
 Ported: causal or not, `q_offset`/`kv_offset`, per-key and full-tile
 additive bias, GQA, seq-major or head-major kv, lse. Not ported yet: segment
 ids, `pos_stride` and dropout (training and multi-GPU), per-head bias.
 
-Each wrapper (`flash_attention_fwd`, `flash_attention_bwd_dq`,
-`flash_attention_bwd_dkv`) launches its kernel for CUDA tensors and raises
-on what it does not take; for CPU tensors it runs the plain twin
-(`flash_attention_fwd_plain`, `flash_attention_bwd_plain`), which the tests
-and `chip_smoke.py` also hold the kernel against. The backward takes the
-same features as K1 minus head-major kv (training keeps kv seq-major).
-Unlike the TPU kernels, ragged sq and skv are masked in the kernels, so no
-shape gate routes around them.
+Each wrapper (`flash_attention_fwd`, `flash_attention_bwd`) launches its
+kernel for CUDA tensors and raises on what it does not take; for CPU
+tensors it runs the plain twin (`flash_attention_fwd_plain`,
+`flash_attention_bwd_plain`), which the tests and `chip_smoke.py` also hold
+the kernel against. The backward takes the same features as K1 minus
+head-major kv (training keeps kv seq-major). Unlike the TPU kernels, ragged
+sq and skv are masked in the kernels, so no shape gate routes around them.
 """
 
 from __future__ import annotations
@@ -141,8 +140,8 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd_plain(
     q, k, v, g, lse, delta, bias=None, *, causal=True, q_offset=0, kv_offset=0, scale=None,
 ):
-    """K2/K3's arithmetic in plain PyTorch (`pallas_flash.py:314-349`,
-    `:396-440`): fp32 logits from the input dtype plus bias, the causal mask
+    """The backward kernel's arithmetic in plain PyTorch (the TPU kernels'
+    `pallas_flash.py:314-349`, `:396-440`): fp32 logits from the input dtype plus bias, the causal mask
     by global position, p = exp(logits − lse) where logits > MASK_GUARD,
     dp = g·vᵀ, ds = p·(dp − delta)·scale; p is rounded to g.dtype before
     pᵀ·g and ds to k.dtype / q.dtype before ds·k / dsᵀ·q. q, g: [b, sq, h, d];
@@ -175,9 +174,9 @@ def flash_attention_bwd_plain(
     return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_launch(entry, outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset, scale):
-    """Check the arguments and launch one backward kernel (`entry`) writing
-    `outs`; the wrapper counts the launch."""
+def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset, scale):
+    """Check the arguments and launch the backward kernel writing `outs` =
+    (dq_accum fp32, zeroed; dk; dv); the wrapper counts the launch."""
     skv, h_kv = check_fwd_args(q, k, v, kv_head_major=False)
     b, sq, h, d = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
@@ -195,49 +194,14 @@ def _bwd_launch(entry, outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_
     if bias is not None:
         bias, bias_sb, bias_sr = _normalize_bias(bias.to(q.device), b, sq, skv)
         bias_ptr = bias.data_ptr()
-    rc = getattr(_build.load(), entry)(
+    rc = _build.load().lwm_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), bias_ptr, *(o.data_ptr() for o in outs), b, sq, skv, h, h_kv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
         bias_sb, bias_sr, int(causal), int(q_offset), int(kv_offset), float(scale),
         _build.stream_handle(q.device),
     )
-    _build.check(rc, entry)
-
-
-def _require_cuda(name, q):
-    if q.device.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {q.device}")
-
-
-def flash_attention_bwd_dq(
-    q, k, v, g, lse, delta, bias=None, *, causal=True, q_offset=0, kv_offset=0, scale=None,
-):
-    """K2: dq [b, sq, h, d] in q.dtype (arguments as `flash_attention_bwd`)."""
-    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, scale=scale)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, g, lse, delta, bias, **kw)[0]
-    _require_cuda("flash_attention_bwd_dq", q)
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _bwd_launch("lwm_flash_bwd_dq", (dq,), q, k, v, g, lse, delta, bias, **kw)
-    flash_attention_bwd_dq.launches += 1
-    return dq
-
-
-def flash_attention_bwd_dkv(
-    q, k, v, g, lse, delta, bias=None, *, causal=True, q_offset=0, kv_offset=0, scale=None,
-):
-    """K3: (dk, dv) [b, skv, h_kv, d] in k/v dtype, each kv head's group of
-    query heads summed in fp32 (arguments as `flash_attention_bwd`)."""
-    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, scale=scale)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, g, lse, delta, bias, **kw)[1:]
-    _require_cuda("flash_attention_bwd_dkv", q)
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _bwd_launch("lwm_flash_bwd_dkv", (dk, dv), q, k, v, g, lse, delta, bias, **kw)
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    _build.check(rc, "lwm_flash_bwd")
 
 
 def flash_attention_bwd(
@@ -248,13 +212,20 @@ def flash_attention_bwd(
     d]; k, v [b, skv, h_kv, d]; lse (from the forward) and delta = Σ_d g·out
     [b, h, sq] fp32; bias broadcastable as [b|1, 1, sq|1, skv] (not
     differentiated). Returns (dq, dk, dv) in the input dtypes, dk/dv at
-    h_kv heads. CUDA: K2 then K3; CPU: the plain twin, once."""
+    h_kv heads (each group summed in fp32). CUDA: one kernel launch, dq
+    summed in an fp32 buffer by atomics (its order, and so its last bit,
+    changes from run to run) and rounded once; CPU: the plain twin."""
     kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, g, lse, delta, bias, **kw)
-    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, bias, **kw)
-    return (dq, *flash_attention_bwd_dkv(q, k, v, g, lse, delta, bias, **kw))
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention_bwd kernel for device {q.device}")
+    dq_accum = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _bwd_launch((dq_accum, dk, dv), q, k, v, g, lse, delta, bias, **kw)
+    flash_attention_bwd.launches += 1
+    return dq_accum.to(q.dtype), dk, dv
 
 
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd.launches = 0

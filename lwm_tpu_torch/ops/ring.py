@@ -7,8 +7,9 @@ mesh-less branch of the JAX model's `_ring_train`, `llama.py:708-733`).
 `lwm_tpu_torch::flash_fwd` and saves only (q, k, v, out, lse), as the JAX
 custom VJP does. Its backward computes delta = Σ_d g·out in fp32 from the
 rounded `out` (`ring.py:517-525`, `_chunked_delta` `:191-224`) in plain
-torch, as JAX does outside any kernel, then K2 and K3
-(`ops.flash.flash_attention_bwd`); dk/dv come back at h_kv heads. The bias
+torch, as JAX does outside any kernel, then one launch of the fused
+backward kernel (`ops.flash.flash_attention_bwd`: dq, dk and dv together);
+dk/dv come back at h_kv heads. The bias
 is not differentiated. On CPU tensors every wrapper runs its plain twin.
 
 K1 is a custom op so that selective activation checkpointing can keep its

@@ -1,7 +1,7 @@
 """The port's attention kernels' plain twins (lwm_tpu_torch.ops) against the
 JAX kernels they replace, run in interpret mode on the CPU, and against the
 JAX oracle `lwm_tpu.ops.reference_attention`; the training attention
-(`lwm_tpu_torch.ops.ring.flash_attention`, K1 forward + K2/K3 backward under
+(`lwm_tpu_torch.ops.ring.flash_attention`, K1 forward + the fused backward under
 autograd) against autograd through the plain attention and against
 `jax.vjp` of `lwm_tpu.ops.ring.flash_attention`.
 
@@ -217,7 +217,7 @@ def _port_grads(attend, q, k, v, w, bias):
 
 @pytest.mark.parametrize("h_kv", [4, 2])
 def test_flash_attention_autograd_matches_plain_autograd(h_kv):
-    """Grads of the autograd Function (K1 fwd, K2/K3 bwd twins) equal
+    """Grads of the autograd Function (K1 fwd, backward twins) equal
     autograd through the plain attention, fp32, 1e-5. Padded query rows
     (row 1, positions < 5) see no valid key; both give them 0."""
     q, k, v, w, bias, _ = _train_attention_inputs(h_kv)
@@ -346,17 +346,31 @@ def test_bwd_wrappers_run_twin_on_cpu_without_launching():
     q, k, v, g, lse, delta, bias = (
         None if x is None else _t(x) for x in _bwd_inputs("gqa_h4_hkv2_full_tile_bias", 1)
     )
-    n2, n3 = flash.flash_attention_bwd_dq.launches, flash.flash_attention_bwd_dkv.launches
+    n = flash.flash_attention_bwd.launches
     kw = dict(causal=True, q_offset=100)
     want = flash.flash_attention_bwd_plain(q, k, v, g, lse, delta, bias, **kw)
     got = flash.flash_attention_bwd(q, k, v, g, lse, delta, bias, **kw)
-    dq = flash.flash_attention_bwd_dq(q, k, v, g, lse, delta, bias, **kw)
-    dkv = flash.flash_attention_bwd_dkv(q, k, v, g, lse, delta, bias, **kw)
-    for a, b in zip((*got, dq, *dkv), (*want, *want)):
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert got[1].shape == k.shape and got[2].shape == v.shape
-    assert (flash.flash_attention_bwd_dq.launches,
-            flash.flash_attention_bwd_dkv.launches) == (n2, n3)
+    assert flash.flash_attention_bwd.launches == n
+
+
+def test_flash_attention_backward_calls_the_kernel_wrapper_once(monkeypatch):
+    """One backward of the autograd Function is one `flash_attention_bwd`
+    call (one kernel launch on the card): dq, dk and dv come from it."""
+    q, k, v, w, bias, _ = _train_attention_inputs(2)
+    calls = []
+    real = flash.flash_attention_bwd
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(flash, "flash_attention_bwd", counted)
+    _, grads = _port_grads(lambda *a: ring.flash_attention(*a, causal=True), q, k, v, w, bias)
+    assert len(calls) == 1 and calls[0]["causal"] is True
+    assert all(x is not None and torch.isfinite(x).all() for x in grads)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -364,10 +378,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no flash_attention_fwd kernel"):
         flash.flash_attention_fwd(q, q, q)
     lse = torch.empty((1, 2, 4), device="meta")
-    with pytest.raises(ValueError, match="no flash_attention_bwd_dq kernel"):
-        flash.flash_attention_bwd_dq(q, q, q, q, lse, lse)
-    with pytest.raises(ValueError, match="no flash_attention_bwd_dkv kernel"):
-        flash.flash_attention_bwd_dkv(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="no flash_attention_bwd kernel"):
+        flash.flash_attention_bwd(q, q, q, q, lse, lse)
     with pytest.raises(ValueError, match="no flash_decode kernel"):
         decode.flash_decode(q[:, :1], q, q, torch.ones(1, 2, dtype=torch.bool), 2)
 
@@ -388,10 +400,11 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError, match="per-head"):
         flash._normalize_bias(torch.zeros(1, 4, 1, 32), 1, 8, 32)
 
-    # the backward kernels refuse before anything is built or launched
+    # the backward kernel (lwm_flash_bwd) refuses before anything is built
+    # or launched
     ks = torch.zeros((1, 32, 2, 64), dtype=bf)               # seq-major kv
     lse = torch.zeros((1, 4, 8))
-    bwd = functools.partial(flash._bwd_launch, "lwm_flash_bwd_dq", (q,), q, ks, ks,
+    bwd = functools.partial(flash._bwd_launch, (q.float(), ks, ks), q, ks, ks,
                             causal=True, q_offset=0, kv_offset=0, scale=None, bias=None)
     with pytest.raises(ValueError, match="g .* must match"):
         bwd(g=q.float(), lse=lse, delta=lse)
