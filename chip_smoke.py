@@ -9,7 +9,10 @@
 Phases; any failure raises and exits non-zero (there is no CPU path):
   1. torch/CUDA versions and the card (nvidia-smi name, power limit).
   2. Build the CUDA kernels from lwm_tpu_torch/csrc with nvcc (sm_90a).
-  3. K1 flash_attention_fwd vs its plain twin at the serving shapes (bf16).
+  3. K1 flash_attention_fwd vs its plain twin at the serving and training
+     shapes and at the edges of its tiles (K1_CASES), timed at a 2048-token
+     admission over the 4096-slot cache and at the train step's attention
+     (b 2, seq 4096, 32 heads, d 128).
   4. K4 flash_decode vs its plain twin: 8 slots, bf16 and int8, MHA and GQA.
   5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
      its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
@@ -223,31 +226,98 @@ def _randn(shape, gen, dtype=BF16):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+# K1's cases: name, b, h_kv, d, sq, skv, causal, q_offset, kv_offset,
+# head-major kv (the serving cache) or seq-major (training), bias kind. The
+# first two are timed: a 2048-token admission over the 4096-slot cache, and
+# the train step's attention (7b width, batch 2 x 4096, the model's per-key
+# bias with 300 right-padded keys in row 1, as BWD_CASES[0]). The rest hold
+# the edges of the kernel's 128-query and 128-key tiles: a 16-row block
+# over a full-tile bias; GQA; a ragged 2000-token bucket (its last query
+# tile has 80 rows); seq 1000 with offsets off the tile grid and a
+# full-tile bias, causal and not (a 104-row query tile, a 104-key tile);
+# d 64 at 8 kv heads; rows with no valid key (out 0, lse BIG_NEG)
+K1_TRAIN_REPORT = "train_b2_S4096_h32_causal_padkeys"
+K1_TIMED = ("bucket2048_T4096_perkey", K1_TRAIN_REPORT)
+K1_CASES = [
+    ("bucket2048_T4096_perkey", 1, 32, 128, 2048, 4096, True, 0, 0, True, "prompt"),
+    (K1_TRAIN_REPORT, 2, 32, 128, 4096, 4096, True, 0, 0, False, "per_key"),
+    ("q16_fulltile_qoff1000", 1, 32, 128, 16, 4096, True, 1000, 0, True, "frontier"),
+    ("gqa_hkv8_bucket1024", 1, 8, 128, 1024, 4096, True, 0, 0, True, "prompt"),
+    ("ragged_bucket2000_T4096", 1, 32, 128, 2000, 4096, True, 0, 0, True, "prompt"),
+    ("S1000_causal_offsets_fulltile", 2, 32, 128, 1000, 1000, True, 700, 300, False, "full"),
+    ("S1000_noncausal_offsets_fulltile", 2, 32, 128, 1000, 1000, False, 700, 300, False, "full"),
+    ("d64_hkv8_S4096", 2, 8, 64, 4096, 4096, True, 0, 0, False, "per_key"),
+    ("q300_rows_without_keys", 1, 32, 128, 300, 4096, True, 3000, 0, True, "no_keys"),
+]
+K1_EMPTY_ROWS = (0, 129, 299)   # the rows "no_keys" masks whole
+
+
+def _k1_bias(kind, b, sq, T, q_off, gen):
+    """(bias, valid keys or None) for a K1 case. "prompt": an admission's
+    per-key bias, the prompt's keys valid; "per_key" and "full": the
+    backward's (_bwd_bias); "frontier": per-row frontiers with 20% random
+    holes over a full tile, and "no_keys" the same with K1_EMPTY_ROWS
+    masked whole."""
+    keys = torch.arange(T, device="cuda")
+    if kind == "prompt":
+        valid = keys < sq - 37
+        return torch.where(valid, 0.0, BIG_NEG)[None, None, None, :], valid
+    if kind in ("per_key", "full"):
+        return _bwd_bias(kind, b, T, gen)
+    rows = q_off + torch.arange(sq, device="cuda")[:, None]
+    holes = torch.rand((sq, T), generator=gen, device="cuda") < 0.2
+    valid = (keys[None] <= rows) & ~(holes & (keys[None] > 0))
+    if kind == "no_keys":
+        valid[list(K1_EMPTY_ROWS)] = False
+    return torch.where(valid, 0.0, BIG_NEG)[None, None], None
+
+
+def _time_k1(q, k, v, bias, valid, kw):
+    """K1, its plain twin and SDPA with the same mask as a float bias, and
+    the bound, at one timed case: dict(ms, plain_ms, library_ms, bound_ms,
+    bound_by)."""
+    sq, h = q.shape[1:3]
+    head_major = kw["kv_head_major"]
+    h_kv = k.shape[1] if head_major else k.shape[2]
+    T = k.shape[2] if head_major else k.shape[1]
+    ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw))
+    plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 3)
+    # yardstick: SDPA with the same float bias, causal by position
+    pos = kw["q_offset"] + torch.arange(sq, device="cuda")
+    mask = torch.where(torch.arange(T, device="cuda")[None] <= pos[:, None], bias, BIG_NEG)
+    mask = mask.to(BF16)
+    kt, vt = (k, v) if head_major else (k.transpose(1, 2), v.transpose(1, 2))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kt, vt, attn_mask=mask, enable_gqa=h_kv != h))
+    del mask
+    bnd, by = k1_bound(q, k, bias, valid, kw)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+
+
+def k1_bound(q, k, bias, valid, kw):
+    """K1's bound at one case: (ms, what bounds it). q read and out written
+    in bf16, the valid keys' k and v read once, lse written, the bias read;
+    two products of 2·d flops a (query, key) pair and head."""
+    b, sq, h, d = q.shape
+    h_kv = k.shape[1] if kw["kv_head_major"] else k.shape[2]
+    pairs = attn_pairs(valid, sq, kw["q_offset"])
+    n_bytes = 2 * q.numel() * 2 + 2 * int(valid.sum()) * h_kv * d * 2 + b * h * sq * 4
+    n_bytes += bias.numel() * 4
+    return bound_ms(n_bytes, 4 * d * h * pairs, H100_BF16_PEAK)
+
+
 def phase_k1(gen):
-    """K1 at the admission shapes. Returns (max_abs_err, ms, plain_ms,
-    library_ms, bound_ms, bound_by), the times at the first case."""
-    b, h, d, T = 1, 32, 128, 4096
-    worst, timing = 0.0, None
-    cases = [
-        # name, h_kv, sq, q_offset, bias kind
-        ("bucket2048_T4096_perkey", 32, 2048, 0, "per_key"),
-        ("q16_fulltile_qoff1000", 32, 16, 1000, "full"),
-        ("gqa_hkv8_bucket1024", 8, 1024, 0, "per_key"),
-    ]
-    for name, h_kv, sq, q_off, kind in cases:
+    """K1 against its plain twin at K1_CASES. Returns (max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by) with the times at the
+    admission case, and the same times as a dict at K1_TRAIN_REPORT."""
+    h = 32
+    worst, timed = 0.0, {}
+    for name, b, h_kv, d, sq, T, causal, q_off, kv_off, head_major, kind in K1_CASES:
         q = _randn((b, sq, h, d), gen)
-        k = _randn((b, h_kv, T, d), gen)
-        v = _randn((b, h_kv, T, d), gen)
-        keys = torch.arange(T, device="cuda")
-        if kind == "per_key":   # admission: the prompt's keys are valid
-            valid = keys < sq - 37
-            bias = torch.where(valid, 0.0, BIG_NEG)[None, None, None, :]
-        else:                   # per-row frontiers with random holes
-            rows = q_off + torch.arange(sq, device="cuda")[:, None]
-            holes = torch.rand((sq, T), generator=gen, device="cuda") < 0.2
-            valid = (keys[None] <= rows) & ~(holes & (keys[None] > 0))
-            bias = torch.where(valid, 0.0, BIG_NEG)[None, None]
-        kw = dict(causal=True, q_offset=q_off, kv_head_major=True)
+        kv_shape = (b, h_kv, T, d) if head_major else (b, T, h_kv, d)
+        k, v = _randn(kv_shape, gen), _randn(kv_shape, gen)
+        bias, valid = _k1_bias(kind, b, sq, T, q_off, gen)
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off, kv_head_major=head_major)
         out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
         ref, ref_lse = flash.flash_attention_fwd_plain(q, k, v, bias, **kw)
         torch.cuda.synchronize()
@@ -257,25 +327,22 @@ def phase_k1(gen):
             f"max|lse-plain| {lse_err:.3e} (tol {LSE_TOL})")
         if not (err <= BF16_TOL and lse_err <= LSE_TOL):
             raise AssertionError(f"K1 {name} disagrees with its plain twin")
+        if kind == "no_keys":
+            rows = list(K1_EMPTY_ROWS)
+            if not (torch.all(out[:, rows] == 0) and torch.all(lse[:, :, rows] == BIG_NEG)):
+                raise AssertionError(f"K1 {name}: rows with no valid key are not 0 / BIG_NEG")
+            log(f"K1 {name}: rows {rows} give out 0 and lse BIG_NEG")
         worst = max(worst, err)
-        if timing is None:
-            ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw))
-            plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 5)
-            # yardstick: SDPA with the same float bias, causal by position
-            causal = keys[None] <= (q_off + torch.arange(sq, device="cuda"))[:, None]
-            mask = torch.where(causal, bias, BIG_NEG).to(BF16)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=h_kv != h))
-            pairs = attn_pairs(bias.reshape(-1) == 0, sq, q_off)
-            n_keys = int((bias.reshape(-1) == 0).sum())
-            n_bytes = 2 * q.numel() * 2 + 2 * n_keys * h_kv * d * 2 + b * h * sq * 4 + T * 4
-            bnd = bound_ms(n_bytes, 4 * d * h * pairs, H100_BF16_PEAK)
-            log(f"K1 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
-                f"bound {bnd[0]:.4f} ms ({bnd[1]}) [{card()}]")
-            timing = (ms, plain_ms, lib_ms, *bnd)
-            del mask
-        del q, k, v, out, ref
-    return worst, *timing
+        if name in K1_TIMED:
+            t = timed[name] = _time_k1(q, k, v, bias, valid, kw)
+            log(f"K1 {name}: kernel {t['ms']:.3f} ms ({100 * t['bound_ms'] / t['ms']:.1f}% of the "
+                f"bound), plain {t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{card()}]")
+        del q, k, v, out, ref, bias
+        torch.cuda.empty_cache()
+    admit = timed[K1_TIMED[0]]
+    return (worst, *(admit[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")),
+            timed[K1_TRAIN_REPORT])
 
 
 def phase_k4(gen):
@@ -936,7 +1003,7 @@ def main():
     phase_env()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k1 = phase_k1(gen)
+    *k1, k1_train = phase_k1(gen)
     k4 = phase_k4(gen)
     bwd = phase_bwd(gen)
     k56, k5_admit = phase_k56(gen)
@@ -959,7 +1026,8 @@ def main():
                     library_ms=library_ms)
 
     kernels = [
-        row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
+        dict(row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
+             **{K1_TRAIN_REPORT: k1_train}),
         row("flash_bwd", "flash_bwd.cu",
             "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
         row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),

@@ -48,15 +48,12 @@
 // `setmaxnreg` (384 threads: ptxas kept the 168-register budget for the
 // consumers, which need 250, spilled and serialized the wgmmas).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float kBigNeg = -1e30f;
-constexpr float kMaskGuard = -1e29f;
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace lwm;
+
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kBK = 128;       // keys per block: 64 per warpgroup
 constexpr int kBQ = 64;        // queries per inner tile
@@ -79,10 +76,8 @@ struct BwdParams {
   float scale;
 };
 
-// Shared memory of one block, byte offsets from a 1024-aligned base. A tile
-// of R rows × D bf16 is D / 64 column halves of R rows × 128 bytes, each
-// row's eight 16-byte chunks swizzled (chunk c of row r at c ^ (r % 8)): the
-// layout `wgmma` reads without bank conflicts, K-major or N-major alike.
+// Shared memory of one block, byte offsets from a 1024-aligned base; tiles
+// in the swizzled layout of hopper.cuh
 template <int D>
 struct Smem {
   static constexpr int kKV = kBK * D * 2;   // the k (or v) tile
@@ -97,132 +92,8 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-// byte offset of element (r, c) of an R-row swizzled tile (see Smem)
-template <int R>
-__device__ __forceinline__ int swz(int r, int c) {
-  return (c >> 6) * R * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-// generic-proxy writes (cp.async, st.shared) → visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// ROWS × D tile of bf16 into its swizzled slot, 16 bytes per thread per
-// step; rows at or past `rows_valid` are zero-filled so masked rows never
-// carry garbage into a product (0 · NaN would poison it)
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
-                                          long long row_stride, int rows_valid, int tid) {
-  constexpr int kChunks = D / 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "whole steps of 16 bytes a thread");
-#pragma unroll
-  for (int j = 0; j < ROWS * kChunks / kThreads; ++j) {
-    const int i = tid + j * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool in = r < rows_valid;
-    cp_async16(dst + swz<ROWS>(r, c), src + (in ? r * row_stride + c : 0), in ? 16 : 0);
-  }
-}
-
-// ------------------------------------------------------------------ wgmma
-
-// shared-memory descriptor of a 128-byte-swizzled tile whose 8-row groups
-// are 1024 bytes apart. K-major (rows are M or N, 64 k per row): the
-// stride is SBO, LBO is unused; adding 2 moves the start 32 bytes (k 16).
-// N-major (rows are k, 64 of M or N per row, one 64-wide atom): the 8-row
-// groups are again SBO apart; LBO (the next 64-wide atom) is never used at
-// M, N = 64, and is set to the same stride. 16 k rows are 2048 bytes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-#define LWM_ACC32                                                                              \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),         \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define LWM_REGS32                                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d[64 × 64] (+)= A (64 × 16) · B (16 × 64), both from shared memory; TA /
-// TB: the operand is M- / N-major. scale_d 0 ignores d's old value.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LWM_REGS32
-      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : LWM_ACC32
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// d[64 × 64] (+)= A (64 × 16, four bf16x2 fragments a) · B (16 × 64, N-major
-// in shared memory)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LWM_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : LWM_ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across a wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// two floats → packed bf16x2, the lower index in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
 // ----------------------------------------------------------------- kernel
-//
-// Accumulator element i of an m64n64 tile, in a thread of warp w (of its
-// warpgroup), lane (g8, t4) = (lane / 4, lane % 4): row 16·w + g8 +
-// 8·((i / 2) % 2), column 8·(i / 4) + 2·t4 + i % 2. Elements 8j .. 8j + 7,
-// packed in pairs, are the A fragments (a0 .. a3) of k chunk j.
+// (accumulator and A-fragment layout: hopper.cuh)
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams p) {
@@ -250,10 +121,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
   auto load_q = [&](int it, int s) {
     const int qh = kvh * group + it / per, q0 = (qt0 + it % per) * kBQ;
     const int rows = min(kBQ, p.sq - q0);
-    load_tile<D, kBQ>(base + L::kQ + s * L::kQG,
-                      p.q + bi * p.q_sb + (long long)q0 * p.q_ss + qh * p.q_sh, p.q_ss, rows, tid);
-    load_tile<D, kBQ>(base + L::kG + s * L::kQG,
-                      p.g + bi * p.g_sb + (long long)q0 * p.g_ss + qh * p.g_sh, p.g_ss, rows, tid);
+    load_tile<D, kBQ, kThreads>(base + L::kQ + s * L::kQG,
+                                p.q + bi * p.q_sb + (long long)q0 * p.q_ss + qh * p.q_sh, p.q_ss,
+                                rows, tid);
+    load_tile<D, kBQ, kThreads>(base + L::kG + s * L::kQG,
+                                p.g + bi * p.g_sb + (long long)q0 * p.g_ss + qh * p.g_sh, p.g_ss,
+                                rows, tid);
     if (tid < 2 * kBQ) {  // lse (threads 0..63) and delta (64..127)
       const int r = tid % kBQ;
       const float* src = (tid < kBQ ? p.lse : p.delta) + ((long long)bi * p.h + qh) * p.sq + q0;
@@ -262,10 +135,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
     }
   };
 
-  load_tile<D, kBK>(base + L::kK, p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh,
-                    p.k_ss, min(kBK, p.skv - k0), tid);
-  load_tile<D, kBK>(base + L::kV, p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh,
-                    p.v_ss, min(kBK, p.skv - k0), tid);
+  load_tile<D, kBK, kThreads>(base + L::kK,
+                              p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss,
+                              min(kBK, p.skv - k0), tid);
+  load_tile<D, kBK, kThreads>(base + L::kV,
+                              p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss,
+                              min(kBK, p.skv - k0), tid);
   if (n_iter > 0) load_q(0, 0);
   cp_async_commit();
 

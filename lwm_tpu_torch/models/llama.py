@@ -24,6 +24,8 @@ Attention (`attn_impl`):
   On CPU tensors those wrappers run their plain twins.
 - "plain": full-materialization attention (`ops.reference`), the twin of
   the JAX `"xla"` path (`llama.py:948-988`); differentiable by autograd.
+The JAX config's spellings load as the port's (`JAX_ATTN_IMPL`): "xla" →
+"plain", "pallas" (its kernels, `llama.py:837`) → "auto".
 
 Training: `forward` and `forward_hidden` build an autograd graph when called
 without a cache (with a cache they run under `torch.no_grad()`). Blocks are
@@ -113,6 +115,10 @@ LLAMA_STANDARD_CONFIGS = {
 }
 
 
+# the JAX config's attn_impl spellings → the port's
+JAX_ATTN_IMPL = {"xla": "plain", "pallas": "auto"}
+
+
 @dataclass
 class LLaMAConfig:
     """`lwm_tpu/models/llama.py:93-302` without `PretrainedConfig` and without
@@ -154,7 +160,7 @@ class LLaMAConfig:
     remat_block: str = "save_flash"
     kv_cache_dtype: str = "auto"   # "int8": quantized cache, fp32 scales
     quant_dense: str = "none"
-    attn_impl: str = "auto"        # "auto" (kernels) | "plain"
+    attn_impl: str = "auto"        # "auto" (kernels) | "plain"; JAX_ATTN_IMPL map to them
     decode_index: str = "shared"   # caches need "per_row" (the serving layout)
     prefix_len: int = 0
     prefix_tokens: int = 0
@@ -169,8 +175,12 @@ class LLaMAConfig:
                 f"num_key_value_heads={self.num_key_value_heads} must divide "
                 f"num_attention_heads={self.num_attention_heads}"
             )
+        self.attn_impl = JAX_ATTN_IMPL.get(self.attn_impl, self.attn_impl)
         if self.attn_impl not in ("auto", "plain"):
-            raise ValueError(f"attn_impl {self.attn_impl!r}: the port has 'auto' and 'plain'")
+            raise ValueError(
+                f"attn_impl {self.attn_impl!r}: the port has 'auto' and 'plain' (and takes "
+                f"the JAX spellings {sorted(JAX_ATTN_IMPL)})"
+            )
         if self.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: use 'auto' or 'int8'")
         if self.quant_dense not in ("none", *QUANT_DENSE):

@@ -240,9 +240,23 @@ def test_model_is_built_on_the_card_by_default():
     assert port.LLaMAForCausalLM(cfg, device="cpu").wte.weight.device.type == "cpu"
 
 
+@pytest.mark.parametrize("jax_impl, port_impl", [
+    ("xla", "plain"), ("pallas", "auto"), ("auto", "auto"),
+])
+def test_config_loads_the_jax_attn_impl_spellings(tmp_path, jax_impl, port_impl):
+    """A JAX LLaMAConfig's dict, built or loaded from json, gives the
+    port's spelling of the same attention path."""
+    jax_dict = JaxConfig(**dict(BASE, mesh_dim=None, attn_impl=jax_impl)).to_dict()
+    assert port.LLaMAConfig.from_dict(jax_dict).attn_impl == port_impl
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(jax_dict))
+    assert port.LLaMAConfig.load_config(f"json::{path}").attn_impl == port_impl
+    assert port.LLaMAConfig(attn_impl=jax_impl).replace(theta=5e7).attn_impl == port_impl
+
+
 def test_config_rejects_what_the_port_lacks():
     with pytest.raises(ValueError, match="attn_impl"):
-        port.LLaMAConfig(attn_impl="pallas")
+        port.LLaMAConfig(attn_impl="ring")
     with pytest.raises(ValueError, match="quant_dense"):
         port.LLaMAConfig(quant_dense="int4")
     with pytest.raises(ValueError, match="quant_dense"):

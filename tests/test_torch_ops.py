@@ -46,6 +46,10 @@ K1_CASES = {
     "kv_offset": (4, 4, 32, 256, True, 120, 50, "holes", False),
     "gqa": (8, 2, 32, 256, True, 224, 0, "holes", False),
     "head_major_gqa": (8, 4, 32, 256, True, 64, 0, "holes", True),
+    # a ragged query tile (136 rows) over ragged keys (300), offsets off
+    # the 128 grid: the port masks both; the Pallas kernel is handed the
+    # keys padded to whole blocks (_pad_keys_for_pallas)
+    "ragged_tiles_offsets": (4, 2, 136, 300, True, 171, 7, "holes", False),
 }
 
 
@@ -72,15 +76,32 @@ def _k1_inputs(h, h_kv, sq, skv, causal, q_offset, kv_offset, bias_kind, seed=0,
     return q, k, v, bias
 
 
+def _pad_keys_for_pallas(k, v, bias, head_major):
+    """The Pallas kernel takes whole 128-key blocks: zero keys appended to
+    k and v, masked by BIG_NEG in the (per-key or full-tile) bias, as the
+    JAX model pads."""
+    axis = 2 if head_major else 1
+    skv, pad = k.shape[axis], -k.shape[axis] % 128
+    if not pad:
+        return k, v, bias
+    widths = [(0, 0)] * 4
+    widths[axis] = (0, pad)
+    if bias is None:
+        bias = np.zeros((k.shape[0], 1, 1, skv), np.float32)
+    bias = np.pad(bias, [(0, 0)] * 3 + [(0, pad)], constant_values=BIG_NEG)
+    return np.pad(k, widths), np.pad(v, widths), bias
+
+
 @pytest.mark.parametrize("case", sorted(K1_CASES))
 def test_k1_twin_matches_pallas_kernel(case):
     h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind, head_major = K1_CASES[case]
     q, k, v, bias = _k1_inputs(h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind)
     if head_major:
         k, v = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+    kp, vp, bias_p = _pad_keys_for_pallas(k, v, bias, head_major)
     want_out, want_lse = flash_attention_fwd_pallas(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        None if bias is None else jnp.asarray(bias),
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        None if bias_p is None else jnp.asarray(bias_p),
         causal=causal, q_offset=q_off, kv_offset=kv_off, block_k=128,
         interpret=True, kv_head_major=head_major,
     )
