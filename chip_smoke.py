@@ -13,7 +13,9 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      shapes and at the edges of its tiles (K1_CASES), timed at a 2048-token
      admission over the 4096-slot cache and at the train step's attention
      (b 2, seq 4096, 32 heads, d 128).
-  4. K4 flash_decode vs its plain twin: 8 slots, bf16 and int8, MHA and GQA.
+  4. K4 flash_decode vs its plain twin, output and (o, m, l) partials, at
+     8 slots (bf16 and int8, MHA and GQA; a row with no valid key gives
+     (0, BIG_NEG, 0)) and at one slot of T 65536; every case timed.
   5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
      its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
@@ -345,49 +347,141 @@ def phase_k1(gen):
             timed[K1_TRAIN_REPORT])
 
 
+# K4's cases: name, b, h_kv, T, int8 cache. At 8 slots (7b: 32 heads, d 128,
+# T 4096) the rows hold 4001, 18, 1749 (a left-pad hole of 300), 3001, 1,
+# 514, 1025 and 4000 valid keys under kv_len 4001, as a serving round's
+# slots do; bf16 and int8, MHA and GQA (8 kv heads). The last is one long
+# request: one slot, T 65536, every key valid (an LWM long-context decode
+# step). Every case is timed; the first is the row's headline.
+K4_CASES = [
+    ("bf16_mha", 8, 32, 4096, False),
+    ("bf16_gqa_hkv8", 8, 8, 4096, False),
+    ("int8_mha", 8, 32, 4096, True),
+    ("int8_gqa_hkv8", 8, 8, 4096, True),
+    ("bf16_mha_b1_T65536", 1, 32, 65536, False),
+]
+K4_SLOT_LENGTHS = [4000, 17, 2048, 3000, 0, 513, 1024, 3999]   # last valid key of each row
+K4_EMPTY_ROW = 4     # cleared whole in the no-key check
+
+
+def k4_inputs(case, gen):
+    """(q, k, v, mask, kv_len, k_scale, v_scale) of one K4 case."""
+    name, b, h_kv, T, int8 = case
+    h, d = 32, 128
+    if b == 1:
+        mask = torch.ones((1, T), dtype=torch.bool, device="cuda")
+        kv_len = T
+    else:
+        lengths = torch.tensor(K4_SLOT_LENGTHS, device="cuda")
+        mask = torch.arange(T, device="cuda")[None] <= lengths[:, None]
+        mask[2, :300] = False            # a left-pad hole
+        kv_len = int(lengths.max()) + 1
+    q = _randn((b, 1, h, d), gen)
+    k, v = _randn((b, h_kv, T, d), gen), _randn((b, h_kv, T, d), gen)
+    ks = vs = None
+    if int8:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    return q, k, v, mask, kv_len, ks, vs
+
+
+def k4_bound(q, k, mask, kv_len):
+    """K4's bound: (ms, what bounds it, valid-key bytes). q read and out
+    written in bf16, the mask read up to kv_len, each valid key's k and v
+    read once (and with an int8 cache their two fp32 scales); two products
+    of 2·d flops a valid key and query head."""
+    b, _, h, d = q.shape
+    h_kv = k.shape[1]
+    n_valid = int(mask[:, :kv_len].sum())
+    kv_bytes = n_valid * h_kv * (2 * d * k.element_size() + (8 if k.dtype == torch.int8 else 0))
+    n_bytes = kv_bytes + 2 * q.numel() * 2 + b * kv_len
+    return (*bound_ms(n_bytes, 4 * n_valid * h * d, H100_BF16_PEAK), kv_bytes)
+
+
+def k4_arg_sets(args, kv_bytes):
+    """Copies of the cache cycled in a timing, so the valid keys of the
+    calls between two reads of one copy exceed L2_FLUSH_BYTES (3x the L2)."""
+    q, k, v, mask, kv_len, ks, vs = args
+    n = max(1, math.ceil(L2_FLUSH_BYTES / kv_bytes))
+    sets = [args]
+    for _ in range(n - 1):
+        sets.append((q, k.clone(), v.clone(), mask, kv_len,
+                     None if ks is None else ks.clone(), None if vs is None else vs.clone()))
+    return sets
+
+
+def _k4_check(name, args):
+    """The kernel against its twin, plain output and partials; returns the
+    worst max|Δ| on o."""
+    out = decode.flash_decode(*args)
+    ref = decode.flash_decode_plain(*args)
+    o, m, l = decode.flash_decode(*args, return_partials=True)
+    ro, rm, rl = decode.flash_decode_plain(*args, return_partials=True)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    o_err = (o.float() - ro.float()).abs().max().item()
+    m_err = (m - rm).abs().max().item()
+    l_rel = ((l - rl).abs().max() / rl.abs().max()).item()
+    log(f"K4 {name}: max|out-plain| {err:.3e} (tol {BF16_TOL}); partials max|o-plain| "
+        f"{o_err:.3e} (tol {BF16_TOL}), max|m-plain| {m_err:.3e} (tol {LSE_TOL}), "
+        f"max|l-plain|/max l {l_rel:.3e} (tol {LSE_TOL})")
+    if not (err <= BF16_TOL and o_err <= BF16_TOL and m_err <= LSE_TOL and l_rel <= LSE_TOL):
+        raise AssertionError(f"K4 {name} disagrees with its plain twin")
+    if not torch.equal(o, out):
+        raise AssertionError(f"K4 {name}: o with partials differs from the plain output")
+    return max(err, o_err)
+
+
 def phase_k4(gen):
-    """K4 at the decode shapes. Returns (max_abs_err, ms, plain_ms,
-    library_ms, bound_ms, bound_by), the times at the first case."""
-    b, h, d, T = 8, 32, 128, 4096
-    lengths = torch.tensor([4000, 17, 2048, 3000, 0, 513, 1024, 3999], device="cuda")
-    mask = torch.arange(T, device="cuda")[None] <= lengths[:, None]
-    mask[2, :300] = False            # a left-pad hole
-    kv_len = int(lengths.max()) + 1
-    worst, timing = 0.0, None
-    for name, h_kv, int8 in [("bf16_mha", 32, False), ("bf16_gqa_hkv8", 8, False),
-                             ("int8_mha", 32, True), ("int8_gqa_hkv8", 8, True)]:
-        q = _randn((b, 1, h, d), gen)
-        k = _randn((b, h_kv, T, d), gen)
-        v = _randn((b, h_kv, T, d), gen)
-        ks = vs = None
-        if int8:
-            k, ks = quantize_kv(k)
-            v, vs = quantize_kv(v)
-        args = (q, k, v, mask, kv_len, ks, vs)
-        out = decode.flash_decode(*args)
-        ref = decode.flash_decode_plain(*args)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        log(f"K4 {name}: max|out-plain| {err:.3e} (tol {BF16_TOL})")
-        if not err <= BF16_TOL:
-            raise AssertionError(f"K4 {name} disagrees with its plain twin")
-        worst = max(worst, err)
-        if timing is None:
-            ms = time_ms(lambda: decode.flash_decode(*args), 50, graph=True)
-            eager_ms = time_ms(lambda: decode.flash_decode(*args), 50)
-            plain_ms = time_ms(lambda: decode.flash_decode_plain(*args), 20)
+    """K4 at K4_CASES against its plain twin (output and partials), with a
+    row of no valid key at the 8-slot cases, each case timed. Returns
+    (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by) at the first
+    case, and {name: dict(ms, plain_ms, library_ms, bound_ms, bound_by)} for
+    the others."""
+    worst, first, others = 0.0, None, {}
+    for case in K4_CASES:
+        name, b, h_kv, T, int8 = case
+        args = k4_inputs(case, gen)
+        q, k, v, mask, kv_len, ks, vs = args
+        worst = max(worst, _k4_check(name, args))
+        if b > K4_EMPTY_ROW:
+            cleared = mask.clone()
+            cleared[K4_EMPTY_ROW] = False
+            args0 = (q, k, v, cleared, kv_len, ks, vs)
+            worst = max(worst, _k4_check(f"{name} row {K4_EMPTY_ROW} cleared", args0))
+            o, m, l = decode.flash_decode(*args0, return_partials=True)
+            r = K4_EMPTY_ROW
+            if not (torch.all(o[r] == 0) and torch.all(m[r] == BIG_NEG) and torch.all(l[r] == 0)):
+                raise AssertionError(f"K4 {name}: a row with no valid key is not (0, BIG_NEG, 0)")
+        bnd, by, kv_bytes = k4_bound(q, k, mask, kv_len)
+        sets = k4_arg_sets(args, kv_bytes)
+        ms = time_ms(lambda *a: decode.flash_decode(*a), 50, sets, graph=True)
+        plain_ms = time_ms(lambda: decode.flash_decode_plain(*args), 3)
+        lib_ms, lib = None, "no SDPA for an int8 cache"
+        if not int8:
             # yardstick: SDPA at q = 1 with the same keys (bool mask, GQA)
             seen = (mask & (torch.arange(T, device="cuda") < kv_len)[None])[:, None, None, :]
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k, v, attn_mask=seen, enable_gqa=h_kv != h), 50, graph=True)
-            n_valid = int(seen.sum())
-            n_bytes = n_valid * h_kv * d * 2 * 2 + 2 * q.numel() * 2 + b * kv_len
-            bnd = bound_ms(n_bytes, 4 * n_valid * h * d, H100_BF16_PEAK)
-            log(f"K4 {name}: kernel {ms:.4f} ms (graph; eager launches {eager_ms:.4f}), plain "
-                f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms (graph), bound {bnd[0]:.4f} ms "
-                f"({bnd[1]}) (b={b} h={h} T={T} kv_len={kv_len}) [{card()}]")
-            timing = (ms, plain_ms, lib_ms, *bnd)
-    return worst, *timing
+            lib_ms = time_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k, v, attn_mask=seen, enable_gqa=h_kv != 32), 50, sets,
+                graph=True)
+            lib = f"SDPA {lib_ms:.4f} ms (graph)"
+            del seen
+        eager = ""
+        if first is None:
+            eager_ms = time_ms(lambda *a: decode.flash_decode(*a), 50, sets)
+            eager = f"; eager launches {eager_ms:.4f}"
+        log(f"K4 {name}: kernel {ms:.4f} ms (graph{eager}; {100 * bnd / ms:.1f}% of the bound), "
+            f"plain {plain_ms:.3f} ms, {lib}, bound {bnd:.4f} ms ({by}) (b={b} h=32 "
+            f"h_kv={h_kv} T={T} kv_len={kv_len}; {len(sets)} cache copies cycled) [{card()}]")
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+        if first is None:
+            first = t
+        else:
+            others[name] = t
+        del args, q, k, v, ks, vs, sets
+        torch.cuda.empty_cache()
+    return (worst, *(first[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")),
+            others)
 
 
 def _cosine(a, b):
@@ -1004,7 +1098,7 @@ def main():
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     *k1, k1_train = phase_k1(gen)
-    k4 = phase_k4(gen)
+    *k4, k4_cases = phase_k4(gen)
     bwd = phase_bwd(gen)
     k56, k5_admit = phase_k56(gen)
     torch.cuda.empty_cache()
@@ -1030,7 +1124,8 @@ def main():
              **{K1_TRAIN_REPORT: k1_train}),
         row("flash_bwd", "flash_bwd.cu",
             "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
-        row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
+        dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
+             **k4_cases),
         dict(row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107",
                  **k56["int8_matmul"]), **{QUANT_ADMIT_REPORT: k5_admit}),
         row("w8a8_matmul", "w8a8_matmul.cu", "lwm_tpu/ops/quant.py:182", **k56["w8a8_matmul"]),

@@ -104,13 +104,6 @@ __device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, 
       : "memory");
 }
 
-// 2^x by the SFU (ex2.approx: ~2 ulp, subnormal results flush to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,

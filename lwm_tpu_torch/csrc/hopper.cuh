@@ -1,6 +1,6 @@
 // Building blocks shared by the port's Hopper (sm_90a) kernels: K1's
-// forward (flash_fwd.cu), the fused flash backward (flash_bwd.cu) and K5's
-// admission GEMM (int8_matmul.cu).
+// forward (flash_fwd.cu), the fused flash backward (flash_bwd.cu), K4's
+// decode (flash_decode.cu) and K5's admission GEMM (int8_matmul.cu).
 //
 // Shared-memory tiles. A tile of R rows × D bf16 is D / 64 column halves of
 // R rows × 128 bytes, each row's eight 16-byte chunks swizzled (chunk c of
@@ -32,6 +32,13 @@ __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 6) * R * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
 }
 
+// 2^x by the SFU (ex2.approx: ~2 ulp, subnormal results flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -51,6 +58,11 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // generic-proxy writes (cp.async, st.shared) → visible to wgmma's reads
 __device__ __forceinline__ void fence_async_smem() {
@@ -181,6 +193,19 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// four int8 (one little-endian word) → four floats, byte i in f[i]. q + 128
+// is placed in the low mantissa bits of 2^23, so one byte permute and one
+// subtraction give q exactly, with no int→float conversion instruction (a
+// quarter-rate one on the card).
+__device__ __forceinline__ void i8x4_to_f32(uint32_t q4, float (&f)[4]) {
+  const uint32_t u = q4 ^ 0x80808080u;
+  const float bias = 8388736.f;  // 2^23 + 128
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - bias;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - bias;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - bias;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - bias;
 }
 
 // ------------------------------------------------------ mbarriers and TMA

@@ -90,18 +90,12 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint3
 }
 
 // four int8 (one little-endian word) → two bf16x2 words: bytes 0,1 in `lo`,
-// bytes 2,3 in `hi`. q + 128 is placed in the low mantissa bits of 2^23, so
-// one byte permute and one subtraction give q exactly, with no int→float
-// conversion instruction.
+// bytes 2,3 in `hi`
 __device__ __forceinline__ void i8x4_to_bf16(uint32_t q4, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = q4 ^ 0x80808080u;
-  const float bias = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - bias;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - bias;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - bias;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - bias;
-  lo = pack_bf16(f0, f1);
-  hi = pack_bf16(f2, f3);
+  float f[4];
+  i8x4_to_f32(q4, f);
+  lo = pack_bf16(f[0], f[1]);
+  hi = pack_bf16(f[2], f[3]);
 }
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int j) {

@@ -53,7 +53,8 @@ _SIGNATURES = {
     ],
     "lwm_flash_decode": [
         _P, _P, _P, _P, _P, _P, _P,       # q, k, v, k_scale, v_scale, mask, out
-        _I, _I, _I, _I, _I, _I, _I,       # b, h, h_kv, T, d, kv_len, int8 cache
+        _P, _P, _P,                       # m_out, l_out (or NULL), split scratch (fp32)
+        _I, _I, _I, _I, _I, _I, _I, _I,   # b, h, h_kv, T, d, kv_len, int8 cache, split keys
         _L, _L,                           # q strides (batch, head)
         _L, _L, _L,                       # k/v strides (batch, head, seq)
         _F,                               # scale

@@ -3,9 +3,10 @@
 
     python3 scripts/time_flash.py fwd [SRC.cu ...]
     python3 scripts/time_flash.py bwd [SRC.cu ...]
+    python3 scripts/time_flash.py dec [ROOT[@SPLIT] ...]
 
-Each SRC is a copy of `lwm_tpu_torch/csrc/flash_fwd.cu` (fwd: K1, C entry
-`lwm_flash_fwd`) or `csrc/flash_bwd.cu` (bwd: the fused backward,
+fwd, bwd: each SRC is a copy of `lwm_tpu_torch/csrc/flash_fwd.cu` (fwd: K1,
+C entry `lwm_flash_fwd`) or `csrc/flash_bwd.cu` (bwd: the fused backward,
 `lwm_flash_bwd`), a variant under test or another commit's kernel with the
 same entry; default: the package's own source. Each is built by nvcc into a
 library of its own (all at once; `#include`s resolve beside the copy, then
@@ -17,10 +18,23 @@ N..1, with CUDA events over calls of the wrapper. Shapes:
   d 128, causal, 300 right-padded keys in row 1); BF16_TOL and LSE_TOL.
 - bwd: the train step's attention as above (dq_accum zeroing and the bf16
   rounding included in each call); BWD_REL_TOL and BWD_COS_MIN.
+dec (K4): each ROOT is a checkout of the repo (default: this one), e.g.
+another commit unpacked under the gitignored _checkout/; its own wrapper
+(`lwm_tpu_torch/ops/decode.py`) and kernels (built from its csrc into its
+_build/) are loaded beside this tree's, so a kernel whose C entry changed
+is timed through its own wrapper. @SPLIT sets that checkout's
+`decode.SPLIT_KEYS`. Each is held against this tree's plain twin at every
+chip_smoke.K4_CASES case, then timed in turns from CUDA-graph replays
+(cache copies cycled past the L2, as chip_smoke.phase_k4), then profiled:
+device time by kernel name over eager calls, so a split kernel's merge pass
+shows its share. The ptxas lines of each checkout's decode kernels are
+printed.
 Needs one NVIDIA GPU and nvcc.
 """
 
 import ctypes
+import importlib.util
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -32,9 +46,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as smoke  # noqa: E402
-from lwm_tpu_torch.ops import _build, flash  # noqa: E402
+import lwm_tpu_torch.ops as ops_pkg  # noqa: E402
+from lwm_tpu_torch.ops import _build, decode, flash  # noqa: E402
 
-ENTRY = {"fwd": "lwm_flash_fwd", "bwd": "lwm_flash_bwd"}
+ENTRY = {"fwd": "lwm_flash_fwd", "bwd": "lwm_flash_bwd", "dec": None}
 
 
 def build(srcs, entry):
@@ -119,10 +134,112 @@ def bwd_shapes(gen):
     return {name: (check, lambda: flash.flash_attention_bwd(*args), bound)}
 
 
+def _load_checkout(root, i):
+    """A checkout's `_build` and `decode` modules, loaded under names of
+    their own: its decode wrapper calls its own library."""
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(f"_checkout{i}_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    ops = Path(root) / "lwm_tpu_torch" / "ops"
+    build_mod = load("_build", ops / "_build.py")
+    with mock.patch.object(ops_pkg, "_build", build_mod):
+        dec_mod = load("decode", ops / "decode.py")
+    return build_mod, dec_mod
+
+
+def _decode_ptxas(report):
+    """ptxas's lines for the decode kernels of one build report."""
+    keep, lines = False, []
+    for ln in report.splitlines():
+        if "entry function" in ln:
+            keep = "decode" in ln
+        if keep and any(t in ln for t in ("entry function", "registers", "spill")):
+            lines.append(ln.strip())
+    return lines
+
+
+def _kernel_ms(call, n=20):
+    """Device ms per call by kernel name, from torch.profiler over n eager
+    calls (after one warm-up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
+    return by_name
+
+
+def _short(kernel_name):
+    """`decode_split_kernel` of `void (anonymous namespace)::decode_split_kernel<...>(...)`."""
+    found = re.search(r"(\w*kernel\w*)", kernel_name)
+    return found.group(1) if found else kernel_name[:60]
+
+
+def main_dec(specs):
+    """K4 of each checkout (ROOT[@SPLIT]) at chip_smoke's K4 cases."""
+    specs = specs or [str(ROOT)]
+    smoke.phase_env()
+    subjects = []
+    for i, spec in enumerate(specs):
+        root, _, split = spec.partition("@")
+        build_mod, dec_mod = _load_checkout(root, i)
+        if split:
+            dec_mod.SPLIT_KEYS = int(split)
+        subjects.append((spec, build_mod, dec_mod))
+    reports = [b.build() for _, b, _ in subjects]  # each checkout builds into its own _build/
+    for (spec, build_mod, _), report in zip(subjects, reports):
+        build_mod.load()
+        print(f"== {spec}: {build_mod.library_path()}", flush=True)
+        for line in _decode_ptxas(report):
+            print(f"  ptxas {line}")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    for case in smoke.K4_CASES:
+        name = case[0]
+        args = smoke.k4_inputs(case, gen)
+        ref = decode.flash_decode_plain(*args)
+        bnd, by, kv_bytes = smoke.k4_bound(args[0], args[1], args[3], args[4])
+        sets = smoke.k4_arg_sets(args, kv_bytes)
+        for spec, _, dec_mod in subjects:
+            got = dec_mod.flash_decode(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            verdict = "ok" if err <= smoke.BF16_TOL else "FAILS"
+            print(f"{name} {spec}: max|out-plain| {err:.3e} {verdict}", flush=True)
+        order = list(range(len(subjects)))
+        times = {i: [] for i in order}
+        for i in order + order[::-1]:
+            fn = subjects[i][2].flash_decode
+            times[i].append(smoke.time_ms(lambda *a, fn=fn: fn(*a), 50, sets, graph=True))
+        for i in order:
+            spec, _, dec_mod = subjects[i]
+            per_kernel = _kernel_ms(lambda: dec_mod.flash_decode(*args))
+            total = sum(per_kernel.values())
+            parts = ", ".join(f"{_short(k)} {ms:.4f} ms ({100 * ms / total:.1f}%)"
+                              for k, ms in per_kernel.items())
+            print(f"{name} {spec}: " + ", ".join(f"{t:.4f}" for t in times[i]) + " ms graph "
+                  f"({100 * bnd / min(times[i]):.1f}% of the {bnd:.4f} ms bound, {by}); "
+                  f"profiled eager: {parts} [{smoke.card()}]", flush=True)
+        del args, ref, sets
+        torch.cuda.empty_cache()
+
+
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in ENTRY:
-        raise SystemExit("usage: time_flash.py fwd|bwd [SRC.cu ...]")
+        raise SystemExit("usage: time_flash.py fwd|bwd [SRC.cu ...] | dec [ROOT[@SPLIT] ...]")
     kind, srcs = sys.argv[1], sys.argv[2:]
+    if kind == "dec":
+        return main_dec(srcs)
     srcs = srcs or [str(_build.CSRC / f"flash_{kind}.cu")]
     smoke.phase_env()
     libs = build(srcs, ENTRY[kind])

@@ -348,6 +348,80 @@ def test_k4_twin_matches_jax_reference(h, h_kv):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
 
 
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_twin_partials_match_pallas_kernel(case):
+    """return_partials: o (l-normalized), m and l against the JAX kernel's,
+    on rows that all hold a valid key."""
+    h, h_kv, quant, dt, skip = K4_CASES[case]
+    q, k, v, mask, lengths = _k4_inputs(h, h_kv, seed=len(case) + 1)
+    T = k.shape[2]
+    kv_len = int(lengths.max()) + 1 if skip else T
+    ks = vs = None
+    if quant:
+        k, ks = _quantize(k)
+        v, vs = _quantize(v)
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    kv_j = (lambda x: jnp.asarray(x)) if quant else (lambda x: jnp.asarray(x).astype(jdt))
+    want = flash_decode_pallas(
+        jnp.asarray(q).astype(jdt), kv_j(k), kv_j(v), jnp.asarray(mask), kv_len,
+        None if ks is None else jnp.asarray(ks), None if vs is None else jnp.asarray(vs),
+        block_k=128, interpret=True, return_partials=True,
+    )
+    kv_t = (lambda x: _t(x)) if quant else (lambda x: _t(x, tdt))
+    got = decode.flash_decode_plain(
+        _t(q, tdt), kv_t(k), kv_t(v), _t(mask), kv_len,
+        None if ks is None else _t(ks), None if vs is None else _t(vs), return_partials=True,
+    )
+    assert got[0].dtype == tdt and got[1].shape == got[2].shape == (q.shape[0], h, 1)
+    o_tol = FP32_TOL if dt == "fp32" else dict(atol=2e-2, rtol=2e-2)
+    ml_tol = FP32_TOL if dt == "fp32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got[0].float().numpy(), np.asarray(want[0], np.float32), **o_tol)
+    for name, a, b in zip(("m", "l"), got[1:], want[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **ml_tol)
+
+
+def test_k4_partials_of_a_row_without_keys():
+    """A row with no valid key: o 0, m BIG_NEG, l 0 from the twin, the
+    split-and-merge twin and the wrapper (the port's answer; the TPU kernel
+    leaves l = the key count there, ROADMAP C1)."""
+    q, k, v, mask, _ = _k4_inputs(8, 2, seed=5)
+    mask[2] = False
+    args = (_t(q), _t(k), _t(v), _t(mask), 301)
+    for fn in (decode.flash_decode_plain, decode.flash_decode,
+               functools.partial(decode.flash_decode_split_plain, split=64)):
+        o, m, l = fn(*args, return_partials=True)
+        assert torch.all(o[2] == 0) and torch.all(m[2] == BIG_NEG) and torch.all(l[2] == 0)
+        assert torch.all(m[:2] > -1e3) and torch.all(l[:2] > 0)
+        assert torch.equal(fn(*args), o)
+
+
+@pytest.mark.parametrize("split", [32, 64, 256])
+@pytest.mark.parametrize("h,h_kv,quant", [(4, 4, False), (8, 2, True)])
+def test_k4_split_and_merge_matches_twin(split, h, h_kv, quant):
+    """The kernel's algorithm (partials per split, merged by exp(m_i − max m))
+    equals the unsplit twin at fp32, with kv_len = 301 off every split
+    boundary; at splits of 32 and 64, row 1's left-pad hole (keys 0-39) is
+    a wholly masked split inside a row, and row 2 (46 keys) ends in empty
+    splits before kv_len."""
+    q, k, v, mask, _ = _k4_inputs(h, h_kv, seed=9)
+    ks = vs = None
+    if quant:
+        k, ks = _quantize(k)
+        v, vs = _quantize(v)
+    args = [_t(q), _t(k), _t(v), _t(mask), 301] + [None if x is None else _t(x) for x in (ks, vs)]
+    parts = decode.split_partials_plain(*args, split=split)
+    assert parts.shape == (3, h, -(-512 // split), 64 + 2)
+    if split < 40:
+        assert torch.all(parts[1, :, 0, -2] == BIG_NEG) and torch.all(parts[1, :, 0, -1] == 0)
+    assert torch.all(parts[2, :, -1, -2] == BIG_NEG)
+    want = decode.flash_decode_plain(*args, return_partials=True)
+    got = decode.merge_partials_plain(parts, torch.float32, return_partials=True)
+    for name, a, b in zip(("o", "m", "l"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **FP32_TOL)
+    split_out = decode.flash_decode_split_plain(*args, split=split)
+    assert torch.equal(split_out, got[0])
+
+
 # ------------------------------------------------------------- wrappers
 
 
@@ -360,6 +434,10 @@ def test_wrappers_run_twins_on_cpu_without_launching():
     q4, k4, v4, mask, _ = _k4_inputs(4, 2)
     got = decode.flash_decode(_t(q4), _t(k4), _t(v4), _t(mask), 512)
     assert torch.equal(got, decode.flash_decode_plain(_t(q4), _t(k4), _t(v4), _t(mask), 512))
+    args = (_t(q4), _t(k4), _t(v4), _t(mask), 301)
+    got = decode.flash_decode(*args, return_partials=True)
+    want = decode.flash_decode_plain(*args, return_partials=True)
+    assert len(got) == 3 and all(torch.equal(a, b) for a, b in zip(got, want))
     assert (flash.flash_attention_fwd.launches, decode.flash_decode.launches) == (n1, n4)
 
 
@@ -449,3 +527,11 @@ def test_kernel_argument_checks():
         decode.check_decode_args(torch.zeros((1, 1, 32, 64), dtype=bf), k, k, mask, None, None)
     with pytest.raises(ValueError, match="mask"):
         decode.check_decode_args(q[:, :1], k, k, mask[:, :16], None, None)
+    k8_rows8 = torch.zeros((1, 2, 32, 72), dtype=torch.int8)[..., :64]  # 72-byte rows
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        decode.check_decode_args(q[:, :1], k8_rows8, k8_rows8, mask, sc, sc)
+    qm = torch.empty((65536, 1, 4, 64), dtype=bf, device="meta")
+    km = torch.empty((65536, 2, 32, 64), dtype=bf, device="meta")
+    with pytest.raises(ValueError, match="65535"):
+        decode.check_decode_args(qm, km, km, torch.empty((65536, 32), dtype=torch.bool,
+                                                        device="meta"), None, None)
