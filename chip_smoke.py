@@ -21,9 +21,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
      and a full-tile bias, causal or not; d 64 at 8 kv heads).
   6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
-     serving shapes: decode (8 slots), admission at every bucket and
-     product the mix runs (m 256/1024/2048, ragged 2000) and ragged edges
-     sized to K5's GEMM tiles (m 65/129/130/300/1000, d 4112, f 999/4001).
+     serving shapes: decode (8 slots), admission at each bucket (m 256/
+     1024/2048, ragged 2000) and product (all four at m 2048; wq, w1, w2
+     and lm_head at m 256) and ragged edges sized to the GEMMs' tiles, K5's
+     and K6's alike (m 17/65/129/130/300/1000, d 4112, f 999/4001/4040).
   7. Serve 12 requests through InflightServer with the 7b preset at the
      scripts/run_serve.sh settings (bf16, theta 5e7, 8 slots, cache 4096,
      buckets 256/1024/2048), random weights from a seed, after one untimed
@@ -35,9 +36,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
      "int8_w8a8" and an int8 cache (K6, K5 for lm_head); exact launch
-     counts, K5's admission GEMM counted apart; admission logits of K5 against the "int8_xla" dequant arm on
-     the same int8 tensors, and of both (and W8A8) against an fp32 copy
-     of the dequantized weights.
+     counts, K5's and K6's admission GEMMs counted apart; admission logits
+     of K5 against the "int8_xla" dequant arm on the same int8 tensors,
+     and of both (and W8A8) against an fp32 copy of the dequantized
+     weights.
   9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
      grads of the kernel path against an attn_impl="plain" bf16 model and
      an fp32 copy (the noise floor), on the same weights and batch.
@@ -49,10 +51,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
 Each kernel phase times the kernel, its plain twin and one PyTorch call that
 computes the same function (the yardstick; the port never calls it) beside
 the kernel's bound: the larger of its bytes over 3.35 TB/s and its
-operations over the peak rate of their type (H100 SXM data sheet). Decode-
-shape kernels (K4, K5/K6 at 8 slots) and their library calls are timed by
-replaying the calls from a captured CUDA graph, so a 20-40 us kernel is not
-timed at the host's launch rate.
+operations over the peak rate of their type (H100 SXM data sheet). K4, K5
+and K6 (every shape) and their library calls are timed by replaying the
+calls from a captured CUDA graph, so a 20-60 us kernel is not timed at the
+host's launch rate.
 The last lines: the card, one JSON object listing every kernel, and
 {"ok": true, "device": {...}}.
 """
@@ -121,15 +123,21 @@ SEED = 0
 # admission is m = a bucket (256, 1024, 2048; and a ragged 2000) at each
 # product shape (wq/wk/wv/wo 4096→4096, w1/w3 4096→11008, w2 11008→4096,
 # lm_head 4096→32000). The edges exercise the masked m, d and f tails, both
-# of the decode kernel's token tiles and each of K5's GEMM tiles: m 65, 129
-# and 130 at f 999 take its 64-row tile, m 300 at f 4001 its 128-row one,
-# m 1000 at f 4001 its 256-row one
+# of the decode kernels' token tiles, the GEMMs' smallest m (17) and each
+# tile that K5's and K6's GEMMs pick (the same rule): m 17, 65, 129 and 130
+# at f 999 take the 64-row tile, m 300 at f 4001 the 128-row one, m 1000 at
+# f 4001 and 4040 the 256-row one. d 4112 ends in a 16-byte piece of a k
+# tile; f 999 and 4001 are stored element by element by K6, 4040 (a
+# multiple of 8) in 16-byte chunks up to a last column tile of 72
 QUANT_SHAPES = [
     ("decode_m8_wq_4096x4096", 8, 4096, 4096),
     ("decode_m8_w1_4096x11008", 8, 4096, 11008),
     ("decode_m8_w2_11008x4096", 8, 11008, 4096),
     ("decode_m8_head_4096x32000", 8, 4096, 32000),
     ("admit_m256_wq_4096x4096", 256, 4096, 4096),
+    ("admit_m256_w1_4096x11008", 256, 4096, 11008),
+    ("admit_m256_w2_11008x4096", 256, 11008, 4096),
+    ("admit_m2048_wq_4096x4096", 2048, 4096, 4096),
     ("admit_m256_head_4096x32000", 256, 4096, 32000),
     ("admit_m1024_w1_4096x11008", 1024, 4096, 11008),
     ("admit_m2048_w1_4096x11008", 2048, 4096, 11008),
@@ -138,16 +146,22 @@ QUANT_SHAPES = [
     ("admit_m2000_w1_4096x11008", 2000, 4096, 11008),
     ("admit_m2000_head_4096x32000", 2000, 4096, 32000),
     ("edge_m13_d4112_f999", 13, 4112, 999),
+    ("edge_m17_d4112_f999", 17, 4112, 999),
     ("edge_m65_d4112_f999", 65, 4112, 999),
     ("edge_m129_d4112_f999", 129, 4112, 999),
     ("edge_m130_d4112_f999", 130, 4112, 999),
     ("edge_m300_d4112_f4001", 300, 4112, 4001),
     ("edge_m1000_d4112_f4001", 1000, 4112, 4001),
+    ("edge_m1000_d4112_f4040", 1000, 4112, 4040),
 ]
 # the shapes the kernels line reports for K5/K6: w1 (and w3) of every decode
-# round; and for K5 also w1 of a 2048-token admission (its GEMM)
+# round; and, by name, their admission GEMMs at a 2048-token admission: w1
+# for both, w2 for K6
 QUANT_REPORT = "decode_m8_w1_4096x11008"
-QUANT_ADMIT_REPORT = "admit_m2048_w1_4096x11008"
+QUANT_ADMIT_REPORTS = {
+    "int8_matmul": ("admit_m2048_w1_4096x11008",),
+    "w8a8_matmul": ("admit_m2048_w1_4096x11008", "admit_m2048_w2_11008x4096"),
+}
 
 
 def log(msg):
@@ -593,10 +607,10 @@ def phase_k56(gen):
     but the edges, weights cycled through copies so a decode stream comes
     from HBM. Returns ({"int8_matmul": row, "w8a8_matmul": row}, admit):
     each row (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)
-    with the times at QUANT_REPORT, `admit` K5's ms, library_ms and
-    bound_ms at QUANT_ADMIT_REPORT."""
+    with the times at QUANT_REPORT, `admit` each kernel's {shape: ms,
+    library_ms and bound_ms} at its QUANT_ADMIT_REPORTS."""
     worst = {"int8_matmul": 0.0, "w8a8_matmul": 0.0}
-    report, admit = {}, None
+    report, admit = {}, {k: {} for k in worst}
     for name, m, d, f in QUANT_SHAPES:
         x = _randn((m, d), gen)
         w, s = quant.quantize_weight(torch.randn((f, d), generator=gen, device="cuda") * 0.02)
@@ -623,25 +637,24 @@ def phase_k56(gen):
         n = max(1, math.ceil(L2_FLUSH_BYTES / w.numel()))
         ws = [(w.clone(), s.clone()) for _ in range(n - 1)] + [(w, s)]
         w16 = [(wc.float() * sc[:, None]).to(BF16) for wc, sc in ws]   # the bf16 product
-        graph = m <= 16   # decode: time CUDA-graph replays, not the host's launch rate
+        # CUDA-graph replays, so a 20-60 us kernel is not timed at the host's
+        # launch rate; eager launches printed beside
         k5_call = lambda w, s: quant.int8_matmul(x, w, s)                       # noqa: E731
         k6_call = lambda w, s: quant.w8a8_matmul_quantized(x_q, x_s, w, s, out_dtype=BF16)  # noqa: E731
         k5 = dict(
-            ms=time_ms(k5_call, 20, ws, graph),
+            ms=time_ms(k5_call, 20, ws, graph=True),
             plain_ms=time_ms(lambda w, s: quant.int8_matmul_plain(x, w, s), 3, ws),
-            library_ms=time_ms(lambda w: F.linear(x, w), 20, [(t,) for t in w16], graph),
+            library_ms=time_ms(lambda w: F.linear(x, w), 20, [(t,) for t in w16], graph=True),
         )
-        deq_ms = time_ms(lambda w, s: quant.int8_matmul_dequant(x, w, s), 20, ws, graph)
+        deq_ms = time_ms(lambda w, s: quant.int8_matmul_dequant(x, w, s), 20, ws, graph=True)
         k6 = dict(
-            ms=time_ms(k6_call, 20, ws, graph),
+            ms=time_ms(k6_call, 20, ws, graph=True),
             plain_ms=time_ms(lambda w, s: quant.w8a8_matmul_plain(x_q, x_s, w, s, out_dtype=BF16),
                              3, ws),
-            library_ms=time_ms(lambda w, s: _int_mm_scaled(x_q, x_s, w, s), 20, ws, graph),
+            library_ms=time_ms(lambda w, s: _int_mm_scaled(x_q, x_s, w, s), 20, ws, graph=True),
         )
-        eager = ""
-        if graph:
-            eager = (f"; eager launches: K5 {time_ms(k5_call, 20, ws):.4f} ms, K6 "
-                     f"{time_ms(k6_call, 20, ws):.4f} ms")
+        eager = (f"eager launches: K5 {time_ms(k5_call, 20, ws):.4f} ms, K6 "
+                 f"{time_ms(k6_call, 20, ws):.4f} ms")
         out_b, w_b = m * f * 2, f * d + f * 4
         k5["bound_ms"], k5["bound_by"] = bound_ms(m * d * 2 + w_b + out_b, 2 * m * d * f,
                                                   H100_BF16_PEAK)
@@ -652,11 +665,12 @@ def phase_k56(gen):
             f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}) [{card()}]")
         log(f"K6 {name}: kernel {k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, _int_mm + scales "
             f"{k6['library_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}) "
-            f"({n} weight copies cycled; {'CUDA-graph replay' if graph else 'eager'}{eager})")
+            f"({n} weight copies cycled; CUDA-graph replay; {eager})")
         if name == QUANT_REPORT:
             report = {"int8_matmul": k5, "w8a8_matmul": k6}
-        if name == QUANT_ADMIT_REPORT:
-            admit = {k: k5[k] for k in ("ms", "library_ms", "bound_ms")}
+        for kernel, row in (("int8_matmul", k5), ("w8a8_matmul", k6)):
+            if name in QUANT_ADMIT_REPORTS[kernel]:
+                admit[kernel][name] = {k: row[k] for k in ("ms", "library_ms", "bound_ms")}
         del x, x_q, x_s, w, s, ws, w16
         torch.cuda.empty_cache()
     return {k: dict(max_abs_err=worst[k], **report[k]) for k in worst}, admit
@@ -701,15 +715,15 @@ def expected_launches(cfg, admitted, rounds):
     decode round; per forward K1 (admission) or K4 (decode) once a layer,
     and one dense product per wq wk wv wo w1 w2 w3 of each layer plus
     lm_head: all K5 under "int8", all but lm_head K6 under "int8_w8a8".
-    An admission's K5 products (m = its bucket) take K5's GEMM, a decode
-    round's (m = 8 slots) its GEMV."""
+    An admission's products (m = its bucket) take K5's and K6's GEMMs, a
+    decode round's (m = 8 slots) their GEMVs."""
     L, forwards = cfg.num_hidden_layers, admitted + rounds
     body, head = 7 * L, 0 if cfg.tie_word_embeddings else 1
     k5 = {"int8": body + head, "int8_w8a8": head}.get(cfg.quant_dense, 0)
     k6 = body if cfg.quant_dense == "int8_w8a8" else 0
     return dict(flash_fwd=L * admitted, flash_bwd=0,
                 flash_decode=L * rounds, int8_matmul=k5 * forwards, w8a8_matmul=k6 * forwards,
-                int8_matmul_gemm=k5 * admitted)
+                int8_matmul_gemm=k5 * admitted, w8a8_matmul_gemm=k6 * admitted)
 
 
 def serve(model, name, n_requests=12):
@@ -915,17 +929,23 @@ KERNEL_WRAPPERS = {   # kernel name → the wrapper that counts its launches
 }
 
 
+GEMM_WRAPPERS = ("int8_matmul", "w8a8_matmul")   # their admission GEMMs are counted apart
+
+
 def _launch_counts():
-    """Each wrapper's launches, and K5's admission-GEMM launches apart."""
+    """Each wrapper's launches, and K5's and K6's admission-GEMM launches
+    apart (as `<name>_gemm`)."""
     counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
-    counts["int8_matmul_gemm"] = quant.int8_matmul.gemm_launches
+    for name in GEMM_WRAPPERS:
+        counts[name + "_gemm"] = KERNEL_WRAPPERS[name].gemm_launches
     return counts
 
 
 def _reset_launch_counts():
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
-    quant.int8_matmul.gemm_launches = 0
+    for name in GEMM_WRAPPERS:
+        KERNEL_WRAPPERS[name].gemm_launches = 0
 
 
 def phase_train_compare():
@@ -1100,7 +1120,7 @@ def main():
     *k1, k1_train = phase_k1(gen)
     *k4, k4_cases = phase_k4(gen)
     bwd = phase_bwd(gen)
-    k56, k5_admit = phase_k56(gen)
+    k56, k56_admit = phase_k56(gen)
     torch.cuda.empty_cache()
     # each main path's counts, set to 0 just before its run and read just after
     path_launches = []
@@ -1127,8 +1147,9 @@ def main():
         dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
              **k4_cases),
         dict(row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107",
-                 **k56["int8_matmul"]), **{QUANT_ADMIT_REPORT: k5_admit}),
-        row("w8a8_matmul", "w8a8_matmul.cu", "lwm_tpu/ops/quant.py:182", **k56["w8a8_matmul"]),
+                 **k56["int8_matmul"]), **k56_admit["int8_matmul"]),
+        dict(row("w8a8_matmul", "w8a8_matmul.cu", "lwm_tpu/ops/quant.py:182",
+                 **k56["w8a8_matmul"]), **k56_admit["w8a8_matmul"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -1,17 +1,18 @@
 // Building blocks shared by the port's Hopper (sm_90a) kernels: K1's
 // forward (flash_fwd.cu), the fused flash backward (flash_bwd.cu), K4's
-// decode (flash_decode.cu) and K5's admission GEMM (int8_matmul.cu).
+// decode (flash_decode.cu) and the admission GEMMs of K5 (int8_matmul.cu)
+// and K6 (w8a8_matmul.cu).
 //
 // Shared-memory tiles. A tile of R rows × D bf16 is D / 64 column halves of
 // R rows × 128 bytes, each row's eight 16-byte chunks swizzled (chunk c of
 // row r at c ^ (r % 8)): the layout `wgmma` reads without bank conflicts,
 // K-major or N-major alike. Tiles start 1024-aligned.
 //
-// Accumulator element i of an m64nN `wgmma` tile, in a thread of warp w (of
-// its warpgroup), lane (g8, t4) = (lane / 4, lane % 4): row 16·w + g8 +
-// 8·((i / 2) % 2), column 8·(i / 4) + 2·t4 + i % 2. Elements 8j .. 8j + 7,
-// packed in pairs, are the A fragments (a0 .. a3) of k chunk j of a product
-// that takes the accumulator as its register A operand.
+// Accumulator element i of an m64nN `wgmma` tile (fp32 or int32), in a
+// thread of warp w (of its warpgroup), lane (g8, t4) = (lane / 4, lane % 4):
+// row 16·w + g8 + 8·((i / 2) % 2), column 8·(i / 4) + 2·t4 + i % 2. Elements
+// 8j .. 8j + 7, packed in pairs, are the A fragments (a0 .. a3) of k chunk j
+// of a product that takes the accumulator as its register A operand.
 
 #pragma once
 
@@ -163,6 +164,30 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+#define LWM_IACC64                                                                             \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),          \
+      "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),  \
+      "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),            \
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),            \
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),            \
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),            \
+      "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),            \
+      "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),            \
+      "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),            \
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),            \
+      "+r"(d[62]), "+r"(d[63])
+// d[64 × 128] (+)= A (64 × 32) · B (32 × 128), int8 × int8 summed exactly
+// in int32, both K-major in shared memory (an 8-bit `wgmma` takes no
+// transpose). 32 int8 k values are 32 bytes, so the descriptors step as for
+// 16 bf16 ones. scale_d 0 ignores d's old value.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " LWM_REGS64 ", %64, %65, p;\n}\n"
+      : LWM_IACC64
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -180,6 +205,11 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
@@ -220,6 +250,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
+// named barrier `id` (1..15) over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 // spin until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
@@ -231,6 +265,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// TMA: the box at (column c0, row c1) of a 2-D `map` into shared memory,
+// completion (bytes) reported to `bar`; out-of-bounds elements arrive as
+// zeros and count as bytes
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
@@ -250,6 +296,22 @@ inline EncodeTiled encode_tiled() {
       encode = reinterpret_cast<EncodeTiled>(fn);
   }
   return encode;
+}
+
+// a row-major [rows, cols] tensor cut into [box_rows, box_cols] boxes
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                              const void* ptr, int rows, int cols, int box_rows, int box_cols,
+                              CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace lwm

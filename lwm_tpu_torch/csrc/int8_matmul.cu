@@ -230,25 +230,6 @@ struct GemmTile {
 // (TMA's CU_TENSOR_MAP_SWIZZLE_128B layout for 128-byte rows)
 __device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
 
-// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile whose
-// 1024-byte swizzle atoms (8 rows) are 1024 bytes apart (SBO); the leading
-// offset is unused for this layout. Adding 2 moves the start 32 bytes (k 16).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// TMA: box at (column c0, row c1) of `map` into shared memory, completion
-// (bytes) reported to `bar`; out-of-bounds elements arrive as zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 template <int WG>
 __global__ void __launch_bounds__(128 * (WG + 1), 1)
     int8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
@@ -369,29 +350,14 @@ __global__ void __launch_bounds__(128 * (WG + 1), 1)
   }
 }
 
-// a row-major [rows, cols] tensor cut into [box_rows, kBK] boxes
-cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
-                       int rows, int cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, steps,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int WG>
 cudaError_t launch_gemm(const Args& a, cudaStream_t s) {
   using T = GemmTile<WG>;
   CUtensorMap x_map, w_map;
   cudaError_t e = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, a.m, a.d, T::kBM,
-                             CU_TENSOR_MAP_SWIZZLE_128B);
+                             kBK, CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == cudaSuccess)
-    e = tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.f, a.d, kBN,
+    e = tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.f, a.d, kBN, kBK,
                    CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(int8_gemm_kernel<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -6,41 +6,68 @@
 // x_q [m, d] with an fp32 per-row scale [m, 1] (the activations, quantized per
 // row outside the kernel); int8 w [f, d] (torch's [out, in] layout) with an
 // fp32 per-output-channel scale [f]. Products are summed exactly in int32
-// (d·127² < 2³¹) on the tensor cores (mma.sync m16n8k32 s8·s8 → s32); the
-// epilogue is JAX's `acc.astype(f32) * x_scale * w_scale`, in that order, so
-// the result is bit-identical to the plain twin.
+// (d·127² < 2³¹) on the tensor cores; the epilogue is JAX's
+// `acc.astype(f32) * x_scale * w_scale`, in that order, rounded to bf16 once,
+// so the result is bit-identical to the plain twin.
 //
 // What bounds it on the card, and the two designs:
-// - Decode (m ≤ 16, `w8a8_gemv_kernel`): 2·m ops per weight byte, far below
-//   the ridge (1,979 TOP/s over 3.35 TB/s), so the int8 weight stream bounds
-//   it, exactly as for K5 (w1 at 4096 → 11008: at least 13.5 µs). The same
-//   shape as K5's decode kernel: the weight is the A operand (16 output
+// - Decode (m ≤ kGemvMaxM, `w8a8_gemv_kernel`): 2·m ops per weight byte, far
+//   below the ridge (1,979 TOP/s over 3.35 TB/s), so the int8 weight stream
+//   bounds it, exactly as for K5 (w1 at 4096 → 11008: at least 13.5 µs). The
+//   same shape as K5's decode kernel: the weight is the A operand (16 output
 //   channels per row tile), the tokens the B operand (8 per column tile); each
 //   thread streams 16 contiguous bytes per row per 64-wide chunk, which are its
-//   A fragments of two m16n8k32 steps under a k permutation that x_q's B
-//   fragments share; 8 warps per block split d and sum their int32 partials in
-//   shared memory (exact, so the order does not matter). Unlike K5 there is
-//   no conversion at all: the bytes go to the tensor cores as they are.
-// - Admission (m up to 2048, `w8a8_gemm_kernel`): above the ridge, so the
+//   A fragments of two m16n8k32 `mma.sync` steps under a k permutation that
+//   x_q's B fragments share; 8 warps per block split d and sum their int32
+//   partials in shared memory (exact, so the order does not matter). Unlike K5
+//   there is no conversion at all: the bytes go to the tensor cores as they
+//   are.
+// - Admission (m > kGemvMaxM, `w8a8_gemm_kernel`): above the ridge, so the
 //   int8 tensor-core rate bounds it (w1 at m 2048: at least 0.093 ms at 1,979
-//   TOP/s). 128 × 128 output tiles, 8 warps of 64 × 32, k tiles of 64 bytes
-//   staged by a 3-stage cp.async pipeline; each thread's 16 k bytes of a row
-//   are contiguous, so every fragment comes from one 16-byte shared-memory
-//   load with no bank conflicts.
-// Ragged m, f and d edges are zero-filled at the loads (zeros add nothing to
-// an integer sum) and masked at the stores; d is a multiple of 16 (16-byte
-// rows; the wrapper checks). Not yet: wgmma, TMA, split-K for decode.
+//   TOP/s), and on Hopper only `wgmma` reaches it. x_q [m, d] and w [f, d]
+//   are both K-major as stored, which is what an 8-bit `wgmma` takes (it has
+//   no transpose), so the bytes go from TMA to the tensor cores untouched:
+//   * Each block owns a BM × 128 output tile and walks d in k tiles of 128
+//     bytes through a ring of stages in dynamic shared memory. A stage holds
+//     x_q [BM, 128] and w [128, 128], each 128-byte-swizzled as TMA writes it
+//     (16-byte chunk c of row r at chunk c ^ (r % 8)), the layout `wgmma`
+//     reads without bank conflicts.
+//   * Warp specialisation: a producer warp after the consumer warpgroups.
+//     Its first thread issues both TMA loads of a stage (completion counted
+//     in bytes on the stage's `full` mbarrier) as soon as the stage is free;
+//     its other 31 stage the block's x and w scales in shared memory. Each
+//     consumer warpgroup (64 rows) waits on `full`, issues four m64n128k32
+//     `wgmma`s (s8 · s8 → s32 in registers) and commits them, and frees the
+//     previous tile's stage on its `empty` mbarrier once that tile's group
+//     has completed: one group stays in flight while the next is issued.
+//   * The epilogue is the decode kernel's arithmetic (`dequant`, one
+//     rounding), written into the freed ring (swizzled, no bank conflicts)
+//     and read back so that each warp stores whole 256-byte output rows: a
+//     direct store of the accumulator fragments (16-byte pieces of 8 rows
+//     per instruction) took 1.2-1.3× as long at m 2048 (PERF.md).
+//   * Tile pick: the tallest BM of 256 / 128 / 64 whose grid still covers
+//     half the SMs, as K5's GEMM; 256-row tiles share each weight tile among
+//     the most rows. Blocks walk m first, so each weight tile comes from HBM
+//     about once. BN 256 (one warpgroup's accumulators doubled) measured
+//     slower than BM 256 at every shape but one.
+// Ragged m, f and d edges are zero-filled at the loads (TMA fills out-of-
+// bounds boxes with zeros, which add nothing to an integer sum) and masked at
+// the stores (whole 16-byte chunks where f % 8 == 0, else element by
+// element); d is a multiple of 16 (16-byte rows and TMA strides; the wrapper
+// checks).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace lwm;
+
+constexpr int kThreads = 256;  // decode GEMV
 constexpr int kWarps = kThreads / 32;
 constexpr int kGemvRows = 32;  // output channels per decode block: 2 row tiles
-constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3;
+constexpr int kGemvMaxM = 16;  // m ≤ this: the decode GEMV; above: the GEMM
+constexpr int kBN = 128;       // admission GEMM: output channels per block
+constexpr int kBK = 128;       // and its k tile: one 128-byte swizzled int8 row
 
 struct Args {
   const int8_t* xq;
@@ -67,19 +94,6 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int j) {
 // the epilogue in JAX's order: (float(acc) · row scale) · column scale
 __device__ __forceinline__ float dequant(int acc, float sx, float sw) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* src, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // ----------------------------------------------------------------- decode
@@ -179,94 +193,166 @@ __global__ void __launch_bounds__(kThreads) w8a8_gemv_kernel(const Args a) {
 
 // -------------------------------------------------------------- admission
 
-__global__ void __launch_bounds__(kThreads) w8a8_gemm_kernel(const Args a) {
-  __shared__ __align__(16) int8_t xs[kStages][kBM][kBK];
-  __shared__ __align__(16) int8_t ws[kStages][kBN][kBK];
+template <int WG>  // WG consumer warpgroups: BM = 64·WG rows of x_q per block
+struct GemmTile {
+  static constexpr int kBM = 64 * WG;
+  static constexpr int kThreads = 128 * WG + 32;         // + the producer warp
+  static constexpr int kX = kBM * kBK;                   // x_q tile, int8, swizzled (TMA)
+  static constexpr int kStage = kX + kBN * kBK;          // + the w tile, the same
+  static constexpr int kFit = (232448 - 4096) / kStage;  // 227 KB less alignment, barriers, scales
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kSmem = kStages * kStage + 4096;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows 64·wm.., columns 32·wn..
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+template <int WG>
+__global__ void __launch_bounds__(GemmTile<WG>::kThreads, 1)
+    w8a8_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap w_map, const Args a) {
+  using T = GemmTile<WG>;
+  constexpr int S = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // stage s at base + s·kStage, 1024-aligned
+  uint8_t* smem = smem_raw + (base - raw);
+  // per stage: `full` (the TMA bytes of both tiles), `empty` (every consumer
+  // warp is done with it)
+  const uint32_t bars = base + S * T::kStage;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+  const uint32_t scaled = bars + 16 * S;  // the scales below are in shared memory
+  // x_scale[m0 .. m0 + BM), then w_scale[n0 .. n0 + 128), zero past m and f
+  float* scales = reinterpret_cast<float*>(smem + S * T::kStage + 256);
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * T::kBM, n0 = blockIdx.y * kBN;
   const int nk = (a.d + kBK - 1) / kBK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kBK;
-    for (int i = tid; i < kBM * (kBK / 16); i += kThreads) {
-      const int r = i / (kBK / 16), c = (i % (kBK / 16)) * 16;
-      const bool ok = m0 + r < a.m && k0 + c < a.d;
-      cp_async16(&xs[stage][r][c], a.xq + (ok ? (long long)(m0 + r) * a.d + k0 + c : 0), ok);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * WG);
     }
-    for (int i = tid; i < kBN * (kBK / 16); i += kThreads) {
-      const int r = i / (kBK / 16), c = (i % (kBK / 16)) * 16;
-      const bool ok = n0 + r < a.f && k0 + c < a.d;
-      cp_async16(&ws[stage][r][c], a.w + (ok ? (long long)(n0 + r) * a.d + k0 + c : 0), ok);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+    mbar_init(scaled, 31);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
-    const int pf = kt + kStages - 1;
-    if (pf < nk) load_stage(pf % kStages, pf);
-    cp_async_commit();
+  __syncthreads();
 
-    const int st = kt % kStages;
-    uint4 xa[4][2], wb[4];  // k bytes 16t..16t+15 of rows g, g + 8 (x) and g (w)
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        xa[mt][hh] = *reinterpret_cast<const uint4*>(&xs[st][wm * 64 + mt * 16 + 8 * hh + g][16 * t]);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      wb[nt] = *reinterpret_cast<const uint4*>(&ws[st][wn * 32 + nt * 8 + g][16 * t]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_s8_16832(acc[mt][nt], word(xa[mt][0], 2 * j), word(xa[mt][1], 2 * j),
-                       word(xa[mt][0], 2 * j + 1), word(xa[mt][1], 2 * j + 1),
-                       word(wb[nt], 2 * j), word(wb[nt], 2 * j + 1));
-  }
-
-  const bool pairs = (a.f & 1) == 0;  // bf16x2 stores stay 4-byte aligned
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + wm * 64 + mt * 16 + 8 * hh + g;
-      if (row >= a.m) continue;
-      const float sx = a.xs[row];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-        __nv_bfloat16* o = a.out + (long long)row * a.f + col;
-        const int v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
-        if (pairs && col + 1 < a.f) {
-          *reinterpret_cast<__nv_bfloat162*>(o) =
-              __floats2bfloat162_rn(dequant(v0, sx, a.ws[col]), dequant(v1, sx, a.ws[col + 1]));
-        } else {
-          if (col < a.f) o[0] = __float2bfloat16_rn(dequant(v0, sx, a.ws[col]));
-          if (col + 1 < a.f) o[1] = __float2bfloat16_rn(dequant(v1, sx, a.ws[col + 1]));
-        }
+  if (tid >= 128 * WG) {  // the producer warp: TMA from its first thread, scales from the rest
+    const int lane = tid & 31;
+    if (lane == 0) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty(s), (t / S + 1) & 1);  // tile t - S is consumed
+        const uint32_t st = base + s * T::kStage;
+        mbar_expect_tx(full(s), T::kStage);
+        tma_load(st, &x_map, full(s), t * kBK, m0);
+        tma_load(st + T::kX, &w_map, full(s), t * kBK, n0);
       }
+    } else {
+      for (int i = lane - 1; i < T::kBM + kBN; i += 31) {
+        const bool is_x = i < T::kBM;
+        const int r = is_x ? m0 + i : n0 + i - T::kBM;
+        scales[i] = r < (is_x ? a.m : a.f) ? (is_x ? a.xs[r] : a.ws[r]) : 0.f;
+      }
+      mbar_arrive(scaled);
     }
+    return;
+  }
+
+  // consumer warpgroups: wgmma only
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  int acc[kBN / 2];
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % S;
+    mbar_wait(full(s), (t / S) & 1);
+    const uint32_t st = base + s * T::kStage;
+    const uint64_t da = smem_desc(st + wg * 64 * kBK), db = smem_desc(st + T::kX);
+    wgmma_fence();
+    fence_acc(acc);
+#pragma unroll
+    for (int k = 0; k < kBK / 32; ++k) wgmma_s8(acc, da + 2 * k, db + 2 * k, t > 0 || k > 0);
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();  // tile t - 1's group is done: its stage is free
+    if (t > 0 && lane == 0) mbar_arrive(empty((t - 1) % S));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (nk == 0)
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+
+  // The epilogue: (float(acc) · x_scale) · w_scale rounded to bf16 once,
+  // staged in shared memory so that each warp stores whole 256-byte rows.
+  // The ring is free once every consumer warpgroup is past its loop; this
+  // warpgroup's 64 × 128 tile takes 16 KB of it as two 64-column halves of
+  // 64 rows × 128 bytes, 16-byte chunk c of row r at chunk c ^ (r % 8).
+  bar_sync(1, 128 * WG);
+  uint8_t* tile = smem + wg * 64 * 2 * kBN;
+  mbar_wait(scaled, 0);
+  // accumulator i of a thread: row 16·warp + lane/4 + 8·((i/2)%2) of the
+  // warpgroup's 64, column 8·(i/4) + 2·(lane%4) + i%2
+  const int r0 = warp * 16 + (lane >> 2);
+  const float sx[2] = {scales[wg * 64 + r0], scales[wg * 64 + r0 + 8]};
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    const float sw0 = scales[T::kBM + c], sw1 = scales[T::kBM + c + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      *reinterpret_cast<uint32_t*>(tile + (j >> 3) * 64 * 128 + r * 128 +
+                                   (((j & 7) ^ (r & 7)) << 4) + 4 * (lane & 3)) =
+          pack_bf16(dequant(acc[4 * j + 2 * h], sx[h], sw0),
+                    dequant(acc[4 * j + 2 * h + 1], sx[h], sw1));
+    }
+  }
+  bar_sync(2 + wg, 128);
+  // thread i of the warpgroup: chunk i % 16 (8 columns) of rows i / 16 + 8k
+  const int c = tid & 15, col = n0 + 8 * c;
+  const bool whole = (a.f & 7) == 0;  // 16-byte rows: a chunk is all in or all out
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int r = ((tid & 127) >> 4) + 8 * k, row = m0 + wg * 64 + r;
+    if (row >= a.m) break;
+    const uint4 v = *reinterpret_cast<const uint4*>(tile + (c >> 3) * 64 * 128 + r * 128 +
+                                                    (((c & 7) ^ (r & 7)) << 4));
+    __nv_bfloat16* o = a.out + (long long)row * a.f + col;
+    if (whole) {
+      if (col < a.f) *reinterpret_cast<uint4*>(o) = v;
+    } else {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (col + q < a.f) o[q] = e[q];
+    }
+  }
+}
+
+template <int WG>
+cudaError_t launch_gemm(const Args& a, cudaStream_t s) {
+  using T = GemmTile<WG>;
+  CUtensorMap x_map, w_map;
+  cudaError_t e = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.xq, a.m, a.d, T::kBM, kBK,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.f, a.d, kBN, kBK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(w8a8_gemm_kernel<WG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (e != cudaSuccess) return e;
+  // consecutive blocks walk m first, so a wave shares few weight tiles and
+  // each weight tile is read from HBM about once
+  const dim3 grid((a.m + T::kBM - 1) / T::kBM, (a.f + kBN - 1) / kBN);
+  w8a8_gemm_kernel<WG><<<grid, T::kThreads, T::kSmem, s>>>(x_map, w_map, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+// The m at and below which lwm_w8a8_matmul runs the decode GEMV (the
+// wrapper reads it to count the GEMM's launches apart).
+extern "C" int lwm_w8a8_gemv_max_m() { return kGemvMaxM; }
 
 extern "C" int lwm_w8a8_matmul(const void* xq, const void* xs, const void* w, const void* ws,
                                void* out, int m, int f, int d, void* stream) {
@@ -284,11 +370,18 @@ extern "C" int lwm_w8a8_matmul(const void* xq, const void* xs, const void* w, co
   if (d % 16) return cudaErrorInvalidValue;
   if (m <= 8) {
     w8a8_gemv_kernel<1><<<(f + kGemvRows - 1) / kGemvRows, kThreads, 0, s>>>(a);
-  } else if (m <= 16) {
+  } else if (m <= kGemvMaxM) {
     w8a8_gemv_kernel<2><<<(f + kGemvRows - 1) / kGemvRows, kThreads, 0, s>>>(a);
   } else {
-    const dim3 grid((f + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-    w8a8_gemm_kernel<<<grid, kThreads, 0, s>>>(a);
+    // the tallest tile (the most products per byte loaded) whose grid still
+    // covers half the card
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int cols = (f + kBN - 1) / kBN;
+    if (2 * ((m + 255) / 256) * cols >= sms) return launch_gemm<4>(a, s);
+    if (2 * ((m + 127) / 128) * cols >= sms) return launch_gemm<2>(a, s);
+    return launch_gemm<1>(a, s);
   }
   return cudaGetLastError();
 }

@@ -71,6 +71,7 @@ _SIGNATURES = {
         _I, _I, _I,                       # m, f, d
         _P,                               # cudaStream_t
     ],
+    "lwm_w8a8_gemv_max_m": [],            # K6's m threshold: the GEMV at or below, the GEMM above
 }
 _BWD_INPUTS = [_P] * 7                    # q, k, v, g, lse, delta, bias (or NULL)
 _BWD_DIMS = [

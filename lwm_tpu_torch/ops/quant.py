@@ -16,8 +16,10 @@ layout: a weight is int8 [f, d], its scale fp32 [f] (the flax kernel is
   `int8_matmul_plain`.
 - `w8a8_matmul_quantized` (K6, replaces `_w8a8_matmul_kernel`,
   `quant.py:182-202`): int8 x_q · int8 wᵀ summed exactly in int32, then
-  (float(acc) · x_scale) · w_scale. CUDA: `csrc/w8a8_matmul.cu`; twin
-  `w8a8_matmul_plain` (fp64 sums, exact since d·127² < 2⁵³), bit-identical.
+  (float(acc) · x_scale) · w_scale. CUDA: `csrc/w8a8_matmul.cu` (a GEMV for
+  decode, m ≤ `lwm_w8a8_gemv_max_m()`, and an int8 `wgmma` GEMM above it,
+  counted also in `.gemm_launches`); twin `w8a8_matmul_plain` (fp64 sums,
+  exact since d·127² < 2⁵³), bit-identical.
   `w8a8_matmul` quantizes the activations per row (plain PyTorch, as the
   JAX package leaves it to XLA outside the kernel) and launches K6.
 - `int8_matmul_dequant`: the JAX `int8_matmul_xla` math, the explicit
@@ -111,10 +113,11 @@ def _on_cuda(name, x):
 
 
 @functools.cache
-def _gemv_max_m():
-    """The largest m K5's C dispatch gives its decode GEMV (the admission
-    GEMM takes every larger m): one constant, read from the library."""
-    return _build.load().lwm_int8_gemv_max_m()
+def _gemv_max_m(entry):
+    """The largest m a kernel's C dispatch gives its decode GEMV (the
+    admission GEMM takes every larger m): one constant, read from the
+    library's `entry`."""
+    return getattr(_build.load(), entry)()
 
 
 def int8_matmul(x, w, scale):
@@ -138,14 +141,16 @@ def int8_matmul(x, w, scale):
     )
     _build.check(rc, "lwm_int8_matmul")
     int8_matmul.launches += 1
-    if m > _gemv_max_m():
+    if m > _gemv_max_m("lwm_int8_gemv_max_m"):
         int8_matmul.gemm_launches += 1
     return out
 
 
 def w8a8_matmul_quantized(x_q, x_scale, w, w_scale, *, out_dtype):
     """K6: int8 x_q [m, d] (fp32 row scale [m, 1]) @ int8 w [f, d]ᵀ (fp32
-    column scale [f]) → [m, f] out_dtype (bf16 for the kernel)."""
+    column scale [f]) → [m, f] out_dtype (bf16 for the kernel). Counts every
+    launch in `.launches`, and those of the admission GEMM (m above the
+    GEMV's range) also in `.gemm_launches`."""
     if x_q.device.type == "cpu":
         return w8a8_matmul_plain(x_q, x_scale, w, w_scale, out_dtype=out_dtype)
     _on_cuda("w8a8_matmul", x_q)
@@ -167,6 +172,8 @@ def w8a8_matmul_quantized(x_q, x_scale, w, w_scale, *, out_dtype):
     )
     _build.check(rc, "lwm_w8a8_matmul")
     w8a8_matmul_quantized.launches += 1
+    if m > _gemv_max_m("lwm_w8a8_gemv_max_m"):
+        w8a8_matmul_quantized.gemm_launches += 1
     return out
 
 
@@ -183,6 +190,7 @@ def w8a8_matmul(x, w, w_scale):
 int8_matmul.launches = 0
 int8_matmul.gemm_launches = 0
 w8a8_matmul_quantized.launches = 0
+w8a8_matmul_quantized.gemm_launches = 0
 
 
 def quantize_params_int8(state_dict, targets=QUANT_TARGETS):

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time copies of a flash-attention kernel against each other.
+"""Time copies of a flash-attention kernel (or of K6) against each other.
 
     python3 scripts/time_flash.py fwd [SRC.cu ...]
     python3 scripts/time_flash.py bwd [SRC.cu ...]
+    python3 scripts/time_flash.py w8a8 [SRC.cu ...]
     python3 scripts/time_flash.py dec [ROOT[@SPLIT] ...]
 
-fwd, bwd: each SRC is a copy of `lwm_tpu_torch/csrc/flash_fwd.cu` (fwd: K1,
-C entry `lwm_flash_fwd`) or `csrc/flash_bwd.cu` (bwd: the fused backward,
-`lwm_flash_bwd`), a variant under test or another commit's kernel with the
+fwd, bwd, w8a8: each SRC is a copy of `lwm_tpu_torch/csrc/flash_fwd.cu`
+(fwd: K1, C entry `lwm_flash_fwd`), `csrc/flash_bwd.cu` (bwd: the fused
+backward, `lwm_flash_bwd`) or `csrc/w8a8_matmul.cu` (w8a8: K6,
+`lwm_w8a8_matmul`), a variant under test or another commit's kernel with the
 same entry; default: the package's own source. Each is built by nvcc into a
 library of its own (all at once; `#include`s resolve beside the copy, then
 in the package's csrc), its ptxas register and spill lines are printed, it
@@ -18,6 +20,10 @@ N..1, with CUDA events over calls of the wrapper. Shapes:
   d 128, causal, 300 right-padded keys in row 1); BF16_TOL and LSE_TOL.
 - bwd: the train step's attention as above (dq_accum zeroing and the bf16
   rounding included in each call); BWD_REL_TOL and BWD_COS_MIN.
+- w8a8: every chip_smoke.QUANT_SHAPES case that takes K6's admission GEMM
+  (m > 16), held bit for bit to the twin; the admission shapes timed from
+  CUDA-graph replays of the C entry with weight copies cycled past the L2
+  (as chip_smoke.phase_k56), `_int_mm` + scales and the bound beside.
 dec (K4): each ROOT is a checkout of the repo (default: this one), e.g.
 another commit unpacked under the gitignored _checkout/; its own wrapper
 (`lwm_tpu_torch/ops/decode.py`) and kernels (built from its csrc into its
@@ -47,9 +53,11 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as smoke  # noqa: E402
 import lwm_tpu_torch.ops as ops_pkg  # noqa: E402
-from lwm_tpu_torch.ops import _build, decode, flash  # noqa: E402
+from lwm_tpu_torch.ops import _build, decode, flash, quant  # noqa: E402
 
-ENTRY = {"fwd": "lwm_flash_fwd", "bwd": "lwm_flash_bwd", "dec": None}
+ENTRY = {"fwd": "lwm_flash_fwd", "bwd": "lwm_flash_bwd", "w8a8": "lwm_w8a8_matmul",
+         "dec": None}
+SOURCE = {"fwd": "flash_fwd.cu", "bwd": "flash_bwd.cu", "w8a8": "w8a8_matmul.cu"}
 
 
 def build(srcs, entry):
@@ -132,6 +140,48 @@ def bwd_shapes(gen):
     pairs = smoke.attn_pairs(valid, S, 0)
     bound = smoke.bound_ms(0, 10 * d * h * pairs, smoke.H100_BF16_PEAK)[0]
     return {name: (check, lambda: flash.flash_attention_bwd(*args), bound)}
+
+
+def w8a8_shapes(gen):
+    """{name: (check, call, bound ms or None: checked, not timed)} at K6's
+    GEMM shapes; each call takes the next weight copy."""
+    shapes = {}
+    for name, m, d, f in smoke.QUANT_SHAPES:
+        if m <= 16:
+            continue
+        x_q, x_s = quant.quantize_activations(smoke._randn((m, d), gen))
+        w, s = quant.quantize_weight(torch.randn((f, d), generator=gen, device="cuda") * 0.02)
+        want = quant.w8a8_matmul_plain(x_q, x_s, w, s, out_dtype=smoke.BF16)
+
+        def check(got, want=want):
+            verdict = "ok" if torch.equal(got, want) else "FAILS"
+            return f"max|out-plain| {(got.float() - want.float()).abs().max().item():.3e} {verdict}"
+
+        timed = name.startswith("admit")
+        n = max(1, -(-int(smoke.L2_FLUSH_BYTES) // w.numel())) if timed else 1
+        sets = [(w.clone(), s.clone()) for _ in range(n - 1)] + [(w, s)]
+        turn = iter(range(10**9))
+
+        def call(x_q=x_q, x_s=x_s, sets=sets, turn=turn, m=m, f=f, d=d):
+            # the C entry itself (the wrapper also counts, through a symbol
+            # an older copy may lack)
+            w, s = sets[next(turn) % len(sets)]
+            out = torch.empty((m, f), dtype=smoke.BF16, device="cuda")
+            rc = _build.load().lwm_w8a8_matmul(
+                x_q.data_ptr(), x_s.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
+                m, f, d, _build.stream_handle(out.device))
+            _build.check(rc, "lwm_w8a8_matmul")
+            return out
+
+        bound = None
+        if timed:
+            bound = smoke.bound_ms(m * d + m * 4 + f * d + f * 4 + m * f * 2, 2 * m * d * f,
+                                   smoke.H100_INT8_PEAK)[0]
+            lib = smoke.time_ms(lambda w, s: smoke._int_mm_scaled(x_q, x_s, w, s), 20, sets,
+                                graph=True)
+            print(f"{name}: _int_mm + scales {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
+        shapes[name] = (check, call, bound)
+    return shapes
 
 
 def _load_checkout(root, i):
@@ -236,15 +286,15 @@ def main_dec(specs):
 
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in ENTRY:
-        raise SystemExit("usage: time_flash.py fwd|bwd [SRC.cu ...] | dec [ROOT[@SPLIT] ...]")
+        raise SystemExit("usage: time_flash.py fwd|bwd|w8a8 [SRC.cu ...] | dec [ROOT[@SPLIT] ...]")
     kind, srcs = sys.argv[1], sys.argv[2:]
     if kind == "dec":
         return main_dec(srcs)
-    srcs = srcs or [str(_build.CSRC / f"flash_{kind}.cu")]
+    srcs = srcs or [str(_build.CSRC / SOURCE[kind])]
     smoke.phase_env()
     libs = build(srcs, ENTRY[kind])
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    shapes = (fwd_shapes if kind == "fwd" else bwd_shapes)(gen)
+    shapes = {"fwd": fwd_shapes, "bwd": bwd_shapes, "w8a8": w8a8_shapes}[kind](gen)
 
     def run(lib, call):
         with mock.patch.object(_build, "load", lambda: lib):
@@ -262,9 +312,12 @@ def main():
             print(f"  {name}: {check(got)}", flush=True)
     built = [i for i, (lib, _) in enumerate(libs) if lib is not None]
     for name, (_, call, bound) in shapes.items():
+        if bound is None:
+            continue
         times = {i: [] for i in built}
         for i in built + built[::-1]:
-            times[i].append(smoke.time_ms(lambda: run(libs[i][0], call), 10))
+            times[i].append(smoke.time_ms(lambda: run(libs[i][0], call), 10,
+                                          graph=kind == "w8a8"))
         for i in built:
             ms = times[i]
             print(f"{name} {srcs[i]}: " + ", ".join(f"{t:.3f}" for t in ms) + f" ms "

@@ -88,13 +88,18 @@ def test_quantize_activations_matches_jax(dtype):
 MATMUL_SHAPES = {
     # name: (m, d, f, Pallas block overrides) — tests/test_quant.py:47-72;
     # m 65 and 129 take K5's admission GEMM on the card (m > 16) with a
-    # ragged last 64-row tile
+    # ragged last 64-row tile; the last three hold the edges of K6's GEMM:
+    # its smallest m (17), a d that ends in a 16-byte piece of its 128-byte
+    # k tile (144), an f that ends inside its 128 columns (200)
     "8x256x384": (8, 256, 384, {}),
     "3x128x128": (3, 128, 128, {}),
     "130x512x640": (130, 512, 640, {}),
     "65x256x384": (65, 256, 384, {}),
     "129x512x256": (129, 512, 256, {}),
     "blocked_8x1536x1280": (8, 1536, 1280, dict(block_d=512, block_f=256)),
+    "17x256x384": (17, 256, 384, {}),
+    "33x144x256": (33, 144, 256, {}),
+    "257x256x200": (257, 256, 200, {}),
 }
 
 
@@ -125,22 +130,35 @@ def test_int8_matmul_twin_matches_pallas(shape):
     assert quant.int8_matmul.gemm_launches == gemm
 
 
-@pytest.mark.parametrize("shape", sorted(MATMUL_SHAPES))
-def test_w8a8_matmul_twin_matches_pallas_exactly(shape):
+# fp32 output under the shape's name, and bf16 (the kernel's only output
+# type) under "<shape>-bf16"
+W8A8_CASES = [pytest.param(shape, "float32", id=shape) for shape in sorted(MATMUL_SHAPES)] + [
+    pytest.param(shape, "bfloat16", id=f"{shape}-bf16") for shape in sorted(MATMUL_SHAPES)
+]
+
+
+@pytest.mark.parametrize("shape, dtype", W8A8_CASES)
+def test_w8a8_matmul_twin_matches_pallas_exactly(shape, dtype):
     m, d, f, blocks = MATMUL_SHAPES[shape]
     x, w, s = _matmul_inputs(m, d, f, 3)
     x_q, x_s = jq.quantize_activations(jnp.asarray(x))
     want = jq.w8a8_matmul_pallas(x_q, x_s, jnp.asarray(w), jnp.asarray(s),
-                                 out_dtype=jnp.float32, interpret=True, **blocks)
-    got = quant.w8a8_matmul_plain(_t(x_q), _t(x_s), _t(w.T), _t(s), out_dtype=torch.float32)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    # activation quant + the wrapper: the JAX XLA oracle, bit for bit
+                                 out_dtype=getattr(jnp, dtype), interpret=True, **blocks)
+    got = quant.w8a8_matmul_plain(_t(x_q), _t(x_s), _t(w.T), _t(s),
+                                  out_dtype=getattr(torch, dtype))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    # activation quant + the wrapper: the JAX XLA oracle, bit for bit; the
+    # CPU path launches nothing, on either route
     launches = quant.w8a8_matmul_quantized.launches
+    gemm = quant.w8a8_matmul_quantized.gemm_launches
+    x_in = _t(x).to(getattr(torch, dtype))
     np.testing.assert_array_equal(
-        quant.w8a8_matmul(_t(x), _t(w.T), _t(s)).numpy(),
-        np.asarray(jq.w8a8_matmul_xla(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s))),
+        quant.w8a8_matmul(x_in, _t(w.T), _t(s)).float().numpy(),
+        np.asarray(jq.w8a8_matmul_xla(jnp.asarray(x, dtype), jnp.asarray(w), jnp.asarray(s)),
+                   np.float32),
     )
     assert quant.w8a8_matmul_quantized.launches == launches
+    assert quant.w8a8_matmul_quantized.gemm_launches == gemm
 
 
 def test_int8_matmul_dequant_matches_xla():
