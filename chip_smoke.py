@@ -21,10 +21,17 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
      and a full-tile bias, causal or not; d 64 at 8 kv heads).
   6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
-     serving shapes: decode (8 slots), admission at each bucket (m 256/
+     serving shapes: decode (8 slots) and admission at each bucket (m 256/
      1024/2048, ragged 2000) and product (all four at m 2048; wq, w1, w2
-     and lm_head at m 256) and ragged edges sized to the GEMMs' tiles, K5's
-     and K6's alike (m 17/65/129/130/300/1000, d 4112, f 999/4001/4040).
+     and lm_head at m 256); ragged edges sized to the GEMMs' tiles, K5's
+     and K6's alike (m 17/65/129/130/300/1000, d 4112, f 999/4001/4040),
+     and to K5's decode GEMV: one request (m 1) and both token tiles full
+     (m 16) at a ragged d and f (4112, 999), and each side of every
+     boundary of its split of d across a cluster (f 2080/2112 and
+     4192/4224, d 4080 and 2032) and of its ring depth (f 8448/8480).
+     Each timed shape logs the kernel from graph replays and from eager
+     launches (the host path a decode round pays), its twin, one PyTorch
+     call and the bound.
   7. Serve 12 requests through InflightServer with the 7b preset at the
      scripts/run_serve.sh settings (bf16, theta 5e7, 8 slots, cache 4096,
      buckets 256/1024/2048), random weights from a seed, after one untimed
@@ -128,7 +135,14 @@ SEED = 0
 # at f 999 take the 64-row tile, m 300 at f 4001 the 128-row one, m 1000 at
 # f 4001 and 4040 the 256-row one. d 4112 ends in a 16-byte piece of a k
 # tile; f 999 and 4001 are stored element by element by K6, 4040 (a
-# multiple of 8) in 16-byte chunks up to a last column tile of 72
+# multiple of 8) in 16-byte chunks up to a last column tile of 72. K5's
+# decode GEMV (m <= 16, 32 output channels a block) splits d over a cluster
+# of 4 blocks while the 32-channel tiles times 2 leave SMs of the H100's
+# 132 without a block (f <= 2080) and d >= 4096, of 2 while the tiles alone
+# do (f <= 4192) and d >= 2048: f 999, 2080 take 4; f 2112, 4192 (and f 999
+# at d 4080) take 2; f 4224 (and d 2032) take none. Its ring has 8 stages
+# up to two blocks an SM (f 8448 unsplit: 264 blocks), 4 above (f 8480).
+# m 1 and 13 fill one token tile in part, m 9 and 16 two
 QUANT_SHAPES = [
     ("decode_m8_wq_4096x4096", 8, 4096, 4096),
     ("decode_m8_w1_4096x11008", 8, 4096, 11008),
@@ -145,7 +159,17 @@ QUANT_SHAPES = [
     ("admit_m2048_head_4096x32000", 2048, 4096, 32000),
     ("admit_m2000_w1_4096x11008", 2000, 4096, 11008),
     ("admit_m2000_head_4096x32000", 2000, 4096, 32000),
+    ("edge_m1_d4112_f999", 1, 4112, 999),
     ("edge_m13_d4112_f999", 13, 4112, 999),
+    ("edge_m16_d4112_f999", 16, 4112, 999),
+    ("edge_m8_d4112_f2080", 8, 4112, 2080),
+    ("edge_m8_d4112_f2112", 8, 4112, 2112),
+    ("edge_m16_d4112_f4192", 16, 4112, 4192),
+    ("edge_m16_d4112_f4224", 16, 4112, 4224),
+    ("edge_m9_d4080_f999", 9, 4080, 999),
+    ("edge_m1_d2032_f999", 1, 2032, 999),
+    ("edge_m8_d4112_f8448", 8, 4112, 8448),
+    ("edge_m16_d4112_f8480", 16, 4112, 8480),
     ("edge_m17_d4112_f999", 17, 4112, 999),
     ("edge_m65_d4112_f999", 65, 4112, 999),
     ("edge_m129_d4112_f999", 129, 4112, 999),
@@ -155,11 +179,12 @@ QUANT_SHAPES = [
     ("edge_m1000_d4112_f4040", 1000, 4112, 4040),
 ]
 # the shapes the kernels line reports for K5/K6: w1 (and w3) of every decode
-# round; and, by name, their admission GEMMs at a 2048-token admission: w1
-# for both, w2 for K6
+# round; and, by name, K5's other decode products (wq, w2, lm_head) and
+# their admission GEMMs at a 2048-token admission: w1 for both, w2 for K6
 QUANT_REPORT = "decode_m8_w1_4096x11008"
-QUANT_ADMIT_REPORTS = {
-    "int8_matmul": ("admit_m2048_w1_4096x11008",),
+QUANT_NAMED_REPORTS = {
+    "int8_matmul": ("decode_m8_wq_4096x4096", "decode_m8_w2_11008x4096",
+                    "decode_m8_head_4096x32000", "admit_m2048_w1_4096x11008"),
     "w8a8_matmul": ("admit_m2048_w1_4096x11008", "admit_m2048_w2_11008x4096"),
 }
 
@@ -605,12 +630,12 @@ def phase_k56(gen):
     """K5 int8_matmul and K6 w8a8_matmul at the int8 serving shapes against
     their twins: K5 to QUANT_REL_TOL, K6 bit for bit. Times every shape
     but the edges, weights cycled through copies so a decode stream comes
-    from HBM. Returns ({"int8_matmul": row, "w8a8_matmul": row}, admit):
+    from HBM. Returns ({"int8_matmul": row, "w8a8_matmul": row}, named):
     each row (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)
-    with the times at QUANT_REPORT, `admit` each kernel's {shape: ms,
-    library_ms and bound_ms} at its QUANT_ADMIT_REPORTS."""
+    with the times at QUANT_REPORT, `named` each kernel's {shape: ms,
+    library_ms and bound_ms} at its QUANT_NAMED_REPORTS."""
     worst = {"int8_matmul": 0.0, "w8a8_matmul": 0.0}
-    report, admit = {}, {k: {} for k in worst}
+    report, named = {}, {k: {} for k in worst}
     for name, m, d, f in QUANT_SHAPES:
         x = _randn((m, d), gen)
         w, s = quant.quantize_weight(torch.randn((f, d), generator=gen, device="cuda") * 0.02)
@@ -669,11 +694,11 @@ def phase_k56(gen):
         if name == QUANT_REPORT:
             report = {"int8_matmul": k5, "w8a8_matmul": k6}
         for kernel, row in (("int8_matmul", k5), ("w8a8_matmul", k6)):
-            if name in QUANT_ADMIT_REPORTS[kernel]:
-                admit[kernel][name] = {k: row[k] for k in ("ms", "library_ms", "bound_ms")}
+            if name in QUANT_NAMED_REPORTS[kernel]:
+                named[kernel][name] = {k: row[k] for k in ("ms", "library_ms", "bound_ms")}
         del x, x_q, x_s, w, s, ws, w16
         torch.cuda.empty_cache()
-    return {k: dict(max_abs_err=worst[k], **report[k]) for k in worst}, admit
+    return {k: dict(max_abs_err=worst[k], **report[k]) for k in worst}, named
 
 
 def serving_config():
@@ -1120,7 +1145,7 @@ def main():
     *k1, k1_train = phase_k1(gen)
     *k4, k4_cases = phase_k4(gen)
     bwd = phase_bwd(gen)
-    k56, k56_admit = phase_k56(gen)
+    k56, k56_named = phase_k56(gen)
     torch.cuda.empty_cache()
     # each main path's counts, set to 0 just before its run and read just after
     path_launches = []
@@ -1147,9 +1172,9 @@ def main():
         dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
              **k4_cases),
         dict(row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107",
-                 **k56["int8_matmul"]), **k56_admit["int8_matmul"]),
+                 **k56["int8_matmul"]), **k56_named["int8_matmul"]),
         dict(row("w8a8_matmul", "w8a8_matmul.cu", "lwm_tpu/ops/quant.py:182",
-                 **k56["w8a8_matmul"]), **k56_admit["w8a8_matmul"]),
+                 **k56["w8a8_matmul"]), **k56_named["w8a8_matmul"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

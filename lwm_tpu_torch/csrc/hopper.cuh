@@ -1,7 +1,7 @@
 // Building blocks shared by the port's Hopper (sm_90a) kernels: K1's
 // forward (flash_fwd.cu), the fused flash backward (flash_bwd.cu), K4's
-// decode (flash_decode.cu) and the admission GEMMs of K5 (int8_matmul.cu)
-// and K6 (w8a8_matmul.cu).
+// decode (flash_decode.cu), K5 (int8_matmul.cu: its decode GEMV and its
+// admission GEMM) and K6's admission GEMM (w8a8_matmul.cu).
 //
 // Shared-memory tiles. A tile of R rows × D bf16 is D / 64 column halves of
 // R rows × 128 bytes, each row's eight 16-byte chunks swizzled (chunk c of

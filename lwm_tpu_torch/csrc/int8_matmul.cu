@@ -11,17 +11,51 @@
 // What bounds it on the card, and the two designs:
 // - Decode (m ≤ 16, `int8_gemv_kernel`): 2·m flops per weight byte, far below
 //   the H100's ~295 flop/byte ridge, so the int8 weight stream from HBM bounds
-//   it (w1 at 4096 → 11008 is 45 MB: at least 13.5 µs at 3.35 TB/s). The
-//   weight is the mma A operand (16 output channels per row tile) and the ≤ 16
-//   tokens are the B operand (8 per column tile, missing tokens zero), so no
-//   lane of the tensor core works on padding rows of the weight. Each thread
-//   streams 16 contiguous weight bytes per row per 64-wide chunk; the k order
-//   inside the chunk is permuted so that those 16 bytes are exactly the
-//   thread's A fragments of four m16n8k16 steps (x's B fragments take the same
-//   permutation, which the sum does not see). A block of 8 warps owns 32
-//   output channels and splits d among its warps, so more bytes are in flight
-//   at small f; the warps' fp32 partials are summed in shared memory. The next
-//   chunk's loads are issued before the current chunk's mmas.
+//   it (w1 at 4096 → 11008 is 45 MB: at least 13.5 µs at 3.35 TB/s). Three
+//   things stand between a kernel and that bound: bytes in flight on every
+//   SM, the int8 → bf16 convert (as costly, per block, as the stream), and a
+//   fixed cost per launch that a 5-15 µs kernel feels.
+//   * A block owns 32 output channels (kGemvRows) and a range of d. One
+//     producer thread walks the range in pieces of 128 k and has TMA copy
+//     each into a ring of S stages in dynamic shared memory: the weight box
+//     [32, 128] int8 and x's two boxes [8·NT, 64] bf16, three instructions a
+//     stage, completion counted in bytes on the stage's `full` mbarrier.
+//     Boxes past f, m or d arrive as zeros, so nothing is masked before the
+//     store. The two tensor maps are encoded on the host every call. 1-D bulk
+//     copies (one a weight row slice, no tensor map) were tried first: each
+//     cost the issuing warp ~80 cycles whatever its size, and at 256 bytes a
+//     copy the kernel ran 2.5x slower than its parent's register loads.
+//   * x comes through the ring with the weight: 2·m / 32 of the weight's
+//     bytes (half at m 8), from the L2. Dropping x's boxes altogether did not
+//     change the time.
+//   * Four consumer warps: two row tiles of 16 output channels, each taken
+//     by two teams, team e on the stages p ≡ e (mod 2). A warp waits on
+//     `full`, reads 16-byte chunks from shared memory, converts the int8 in
+//     registers (`i8x4_to_bf16`, exact) and issues `mma.sync` m16n8k16
+//     with the weight as A and the ≤ 16 tokens as B (8 a column tile), so no
+//     lane of the tensor core works on padding rows of the weight; then it
+//     releases the stage on `empty`. The convert is what a warp's time
+//     follows (without it a consumer-only run took half as long; without
+//     the mma, as long): the second team doubles the converting warps a
+//     block, and two accumulator sets halve the mma chain. At 2·m flops a
+//     byte `wgmma` would add a shared-memory copy of the converted weight.
+//   * A k permutation: lane (g, t) takes the 32 k at 32t of each 128, whose
+//     weight bytes (rows g, g + 8) are exactly its A fragments of eight
+//     m16n8k16 steps and whose x elements its B fragments (the sum does not
+//     see the order). Lanes with t ≥ 2 walk their chunks in the other order,
+//     so that with TMA's 128-byte swizzle the 8 lanes of every 16-byte shared
+//     load hit 8 different chunks: no bank conflicts.
+//   * Where f's tiles leave SMs without a block (f 4096: 128 tiles on 132
+//     SMs), d is split across the CS blocks (2 or 4) of a thread-block
+//     cluster (`gemv_split`). The ring has 8 stages where the grid leaves at
+//     most two blocks an SM, 4 where it has more (`launch_ring`): a smaller
+//     ring leaves room for more blocks an SM. The other blocks store their fp32
+//     partials into rank 0's shared memory and arrive on its `done` mbarrier
+//     (release at cluster scope), then leave; rank 0 sums in rank order
+//     (deterministic), scales and rounds once. One launch, no scratch in HBM,
+//     no atomics; the cluster barrier only tells the blocks that rank 0 has
+//     started, and is waited on at the end. Two `cluster.sync`s and reads of
+//     the other blocks' shared memory cost ~1.5 µs a call instead.
 // - Admission (m > kGemvMaxM, `int8_gemm_kernel`): 2·m flops per weight byte,
 //   above the ridge, so the tensor cores bound it (w1 at m 2048 is 185 GFLOP:
 //   at least 0.187 ms at 989 TFLOP/s), and on Hopper only `wgmma` reaches
@@ -51,22 +85,21 @@
 //     the tallest of BM 256 / 128 / 64 whose grid covers at least half the
 //     SMs (the 256-token bucket at f 4096 has 32 / 64 / 128 blocks: BM 64).
 //     Blocks walk m first, so each weight tile comes from HBM about once.
-// Ragged m, f and d edges are zero-filled at the loads (TMA fills out-of-
-// bounds boxes with zeros) and masked at the stores; d is a multiple of 16
-// (16-byte weight rows and TMA strides; the wrapper checks).
+// Ragged m, f and d edges are zero-filled at the loads (TMA fills
+// out-of-bounds boxes with zeros) and masked at the stores; d is a multiple
+// of 16 (16-byte weight rows and TMA strides; the wrapper checks).
 // Not yet: a persistent grid (the epilogue overlapping the next tile's
-// loads), pairs of blocks sharing one converted weight tile, split-K for
-// decode at small f.
+// loads), pairs of blocks sharing one converted weight tile.
+
+#include <cooperative_groups.h>
 
 #include "hopper.cuh"
 
 namespace {
 
 using namespace lwm;
+namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kGemvRows = 32;  // output channels per decode block: 2 row tiles
 constexpr int kGemvMaxM = 16;  // m ≤ this: the decode GEMV; above: the GEMM
 constexpr int kBN = 128;       // admission GEMM: output channels per block
 constexpr int kBK = 64;        // and its k tile: one 128-byte swizzled bf16 row
@@ -104,111 +137,301 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int j) {
 
 // ----------------------------------------------------------------- decode
 
-template <int NT>  // token tiles of 8: m ≤ 8·NT
-__global__ void __launch_bounds__(kThreads) int8_gemv_kernel(const Args a) {
-  constexpr int kE = 2 * NT * 4;  // fp32 accumulators per thread
-  __shared__ float red[kWarps][kE][32];
+constexpr int kGemvTiles = 2;                        // row tiles of 16 output channels a block
+constexpr int kGemvRows = 16 * kGemvTiles;           // output channels a block
+constexpr int kGemvTeams = 2;                        // consumer warps a row tile
+constexpr int kGemvWarps = kGemvTiles * kGemvTeams;  // consumer warps
+constexpr int kGemvK = 128;                          // k a stage: one swizzled weight row
+constexpr int kGemvChains = 2;  // accumulator sets a consumer thread alternates
+
+// NT token tiles of 8 (m ≤ 8·NT); CS blocks of a cluster split d; S stages
+template <int NT, int CS, int S>
+struct GemvTile {
+  // team e takes the stages p ≡ e (mod kGemvTeams); each stage serves one
+  // team, so no team waits on a phase of the ring two ahead of its own
+  static_assert(S % kGemvTeams == 0, "whole rounds of the ring a team");
+  static constexpr int kThreads = 32 * (kGemvWarps + 1);  // + the producer warp
+  // a stage: the weight box [kGemvRows, 128] int8, then x's two boxes
+  // [8·NT, 64] bf16 (k 0-63, 64-127), all 128-byte rows swizzled as TMA
+  // writes them (16-byte chunk c of row r at c ^ (r % 8)), 1024-aligned
+  static constexpr int kWBox = kGemvRows * 128;
+  static constexpr int kXBox = 8 * NT * 128;
+  static constexpr int kStage = kWBox + 2 * kXBox;
+  static constexpr int kOut = kGemvTiles * NT * 128;  // accumulator elements a block
+  // fp32 partials: the other teams', then the other blocks'
+  static constexpr int kRed = (kGemvTeams - 1 + CS - 1) * kOut * 4;
+  // + 1024 to align; barriers: full and empty a stage, and `done`
+  static constexpr int kSmem = 1024 + S * kStage + kRed + 8 * (2 * S + 1);
+};
+
+// arrive on the mbarrier at shared::cluster address `bar` (another block's),
+// releasing this thread's writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spin until phase `parity` of a barrier arrived at from other blocks has
+// completed (acquire at cluster scope)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+template <int NT, int CS, int S>
+__global__ void __launch_bounds__(GemvTile<NT, CS, S>::kThreads)
+    int8_gemv_kernel(const __grid_constant__ CUtensorMap w_map,
+                     const __grid_constant__ CUtensorMap x_map, const Args a) {
+  using T = GemvTile<NT, CS, S>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // stage s at base + s·kStage
+  uint8_t* smem = smem_raw + (base - raw);
+  float* red = reinterpret_cast<float*>(smem + S * T::kStage);
+  // per stage: `full` (the TMA bytes landed), `empty` (every consumer warp is
+  // done with it); `done`: every thread of the other blocks stored its partials
+  const uint32_t bars = base + S * T::kStage + T::kRed;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+  const uint32_t done = bars + 16 * S;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int f0 = blockIdx.x * kGemvRows;
-
-  // this thread's weight rows (f0 + 16·ft + 8·hh + g) and token rows (8·nt + g)
-  const int8_t* wrow[2][2];
-  bool wok[2][2];
-#pragma unroll
-  for (int ft = 0; ft < 2; ++ft)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = f0 + 16 * ft + 8 * hh + g;
-      wok[ft][hh] = r < a.f;
-      wrow[ft][hh] = a.w + (long long)(wok[ft][hh] ? r : 0) * a.d + 16 * t;
+  const int rank = CS > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int f0 = blockIdx.x / CS * kGemvRows;  // a cluster is CS consecutive blocks
+  // this block's k: a CS-th of d in whole stages
+  const int span = ((a.d + CS - 1) / CS + kGemvK - 1) / kGemvK * kGemvK;
+  const int k_begin = min(a.d, rank * span), k_end = min(a.d, k_begin + span);
+  const int n_pieces = (k_end - k_begin + kGemvK - 1) / kGemvK;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kGemvTiles);
     }
-  const __nv_bfloat16* xrow[NT];
-  bool xok[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int tok = 8 * nt + g;
-    xok[nt] = tok < a.m;
-    xrow[nt] = a.x + (long long)(xok[nt] ? tok : 0) * a.d + 16 * t;
+    if (CS > 1) mbar_init(done, (CS - 1) * 32 * kGemvTiles);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  // every block of the cluster has started (and initialised `done`) by the
+  // time this phase completes; waited on only before the partials move
+  if constexpr (CS > 1) asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
 
-  float acc[2][NT][4];
+  float acc[kGemvChains][NT][4];
 #pragma unroll
-  for (int ft = 0; ft < 2; ++ft)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[ft][nt][0] = acc[ft][nt][1] = acc[ft][nt][2] = acc[ft][nt][3] = 0.f;
-
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const int n_chunks = (a.d + 63) / 64;
-  uint4 wn[2][2], xn[NT][2];  // the next chunk, loaded ahead
-  auto load = [&](int c) {
-    const int k = c * 64;
-    const bool kin = c < n_chunks && k + 16 * t < a.d;  // d % 16 == 0: all 16 in or out
-#pragma unroll
-    for (int ft = 0; ft < 2; ++ft)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        wn[ft][hh] = kin && wok[ft][hh] ? __ldcs(reinterpret_cast<const uint4*>(wrow[ft][hh] + k))
-                                        : zero;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint4* src = reinterpret_cast<const uint4*>(xrow[nt] + k);
-      xn[nt][0] = kin && xok[nt] ? __ldg(src) : zero;
-      xn[nt][1] = kin && xok[nt] ? __ldg(src + 1) : zero;
-    }
-  };
-
-  load(warp);
-  for (int c = warp; c < n_chunks; c += kWarps) {
-    uint4 wc[2][2], xc[NT][2];
-#pragma unroll
-    for (int ft = 0; ft < 2; ++ft) wc[ft][0] = wn[ft][0], wc[ft][1] = wn[ft][1];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) xc[nt][0] = xn[nt][0], xc[nt][1] = xn[nt][1];
-    load(c + kWarps);
-    // step j reads bytes 4j..4j+3 of each 16-byte weight run: physical k
-    // 16t+4j+{0,1} stand for logical k 2t+{0,1}, 16t+4j+{2,3} for 2t+8+{0,1}
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int ft = 0; ft < 2; ++ft) {
-        i8x4_to_bf16(word(wc[ft][0], j), af[ft][0], af[ft][2]);
-        i8x4_to_bf16(word(wc[ft][1], j), af[ft][1], af[ft][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint4& half = xc[nt][j >> 1];  // x elements 4j..4j+3
-        const uint32_t b0 = (j & 1) ? half.z : half.x;
-        const uint32_t b1 = (j & 1) ? half.w : half.y;
-#pragma unroll
-        for (int ft = 0; ft < 2; ++ft)
-          mma_bf16_16816(acc[ft][nt], af[ft][0], af[ft][1], af[ft][2], af[ft][3], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int ft = 0; ft < 2; ++ft)
+  for (int c = 0; c < kGemvChains; ++c)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) red[warp][(ft * NT + nt) * 4 + r][lane] = acc[ft][nt][r];
-  __syncthreads();
+      for (int r = 0; r < 4; ++r) acc[c][nt][r] = 0.f;
 
-  // one (accumulator, lane) slot per thread step: sum the warps, scale, store
-  for (int i = tid; i < kE * 32; i += kThreads) {
-    const int e = i >> 5, ln = i & 31;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][e][ln];
-    const int ft = e / (NT * 4), nt = (e >> 2) % NT, r = e & 3;
-    const int row = f0 + 16 * ft + (ln >> 2) + 8 * (r >> 1);  // C rows: output channels
-    const int tok = 8 * nt + 2 * (ln & 3) + (r & 1);          // C columns: tokens
-    if (row < a.f && tok < a.m)
-      a.out[(long long)tok * a.f + row] = __float2bfloat16_rn(s * a.scale[row]);
+  if (warp == kGemvWarps) {  // producer: one thread, three TMA boxes a stage
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&w_map) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&x_map) : "memory");
+      for (int p = 0; p < n_pieces; ++p) {
+        const int s = p % S;
+        if (p >= S) mbar_wait(empty(s), (p / S + 1) & 1);
+        const int k0 = k_begin + p * kGemvK;
+        const uint32_t st = base + s * T::kStage;
+        // boxes past f, m or d arrive as zeros and count as bytes
+        mbar_expect_tx(full(s), T::kStage);
+        tma_load(st, &w_map, full(s), k0, f0);
+        tma_load(st + T::kWBox, &x_map, full(s), k0, 0);
+        tma_load(st + T::kWBox + T::kXBox, &x_map, full(s), k0 + 64, 0);
+      }
+    }
+    if constexpr (CS > 1) asm volatile("barrier.cluster.wait;\n" ::: "memory");
+    return;
   }
+
+  // consumers: warp w owns output channels f0 + 16·tile .. + 15 (tile =
+  // w % kGemvTiles) and the stages p ≡ w / kGemvTiles (mod kGemvTeams).
+  // Lane (g, t) takes the 32 k at 32t of each 128: 16-byte weight chunks
+  // 2t, 2t + 1 of rows g and g + 8, and x chunks 4(t % 2) .. + 3 of box t / 2
+  // for token g. Lanes with t ≥ 2 take both in the other order (h = t / 2
+  // flips the chunk index), which the sum does not see: with the swizzle, the
+  // 8 lanes of every 16-byte load then hit 8 different chunks (all 32 banks).
+  const int tile = warp % kGemvTiles, team = warp / kGemvTiles;
+  const int g = lane >> 2, t = lane & 3, h = t >> 1;
+  const int w_row = (16 * tile + g) * 128;
+  int w_off[2][2], x_off[NT][4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    w_off[0][q] = w_row + (((2 * t + (q ^ h)) ^ g) << 4);
+    w_off[1][q] = w_off[0][q] + 8 * 128;  // row g + 8: the same swizzle
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x_off[nt][i] = T::kWBox + h * T::kXBox + (8 * nt + g) * 128 +
+                     (((4 * (t & 1) + (i ^ (2 * h))) ^ g) << 4);
+  for (int p = team; p < n_pieces; p += kGemvTeams) {
+    const int s = p % S;
+    mbar_wait(full(s), (p / S) & 1);
+    const uint8_t* st = smem + s * T::kStage;
+    uint4 wv[2][2], xv[NT][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) wv[r][q] = *reinterpret_cast<const uint4*>(st + w_off[r][q]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xv[nt][i] = *reinterpret_cast<const uint4*>(st + x_off[nt][i]);
+    // step j: weight bytes 4(j % 4)..+3 of register j / 4 and x elements
+    // 4(j % 2)..+3 of register j / 2 are the same four k; bytes and elements
+    // 0, 1 stand for logical k 2t, 2t + 1 of the m16n8k16 step, 2, 3 for
+    // 2t + 8, 2t + 9
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t af[4];
+      i8x4_to_bf16(word(wv[0][j >> 2], j & 3), af[0], af[2]);
+      i8x4_to_bf16(word(wv[1][j >> 2], j & 3), af[1], af[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint4& c = xv[nt][j >> 1];
+        const uint32_t b0 = (j & 1) ? c.z : c.x;
+        const uint32_t b1 = (j & 1) ? c.w : c.y;
+        mma_bf16_16816(acc[j % kGemvChains][nt], af[0], af[1], af[2], af[3], b0, b1);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+#pragma unroll
+  for (int c = 1; c < kGemvChains; ++c)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[0][nt][r] += acc[c][nt][r];
+
+  // accumulator (nt, r) of lane (g, t): output channel f0 + 16·tile + g +
+  // 8·(r / 2), token 8·nt + 2·t + r % 2; element at(nt, r) of a partials slot
+  auto at = [&](int nt, int r) { return tile * NT * 128 + (nt * 4 + r) * 32 + lane; };
+  // the teams' partials meet in team 0 (slots 0 .. kGemvTeams - 2)
+  if (team > 0)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) red[(team - 1) * T::kOut + at(nt, r)] = acc[0][nt][r];
+  bar_sync(1, 32 * kGemvWarps);
+  if (team > 0) {
+    if constexpr (CS > 1) asm volatile("barrier.cluster.wait;\n" ::: "memory");
+    return;
+  }
+#pragma unroll
+  for (int e = 1; e < kGemvTeams; ++e)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[0][nt][r] += red[(e - 1) * T::kOut + at(nt, r)];
+  if constexpr (CS > 1) {
+    // the other blocks store their partials into rank 0's slots (after the
+    // teams') and leave; rank 0 waits for them, sums in rank order
+    // (deterministic), scales and stores
+    float* peers = red + (kGemvTeams - 1) * T::kOut;
+    asm volatile("barrier.cluster.wait;\n" ::: "memory");
+    if (rank > 0) {
+      float* dst = cg::this_cluster().map_shared_rank(peers, 0) + (rank - 1) * T::kOut;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dst[at(nt, r)] = acc[0][nt][r];
+      uint32_t done0;  // rank 0's `done`
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(done0) : "r"(done), "r"(0));
+      mbar_arrive_cluster(done0);
+      return;
+    }
+    mbar_wait_cluster(done, 0);
+#pragma unroll
+    for (int q = 1; q < CS; ++q)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[0][nt][r] += peers[(q - 1) * T::kOut + at(nt, r)];
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = f0 + 16 * tile + g + 8 * (r >> 1), tok = 8 * nt + 2 * t + (r & 1);
+      if (row < a.f && tok < a.m)
+        a.out[(long long)tok * a.f + row] = __float2bfloat16_rn(acc[0][nt][r] * a.scale[row]);
+    }
+}
+
+// the card's SM count, read once
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
+}
+
+template <int NT, int CS, int S>
+cudaError_t launch_gemv(const Args& a, cudaStream_t s) {
+  using T = GemvTile<NT, CS, S>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      int8_gemv_kernel<NT, CS, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  CUtensorMap w_map, x_map;
+  cudaError_t e = set;
+  if (e == cudaSuccess)
+    e = tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.f, a.d, kGemvRows, 128,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, a.m, a.d, 8 * NT, 64,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = CS;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CS * ((a.f + kGemvRows - 1) / kGemvRows));
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kSmem;
+  cfg.stream = s;
+  cfg.attrs = cluster;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, int8_gemv_kernel<NT, CS, S>, w_map, x_map, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// blocks of a cluster that split d: where f's row tiles leave SMs without a
+// block, up to 4, while each block keeps at least 1024 of d
+int gemv_split(int f, int d) {
+  const int tiles = (f + kGemvRows - 1) / kGemvRows;
+  int cs = 1;
+  while (cs < 4 && tiles * cs < sm_count() && d >= 2048 * cs) cs *= 2;
+  return cs;
+}
+
+// the ring: 8 stages where the grid leaves at most two blocks an SM, 4 where
+// it has more (a smaller ring leaves room for more blocks an SM)
+template <int NT, int CS>
+cudaError_t launch_ring(const Args& a, cudaStream_t s) {
+  const int blocks = CS * ((a.f + kGemvRows - 1) / kGemvRows);
+  if (blocks <= 2 * sm_count()) return launch_gemv<NT, CS, 8>(a, s);
+  return launch_gemv<NT, CS, 4>(a, s);
+}
+
+template <int NT>
+cudaError_t gemv(const Args& a, cudaStream_t s) {
+  const int cs = gemv_split(a.f, a.d);
+  if (cs == 4) return launch_ring<NT, 4>(a, s);
+  if (cs == 2) return launch_ring<NT, 2>(a, s);
+  return launch_ring<NT, 1>(a, s);
 }
 
 // -------------------------------------------------------------- admission
@@ -389,20 +612,12 @@ extern "C" int lwm_int8_matmul(const void* x, const void* w, const void* scale, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || f <= 0) return cudaSuccess;
   if (d % 16) return cudaErrorInvalidValue;
-  if (m <= 8) {
-    int8_gemv_kernel<1><<<(f + kGemvRows - 1) / kGemvRows, kThreads, 0, s>>>(a);
-  } else if (m <= kGemvMaxM) {
-    int8_gemv_kernel<2><<<(f + kGemvRows - 1) / kGemvRows, kThreads, 0, s>>>(a);
-  } else {
-    // the tallest tile (the least convert per product) whose grid still
-    // covers half the card
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int cols = (f + kBN - 1) / kBN;
-    if (2 * ((m + 255) / 256) * cols >= sms) return launch_gemm<4>(a, s);
-    if (2 * ((m + 127) / 128) * cols >= sms) return launch_gemm<2>(a, s);
-    return launch_gemm<1>(a, s);
-  }
-  return cudaGetLastError();
+  if (m <= 8) return gemv<1>(a, s);
+  if (m <= kGemvMaxM) return gemv<2>(a, s);
+  // the tallest tile (the least convert per product) whose grid still covers
+  // half the card
+  const int sms = sm_count(), cols = (f + kBN - 1) / kBN;
+  if (2 * ((m + 255) / 256) * cols >= sms) return launch_gemm<4>(a, s);
+  if (2 * ((m + 127) / 128) * cols >= sms) return launch_gemm<2>(a, s);
+  return launch_gemm<1>(a, s);
 }

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time copies of a flash-attention kernel (or of K6) against each other.
+"""Time copies of a flash-attention kernel (or of K5 or K6) against each other.
 
     python3 scripts/time_flash.py fwd [SRC.cu ...]
     python3 scripts/time_flash.py bwd [SRC.cu ...]
+    python3 scripts/time_flash.py int8 [SRC.cu ...]
     python3 scripts/time_flash.py w8a8 [SRC.cu ...]
     python3 scripts/time_flash.py dec [ROOT[@SPLIT] ...]
 
-fwd, bwd, w8a8: each SRC is a copy of `lwm_tpu_torch/csrc/flash_fwd.cu`
+fwd, bwd, int8, w8a8: each SRC is a copy of `lwm_tpu_torch/csrc/flash_fwd.cu`
 (fwd: K1, C entry `lwm_flash_fwd`), `csrc/flash_bwd.cu` (bwd: the fused
-backward, `lwm_flash_bwd`) or `csrc/w8a8_matmul.cu` (w8a8: K6,
-`lwm_w8a8_matmul`), a variant under test or another commit's kernel with the
-same entry; default: the package's own source. Each is built by nvcc into a
+backward, `lwm_flash_bwd`), `csrc/int8_matmul.cu` (int8: K5,
+`lwm_int8_matmul`) or `csrc/w8a8_matmul.cu` (w8a8: K6, `lwm_w8a8_matmul`), a
+variant under test or another commit's kernel with the same entry; default:
+the package's own source. Each is built by nvcc into a
 library of its own (all at once; `#include`s resolve beside the copy, then
 in the package's csrc), its ptxas register and spill lines are printed, it
 is held against the plain twin, and then all are timed in turns, 1..N then
@@ -20,6 +22,14 @@ N..1, with CUDA events over calls of the wrapper. Shapes:
   d 128, causal, 300 right-padded keys in row 1); BF16_TOL and LSE_TOL.
 - bwd: the train step's attention as above (dq_accum zeroing and the bf16
   rounding included in each call); BWD_REL_TOL and BWD_COS_MIN.
+- int8: every chip_smoke.QUANT_SHAPES case that takes K5's decode GEMV
+  (m <= 16), held to the twin within QUANT_REL_TOL; the decode shapes (m 8)
+  timed from CUDA-graph replays of the C entry (50 calls a graph) with
+  weight copies cycled past the L2 (as chip_smoke.phase_k56), F.linear bf16
+  on the dequantized weights and the bound beside; then from eager
+  launches as chip_smoke.phase_k56 times them (20 calls of the wrapper),
+  10 times in turns, median and range: the host's cost per call where it
+  exceeds the kernel's, as in a decode round not captured in a graph.
 - w8a8: every chip_smoke.QUANT_SHAPES case that takes K6's admission GEMM
   (m > 16), held bit for bit to the twin; the admission shapes timed from
   CUDA-graph replays of the C entry with weight copies cycled past the L2
@@ -41,6 +51,7 @@ Needs one NVIDIA GPU and nvcc.
 import ctypes
 import importlib.util
 import re
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -55,9 +66,12 @@ import chip_smoke as smoke  # noqa: E402
 import lwm_tpu_torch.ops as ops_pkg  # noqa: E402
 from lwm_tpu_torch.ops import _build, decode, flash, quant  # noqa: E402
 
-ENTRY = {"fwd": "lwm_flash_fwd", "bwd": "lwm_flash_bwd", "w8a8": "lwm_w8a8_matmul",
-         "dec": None}
-SOURCE = {"fwd": "flash_fwd.cu", "bwd": "flash_bwd.cu", "w8a8": "w8a8_matmul.cu"}
+ENTRY = {"fwd": "lwm_flash_fwd", "bwd": "lwm_flash_bwd", "int8": "lwm_int8_matmul",
+         "w8a8": "lwm_w8a8_matmul", "dec": None}
+SOURCE = {"fwd": "flash_fwd.cu", "bwd": "flash_bwd.cu", "int8": "int8_matmul.cu",
+          "w8a8": "w8a8_matmul.cu"}
+# graph-replayed launches per timing: a decode GEMV takes 10-50 us
+ITERS = {"int8": 50}
 
 
 def build(srcs, entry):
@@ -142,6 +156,49 @@ def bwd_shapes(gen):
     return {name: (check, lambda: flash.flash_attention_bwd(*args), bound)}
 
 
+def _weight_sets(w, s, timed):
+    """Enough copies of (w, s) to cycle a timed stream past the L2."""
+    n = max(1, -(-int(smoke.L2_FLUSH_BYTES) // w.numel())) if timed else 1
+    return [(w.clone(), s.clone()) for _ in range(n - 1)] + [(w, s)]
+
+
+def int8_shapes(gen):
+    """{name: (check, call, bound ms or None: checked, not timed)} at K5's
+    decode GEMV shapes; each call takes the next weight copy."""
+    shapes = {}
+    for name, m, d, f in smoke.QUANT_SHAPES:
+        if m > 16:
+            continue
+        x = smoke._randn((m, d), gen)
+        w, s = quant.quantize_weight(torch.randn((f, d), generator=gen, device="cuda") * 0.02)
+        want = quant.int8_matmul_plain(x, w, s)
+
+        def check(got, want=want):
+            rel = ((got.float() - want.float()).abs().max().item()
+                   / want.float().abs().max().item())
+            verdict = "ok" if rel <= smoke.QUANT_REL_TOL else "FAILS"
+            return f"max|out-plain|/max|plain| {rel:.3e} {verdict}"
+
+        timed = name.startswith("decode")
+        sets = _weight_sets(w, s, timed)
+        turn = iter(range(10**9))
+
+        def call(x=x, sets=sets, turn=turn):
+            return quant.int8_matmul(x, *sets[next(turn) % len(sets)])
+
+        bound = None
+        if timed:
+            bound = smoke.bound_ms(m * d * 2 + f * d + f * 4 + m * f * 2, 2 * m * d * f,
+                                   smoke.H100_BF16_PEAK)[0]
+            w16 = [((wc.float() * sc[:, None]).to(smoke.BF16),) for wc, sc in sets]
+            lib = smoke.time_ms(lambda w: torch.nn.functional.linear(x, w), ITERS["int8"], w16,
+                                graph=True)
+            del w16
+            print(f"{name}: F.linear bf16 {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
+        shapes[name] = (check, call, bound)
+    return shapes
+
+
 def w8a8_shapes(gen):
     """{name: (check, call, bound ms or None: checked, not timed)} at K6's
     GEMM shapes; each call takes the next weight copy."""
@@ -158,8 +215,7 @@ def w8a8_shapes(gen):
             return f"max|out-plain| {(got.float() - want.float()).abs().max().item():.3e} {verdict}"
 
         timed = name.startswith("admit")
-        n = max(1, -(-int(smoke.L2_FLUSH_BYTES) // w.numel())) if timed else 1
-        sets = [(w.clone(), s.clone()) for _ in range(n - 1)] + [(w, s)]
+        sets = _weight_sets(w, s, timed)
         turn = iter(range(10**9))
 
         def call(x_q=x_q, x_s=x_s, sets=sets, turn=turn, m=m, f=f, d=d):
@@ -286,7 +342,8 @@ def main_dec(specs):
 
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in ENTRY:
-        raise SystemExit("usage: time_flash.py fwd|bwd|w8a8 [SRC.cu ...] | dec [ROOT[@SPLIT] ...]")
+        raise SystemExit(
+            "usage: time_flash.py fwd|bwd|int8|w8a8 [SRC.cu ...] | dec [ROOT[@SPLIT] ...]")
     kind, srcs = sys.argv[1], sys.argv[2:]
     if kind == "dec":
         return main_dec(srcs)
@@ -294,34 +351,51 @@ def main():
     smoke.phase_env()
     libs = build(srcs, ENTRY[kind])
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    shapes = {"fwd": fwd_shapes, "bwd": bwd_shapes, "w8a8": w8a8_shapes}[kind](gen)
+    shapes = {"fwd": fwd_shapes, "bwd": bwd_shapes, "int8": int8_shapes,
+              "w8a8": w8a8_shapes}[kind](gen)
 
     def run(lib, call):
         with mock.patch.object(_build, "load", lambda: lib):
             return call()
 
-    for src, (lib, report) in zip(srcs, libs):
+    refused = set()
+    for i, (src, (lib, report)) in enumerate(zip(srcs, libs)):
         print(f"== {src}", flush=True)
         for line in report:
             print(f"  ptxas {line}")
         if lib is None:
             continue
         for name, (check, call, _) in shapes.items():
-            got = run(lib, call)
+            try:
+                got = run(lib, call)
+            except RuntimeError as err:  # a refused launch: reported, not timed
+                print(f"  {name}: {err} FAILS", flush=True)
+                refused.add(i)
+                break
             torch.cuda.synchronize()
             print(f"  {name}: {check(got)}", flush=True)
-    built = [i for i, (lib, _) in enumerate(libs) if lib is not None]
+    built = [i for i, (lib, _) in enumerate(libs) if lib is not None and i not in refused]
     for name, (_, call, bound) in shapes.items():
         if bound is None:
             continue
         times = {i: [] for i in built}
         for i in built + built[::-1]:
-            times[i].append(smoke.time_ms(lambda: run(libs[i][0], call), 10,
-                                          graph=kind == "w8a8"))
+            times[i].append(smoke.time_ms(lambda: run(libs[i][0], call), ITERS.get(kind, 10),
+                                          graph=kind in ("int8", "w8a8")))
         for i in built:
             ms = times[i]
-            print(f"{name} {srcs[i]}: " + ", ".join(f"{t:.3f}" for t in ms) + f" ms "
+            print(f"{name} {srcs[i]}: " + ", ".join(f"{t:.4f}" for t in ms) + f" ms "
                   f"({100 * bound / min(ms):.1f}% of the {bound:.4f} ms bound) [{smoke.card()}]")
+        if kind != "int8":
+            continue
+        eager = {i: [] for i in built}
+        for rep in range(10):
+            for i in built if rep % 2 == 0 else built[::-1]:
+                eager[i].append(smoke.time_ms(lambda: run(libs[i][0], call), 20))
+        for i in built:
+            ms = sorted(eager[i])
+            print(f"{name} {srcs[i]}: eager {statistics.median(ms):.4f} ms a call (median of "
+                  f"10 x 20 calls; {ms[0]:.4f}-{ms[-1]:.4f}) [{smoke.card()}]")
 
 
 if __name__ == "__main__":

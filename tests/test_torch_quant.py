@@ -88,9 +88,12 @@ def test_quantize_activations_matches_jax(dtype):
 MATMUL_SHAPES = {
     # name: (m, d, f, Pallas block overrides) — tests/test_quant.py:47-72;
     # m 65 and 129 take K5's admission GEMM on the card (m > 16) with a
-    # ragged last 64-row tile; the last three hold the edges of K6's GEMM:
-    # its smallest m (17), a d that ends in a 16-byte piece of its 128-byte
-    # k tile (144), an f that ends inside its 128 columns (200)
+    # ragged last 64-row tile; 17x256x384, 33x144x256 and 257x256x200 hold
+    # the edges of K6's GEMM: its smallest m (17), a d that ends in a 16-byte
+    # piece of its 128-byte k tile (144), an f that ends inside its 128
+    # columns (200); the last two those of the decode GEMVs: one request (m
+    # 1) and both token tiles full (m 16), each at a d that ends inside a
+    # 128-wide k box (144, 272) and an f inside a 32-row tile (200)
     "8x256x384": (8, 256, 384, {}),
     "3x128x128": (3, 128, 128, {}),
     "130x512x640": (130, 512, 640, {}),
@@ -100,6 +103,8 @@ MATMUL_SHAPES = {
     "17x256x384": (17, 256, 384, {}),
     "33x144x256": (33, 144, 256, {}),
     "257x256x200": (257, 256, 200, {}),
+    "1x144x200": (1, 144, 200, {}),
+    "16x272x200": (16, 272, 200, {}),
 }
 
 
