@@ -21,14 +21,16 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
      and a full-tile bias, causal or not; d 64 at 8 kv heads).
   6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
-     serving shapes: decode (8 slots) and admission at each bucket (m 256/
+     serving shapes: decode (8 slots; also the 1b preset's wq and w2) and
+     admission at each bucket (m 256/
      1024/2048, ragged 2000) and product (all four at m 2048; wq, w1, w2
      and lm_head at m 256); ragged edges sized to the GEMMs' tiles, K5's
      and K6's alike (m 17/65/129/130/300/1000, d 4112, f 999/4001/4040),
-     and to K5's decode GEMV: one request (m 1) and both token tiles full
-     (m 16) at a ragged d and f (4112, 999), and each side of every
-     boundary of its split of d across a cluster (f 2080/2112 and
-     4192/4224, d 4080 and 2032) and of its ring depth (f 8448/8480).
+     and to K5's and K6's decode GEMVs (one row tile, split and ring rule):
+     one request (m 1) and both token tiles full (m 16) at a ragged d and f
+     (4112, 999), and each side of every boundary of their split of d
+     across a cluster (f 2080/2112/2144 and 4192/4224, d 4080 and 2032)
+     and of their ring depth (f 4224/4256 and 8448/8480).
      Each timed shape logs the kernel from graph replays and from eager
      launches (the host path a decode round pays), its twin, one PyTorch
      call and the bound.
@@ -135,19 +137,27 @@ SEED = 0
 # at f 999 take the 64-row tile, m 300 at f 4001 the 128-row one, m 1000 at
 # f 4001 and 4040 the 256-row one. d 4112 ends in a 16-byte piece of a k
 # tile; f 999 and 4001 are stored element by element by K6, 4040 (a
-# multiple of 8) in 16-byte chunks up to a last column tile of 72. K5's
-# decode GEMV (m <= 16, 32 output channels a block) splits d over a cluster
-# of 4 blocks while the 32-channel tiles times 2 leave SMs of the H100's
-# 132 without a block (f <= 2080) and d >= 4096, of 2 while the tiles alone
-# do (f <= 4192) and d >= 2048: f 999, 2080 take 4; f 2112, 4192 (and f 999
-# at d 4080) take 2; f 4224 (and d 2032) take none. Its ring has 8 stages
-# up to two blocks an SM (f 8448 unsplit: 264 blocks), 4 above (f 8480).
-# m 1 and 13 fill one token tile in part, m 9 and 16 two
+# multiple of 8) in 16-byte chunks up to a last column tile of 72. The decode
+# GEMVs (m <= 16) take 32 output channels a block, 8 tokens a column tile (m
+# 1 and 13 fill one in part, m 9 and 16 two), 128 k a stage (d 4112 and
+# 4080 end inside a box, 2032 in its last 16) and split d over a cluster by
+# rules of their own. K5 splits into 4 blocks while the 32-channel tiles
+# times 2 leave SMs of the H100's 132 without a block (f <= 2080) and d >=
+# 4096, into 2 while the tiles alone do (f <= 4192) and d >= 2048: f 999,
+# 2080 take 4; f 2112, 4192 (and f 999 at d 4080) take 2; f 4224 (and d
+# 2032) none. Its ring has 8 stages up to two blocks an SM (f 8448 unsplit:
+# 264 blocks), 4 above (f 8480). K6 splits into 2 while the split grid still
+# gives each SM at most one block (up to 66 tiles: f 999, 2080, 2112; none at
+# f 2144) and d >= 4096 (none at d 4080 or 2032); its ring has 16 stages up
+# to one block an SM (f 4192, 4224 unsplit), 8 up to two (f 4256, 8448), 4
+# above (f 8480). The 1b preset's wq and w2 (timed) take K6's two sides of d.
 QUANT_SHAPES = [
     ("decode_m8_wq_4096x4096", 8, 4096, 4096),
     ("decode_m8_w1_4096x11008", 8, 4096, 11008),
     ("decode_m8_w2_11008x4096", 8, 11008, 4096),
     ("decode_m8_head_4096x32000", 8, 4096, 32000),
+    ("decode_m8_1b_wq_2048x2048", 8, 2048, 2048),
+    ("decode_m8_1b_w2_5504x2048", 8, 5504, 2048),
     ("admit_m256_wq_4096x4096", 256, 4096, 4096),
     ("admit_m256_w1_4096x11008", 256, 4096, 11008),
     ("admit_m256_w2_11008x4096", 256, 11008, 4096),
@@ -170,6 +180,8 @@ QUANT_SHAPES = [
     ("edge_m1_d2032_f999", 1, 2032, 999),
     ("edge_m8_d4112_f8448", 8, 4112, 8448),
     ("edge_m16_d4112_f8480", 16, 4112, 8480),
+    ("edge_m1_d4112_f2144", 1, 4112, 2144),
+    ("edge_m9_d4112_f4256", 9, 4112, 4256),
     ("edge_m17_d4112_f999", 17, 4112, 999),
     ("edge_m65_d4112_f999", 65, 4112, 999),
     ("edge_m129_d4112_f999", 129, 4112, 999),
@@ -179,13 +191,17 @@ QUANT_SHAPES = [
     ("edge_m1000_d4112_f4040", 1000, 4112, 4040),
 ]
 # the shapes the kernels line reports for K5/K6: w1 (and w3) of every decode
-# round; and, by name, K5's other decode products (wq, w2, lm_head) and
-# their admission GEMMs at a 2048-token admission: w1 for both, w2 for K6
+# round; and, by name, their other decode products (wq, w2, the lm_head
+# shape, which W8A8 runs on K5), for K6 also the 1b preset's w2 (its split
+# of d), and their admission GEMMs at a 2048-token admission: w1 for both,
+# w2 for K6
 QUANT_REPORT = "decode_m8_w1_4096x11008"
+QUANT_DECODE_NAMED = ("decode_m8_wq_4096x4096", "decode_m8_w2_11008x4096",
+                      "decode_m8_head_4096x32000")
 QUANT_NAMED_REPORTS = {
-    "int8_matmul": ("decode_m8_wq_4096x4096", "decode_m8_w2_11008x4096",
-                    "decode_m8_head_4096x32000", "admit_m2048_w1_4096x11008"),
-    "w8a8_matmul": ("admit_m2048_w1_4096x11008", "admit_m2048_w2_11008x4096"),
+    "int8_matmul": (*QUANT_DECODE_NAMED, "admit_m2048_w1_4096x11008"),
+    "w8a8_matmul": (*QUANT_DECODE_NAMED, "decode_m8_1b_w2_5504x2048",
+                    "admit_m2048_w1_4096x11008", "admit_m2048_w2_11008x4096"),
 }
 
 
@@ -878,6 +894,38 @@ def phase_serve():
     return launches, summary
 
 
+def quantized_state(cfg):
+    """The serving model's weights (random from SEED) quantized on the card
+    by the port's quantize_params_int8, the bf16 model freed: the
+    run_serve.sh QUANTIZE=1 bundle."""
+    model = serving_model(cfg)
+    t0 = time.perf_counter()
+    sd = quant.quantize_params_int8(model.state_dict())
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_q = sum(v.numel() for v in sd.values() if v.dtype == torch.int8)
+    log(f"serve int8: {n_q:,} weights quantized on the card in {time.perf_counter() - t0:.2f}s "
+        f"({n_q / 1e9:.2f} GB int8 vs {2 * n_q / 1e9:.2f} GB bf16)")
+    return sd
+
+
+def quantized_model(cfg, sd, quant_dense, **kw):
+    """A model on the quantized state dict `sd` (its tensors, not copies)."""
+    m = LLaMAForCausalLM(cfg.replace(quant_dense=quant_dense, **kw), dtype=BF16, device="meta")
+    m.load_state_dict(sd, assign=True)
+    return m
+
+
+def phase_serve_w8a8(gen=None):
+    """W8A8 serving alone, as phase_serve_int8 serves it (the first 4
+    requests, int8_w8a8 with an int8 cache): for two checkouts' decode tok/s
+    in turns (scripts/compare_phase.sh DIR serve_w8a8). Returns the summary."""
+    cfg = serving_config()
+    w8a8 = quantized_model(cfg, quantized_state(cfg), "int8_w8a8", kv_cache_dtype="int8")
+    return serve(w8a8, "int8_w8a8 (int8 cache)", n_requests=4)[1]
+
+
 def phase_serve_int8(bf16):
     """The bf16 phase's weights quantized on the card by the port's
     quantize_params_int8 (the bf16 model freed), then served: all 12
@@ -888,21 +936,10 @@ def phase_serve_int8(bf16):
     weights. `bf16`: the bf16 run's summary, logged beside. Returns
     (int8 launches, w8a8 launches)."""
     cfg = serving_config()
-    model = serving_model(cfg)
-    t0 = time.perf_counter()
-    sd = quant.quantize_params_int8(model.state_dict())
-    del model
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    n_q = sum(v.numel() for v in sd.values() if v.dtype == torch.int8)
-    log(f"serve int8: {n_q:,} weights quantized on the card in {time.perf_counter() - t0:.2f}s "
-        f"({n_q / 1e9:.2f} GB int8 vs {2 * n_q / 1e9:.2f} GB bf16)")
+    sd = quantized_state(cfg)
 
     def build(quant_dense, **kw):
-        m = LLaMAForCausalLM(cfg.replace(quant_dense=quant_dense, **kw), dtype=BF16,
-                             device="meta")
-        m.load_state_dict(sd, assign=True)
-        return m
+        return quantized_model(cfg, sd, quant_dense, **kw)
 
     int8, w8a8, xla = build("int8"), build("int8_w8a8", kv_cache_dtype="int8"), build("int8_xla")
     launches, summary = serve(int8, "int8")

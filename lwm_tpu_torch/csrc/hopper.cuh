@@ -1,7 +1,7 @@
 // Building blocks shared by the port's Hopper (sm_90a) kernels: K1's
 // forward (flash_fwd.cu), the fused flash backward (flash_bwd.cu), K4's
-// decode (flash_decode.cu), K5 (int8_matmul.cu: its decode GEMV and its
-// admission GEMM) and K6's admission GEMM (w8a8_matmul.cu).
+// decode (flash_decode.cu), K5 (int8_matmul.cu) and K6 (w8a8_matmul.cu),
+// each of the last two a decode GEMV and an admission GEMM.
 //
 // Shared-memory tiles. A tile of R rows × D bf16 is D / 64 column halves of
 // R rows × 128 bytes, each row's eight 16-byte chunks swizzled (chunk c of
@@ -267,6 +267,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// arrive on the mbarrier at shared::cluster address `bar` (another block's),
+// releasing this thread's writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spin until phase `parity` of a barrier arrived at from other blocks has
+// completed (acquire at cluster scope)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
 // TMA: the box at (column c0, row c1) of a 2-D `map` into shared memory,
 // completion (bytes) reported to `bar`; out-of-bounds elements arrive as
 // zeros and count as bytes
@@ -277,6 +298,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// the same, with an L2 cache policy (`l2_evict_first`) for the box's lines
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+// an L2 policy under which the lines a load brings in are the first to be
+// evicted: for a stream read once, such as a decode GEMV's weight
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
 }
 
 // cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
@@ -296,6 +335,17 @@ inline EncodeTiled encode_tiled() {
       encode = reinterpret_cast<EncodeTiled>(fn);
   }
   return encode;
+}
+
+// the card's SM count, read once
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
 }
 
 // a row-major [rows, cols] tensor cut into [box_rows, box_cols] boxes

@@ -9,53 +9,29 @@
 // summed in fp32, multiplied by the fp32 scale and rounded to bf16 once.
 //
 // What bounds it on the card, and the two designs:
-// - Decode (m ≤ 16, `int8_gemv_kernel`): 2·m flops per weight byte, far below
-//   the H100's ~295 flop/byte ridge, so the int8 weight stream from HBM bounds
-//   it (w1 at 4096 → 11008 is 45 MB: at least 13.5 µs at 3.35 TB/s). Three
-//   things stand between a kernel and that bound: bytes in flight on every
-//   SM, the int8 → bf16 convert (as costly, per block, as the stream), and a
-//   fixed cost per launch that a 5-15 µs kernel feels.
-//   * A block owns 32 output channels (kGemvRows) and a range of d. One
-//     producer thread walks the range in pieces of 128 k and has TMA copy
-//     each into a ring of S stages in dynamic shared memory: the weight box
-//     [32, 128] int8 and x's two boxes [8·NT, 64] bf16, three instructions a
-//     stage, completion counted in bytes on the stage's `full` mbarrier.
-//     Boxes past f, m or d arrive as zeros, so nothing is masked before the
-//     store. The two tensor maps are encoded on the host every call. 1-D bulk
-//     copies (one a weight row slice, no tensor map) were tried first: each
-//     cost the issuing warp ~80 cycles whatever its size, and at 256 bytes a
-//     copy the kernel ran 2.5x slower than its parent's register loads.
-//   * x comes through the ring with the weight: 2·m / 32 of the weight's
-//     bytes (half at m 8), from the L2. Dropping x's boxes altogether did not
-//     change the time.
-//   * Four consumer warps: two row tiles of 16 output channels, each taken
-//     by two teams, team e on the stages p ≡ e (mod 2). A warp waits on
-//     `full`, reads 16-byte chunks from shared memory, converts the int8 in
-//     registers (`i8x4_to_bf16`, exact) and issues `mma.sync` m16n8k16
-//     with the weight as A and the ≤ 16 tokens as B (8 a column tile), so no
-//     lane of the tensor core works on padding rows of the weight; then it
-//     releases the stage on `empty`. The convert is what a warp's time
-//     follows (without it a consumer-only run took half as long; without
-//     the mma, as long): the second team doubles the converting warps a
-//     block, and two accumulator sets halve the mma chain. At 2·m flops a
-//     byte `wgmma` would add a shared-memory copy of the converted weight.
-//   * A k permutation: lane (g, t) takes the 32 k at 32t of each 128, whose
-//     weight bytes (rows g, g + 8) are exactly its A fragments of eight
-//     m16n8k16 steps and whose x elements its B fragments (the sum does not
-//     see the order). Lanes with t ≥ 2 walk their chunks in the other order,
-//     so that with TMA's 128-byte swizzle the 8 lanes of every 16-byte shared
-//     load hit 8 different chunks: no bank conflicts.
-//   * Where f's tiles leave SMs without a block (f 4096: 128 tiles on 132
-//     SMs), d is split across the CS blocks (2 or 4) of a thread-block
-//     cluster (`gemv_split`). The ring has 8 stages where the grid leaves at
-//     most two blocks an SM, 4 where it has more (`launch_ring`): a smaller
-//     ring leaves room for more blocks an SM. The other blocks store their fp32
-//     partials into rank 0's shared memory and arrive on its `done` mbarrier
-//     (release at cluster scope), then leave; rank 0 sums in rank order
-//     (deterministic), scales and rounds once. One launch, no scratch in HBM,
-//     no atomics; the cluster barrier only tells the blocks that rank 0 has
-//     started, and is waited on at the end. Two `cluster.sync`s and reads of
-//     the other blocks' shared memory cost ~1.5 µs a call instead.
+// - Decode (m ≤ 16, the ring of gemv.cuh with `Int8Gemv`): 2·m flops per
+//   weight byte, far below the H100's ~295 flop/byte ridge, so the int8
+//   weight stream from HBM bounds it (w1 at 4096 → 11008 is 45 MB: at least
+//   13.5 µs at 3.35 TB/s). Three things stand between a kernel and that
+//   bound: bytes in flight on every SM, the int8 → bf16 convert (as costly,
+//   per block, as the stream), and a fixed cost per launch that a 5-15 µs
+//   kernel feels. K5's part of the shared design:
+//   * x comes through the ring with the weight as two boxes [8·NT, 64] bf16
+//     a stage: 2·m / 32 of the weight's bytes (half at m 8), from the L2.
+//     Dropping x's boxes altogether did not change the time.
+//   * A consumer warp converts its weight chunks in registers
+//     (`i8x4_to_bf16`, exact) and issues `mma.sync` m16n8k16; each chunk is
+//     its A fragments of four steps and the matching x chunks its B
+//     fragments. The convert is what a warp's time follows (without it a
+//     consumer-only run took half as long; without the mma, as long): the
+//     second team doubles the converting warps a block, and two
+//     accumulator sets halve the mma chain. At 2·m flops a byte `wgmma`
+//     would add a shared-memory copy of the converted weight.
+//   * The split (`gemv_split`): d over a cluster of 2 or 4 blocks where f's
+//     tiles leave SMs without a block (f 4096: 128 tiles on 132 SMs, 2).
+//     The ring (`launch_ring`): 8 stages where the grid leaves at most two
+//     blocks an SM, 4 where it has more (a smaller ring leaves room for
+//     more blocks an SM). fp32 partials, summed in rank order.
 // - Admission (m > kGemvMaxM, `int8_gemm_kernel`): 2·m flops per weight byte,
 //   above the ridge, so the tensor cores bound it (w1 at m 2048 is 185 GFLOP:
 //   at least 0.187 ms at 989 TFLOP/s), and on Hopper only `wgmma` reaches
@@ -91,14 +67,11 @@
 // Not yet: a persistent grid (the epilogue overlapping the next tile's
 // loads), pairs of blocks sharing one converted weight tile.
 
-#include <cooperative_groups.h>
-
-#include "hopper.cuh"
+#include "gemv.cuh"
 
 namespace {
 
 using namespace lwm;
-namespace cg = cooperative_groups;
 
 constexpr int kGemvMaxM = 16;  // m ≤ this: the decode GEMV; above: the GEMM
 constexpr int kBN = 128;       // admission GEMM: output channels per block
@@ -131,282 +104,73 @@ __device__ __forceinline__ void i8x4_to_bf16(uint32_t q4, uint32_t& lo, uint32_t
   hi = pack_bf16(f[2], f[3]);
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
 // ----------------------------------------------------------------- decode
 
-constexpr int kGemvTiles = 2;                        // row tiles of 16 output channels a block
-constexpr int kGemvRows = 16 * kGemvTiles;           // output channels a block
-constexpr int kGemvTeams = 2;                        // consumer warps a row tile
-constexpr int kGemvWarps = kGemvTiles * kGemvTeams;  // consumer warps
-constexpr int kGemvK = 128;                          // k a stage: one swizzled weight row
-constexpr int kGemvChains = 2;  // accumulator sets a consumer thread alternates
+// K5's part of the decode GEMV (gemv.cuh): x as two [8·NT, 64] bf16 boxes a
+// stage (k 0-63, 64-127), the weight converted in registers, fp32 sums
+struct Int8Gemv {
+  using Args = ::Args;
+  using Acc = float;
+  static constexpr int kXBoxes = 2;
 
-// NT token tiles of 8 (m ≤ 8·NT); CS blocks of a cluster split d; S stages
-template <int NT, int CS, int S>
-struct GemvTile {
-  // team e takes the stages p ≡ e (mod kGemvTeams); each stage serves one
-  // team, so no team waits on a phase of the ring two ahead of its own
-  static_assert(S % kGemvTeams == 0, "whole rounds of the ring a team");
-  static constexpr int kThreads = 32 * (kGemvWarps + 1);  // + the producer warp
-  // a stage: the weight box [kGemvRows, 128] int8, then x's two boxes
-  // [8·NT, 64] bf16 (k 0-63, 64-127), all 128-byte rows swizzled as TMA
-  // writes them (16-byte chunk c of row r at c ^ (r % 8)), 1024-aligned
-  static constexpr int kWBox = kGemvRows * 128;
-  static constexpr int kXBox = 8 * NT * 128;
-  static constexpr int kStage = kWBox + 2 * kXBox;
-  static constexpr int kOut = kGemvTiles * NT * 128;  // accumulator elements a block
-  // fp32 partials: the other teams', then the other blocks'
-  static constexpr int kRed = (kGemvTeams - 1 + CS - 1) * kOut * 4;
-  // + 1024 to align; barriers: full and empty a stage, and `done`
-  static constexpr int kSmem = 1024 + S * kStage + kRed + 8 * (2 * S + 1);
+  static cudaError_t x_map(CUtensorMap* map, const Args& a, int box_rows) {
+    return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, a.m, a.d, box_rows, 64,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+
+  // Lane (g, t) reads the weight chunks of gemv_weight_offsets and x chunks
+  // 4(t % 2) .. + 3 of box t / 2 for token g, in the other order for t ≥ 2
+  // (h = t / 2 flips the chunk index): the same k as its weight chunks, and
+  // with the swizzle the 8 lanes of every load hit 8 different chunks.
+  template <int NT>
+  struct Consumer {
+    int w_off[2][2], x_off[NT][4];
+
+    __device__ Consumer(int tile, int lane) {
+      const int g = lane >> 2, t = lane & 3, h = t >> 1;
+      gemv_weight_offsets(tile, lane, w_off);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x_off[nt][i] = kGemvWBox + h * kGemvXBox<NT> + (8 * nt + g) * 128 +
+                         (((4 * (t & 1) + (i ^ (2 * h))) ^ g) << 4);
+    }
+
+    __device__ void step(const uint8_t* st, float (&acc)[kGemvChains][NT][4]) const {
+      uint4 wv[2][2], xv[NT][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) wv[r][q] = *reinterpret_cast<const uint4*>(st + w_off[r][q]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xv[nt][i] = *reinterpret_cast<const uint4*>(st + x_off[nt][i]);
+      // step j: weight bytes 4(j % 4)..+3 of register j / 4 and x elements
+      // 4(j % 2)..+3 of register j / 2 are the same four k; bytes and elements
+      // 0, 1 stand for logical k 2t, 2t + 1 of the m16n8k16 step, 2, 3 for
+      // 2t + 8, 2t + 9
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t af[4];
+        i8x4_to_bf16(word(wv[0][j >> 2], j & 3), af[0], af[2]);
+        i8x4_to_bf16(word(wv[1][j >> 2], j & 3), af[1], af[3]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint4& c = xv[nt][j >> 1];
+          const uint32_t b0 = (j & 1) ? c.z : c.x;
+          const uint32_t b1 = (j & 1) ? c.w : c.y;
+          mma_bf16_16816(acc[j % kGemvChains][nt], af[0], af[1], af[2], af[3], b0, b1);
+        }
+      }
+    }
+  };
+
+  __device__ static __nv_bfloat16 out(const Args& a, float acc, int row, int) {
+    return __float2bfloat16_rn(acc * a.scale[row]);
+  }
 };
-
-// arrive on the mbarrier at shared::cluster address `bar` (another block's),
-// releasing this thread's writes at cluster scope
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// spin until phase `parity` of a barrier arrived at from other blocks has
-// completed (acquire at cluster scope)
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-template <int NT, int CS, int S>
-__global__ void __launch_bounds__(GemvTile<NT, CS, S>::kThreads)
-    int8_gemv_kernel(const __grid_constant__ CUtensorMap w_map,
-                     const __grid_constant__ CUtensorMap x_map, const Args a) {
-  using T = GemvTile<NT, CS, S>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;  // stage s at base + s·kStage
-  uint8_t* smem = smem_raw + (base - raw);
-  float* red = reinterpret_cast<float*>(smem + S * T::kStage);
-  // per stage: `full` (the TMA bytes landed), `empty` (every consumer warp is
-  // done with it); `done`: every thread of the other blocks stored its partials
-  const uint32_t bars = base + S * T::kStage + T::kRed;
-  auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (S + s); };
-  const uint32_t done = bars + 16 * S;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rank = CS > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
-  const int f0 = blockIdx.x / CS * kGemvRows;  // a cluster is CS consecutive blocks
-  // this block's k: a CS-th of d in whole stages
-  const int span = ((a.d + CS - 1) / CS + kGemvK - 1) / kGemvK * kGemvK;
-  const int k_begin = min(a.d, rank * span), k_end = min(a.d, k_begin + span);
-  const int n_pieces = (k_end - k_begin + kGemvK - 1) / kGemvK;
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), kGemvTiles);
-    }
-    if (CS > 1) mbar_init(done, (CS - 1) * 32 * kGemvTiles);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  // every block of the cluster has started (and initialised `done`) by the
-  // time this phase completes; waited on only before the partials move
-  if constexpr (CS > 1) asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
-
-  float acc[kGemvChains][NT][4];
-#pragma unroll
-  for (int c = 0; c < kGemvChains; ++c)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[c][nt][r] = 0.f;
-
-  if (warp == kGemvWarps) {  // producer: one thread, three TMA boxes a stage
-    if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&w_map) : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&x_map) : "memory");
-      for (int p = 0; p < n_pieces; ++p) {
-        const int s = p % S;
-        if (p >= S) mbar_wait(empty(s), (p / S + 1) & 1);
-        const int k0 = k_begin + p * kGemvK;
-        const uint32_t st = base + s * T::kStage;
-        // boxes past f, m or d arrive as zeros and count as bytes
-        mbar_expect_tx(full(s), T::kStage);
-        tma_load(st, &w_map, full(s), k0, f0);
-        tma_load(st + T::kWBox, &x_map, full(s), k0, 0);
-        tma_load(st + T::kWBox + T::kXBox, &x_map, full(s), k0 + 64, 0);
-      }
-    }
-    if constexpr (CS > 1) asm volatile("barrier.cluster.wait;\n" ::: "memory");
-    return;
-  }
-
-  // consumers: warp w owns output channels f0 + 16·tile .. + 15 (tile =
-  // w % kGemvTiles) and the stages p ≡ w / kGemvTiles (mod kGemvTeams).
-  // Lane (g, t) takes the 32 k at 32t of each 128: 16-byte weight chunks
-  // 2t, 2t + 1 of rows g and g + 8, and x chunks 4(t % 2) .. + 3 of box t / 2
-  // for token g. Lanes with t ≥ 2 take both in the other order (h = t / 2
-  // flips the chunk index), which the sum does not see: with the swizzle, the
-  // 8 lanes of every 16-byte load then hit 8 different chunks (all 32 banks).
-  const int tile = warp % kGemvTiles, team = warp / kGemvTiles;
-  const int g = lane >> 2, t = lane & 3, h = t >> 1;
-  const int w_row = (16 * tile + g) * 128;
-  int w_off[2][2], x_off[NT][4];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    w_off[0][q] = w_row + (((2 * t + (q ^ h)) ^ g) << 4);
-    w_off[1][q] = w_off[0][q] + 8 * 128;  // row g + 8: the same swizzle
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x_off[nt][i] = T::kWBox + h * T::kXBox + (8 * nt + g) * 128 +
-                     (((4 * (t & 1) + (i ^ (2 * h))) ^ g) << 4);
-  for (int p = team; p < n_pieces; p += kGemvTeams) {
-    const int s = p % S;
-    mbar_wait(full(s), (p / S) & 1);
-    const uint8_t* st = smem + s * T::kStage;
-    uint4 wv[2][2], xv[NT][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) wv[r][q] = *reinterpret_cast<const uint4*>(st + w_off[r][q]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[nt][i] = *reinterpret_cast<const uint4*>(st + x_off[nt][i]);
-    // step j: weight bytes 4(j % 4)..+3 of register j / 4 and x elements
-    // 4(j % 2)..+3 of register j / 2 are the same four k; bytes and elements
-    // 0, 1 stand for logical k 2t, 2t + 1 of the m16n8k16 step, 2, 3 for
-    // 2t + 8, 2t + 9
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t af[4];
-      i8x4_to_bf16(word(wv[0][j >> 2], j & 3), af[0], af[2]);
-      i8x4_to_bf16(word(wv[1][j >> 2], j & 3), af[1], af[3]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint4& c = xv[nt][j >> 1];
-        const uint32_t b0 = (j & 1) ? c.z : c.x;
-        const uint32_t b1 = (j & 1) ? c.w : c.y;
-        mma_bf16_16816(acc[j % kGemvChains][nt], af[0], af[1], af[2], af[3], b0, b1);
-      }
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(s));
-  }
-#pragma unroll
-  for (int c = 1; c < kGemvChains; ++c)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[0][nt][r] += acc[c][nt][r];
-
-  // accumulator (nt, r) of lane (g, t): output channel f0 + 16·tile + g +
-  // 8·(r / 2), token 8·nt + 2·t + r % 2; element at(nt, r) of a partials slot
-  auto at = [&](int nt, int r) { return tile * NT * 128 + (nt * 4 + r) * 32 + lane; };
-  // the teams' partials meet in team 0 (slots 0 .. kGemvTeams - 2)
-  if (team > 0)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) red[(team - 1) * T::kOut + at(nt, r)] = acc[0][nt][r];
-  bar_sync(1, 32 * kGemvWarps);
-  if (team > 0) {
-    if constexpr (CS > 1) asm volatile("barrier.cluster.wait;\n" ::: "memory");
-    return;
-  }
-#pragma unroll
-  for (int e = 1; e < kGemvTeams; ++e)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[0][nt][r] += red[(e - 1) * T::kOut + at(nt, r)];
-  if constexpr (CS > 1) {
-    // the other blocks store their partials into rank 0's slots (after the
-    // teams') and leave; rank 0 waits for them, sums in rank order
-    // (deterministic), scales and stores
-    float* peers = red + (kGemvTeams - 1) * T::kOut;
-    asm volatile("barrier.cluster.wait;\n" ::: "memory");
-    if (rank > 0) {
-      float* dst = cg::this_cluster().map_shared_rank(peers, 0) + (rank - 1) * T::kOut;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) dst[at(nt, r)] = acc[0][nt][r];
-      uint32_t done0;  // rank 0's `done`
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(done0) : "r"(done), "r"(0));
-      mbar_arrive_cluster(done0);
-      return;
-    }
-    mbar_wait_cluster(done, 0);
-#pragma unroll
-    for (int q = 1; q < CS; ++q)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[0][nt][r] += peers[(q - 1) * T::kOut + at(nt, r)];
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = f0 + 16 * tile + g + 8 * (r >> 1), tok = 8 * nt + 2 * t + (r & 1);
-      if (row < a.f && tok < a.m)
-        a.out[(long long)tok * a.f + row] = __float2bfloat16_rn(acc[0][nt][r] * a.scale[row]);
-    }
-}
-
-// the card's SM count, read once
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  }();
-  return n;
-}
-
-template <int NT, int CS, int S>
-cudaError_t launch_gemv(const Args& a, cudaStream_t s) {
-  using T = GemvTile<NT, CS, S>;
-  static const cudaError_t set = cudaFuncSetAttribute(
-      int8_gemv_kernel<NT, CS, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-  CUtensorMap w_map, x_map;
-  cudaError_t e = set;
-  if (e == cudaSuccess)
-    e = tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.f, a.d, kGemvRows, 128,
-                   CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e == cudaSuccess)
-    e = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, a.m, a.d, 8 * NT, 64,
-                   CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = CS;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CS * ((a.f + kGemvRows - 1) / kGemvRows));
-  cfg.blockDim = dim3(T::kThreads);
-  cfg.dynamicSmemBytes = T::kSmem;
-  cfg.stream = s;
-  cfg.attrs = cluster;
-  cfg.numAttrs = CS > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, int8_gemv_kernel<NT, CS, S>, w_map, x_map, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
 
 // blocks of a cluster that split d: where f's row tiles leave SMs without a
 // block, up to 4, while each block keeps at least 1024 of d
@@ -422,8 +186,8 @@ int gemv_split(int f, int d) {
 template <int NT, int CS>
 cudaError_t launch_ring(const Args& a, cudaStream_t s) {
   const int blocks = CS * ((a.f + kGemvRows - 1) / kGemvRows);
-  if (blocks <= 2 * sm_count()) return launch_gemv<NT, CS, 8>(a, s);
-  return launch_gemv<NT, CS, 4>(a, s);
+  if (blocks <= 2 * sm_count()) return launch_gemv<Int8Gemv, NT, CS, 8>(a, s);
+  return launch_gemv<Int8Gemv, NT, CS, 4>(a, s);
 }
 
 template <int NT>

@@ -11,17 +11,28 @@
 // so the result is bit-identical to the plain twin.
 //
 // What bounds it on the card, and the two designs:
-// - Decode (m ≤ kGemvMaxM, `w8a8_gemv_kernel`): 2·m ops per weight byte, far
-//   below the ridge (1,979 TOP/s over 3.35 TB/s), so the int8 weight stream
-//   bounds it, exactly as for K5 (w1 at 4096 → 11008: at least 13.5 µs). The
-//   same shape as K5's decode kernel: the weight is the A operand (16 output
-//   channels per row tile), the tokens the B operand (8 per column tile); each
-//   thread streams 16 contiguous bytes per row per 64-wide chunk, which are its
-//   A fragments of two m16n8k32 `mma.sync` steps under a k permutation that
-//   x_q's B fragments share; 8 warps per block split d and sum their int32
-//   partials in shared memory (exact, so the order does not matter). Unlike K5
-//   there is no conversion at all: the bytes go to the tensor cores as they
-//   are.
+// - Decode (m ≤ kGemvMaxM, the ring of gemv.cuh with `W8a8Gemv`): 2·m ops
+//   per weight byte, far below the ridge (1,979 TOP/s over 3.35 TB/s), so
+//   the int8 weight stream from HBM bounds it (w1 at 4096 → 11008: at least
+//   13.5 µs). K5's design without its convert: an s8 `mma` takes the
+//   weight's bytes as they land, so the stream alone sets the time (a copy
+//   whose consumers only wait and release ran within 1-3% of the kernel;
+//   the consumers without the stream took a quarter to a half of it).
+//   K6's part of the shared design:
+//   * x_q comes through the ring as one box [8·NT, 128] int8 a stage; it
+//     costs nothing measurable (a copy without it ran as fast). Zeros past
+//     m or d add nothing to an integer sum.
+//   * A consumer warp reads its chunks and issues `mma.sync` m16n8k32 s8 ·
+//     s8 → s32 straight from them: each 16-byte chunk is
+//     its A (or B) fragments of two steps (bytes 0-3 of a step's 8 stand
+//     for logical k 4t..4t + 3, bytes 4-7 for 16 + 4t..). One team a row
+//     tile was 3-6% slower at f 4096.
+//   * The split and the ring (`gemv`), measured for K6 rather than taken
+//     from K5: at f 4096 a deep ring on one block an SM beat any split, so
+//     d is split over a cluster of 2 only where the split grid keeps one
+//     block an SM (f ≤ 2112) and each block keeps at least 2048 of d. The
+//     partials are int32, exact in any order: the split keeps the result
+//     bit-identical.
 // - Admission (m > kGemvMaxM, `w8a8_gemm_kernel`): above the ridge, so the
 //   int8 tensor-core rate bounds it (w1 at m 2048: at least 0.093 ms at 1,979
 //   TOP/s), and on Hopper only `wgmma` reaches it. x_q [m, d] and w [f, d]
@@ -56,15 +67,12 @@
 // element); d is a multiple of 16 (16-byte rows and TMA strides; the wrapper
 // checks).
 
-#include "hopper.cuh"
+#include "gemv.cuh"
 
 namespace {
 
 using namespace lwm;
 
-constexpr int kThreads = 256;  // decode GEMV
-constexpr int kWarps = kThreads / 32;
-constexpr int kGemvRows = 32;  // output channels per decode block: 2 row tiles
 constexpr int kGemvMaxM = 16;  // m ≤ this: the decode GEMV; above: the GEMM
 constexpr int kBN = 128;       // admission GEMM: output channels per block
 constexpr int kBK = 128;       // and its k tile: one 128-byte swizzled int8 row
@@ -87,10 +95,6 @@ __device__ __forceinline__ void mma_s8_16832(int (&c)[4], uint32_t a0, uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
 // the epilogue in JAX's order: (float(acc) · row scale) · column scale
 __device__ __forceinline__ float dequant(int acc, float sx, float sw) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw);
@@ -98,97 +102,76 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw) {
 
 // ----------------------------------------------------------------- decode
 
-template <int NT>  // token tiles of 8: m ≤ 8·NT
-__global__ void __launch_bounds__(kThreads) w8a8_gemv_kernel(const Args a) {
-  constexpr int kE = 2 * NT * 4;  // int32 accumulators per thread
-  __shared__ int red[kWarps][kE][32];
+// K6's part of the decode GEMV (gemv.cuh): x_q as one [8·NT, 128] int8 box a
+// stage, s8 products straight from the stage, int32 sums
+struct W8a8Gemv {
+  using Args = ::Args;
+  using Acc = int;
+  static constexpr int kXBoxes = 1;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int f0 = blockIdx.x * kGemvRows;
-
-  const int8_t* wrow[2][2];
-  bool wok[2][2];
-#pragma unroll
-  for (int ft = 0; ft < 2; ++ft)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = f0 + 16 * ft + 8 * hh + g;
-      wok[ft][hh] = r < a.f;
-      wrow[ft][hh] = a.w + (long long)(wok[ft][hh] ? r : 0) * a.d + 16 * t;
-    }
-  const int8_t* xrow[NT];
-  bool xok[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int tok = 8 * nt + g;
-    xok[nt] = tok < a.m;
-    xrow[nt] = a.xq + (long long)(xok[nt] ? tok : 0) * a.d + 16 * t;
+  static cudaError_t x_map(CUtensorMap* map, const Args& a, int box_rows) {
+    return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.xq, a.m, a.d, box_rows, kGemvK,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
   }
 
-  int acc[2][NT][4];
-#pragma unroll
-  for (int ft = 0; ft < 2; ++ft)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[ft][nt][0] = acc[ft][nt][1] = acc[ft][nt][2] = acc[ft][nt][3] = 0;
+  // Lane (g, t) reads the weight chunks of gemv_weight_offsets and the same
+  // two chunks of token 8·nt + g's row: all rows are swizzled by g, so the
+  // 8 lanes of a load hit 8 different chunks.
+  template <int NT>
+  struct Consumer {
+    int w_off[2][2], x_off[NT][2];
 
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const int n_chunks = (a.d + 63) / 64;
-  uint4 wn[2][2], xn[NT];  // the next chunk, loaded ahead
-  auto load = [&](int c) {
-    const int k = c * 64;
-    const bool kin = c < n_chunks && k + 16 * t < a.d;  // d % 16 == 0: all 16 in or out
+    __device__ Consumer(int tile, int lane) {
+      gemv_weight_offsets(tile, lane, w_off);
 #pragma unroll
-    for (int ft = 0; ft < 2; ++ft)
+      for (int q = 0; q < 2; ++q)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        wn[ft][hh] = kin && wok[ft][hh] ? __ldcs(reinterpret_cast<const uint4*>(wrow[ft][hh] + k))
-                                        : zero;
+        for (int nt = 0; nt < NT; ++nt)
+          x_off[nt][q] = kGemvWBox + (8 * nt + (lane >> 2)) * kGemvK + gemv_chunk(lane, q);
+    }
+
+    __device__ void step(const uint8_t* st, int (&acc)[kGemvChains][NT][4]) const {
+      uint4 wv[2][2], xv[NT][2];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      xn[nt] = kin && xok[nt] ? __ldg(reinterpret_cast<const uint4*>(xrow[nt] + k)) : zero;
+      for (int q = 0; q < 2; ++q) {
+        wv[0][q] = *reinterpret_cast<const uint4*>(st + w_off[0][q]);
+        wv[1][q] = *reinterpret_cast<const uint4*>(st + w_off[1][q]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          xv[nt][q] = *reinterpret_cast<const uint4*>(st + x_off[nt][q]);
+      }
+      // step j: words 2(j % 2), 2(j % 2) + 1 of chunk j / 2 hold the same
+      // eight k in both operands, logical 4t..4t + 3 and 16 + 4t..16 + 4t + 3
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = j >> 1, e = 2 * (j & 1);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_s8_16832(acc[j % kGemvChains][nt], word(wv[0][q], e), word(wv[1][q], e),
+                       word(wv[0][q], e + 1), word(wv[1][q], e + 1), word(xv[nt][q], e),
+                       word(xv[nt][q], e + 1));
+      }
+    }
   };
 
-  load(warp);
-  for (int c = warp; c < n_chunks; c += kWarps) {
-    uint4 wc[2][2], xc[NT];
-#pragma unroll
-    for (int ft = 0; ft < 2; ++ft) wc[ft][0] = wn[ft][0], wc[ft][1] = wn[ft][1];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) xc[nt] = xn[nt];
-    load(c + kWarps);
-    // step j: physical k 16t+8j+{0..3} stand for logical 4t+{0..3},
-    // 16t+8j+{4..7} for 16+4t+{0..3}, in both operands
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int ft = 0; ft < 2; ++ft)
-          mma_s8_16832(acc[ft][nt], word(wc[ft][0], 2 * j), word(wc[ft][1], 2 * j),
-                       word(wc[ft][0], 2 * j + 1), word(wc[ft][1], 2 * j + 1),
-                       word(xc[nt], 2 * j), word(xc[nt], 2 * j + 1));
+  __device__ static __nv_bfloat16 out(const Args& a, int acc, int row, int tok) {
+    return __float2bfloat16_rn(dequant(acc, a.xs[tok], a.ws[row]));
   }
+};
 
-#pragma unroll
-  for (int ft = 0; ft < 2; ++ft)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) red[warp][(ft * NT + nt) * 4 + r][lane] = acc[ft][nt][r];
-  __syncthreads();
-
-  for (int i = tid; i < kE * 32; i += kThreads) {
-    const int e = i >> 5, ln = i & 31;
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][e][ln];
-    const int ft = e / (NT * 4), nt = (e >> 2) % NT, r = e & 3;
-    const int row = f0 + 16 * ft + (ln >> 2) + 8 * (r >> 1);  // C rows: output channels
-    const int tok = 8 * nt + 2 * (ln & 3) + (r & 1);          // C columns: tokens
-    if (row < a.f && tok < a.m)
-      a.out[(long long)tok * a.f + row] = __float2bfloat16_rn(dequant(s, a.xs[tok], a.ws[row]));
-  }
+// The grid and the ring, measured for K6. d is split over a cluster of 2
+// where the split grid still gives each SM at most one block and each block
+// keeps at least 2048 of d: the 1b preset's w2 (5504 → 2048), not its wq
+// (2048 → 2048), nor anything at f 4096. The ring has 16 stages up to one
+// block an SM, 8 up to two, 4 above: a deeper ring keeps more of the stream
+// in flight, a shallower one leaves room for more blocks.
+template <int NT>
+cudaError_t gemv(const Args& a, cudaStream_t s) {
+  const int tiles = (a.f + kGemvRows - 1) / kGemvRows, sms = sm_count();
+  if (2 * tiles <= sms && a.d >= 4096) return launch_gemv<W8a8Gemv, NT, 2, 16>(a, s);
+  if (tiles <= sms) return launch_gemv<W8a8Gemv, NT, 1, 16>(a, s);
+  if (tiles <= 2 * sms) return launch_gemv<W8a8Gemv, NT, 1, 8>(a, s);
+  return launch_gemv<W8a8Gemv, NT, 1, 4>(a, s);
 }
 
 // -------------------------------------------------------------- admission
@@ -331,15 +314,16 @@ __global__ void __launch_bounds__(GemmTile<WG>::kThreads, 1)
 template <int WG>
 cudaError_t launch_gemm(const Args& a, cudaStream_t s) {
   using T = GemmTile<WG>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      w8a8_gemm_kernel<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   CUtensorMap x_map, w_map;
-  cudaError_t e = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.xq, a.m, a.d, T::kBM, kBK,
-                             CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t e = set;
+  if (e == cudaSuccess)
+    e = tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.xq, a.m, a.d, T::kBM, kBK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == cudaSuccess)
     e = tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.w, a.f, a.d, kBN, kBK,
                    CU_TENSOR_MAP_SWIZZLE_128B);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(w8a8_gemm_kernel<WG>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (e != cudaSuccess) return e;
   // consecutive blocks walk m first, so a wave shares few weight tiles and
   // each weight tile is read from HBM about once
@@ -368,20 +352,12 @@ extern "C" int lwm_w8a8_matmul(const void* xq, const void* xs, const void* w, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || f <= 0) return cudaSuccess;
   if (d % 16) return cudaErrorInvalidValue;
-  if (m <= 8) {
-    w8a8_gemv_kernel<1><<<(f + kGemvRows - 1) / kGemvRows, kThreads, 0, s>>>(a);
-  } else if (m <= kGemvMaxM) {
-    w8a8_gemv_kernel<2><<<(f + kGemvRows - 1) / kGemvRows, kThreads, 0, s>>>(a);
-  } else {
-    // the tallest tile (the most products per byte loaded) whose grid still
-    // covers half the card
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int cols = (f + kBN - 1) / kBN;
-    if (2 * ((m + 255) / 256) * cols >= sms) return launch_gemm<4>(a, s);
-    if (2 * ((m + 127) / 128) * cols >= sms) return launch_gemm<2>(a, s);
-    return launch_gemm<1>(a, s);
-  }
-  return cudaGetLastError();
+  if (m <= 8) return gemv<1>(a, s);
+  if (m <= kGemvMaxM) return gemv<2>(a, s);
+  // the tallest tile (the most products per byte loaded) whose grid still
+  // covers half the card
+  const int sms = sm_count(), cols = (f + kBN - 1) / kBN;
+  if (2 * ((m + 255) / 256) * cols >= sms) return launch_gemm<4>(a, s);
+  if (2 * ((m + 127) / 128) * cols >= sms) return launch_gemm<2>(a, s);
+  return launch_gemm<1>(a, s);
 }

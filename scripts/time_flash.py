@@ -12,7 +12,10 @@ fwd, bwd, int8, w8a8: each SRC is a copy of `lwm_tpu_torch/csrc/flash_fwd.cu`
 backward, `lwm_flash_bwd`), `csrc/int8_matmul.cu` (int8: K5,
 `lwm_int8_matmul`) or `csrc/w8a8_matmul.cu` (w8a8: K6, `lwm_w8a8_matmul`), a
 variant under test or another commit's kernel with the same entry; default:
-the package's own source. Each is built by nvcc into a
+the package's own source. A w8a8 copy is called through the wrapper, which
+also reads `lwm_w8a8_gemv_max_m` (K6 sources from the redesign of its GEMM
+on); an int8 copy must build against this tree's headers (K5 sources from
+the decode GEMVs' shared ring, csrc/gemv.cuh, on). Each is built by nvcc into a
 library of its own (all at once; `#include`s resolve beside the copy, then
 in the package's csrc), its ptxas register and spill lines are printed, it
 is held against the plain twin, and then all are timed in turns, 1..N then
@@ -30,10 +33,12 @@ N..1, with CUDA events over calls of the wrapper. Shapes:
   launches as chip_smoke.phase_k56 times them (20 calls of the wrapper),
   10 times in turns, median and range: the host's cost per call where it
   exceeds the kernel's, as in a decode round not captured in a graph.
-- w8a8: every chip_smoke.QUANT_SHAPES case that takes K6's admission GEMM
-  (m > 16), held bit for bit to the twin; the admission shapes timed from
-  CUDA-graph replays of the C entry with weight copies cycled past the L2
-  (as chip_smoke.phase_k56), `_int_mm` + scales and the bound beside.
+- w8a8: every chip_smoke.QUANT_SHAPES case, both of K6's routes (the
+  decode GEMV at m <= 16, the admission GEMM above), held bit for bit to the
+  twin; the decode (m 8) and admission shapes timed from CUDA-graph replays
+  of the wrapper with weight copies cycled past the L2 (as
+  chip_smoke.phase_k56), `_int_mm` + scales and the bound beside; then the
+  decode shapes from eager launches, 10 times in turns, as for int8.
 dec (K4): each ROOT is a checkout of the repo (default: this one), e.g.
 another commit unpacked under the gitignored _checkout/; its own wrapper
 (`lwm_tpu_torch/ops/decode.py`) and kernels (built from its csrc into its
@@ -70,8 +75,11 @@ ENTRY = {"fwd": "lwm_flash_fwd", "bwd": "lwm_flash_bwd", "int8": "lwm_int8_matmu
          "w8a8": "lwm_w8a8_matmul", "dec": None}
 SOURCE = {"fwd": "flash_fwd.cu", "bwd": "flash_bwd.cu", "int8": "int8_matmul.cu",
           "w8a8": "w8a8_matmul.cu"}
-# graph-replayed launches per timing: a decode GEMV takes 10-50 us
-ITERS = {"int8": 50}
+
+
+def iters(name):
+    """Launches per timing: 50 for a decode GEMV (10-50 us), else 10."""
+    return 50 if name.startswith("decode") else 10
 
 
 def build(srcs, entry):
@@ -191,7 +199,7 @@ def int8_shapes(gen):
             bound = smoke.bound_ms(m * d * 2 + f * d + f * 4 + m * f * 2, 2 * m * d * f,
                                    smoke.H100_BF16_PEAK)[0]
             w16 = [((wc.float() * sc[:, None]).to(smoke.BF16),) for wc, sc in sets]
-            lib = smoke.time_ms(lambda w: torch.nn.functional.linear(x, w), ITERS["int8"], w16,
+            lib = smoke.time_ms(lambda w: torch.nn.functional.linear(x, w), iters(name), w16,
                                 graph=True)
             del w16
             print(f"{name}: F.linear bf16 {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
@@ -200,12 +208,11 @@ def int8_shapes(gen):
 
 
 def w8a8_shapes(gen):
-    """{name: (check, call, bound ms or None: checked, not timed)} at K6's
-    GEMM shapes; each call takes the next weight copy."""
+    """{name: (check, call, bound ms or None: checked, not timed)} at every
+    QUANT_SHAPES case of K6, both routes; each call takes the next weight
+    copy."""
     shapes = {}
     for name, m, d, f in smoke.QUANT_SHAPES:
-        if m <= 16:
-            continue
         x_q, x_s = quant.quantize_activations(smoke._randn((m, d), gen))
         w, s = quant.quantize_weight(torch.randn((f, d), generator=gen, device="cuda") * 0.02)
         want = quant.w8a8_matmul_plain(x_q, x_s, w, s, out_dtype=smoke.BF16)
@@ -214,27 +221,20 @@ def w8a8_shapes(gen):
             verdict = "ok" if torch.equal(got, want) else "FAILS"
             return f"max|out-plain| {(got.float() - want.float()).abs().max().item():.3e} {verdict}"
 
-        timed = name.startswith("admit")
+        timed = not name.startswith("edge")
         sets = _weight_sets(w, s, timed)
         turn = iter(range(10**9))
 
-        def call(x_q=x_q, x_s=x_s, sets=sets, turn=turn, m=m, f=f, d=d):
-            # the C entry itself (the wrapper also counts, through a symbol
-            # an older copy may lack)
-            w, s = sets[next(turn) % len(sets)]
-            out = torch.empty((m, f), dtype=smoke.BF16, device="cuda")
-            rc = _build.load().lwm_w8a8_matmul(
-                x_q.data_ptr(), x_s.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                m, f, d, _build.stream_handle(out.device))
-            _build.check(rc, "lwm_w8a8_matmul")
-            return out
+        def call(x_q=x_q, x_s=x_s, sets=sets, turn=turn):
+            return quant.w8a8_matmul_quantized(x_q, x_s, *sets[next(turn) % len(sets)],
+                                               out_dtype=smoke.BF16)
 
         bound = None
         if timed:
             bound = smoke.bound_ms(m * d + m * 4 + f * d + f * 4 + m * f * 2, 2 * m * d * f,
                                    smoke.H100_INT8_PEAK)[0]
-            lib = smoke.time_ms(lambda w, s: smoke._int_mm_scaled(x_q, x_s, w, s), 20, sets,
-                                graph=True)
+            lib = smoke.time_ms(lambda w, s: smoke._int_mm_scaled(x_q, x_s, w, s), iters(name),
+                                sets, graph=True)
             print(f"{name}: _int_mm + scales {lib:.4f} ms, bound {bound:.4f} ms", flush=True)
         shapes[name] = (check, call, bound)
     return shapes
@@ -368,7 +368,9 @@ def main():
         for name, (check, call, _) in shapes.items():
             try:
                 got = run(lib, call)
-            except RuntimeError as err:  # a refused launch: reported, not timed
+            # a refused launch, or an older copy without an entry the wrapper
+            # reads: reported, not timed
+            except (RuntimeError, AttributeError) as err:
                 print(f"  {name}: {err} FAILS", flush=True)
                 refused.add(i)
                 break
@@ -380,13 +382,13 @@ def main():
             continue
         times = {i: [] for i in built}
         for i in built + built[::-1]:
-            times[i].append(smoke.time_ms(lambda: run(libs[i][0], call), ITERS.get(kind, 10),
+            times[i].append(smoke.time_ms(lambda: run(libs[i][0], call), iters(name),
                                           graph=kind in ("int8", "w8a8")))
         for i in built:
             ms = times[i]
             print(f"{name} {srcs[i]}: " + ", ".join(f"{t:.4f}" for t in ms) + f" ms "
                   f"({100 * bound / min(ms):.1f}% of the {bound:.4f} ms bound) [{smoke.card()}]")
-        if kind != "int8":
+        if not name.startswith("decode"):
             continue
         eager = {i: [] for i in built}
         for rep in range(10):

@@ -91,9 +91,10 @@ MATMUL_SHAPES = {
     # ragged last 64-row tile; 17x256x384, 33x144x256 and 257x256x200 hold
     # the edges of K6's GEMM: its smallest m (17), a d that ends in a 16-byte
     # piece of its 128-byte k tile (144), an f that ends inside its 128
-    # columns (200); the last two those of the decode GEMVs: one request (m
-    # 1) and both token tiles full (m 16), each at a d that ends inside a
-    # 128-wide k box (144, 272) and an f inside a 32-row tile (200)
+    # columns (200); the last four those of the decode GEMVs: one request (m
+    # 1), both token tiles full (m 16) and the second one begun (m 9) or
+    # part full (m 13), each at a d that ends inside a 128-wide k box (144,
+    # 272, 400, 208) and an f inside a 32-row tile (200, 40)
     "8x256x384": (8, 256, 384, {}),
     "3x128x128": (3, 128, 128, {}),
     "130x512x640": (130, 512, 640, {}),
@@ -105,6 +106,8 @@ MATMUL_SHAPES = {
     "257x256x200": (257, 256, 200, {}),
     "1x144x200": (1, 144, 200, {}),
     "16x272x200": (16, 272, 200, {}),
+    "9x400x200": (9, 400, 200, {}),
+    "13x208x40": (13, 208, 40, {}),
 }
 
 
