@@ -11,11 +11,15 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
   2. Build the CUDA kernels from lwm_tpu_torch/csrc with nvcc (sm_90a).
   3. K1 flash_attention_fwd vs its plain twin at the serving and training
      shapes and at the edges of its tiles (K1_CASES), timed at a 2048-token
-     admission over the 4096-slot cache and at the train step's attention
-     (b 2, seq 4096, 32 heads, d 128).
+     admission over the 4096-slot cache, at the train step's attention
+     (b 2, seq 4096, 32 heads, d 128) and at the shared prefix's two shapes
+     (the build's last 2048-token chunk over 32768 keys; an admission's
+     256 queries over the prefix block, not causal).
   4. K4 flash_decode vs its plain twin, output and (o, m, l) partials, at
      8 slots (bf16 and int8, MHA and GQA; a row with no valid key gives
-     (0, BIG_NEG, 0)) and at one slot of T 65536; every case timed.
+     (0, BIG_NEG, 0)), at one slot of T 65536, and at the shared-prefix
+     fold (all slots' query heads over one 32768-key prefix block: groups
+     6, 8, 12, 16 and 32); every case timed.
   5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
      its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
@@ -40,7 +44,18 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      warm-up admission at each bucket (as every serving arm); check every
      request and the K1/K4 launch counts of that path; hold kernel-path
      admission logits against an attn_impl="plain" model on the same
-     weight tensors and against an fp32 copy of them.
+     weight tensors and against an fp32 copy of them. On the same weights,
+     the serving modes: a 32768-token shared prefix built in 2048-token
+     chunks and 8 requests over it, those beyond 512 tokens admitted in
+     chunks (exact K1/K4 counts for the build, the admissions and the
+     rounds; admission and decode logits, and the server's own chunked
+     admission, held to an arm with the kernels' plain twins in their
+     place, to the plain concat oracle and to an fp32 copy);
+     prompt-lookup verify (k 7; acceptance held on one layer with zero
+     output projections, where it must occur; verify logits on the noise
+     floor); chunked admission (512) of a 3000-token prompt (the logits of
+     its first two tokens read off the server against one unchunked
+     prefill).
   8. The same weights quantized on the card (`quantize_params_int8`, the
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
@@ -49,6 +64,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      of K5 against the "int8_xla" dequant arm on the same int8 tensors,
      and of both (and W8A8) against an fp32 copy of the dequantized
      weights.
+     Then the serving CLI (`python -m lwm_tpu_torch.apps.serve`) as a
+     subprocess, three times over a 7b-width 4-layer params stream written
+     by the port: a prefix document, its index saved then loaded (the same
+     completions), lookup verify; and with --quantize_weights.
   9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
      grads of the kernel path against an attn_impl="plain" bf16 model and
      an fp32 copy (the noise floor), on the same weights and batch.
@@ -68,10 +87,12 @@ The last lines: the card, one JSON object listing every kernel, and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -79,11 +100,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lwm_tpu_torch import train
+from lwm_tpu_torch import checkpoint, train
+from lwm_tpu_torch.models import llama as llama_module
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM, quantize_kv
 from lwm_tpu_torch.ops import _build, decode, flash, quant
+from lwm_tpu_torch.ops import prefix as prefix_ops
 from lwm_tpu_torch.ops.reference import BIG_NEG
-from lwm_tpu_torch.serve import InflightServer, prefill_logits
+from lwm_tpu_torch.serve import InflightServer, _lookup_proposal, prefill_logits
 
 BF16 = torch.bfloat16
 BF16_TOL = 2e-2   # max |kernel - twin| on bf16 outputs (one bf16 step near 1 is 4e-3)
@@ -292,12 +315,22 @@ def _randn(shape, gen, dtype=BF16):
 # over a full-tile bias; GQA; a ragged 2000-token bucket (its last query
 # tile has 80 rows); seq 1000 with offsets off the tile grid and a
 # full-tile bias, causal and not (a 104-row query tile, a 104-key tile);
-# d 64 at 8 kv heads; rows with no valid key (out 0, lse BIG_NEG)
+# d 64 at 8 kv heads; rows with no valid key (out 0, lse BIG_NEG). Two more
+# are timed at the shapes the shared prefix (phase_serve_prefix) gives K1:
+# the build's last chunk (2048 queries at offset 30720 over the 32768 keys
+# written so far, head-major) and an admission over the prefix block (256
+# queries, not causal, the prefix-validity bias with 68 padding keys); the
+# 1024 bucket's admission over it is held too
 K1_TRAIN_REPORT = "train_b2_S4096_h32_causal_padkeys"
-K1_TIMED = ("bucket2048_T4096_perkey", K1_TRAIN_REPORT)
+K1_TIMED = ("bucket2048_T4096_perkey", K1_TRAIN_REPORT, "prefix_build_q2048_qoff30720_T32768",
+            "prefix_admit_q256_T32768_noncausal")
 K1_CASES = [
     ("bucket2048_T4096_perkey", 1, 32, 128, 2048, 4096, True, 0, 0, True, "prompt"),
     (K1_TRAIN_REPORT, 2, 32, 128, 4096, 4096, True, 0, 0, False, "per_key"),
+    ("prefix_build_q2048_qoff30720_T32768", 1, 32, 128, 2048, 32768, True, 30720, 0, True,
+     "written"),
+    ("prefix_admit_q256_T32768_noncausal", 1, 32, 128, 256, 32768, False, 0, 0, True, "prefix"),
+    ("prefix_admit_q1024_T32768_noncausal", 1, 32, 128, 1024, 32768, False, 0, 0, True, "prefix"),
     ("q16_fulltile_qoff1000", 1, 32, 128, 16, 4096, True, 1000, 0, True, "frontier"),
     ("gqa_hkv8_bucket1024", 1, 8, 128, 1024, 4096, True, 0, 0, True, "prompt"),
     ("ragged_bucket2000_T4096", 1, 32, 128, 2000, 4096, True, 0, 0, True, "prompt"),
@@ -311,13 +344,15 @@ K1_EMPTY_ROWS = (0, 129, 299)   # the rows "no_keys" masks whole
 
 def _k1_bias(kind, b, sq, T, q_off, gen):
     """(bias, valid keys or None) for a K1 case. "prompt": an admission's
-    per-key bias, the prompt's keys valid; "per_key" and "full": the
+    per-key bias, the prompt's keys valid; "written": a prefix build
+    chunk's, the keys written through its last query; "prefix": the
+    prefix-validity bias, all but the last 68 keys; "per_key" and "full": the
     backward's (_bwd_bias); "frontier": per-row frontiers with 20% random
     holes over a full tile, and "no_keys" the same with K1_EMPTY_ROWS
     masked whole."""
     keys = torch.arange(T, device="cuda")
-    if kind == "prompt":
-        valid = keys < sq - 37
+    if kind in ("prompt", "written", "prefix"):
+        valid = keys < {"prompt": sq - 37, "written": q_off + sq, "prefix": T - 68}[kind]
         return torch.where(valid, 0.0, BIG_NEG)[None, None, None, :], valid
     if kind in ("per_key", "full"):
         return _bwd_bias(kind, b, T, gen)
@@ -341,8 +376,10 @@ def _time_k1(q, k, v, bias, valid, kw):
     plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 3)
     # yardstick: SDPA with the same float bias, causal by position
     pos = kw["q_offset"] + torch.arange(sq, device="cuda")
-    mask = torch.where(torch.arange(T, device="cuda")[None] <= pos[:, None], bias, BIG_NEG)
-    mask = mask.to(BF16)
+    seen = torch.arange(T, device="cuda")[None] <= pos[:, None]
+    if not kw["causal"]:
+        seen = torch.ones_like(seen)
+    mask = torch.where(seen, bias, BIG_NEG).to(BF16)
     kt, vt = (k, v) if head_major else (k.transpose(1, 2), v.transpose(1, 2))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), kt, vt, attn_mask=mask, enable_gqa=h_kv != h))
@@ -357,7 +394,7 @@ def k1_bound(q, k, bias, valid, kw):
     two products of 2·d flops a (query, key) pair and head."""
     b, sq, h, d = q.shape
     h_kv = k.shape[1] if kw["kv_head_major"] else k.shape[2]
-    pairs = attn_pairs(valid, sq, kw["q_offset"])
+    pairs = attn_pairs(valid, sq, kw["q_offset"] if kw["causal"] else valid.shape[-1])
     n_bytes = 2 * q.numel() * 2 + 2 * int(valid.sum()) * h_kv * d * 2 + b * h * sq * 4
     n_bytes += bias.numel() * 4
     return bound_ms(n_bytes, 4 * d * h * pairs, H100_BF16_PEAK)
@@ -366,7 +403,8 @@ def k1_bound(q, k, bias, valid, kw):
 def phase_k1(gen):
     """K1 against its plain twin at K1_CASES. Returns (max_abs_err, ms,
     plain_ms, library_ms, bound_ms, bound_by) with the times at the
-    admission case, and the same times as a dict at K1_TRAIN_REPORT."""
+    admission case, and {name: the same times as a dict} at the other
+    K1_TIMED cases."""
     h = 32
     worst, timed = 0.0, {}
     for name, b, h_kv, d, sq, T, causal, q_off, kv_off, head_major, kind in K1_CASES:
@@ -399,7 +437,7 @@ def phase_k1(gen):
         torch.cuda.empty_cache()
     admit = timed[K1_TIMED[0]]
     return (worst, *(admit[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")),
-            timed[K1_TRAIN_REPORT])
+            {name: timed[name] for name in K1_TIMED[1:]})
 
 
 # K4's cases: name, b, h_kv, T, int8 cache. At 8 slots (7b: 32 heads, d 128,
@@ -417,13 +455,33 @@ K4_CASES = [
 ]
 K4_SLOT_LENGTHS = [4000, 17, 2048, 3000, 0, 513, 1024, 3999]   # last valid key of each row
 K4_EMPTY_ROW = 4     # cleared whole in the no-key check
+# K4 over a shared prefix (ops/prefix.py): every slot's query heads folded
+# into one batch-1 call over the prefix block, so the group is slots x g.
+# name, b, h_kv, T, int8 cache, folded query heads, valid prefix keys. The
+# 7b fold of 8 slots (group 8) over a 32768-token prefix in bf16 and int8;
+# 16 slots (group 16); 8 slots over a GQA cache of 8 kv heads (group 32);
+# and 6 and 12 slots (groups 6 and 12: a ragged last chunk of 8 heads) over
+# a prefix whose last 68 stored keys are padding
+K4_FOLD_CASES = [
+    ("fold_g8_bf16_P32768", 1, 32, 32768, False, 256, 32768),
+    ("fold_g8_int8_P32768", 1, 32, 32768, True, 256, 32768),
+    ("fold_g16_bf16_P32768", 1, 32, 32768, False, 512, 32768),
+    ("fold_g32_bf16_hkv8_P32768", 1, 8, 32768, False, 256, 32768),
+    ("fold_g6_bf16_P32700", 1, 32, 32768, False, 192, 32700),
+    ("fold_g12_bf16_P32700", 1, 32, 32768, False, 384, 32700),
+    ("fold_g12_int8_P32700", 1, 32, 32768, True, 384, 32700),
+]
 
 
 def k4_inputs(case, gen):
-    """(q, k, v, mask, kv_len, k_scale, v_scale) of one K4 case."""
-    name, b, h_kv, T, int8 = case
-    h, d = 32, 128
-    if b == 1:
+    """(q, k, v, mask, kv_len, k_scale, v_scale) of one K4 case (K4_CASES,
+    32 query heads, or K4_FOLD_CASES)."""
+    name, b, h_kv, T, int8, *fold = case
+    h, d = (fold[0] if fold else 32), 128
+    if fold:
+        mask = (torch.arange(T, device="cuda") < fold[1])[None]
+        kv_len = fold[1]
+    elif b == 1:
         mask = torch.ones((1, T), dtype=torch.bool, device="cuda")
         kv_len = T
     else:
@@ -488,16 +546,17 @@ def _k4_check(name, args):
 
 
 def phase_k4(gen):
-    """K4 at K4_CASES against its plain twin (output and partials), with a
-    row of no valid key at the 8-slot cases, each case timed. Returns
-    (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by) at the first
-    case, and {name: dict(ms, plain_ms, library_ms, bound_ms, bound_by)} for
-    the others."""
+    """K4 at K4_CASES and K4_FOLD_CASES against its plain twin (output and
+    partials), with a row of no valid key at the 8-slot cases, each case
+    timed. Returns (max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by) at the first case, and {name: dict(ms, plain_ms, library_ms,
+    bound_ms, bound_by)} for the others."""
     worst, first, others = 0.0, None, {}
-    for case in K4_CASES:
-        name, b, h_kv, T, int8 = case
+    for case in K4_CASES + K4_FOLD_CASES:
+        name, b, h_kv, T, int8 = case[:5]
         args = k4_inputs(case, gen)
         q, k, v, mask, kv_len, ks, vs = args
+        h = q.shape[2]
         worst = max(worst, _k4_check(name, args))
         if b > K4_EMPTY_ROW:
             cleared = mask.clone()
@@ -517,7 +576,7 @@ def phase_k4(gen):
             # yardstick: SDPA at q = 1 with the same keys (bool mask, GQA)
             seen = (mask & (torch.arange(T, device="cuda") < kv_len)[None])[:, None, None, :]
             lib_ms = time_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k, v, attn_mask=seen, enable_gqa=h_kv != 32), 50, sets,
+                q.transpose(1, 2), k, v, attn_mask=seen, enable_gqa=h_kv != h), 50, sets,
                 graph=True)
             lib = f"SDPA {lib_ms:.4f} ms (graph)"
             del seen
@@ -526,7 +585,7 @@ def phase_k4(gen):
             eager_ms = time_ms(lambda *a: decode.flash_decode(*a), 50, sets)
             eager = f"; eager launches {eager_ms:.4f}"
         log(f"K4 {name}: kernel {ms:.4f} ms (graph{eager}; {100 * bnd / ms:.1f}% of the bound), "
-            f"plain {plain_ms:.3f} ms, {lib}, bound {bnd:.4f} ms ({by}) (b={b} h=32 "
+            f"plain {plain_ms:.3f} ms, {lib}, bound {bnd:.4f} ms ({by}) (b={b} h={h} "
             f"h_kv={h_kv} T={T} kv_len={kv_len}; {len(sets)} cache copies cycled) [{card()}]")
         t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
         if first is None:
@@ -838,30 +897,50 @@ def admission_logits(models, cfg):
     return out
 
 
+def fp32_weights(model):
+    """An fp32 upcast of the model's state dict (the noise floor's truth)."""
+    return {k: v.float() for k, v in model.state_dict().items()}
+
+
+def plain_arms(model):
+    """The noise floor's arms on `model`'s weights: "plain", the same
+    tensors through attn_impl="plain", and "fp32", an fp32 upcast copy
+    through it, the truth both bf16 paths are held to."""
+    cfg = model.config.replace(attn_impl="plain")
+    return {"plain": LLaMAForCausalLM.on_tensors(cfg, model.state_dict(), model.dtype),
+            "fp32": LLaMAForCausalLM.on_tensors(cfg, fp32_weights(model), torch.float32)}
+
+
 def _cos(a, b):
     return F.cosine_similarity(a, b, dim=0).item()
 
 
-def hold_to_noise_floor(logits, kernel, arm, truth, cos_min=COS_MIN, argmax_of_truth=False):
+def hold_to_noise_floor(logits, kernel, arm, truth, cos_min=COS_MIN, argmax_of_truth=False,
+                        labels=None, what="admission", floor_ratio=FLOOR_RATIO):
     """The serving noise-floor rule, per checked prompt: the `kernel` path agrees
     with the `arm` path (the same tensors another way) at cosine >= cos_min
     and on argmax (or, with `argmax_of_truth`, on the fp32 `truth`'s argmax
-    where the arm misses it), and is at most FLOOR_RATIO x as far from
-    `truth` (1 - cosine) as `arm` is. Every prompt is logged before any is
-    held."""
-    lens = [PROMPT_LENS[i] for i in CHECKED_PROMPTS]
+    where the arm misses it), and is at most `floor_ratio` x as far from
+    `truth` (1 - cosine) as `arm` is; with floor_ratio None that ratio is
+    logged, not held. `labels` name the rows (default: the
+    CHECKED_PROMPTS' lengths). Every row is logged before any is held."""
+    lens = labels or [PROMPT_LENS[i] for i in CHECKED_PROMPTS]
     failed = []
     for n, got, want, ref in zip(lens, logits[kernel], logits[arm], logits[truth]):
         c_ka, c_kt, c_at = _cos(got, want), _cos(got, ref), _cos(want, ref)
-        log(f"admission logits, prompt {n}: {kernel} vs {arm} max|diff| "
+        ratio = (1 - c_kt) / (1 - c_at) if c_at < 1 else math.inf
+        log(f"{what} logits, prompt {n}: {kernel} vs {arm} max|diff| "
             f"{(got - want).abs().max().item():.4f} cosine {c_ka:.6f} (min {cos_min}); cosine "
-            f"to {truth}: {kernel} {c_kt:.6f} {arm} {c_at:.6f}; argmax {kernel}/{arm}/{truth} "
+            f"to {truth}: {kernel} {c_kt:.6f} {arm} {c_at:.6f}, distance ratio {ratio:.3f} "
+            f"(max {floor_ratio}); argmax {kernel}/{arm}/{truth} "
             f"{int(got.argmax())}/{int(want.argmax())}/{int(ref.argmax())}")
         picks = {int(want.argmax())} | ({int(ref.argmax())} if argmax_of_truth else set())
         if int(got.argmax()) not in picks:
-            failed.append(f"prompt {n}: {kernel} and {arm} pick different admission tokens")
-        if not (c_ka >= cos_min and 1 - c_kt <= FLOOR_RATIO * (1 - c_at)):
-            failed.append(f"prompt {n}: {kernel} admission logits are off the bf16 noise floor")
+            failed.append(f"prompt {n}: {kernel} and {arm} pick different {what} tokens")
+        if c_ka < cos_min:
+            failed.append(f"prompt {n}: {kernel} {what} logits disagree with {arm}")
+        if floor_ratio is not None and not 1 - c_kt <= floor_ratio * (1 - c_at):
+            failed.append(f"prompt {n}: {kernel} {what} logits are off the bf16 noise floor")
     if failed:
         raise AssertionError("; ".join(failed))
 
@@ -869,7 +948,8 @@ def hold_to_noise_floor(logits, kernel, arm, truth, cos_min=COS_MIN, argmax_of_t
 def phase_serve():
     """bf16 serving of the 12 requests; kernel-path admission logits held
     to the noise floor against attn_impl="plain". Returns (launches,
-    summary)."""
+    summary, the model), the model's weights reused by the serving modes'
+    phases."""
     cfg = serving_config()
     t0 = time.perf_counter()
     model = serving_model(cfg)
@@ -885,13 +965,9 @@ def phase_serve():
     # at 32 random layers bf16 rounding alone moves the logits' cosine to
     # the fp32 result to ~0.998, so the kernel path must be as close to the
     # fp32 result as the plain bf16 path is, and agree with it on argmax.
-    plain = LLaMAForCausalLM(cfg.replace(attn_impl="plain"), dtype=BF16, device="meta")
-    plain.load_state_dict(model.state_dict(), assign=True)
-    ref32 = LLaMAForCausalLM(cfg.replace(attn_impl="plain"), dtype=torch.float32, device="meta")
-    ref32.load_state_dict({k: v.float() for k, v in model.state_dict().items()}, assign=True)
-    logits = admission_logits({"kernel": model, "plain": plain, "fp32": ref32}, cfg)
+    logits = admission_logits({"kernel": model, **plain_arms(model)}, cfg)
     hold_to_noise_floor(logits, "kernel", "plain", "fp32")
-    return launches, summary
+    return launches, summary, model
 
 
 def quantized_state(cfg):
@@ -912,9 +988,7 @@ def quantized_state(cfg):
 
 def quantized_model(cfg, sd, quant_dense, **kw):
     """A model on the quantized state dict `sd` (its tensors, not copies)."""
-    m = LLaMAForCausalLM(cfg.replace(quant_dense=quant_dense, **kw), dtype=BF16, device="meta")
-    m.load_state_dict(sd, assign=True)
-    return m
+    return LLaMAForCausalLM.on_tensors(cfg.replace(quant_dense=quant_dense, **kw), sd, BF16)
 
 
 def phase_serve_w8a8(gen=None):
@@ -955,8 +1029,7 @@ def phase_serve_int8(bf16):
             deq[k] = v.float() * sd[k[: -len("weight")] + "scale"][:, None]
         elif not k.endswith(".scale"):
             deq[k] = v.float()
-    ref32 = LLaMAForCausalLM(cfg.replace(attn_impl="plain"), dtype=torch.float32, device="meta")
-    ref32.load_state_dict(deq, assign=True)
+    ref32 = LLaMAForCausalLM.on_tensors(cfg.replace(attn_impl="plain"), deq, torch.float32)
     logits = admission_logits({"int8": int8, "int8_xla": xla, "int8_w8a8": w8a8,
                                "fp32_dequant": ref32}, cfg)
     w8a8_cos = [_cos(got, ref) for got, ref in zip(logits["int8_w8a8"], logits["fp32_dequant"])]
@@ -970,6 +1043,459 @@ def phase_serve_int8(bf16):
     if not min(w8a8_cos) >= W8A8_COS_MIN:
         raise AssertionError("int8_w8a8 admission logits are too far from the fp32 result")
     return launches, w_launches
+
+
+# ------------------------------------------------------- the serving modes
+# Shared prefix (phase_serve_prefix): a PREFIX_TOKENS document from the seed,
+# built in PREFIX_CHUNK-token chunks, 8 requests of PREFIX_SUFFIX_LENS suffix
+# tokens and 64 new ones (one sampled), those longer than ADMIT_CHUNK
+# admitted in chunks. Its logits check prefills the first 256 tokens of each
+# suffix into an 8-slot pool of CHECK_CACHE positions over the same prefix
+# block and runs one decode round, and reads the server's own chunked
+# admission of the last suffix (600 tokens, two chunks).
+PREFIX_TOKENS, PREFIX_CHUNK = 32768, 2048
+PREFIX_SUFFIX_LENS = [50, 1000, 300, 700, 128, 900, 450, 600]
+CHECK_CACHE = 512
+# Lookup verify (LOOKUP_K proposals a slot) on quoting prompts: a random
+# 48-token span inside filler and its first 16 tokens again at the end.
+# Chunked admission: ADMIT_CHUNK-token chunks, one CHUNKED_LEN-token prompt
+# (beyond the largest bucket) beside prompts that take a bucket or chunks.
+LOOKUP_K, ADMIT_CHUNK, CHUNKED_LEN = 7, 512, 3000
+QUOTE_FILLER = [100, 900, 300, 600, 150, 450, 800, 200]
+CHUNKED_LENS = [CHUNKED_LEN, 300, 700, 1500]
+
+
+def admission_forwards(lengths):
+    """Admission forwards of prompts of `lengths` under ADMIT_CHUNK: one a
+    chunk, or one bucketed prefill."""
+    return sum(-(-n // ADMIT_CHUNK) if n > ADMIT_CHUNK else 1 for n in lengths)
+
+
+@contextlib.contextmanager
+def attention_twins():
+    """The kernel path's structure with K1 and K4 replaced by their plain
+    twins where the model calls them. Over a shared prefix the two ranges
+    still run apart, each output rounded to bf16 and merged by lse, as the
+    kernel path (and the JAX one, lwm_tpu/ops/prefix.py) merges them, where
+    the concat oracle rounds once: this arm sets the noise floor the
+    kernels are held to there, and its distance beside the oracle's is the
+    merge's own rounding."""
+    saved = llama_module.flash_attention_fwd, llama_module.flash_decode, prefix_ops.flash_decode
+    llama_module.flash_attention_fwd = flash.flash_attention_fwd_plain
+    llama_module.flash_decode = prefix_ops.flash_decode = decode.flash_decode_plain
+    try:
+        yield
+    finally:
+        llama_module.flash_attention_fwd, llama_module.flash_decode, prefix_ops.flash_decode = saved
+
+
+def hold_over_prefix(logits, kernel, labels, what):
+    """The noise-floor rule over a shared prefix: `kernel` held to the
+    "split" arm (attention_twins) at FLOOR_RATIO against "fp32", and both
+    held to agree with the "plain" concat oracle, their distances to fp32
+    beside the oracle's logged."""
+    hold_to_noise_floor(logits, kernel, "split", "fp32", labels=labels, argmax_of_truth=True,
+                        what=what)
+    for name in (kernel, "split"):
+        hold_to_noise_floor(logits, name, "plain", "fp32", labels=labels, argmax_of_truth=True,
+                            what=f"{what} (concat oracle)", floor_ratio=None)
+
+
+def serve_modes_run(srv, prompts, budgets, temps, name, want_launches):
+    """Submit, run with the counts set to 0 just before and read just after,
+    check every request and the exact launch counts (`want_launches(stats)`).
+    Returns (launches, summary)."""
+    cfg = srv.model.config
+    rids = [srv.submit(p, n, t) for p, n, t in zip(prompts, budgets, temps)]
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    done = {f.req_id: f for f in srv.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    log(f"serve {name}: {srv.stats_line()}; wall {wall:.2f}s; launches {launches}")
+    if sorted(done) != sorted(rids):
+        raise AssertionError(f"{name}: served {sorted(done)}, submitted {sorted(rids)}")
+    for rid, n in zip(rids, budgets):
+        toks, stopped = done[rid].tokens, done[rid].stopped
+        if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{name}, request {rid}: token outside the vocab")
+        if not ((len(toks) == n and stopped == "length")
+                or (stopped == "eos" and toks[-1] == cfg.eos_token_id and len(toks) <= n)):
+            raise AssertionError(f"{name}, request {rid}: {len(toks)} tokens, stopped {stopped}")
+    want = want_launches(srv.stats)
+    if launches != want:
+        raise AssertionError(f"serve {name}: launches {launches}, want {want}")
+    s = srv.stats
+    decode_tokens = s["emitted"] - s["admitted"]
+    return launches, dict(prefill_s=s["prefill_s"], decode_s=s["decode_s"], rounds=s["rounds"],
+                          decode_tok_s=decode_tokens / s["decode_s"], wall=wall)
+
+
+def server_logits(srv, prompt):
+    """(the fp32 logits of a greedy request's first two tokens as the
+    server picks them, its two tokens): `prompt` served alone on the idle
+    `srv` through its own admission (a bucket, or chunks staged and copied
+    into the pool slot) and its first decode round from that slot, read at
+    `_pick`."""
+    if srv.busy():
+        raise AssertionError("server_logits needs an idle server")
+    rows = []
+    pick = srv._pick
+
+    def capture(logits, tau):   # an idle pool admits into slot 0
+        rows.append(logits[0].clone())
+        return pick(logits, tau)
+
+    srv._pick = capture
+    try:
+        srv.submit(prompt, 2)
+        srv.run()
+    finally:
+        del srv._pick
+    if len(rows) != 2:
+        raise AssertionError(f"server_logits: {len(rows)} picks for 2 tokens")
+    return rows, srv.finished[-1].tokens.tolist()
+
+
+def unchunked_logits(m, prompt, tok, cache_len, block=None, pos0=0):
+    """What `server_logits` reads, through `m` at once: the last-token fp32
+    logits of one prefill of `prompt` (unpadded) into a fresh batch-1 cache
+    of `cache_len` positions (over the prefix `block` at RoPE offset
+    `pos0`), then those of one decode step of `tok`."""
+    n, dev = len(prompt), m.wte.weight.device
+    cache = m.init_cache(1, cache_len, prefix=block)
+    first = prefill_logits(m, cache, prompt, n, pos0)
+    cache.index = n
+    mask = torch.arange(cache_len, device=dev)[None] <= n
+    nxt = m(torch.tensor([[tok]], device=dev), mask, torch.tensor([[n + pos0]], device=dev),
+            cache=cache)
+    return [first, nxt[0, 0].float()]
+
+
+def prefix_logits(models, block, p_true, prompts, tokens):
+    """{name: admission logits of each prompt (bucket 256) into its slot of
+    an 8-slot pool of CHECK_CACHE positions over the prefix `block`, then
+    the logits of one decode round of `tokens`}."""
+    out = {}
+    for name, m in models.items():
+        dev = m.wte.weight.device
+        lengths = torch.tensor([len(p) for p in prompts], device=dev)
+        cache = m.init_cache(len(prompts), CHECK_CACHE, prefix=block)
+        adm = [prefill_logits(m, cache.slot(i), p, 256, p_true) for i, p in enumerate(prompts)]
+        mask = torch.arange(CHECK_CACHE, device=dev)[None] <= lengths[:, None]
+        cache.index = int(lengths.max())
+        dec = m(torch.tensor(tokens, device=dev)[:, None], mask, (lengths + p_true)[:, None],
+                cache=cache)[:, 0].float()
+        out[name] = adm + list(dec)
+        del cache
+    return out
+
+
+def phase_serve_prefix(model, bf16):
+    """Shared-prefix serving on the bf16 phase's weights: the prefix built
+    through the server (K1 once a layer a chunk), the 8 requests served
+    with chunked admission (K1 twice a layer an admission forward, K4
+    twice a layer a round), exact launch counts. Then admission and
+    decode-round logits over the prefix, and the server's own chunked
+    admission of one suffix (server_logits), held to the noise floor
+    (hold_over_prefix) against the attention_twins arm, the
+    attn_impl="plain" concat oracle and an fp32 copy of the weights (which
+    reads the same bf16 prefix block: an fp32 rebuild of 32768 tokens
+    would take 32 GiB more; K1 is held to its twin at the build's shape in
+    phase_k1). `bf16`: the plain pool's summary, logged beside. Returns the
+    launches of the build and of the serving run."""
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 3)
+    prefix = rng.integers(2, cfg.vocab_size, PREFIX_TOKENS).tolist()
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in PREFIX_SUFFIX_LENS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = InflightServer(model, slots=8, cache_len=4096, prompt_buckets=BUCKETS,
+                         stop_tokens=(cfg.eos_token_id,), seed=SEED, prefix_ids=prefix,
+                         prefix_chunk=PREFIX_CHUNK, admit_chunk=ADMIT_CHUNK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build = _launch_counts()
+    n_chunks = -(-PREFIX_TOKENS // PREFIX_CHUNK)
+    want = dict(expected_launches(cfg, 0, 0), flash_fwd=L * n_chunks)
+    if build != want:
+        raise AssertionError(f"prefix build: launches {build}, want {want}")
+    log(f"prefix build: {PREFIX_TOKENS} tokens in {n_chunks} chunks of {PREFIX_CHUNK}, "
+        f"{build_s:.3f}s (host clock, synced); launches {build} [{card()}]")
+    forwards = admission_forwards(PREFIX_SUFFIX_LENS)
+
+    def want_launches(s):   # K1 twice a layer an admission forward, K4 twice a layer a round
+        return dict(expected_launches(cfg, 0, 0), flash_fwd=2 * L * forwards,
+                    flash_decode=2 * L * s["rounds"])
+
+    temps = [0.0] * 8
+    temps[5] = 0.8
+    launches, summary = serve_modes_run(srv, prompts, [64] * 8, temps, "prefix", want_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"serve prefix: build {build_s:.3f}s; decode {summary['decode_tok_s']:.1f} tok/s over "
+        f"{summary['rounds']} rounds vs the plain pool's {bf16['decode_tok_s']:.1f} (12 requests, "
+        f"this call); prefill {summary['prefill_s']:.3f}s over 8 admissions ({forwards} "
+        f"forwards, chunks of {ADMIT_CHUNK}); peak {peak:.1f} GiB [{card()}]")
+
+    chunked_prompt = prompts[-1]
+    served, served_tokens = server_logits(srv, chunked_prompt)
+    kernel, block, p_true = srv.model, srv._prefix, srv._pos0
+    srv.cache = None   # the pool; the prefix block stays for the check
+    del srv
+    torch.cuda.empty_cache()
+    models = {"kernel": kernel, **plain_arms(kernel)}
+    check = [p[:256] for p in prompts]
+    adm = prefix_logits({"kernel": kernel}, block, p_true, check, [0] * 8)["kernel"][:8]
+    tokens = [int(x.argmax()) for x in adm]
+    logits = prefix_logits(models, block, p_true, check, tokens)
+    cache_len = -(-(len(chunked_prompt) + 1) // 512) * 512
+    chunked = {name: unchunked_logits(m, chunked_prompt, served_tokens[0], cache_len, block,
+                                      p_true)
+               for name, m in models.items() if name != "kernel"}
+    with attention_twins():
+        logits.update(prefix_logits({"split": kernel}, block, p_true, check, tokens))
+        chunked["split"] = unchunked_logits(kernel, chunked_prompt, served_tokens[0], cache_len,
+                                            block, p_true)
+    chunked["server"] = served
+    labels = [f"{len(p)} (prefix {p_true})" for p in check]
+    for what, rows in (("prefix admission", slice(0, 8)), ("prefix decode", slice(8, 16))):
+        hold_over_prefix({k: v[rows] for k, v in logits.items()}, "kernel", labels, what)
+    hold_over_prefix(chunked, "server", [f"{len(chunked_prompt)} (prefix {p_true}), first token",
+                                         "then one decode round"],
+                     f"the server's chunked admission ({ADMIT_CHUNK}) over the prefix")
+    del models, block, kernel
+    torch.cuda.empty_cache()
+    return [build, launches]
+
+
+def lookup_acceptance(model):
+    """Accepted proposals, held where they must occur. A random 7b model
+    quotes nothing: its 64-token greedy rollouts are 64 distinct tokens
+    and no span of a prompt recurs in them (measured on one H100). A
+    one-layer view of the same tensors whose two output projections (wo,
+    w2) are zero makes the next token a function of the current one
+    (embedding, ln_f, lm_head), while its attention still runs K1 every
+    verify round, so a prompt quoting the model's own rollout W (seed + W
+    + filler + W[:16]) continues with W[16:] and every proposal after the
+    first round is right: acceptance above 0, every row emits W[16:]
+    exactly, and K1 launches once an admission and once a round."""
+    cfg = model.config.replace(num_hidden_layers=1)
+    sd = {k: v for k, v in model.state_dict().items()
+          if not k.startswith("h.") or k.startswith("h.0.")}
+    for k in ("h.0.attention.wo.weight", "h.0.feed_forward.w2.weight"):
+        sd[k] = torch.zeros_like(sd[k])
+    markov = LLaMAForCausalLM.on_tensors(cfg, sd, BF16)
+    rng = np.random.default_rng(SEED + 6)
+    seeds = [rng.integers(2, cfg.vocab_size, 16).tolist() for _ in range(8)]
+    srv = InflightServer(markov, slots=8, cache_len=4096, prompt_buckets=BUCKETS, seed=SEED)
+    rids = [srv.submit(p, 48) for p in seeds]
+    done = {f.req_id: f.tokens.tolist() for f in srv.run()}
+    rollouts = [done[r] for r in rids]
+    quotes = [p + w + rng.integers(2, cfg.vocab_size, 50).tolist() + w[:16]
+              for p, w in zip(seeds, rollouts)]
+    srv = InflightServer(markov, slots=8, cache_len=4096, prompt_buckets=BUCKETS, seed=SEED,
+                         lookup_k=LOOKUP_K)
+    rids = [srv.submit(q, 32) for q in quotes]
+    _reset_launch_counts()
+    done = {f.req_id: f.tokens.tolist() for f in srv.run()}
+    launches = _launch_counts()
+    s = srv.stats
+    want = dict(expected_launches(cfg, 0, 0), flash_fwd=s["admitted"] + s["rounds"])
+    if launches != want:
+        raise AssertionError(f"lookup acceptance: launches {launches}, want {want}")
+    log(f"lookup acceptance (one 7b layer, output projections zero; self-quoting prompts): "
+        f"{srv.stats_line()}; accepted {s['accepted']} over {s['spec_rows']} row rounds; "
+        f"launches {launches}")
+    if s["accepted"] <= 0:
+        raise AssertionError("lookup verify accepted no proposal on self-quoting prompts")
+    if [done[r] for r in rids] != [w[16:48] for w in rollouts]:
+        raise AssertionError("lookup verify changed a greedy row's tokens")
+
+
+def phase_serve_lookup_chunked(model):
+    """Prompt-lookup verify and chunked admission on the bf16 phase's
+    weights. Lookup (k LOOKUP_K, quoting prompts): every round one forward
+    of 1 + k tokens a slot (K1 once a layer), acceptance logged (held above
+    0 by `lookup_acceptance`), and one verify forward's logits held to the
+    noise floor against the plain model and an fp32 copy. Chunked
+    (ADMIT_CHUNK): a CHUNKED_LEN-token prompt and three others, every
+    request finished, exact launches; then the CHUNKED_LEN prompt again
+    through the same server, its first two tokens' logits read off the
+    server's own path (server_logits: the staging cache, the copy into the
+    pool slot, a decode round from it) and held to the noise floor against
+    one unchunked prefill and decode step through the plain model and an
+    fp32 copy. Returns the two runs' launches."""
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 4)
+    quotes = []
+    for n in QUOTE_FILLER:
+        span, fill = (rng.integers(2, cfg.vocab_size, k).tolist() for k in (48, n))
+        quotes.append(fill[: n // 2] + span + fill[n // 2:] + span[:16])
+    srv = InflightServer(model, slots=8, cache_len=4096, prompt_buckets=BUCKETS,
+                         stop_tokens=(cfg.eos_token_id,), seed=SEED, lookup_k=LOOKUP_K)
+
+    def lookup_launches(s):   # the admissions and every verify round on K1, no K4
+        return dict(expected_launches(cfg, 0, 0), flash_fwd=L * (s["admitted"] + s["rounds"]))
+
+    look, look_sum = serve_modes_run(srv, quotes, [64] * 8, [0.0] * 8, "lookup", lookup_launches)
+    s = srv.stats
+    log(f"serve lookup (k {LOOKUP_K}): accepted {s['accepted']} over {s['spec_rows']} row "
+        f"rounds; decode {look_sum['decode_tok_s']:.1f} tok/s [{card()}]")
+    del srv
+    torch.cuda.empty_cache()
+    lookup_acceptance(model)
+
+    srv = InflightServer(model, slots=8, cache_len=4096, prompt_buckets=BUCKETS,
+                         stop_tokens=(cfg.eos_token_id,), seed=SEED, admit_chunk=ADMIT_CHUNK)
+    long_prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in CHUNKED_LENS]
+    forwards = admission_forwards(CHUNKED_LENS)
+
+    def chunked_launches(s):   # a forward a chunk (or a bucket), K4 a round
+        return dict(expected_launches(cfg, 0, 0), flash_fwd=L * forwards,
+                    flash_decode=L * s["rounds"])
+
+    chunked, chunk_sum = serve_modes_run(srv, long_prompts, [64] * 4, [0.0] * 4,
+                                         f"admit_chunk {ADMIT_CHUNK}", chunked_launches)
+    log(f"serve admit_chunk: {len(CHUNKED_LENS)} requests of {CHUNKED_LENS} tokens, "
+        f"{forwards} admission forwards; decode {chunk_sum['decode_tok_s']:.1f} tok/s [{card()}]")
+    served, served_tokens = server_logits(srv, long_prompts[0])
+    del srv
+    torch.cuda.empty_cache()
+
+    arms = {"kernel": model, **plain_arms(model)}
+    # one verify forward after a quoting prompt: the admission's token, then
+    # the lookup's proposal, at per-row positions over a batch-1 cache
+    prompt = quotes[0]
+    n = len(prompt)
+    first = int(prefill_logits(model, model.init_cache(1, 4096), prompt, 256).argmax())
+    ctx = np.asarray(prompt + [first])
+    prop = _lookup_proposal(ctx, LOOKUP_K, 3)
+    block = [first] + (prop.tolist() if prop is not None else [first] * LOOKUP_K)
+    verify = {}
+    for name, m in arms.items():
+        cache = m.init_cache(1, 4096)
+        prefill_logits(m, cache, prompt, 256)
+        cache.index = n
+        mask = torch.arange(4096, device="cuda")[None] <= n + LOOKUP_K
+        pos = (n + torch.arange(1 + LOOKUP_K, device="cuda"))[None]
+        verify[name] = list(m(torch.tensor([block], device="cuda"), mask, pos, cache=cache)[0]
+                            .float())
+        del cache
+    hold_to_noise_floor(verify, "kernel", "plain", "fp32", argmax_of_truth=True,
+                        labels=[f"{n} + verify row {j}" for j in range(1 + LOOKUP_K)],
+                        what="lookup verify")
+
+    first = {name: unchunked_logits(arms[name], long_prompts[0], served_tokens[0], 4096)
+             for name in ("plain", "fp32")}
+    first["server"] = served
+    hold_to_noise_floor(first, "server", "plain", "fp32", argmax_of_truth=True,
+                        labels=[f"{CHUNKED_LEN}, first token", "then one decode round"],
+                        what=f"the server's chunked admission ({ADMIT_CHUNK})")
+    del arms
+    torch.cuda.empty_cache()
+    return [look, chunked]
+
+
+# The CLI on the card: a 7b-width model of CLI_LAYERS layers from the seed,
+# saved as a params stream by the port's writer, served by
+# `python -m lwm_tpu_torch.apps.serve` with the vendored BPE tokenizer, a
+# shared prefix document, a prefix index and lookup verify; run twice (the
+# second loads the index) and once more with --quantize_weights.
+CLI_PRESET, CLI_LAYERS, CLI_NEW = "7b", 4, 32
+CLI_FLAGS = ()   # more flags for every CLI run (a rehearsal on the CPU adds --device=cpu)
+CLI_WORDS = ("the grass is green and the sky is blue here we go there and back again "
+             "special magic number city sun yellow river stone one two three").split()
+
+
+def _cli_text(rng, n_words, quote=None):
+    words = [CLI_WORDS[i] for i in rng.integers(0, len(CLI_WORDS), n_words)]
+    digits = [str(x) for x in rng.integers(0, 10**7, n_words // 8)]
+    for i, d in enumerate(digits):
+        words.insert((i * 8 + 3) % len(words), d)
+    text = " ".join(words)
+    return f"{quote} {text} {quote}" if quote else text
+
+
+def flax_params_tree(sd, layers):
+    """The port's state dict as the JAX params tree (unscanned; dense
+    kernels [in, out]) that `params::` streams hold."""
+    dense = lambda name: {"kernel": sd[name + ".weight"].T}   # noqa: E731
+    tree = {"transformer": {"wte": {"embedding": sd["wte.weight"]},
+                            "ln_f": {"kernel": sd["ln_f.weight"]}, "h": {}},
+            "lm_head": dense("lm_head")}
+    for i in range(layers):
+        pre = f"h.{i}."
+        tree["transformer"]["h"][str(i)] = {
+            "attention": {n: dense(pre + "attention." + n) for n in ("wq", "wk", "wv", "wo")},
+            "feed_forward": {n: dense(pre + "feed_forward." + n) for n in ("w1", "w2", "w3")},
+            "attention_norm": {"kernel": sd[pre + "attention_norm.weight"]},
+            "ffn_norm": {"kernel": sd[pre + "ffn_norm.weight"]},
+        }
+    return tree
+
+
+def phase_cli():
+    """The serving CLI as a subprocess on the card, three runs over one
+    saved checkpoint (see CLI_LAYERS). Checks each output file has one line
+    per request and that the run loading the index gives the first run's
+    completions."""
+    cfg = LLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=CLI_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    model = LLaMAForCausalLM(cfg, dtype=BF16, device="cuda")
+    model.init_weights(gen)
+    rng = np.random.default_rng(SEED + 5)
+    with tempfile.TemporaryDirectory(prefix="lwm_cli_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        checkpoint.save_tree(flax_params_tree(model.state_dict(), CLI_LAYERS),
+                             str(tmp / "params"))
+        del model
+        torch.cuda.empty_cache()
+        log(f"cli: {CLI_PRESET} width x {CLI_LAYERS} layers saved as a params stream "
+            f"({(tmp / 'params').stat().st_size / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f}s")
+        (tmp / "doc.txt").write_text(_cli_text(rng, 2500))
+        quotes = [_cli_text(rng, 12) for _ in range(8)]
+        prompts = [_cli_text(rng, 20 + 10 * i, quote=q) for i, q in enumerate(quotes)]
+        (tmp / "requests.jsonl").write_text("".join(json.dumps({"prompt": p}) + "\n"
+                                                    for p in prompts))
+        base = [sys.executable, "-m", "lwm_tpu_torch.apps.serve", *CLI_FLAGS,
+                f"--load_llama_config={CLI_PRESET}",
+                f"--update_llama_config=dict(num_hidden_layers={CLI_LAYERS},scan_attention=False,"
+                "scan_mlp=False,theta=50000000)",
+                "--tokenizer=tests/fixtures/tokenizer_bpe",
+                f"--load_checkpoint=params::{tmp / 'params'}",
+                f"--input_file={tmp / 'requests.jsonl'}", f"--max_new_tokens={CLI_NEW}",
+                f"--prefix_file={tmp / 'doc.txt'}", f"--lookup_k={LOOKUP_K}"]
+        runs = {"index built": [f"--prefix_cache={tmp / 'doc.index'}"],
+                "index loaded": [f"--prefix_cache={tmp / 'doc.index'}"],
+                "quantized": ["--quantize_weights"]}
+        outputs = {}
+        for name, extra in runs.items():
+            out = tmp / f"{name.replace(' ', '_')}.jsonl"
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + extra + [f"--output_file={out}"], capture_output=True,
+                                  text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+            wall = time.perf_counter() - t0
+            tail = [ln for ln in proc.stderr.splitlines() if ln.startswith("[")][-4:]
+            for ln in tail:
+                log(f"cli {name}: {ln}")
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            lines = [json.loads(ln) for ln in out.read_text().splitlines()]
+            if sorted(r["prompt"] for r in lines) != sorted(prompts):
+                raise AssertionError(f"cli {name}: {len(lines)} lines for {len(prompts)} requests")
+            outputs[name] = {r["prompt"]: r["completion"] for r in lines}
+            log(f"cli {name}: {len(lines)} completions in {wall:.1f}s (process wall) "
+                f"[{card()}]")
+        if outputs["index loaded"] != outputs["index built"]:
+            raise AssertionError("cli: the run that loaded the prefix index changed completions")
+        log("cli: the run loading the saved prefix index gave the first run's completions")
 
 
 def _lm_batch(b, s, vocab, seed):
@@ -1179,18 +1705,23 @@ def main():
     phase_env()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    *k1, k1_train = phase_k1(gen)
+    *k1, k1_cases = phase_k1(gen)
     *k4, k4_cases = phase_k4(gen)
     bwd = phase_bwd(gen)
     k56, k56_named = phase_k56(gen)
     torch.cuda.empty_cache()
     # each main path's counts, set to 0 just before its run and read just after
     path_launches = []
-    launches, bf16_summary = phase_serve()
+    launches, bf16_summary, model = phase_serve()
     path_launches.append(launches)
+    torch.cuda.empty_cache()
+    path_launches.extend(phase_serve_prefix(model, bf16_summary))
+    path_launches.extend(phase_serve_lookup_chunked(model))
+    del model
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_int8(bf16_summary))
     torch.cuda.empty_cache()
+    phase_cli()
     phase_train_compare()
     path_launches.append(phase_train_full(profile))
     total = {k: sum(p[k] for p in path_launches) for k in KERNEL_WRAPPERS}
@@ -1203,7 +1734,7 @@ def main():
 
     kernels = [
         dict(row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
-             **{K1_TRAIN_REPORT: k1_train}),
+             **k1_cases),
         row("flash_bwd", "flash_bwd.cu",
             "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
         dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),

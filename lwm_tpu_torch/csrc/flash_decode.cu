@@ -7,7 +7,10 @@
 // is rounded to bf16 for p·v, the TPU kernel's order); a per-key bool mask
 // [b, T] (left-pad holes and per-row frontiers); keys at or past kv_len are
 // never read (kv_len is an upper bound; the mask does the exact part). The g
-// query heads of a kv head share one read of its cache. A row with no valid
+// query heads of a kv head share one read of its cache; a group other than
+// 1/2/4/8 (the shared-prefix fold gives slots x g) is covered in chunks of 8
+// query heads, a chunk a block, the chunks of a split side by side in the
+// grid so that the k/v a split reads again comes from L2. A row with no valid
 // key gives 0. With partials (m_out, l_out given) it also returns the row's
 // max scaled logit m and l = Σ exp(s − m) (before the v scale), and o stays
 // l-normalized: the TPU kernel's `return_partials`, with (0, BIG_NEG, 0) for
@@ -39,7 +42,8 @@
 //   non-empty splits by exp(m_i − max m) and writes o (and m, l).
 // Measured (PERF.md §6): 78% of the bound at 8 slots of a 4096 cache, 87% at
 // one slot of 65536 keys, 28-50% with GQA (g = 4), where the bytes do not
-// set the pace: each key's softmax is repeated on its d/8 lanes (§7).
+// set the pace: each key's softmax is repeated on its d/8 lanes (§7); at the
+// prefix fold's groups 8-32, 10-42%: the per-head products on CUDA cores.
 
 #include "hopper.cuh"
 
@@ -76,6 +80,7 @@ struct DecParams {
   float* m_out;          // [b, h] or null
   float* l_out;
   int h, h_kv, T, kv_len, split, n_split;
+  int g, n_chunk;        // query heads a kv head; chunks of at most G of them (chunked kernels)
   long long q_sb, q_sh, kv_sb, kv_sh, kv_ss;
   float scale;
 };
@@ -123,7 +128,11 @@ struct Plan {
 template <int G>
 constexpr int kMinBlocks = G <= 4 ? 2 : 1;
 
-template <int D, int G, typename KV>
+// kChunked: a group g other than G = 1/2/4/8 is covered in chunks of G = 8
+// query heads, one chunk a block, the chunks of a split next to each other
+// in the grid (so a split's repeated k/v reads come from L2); the heads of
+// a ragged last chunk past g are computed on zero q and never written
+template <int D, int G, typename KV, bool kChunked>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(const DecParams p) {
   using P = Plan<D, G, KV>;
   constexpr int kLanesPerKey = D / 8;
@@ -141,12 +150,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
   __shared__ int n_tiles;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int split = blockIdx.x, row = blockIdx.y;
+  const int split = kChunked ? blockIdx.x / p.n_chunk : blockIdx.x, row = blockIdx.y;
+  const int chunk = kChunked ? blockIdx.x % p.n_chunk : 0;
+  const int nh = kChunked ? min(G, p.g - chunk * G) : G;  // the chunk's query heads
   const int bi = row / p.h_kv, kvh = row % p.h_kv;
+  const int qh0 = kvh * (kChunked ? p.g : G) + chunk * G;  // the chunk's first query head
   const int key0 = split * p.split;
   const int key_end = min(key0 + p.split, min(p.kv_len, p.T));  // keys at or past kv_len: never read
   const long long head_stride = (long long)p.n_split * (D + 2);
-  float* part = p.part + ((long long)(bi * p.h + kvh * G) * p.n_split + split) * (D + 2);
+  float* part = p.part + ((long long)(bi * p.h + qh0) * p.n_split + split) * (D + 2);
 
   // the split's mask slice, a bit a key: word w holds keys key0 + 32 w ..
   const uint8_t* mask = p.mask + (long long)bi * p.T;
@@ -158,7 +170,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
     any |= bits != 0;
   }
   if (!__syncthreads_or(any)) {  // an empty partial; the merge skips it
-    if (tid < G) {
+    if (tid < nh) {
       part[tid * head_stride + D] = kBigNeg;
       part[tid * head_stride + D + 1] = 0.f;
     }
@@ -220,7 +232,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
   const int grp = warp * kKeysPerWarp + sub;
   float qr[G][8];
 #pragma unroll
-  for (int j = 0; j < G; ++j) load8(p.q + bi * p.q_sb + (kvh * G + j) * p.q_sh + li * 8, qr[j]);
+  for (int j = 0; j < G; ++j) {
+    if (!kChunked || j < nh) {
+      load8(p.q + bi * p.q_sb + (qh0 + j) * p.q_sh + li * 8, qr[j]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qr[j][e] = 0.f;
+    }
+  }
 
   float m[G], l[G], acc[G][8];
 #pragma unroll
@@ -339,6 +358,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
       const float* ws = st + (w * G + j) * (D + 2);
       o += ws[src] * exp2_approx(ws[D] - mx);
     }
+    if (kChunked && j >= nh) continue;
     if (c < D) {
       part[j * head_stride + c] = o;
     } else {
@@ -406,23 +426,24 @@ __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(const DecPa
   }
 }
 
-template <int D, int G, typename KV>
+template <int D, int G, typename KV, bool kChunked>
 cudaError_t launch_kv(const DecParams& p, int b, cudaStream_t stream) {
   constexpr int smem = Plan<D, G, KV>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<D, G, KV>,
+  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<D, G, KV, kChunked>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  decode_split_kernel<D, G, KV><<<dim3(p.n_split, b * p.h_kv), kThreads, smem, stream>>>(p);
+  decode_split_kernel<D, G, KV, kChunked>
+      <<<dim3(p.n_split * p.n_chunk, b * p.h_kv), kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<D><<<b * p.h, kMergeThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, int G>
+template <int D, int G, bool kChunked = false>
 cudaError_t launch_g(const DecParams& p, int b, int quant, cudaStream_t stream) {
-  return quant ? launch_kv<D, G, int8_t>(p, b, stream)
-               : launch_kv<D, G, __nv_bfloat16>(p, b, stream);
+  return quant ? launch_kv<D, G, int8_t, kChunked>(p, b, stream)
+               : launch_kv<D, G, __nv_bfloat16, kChunked>(p, b, stream);
 }
 
 template <int D>
@@ -436,8 +457,8 @@ cudaError_t launch_d(const DecParams& p, int b, int g, int quant, cudaStream_t s
       return launch_g<D, 4>(p, b, quant, stream);
     case 8:
       return launch_g<D, 8>(p, b, quant, stream);
-    default:
-      return cudaErrorInvalidValue;
+    default:  // any other group: chunks of 8 query heads
+      return launch_g<D, 8, true>(p, b, quant, stream);
   }
 }
 
@@ -454,6 +475,7 @@ extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
                                 long long kv_ss, float scale, void* stream) {
   if (split <= 0 || split % kSplitStep || split > kMaxSplit) return cudaErrorInvalidValue;
   if ((m_out == nullptr) != (l_out == nullptr)) return cudaErrorInvalidValue;
+  if (h_kv <= 0 || h % h_kv) return cudaErrorInvalidValue;
   if (b <= 0) return cudaSuccess;
   DecParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -472,6 +494,8 @@ extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
   p.kv_len = kv_len;
   p.split = split;
   p.n_split = (T + split - 1) / split;
+  p.g = h / h_kv;
+  p.n_chunk = (p.g == 1 || p.g == 2 || p.g == 4 || p.g == 8) ? 1 : (p.g + 7) / 8;
   p.q_sb = q_sb;
   p.q_sh = q_sh;
   p.kv_sb = kv_sb;
@@ -479,7 +503,7 @@ extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
   p.kv_ss = kv_ss;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int g = h / h_kv;
+  const int g = p.g;
   switch (d) {
     case 64:
       return launch_d<64>(p, b, g, quant, s);

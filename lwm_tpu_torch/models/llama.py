@@ -45,10 +45,16 @@ the logits head on K5 (`W8A8_EXCLUDE`); "int8_xla" → the dequant matmul
 embedding's product.
 
 The model is built on the card unless the caller names another device
-(`device="cpu"` in the tests, `"meta"` to load tensors with `assign=True`).
+(`device="cpu"` in the tests); `on_tensors` builds one on given tensors.
+
+Shared-prefix serving (`prefix_len`, `prefix_tokens`): a cache from
+`init_cache` carries a frozen batch-1 prefix block a layer; decode reads it
+through `ops.prefix.decode_with_prefix` (two K4 calls a layer), a forward of
+q > 1 tokens through K1 without causality, merged by `combine_lse`, and
+"plain" concatenates [prefix ++ suffix] (the JAX oracle).
 
 Not in this slice: dropout (`*_pdrop` > 0 raise in training), segment ids,
-meshes, shared prefixes, vision.
+meshes, vision.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from lwm_tpu_torch.ops.decode import flash_decode
 from lwm_tpu_torch.ops.flash import flash_attention_fwd
+from lwm_tpu_torch.ops.prefix import combine_lse, decode_with_prefix
 from lwm_tpu_torch.ops.quant import (
     W8A8_EXCLUDE, int8_matmul, int8_matmul_dequant, w8a8_matmul,
 )
@@ -188,8 +195,6 @@ class LLaMAConfig:
                 f"unknown quant_dense {self.quant_dense!r}; expected 'none' or one of "
                 f"{sorted(QUANT_DENSE)}"
             )
-        if self.prefix_len:
-            raise NotImplementedError("shared-prefix serving (prefix_len) is not ported yet")
         if self.remat_block not in REMAT_BLOCKS:
             raise NotImplementedError(
                 f"remat_block {self.remat_block!r}: the port has {REMAT_BLOCKS}"
@@ -374,12 +379,16 @@ def dequantize_kv(q, scale, dtype):
 @dataclass
 class LayerCache:
     """One layer's head-major cache: k, v [S, h_kv, T, d] (model dtype, or
-    int8 with k_scale/v_scale [S, h_kv, T] fp32)."""
+    int8 with k_scale/v_scale [S, h_kv, T] fp32). `prefix`: the frozen
+    batch-1 shared-prefix block of a `prefix_len` model (a LayerCache of
+    [1, h_kv, prefix_len, d], the JAX `prefix_key`/`prefix_value`/`*_scale`
+    of `lwm_tpu/models/llama.py:507-523`), never written by a forward."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    prefix: Optional["LayerCache"] = None
 
 
 @dataclass
@@ -389,8 +398,10 @@ class KVCache:
     tokens reads keys below index + q; it advances by q per forward).
 
     Forwards write into the tensors IN PLACE: each row's q new tokens land
-    at positions position_ids[row, 0] ... + q − 1 (the per-row write of
-    `lwm_tpu/models/llama.py:576-641`, non-sharded branch)."""
+    at positions position_ids[row, 0] ... + q − 1, less the config's
+    `prefix_tokens` (the per-row write of `lwm_tpu/models/llama.py:576-641`,
+    non-sharded branch: with a shared prefix the positions are global for
+    RoPE and the cache is suffix-local)."""
 
     layers: list
     index: int = 0
@@ -407,6 +418,7 @@ class KVCache:
                     c.k[s:s + 1], c.v[s:s + 1],
                     None if c.k_scale is None else c.k_scale[s:s + 1],
                     None if c.v_scale is None else c.v_scale[s:s + 1],
+                    c.prefix,
                 )
                 for c in self.layers
             ]
@@ -426,10 +438,10 @@ class LLaMAAttention(nn.Module):
         self.wv = _dense_cls(config, "wv")(config.hidden_size, hkv * d, **kw)
         self.wo = _dense_cls(config, "wo")(h * d, config.hidden_size, **kw)
 
-    def _write_cache(self, cache, k, v, position_ids):
-        """Per-row write of k, v [b, q, h_kv, d] at position_ids[:, 0] + j."""
+    def _write_cache(self, cache, k, v, write_pos):
+        """Per-row write of k, v [b, q, h_kv, d] at write_pos[:, 0] + j."""
         b, q = k.shape[:2]
-        idx = position_ids[:, :1] + torch.arange(q, device=k.device)[None]
+        idx = write_pos[:, :1] + torch.arange(q, device=k.device)[None]
         rows = torch.arange(b, device=k.device)[:, None]
         if cache.k_scale is not None:
             k, k_sc = quantize_kv(k)
@@ -439,11 +451,13 @@ class LLaMAAttention(nn.Module):
         cache.k[rows, :, idx] = k.to(cache.k.dtype)
         cache.v[rows, :, idx] = v.to(cache.v.dtype)
 
-    def forward(self, x, mask, position_ids, rope, layer_cache=None, kv_len=None):
+    def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None):
         """x [b, q, hidden]; rope (cos, sin) [b, q, d/2]. With layer_cache:
-        mask bool [b, q, kv] (key validity ∧ causal), kv_len bounds the keys
-        any row reads. Without: mask is the additive per-key bias
-        [b, 1, 1, q] and attention is causal self-attention."""
+        mask bool [b, q, kv] (key validity ∧ causal), write_pos [b, q] the
+        rows' cache positions, kv_len bounds the keys any row reads, and
+        prefix_mask bool [P] the valid keys of a shared-prefix block. Without:
+        mask is the additive per-key bias [b, 1, 1, q] and attention is
+        causal self-attention."""
         cfg = self.config
         b, q, _ = x.shape
         d = cfg.head_dim
@@ -453,8 +467,8 @@ class LLaMAAttention(nn.Module):
         if layer_cache is None:
             out = self._self_attend(xq, xk, xv, mask)
         else:
-            self._write_cache(layer_cache, xk, xv, position_ids)
-            out = self._attend(xq, layer_cache, mask, kv_len)
+            self._write_cache(layer_cache, xk, xv, write_pos)
+            out = self._attend(xq, layer_cache, mask, kv_len, prefix_mask)
         return self.wo(out.reshape(b, q, -1))
 
     def _self_attend(self, xq, xk, xv, bias):
@@ -464,18 +478,41 @@ class LLaMAAttention(nn.Module):
             return reference_attention(xq, xk, xv, bias, causal=True)[0]
         return flash_attention(xq, xk, xv, bias, causal=True)
 
-    def _attend(self, xq, layer_cache, mask, kv_len):
-        """xq [b, q, h, d] over the head-major cache [b, h_kv, kv, d]."""
+    def _attend(self, xq, layer_cache, mask, kv_len, prefix_mask=None):
+        """xq [b, q, h, d] over the head-major cache [b, h_kv, kv, d], and
+        over its shared-prefix block when it has one
+        (`lwm_tpu/models/llama.py:803-988`)."""
         keys, values = layer_cache.k, layer_cache.v
         k_sc, v_sc = layer_cache.k_scale, layer_cache.v_scale
+        pre = layer_cache.prefix
         dtype = xq.dtype
         q = xq.shape[1]
         if self.config.attn_impl != "plain" and q == 1:
+            if pre is not None:
+                # two K4 calls: the slots' suffixes, then every slot's query
+                # folded over the prefix block (`:840-851`)
+                return decode_with_prefix(
+                    xq, keys, values, mask[:, 0], kv_len, pre.k, pre.v, prefix_mask,
+                    self.config.prefix_tokens, k_scale=k_sc, v_scale=v_sc,
+                    pk_scale=pre.k_scale, pv_scale=pre.v_scale,
+                )
             return flash_decode(xq, keys, values, mask[:, 0], kv_len, k_sc, v_sc)
         if k_sc is not None:
             keys = dequantize_kv(keys, k_sc, dtype)
             values = dequantize_kv(values, v_sc, dtype)
+        pk = pv = None
+        if pre is not None:
+            pk, pv = pre.k, pre.v
+            if pre.k_scale is not None:   # an int8 prefix: dequantized first (`:881-885`)
+                pk = dequantize_kv(pk, pre.k_scale, dtype)
+                pv = dequantize_kv(pv, pre.v_scale, dtype)
         if self.config.attn_impl == "plain":
+            if pk is not None:
+                # the concat oracle over [prefix ++ suffix] (`:955-970`)
+                b = xq.shape[0]
+                keys = torch.cat([pk.expand(b, -1, -1, -1), keys], 2)
+                values = torch.cat([pv.expand(b, -1, -1, -1), values], 2)
+                mask = torch.cat([prefix_mask.expand(b, q, -1), mask], -1)
             bias = torch.where(mask, 0.0, BIG_NEG)[:, None]
             return reference_attention(
                 xq, keys, values, bias, causal=False, kv_head_major=True
@@ -489,10 +526,22 @@ class LLaMAAttention(nn.Module):
             # the kernel's causal mask it is exact when rows share the
             # frontier, as admission prefills do (`:915-920`)
             bias = torch.where(mask[:, -1], 0.0, BIG_NEG)[:, None, None, :]
-        out, _ = flash_attention_fwd(
+        out, lse = flash_attention_fwd(
             xq, keys, values, bias, causal=True, q_offset=kv_len - q, kv_head_major=True
         )
-        return out
+        if pk is None:
+            return out
+        # every query sees the whole valid prefix: K1 without causality over
+        # the prefix block, merged by lse (`:930-946`). The rows of a batch
+        # share the block and its bias, so they fold into one batch-1 call
+        b, _, h, d = xq.shape
+        p_bias = torch.where(prefix_mask, 0.0, BIG_NEG)[None, None, None, :]
+        out_p, lse_p = flash_attention_fwd(
+            xq.reshape(1, b * q, h, d), pk, pv, p_bias, causal=False, kv_head_major=True
+        )
+        out_p = out_p.reshape(b, q, h, d)
+        lse_p = lse_p.reshape(h, b, q).transpose(0, 1)
+        return combine_lse(out, lse, out_p, lse_p).to(dtype)
 
 
 class LLaMAMLP(nn.Module):
@@ -519,9 +568,9 @@ class LLaMABlock(nn.Module):
         self.attention_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
-    def forward(self, x, mask, position_ids, rope, layer_cache=None, kv_len=None):
+    def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None):
         x = x + self.attention(
-            self.attention_norm(x), mask, position_ids, rope, layer_cache, kv_len
+            self.attention_norm(x), mask, write_pos, rope, layer_cache, kv_len, prefix_mask
         )
         h = self.ffn_norm(x)
         chunk = self.config.scan_mlp_chunk_size
@@ -562,6 +611,14 @@ class LLaMAForCausalLM(nn.Module):
         )
         self._rope = {}  # device → factored RoPE table, built at first use
 
+    @classmethod
+    def on_tensors(cls, config, state_dict, dtype):
+        """A model of `config` whose parameters are the tensors of
+        `state_dict` (not copies), in eval mode."""
+        model = cls(config, dtype=dtype, device="meta")
+        model.load_state_dict(state_dict, assign=True)
+        return model.eval()
+
     @torch.no_grad()
     def init_weights(self, generator):
         """Random weights as the JAX init draws them: every dense kernel and
@@ -573,15 +630,18 @@ class LLaMAForCausalLM(nn.Module):
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
 
-    def init_cache(self, batch, length):
-        """Zeroed head-major cache for `batch` rows of `length` positions."""
+    def init_cache(self, batch, length, prefix=None):
+        """Zeroed head-major cache for `batch` rows of `length` positions.
+        A `prefix_len` model's layers also hold the frozen batch-1 prefix
+        block: `prefix` (one LayerCache a layer, adopted as it is, not
+        copied), else zeros of [1, h_kv, prefix_len, d]."""
         cfg = self.config
-        shape = (batch, cfg.kv_heads, length, cfg.head_dim)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.wte.weight.device)
 
-        def layer():
+        def layer(rows, n):
+            shape = (rows, cfg.kv_heads, n, cfg.head_dim)
             if cfg.kv_cache_dtype == "int8":
                 return LayerCache(
                     zeros(shape, torch.int8), zeros(shape, torch.int8),
@@ -589,7 +649,17 @@ class LLaMAForCausalLM(nn.Module):
                 )
             return LayerCache(zeros(shape, self.dtype), zeros(shape, self.dtype))
 
-        return KVCache([layer() for _ in range(cfg.num_hidden_layers)])
+        layers = [layer(batch, length) for _ in range(cfg.num_hidden_layers)]
+        if cfg.prefix_len:
+            if prefix is None:
+                prefix = [layer(1, cfg.prefix_len) for _ in layers]
+            if len(prefix) != len(layers) or prefix[0].k.shape[2] != cfg.prefix_len:
+                raise ValueError(f"prefix blocks do not match prefix_len {cfg.prefix_len}")
+            for c, p in zip(layers, prefix):
+                c.prefix = p
+        elif prefix is not None:
+            raise ValueError("a prefix block needs a model with prefix_len set")
+        return KVCache(layers)
 
     def _rope_table(self, device):
         if device not in self._rope:
@@ -606,10 +676,12 @@ class LLaMAForCausalLM(nn.Module):
         real token), causal self-attention, differentiable. With a cache
         (`init_cache`, config.decode_index='per_row'; no autograd):
         attention_mask [b, T] key validity over the cache, position_ids
-        [b, s] the rows' write positions; the new keys are written in place,
-        then every query i of row r sees the valid keys at positions ≤
-        position_ids[r, i]. Returns logits [b, s | logits_tail, vocab] in
-        the model dtype (`lwm_tpu/models/llama.py:1583-1634`)."""
+        [b, s] the rows' positions; the new keys are written in place at
+        position_ids − config.prefix_tokens, then every query i of row r
+        sees the valid keys at cache positions ≤ that of its own, and the
+        whole valid shared prefix when the cache has one. Returns logits
+        [b, s | logits_tail, vocab] in the model dtype
+        (`lwm_tpu/models/llama.py:1583-1634`)."""
         with torch.no_grad() if cache is not None else contextlib.nullcontext():
             x = self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids)
             tail = self.config.logits_tail
@@ -646,13 +718,19 @@ class LLaMAForCausalLM(nn.Module):
         kv = s if cache is None else cache.length
         if attention_mask is None:
             attention_mask = torch.ones(b, kv, dtype=torch.bool, device=dev)
+        write_pos, prefix_mask = position_ids, None
         if cache is not None:
-            # mask construction (`lwm_tpu/models/llama.py:1124-1173`)
+            # mask construction (`lwm_tpu/models/llama.py:1124-1173`): global
+            # positions for RoPE, suffix-local ones for the cache (`:581-586`)
             if cfg.decode_index != "per_row":
                 raise NotImplementedError("the port's cache writes are per-row: set decode_index='per_row'")
-            causal = torch.arange(kv, device=dev)[None, None, :] <= position_ids[:, :, None]
+            write_pos = position_ids - cfg.prefix_tokens
+            causal = torch.arange(kv, device=dev)[None, None, :] <= write_pos[:, :, None]
             mask = attention_mask.bool()[:, None, :] & causal          # [b, s, kv]
             kv_len = cache.index + s
+            pre = cache.layers[0].prefix
+            if pre is not None:
+                prefix_mask = torch.arange(pre.k.shape[2], device=dev) < cfg.prefix_tokens
         else:
             # the training branch's per-key bias (`llama.py:1114-1119`)
             mask = torch.where(
@@ -664,7 +742,8 @@ class LLaMAForCausalLM(nn.Module):
         x = self.wte(input_ids)
         remat = cfg.remat_block != "none" and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
-            args = (x, mask, position_ids, rope, None if cache is None else cache.layers[i], kv_len)
+            args = (x, mask, write_pos, rope, None if cache is None else cache.layers[i], kv_len,
+                    prefix_mask)
             if remat:
                 x = checkpoint(block, *args, use_reentrant=False, context_fn=self._remat_context)
             else:

@@ -10,9 +10,11 @@ across blocks (`SPLIT_KEYS` a block), each block writes its split's partial
 
 Ported: bf16 and int8 caches (k scales folded into the logits, v scales into
 p before p is rounded for p·v), per-key masks, the `kv_len` scan bound, GQA
-with the g query heads of a kv head sharing one cache read, and
-`return_partials` (o l-normalized, with the row's m and l, for the
-shared-prefix and sequence-sharded combines).
+at any group g = h / h_kv (the g query heads of a kv head share one cache
+read; a group other than 1/2/4/8 runs in chunks of 8 heads, as the
+shared-prefix fold of `ops.prefix` gives slots·g), and `return_partials` (o
+l-normalized, with the row's m and l, for the shared-prefix and
+sequence-sharded combines).
 
 `flash_decode` launches the kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain twin `flash_decode_plain`,
@@ -29,7 +31,6 @@ from lwm_tpu_torch.ops import _build
 from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD
 
 HEAD_DIMS = (64, 128)
-GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head the kernel is built for
 SPLIT_KEYS = 512            # keys a block of the kernel's first pass (a multiple of 256, ≤ 2048)
 
 
@@ -144,8 +145,8 @@ def check_decode_args(q, k, v, mask, k_scale, v_scale):
         raise ValueError(f"cache {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if h % h_kv or h // h_kv not in GROUP_SIZES:
-        raise ValueError(f"{h} query heads over {h_kv} kv heads: group not in {GROUP_SIZES}")
+    if h % h_kv:
+        raise ValueError(f"{h} query heads do not group over {h_kv} kv heads")
     if b * h_kv > 65535:  # the kernel's grid.y
         raise ValueError(f"{b} rows x {h_kv} kv heads exceed the kernel's 65535 (b, kv head) blocks")
     if k.stride() != v.stride():

@@ -5,7 +5,8 @@ and of the name map in `flax_to_torch_llama` (`:77-124`), for the port's own
 module names rather than HF's. The tree may be scanned (layers stacked under
 `transformer/h/scan_decoder` on `config.param_scan_axis`, 0 or 1) or
 unscanned (`transformer/h/{i}`), with or without a top-level "params" key;
-leaves are numpy arrays (anything `np.asarray` takes).
+leaves are numpy arrays (anything `np.asarray` takes) or tensors (the
+bfloat16 leaves of `lwm_tpu_torch.checkpoint.load_stream`).
 
 Flax dense kernels are [in, out]; they are TRANSPOSED here to torch's
 [out, in] `nn.Linear` layout. RoPE stays on interleaved pairs in both
@@ -35,6 +36,8 @@ def _layer_tree(h, layer, scan_axis):
         def take(node):
             if isinstance(node, dict):
                 return {k: take(v) for k, v in node.items()}
+            if isinstance(node, torch.Tensor):
+                return node.select(scan_axis, layer)
             return np.take(np.asarray(node), layer, axis=scan_axis)
 
         return take(h["scan_decoder"])
@@ -50,6 +53,9 @@ def convert_flax_params(params, config, dtype=None):
     tr = params["transformer"]
 
     def t(x, transpose=False, cast=True):
+        if isinstance(x, torch.Tensor):   # a bfloat16 leaf of `checkpoint.load_stream`
+            x = (x.T if transpose else x).contiguous().clone()
+            return x.to(dtype) if dtype is not None and cast and x.dtype != torch.int8 else x
         x = np.asarray(x)
         bf16 = x.dtype.name == "bfloat16"   # numpy's bfloat16 has no torch counterpart
         x = np.array(x.T if transpose else x, dtype=np.float32 if bf16 else None, order="C")

@@ -45,7 +45,8 @@ another commit unpacked under the gitignored _checkout/; its own wrapper
 _build/) are loaded beside this tree's, so a kernel whose C entry changed
 is timed through its own wrapper. @SPLIT sets that checkout's
 `decode.SPLIT_KEYS`. Each is held against this tree's plain twin at every
-chip_smoke.K4_CASES case, then timed in turns from CUDA-graph replays
+chip_smoke.K4_CASES and K4_FOLD_CASES case (a checkout that refuses a
+case's group is reported and skipped there), then timed in turns from CUDA-graph replays
 (cache copies cycled past the L2, as chip_smoke.phase_k4), then profiled:
 device time by kernel name over eager calls, so a split kernel's merge pass
 shows its share. The ptxas lines of each checkout's decode kernels are
@@ -310,19 +311,24 @@ def main_dec(specs):
         for line in _decode_ptxas(report):
             print(f"  ptxas {line}")
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    for case in smoke.K4_CASES:
+    for case in smoke.K4_CASES + smoke.K4_FOLD_CASES:
         name = case[0]
         args = smoke.k4_inputs(case, gen)
         ref = decode.flash_decode_plain(*args)
         bnd, by, kv_bytes = smoke.k4_bound(args[0], args[1], args[3], args[4])
         sets = smoke.k4_arg_sets(args, kv_bytes)
-        for spec, _, dec_mod in subjects:
-            got = dec_mod.flash_decode(*args)
+        order = []
+        for i, (spec, _, dec_mod) in enumerate(subjects):
+            try:
+                got = dec_mod.flash_decode(*args)
+            except ValueError as e:   # a checkout whose K4 refuses this group
+                print(f"{name} {spec}: refused ({e})", flush=True)
+                continue
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
             verdict = "ok" if err <= smoke.BF16_TOL else "FAILS"
             print(f"{name} {spec}: max|out-plain| {err:.3e} {verdict}", flush=True)
-        order = list(range(len(subjects)))
+            order.append(i)
         times = {i: [] for i in order}
         for i in order + order[::-1]:
             fn = subjects[i][2].flash_decode

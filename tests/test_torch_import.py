@@ -1,6 +1,6 @@
 """lwm_tpu_torch runs where JAX is not installed: importing every one of its
-modules pulls in none of jax, flax, optax, transformers, absl or
-ml_collections, and builds no kernel."""
+modules pulls in none of jax, flax, optax, transformers, tokenizers, msgpack,
+regex, absl or ml_collections, and builds no kernel."""
 
 import subprocess
 import sys
@@ -18,10 +18,11 @@ def test_port_imports_no_jax():
         for name in names:
             importlib.import_module(name)
         for want in ("serve", "ops.flash", "ops.ring", "ops.quant", "optim", "train",
-                     "utils.losses"):
+                     "utils.losses", "checkpoint", "ops.prefix", "utils.msgpack",
+                     "utils.tokenizer", "apps.serve"):
             assert "lwm_tpu_torch." + want in names, names
         bad = [m for m in ("jax", "flax", "optax", "transformers", "absl", "ml_collections",
-                           "lwm_tpu") if m in sys.modules]
+                           "msgpack", "tokenizers", "regex", "lwm_tpu") if m in sys.modules]
         assert not bad, bad
         from lwm_tpu_torch.ops import _build
         assert _build.load.cache_info().currsize == 0
@@ -31,4 +32,4 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 14
+    assert int(out.stdout.split()[-1]) >= 20

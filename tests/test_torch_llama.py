@@ -263,8 +263,12 @@ def test_config_rejects_what_the_port_lacks():
         port.LLaMAConfig(quant_dense="int8_pallas")
     for spelling in ("none", "int8", "int8_xla", "int8_w8a8"):
         assert port.LLaMAConfig(quant_dense=spelling).quant_dense == spelling
-    with pytest.raises(NotImplementedError):
-        port.LLaMAConfig(prefix_len=128)
+    # a shared prefix is served now: the cache carries a frozen batch-1 block
+    cfg = port.LLaMAConfig.from_dict(dict(BASE, decode_index="per_row", prefix_len=128,
+                                          prefix_tokens=100))
+    cache = port.LLaMAForCausalLM(cfg, device="cpu").init_cache(2, 32)
+    assert cache.layers[0].prefix.k.shape == (1, 4, 128, 16)
+    assert cache.slot(1).layers[0].prefix is cache.layers[0].prefix
     with pytest.raises(ValueError, match="divide"):
         port.LLaMAConfig(num_attention_heads=32, num_key_value_heads=5)
     assert port.round_cache_length(None, 30000) == 30720

@@ -293,6 +293,11 @@ K4_CASES = {
     "int8_gqa": (8, 4, True, "fp32", False),
     "bf16_gqa": (8, 2, False, "bf16", True),
     "bf16_int8_mha": (4, 4, True, "bf16", True),
+    # groups beyond 1/2/4/8 (the shared-prefix fold gives slots x g)
+    "fp32_group3": (6, 2, False, "fp32", True),
+    "fp32_group6": (12, 2, False, "fp32", False),
+    "int8_group12": (12, 1, True, "fp32", True),
+    "bf16_group16": (32, 2, False, "bf16", True),
 }
 
 
@@ -396,7 +401,7 @@ def test_k4_partials_of_a_row_without_keys():
 
 
 @pytest.mark.parametrize("split", [32, 64, 256])
-@pytest.mark.parametrize("h,h_kv,quant", [(4, 4, False), (8, 2, True)])
+@pytest.mark.parametrize("h,h_kv,quant", [(4, 4, False), (8, 2, True), (24, 2, False)])
 def test_k4_split_and_merge_matches_twin(split, h, h_kv, quant):
     """The kernel's algorithm (partials per split, merged by exp(m_i − max m))
     equals the unsplit twin at fp32, with kv_len = 301 off every split
@@ -523,8 +528,10 @@ def test_kernel_argument_checks():
     decode.check_decode_args(q[:, :1], k8, k8, mask, sc, sc)
     with pytest.raises(ValueError, match="exactly when"):
         decode.check_decode_args(q[:, :1], k8, k8, mask, None, None)
+    # any group g = h / h_kv is taken (16 here: a shared-prefix fold); h must divide
+    decode.check_decode_args(torch.zeros((1, 1, 32, 64), dtype=bf), k, k, mask, None, None)
     with pytest.raises(ValueError, match="group"):
-        decode.check_decode_args(torch.zeros((1, 1, 32, 64), dtype=bf), k, k, mask, None, None)
+        decode.check_decode_args(torch.zeros((1, 1, 3, 64), dtype=bf), k, k, mask, None, None)
     with pytest.raises(ValueError, match="mask"):
         decode.check_decode_args(q[:, :1], k, k, mask[:, :16], None, None)
     k8_rows8 = torch.zeros((1, 2, 32, 72), dtype=torch.int8)[..., :64]  # 72-byte rows

@@ -139,9 +139,100 @@ def test_validation():
         srv.submit([1, 2, 3], max_new_tokens=126)
     with pytest.raises(ValueError, match="bucket"):
         srv.submit(list(range(9)), max_new_tokens=2)
-    for kw in (dict(prefix_ids=[1, 2]), dict(lookup_k=2), dict(admit_chunk=8)):
-        with pytest.raises(NotImplementedError):
-            InflightServer(pm, slots=1, cache_len=64, **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        InflightServer(pm, slots=1, cache_len=64, mesh=object())
+    look = InflightServer(pm, slots=1, cache_len=32, prompt_buckets=(8,), lookup_k=4)
+    with pytest.raises(ValueError, match="lookup_k 4"):   # k rows of headroom
+        look.submit([1, 2, 3], max_new_tokens=122)
+    chunked = InflightServer(pm, slots=1, cache_len=32, prompt_buckets=(8,), admit_chunk=4)
+    chunked.submit(list(range(2, 22)), max_new_tokens=2)   # beyond the bucket: staged
     shared = port.LLaMAForCausalLM(pm.config.replace(decode_index="shared"), device="cpu")
     with pytest.raises(ValueError, match="per_row"):
         InflightServer(shared, slots=1, cache_len=64)
+
+
+# ----------------------------------------------------------- serving modes
+# the shared document: 70 tokens, built in chunks of 32 (P_store 128)
+PREFIX = np.random.default_rng(0).integers(2, 120, 70).tolist()
+QUOTE = [11, 12, 13, 14, 15, 16, 17, 18]     # a span the prompts repeat (lookup hits)
+MODE_SCRIPT = [
+    ("submit", [3, 14, 15, 92], 10), ("step", 2),
+    ("submit", QUOTE + [5, 6] + QUOTE[:3], 9),
+    ("submit", [27, 18, 28, 66, 91], 6),
+]
+LONG = np.random.default_rng(3).integers(2, 120, 40).tolist()   # > the bucket 16
+MODES = {
+    "prefix": ("auto", dict(prefix_ids=PREFIX, prefix_chunk=32), MODE_SCRIPT),
+    "prefix_int8_cache": ("int8", dict(prefix_ids=PREFIX, prefix_chunk=32), MODE_SCRIPT),
+    "prefix_lookup": ("auto", dict(prefix_ids=PREFIX, prefix_chunk=32, lookup_k=4), MODE_SCRIPT),
+    "prefix_admit_chunk": ("auto", dict(prefix_ids=PREFIX, admit_chunk=8),
+                           MODE_SCRIPT + [("submit", LONG[:20], 5)]),
+    "lookup": ("auto", dict(lookup_k=7), MODE_SCRIPT),
+    "admit_chunk_beyond_bucket": ("auto", dict(admit_chunk=16),
+                                  [("submit", LONG, 6), ("step", 1), ("submit", [3, 14, 15], 8),
+                                   ("submit", LONG[5:37], 4)]),
+}
+
+
+def mode_server(cls, case, model, **extra):
+    kv, kw, _ = MODES[case]
+    args = (model, model.params) if cls is JaxServer else (model,)
+    return cls(*args, slots=2, cache_len=64, prompt_buckets=(16,), **dict(kw, **extra))
+
+
+@functools.cache
+def jax_mode_tokens(case):
+    jm, _ = models(MODES[case][0])
+    srv = mode_server(JaxServer, case, jm)
+    return {rid: (f.tokens.tolist(), f.stopped) for rid, f in drive(srv, MODES[case][2]).items()}
+
+
+@pytest.mark.parametrize("case", sorted(MODES))
+def test_serving_modes_match_jax_server(case):
+    _, pm = models(MODES[case][0])
+    srv = mode_server(InflightServer, case, pm)
+    got = {rid: (f.tokens.tolist(), f.stopped) for rid, f in drive(srv, MODES[case][2]).items()}
+    assert got == jax_mode_tokens(case)
+    if "lookup_k" in MODES[case][1]:
+        assert srv.stats["spec_rows"] > 0 and "lookup acceptance" in srv.stats_line()
+
+
+def test_prefix_index_loads_across_packages(tmp_path, monkeypatch):
+    """A prefix index saved by the JAX server serves the same tokens from the
+    port, and the port's index from the JAX server, neither rebuilding; an
+    index for another prefix length is refused as stale."""
+    import lwm_tpu.serve as jax_serve
+    import lwm_tpu_torch.serve as port_serve
+
+    jm, pm = models()
+    jax_path, port_path = str(tmp_path / "jax_index"), str(tmp_path / "port_index")
+    want = jax_mode_tokens("prefix")
+    mode_server(JaxServer, "prefix", jm, prefix_cache_path=jax_path)
+    mode_server(InflightServer, "prefix", pm, prefix_cache_path=port_path)
+
+    def boom(*a, **kw):
+        raise AssertionError("the index should have been loaded, not built")
+
+    monkeypatch.setattr(port_serve, "build_prefix_cache", boom)
+    monkeypatch.setattr(jax_serve, "build_prefix_cache", boom)
+    for cls, model, path in ((InflightServer, pm, jax_path), (JaxServer, jm, port_path)):
+        srv = mode_server(cls, "prefix", model, prefix_cache_path=path)
+        got = {rid: (f.tokens.tolist(), f.stopped) for rid, f in drive(srv, MODE_SCRIPT).items()}
+        assert got == want, cls
+    with pytest.raises(ValueError, match="stale"):
+        InflightServer(pm, slots=1, cache_len=64, prompt_buckets=(8,),
+                       prefix_ids=PREFIX[:50], prefix_cache_path=jax_path)
+
+
+def test_prefix_index_bytes_match_jax_writer(tmp_path):
+    """The port's index writer gives the JAX writer's bytes for the same
+    block: the JAX index loaded by the port and saved again."""
+    jm, pm = models("int8")
+    jax_path = str(tmp_path / "jax_index")
+    mode_server(JaxServer, "prefix_int8_cache", jm, prefix_cache_path=jax_path)
+    from lwm_tpu_torch.serve import load_prefix_cache, save_prefix_cache
+
+    cache, P_store, P_true = load_prefix_cache(jax_path, "cpu", torch.float32)
+    assert (P_store, P_true, cache.index) == (128, 70, 96)
+    save_prefix_cache(str(tmp_path / "again"), cache, P_store, P_true)
+    assert (tmp_path / "again").read_bytes() == open(jax_path, "rb").read()
