@@ -76,6 +76,17 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      2 x 4096, 6 steps on one fixed batch from the seed: finite, falling
      loss, and K1 and the backward launched layers x steps times on that
      path.
+ 11. The training CLI (`lwm_tpu_torch.train.main`, in-process) on a JSONL
+     from the seed and the fixture tokenizer: the same width and depth for
+     6 steps (finite, falling loss; K1 and the backward launched exactly
+     16 x 6 times; step time beside phase 10's, tokens/s, model-FLOPs
+     share, peak memory, the data pipeline's rate), 2 steps with
+     --fused_lm_loss (step 1's loss held to the bf16 noise floor of the
+     default run's, against an fp32 run of the same weights and batch), and
+     the checkpoint round trip at 1 layer with an fp32 train state: 2 steps
+     and a save, an autoresumed run to step 4 and an uninterrupted one (the
+     resumed steps read the same data and land within a stated tolerance;
+     save and load seconds).
 Each kernel phase times the kernel, its plain twin and one PyTorch call that
 computes the same function (the yardstick; the port never calls it) beside
 the kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -107,6 +118,7 @@ from lwm_tpu_torch.ops import _build, decode, flash, quant
 from lwm_tpu_torch.ops import prefix as prefix_ops
 from lwm_tpu_torch.ops.reference import BIG_NEG
 from lwm_tpu_torch.serve import InflightServer, _lookup_proposal, prefill_logits
+from lwm_tpu_torch.utils.convert import flax_params_tree
 
 BF16 = torch.bfloat16
 BF16_TOL = 2e-2   # max |kernel - twin| on bf16 outputs (one bf16 step near 1 is 4e-3)
@@ -1422,24 +1434,6 @@ def _cli_text(rng, n_words, quote=None):
     return f"{quote} {text} {quote}" if quote else text
 
 
-def flax_params_tree(sd, layers):
-    """The port's state dict as the JAX params tree (unscanned; dense
-    kernels [in, out]) that `params::` streams hold."""
-    dense = lambda name: {"kernel": sd[name + ".weight"].T}   # noqa: E731
-    tree = {"transformer": {"wte": {"embedding": sd["wte.weight"]},
-                            "ln_f": {"kernel": sd["ln_f.weight"]}, "h": {}},
-            "lm_head": dense("lm_head")}
-    for i in range(layers):
-        pre = f"h.{i}."
-        tree["transformer"]["h"][str(i)] = {
-            "attention": {n: dense(pre + "attention." + n) for n in ("wq", "wk", "wv", "wo")},
-            "feed_forward": {n: dense(pre + "feed_forward." + n) for n in ("w1", "w2", "w3")},
-            "attention_norm": {"kernel": sd[pre + "attention_norm.weight"]},
-            "ffn_norm": {"kernel": sd[pre + "ffn_norm.weight"]},
-        }
-    return tree
-
-
 def phase_cli():
     """The serving CLI as a subprocess on the card, three runs over one
     saved checkpoint (see CLI_LAYERS). Checks each output file has one line
@@ -1453,8 +1447,7 @@ def phase_cli():
     with tempfile.TemporaryDirectory(prefix="lwm_cli_") as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        checkpoint.save_tree(flax_params_tree(model.state_dict(), CLI_LAYERS),
-                             str(tmp / "params"))
+        checkpoint.save_tree(flax_params_tree(model.state_dict(), cfg), str(tmp / "params"))
         del model
         torch.cuda.empty_cache()
         log(f"cli: {CLI_PRESET} width x {CLI_LAYERS} layers saved as a params stream "
@@ -1598,7 +1591,7 @@ def train_flops(cfg, b, s):
 def phase_train_full(profile=None):
     """The 7b width at 16 of its 32 layers, 6 AdamW steps (then, with a
     `profile` directory, one profiled step). Returns the launch counts of
-    the 6-step run."""
+    the 6-step run and its median step time."""
     layers, b, s, steps = 16, 2, 4096, 6
     cfg = train.build_model_config("7b", update_llama_config=dict(num_hidden_layers=layers))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1642,7 +1635,285 @@ def phase_train_full(profile=None):
             raise AssertionError(f"{k} launched {launches[k]} times, want {layers * steps}")
     if profile:
         profile_step(state, batch, profile)
-    return launches
+    return launches, step_s
+
+
+# The training CLI on the card (phase_train_cli): `lwm_tpu_torch.train.main`
+# in-process over a JSONL of random words made from the seed (so that the
+# tokenizer's word cache cannot serve them) and the fixture tokenizer, with
+# scripts/run_train_text.sh's optimizer flags (init_lr > 0 so that step 1
+# moves): the 7b width at TRAIN_CLI_LAYERS layers for TRAIN_CLI_STEPS steps
+# with a pool of TRAIN_CLI_POOL tokenizer processes, then
+# TRAIN_CLI_FUSED_STEPS with --fused_lm_loss from the same seed; then the
+# checkpoint round trip at ROUNDTRIP_LAYERS (A: 2 steps and a save, B: the
+# autoresume to 4, C: 0 to 4 uninterrupted), one example a row (`pad`) so
+# that a resume sees the uninterrupted run's batches.
+TRAIN_CLI_PRESET, TRAIN_CLI_LAYERS, TRAIN_CLI_SEQ, TRAIN_CLI_BATCH = "7b", 16, 4096, 2
+TRAIN_CLI_STEPS, TRAIN_CLI_FUSED_STEPS, ROUNDTRIP_LAYERS, TRAIN_CLI_POOL = 6, 2, 1, 4
+TRAIN_CLI_WORDS, ROUNDTRIP_WORDS = 100, 1200   # a line: ~590 / ~7200 fixture tokens
+TRAIN_CLI_LINES, PIPELINE_BATCHES = 1200, 48   # batches timed after the first, the pipeline alone
+# The fused loss's head computes its logits in fp32, the default path's in
+# bf16 over the same bf16 body, so the two step-1 losses differ by that
+# rounding alone (1.7e-5 and 1.8e-4 on an H100 80GB HBM3 at 700 W, PERF.md),
+# and the fused loss may sit further from fp32 than the default's by as much
+# where the default's rounding cancels part of the body's error (1.48x the
+# floor in one run): step 1 is held at FLOOR_RATIO x floor + this. Step 2
+# follows a backward, whose dq atomics move two runs of one step apart by
+# more than that floor (default step 2 spread 2.5e-4 over three runs, fused
+# 7.5e-4): its loss and step 1's gradient_norm (Adam's update is blind to a
+# gradient's scale) are held to the default run's at ROUNDTRIP_RTOL
+FUSED_SLACK = 4e-4
+# B's steps 3-4 against C's, relative; learning_rate and dataset_* are held
+# exactly. The fused backward's dq atomics make no step bit-exact. Sound
+# runs read at most loss 4.4e-5 and gradient_norm 8.4e-4 (and loss 7.1e-5
+# on another corpus), param_norm 0 (its fp32 resolution is ~6e-8); resumes
+# with AdamW's moments zeroed or its count reset read loss 0.20-0.27,
+# gradient_norm 0.17-0.52, param_norm 4.5e-6-1.5e-5 (same card, PERF.md)
+ROUNDTRIP_RTOL = dict(loss=2e-4, gradient_norm=3e-3, param_norm=1e-6)
+TRAIN_CLI_OPT = dict(weight_decay=0.1, lr=8e-5, end_lr=8e-5, lr_warmup_steps=5,
+                     lr_decay_steps=200, init_lr=8e-6)
+EXACT_DATASET = ("dataset_file_loc", "dataset_example_index", "dataset_total_tokens")
+
+
+def train_cli_argv(out_dir, name, data, layers, *extra):
+    root = Path(__file__).resolve().parent
+    return [
+        "--dtype=bf16", f"--seed={SEED + 6}",
+        f"--load_llama_config={TRAIN_CLI_PRESET}",
+        f"--update_llama_config=dict(num_hidden_layers={layers}, "
+        f"max_sequence_length={TRAIN_CLI_SEQ})",
+        f"--tokenizer={root / 'tests' / 'fixtures' / 'tokenizer'}",
+        "--train_dataset.type=json", "--train_dataset.text_processor.fields=text",
+        f"--train_dataset.json_dataset.path={data}",
+        f"--train_dataset.json_dataset.seq_length={TRAIN_CLI_SEQ}",
+        f"--train_dataset.json_dataset.batch_size={TRAIN_CLI_BATCH}",
+        "--optimizer.type=adamw", "--optimizer.accumulate_gradient_steps=1",
+        *[f"--optimizer.adamw_optimizer.{k}={v}" for k, v in TRAIN_CLI_OPT.items()],
+        "--log_freq=1", f"--logger.output_dir={out_dir}", f"--logger.experiment_id={name}",
+        "--logger.append_uuid=False", *extra,
+    ]
+
+
+def _train_text(rng, n_words):
+    """`n_words` random lowercase words of 2-9 letters: nearly every word
+    is new to the tokenizer, so it runs its BPE on each."""
+    lens = rng.integers(2, 10, n_words)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)[
+        rng.integers(0, 26, int(lens.sum()))].tobytes().decode()
+    ends = np.cumsum(lens)
+    return " ".join(letters[e - n:e] for e, n in zip(ends, lens))
+
+
+def _write_jsonl(path, n_lines, n_words, seed):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n_lines):
+            f.write(json.dumps({"text": _train_text(rng, n_words)}) + "\n")
+
+
+def _metrics(summary):
+    with open(Path(summary["output_dir"]) / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _run_cli(argv, layers, steps, what):
+    """One in-process run of the CLI; its K1 and backward launches must be
+    exactly layers x steps. Returns (summary, launch counts)."""
+    _reset_launch_counts()
+    summary = train.main(argv)
+    launches = _launch_counts()
+    torch.cuda.empty_cache()
+    for k in ("flash_fwd", "flash_bwd"):
+        if launches[k] != layers * steps:
+            raise AssertionError(f"train cli {what}: {k} launched {launches[k]} times, "
+                                 f"want {layers * steps}")
+    return summary, launches
+
+
+def _cli_batches(data, processes=1):
+    """The CLI's train batches over `data`, with the phase's pool flags."""
+    from lwm_tpu_torch.data import DatasetFactory
+    from lwm_tpu_torch.utils.tokenizer import Tokenizer
+
+    tok = Tokenizer(str(Path(__file__).resolve().parent / "tests" / "fixtures" / "tokenizer"))
+    return iter(DatasetFactory.load_dataset(dict(
+        type="json", text_processor=dict(fields="text"),
+        json_dataset=dict(path=str(data), seq_length=TRAIN_CLI_SEQ,
+                          batch_size=TRAIN_CLI_BATCH, tokenizer_processes=processes,
+                          tokenizer_parallel_batch_size=64, tokenizer_parallel_chunk_size=4)),
+        tok, node_info=train.NODE_INFO))
+
+
+def _first_batch_loss_fp32(cfg, data):
+    """The fp32 loss of the CLI's initial weights on its first batch: the
+    same init (the CLI's generator from --seed) in an fp32, plain-attention
+    model, and the first batch of the same dataset."""
+    from lwm_tpu_torch.utils.rng import init_generator
+
+    batches = _cli_batches(data)
+    batch = next(batches)[0]
+    batches.close()
+    model = LLaMAForCausalLM(cfg.replace(attn_impl="plain"), dtype=torch.float32,
+                             param_dtype=torch.float32, device="cuda")
+    model.init_weights(init_generator(SEED + 6, "cuda"))
+    with torch.no_grad():
+        loss, _ = train.compute_loss(model, {k: torch.from_numpy(batch[k]).cuda()
+                                             for k in train.BATCH_KEYS})
+    loss = loss.item()
+    del model
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _pipeline_tps(data, processes):
+    """Tokens/s of the data pipeline alone with `processes` tokenizer
+    processes: PIPELINE_BATCHES batches after the first (so the pool's
+    start is not timed)."""
+    batches = _cli_batches(data, processes)
+    next(batches)
+    t0 = time.perf_counter()
+    for _ in range(PIPELINE_BATCHES):
+        next(batches)
+    dt = time.perf_counter() - t0
+    batches.close()
+    return PIPELINE_BATCHES * TRAIN_CLI_BATCH * TRAIN_CLI_SEQ / dt
+
+
+def train_cli_round_trip(tmp, what="round trip"):
+    """The 1-layer fp32 checkpoint round trip in `tmp` (A: 2 steps and a
+    save, B: the autoresume to 4, C: 0 to 4 uninterrupted). Holds B's steps
+    3-4 to C's: dataset_* and learning_rate exactly, the rest within
+    ROUNDTRIP_RTOL. Returns the three runs' launch counts and the largest
+    relative differences, read before the check (a caller may catch it)."""
+    rt_data = tmp / "long.jsonl"
+    _write_jsonl(rt_data, 12, ROUNDTRIP_WORDS, SEED + 7)
+    rt = ["--checkpointer.save_optimizer_state=True", "--checkpointer.float_dtype=fp32",
+          "--train_dataset.json_dataset.pad=True"]
+    resume = ["--save_model_freq=2", "--autoresume=True"]
+    a, la = _run_cli(train_cli_argv(tmp, "rt", rt_data, ROUNDTRIP_LAYERS, "--total_steps=2",
+                                    *rt, *resume), ROUNDTRIP_LAYERS, 2, f"{what} A")
+    b, lb = _run_cli(train_cli_argv(tmp, "rt", rt_data, ROUNDTRIP_LAYERS, "--total_steps=4",
+                                    *rt, *resume), ROUNDTRIP_LAYERS, 2, f"{what} B")
+    c, lc = _run_cli(train_cli_argv(tmp, "rt_whole", rt_data, ROUNDTRIP_LAYERS,
+                                    "--total_steps=4", *rt), ROUNDTRIP_LAYERS, 4, f"{what} C")
+    size = (Path(a["output_dir"]) / "streaming_train_state").stat().st_size / 1e9
+    if (b["loaded"], b["start_step"], b["end_step"]) != ("trainstate", 2, 4):
+        raise AssertionError(f"train cli: run B did not resume at step 2: {b}")
+    got, want = _metrics(b)[2:], _metrics(c)[2:]
+    if len(got) != 2 or len(want) != 2:
+        raise AssertionError(f"train cli {what}: want steps 3-4 of B and C: {got}, {want}")
+    worst = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want))
+             for k in ROUNDTRIP_RTOL}
+    exact = [(g["step"], k) for g, w in zip(got, want)
+             for k in (*EXACT_DATASET, "learning_rate") if g[k] != w[k]]
+    log(f"train cli {what} ({TRAIN_CLI_PRESET} width x {ROUNDTRIP_LAYERS} layer, fp32 train "
+        f"state {size:.2f} GB): saves A {[round(x, 2) for x in a['save_seconds']]} s, B "
+        f"{[round(x, 2) for x in b['save_seconds']]} s; load {b['load_seconds']:.2f} s; B's "
+        f"steps 3-4 against C's: differing in {exact or 'none'} of dataset_* and learning_rate; "
+        + "; ".join(f"{k} {[g[k] for g in got]} vs {[w[k] for w in want]} (largest relative "
+                    f"difference {worst[k]:.2e}, limit {ROUNDTRIP_RTOL[k]})"
+                    for k in ROUNDTRIP_RTOL) + f" [{card()}]")
+    readings = dict(worst, exact=exact)
+    if exact:
+        raise AssertionError(f"train cli {what}: the resumed steps read other data or another "
+                             f"learning rate: {exact}", readings)
+    off = [k for k in ROUNDTRIP_RTOL if not worst[k] <= ROUNDTRIP_RTOL[k]]
+    if off:
+        raise AssertionError(f"train cli {what}: the resumed run's {off} leave the "
+                             "uninterrupted run's", readings)
+    return [la, lb, lc], readings
+
+
+def phase_train_cli(step_s_full):
+    """The training CLI as a user runs it (see TRAIN_CLI_*): the 7b width
+    for 6 steps (finite, falling loss; exact K1 and backward launches; step
+    time, tokens/s, MFU share, peak memory, dataset_average_tps; the data
+    pipeline's own rate in one process and in the run's pool, beside the
+    step's tokens/s and `step_s_full`, phase_train_full's step), then
+    --fused_lm_loss from the same seed and batch (step 1's loss at the bf16
+    noise floor of the default run's, measured against an fp32 run of the
+    same weights and batch, with FUSED_SLACK; step 1's gradient_norm and
+    step 2's loss, which follow the fused backward, at the round trip's
+    run-to-run limits of the default run's), then the checkpoint
+    round trip at 1 layer (`train_cli_round_trip`). Returns each run's
+    launch counts."""
+    paths = []
+    cfg = train.build_model_config(TRAIN_CLI_PRESET, update_llama_config=dict(
+        num_hidden_layers=TRAIN_CLI_LAYERS, max_sequence_length=TRAIN_CLI_SEQ))
+    with tempfile.TemporaryDirectory(prefix="lwm_train_cli_") as tmp:
+        tmp = Path(tmp)
+        data = tmp / "train.jsonl"
+        _write_jsonl(data, TRAIN_CLI_LINES, TRAIN_CLI_WORDS, SEED + 6)
+        pool = [f"--train_dataset.json_dataset.tokenizer_processes={TRAIN_CLI_POOL}",
+                "--train_dataset.json_dataset.tokenizer_parallel_batch_size=64",
+                "--train_dataset.json_dataset.tokenizer_parallel_chunk_size=4"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary, launches = _run_cli(
+            train_cli_argv(tmp, "full", data, TRAIN_CLI_LAYERS,
+                           f"--total_steps={TRAIN_CLI_STEPS}", *pool),
+            TRAIN_CLI_LAYERS, TRAIN_CLI_STEPS, "full")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        paths.append(launches)
+        recs = _metrics(summary)
+        losses = [r["loss"] for r in recs]
+        step_s = float(np.median(np.diff([r["_time"] for r in recs])))
+        tokens = TRAIN_CLI_BATCH * TRAIN_CLI_SEQ
+        flops = train_flops(cfg, TRAIN_CLI_BATCH, TRAIN_CLI_SEQ)
+        for r in recs:
+            log(f"train cli step {r['step']}: loss {r['loss']:.5f} acc {r['acc']:.5f} "
+                f"lr {r['learning_rate']:.3e} grad_norm {r['gradient_norm']:.4f} "
+                f"param_norm {r['param_norm']:.2f} dataset_average_tps "
+                f"{r['dataset_average_tps']:.0f} example {r['dataset_example_index']}")
+        one, pooled = _pipeline_tps(data, 1), _pipeline_tps(data, TRAIN_CLI_POOL)
+        log(f"train cli: {TRAIN_CLI_PRESET} width x {TRAIN_CLI_LAYERS} layers, batch "
+            f"{TRAIN_CLI_BATCH} x {TRAIN_CLI_SEQ}, {TRAIN_CLI_STEPS} steps in {wall:.1f}s of wall "
+            f"(model build, tokenizer pool start and init included); launches {launches}; step "
+            f"time median of steps 2-{TRAIN_CLI_STEPS} {step_s:.3f}s (phase_train_full's "
+            f"{step_s_full:.3f}s: {step_s / step_s_full:.3f}x), {tokens / step_s:.0f} tokens/s, "
+            f"{100 * flops / step_s / H100_BF16_PEAK:.1f}% of 989 TFLOP/s; peak memory "
+            f"{peak:.1f} GiB; dataset_average_tps {recs[-1]['dataset_average_tps']:.0f} (the "
+            f"loop's rate, its window from the start) [{card()}]")
+        log(f"train cli data: the pipeline alone on random words, batches 2-"
+            f"{PIPELINE_BATCHES + 1}: {one:.0f} tokens/s in one tokenizer process "
+            f"({one * TRAIN_CLI_POOL:.0f} x {TRAIN_CLI_POOL}), {pooled:.0f} tokens/s in the run's "
+            f"pool of {TRAIN_CLI_POOL}: {pooled * step_s / tokens:.2f}x what the step eats "
+            f"({tokens / step_s:.0f} tokens/s) [{card()}]")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train cli: loss not finite and falling: {losses}")
+
+        summary_f, launches_f = _run_cli(
+            train_cli_argv(tmp, "fused", data, TRAIN_CLI_LAYERS,
+                           f"--total_steps={TRAIN_CLI_FUSED_STEPS}", "--fused_lm_loss=True",
+                           *pool),
+            TRAIN_CLI_LAYERS, TRAIN_CLI_FUSED_STEPS, "fused")
+        paths.append(launches_f)
+        fused = _metrics(summary_f)
+        l_fp32 = _first_batch_loss_fp32(cfg, data)
+        floor = abs(losses[0] - l_fp32)
+        step2 = abs(fused[1]["loss"] - losses[1]) / losses[1]
+        gnorm = abs(fused[0]["gradient_norm"] - recs[0]["gradient_norm"]) / recs[0]["gradient_norm"]
+        log(f"train cli fused: step 1 loss fused {fused[0]['loss']:.6f} default {losses[0]:.6f} "
+            f"fp32 (plain, same weights and batch) {l_fp32:.6f}: |fused - fp32| "
+            f"{abs(fused[0]['loss'] - l_fp32):.2e}, the floor |default - fp32| {floor:.2e} "
+            f"({abs(fused[0]['loss'] - l_fp32) / floor:.2f}x; limit {FLOOR_RATIO} x floor + "
+            f"{FUSED_SLACK}), |fused - default| {abs(fused[0]['loss'] - losses[0]):.2e}; step 1 "
+            f"gradient_norm fused {fused[0]['gradient_norm']:.5f} default "
+            f"{recs[0]['gradient_norm']:.5f} ({gnorm:.2e} relative, limit "
+            f"{ROUNDTRIP_RTOL['gradient_norm']}); step 2 loss fused {fused[1]['loss']:.6f} "
+            f"default {losses[1]:.6f} ({step2:.2e} relative, limit {ROUNDTRIP_RTOL['loss']}); "
+            f"launches {launches_f}")
+        if not abs(fused[0]["loss"] - l_fp32) <= FLOOR_RATIO * floor + FUSED_SLACK:
+            raise AssertionError("train cli: the fused loss is off the bf16 noise floor")
+        if not (gnorm <= ROUNDTRIP_RTOL["gradient_norm"] and step2 <= ROUNDTRIP_RTOL["loss"]):
+            raise AssertionError("train cli: the fused backward's gradients or step 2 leave the "
+                                 "default run's")
+
+        rt_paths, _ = train_cli_round_trip(tmp)
+        paths += rt_paths
+    torch.cuda.empty_cache()
+    return paths
 
 
 def _kernel_kind(name):
@@ -1723,7 +1994,10 @@ def main():
     torch.cuda.empty_cache()
     phase_cli()
     phase_train_compare()
-    path_launches.append(phase_train_full(profile))
+    launches, step_s_full = phase_train_full(profile)
+    path_launches.append(launches)
+    torch.cuda.empty_cache()
+    path_launches.extend(phase_train_cli(step_s_full))
     total = {k: sum(p[k] for p in path_launches) for k in KERNEL_WRAPPERS}
 
     def row(name, source, replaces, max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by):

@@ -1,9 +1,10 @@
 """Batch/interactive serving CLI over the port's in-flight batching server.
 
 Counterpart of `lwm_tpu/apps/serve.py`, with the same flag names and
-defaults, parsed by `argparse` (absl is not a dependency): `--name=value`,
-a bare `--flag` for a true bool, and `--llama.<field>=value` for the config
-fields when no `--load_llama_config` is given. Loads a streamed checkpoint
+defaults, parsed by `utils/flags.py` (absl is not a dependency):
+`--name=value`, a bare `--flag` for a true bool, and
+`--llama.<field>=value` for the config fields when no `--load_llama_config`
+is given. Loads a streamed checkpoint
 (`--load_checkpoint=params::PATH`, `lwm_tpu_torch.checkpoint`; scanned or
 unscanned trees convert as they are), casts it to `--dtype`, optionally
 quantizes the dense weights to int8 on the device (`--quantize_weights`,
@@ -34,8 +35,6 @@ Run: python -m lwm_tpu_torch.apps.serve --load_checkpoint='params::...' \\
 
 from __future__ import annotations
 
-import argparse
-import ast
 import dataclasses
 import json
 import sys
@@ -50,6 +49,7 @@ from lwm_tpu_torch.ops.quant import quantize_params_int8
 from lwm_tpu_torch.serve import InflightServer
 from lwm_tpu_torch.utils.convert import convert_flax_params
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
+from lwm_tpu_torch.utils.flags import parse_flags as parse_flags_tree
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
 
 DEFAULTS = dict(
@@ -62,39 +62,10 @@ DEFAULTS = dict(
 )
 
 
-def _bool(text):
-    low = str(text).lower()
-    if low in ("1", "true", "t", "yes", "y"):
-        return True
-    if low in ("0", "false", "f", "no", "n"):
-        return False
-    raise argparse.ArgumentTypeError(f"not a bool: {text!r}")
-
-
-def _literal(text):
-    try:
-        return ast.literal_eval(text)
-    except (ValueError, SyntaxError):
-        return text
-
-
 def parse_flags(argv):
     """The flags as a namespace, plus `llama`: the `--llama.<field>` values."""
-    parser = argparse.ArgumentParser(prog="python -m lwm_tpu_torch.apps.serve")
-    for name, default in DEFAULTS.items():
-        if isinstance(default, bool):
-            parser.add_argument(f"--{name}", type=_bool, nargs="?", const=True, default=default)
-            parser.add_argument(f"--no{name}", dest=name, action="store_false")
-        else:
-            parser.add_argument(f"--{name}", type=type(default), default=default)
-    flags, rest = parser.parse_known_args(argv)
-    flags.llama = {}
-    for arg in rest:
-        key, sep, value = arg.partition("=")
-        if not (key.startswith("--llama.") and sep):
-            parser.error(f"unrecognized argument: {arg}")
-        flags.llama[key[len("--llama."):]] = _literal(value)
-    return flags
+    return parse_flags_tree(DEFAULTS, argv, prog="python -m lwm_tpu_torch.apps.serve",
+                            free=("llama",))
 
 
 def log(msg):

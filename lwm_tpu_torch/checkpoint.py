@@ -20,15 +20,36 @@ Leaves load as numpy arrays, bfloat16 ones as `torch.bfloat16` tensors
 bfloat16). `load_trainstate_checkpoint` dispatches the `params::`,
 `trainstate_params::`, `flax_params::` and `trainstate::` specs
 (`:286-325`); its params tree feeds `utils/convert.py` scanned or not.
+
+`StreamingCheckpointer` is the trainer's (`:200-325`): `save_all` writes
+`metadata[_step].pkl`, `dataset[_step].pkl` and `streaming_train_state` (with
+`save_optimizer_state`) or `streaming_params`, a milestone with the `_step`
+suffix; the train state is the JAX trainer's tree (`train_state_tree`:
+flax's `to_state_dict` of a `TrainState` — `step`, `params/params/...`,
+`opt_state/...`) and its stream is the JAX writer's bytes for the same
+state. `load_into` reads any spec into a model and its optimizer, each
+leaf cast to its tensor's own dtype, as the JAX trainer's shard functions
+cast to their target's. The default `float_dtype="bf16"` rounds every float
+leaf on save, the optimizer's moments included, as the reference does.
+A `trainstate::` load holds the decoded stream on the host before it is
+copied to the device.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
 
 from lwm_tpu_torch.utils import msgpack
+from lwm_tpu_torch.utils.convert import (
+    convert_flax_params, convert_optax_state, flax_params_tree, optax_state_tree,
+)
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
+from lwm_tpu_torch.utils.flags import merge_config
+from lwm_tpu_torch.utils.io import save_pickle
 
 _HEADER = {"format": "lwm-tpu-ckpt", "version": 2}
 DEFAULT_CHUNK_BYTES = 256 * 2**20
@@ -58,17 +79,21 @@ def _chunk_ranges(shape, itemsize, chunk_bytes):
             yield (False, start, min(start + rows, shape[0]))
 
 
-def _raw_bytes(chunk):
-    """C-order bytes of a numpy array or a CPU tensor (bf16 by its bits)."""
+def _host_buffer(chunk):
+    """A C-contiguous host numpy array of a chunk's bytes: a tensor is made
+    contiguous on its own device first (a kernel's transpose runs on the
+    card, not the host), then copied over; bfloat16 goes by its bits."""
     if isinstance(chunk, torch.Tensor):
-        chunk = chunk.contiguous()
+        chunk = chunk.contiguous().cpu()
         if chunk.dtype == torch.bfloat16:
             chunk = chunk.view(torch.int16)
-        return chunk.numpy().tobytes()
-    return np.ascontiguousarray(chunk).tobytes()
+        return chunk.numpy()
+    return np.ascontiguousarray(chunk)
 
 
 def _write_leaf(fout, key, value, float_dtype, chunk_bytes):
+    if callable(value):   # a lazy leaf of utils.convert.flax_params_tree
+        value = value()
     if value is None or isinstance(value, (str, bytes, bool)):
         fout.write(msgpack.pack(["obj", list(key), value]))
         return
@@ -95,17 +120,18 @@ def _write_leaf(fout, key, value, float_dtype, chunk_bytes):
     for is_flat, start, stop in plan:
         if is_flat and flat is None:
             flat = value.reshape(-1) if shape else value.reshape(1)
-        chunk = flat[start:stop] if is_flat else value[start:stop]
-        if isinstance(chunk, torch.Tensor) and chunk.device.type != "cpu":
-            chunk = chunk.cpu()   # one chunk on the host at a time
-        fout.write(msgpack.pack(_raw_bytes(chunk)))
+        chunk = _host_buffer(flat[start:stop] if is_flat else value[start:stop])
+        fout.write(msgpack.bin_header(chunk.nbytes))   # one chunk on the host at a time
+        fout.write(chunk.reshape(-1).data)
 
 
 def save_stream(flat_state, path, float_dtype=None, chunk_bytes=DEFAULT_CHUNK_BYTES):
     """Write a flat {path tuple: leaf} dict as a v2 stream. Leaves: numpy
     arrays, tensors (on any device, copied to the host a chunk at a time),
-    Python numbers (as numpy makes them arrays), and None/str/bytes/bool
-    as `obj` records. `float_dtype` ('bf16', ...) casts float leaves."""
+    Python numbers (as numpy makes them arrays), zero-argument callables
+    returning one of those (made as the leaf is written), and
+    None/str/bytes/bool as `obj` records. `float_dtype` ('bf16', ...) casts
+    float leaves."""
     with open(path, "wb") as fout:
         fout.write(msgpack.pack(_HEADER))
         for key, value in flat_state.items():
@@ -116,12 +142,10 @@ def _read_leaf(unpacker, dtype_name, shape, n_chunks):
     n = int(np.prod(shape, dtype=np.int64)) if shape else 1
     bf16 = dtype_name == "bfloat16"
     dst = np.empty(n, dtype=np.int16 if bf16 else np.dtype(dtype_name))
-    view = dst.view(np.uint8)
+    view = memoryview(dst.view(np.uint8))
     offset = 0
     for _ in range(n_chunks):
-        buf = next(unpacker)
-        view[offset:offset + len(buf)] = np.frombuffer(buf, np.uint8)
-        offset += len(buf)
+        offset += unpacker.read_bin_into(view[offset:])
     if offset != view.nbytes:
         raise ValueError(f"leaf of {view.nbytes} bytes got {offset}")
     if bf16:
@@ -238,3 +262,84 @@ def load_trainstate_checkpoint(load_from, disallow_trainstate=False):
     else:
         raise ValueError(f"invalid load_from type: {load_type}")
     return None, {"params": params}
+
+
+def train_state_tree(state):
+    """`train.TrainState` (model, AdamW, step) → the JAX trainer's train
+    state tree: {"step": int32, "params": {"params": flax tree},
+    "opt_state": optax tree} (`utils/convert.py`), its stacked leaves and
+    unmade moments lazy."""
+    model, opt = state.model, state.optimizer
+    params = dict(model.named_parameters())
+    return {
+        "step": np.int32(state.step),
+        "params": {"params": flax_params_tree(params, model.config)},
+        "opt_state": optax_state_tree(opt.named_state(), params, model.config, opt.mu_dtype,
+                                      opt.k),
+    }
+
+
+class StreamingCheckpointer:
+    """The trainer's checkpointer; see the module note."""
+
+    DEFAULTS = dict(float_dtype="bf16", save_optimizer_state=False,
+                    chunk_bytes=DEFAULT_CHUNK_BYTES)
+
+    @classmethod
+    def get_default_config(cls, updates=None):
+        return merge_config(cls.DEFAULTS, updates, "checkpointer")
+
+    def __init__(self, config, checkpoint_dir, enable=True):
+        self.config = self.get_default_config(config)
+        self.checkpoint_dir = checkpoint_dir
+        self.enable = enable
+
+    def save_checkpoint(self, tree, filename):
+        if self.enable:
+            save_tree(tree, os.path.join(self.checkpoint_dir, filename),
+                      float_dtype=self.config["float_dtype"],
+                      chunk_bytes=self.config["chunk_bytes"])
+
+    def save_pickle(self, obj, filename):
+        if self.enable:
+            save_pickle(obj, os.path.join(self.checkpoint_dir, filename))
+
+    def save_all(self, state, metadata=None, dataset=None, milestone=False):
+        """Returns the seconds the state's stream took to write."""
+        if self.config["save_optimizer_state"]:
+            tree, name = train_state_tree(state), "streaming_train_state"
+        else:
+            tree = flax_params_tree(dict(state.model.named_parameters()), state.model.config)
+            name = "streaming_params"
+        suffix = f"_{state.step}" if milestone else ""   # milestones are kept
+        self.save_pickle(metadata, f"metadata{suffix}.pkl")
+        self.save_pickle(dataset, f"dataset{suffix}.pkl")
+        t0 = time.perf_counter()
+        self.save_checkpoint(tree, f"{name}{suffix}")
+        return time.perf_counter() - t0
+
+    @staticmethod
+    @torch.no_grad()
+    def load_into(load_from, state):
+        """Load a 'TYPE::PATH' spec into `state` (train.TrainState): the
+        params of any spec into the model; with `trainstate::`, also the
+        optimizer's state and the step count. Returns the spec's type."""
+        model = state.model
+        device = model.wte.weight.device
+        train_tree, params = load_trainstate_checkpoint(load_from)
+        if train_tree is not None:
+            params = train_tree["params"]
+            state.optimizer.load_named_state(
+                convert_optax_state(train_tree.pop("opt_state"), model.config, device))
+            state.step = int(np.asarray(train_tree["step"]))
+        sd = convert_flax_params(params, model.config, device=device)
+        missing = dict(model.named_parameters()).keys() - sd.keys()
+        if missing:
+            raise ValueError(f"{load_from}: no weights for {sorted(missing)}")
+        for name, p in model.named_parameters():
+            value = torch.as_tensor(sd.pop(name))
+            if value.shape != p.shape:
+                raise ValueError(f"{load_from}: {name} is {tuple(value.shape)}, the model's "
+                                 f"{tuple(p.shape)}")
+            p.copy_(value)
+        return load_from.partition("::")[0]

@@ -22,18 +22,20 @@ where torch's own tools differ (so they are not used):
   acc + (g − acc)/(n + 1)) and applies it every k-th call.
 The update is a loop over tensors with per-tensor temporaries (no
 `foreach`: torch's multi-tensor path allocates whole-model temporaries that
-a 7b-width model on one card cannot afford). Not ported yet: the PaLM
-optimizer (Adafactor), weight-decay masks that exclude params and
-frozen-parameter masks (the vision slice).
+a 7b-width model on one card cannot afford). `named_state` and
+`load_named_state` carry the state by parameter name, the layout
+`utils/convert.py` maps to and from optax's. Not ported yet: the PaLM
+optimizer (Adafactor; its config subtree is kept so the JAX flags parse),
+weight-decay masks that exclude params and frozen-parameter masks (the
+vision slice).
 """
 
 from __future__ import annotations
 
-import copy
-
 import numpy as np
 import torch
 
+from lwm_tpu_torch.utils.flags import merge_config
 from lwm_tpu_torch.utils.losses import global_norm
 
 EPS = 1e-8  # optax.adamw's default, outside the square root
@@ -149,21 +151,34 @@ class AdamW(torch.optim.Optimizer):
             out[key] = {self.names[p]: s[key] for p, s in self.state.items() if key in s}
         return out
 
+    @torch.no_grad()
+    def load_named_state(self, named):
+        """The inverse of `named_state`: counts and per-parameter moments
+        (and the MultiSteps accumulator) by parameter name, each copied to
+        its parameter's device in the optimizer's own dtype (mu_dtype for
+        mu, the parameter's for nu and acc), as the JAX trainer casts a
+        loaded state to its target's dtypes. A moment missing from `named`
+        is left unset (zeros at the first update)."""
+        self.count = int(named["count"])
+        self.mini_step = int(named.get("mini_step", 0))
+        self.gradient_step = int(named.get("gradient_step", 0))
+        for p in self._params():
+            for key in ("mu", "nu", "acc"):
+                value = named.get(key, {}).get(self.names[p])
+                if value is not None:
+                    dtype = self.mu_dtype if key == "mu" else p.dtype
+                    self.state[p][key] = torch.as_tensor(value).to(p.device, dtype, copy=True)
+
 
 ADAMW_DEFAULTS = dict(
     init_lr=0.0, end_lr=0.001, lr=0.01, lr_warmup_steps=2000, lr_decay_steps=500000,
     b1=0.9, b2=0.95, clip_gradient=1.0, weight_decay=1e-4, bf16_momentum=False,
     multiply_by_parameter_scale=False,
 )
-
-
-def _merged(defaults, updates):
-    out = copy.deepcopy(defaults)
-    for key, value in (updates or {}).items():
-        if key not in out:
-            raise KeyError(f"unknown optimizer option {key!r}")
-        out[key] = _merged(out[key], value) if isinstance(out[key], dict) else value
-    return out
+# `lwm_tpu/optim.py:118-128`: kept so that the JAX flag tree parses; the
+# PaLM optimizer itself is not ported (type "palm" raises)
+PALM_DEFAULTS = dict(lr=0.01, lr_warmup_steps=10000, b1=0.9, b2=0.99, clip_gradient=1.0,
+                     weight_decay=1e-4, bf16_momentum=False)
 
 
 class OptimizerFactory:
@@ -171,9 +186,10 @@ class OptimizerFactory:
 
     @staticmethod
     def get_default_config(updates=None):
-        return _merged(
-            dict(accumulate_gradient_steps=1, type="adamw", adamw_optimizer=ADAMW_DEFAULTS),
-            updates,
+        return merge_config(
+            dict(accumulate_gradient_steps=1, type="adamw", palm_optimizer=PALM_DEFAULTS,
+                 adamw_optimizer=ADAMW_DEFAULTS),
+            updates, "optimizer",
         )
 
     @classmethod
@@ -183,7 +199,9 @@ class OptimizerFactory:
         `.schedule`."""
         config = cls.get_default_config(config)
         if config["type"] != "adamw":
-            raise NotImplementedError(f"optimizer {config['type']!r} is not ported yet (adamw is)")
+            raise NotImplementedError(
+                f"optimizer {config['type']!r} is not ported yet (adamw is; the PaLM "
+                "optimizer goes with the vision finetune recipes, ROADMAP A5)")
         c = config["adamw_optimizer"]
         schedule = warmup_cosine_decay_schedule(
             c["init_lr"], c["lr"], c["lr_warmup_steps"], c["lr_decay_steps"], c["end_lr"]

@@ -1,8 +1,9 @@
-"""Loss and metric primitives of the train step (`lwm_tpu/utils/losses.py:8-81`).
+"""Loss and metric primitives of the train step (`lwm_tpu/utils/losses.py:8-144`).
 
-Not ported yet: `fused_lm_cross_entropy` (`:83-144`, per-chunk lm_head so
-[seq, vocab] logits never materialize); the default train step
-(`fused_lm_loss=False`) does not take it.
+`cross_entropy_loss_and_accuracy` reads full logits (the default train
+step); `fused_lm_cross_entropy` (`--fused_lm_loss`) computes the lm_head
+product inside the loss, one rematerialized sequence chunk at a time, so
+the [b, s, vocab] logits never exist.
 """
 
 from __future__ import annotations
@@ -45,6 +46,42 @@ def cross_entropy_loss_and_accuracy(logits, tokens, valid=None, chunk_size=None)
                                use_reentrant=False)
             log_prob_sum = log_prob_sum + lp
             correct_sum = correct_sum + c
+    loss = -(log_prob_sum / valid_text_length).mean()
+    accuracy = (correct_sum / valid_text_length).mean()
+    return loss, accuracy
+
+
+def _fused_chunk_stats(hidden, weight, tokens, valid):
+    """`_chunk_stats` of the chunk's fp32 logits hidden @ weightᵀ."""
+    return _chunk_stats(torch.matmul(hidden.float(), weight.float().t()), tokens, valid)
+
+
+def fused_lm_cross_entropy(hidden, weight, tokens, valid=None, chunk_size=2048):
+    """`cross_entropy_loss_and_accuracy` of the logits hidden @ weightᵀ,
+    computed in fp32 one sequence chunk at a time and recomputed in the
+    backward (`torch.utils.checkpoint`, the JAX `nothing_saveable` policy),
+    so neither pass holds more than one chunk's logits. hidden [b, s, H]
+    (any float dtype; the model's ln_f output); weight [vocab, H], the
+    lm_head's weight or, when tied, the embedding's; tokens, valid [b, s].
+    The chunk is `chunk_size` capped at s, and the whole sequence when it
+    does not divide s. Gradients flow to hidden and weight. Returns (loss,
+    accuracy) fp32 scalars."""
+    tokens = tokens.long()
+    b, seq = tokens.shape
+    if valid is None:
+        valid = torch.ones((b, seq), dtype=torch.float32, device=tokens.device)
+    valid = valid.float()
+    valid_text_length = valid.sum(-1).clamp_min(1e-10)
+    chunk = min(chunk_size, seq)
+    if seq % chunk:
+        chunk = seq
+    log_prob_sum = correct_sum = 0.0
+    for i in range(0, seq, chunk):
+        sl = slice(i, i + chunk)
+        lp, c = checkpoint(_fused_chunk_stats, hidden[:, sl], weight, tokens[:, sl],
+                           valid[:, sl], use_reentrant=False)
+        log_prob_sum = log_prob_sum + lp
+        correct_sum = correct_sum + c
     loss = -(log_prob_sum / valid_text_length).mean()
     accuracy = (correct_sum / valid_text_length).mean()
     return loss, accuracy

@@ -122,6 +122,14 @@ def _pack_ext(out, code, data):
     out += struct.pack(">b", code) + bytes(data)
 
 
+def bin_header(n):
+    """The header of a bin record of `n` bytes: a writer that sends the
+    payload itself (`pack(bytes)` is this header and the bytes)."""
+    out = bytearray()
+    _pack_header(out, n, None, 0, (0xC4, 0xC5, 0xC6))
+    return bytes(out)
+
+
 def pack(obj):
     """msgpack bytes of nil/bool/int/float/str/bytes/list/tuple/dict/ExtType."""
     out = bytearray()
@@ -156,6 +164,21 @@ class Unpacker:
 
     def _len(self, size):
         return struct.unpack(_LEN[size], self._read(size))[0]
+
+    def read_bin_into(self, buffer):
+        """Read the next record, which must be a bin, into the writable
+        `buffer` (a memoryview of bytes) without an intermediate copy.
+        Returns its length, at most len(buffer)."""
+        c = self._read(1)[0]
+        if c not in (0xC4, 0xC5, 0xC6):
+            raise ValueError(f"msgpack: expected a bin record, got type byte 0x{c:02x}")
+        n = self._len(1 << (c - 0xC4))
+        if n > len(buffer):
+            raise ValueError(f"msgpack: a bin of {n} bytes overflows its {len(buffer)}-byte leaf")
+        got = self._f.readinto(buffer[:n])
+        if got != n:
+            raise ValueError(f"msgpack stream ends inside a record ({got} of {n} bytes)")
+        return n
 
     def __iter__(self):
         return self

@@ -5,8 +5,8 @@ The JAX CLI reads its tokenizer through `transformers.AutoTokenizer`
 `transformers` nor `tokenizers`, so the port's CLI reads the files itself:
 `tokenizer.json`, plus `tokenizer_config.json` / `special_tokens_map.json`
 for the bos and eos tokens, from a local directory. `encode`,
-`decode(ids, skip_special_tokens=...)`, `bos_token_id` and `eos_token_id`
-give what `AutoTokenizer` gives for two layouts:
+`decode(ids, skip_special_tokens=...)`, `bos_token_id`, `eos_token_id` and
+`len()` give what `AutoTokenizer` gives for two layouts:
 
 - byte-level BPE (GPT-2's): a `ByteLevel` pre-tokenizer, optionally after a
   `Digits` one, and a `ByteLevel` decoder (the vendored fixtures
@@ -328,6 +328,7 @@ class Tokenizer:
                 "(and tokenizer_config.json) from a local directory and downloads nothing; "
                 "save the tokenizer with save_pretrained and pass that directory"
             )
+        self.path = path
         with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
             spec = json.load(f)
         config = {}
@@ -364,6 +365,17 @@ class Tokenizer:
 
         self.bos_token_id = token_of("bos_token")
         self.eos_token_id = token_of("eos_token")
+
+    def __reduce__(self):
+        # rebuilt from its directory: the parsed pieces hold closures, which
+        # do not pickle (the data pipeline sends the tokenizer to its workers)
+        return type(self), (self.path,)
+
+    def __len__(self):
+        """The vocabulary with the added tokens, counted by distinct token
+        (`len(AutoTokenizer)`: the size the trainer widens the model's
+        vocab to)."""
+        return len(self.model.vocab.keys() | self.added.keys())
 
     def token_to_id(self, token):
         if token in self.added:

@@ -1,6 +1,7 @@
 """lwm_tpu_torch runs where JAX is not installed: importing every one of its
 modules pulls in none of jax, flax, optax, transformers, tokenizers, msgpack,
-regex, absl or ml_collections, and builds no kernel."""
+regex, absl, ml_collections, datasets, wandb or gcsfs, and builds no
+kernel and no native code (nor needs g++)."""
 
 import subprocess
 import sys
@@ -19,13 +20,18 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         for want in ("serve", "ops.flash", "ops.ring", "ops.quant", "optim", "train",
                      "utils.losses", "checkpoint", "ops.prefix", "utils.msgpack",
-                     "utils.tokenizer", "apps.serve"):
+                     "utils.tokenizer", "apps.serve", "data", "data.text", "native",
+                     "native.token_buffer", "utils.flags", "utils.io", "utils.logging",
+                     "utils.rng"):
             assert "lwm_tpu_torch." + want in names, names
         bad = [m for m in ("jax", "flax", "optax", "transformers", "absl", "ml_collections",
-                           "msgpack", "tokenizers", "regex", "lwm_tpu") if m in sys.modules]
+                           "msgpack", "tokenizers", "regex", "datasets", "wandb", "gcsfs",
+                           "lwm_tpu") if m in sys.modules]
         assert not bad, bad
         from lwm_tpu_torch.ops import _build
         assert _build.load.cache_info().currsize == 0
+        from lwm_tpu_torch.native import token_buffer
+        assert not token_buffer._TRIED   # the packing buffer is built at first use
         print(len(names))
     """)
     out = subprocess.run(

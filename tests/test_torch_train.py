@@ -283,6 +283,14 @@ def test_training_refuses_what_is_not_ported():
         optim.OptimizerFactory.get_default_config({"adamw_optimizer": {"learning_rate": 1}})
     with torch.no_grad():   # not training: dropout is inactive, the forward runs
         _port_model("mha", params, resid_pdrop=0.1)(ids)
+    # the CLI refuses at the flag level, before it builds anything
+    for argv, match in [(["--mesh_dim=1,1,2,1"], "one device"),
+                        (["--modality=vision,text"], "vision"),
+                        (["--freeze_base"], "freeze_base"),
+                        (["--sp_layout=striped"], "sp_layout"),
+                        (["--jax_distributed.initialize_jax_distributed"], "multi-process")]:
+        with pytest.raises(NotImplementedError, match=match):
+            train.check_supported(train.parse_flags(train.DEFAULTS, argv, prog="train"))
 
 
 def test_build_model_config():
