@@ -14,12 +14,14 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      admission over the 4096-slot cache, at the train step's attention
      (b 2, seq 4096, 32 heads, d 128) and at the shared prefix's two shapes
      (the build's last 2048-token chunk over 32768 keys; an admission's
-     256 queries over the prefix block, not causal).
+     256 queries over the prefix block, not causal) and at a question's
+     admission over the video block (256 queries over 30976 keys).
   4. K4 flash_decode vs its plain twin, output and (o, m, l) partials, at
      8 slots (bf16 and int8, MHA and GQA; a row with no valid key gives
      (0, BIG_NEG, 0)), at one slot of T 65536, and at the shared-prefix
      fold (all slots' query heads over one 32768-key prefix block: groups
-     6, 8, 12, 16 and 32); every case timed.
+     6, 8, 12, 16 and 32; and group 4 over the video QA path's 30976-row
+     block); every case timed.
   5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
      its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
@@ -55,7 +57,16 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      output projections, where it must occur; verify logits on the noise
      floor); chunked admission (512) of a 3000-token prompt (the logits of
      its first two tokens read off the server against one unchunked
-     prefill).
+     prefill). Then video QA (phase_serve_vision): the same weights as a
+     VideoLLaMA (vte and vision_head new from the seed) with a 120-frame
+     video (30859 prefix tokens in the CLI's prompt layout, vision-masked
+     codes) built in 2048-token chunks and 8 questions through 4 slots
+     (cache 1024, buckets 64/128/256): exact K1/K4 counts, build seconds,
+     each admission's seconds, decode tok/s, peak memory; admission and
+     decode logits over the video on the noise floor, one admission held
+     to one forward of video + question without a cache, and the masks
+     shown to matter; then 4 requests each with its own 4-frame video
+     inline (submit(vision_masks=)).
   8. The same weights quantized on the card (`quantize_params_int8`, the
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
@@ -67,7 +78,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      Then the serving CLI (`python -m lwm_tpu_torch.apps.serve`) as a
      subprocess, three times over a 7b-width 4-layer params stream written
      by the port: a prefix document, its index saved then loaded (the same
-     completions), lookup verify; and with --quantize_weights.
+     completions), lookup verify; and with --quantize_weights. Then the
+     video QA CLI (`python -m lwm_tpu_torch.apps.serve_vision`) three
+     times over a 4-layer VideoLLaMA stream and an 8-frame codes file: its
+     video index saved, then loaded (the same answers), lookup verify.
   9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
      grads of the kernel path against an attn_impl="plain" bf16 model and
      an fp32 copy (the noise floor), on the same weights and batch.
@@ -112,13 +126,17 @@ import torch
 import torch.nn.functional as F
 
 from lwm_tpu_torch import checkpoint, train
+from lwm_tpu_torch import serve as serve_module
+from lwm_tpu_torch.apps import serve_vision as vision_cli
 from lwm_tpu_torch.models import llama as llama_module
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM, quantize_kv
+from lwm_tpu_torch.models.vision_llama import EOF, EOV, VideoLLaMAConfig, VideoLLaMAForCausalLM
 from lwm_tpu_torch.ops import _build, decode, flash, quant
 from lwm_tpu_torch.ops import prefix as prefix_ops
 from lwm_tpu_torch.ops.reference import BIG_NEG
-from lwm_tpu_torch.serve import InflightServer, _lookup_proposal, prefill_logits
+from lwm_tpu_torch.serve import InflightServer, _lookup_proposal, build_prefix_cache, prefill_logits
 from lwm_tpu_torch.utils.convert import flax_params_tree
+from lwm_tpu_torch.utils.tokenizer import Tokenizer
 
 BF16 = torch.bfloat16
 BF16_TOL = 2e-2   # max |kernel - twin| on bf16 outputs (one bf16 step near 1 is 4e-3)
@@ -332,10 +350,19 @@ def _randn(shape, gen, dtype=BF16):
 # the build's last chunk (2048 queries at offset 30720 over the 32768 keys
 # written so far, head-major) and an admission over the prefix block (256
 # queries, not causal, the prefix-validity bias with 68 padding keys); the
-# 1024 bucket's admission over it is held too
+# 1024 bucket's admission over it is held too. One more is timed at the
+# video QA path's shape (phase_serve_vision): a question's 256-query
+# admission over the video block (VIDEO_P_STORE keys, VIDEO_P_TRUE valid),
+# not causal
 K1_TRAIN_REPORT = "train_b2_S4096_h32_causal_padkeys"
 K1_TIMED = ("bucket2048_T4096_perkey", K1_TRAIN_REPORT, "prefix_build_q2048_qoff30720_T32768",
-            "prefix_admit_q256_T32768_noncausal")
+            "prefix_admit_q256_T32768_noncausal", "video_admit_q256_T30976_noncausal")
+# the video prefix of phase_serve_vision: VIDEO_FRAMES frames of 256 codes, EOF
+# after each and EOV after the last, inside the CLI's prompt layout (19 text
+# tokens with the fixture tokenizer): VIDEO_P_TRUE tokens, stored as
+# VIDEO_P_STORE rows (a multiple of 128)
+VIDEO_FRAMES = 120
+VIDEO_P_TRUE, VIDEO_P_STORE = 30859, 30976
 K1_CASES = [
     ("bucket2048_T4096_perkey", 1, 32, 128, 2048, 4096, True, 0, 0, True, "prompt"),
     (K1_TRAIN_REPORT, 2, 32, 128, 4096, 4096, True, 0, 0, False, "per_key"),
@@ -343,6 +370,8 @@ K1_CASES = [
      "written"),
     ("prefix_admit_q256_T32768_noncausal", 1, 32, 128, 256, 32768, False, 0, 0, True, "prefix"),
     ("prefix_admit_q1024_T32768_noncausal", 1, 32, 128, 1024, 32768, False, 0, 0, True, "prefix"),
+    ("video_admit_q256_T30976_noncausal", 1, 32, 128, 256, VIDEO_P_STORE, False, 0, 0, True,
+     "video"),
     ("q16_fulltile_qoff1000", 1, 32, 128, 16, 4096, True, 1000, 0, True, "frontier"),
     ("gqa_hkv8_bucket1024", 1, 8, 128, 1024, 4096, True, 0, 0, True, "prompt"),
     ("ragged_bucket2000_T4096", 1, 32, 128, 2000, 4096, True, 0, 0, True, "prompt"),
@@ -358,13 +387,15 @@ def _k1_bias(kind, b, sq, T, q_off, gen):
     """(bias, valid keys or None) for a K1 case. "prompt": an admission's
     per-key bias, the prompt's keys valid; "written": a prefix build
     chunk's, the keys written through its last query; "prefix": the
-    prefix-validity bias, all but the last 68 keys; "per_key" and "full": the
+    prefix-validity bias, all but the last 68 keys; "video": the video
+    block's, its first VIDEO_P_TRUE keys; "per_key" and "full": the
     backward's (_bwd_bias); "frontier": per-row frontiers with 20% random
     holes over a full tile, and "no_keys" the same with K1_EMPTY_ROWS
     masked whole."""
     keys = torch.arange(T, device="cuda")
-    if kind in ("prompt", "written", "prefix"):
-        valid = keys < {"prompt": sq - 37, "written": q_off + sq, "prefix": T - 68}[kind]
+    if kind in ("prompt", "written", "prefix", "video"):
+        valid = keys < {"prompt": sq - 37, "written": q_off + sq, "prefix": T - 68,
+                        "video": VIDEO_P_TRUE}[kind]
         return torch.where(valid, 0.0, BIG_NEG)[None, None, None, :], valid
     if kind in ("per_key", "full"):
         return _bwd_bias(kind, b, T, gen)
@@ -473,7 +504,8 @@ K4_EMPTY_ROW = 4     # cleared whole in the no-key check
 # 7b fold of 8 slots (group 8) over a 32768-token prefix in bf16 and int8;
 # 16 slots (group 16); 8 slots over a GQA cache of 8 kv heads (group 32);
 # and 6 and 12 slots (groups 6 and 12: a ragged last chunk of 8 heads) over
-# a prefix whose last 68 stored keys are padding
+# a prefix whose last 68 stored keys are padding; and the video QA path's
+# fold (phase_serve_vision): 4 slots (group 4) over the video block
 K4_FOLD_CASES = [
     ("fold_g8_bf16_P32768", 1, 32, 32768, False, 256, 32768),
     ("fold_g8_int8_P32768", 1, 32, 32768, True, 256, 32768),
@@ -482,6 +514,7 @@ K4_FOLD_CASES = [
     ("fold_g6_bf16_P32700", 1, 32, 32768, False, 192, 32700),
     ("fold_g12_bf16_P32700", 1, 32, 32768, False, 384, 32700),
     ("fold_g12_int8_P32700", 1, 32, 32768, True, 384, 32700),
+    ("fold_g4_bf16_video_P30976", 1, 32, VIDEO_P_STORE, False, 128, VIDEO_P_TRUE),
 ]
 
 
@@ -914,13 +947,15 @@ def fp32_weights(model):
     return {k: v.float() for k, v in model.state_dict().items()}
 
 
-def plain_arms(model):
+def plain_arms(model, fp32=None):
     """The noise floor's arms on `model`'s weights: "plain", the same
     tensors through attn_impl="plain", and "fp32", an fp32 upcast copy
-    through it, the truth both bf16 paths are held to."""
+    through it (`fp32`, when given: `fp32_weights` of them), the truth both
+    bf16 paths are held to."""
     cfg = model.config.replace(attn_impl="plain")
-    return {"plain": LLaMAForCausalLM.on_tensors(cfg, model.state_dict(), model.dtype),
-            "fp32": LLaMAForCausalLM.on_tensors(cfg, fp32_weights(model), torch.float32)}
+    fp32 = fp32_weights(model) if fp32 is None else fp32
+    return {"plain": type(model).on_tensors(cfg, model.state_dict(), model.dtype),
+            "fp32": type(model).on_tensors(cfg, fp32, torch.float32)}
 
 
 def _cos(a, b):
@@ -1113,12 +1148,16 @@ def hold_over_prefix(logits, kernel, labels, what):
                             what=f"{what} (concat oracle)", floor_ratio=None)
 
 
-def serve_modes_run(srv, prompts, budgets, temps, name, want_launches):
-    """Submit, run with the counts set to 0 just before and read just after,
-    check every request and the exact launch counts (`want_launches(stats)`).
-    Returns (launches, summary)."""
+def serve_modes_run(srv, prompts, budgets, temps, name, want_launches, masks=None,
+                    on_token=None):
+    """Submit (with each prompt's vision `masks`, when given, and
+    `on_token`), run with the counts set to 0 just before and read just
+    after, check every request and the exact launch counts
+    (`want_launches(stats)`). Returns (launches, summary)."""
     cfg = srv.model.config
-    rids = [srv.submit(p, n, t) for p, n, t in zip(prompts, budgets, temps)]
+    masks = masks or [None] * len(prompts)
+    rids = [srv.submit(p, n, t, on_token=on_token, vision_masks=vm)
+            for p, n, t, vm in zip(prompts, budgets, temps, masks)]
     torch.cuda.synchronize()
     _reset_launch_counts()
     t0 = time.perf_counter()
@@ -1142,7 +1181,7 @@ def serve_modes_run(srv, prompts, budgets, temps, name, want_launches):
     s = srv.stats
     decode_tokens = s["emitted"] - s["admitted"]
     return launches, dict(prefill_s=s["prefill_s"], decode_s=s["decode_s"], rounds=s["rounds"],
-                          decode_tok_s=decode_tokens / s["decode_s"], wall=wall)
+                          decode_tok_s=decode_tokens / s["decode_s"], wall=wall, rids=rids)
 
 
 def server_logits(srv, prompt):
@@ -1414,6 +1453,231 @@ def phase_serve_lookup_chunked(model):
     return [look, chunked]
 
 
+# ------------------------------------------------------------- video QA
+# phase_serve_vision: the bf16 phase's weights as a VideoLLaMA (sample_mode
+# "text"; vte and vision_head new, from the seed) serving the CLI's bundle
+# (scripts/run_serve_vision_torch.sh: 4 slots, cache 1024, buckets
+# 64/128/256) over a VIDEO_FRAMES-frame video built in PREFIX_CHUNK-token
+# chunks: VIDEO_QUESTION_LENS text questions with VIDEO_BUDGETS new tokens.
+# Then a pool without a prefix (4 slots, cache 4096, bucket 2048) serving
+# INLINE_FRAMES-frame videos inline with 4 questions.
+VISION_SLOTS, VISION_CACHE, VISION_BUCKETS = 4, 1024, (64, 128, 256)
+VIDEO_QUESTION_LENS = [20, 250, 64, 130, 200, 45, 100, 180]
+VIDEO_BUDGETS = [64, 128, 96, 64, 128, 80, 112, 72]
+INLINE_FRAMES, INLINE_QUESTION_LENS, INLINE_BUDGETS = 4, [20, 60, 35, 48], [32, 48, 40, 32]
+# The video block built again without a kernel (K1's plain twin), in chunks
+# of TWIN_CHUNK: ~4 GB of fp32 scores a chunk, beside the weights and both blocks.
+TWIN_CHUNK = 1024
+FIXTURE_TOKENIZER = Path(__file__).resolve().parent / "tests" / "fixtures" / "tokenizer_bpe"
+
+
+def vision_model(model):
+    """A VideoLLaMA (sample_mode "text") on `model`'s own tensors, plus a
+    vision embedding and vision head drawn from the seed."""
+    cfg = VideoLLaMAConfig.from_dict({**vars(model.config), "sample_mode": "text"})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    sd = dict(model.state_dict())
+    for name in ("vte.weight", "vision_head.weight"):
+        sd[name] = (torch.randn((cfg.vision_vocab_size, cfg.hidden_size), generator=gen,
+                                device="cuda") * cfg.initializer_range).to(BF16)
+    return VideoLLaMAForCausalLM.on_tensors(cfg, sd, BF16)
+
+
+def video_codes(rng, frames):
+    """`frames` frames of 256 VQ codes, EOF after each but the last, EOV
+    after it; (tokens, masks)."""
+    tokens = []
+    for f in range(frames):
+        tokens += rng.integers(0, 8192, 256).tolist() + [EOV if f == frames - 1 else EOF]
+    return tokens, [True] * len(tokens)
+
+
+def one_shot_logits(model, ids, vision_masks):
+    """The fp32 last-token logits of one forward of the whole sequence
+    without a cache (K1 over it at once; no prefix block, no chunks)."""
+    m = type(model).on_tensors(model.config.replace(
+        prefix_len=0, prefix_tokens=0, logits_tail=1, attn_impl="auto",
+        max_sequence_length=max(model.config.max_sequence_length, len(ids))),
+        model.state_dict(), model.dtype)
+    dev = model.wte.weight.device
+    with torch.no_grad():
+        out = m(torch.tensor([ids], device=dev),
+                vision_masks=None if vision_masks is None else torch.tensor([vision_masks],
+                                                                            device=dev))
+    return out[0, -1].float()
+
+
+def phase_serve_vision(model):
+    """Video QA on the bf16 phase's weights (`vision_model`): the video
+    prefix built through the server in the CLI's prompt layout (K1 once a
+    layer a chunk), 8 questions served over it (K1 twice a layer an
+    admission, K4 twice a layer a round, the fold at group 4), exact launch
+    counts, build seconds, each admission's seconds and each question's
+    time to first token, decode tok/s, peak memory. Then admission and
+    decode-round logits of 4 questions over the video held to the noise
+    floor (hold_over_prefix: the attention_twins arm, the plain concat
+    oracle, an fp32 copy reading the same bf16 block), and to the same
+    logits through the plain concat oracle over a second block that K1's
+    plain twin built (TWIN_CHUNK-token chunks): no kernel on that arm's
+    path. One admission held at that floor to one forward of video +
+    question without a cache (and the same forward with the masks cleared
+    must land off that floor).
+    Then the inline pool: 4 requests each with its own video through
+    submit(vision_masks=), exact launches, two admissions held to the
+    noise floor against the plain and fp32 arms. Returns the launches of
+    the build and the two serving runs."""
+    vmodel = vision_model(model)
+    cfg = vmodel.config
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 9)
+    enc = Tokenizer(str(FIXTURE_TOKENIZER))
+    codes, _ = video_codes(rng, VIDEO_FRAMES)
+    prefix, prefix_vm = vision_cli.video_prefix(enc, vision_cli.parse_flags([]), codes)
+    if len(prefix) != VIDEO_P_TRUE:
+        raise AssertionError(f"the video prefix holds {len(prefix)} tokens, VIDEO_P_TRUE says "
+                             f"{VIDEO_P_TRUE}")
+    questions = [rng.integers(2, cfg.vocab_size, n).tolist() for n in VIDEO_QUESTION_LENS]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = InflightServer(vmodel, slots=VISION_SLOTS, cache_len=VISION_CACHE,
+                         prompt_buckets=VISION_BUCKETS, stop_tokens=(cfg.eos_token_id,), seed=SEED,
+                         prefix_ids=prefix, prefix_vision_masks=prefix_vm,
+                         prefix_chunk=PREFIX_CHUNK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build = _launch_counts()
+    n_chunks = -(-VIDEO_P_TRUE // PREFIX_CHUNK)
+    want = dict(expected_launches(cfg, 0, 0), flash_fwd=L * n_chunks)
+    if build != want:
+        raise AssertionError(f"video prefix build: launches {build}, want {want}")
+    log(f"video prefix build: {VIDEO_FRAMES} frames, {VIDEO_P_TRUE} tokens ({len(codes)} vision; "
+        f"P_store {srv.model.config.prefix_len}) in {n_chunks} chunks of {PREFIX_CHUNK}, "
+        f"{build_s:.3f}s (host clock, synced); launches {build} [{card()}]")
+
+    admit_s, first_at = [], {}
+    prefill = serve_module.prefill_logits
+
+    def timed_prefill(*a, **kw):   # each admission's seconds, synced
+        t = time.perf_counter()
+        out = prefill(*a, **kw)
+        torch.cuda.synchronize()
+        admit_s.append(time.perf_counter() - t)
+        return out
+
+    def on_token(rid, tok):
+        first_at.setdefault(rid, time.perf_counter())
+
+    def want_video(s):   # K1 twice a layer an admission, K4 twice a layer a round
+        return dict(expected_launches(cfg, 0, 0), flash_fwd=2 * L * s["admitted"],
+                    flash_decode=2 * L * s["rounds"])
+
+    temps = [0.0] * len(questions)
+    temps[5] = 0.8
+    serve_module.prefill_logits = timed_prefill
+    try:
+        t0 = time.perf_counter()
+        launches, summary = serve_modes_run(srv, questions, VIDEO_BUDGETS, temps, "video",
+                                            want_video, on_token=on_token)
+    finally:
+        serve_module.prefill_logits = prefill
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ttft = [first_at[r] - t0 for r in summary["rids"]]
+    log(f"serve video: {len(questions)} questions of {VIDEO_QUESTION_LENS} tokens over "
+        f"{VISION_SLOTS} slots; admission s (time to first token once a slot is free) "
+        f"{[round(x, 4) for x in admit_s]}; time to first token from the run's start "
+        f"{[round(x, 3) for x in ttft]}; decode {summary['decode_tok_s']:.1f} tok/s over "
+        f"{summary['rounds']} rounds; build {build_s:.3f}s; peak {peak:.1f} GiB [{card()}]")
+
+    kernel, block, p_true = srv.model, srv._prefix, srv._pos0
+    srv.cache = None
+    del srv
+    torch.cuda.empty_cache()
+    check = questions[:VISION_SLOTS]
+    adm = prefix_logits({"kernel": kernel}, block, p_true, check, [0] * len(check))
+    tokens = [int(x.argmax()) for x in adm["kernel"][:len(check)]]
+    # before the fp32 copy, which would leave no room for a second block
+    t0 = time.perf_counter()
+    with attention_twins():
+        twin_block = build_prefix_cache(vmodel, prefix, TWIN_CHUNK, prefix_vm)[0].layers
+    torch.cuda.synchronize()
+    log(f"video block built again through K1's plain twin in chunks of {TWIN_CHUNK}: "
+        f"{time.perf_counter() - t0:.3f}s")
+    oracle = type(kernel).on_tensors(kernel.config.replace(attn_impl="plain"),
+                                     kernel.state_dict(), kernel.dtype)
+    twin = prefix_logits({"twin_build": oracle}, twin_block, p_true, check, tokens)
+    del twin_block, oracle
+    torch.cuda.empty_cache()
+    fp32 = fp32_weights(vmodel)
+    models = {"kernel": kernel, **plain_arms(kernel, fp32)}
+    logits = prefix_logits(models, block, p_true, check, tokens)
+    with attention_twins():
+        logits.update(prefix_logits({"split": kernel}, block, p_true, check, tokens))
+    logits.update(twin)
+    labels = [f"{len(q)} (video {p_true})" for q in check]
+    n = len(check)
+    for what, rows in (("video admission", slice(0, n)), ("video decode", slice(n, 2 * n))):
+        part = {k: v[rows] for k, v in logits.items()}
+        hold_over_prefix(part, "kernel", labels, what)
+        # fp32 reads the kernels' block, so the distance ratio favours them:
+        # logged; cosine and argmax held
+        hold_to_noise_floor(part, "kernel", "twin_build", "fp32", labels=labels,
+                            argmax_of_truth=True, floor_ratio=None,
+                            what=f"{what} (block built without kernels)")
+    del models, block
+    torch.cuda.empty_cache()
+
+    # one admission against one forward of the whole sequence, no cache
+    seq, seq_vm = prefix + check[0], prefix_vm + [False] * len(check[0])
+    one = {"one_shot": [one_shot_logits(kernel, seq, seq_vm)],
+           "kernel": [logits["kernel"][0]], "fp32": [logits["fp32"][0]]}
+    hold_to_noise_floor(one, "kernel", "one_shot", "fp32", argmax_of_truth=True,
+                        labels=[f"{len(check[0])} (video {p_true})"],
+                        what="video admission vs one forward without a cache")
+    cleared = one_shot_logits(kernel, seq, None)
+    c = _cos(cleared, one["one_shot"][0])
+    log(f"video masks: the same sequence with its masks cleared, logits cosine {c:.6f} to the "
+        f"masked one (must be below {COS_MIN}), argmax {int(cleared.argmax())} vs "
+        f"{int(one['one_shot'][0].argmax())}")
+    if not c < COS_MIN:
+        raise AssertionError("clearing the video's vision masks left the logits on the noise floor")
+    del kernel, one, logits
+    torch.cuda.empty_cache()
+
+    # videos inline with each request, no shared prefix
+    prompts, masks = [], []
+    for n_q in INLINE_QUESTION_LENS:
+        vid, vid_vm = video_codes(rng, INLINE_FRAMES)
+        q = rng.integers(2, cfg.vocab_size, n_q).tolist()
+        prompts.append(vid + q)
+        masks.append(vid_vm + [False] * n_q)
+    srv = InflightServer(vmodel, slots=4, cache_len=4096, prompt_buckets=(2048,),
+                         stop_tokens=(cfg.eos_token_id,), seed=SEED)
+
+    def want_inline(s):
+        return dict(expected_launches(cfg, 0, 0), flash_fwd=L * s["admitted"],
+                    flash_decode=L * s["rounds"])
+
+    inline, inline_sum = serve_modes_run(srv, prompts, INLINE_BUDGETS, [0.0] * 4, "inline video",
+                                         want_inline, masks=masks)
+    log(f"serve inline video: 4 requests of {[len(p) for p in prompts]} tokens "
+        f"({INLINE_FRAMES} frames each); prefill {inline_sum['prefill_s']:.3f}s over 4 "
+        f"admissions, decode {inline_sum['decode_tok_s']:.1f} tok/s [{card()}]")
+    del srv
+    torch.cuda.empty_cache()
+    arms = {"kernel": vmodel, **plain_arms(vmodel, fp32)}
+    inl = {name: [prefill_logits(m, m.init_cache(1, 4096), p, 2048, vision_masks=vm)
+                  for p, vm in zip(prompts[:2], masks[:2])] for name, m in arms.items()}
+    hold_to_noise_floor(inl, "kernel", "plain", "fp32", argmax_of_truth=True,
+                        labels=[f"{len(p)} (inline video)" for p in prompts[:2]],
+                        what="inline video admission")
+    del arms, fp32, inl
+    torch.cuda.empty_cache()
+    return [build, launches, inline]
+
+
 # The CLI on the card: a 7b-width model of CLI_LAYERS layers from the seed,
 # saved as a params stream by the port's writer, served by
 # `python -m lwm_tpu_torch.apps.serve` with the vendored BPE tokenizer, a
@@ -1489,6 +1753,77 @@ def phase_cli():
         if outputs["index loaded"] != outputs["index built"]:
             raise AssertionError("cli: the run that loaded the prefix index changed completions")
         log("cli: the run loading the saved prefix index gave the first run's completions")
+
+
+# The video QA CLI on the card (phase_cli_vision): a 7b-width VideoLLaMA of
+# CLI_LAYERS layers from the seed, saved as a params stream by the port's
+# writer, served by `python -m lwm_tpu_torch.apps.serve_vision` at
+# scripts/run_serve_vision_torch.sh's flags over a CLI_VIDEO_FRAMES-frame
+# codes file (2075 prefix tokens, built in two 2048-token chunks) and a
+# questions file: the video index saved, then loaded (the same answers),
+# then lookup verify.
+CLI_VIDEO_FRAMES = 8
+
+
+def phase_cli_vision():
+    """The video QA CLI as a subprocess on the card, three runs over one
+    saved checkpoint. Checks each answers file has one line per question
+    and that the run loading the video index gives the first run's
+    answers."""
+    cfg = VideoLLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=CLI_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    model = VideoLLaMAForCausalLM(cfg, dtype=BF16, device="cuda")
+    model.init_weights(gen)
+    rng = np.random.default_rng(SEED + 10)
+    with tempfile.TemporaryDirectory(prefix="lwm_cli_vision_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        checkpoint.save_tree(flax_params_tree(model.state_dict(), cfg), str(tmp / "params"))
+        del model
+        torch.cuda.empty_cache()
+        log(f"cli vision: {CLI_PRESET} width x {CLI_LAYERS} layers VideoLLaMA saved as a params "
+            f"stream ({(tmp / 'params').stat().st_size / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        (tmp / "codes.jsonl").write_text("".join(
+            json.dumps(rng.integers(0, 8192, 256).tolist()) + "\n"
+            for _ in range(CLI_VIDEO_FRAMES)))
+        questions = [_cli_text(rng, 6 + 4 * i) + "?" for i in range(8)]
+        (tmp / "questions.jsonl").write_text("".join(json.dumps({"question": q}) + "\n"
+                                                     for q in questions))
+        base = [sys.executable, "-m", "lwm_tpu_torch.apps.serve_vision", *CLI_FLAGS,
+                f"--load_llama_config={CLI_PRESET}",
+                f"--update_llama_config=dict(num_hidden_layers={CLI_LAYERS},scan_attention=False,"
+                "scan_mlp=False,theta=50000000)",
+                f"--tokenizer={FIXTURE_TOKENIZER}",
+                f"--load_checkpoint=params::{tmp / 'params'}",
+                f"--input_codes_file={tmp / 'codes.jsonl'}",
+                f"--questions_file={tmp / 'questions.jsonl'}", f"--max_new_tokens={CLI_NEW}",
+                "--slots=4", "--cache_len=1024", "--prompt_buckets=64,128,256"]
+        runs = {"index built": [f"--prefix_cache={tmp / 'video.index'}"],
+                "index loaded": [f"--prefix_cache={tmp / 'video.index'}"],
+                "lookup": [f"--lookup_k={LOOKUP_K}"]}
+        outputs = {}
+        for name, extra in runs.items():
+            out = tmp / f"{name.replace(' ', '_')}.jsonl"
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + extra + [f"--output_file={out}"], capture_output=True,
+                                  text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+            wall = time.perf_counter() - t0
+            for ln in [ln for ln in proc.stderr.splitlines() if ln.startswith("[")][-5:]:
+                log(f"cli vision {name}: {ln}")
+            if proc.returncode != 0:
+                raise AssertionError(f"cli vision {name}: exit {proc.returncode}\n"
+                                     f"{proc.stderr[-3000:]}")
+            lines = [json.loads(ln) for ln in out.read_text().splitlines()]
+            if sorted(r["question"] for r in lines) != sorted(questions):
+                raise AssertionError(f"cli vision {name}: {len(lines)} lines for "
+                                     f"{len(questions)} questions")
+            outputs[name] = {r["question"]: r["answer"] for r in lines}
+            log(f"cli vision {name}: {len(lines)} answers in {wall:.1f}s (process wall) "
+                f"[{card()}]")
+        if outputs["index loaded"] != outputs["index built"]:
+            raise AssertionError("cli vision: the run that loaded the video index changed answers")
+        log("cli vision: the run loading the saved video index gave the first run's answers")
 
 
 def _lm_batch(b, s, vocab, seed):
@@ -1988,11 +2323,14 @@ def main():
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_prefix(model, bf16_summary))
     path_launches.extend(phase_serve_lookup_chunked(model))
+    torch.cuda.empty_cache()
+    path_launches.extend(phase_serve_vision(model))
     del model
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_int8(bf16_summary))
     torch.cuda.empty_cache()
     phase_cli()
+    phase_cli_vision()
     phase_train_compare()
     launches, step_s_full = phase_train_full(profile)
     path_launches.append(launches)

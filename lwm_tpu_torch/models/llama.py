@@ -53,8 +53,12 @@ through `ops.prefix.decode_with_prefix` (two K4 calls a layer), a forward of
 q > 1 tokens through K1 without causality, merged by `combine_lse`, and
 "plain" concatenates [prefix ++ suffix] (the JAX oracle).
 
+Subclasses supply the embeddings and the logits through `_embed` and
+`_head` (`models/vision_llama.py`: the vision embedding mix and its heads);
+the blocks, caches and prefix machinery are shared.
+
 Not in this slice: dropout (`*_pdrop` > 0 raise in training), segment ids,
-meshes, vision.
+meshes.
 """
 
 from __future__ import annotations
@@ -589,6 +593,8 @@ class LLaMAForCausalLM(nn.Module):
     """Embedding → blocks → ln_f → lm_head (`lwm_tpu/models/llama.py:1463-1634`),
     built on `device`: the card unless the caller names another."""
 
+    takes_vision_masks = False   # whether `_embed` reads vision masks
+
     def __init__(self, config, *, dtype=torch.float32, param_dtype=None, device="cuda"):
         super().__init__()
         if device is not None and torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -671,7 +677,7 @@ class LLaMAForCausalLM(nn.Module):
         return self._rope[device]
 
     def forward(self, input_ids, attention_mask=None, position_ids=None, cache=None,
-                segment_ids=None):
+                segment_ids=None, vision_masks=None):
         """input_ids [b, s]. Without a cache: attention_mask [b, s] (1 =
         real token), causal self-attention, differentiable. With a cache
         (`init_cache`, config.decode_index='per_row'; no autograd):
@@ -679,27 +685,41 @@ class LLaMAForCausalLM(nn.Module):
         [b, s] the rows' positions; the new keys are written in place at
         position_ids − config.prefix_tokens, then every query i of row r
         sees the valid keys at cache positions ≤ that of its own, and the
-        whole valid shared prefix when the cache has one. Returns logits
-        [b, s | logits_tail, vocab] in the model dtype
+        whole valid shared prefix when the cache has one. `vision_masks`
+        [b, s] is for a model that embeds vision tokens (`_embed`). Returns
+        logits [b, s | logits_tail, vocab] in the model dtype
         (`lwm_tpu/models/llama.py:1583-1634`)."""
         with torch.no_grad() if cache is not None else contextlib.nullcontext():
-            x = self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids)
+            x = self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids,
+                             vision_masks)
             tail = self.config.logits_tail
             if tail and x.shape[1] > tail:
                 x = x[:, -tail:]
-            if self.lm_head is None:
-                return F.linear(x, self.wte.weight.to(self.dtype))
-            return self.lm_head(x)
+            return self._head(x)
 
     def forward_hidden(self, input_ids, attention_mask=None, position_ids=None, cache=None,
-                       segment_ids=None):
+                       segment_ids=None, vision_masks=None):
         """The final (ln_f) hidden states [b, s, hidden] in the model dtype,
         without the lm_head (`lwm_tpu/models/llama.py:1539-1562`); arguments
         as `forward`."""
         with torch.no_grad() if cache is not None else contextlib.nullcontext():
-            return self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids)
+            return self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids,
+                                vision_masks)
 
-    def _hidden(self, input_ids, attention_mask, position_ids, cache, segment_ids):
+    def _embed(self, input_ids, vision_masks):
+        """The block stack's input for `input_ids`."""
+        if vision_masks is not None:
+            raise ValueError("vision_masks need a model with a vision embedding (VideoLLaMA)")
+        return self.wte(input_ids)
+
+    def _head(self, x):
+        """The logits of the final hidden states x."""
+        if self.lm_head is None:
+            return F.linear(x, self.wte.weight.to(self.dtype))
+        return self.lm_head(x)
+
+    def _hidden(self, input_ids, attention_mask, position_ids, cache, segment_ids,
+                vision_masks=None):
         cfg = self.config
         if segment_ids is not None:
             raise NotImplementedError("segment ids are not ported yet (K1 has no segment masking)")
@@ -739,7 +759,7 @@ class LLaMAForCausalLM(nn.Module):
             kv_len = None
 
         rope = take_freqs(self._rope_table(dev), position_ids)
-        x = self.wte(input_ids)
+        x = self._embed(input_ids, vision_masks)
         remat = cfg.remat_block != "none" and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
             args = (x, mask, write_pos, rope, None if cache is None else cache.layers[i], kv_len,

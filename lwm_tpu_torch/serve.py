@@ -38,7 +38,14 @@ Serving modes (the JAX server's, `:328-345`):
   pool's decode round between chunks; prompts beyond the largest bucket are
   accepted in this mode.
 
-Not ported yet (raise NotImplementedError): meshes, vision prompts.
+VideoLLaMA pools (`models/vision_llama.py`, `sample_mode="text"`: answers
+are text), as the JAX server threads vision masks (`:110-137`): the video
+may be the shared prefix (`prefix_vision_masks`, its codes embedded through
+`vte`), or a request may carry its own video inline (`submit(...,
+vision_masks=)`); bucketed and chunked admissions pass the request's masks,
+decode and verify rounds pass none (all text).
+
+Not ported yet (raise NotImplementedError): meshes.
 """
 
 from __future__ import annotations
@@ -63,14 +70,26 @@ def _bucket(n, buckets):
     raise ValueError(f"prompt length {n} exceeds the largest bucket {buckets[-1]}")
 
 
-def prefill_logits(model, cache, prompt, bucket, pos0=0):
+def _padded_masks(vision_masks, n, device):
+    """Vision masks padded with False to n, as a [1, n] tensor on `device`,
+    or None when there are none."""
+    if vision_masks is None:
+        return None
+    vm = np.zeros(n, bool)
+    given = np.asarray(vision_masks, bool).reshape(-1)
+    vm[:len(given)] = given
+    return torch.from_numpy(vm)[None].to(device)
+
+
+def prefill_logits(model, cache, prompt, bucket, pos0=0, vision_masks=None):
     """Admission prefill (`lwm_tpu/serve.py:623-673`): run `prompt`, padded
     to `bucket`, through `model` over the batch-1 `cache` (a slot view of
     the pool or a fresh `init_cache(1, T)`), writing its keys at positions
     0.. in place. `pos0`: the shared prefix's length (RoPE positions start
-    there). Returns the fp32 logits [vocab] of the last prompt token. The
-    padding rows write junk past the prompt; decode overwrites each such
-    position before its mask exposes it."""
+    there); `vision_masks`: the prompt's (a VideoLLaMA's), padded with
+    False (`:646`). Returns the fp32 logits [vocab] of the last prompt
+    token. The padding rows write junk past the prompt; decode overwrites
+    each such position before its mask exposes it."""
     dev = cache.layers[0].k.device
     n = len(prompt)
     ids = torch.zeros((1, bucket), dtype=torch.long)
@@ -78,7 +97,8 @@ def prefill_logits(model, cache, prompt, bucket, pos0=0):
     mask = torch.arange(cache.length, device=dev)[None] < n
     pos = torch.arange(bucket, device=dev)[None] + pos0
     cache.index = 0
-    logits = model(ids.to(dev), mask, pos, cache=cache)
+    logits = model(ids.to(dev), mask, pos, cache=cache,
+                   vision_masks=_padded_masks(vision_masks, bucket, dev))
     return logits[0, n - 1].float()
 
 
@@ -110,11 +130,13 @@ def _lookup_proposal(ctx, k, ngram):
 
 # ---------------------------------------------------------------- shared prefix
 
-def build_prefix_cache(model, prefix_ids, chunk=2048):
+def build_prefix_cache(model, prefix_ids, chunk=2048, prefix_vision_masks=None):
     """Prefill a shared prefix once into a frozen batch-1 KV block
     (`lwm_tpu/serve.py:231-300`): a chunked prefill through a
     `prefix_len=0` clone of `model`, so the block is what the cache layer
-    writes (head-major, GQA-narrow, int8 with its scales). Returns
+    writes (head-major, GQA-narrow, int8 with its scales). A VideoLLaMA's
+    `prefix_vision_masks` mark the prefix's VQ codes, padded with False to
+    the chunked length, each chunk given its slice (`:274-288`). Returns
     (KVCache of one row, P_store, P_true): P_store is P_true rounded up to
     128 (the rows past P_true are masked out of every read by
     `prefix_tokens`); the cache's `index` is the JAX builder's cache_index
@@ -136,11 +158,13 @@ def build_prefix_cache(model, prefix_ids, chunk=2048):
     cache = builder.init_cache(1, length)
     ids = torch.zeros(padded, dtype=torch.long)
     ids[:P_true] = torch.from_numpy(prefix_ids)
+    vm = _padded_masks(prefix_vision_masks, padded, dev)
     keys = torch.arange(length, device=dev)[None]
     for done in range(0, padded, chunk):
         cache.index = done
         builder(ids[done:done + chunk].to(dev)[None], keys < done + chunk,
-                (torch.arange(chunk, device=dev) + done)[None], cache=cache)
+                (torch.arange(chunk, device=dev) + done)[None], cache=cache,
+                vision_masks=None if vm is None else vm[:, done:done + chunk])
     if length > P_store:
         for c in cache.layers:
             for name in ("k", "v", "k_scale", "v_scale"):
@@ -215,7 +239,8 @@ class Finished:
 class InflightServer:
     """Continuous-batching server over a fixed slot pool.
 
-    model: `LLaMAForCausalLM` with config.decode_index='per_row'. Sampling
+    model: `LLaMAForCausalLM` (or `VideoLLaMAForCausalLM` with
+    sample_mode='text') with config.decode_index='per_row'. Sampling
     draws from a `torch.Generator` on the model's device seeded by `seed`,
     so sampled rows repeat under one seed (they cannot match JAX's RNG;
     greedy rows match the JAX server token for token). The serving modes
@@ -223,8 +248,8 @@ class InflightServer:
 
     def __init__(
         self, model, *, slots=8, cache_len=4096, prompt_buckets=(128, 512, 2048),
-        stop_tokens=(), seed=0, prefix_ids=None, prefix_chunk=2048, prefix_cache_path="",
-        lookup_k=0, lookup_ngram=3, admit_chunk=0, mesh=None,
+        stop_tokens=(), seed=0, prefix_ids=None, prefix_chunk=2048, prefix_vision_masks=None,
+        prefix_cache_path="", lookup_k=0, lookup_ngram=3, admit_chunk=0, mesh=None,
     ):
         if mesh is not None:
             raise NotImplementedError("the port serves on one device: meshes are not ported yet")
@@ -234,6 +259,15 @@ class InflightServer:
                 "InflightServer needs LLaMAConfig(decode_index='per_row') — "
                 "slots decode at different depths in one batch"
             )
+        self.vision = model.takes_vision_masks
+        if self.vision and cfg.sample_mode != "text":
+            raise ValueError(
+                "serving VideoLLaMA needs sample_mode='text' (answers are "
+                "text; the video rides in the shared prefix — pass "
+                "prefix_vision_masks)"
+            )
+        if not self.vision and prefix_vision_masks is not None:
+            raise ValueError("prefix_vision_masks need a VideoLLaMA model")
         # cache rounding as in lwm_tpu/serve.py:405-437: a 1024 multiple,
         # else a 128 multiple when that would outgrow the RoPE table (a
         # prefix model raises the table, so only a plain pool is refused)
@@ -261,7 +295,8 @@ class InflightServer:
                     f"but prefix_ids has {len(prefix_ids)} — stale index?"
                 )
         elif has_prefix:
-            prefix, P_store, P_true = build_prefix_cache(model, prefix_ids, prefix_chunk)
+            prefix, P_store, P_true = build_prefix_cache(model, prefix_ids, prefix_chunk,
+                                                         prefix_vision_masks)
             if prefix_cache_path:
                 save_prefix_cache(prefix_cache_path, prefix, P_store, P_true)
         if prefix is not None:
@@ -309,10 +344,23 @@ class InflightServer:
 
     # ------------------------------------------------------------- host API
 
-    def submit(self, prompt_ids, max_new_tokens, temperature=0.0, on_token=None):
+    def submit(self, prompt_ids, max_new_tokens, temperature=0.0, on_token=None,
+               vision_masks=None):
         """Queue a request; returns its id. Greedy when temperature == 0.
-        on_token(req_id, token) streams each kept token in order."""
+        on_token(req_id, token) streams each kept token in order.
+        vision_masks (VideoLLaMA pools): bool a prompt token, True where it
+        is a VQ code embedded through `vte`, so a request carries its own
+        video inline; the generated tokens are text."""
         prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
+        if vision_masks is not None:
+            if not self.vision:
+                raise ValueError("vision_masks need a VideoLLaMA pool")
+            vision_masks = np.asarray(vision_masks, bool).reshape(-1)
+            if vision_masks.shape != prompt.shape:
+                raise ValueError(
+                    f"vision_masks length {vision_masks.shape[0]} != "
+                    f"prompt length {prompt.shape[0]}"
+                )
         if len(prompt) + max_new_tokens + self.lookup_k > self.cache_len:
             raise ValueError(
                 f"prompt {len(prompt)} + max_new {max_new_tokens} "
@@ -323,7 +371,8 @@ class InflightServer:
             _bucket(len(prompt), self.prompt_buckets)  # validate at submit
         rid = self._next_id
         self._next_id += 1
-        self.queue.append((rid, prompt, int(max_new_tokens), float(temperature), on_token))
+        self.queue.append((rid, prompt, int(max_new_tokens), float(temperature), on_token,
+                           vision_masks))
         return rid
 
     def _start(self, slot, rid, prompt, max_new, temp, on_token, tok):
@@ -340,7 +389,7 @@ class InflightServer:
         for slot in range(self.slots):
             if self.live[slot] is not None or slot in self._pending or not self.queue:
                 continue
-            rid, prompt, max_new, temp, on_token = self.queue.popleft()
+            rid, prompt, max_new, temp, on_token, vmask = self.queue.popleft()
             if self.admit_chunk and len(prompt) > self.admit_chunk:
                 # staged: one admit_chunk piece a step, the decode rounds between
                 C = self.admit_chunk
@@ -348,13 +397,14 @@ class InflightServer:
                 ids[:len(prompt)] = prompt
                 self._pending[slot] = dict(
                     rid=rid, prompt=prompt, max_new=max_new, temp=temp, on_token=on_token,
-                    ids=ids, done=0,
+                    ids=ids, vm=_padded_masks(vmask, len(ids), self.device), done=0,
                     small=self.model.init_cache(1, self.cache_len, prefix=self._prefix),
                 )
                 continue
             bucket = _bucket(len(prompt), self.prompt_buckets)
             t0 = time.perf_counter()
-            logits = prefill_logits(self.model, self.cache.slot(slot), prompt, bucket, self._pos0)
+            logits = prefill_logits(self.model, self.cache.slot(slot), prompt, bucket, self._pos0,
+                                    vmask)
             tok = int(self._pick(logits[None], self._tau([temp]))[0])
             self.stats["prefill_s"] += time.perf_counter() - t0
             self._start(slot, rid, prompt, max_new, temp, on_token, tok)
@@ -366,12 +416,13 @@ class InflightServer:
         C, T, dev = self.admit_chunk, self.cache_len, self.device
         for slot, st in list(self._pending.items()):
             t0 = time.perf_counter()
-            done, small, n = st["done"], st["small"], len(st["prompt"])
+            done, small, n, vm = st["done"], st["small"], len(st["prompt"]), st["vm"]
             small.index = done
             logits = self.model(
                 torch.from_numpy(st["ids"][done:done + C]).to(dev)[None],
                 torch.arange(T, device=dev)[None] < done + C,
                 (torch.arange(C, device=dev) + done + self._pos0)[None], cache=small,
+                vision_masks=None if vm is None else vm[:, done:done + C],
             )
             st["done"] = done + C
             if st["done"] >= n:   # this chunk holds the prompt's last token

@@ -1,4 +1,4 @@
-"""JAX (flax) LLaMA param tree → the port's state dict.
+"""JAX (flax) LLaMA or VideoLLaMA param tree → the port's state dict.
 
 Counterpart of `lwm_tpu/utils/checkpoint_convert.py:21-33` (`unscan_params`)
 and of the name map in `flax_to_torch_llama` (`:77-124`), for the port's own
@@ -11,7 +11,10 @@ bfloat16 leaves of `lwm_tpu_torch.checkpoint.load_stream`).
 Flax dense kernels are [in, out]; they are TRANSPOSED here to torch's
 [out, in] `nn.Linear` layout. RoPE stays on interleaved pairs in both
 packages, so no q/k row permutation is applied (`_permute_rotary` is for
-HF's rotate-half layout only).
+HF's rotate-half layout only). A VideoLLaMA's `transformer/vte/embedding`
+↔ `vte.weight` and `vision_head/kernel` ↔ `vision_head.weight` (transposed;
+absent when `tie_vision_embeddings`) map both ways, wherever the tree or
+the state dict holds them.
 
 A tree from `quantize_params_int8` (`lwm_tpu/ops/quant.py:340-362`) converts
 as it is: each quantized int8 kernel [d, f] becomes an int8 [f, d] `weight`
@@ -96,6 +99,10 @@ def convert_flax_params(params, config, dtype=None, device=None):
     }
     if not config.tie_word_embeddings:
         dense(sd, "lm_head", params["lm_head"])
+    if "vte" in tr:   # a VideoLLaMA's
+        sd["vte.weight"] = t(tr["vte"]["embedding"])
+    if "vision_head" in params:   # absent when tie_vision_embeddings
+        dense(sd, "vision_head", params["vision_head"])
     for i in range(config.num_hidden_layers):
         blk = _layer_tree(tr["h"], i, config.param_scan_axis)
         pre = f"h.{i}."
@@ -208,6 +215,10 @@ def flax_params_tree(sd, config):
                             "ln_f": {"kernel": sd["ln_f.weight"]}, "h": h}}
     if not config.tie_word_embeddings:
         tree["lm_head"] = {"kernel": _t(sd["lm_head.weight"])}
+    if "vte.weight" in sd:
+        tree["transformer"]["vte"] = {"embedding": sd["vte.weight"]}
+    if "vision_head.weight" in sd:
+        tree["vision_head"] = {"kernel": _t(sd["vision_head.weight"])}
     return _sorted(tree)
 
 

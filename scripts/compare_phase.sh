@@ -7,9 +7,9 @@
 #
 # DIR: the other checkout's root, e.g. a commit unpacked under the
 #      gitignored _checkout/ (git archive <commit> | tar -x -C _checkout/x).
-# NAMES: the phase as chip_smoke.phase_<NAME>; a comma-separated list is
-#      tried in order in each checkout (a phase renamed between the two:
-#      bwd,k23).
+# NAMES: the phase as chip_smoke.phase_<NAME> (given the seed's generator
+#      when it takes an argument); a comma-separated list is tried in order
+#      in each checkout (a phase renamed between the two: bwd,k23).
 # Each checkout builds its own kernels into its own lwm_tpu_torch/_build/.
 set -euo pipefail
 other=$(cd "$1" && pwd)
@@ -30,7 +30,7 @@ gen = torch.Generator(device="cuda").manual_seed(c.SEED)
 for name in sys.argv[1].split(","):
     fn = getattr(c, "phase_" + name, None)
     if fn is not None:
-        fn(gen)
+        fn(gen) if fn.__code__.co_argcount else fn()   # phase_serve takes no generator
         break
 else:
     raise SystemExit(f"no phase {sys.argv[1]} in {c.__file__}")
