@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --profile DIR   # also profile one more train step and
-                                          # write its kernel table to DIR
+    python3 chip_smoke.py --profile DIR   # also profile one more train step (text,
+                                          # then vision-text) and write their
+                                          # kernel tables to DIR
 
 Phases; any failure raises and exits non-zero (there is no CPU path):
   1. torch/CUDA versions and the card (nvidia-smi name, power limit).
@@ -101,6 +102,20 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      and a save, an autoresumed run to step 4 and an uninterrupted one (the
      resumed steps read the same data and land within a stated tolerance;
      save and load seconds).
+ 12. Vision-text training (phase_train_vision): the training CLI with
+     --modality=vision,text as scripts/run_train_vision_torch.sh runs it,
+     over a JSONL of clips of 8-30 frames of random codes and random-word
+     captions from the seed: the 7b width as a VideoLLaMA at 16 layers, one
+     row of 32768 tokens (`no_pad`), 6 AdamW steps (finite, falling loss;
+     K1 and the backward launched exactly 16 x 6 times; step time,
+     tokens/s, model-FLOPs share with both heads, peak memory), 2 with
+     --freeze_base (every frozen param bit-unchanged, vte and vision_head
+     moved), 2 with the PaLM optimizer, the 1-layer round trip under both
+     (`pad` rows), and a kernel-vs-plain VideoLLaMA train step (7b width,
+     2 layers, seq 4096, held to the fp32 noise floor). Its attention, K1
+     and the fused backward at b1 S32768 h32 causal, is timed beside SDPA
+     (is_causal) with the kernel phases and held to the plain twins at 2
+     heads (phase_train_vision_kernels).
 Each kernel phase times the kernel, its plain twin and one PyTorch call that
 computes the same function (the yardstick; the port never calls it) beside
 the kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -113,6 +128,7 @@ The last lines: the card, one JSON object listing every kernel, and
 """
 
 import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -734,6 +750,138 @@ def phase_bwd(gen):
         del q, k, v, g, out, got, want, args, bias
         torch.cuda.empty_cache()
     return worst, *timing
+
+
+# The vision-text bundle's attention (scripts/run_train_vision_text.sh: one
+# row of 32768 tokens, 7b width, causal; its all-ones attention mask gives
+# a zero per-key bias): K1 and the fused backward timed at h32 with SDPA
+# (is_causal) beside them, and held to their plain twins at
+# VISION_TWIN_HEADS heads (the twins materialise [h, S, S] fp32 scores:
+# 8.6 GB a head pair, ~40 GB at the backward's peak; h32 would not fit)
+VISION_TRAIN_REPORT = "train_vision_b1_S32768_h32_causal"
+VISION_TRAIN_SEQ, VISION_TWIN_HEADS = 32768, 2
+# K1's output at that length: a row over n random keys has |out| ~
+# sqrt(e/n) (0.009 at n 32768), below BF16_TOL, and lse does not read v.
+# So out is also held by cosine to the twin (BWD_COS_MIN) and per (query,
+# head) row by |out - plain| / |plain| (bf16 rounding of out and of p:
+# 4.3e-3 at worst on an H100 80GB HBM3, 700 W, PERF.md); two planted faults
+# that leave lse exact must fail the hold
+FWD_ROW_REL_TOL = 1e-2
+
+
+def _k1_out_hold(out, ref):
+    """(max|out - ref|, cosine, the largest per-row relative error) of K1's
+    output [b, s, h, d] against its twin's."""
+    diff = (out.float() - ref.float())
+    rows = diff.norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)
+    return diff.abs().max().item(), _cosine(out, ref), rows.max().item()
+
+
+def _k1_out_held(err, cos, row_rel):
+    return err <= BF16_TOL and cos >= BWD_COS_MIN and row_rel <= FWD_ROW_REL_TOL
+
+
+def phase_train_vision_kernels(gen):
+    """K1 and the fused backward at VISION_TRAIN_SEQ (see above). Returns
+    ({ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err,
+    plain_heads} of K1, the same of the backward); plain_ms is the twin's
+    at VISION_TWIN_HEADS heads."""
+    S, d, b = VISION_TRAIN_SEQ, 128, 1
+    kw = dict(causal=True, q_offset=0, kv_offset=0)
+    bias = torch.zeros((b, 1, 1, S), device="cuda")   # the all-ones mask's per-key bias
+    valid = torch.ones((b, S), dtype=torch.bool, device="cuda")
+    rows = {}
+    h = VISION_TWIN_HEADS
+    q, k, v, g = (_randn((b, S, h, d), gen) for _ in range(4))
+    out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
+    ref, ref_lse = flash.flash_attention_fwd_plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    err, cos, row_rel = _k1_out_hold(out, ref)
+    lse_err = (lse - ref_lse).abs().max().item()
+    log(f"K1 {VISION_TRAIN_REPORT} at h{h}: max|out-plain| {err:.3e} (tol {BF16_TOL}), "
+        f"cosine {cos:.7f} (min {BWD_COS_MIN}), largest row |out-plain|/|plain| "
+        f"{row_rel:.3e} (tol {FWD_ROW_REL_TOL}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL})")
+    if not (_k1_out_held(err, cos, row_rel) and lse_err <= LSE_TOL):
+        raise AssertionError(f"K1 {VISION_TRAIN_REPORT} disagrees with its plain twin")
+    # planted faults, the kernel fed what a faulty kernel would read: v of
+    # the other head, and one 128-key tile of v (keys 16384-16511) read
+    # from the next tile; lse stays exact, so the output hold must fail
+    tile = S // 2
+    v_tile = v.clone()
+    v_tile[:, tile:tile + 128] = v[:, tile + 128:tile + 256]
+    for fault, v_bad in (("v of the other head", v.flip(2)),
+                         (f"v's tile at key {tile} read from the next", v_tile)):
+        bad, bad_lse = flash.flash_attention_fwd(q, k, v_bad, bias, **kw)
+        reading = _k1_out_hold(bad, ref)
+        log(f"K1 {VISION_TRAIN_REPORT} planted fault ({fault}): max|out-plain| "
+            f"{reading[0]:.3e}, cosine {reading[1]:.7f}, largest row relative error "
+            f"{reading[2]:.3e}, max|lse-plain| {(bad_lse - ref_lse).abs().max().item():.3e}: "
+            f"{'passes' if _k1_out_held(*reading) else 'fails'} the hold")
+        if _k1_out_held(*reading):
+            raise AssertionError(f"K1 {VISION_TRAIN_REPORT}: the hold passed a planted fault "
+                                 f"({fault})")
+        del bad, bad_lse
+    del ref, ref_lse, v_tile
+    torch.cuda.empty_cache()
+    fwd_plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 2)
+    torch.cuda.empty_cache()
+    delta = torch.einsum("bqhd,bqhd->bhq", g.float(), out.float()).contiguous()
+    args = (q, k, v, g, lse, delta, bias)
+    got = flash.flash_attention_bwd(*args, **kw)
+    want = flash.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    bwd_err, parts = 0.0, []
+    for oname, a, r in zip(("dq", "dk", "dv"), got, want):
+        diff = (a.float() - r.float()).abs().max().item()
+        rel, cos = diff / r.float().abs().max().item(), _cosine(a, r)
+        parts.append(f"{oname} max|Δ|/max|ref| {rel:.3e} cos {cos:.6f}")
+        if not (rel <= BWD_REL_TOL and cos >= BWD_COS_MIN):
+            raise AssertionError(f"flash_bwd {VISION_TRAIN_REPORT} {oname} disagrees with the twin")
+        bwd_err = max(bwd_err, diff)
+    log(f"flash_bwd {VISION_TRAIN_REPORT} at h{h}: " + "; ".join(parts) +
+        f" (bounds {BWD_REL_TOL}, cos {BWD_COS_MIN})")
+    del got, want
+    torch.cuda.empty_cache()
+    bwd_plain_ms = time_ms(lambda: flash.flash_attention_bwd_plain(*args, **kw), 2)
+    del q, k, v, g, out, lse, delta, args
+    torch.cuda.empty_cache()
+
+    h = 32
+    q, k, v, g = (_randn((b, S, h, d), gen) for _ in range(4))
+    fwd_ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), 10)
+    fwd_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True), 10)
+    bnd = k1_bound(q, k, bias, valid, dict(kw, kv_head_major=False))
+    rows["flash_fwd"] = dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=fwd_lib_ms,
+                             bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err,
+                             plain_heads=VISION_TWIN_HEADS)
+    out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
+    delta = torch.einsum("bqhd,bqhd->bhq", g.float(), out.float()).contiguous()
+    args = (q, k, v, g, lse, delta, bias)
+    bwd_ms = time_ms(lambda: flash.flash_attention_bwd(*args, **kw), 5)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    gt = g.transpose(1, 2)
+    bwd_lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), gt, retain_graph=True), 5)
+    # as phase_bwd counts: q, g, k, v read and dq, dk, dv written in bf16,
+    # lse, delta and the bias read, dq's fp32 sum zeroed and read; five
+    # products of 2·d flops a (query, key) pair and head
+    pairs = attn_pairs(valid, S, 0)
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * 2 * 2 + 2 * b * h * S * 4 + b * S * 4
+    n_bytes += q.numel() * 4 * 2
+    bbnd = bound_ms(n_bytes, 10 * d * h * pairs, H100_BF16_PEAK)
+    rows["flash_bwd"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms,
+                             bound_ms=bbnd[0], bound_by=bbnd[1], max_abs_err=bwd_err,
+                             plain_heads=VISION_TWIN_HEADS)
+    for name, r in rows.items():
+        log(f"{name} {VISION_TRAIN_REPORT}: kernel {r['ms']:.3f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of the bound), SDPA (is_causal) "
+            f"{r['library_ms']:.3f} ms, plain twin at "
+            f"h{VISION_TWIN_HEADS} {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}) [{card()}]")
+    del q, k, v, g, qt, kt, vt, o, out, lse, delta, args
+    torch.cuda.empty_cache()
+    return rows["flash_fwd"], rows["flash_bwd"]
 
 
 def _int_mm_scaled(x_q, x_s, w, w_s):
@@ -1864,62 +2012,88 @@ def _reset_launch_counts():
         KERNEL_WRAPPERS[name].gemm_launches = 0
 
 
-def phase_train_compare():
+def _vision_batch(b, s, seed):
+    """`_lm_batch` with a span of VQ codes in each row (a quarter to three
+    quarters of it: vision inputs and targets, read through vte and the
+    vision head) and its vision masks."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(2, 32000, (b, s + 1))
+    vision = np.zeros((b, s + 1), bool)
+    vision[:, s // 4:3 * s // 4] = True
+    toks[vision] = rng.integers(0, 8192, int(vision.sum()))
+    on = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    return dict(input_tokens=on(toks[:, :-1]), target_tokens=on(toks[:, 1:]),
+                loss_masks=torch.ones((b, s), device="cuda"),
+                input_vision_masks=on(vision[:, :-1]), target_vision_masks=on(vision[:, 1:]))
+
+
+def phase_train_compare(vision=False):
     """One train step's loss and grads at 7b width (2 layers, seq 4096):
     the kernel path vs attn_impl="plain" on the same fp32 weights (both
-    computing in bf16), each held to an fp32 copy."""
-    cfg = train.build_model_config("7b", update_llama_config=dict(num_hidden_layers=2))
+    computing in bf16), each held to an fp32 copy. With `vision`, a
+    VideoLLaMA's step (the dual loss over a batch whose middle half is VQ
+    codes)."""
+    config_cls, model_cls = (VideoLLaMAConfig, VideoLLaMAForCausalLM) if vision else (
+        LLaMAConfig, LLaMAForCausalLM)
+    cfg = train.build_model_config("7b", update_llama_config=dict(num_hidden_layers=2),
+                                   config_cls=config_cls)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    kernel = LLaMAForCausalLM(cfg, dtype=BF16, param_dtype=torch.float32, device="cuda")
+    kernel = model_cls(cfg, dtype=BF16, param_dtype=torch.float32, device="cuda")
     kernel.init_weights(gen)
-    batch = _lm_batch(1, 4096, cfg.vocab_size, SEED + 1)
+    batch = _vision_batch(1, 4096, SEED + 1) if vision else _lm_batch(1, 4096, cfg.vocab_size,
+                                                                      SEED + 1)
+    what = "train compare" + (" vision" if vision else "")
     results = {}
     for name, impl, dtype in [("kernel", "auto", BF16), ("plain", "plain", BF16),
                               ("fp32", "plain", torch.float32)]:
         if name == "kernel":
             model = kernel
         else:
-            model = LLaMAForCausalLM(cfg.replace(attn_impl=impl), dtype=dtype,
-                                     param_dtype=torch.float32, device="cuda")
+            model = model_cls(cfg.replace(attn_impl=impl), dtype=dtype,
+                              param_dtype=torch.float32, device="cuda")
             model.load_state_dict(kernel.state_dict())
         _reset_launch_counts()
         t0 = time.perf_counter()
-        loss, _ = train.compute_loss(model, batch)
+        loss, aux = train.compute_loss(model, batch)
         loss.backward()
         torch.cuda.synchronize()
         grads = {n: p.grad for n, p in model.named_parameters()}
-        results[name] = (loss.item(), grads, time.perf_counter() - t0, _launch_counts())
+        results[name] = (loss.item(), grads, time.perf_counter() - t0, _launch_counts(),
+                         {k: round(v.item(), 6) for k, v in aux.items()})
         if name != "kernel":
             del model
-    (l_k, g_k, t_k, n_k), (l_p, g_p, t_p, _), (l_32, g_32, t_32, _) = (
+    (l_k, g_k, t_k, n_k, a_k), (l_p, g_p, t_p, _, a_p), (l_32, g_32, t_32, _, a_32) = (
         results[n] for n in ("kernel", "plain", "fp32"))
-    log(f"train compare (7b width, 2 layers, 1 x 4096): loss kernel {l_k:.6f} plain {l_p:.6f} "
+    log(f"{what} (7b width, 2 layers, 1 x 4096): loss kernel {l_k:.6f} plain {l_p:.6f} "
         f"fp32 {l_32:.6f} (|kernel - plain| tol {LOSS_TOL}); fwd+bwd s (one unwarmed call each) "
-        f"kernel {t_k:.2f} plain {t_p:.2f} fp32 {t_32:.2f}; kernel-path launches {n_k}")
+        f"kernel {t_k:.2f} plain {t_p:.2f} fp32 {t_32:.2f}; kernel-path launches {n_k}"
+        + (f"; metrics kernel {a_k} plain {a_p} fp32 {a_32}" if vision else ""))
     if not (math.isfinite(l_k) and abs(l_k - l_p) <= LOSS_TOL):
-        raise AssertionError("kernel-path loss disagrees with the plain path")
+        raise AssertionError(f"{what}: kernel-path loss disagrees with the plain path")
     if min(n_k[k] for k in ("flash_fwd", "flash_bwd")) <= 0:
-        raise AssertionError(f"a training kernel never launched: {n_k}")
+        raise AssertionError(f"{what}: a training kernel never launched: {n_k}")
     worst = (0.0, "")
     for n in g_k:
         c_k32, c_p32 = _cosine(g_k[n], g_32[n]), _cosine(g_p[n], g_32[n])
         ratio = (1 - c_k32) / max(1 - c_p32, 1e-12)
         worst = max(worst, (ratio, f"{n}: cosine to fp32 kernel {c_k32:.6f} plain {c_p32:.6f}"))
         if not 1 - c_k32 <= FLOOR_RATIO * (1 - c_p32) + GRAD_COS_SLACK:
-            raise AssertionError(f"kernel-path grad of {n} is off the bf16 noise floor: "
+            raise AssertionError(f"{what}: kernel-path grad of {n} is off the bf16 noise floor: "
                                  f"cosine to fp32 {c_k32:.6f} vs plain {c_p32:.6f}")
-    log(f"train compare: every grad within {FLOOR_RATIO}x the plain path's distance to fp32 "
+    log(f"{what}: every grad within {FLOOR_RATIO}x the plain path's distance to fp32 "
         f"(+{GRAD_COS_SLACK}); largest ratio {worst[0]:.3f} ({worst[1]})")
     del results, g_k, g_p, g_32, kernel
     torch.cuda.empty_cache()
 
 
 def train_flops(cfg, b, s):
-    """Model FLOPs of one step (no recompute): 6 x dense params x tokens,
-    plus causal attention's 3 x 2 x 2 x b x s^2/2 x hidden per layer."""
+    """Model FLOPs of one step (no recompute): 6 x dense params x tokens
+    (both heads of a VideoLLaMA: its vision head too), plus causal
+    attention's 3 x 2 x 2 x b x s^2/2 x hidden per layer."""
     h, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     kv = cfg.kv_heads * cfg.head_dim
     dense = L * (2 * h * h + 2 * h * kv + 3 * h * f) + h * cfg.vocab_size
+    dense += h * getattr(cfg, "vision_vocab_size", 0)
     return 6 * dense * b * s + L * 6 * b * s * s * h
 
 
@@ -2115,30 +2289,63 @@ def _pipeline_tps(data, processes):
 
 
 def train_cli_round_trip(tmp, what="round trip"):
-    """The 1-layer fp32 checkpoint round trip in `tmp` (A: 2 steps and a
-    save, B: the autoresume to 4, C: 0 to 4 uninterrupted). Holds B's steps
-    3-4 to C's: dataset_* and learning_rate exactly, the rest within
-    ROUNDTRIP_RTOL. Returns the three runs' launch counts and the largest
-    relative differences, read before the check (a caller may catch it)."""
+    """The 1-layer fp32 checkpoint round trip of the text CLI in `tmp` (see
+    `cli_round_trip`) over ROUNDTRIP_WORDS-word lines, one a row."""
     rt_data = tmp / "long.jsonl"
     _write_jsonl(rt_data, 12, ROUNDTRIP_WORDS, SEED + 7)
+    return cli_round_trip(
+        lambda name, *extra: train_cli_argv(tmp, name, rt_data, ROUNDTRIP_LAYERS, *extra),
+        ["--train_dataset.json_dataset.pad=True"], what)
+
+
+def _state_leaves(path, leaves):
+    """The train state stream's `leaves` (paths under params/params)."""
+    params = checkpoint.load_stream(path, remove_prefix=("params", "params"))
+    return {k: params[k].astype(np.float64) for k in leaves}
+
+
+def _state_drift(a, b, c, leaves):
+    """max over `leaves` of |B's step-4 leaf - C's| / |C's - A's step 2|:
+    how far the resumed run ended from the uninterrupted one, against how
+    far the uninterrupted one moved in steps 3-4."""
+    a2 = _state_leaves(Path(a["output_dir"]) / "streaming_train_state_2", leaves)
+    b4 = _state_leaves(Path(b["output_dir"]) / "streaming_train_state_4", leaves)
+    c4 = _state_leaves(Path(c["output_dir"]) / "streaming_train_state_4", leaves)
+    return max(float(np.linalg.norm(b4[k] - c4[k]) / np.linalg.norm(c4[k] - a2[k]))
+               for k in leaves)
+
+
+def cli_round_trip(argv_of, rt_flags, what, held_leaves=(), rtol=ROUNDTRIP_RTOL):
+    """The 1-layer fp32 checkpoint round trip (A: 2 steps and a save, B:
+    the autoresume to 4, C: 0 to 4 uninterrupted) of the runs
+    `argv_of(experiment name, *flags)` with `rt_flags` (one example a row,
+    so that a resume reads the uninterrupted run's batches). Holds B's
+    steps 3-4 to C's: dataset_* and learning_rate exactly, the rest within
+    `rtol`; with `held_leaves` (param paths), C saves as B does and B's
+    last params there are held to C's within rtol["state"] of C's
+    movement in steps 3-4 (`_state_drift`). Returns the three runs' launch
+    counts and the largest relative differences, read before the check (a
+    caller may catch it)."""
     rt = ["--checkpointer.save_optimizer_state=True", "--checkpointer.float_dtype=fp32",
-          "--train_dataset.json_dataset.pad=True"]
+          *rt_flags]
     resume = ["--save_model_freq=2", "--autoresume=True"]
-    a, la = _run_cli(train_cli_argv(tmp, "rt", rt_data, ROUNDTRIP_LAYERS, "--total_steps=2",
-                                    *rt, *resume), ROUNDTRIP_LAYERS, 2, f"{what} A")
-    b, lb = _run_cli(train_cli_argv(tmp, "rt", rt_data, ROUNDTRIP_LAYERS, "--total_steps=4",
-                                    *rt, *resume), ROUNDTRIP_LAYERS, 2, f"{what} B")
-    c, lc = _run_cli(train_cli_argv(tmp, "rt_whole", rt_data, ROUNDTRIP_LAYERS,
-                                    "--total_steps=4", *rt), ROUNDTRIP_LAYERS, 4, f"{what} C")
+    a, la = _run_cli(argv_of("rt", "--total_steps=2", *rt, *resume), ROUNDTRIP_LAYERS, 2,
+                     f"{what} A")
+    b, lb = _run_cli(argv_of("rt", "--total_steps=4", *rt, *resume), ROUNDTRIP_LAYERS, 2,
+                     f"{what} B")
+    saves = resume if held_leaves else ()
+    c, lc = _run_cli(argv_of("rt_whole", "--total_steps=4", *rt, *saves), ROUNDTRIP_LAYERS, 4,
+                     f"{what} C")
     size = (Path(a["output_dir"]) / "streaming_train_state").stat().st_size / 1e9
     if (b["loaded"], b["start_step"], b["end_step"]) != ("trainstate", 2, 4):
-        raise AssertionError(f"train cli: run B did not resume at step 2: {b}")
+        raise AssertionError(f"train cli {what}: run B did not resume at step 2: {b}")
     got, want = _metrics(b)[2:], _metrics(c)[2:]
     if len(got) != 2 or len(want) != 2:
         raise AssertionError(f"train cli {what}: want steps 3-4 of B and C: {got}, {want}")
-    worst = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want))
-             for k in ROUNDTRIP_RTOL}
+    metrics = [k for k in rtol if k != "state"]
+    worst = {k: max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)) for k in metrics}
+    if held_leaves:
+        worst["state"] = _state_drift(a, b, c, held_leaves)
     exact = [(g["step"], k) for g, w in zip(got, want)
              for k in (*EXACT_DATASET, "learning_rate") if g[k] != w[k]]
     log(f"train cli {what} ({TRAIN_CLI_PRESET} width x {ROUNDTRIP_LAYERS} layer, fp32 train "
@@ -2146,13 +2353,15 @@ def train_cli_round_trip(tmp, what="round trip"):
         f"{[round(x, 2) for x in b['save_seconds']]} s; load {b['load_seconds']:.2f} s; B's "
         f"steps 3-4 against C's: differing in {exact or 'none'} of dataset_* and learning_rate; "
         + "; ".join(f"{k} {[g[k] for g in got]} vs {[w[k] for w in want]} (largest relative "
-                    f"difference {worst[k]:.2e}, limit {ROUNDTRIP_RTOL[k]})"
-                    for k in ROUNDTRIP_RTOL) + f" [{card()}]")
+                    f"difference {worst[k]:.2e}, limit {rtol[k]})" for k in metrics)
+        + (f"; params {[k[-2] for k in held_leaves]} at step 4: |B - C| / |C - A at step 2| "
+           f"{worst['state']:.2e} (limit {rtol['state']})" if held_leaves else "")
+        + f" [{card()}]")
     readings = dict(worst, exact=exact)
     if exact:
         raise AssertionError(f"train cli {what}: the resumed steps read other data or another "
                              f"learning rate: {exact}", readings)
-    off = [k for k in ROUNDTRIP_RTOL if not worst[k] <= ROUNDTRIP_RTOL[k]]
+    off = [k for k in worst if not worst[k] <= rtol[k]]
     if off:
         raise AssertionError(f"train cli {what}: the resumed run's {off} leave the "
                              "uninterrupted run's", readings)
@@ -2251,6 +2460,203 @@ def phase_train_cli(step_s_full):
     return paths
 
 
+# Vision-text training (phase_train_vision): `lwm_tpu_torch.train.main`
+# in-process as scripts/run_train_vision_torch.sh runs it (--modality=
+# vision,text, json_vision `no_pad`, one row of VISION_TRAIN_SEQ tokens,
+# theta 5e7, the AdamW flags with init_lr > 0 so that step 1 moves) at the
+# 7b width and VISION_TRAIN_LAYERS layers, over a JSONL from the seed: each
+# line a clip of 8-30 frames of random codes and a caption of random words,
+# in the field orders "[caption],vision" (vision targets) and
+# "vision,caption" (text targets too). Then --freeze_base (frozen params
+# bit-unchanged, vte and vision_head moved), the PaLM optimizer, and the
+# round trip at 1 layer under both (`pad` rows).
+VISION_TRAIN_LAYERS, VISION_TRAIN_STEPS, VISION_TRAIN_LINES = 16, 6, 64
+VISION_SHORT_STEPS = 2   # the --freeze_base and PaLM runs
+VISION_TRAIN_OPT = dict(lr=8e-5, end_lr=8e-5, lr_warmup_steps=5, lr_decay_steps=200,
+                        init_lr=8e-6)
+# The vision round trip (--freeze_base, PaLM). Only vte and vision_head
+# move, so the logged metrics barely see PaLM's state: resumes with its ema
+# dropped, v dropped or count reset moved them past ROUNDTRIP_RTOL in 2 of
+# 3 cases, by at most 1.4x. So the round trip also holds those two params
+# at step 4 (`_state_drift`, limit "state"): sound resumes read 2.6e-4 and
+# 2.8e-3, the broken ones 0.49-0.86 (H100 80GB HBM3, 700 W, PERF.md); the
+# limit sits ~18x above the one and ~10x below the other. The
+# lr is a tenth of PaLM's default: at the default the fused backward's dq
+# atomics, amplified by PaLM's g / sqrt(v), put sound resumes at a drift
+# of 4.2e-2 and a loss 1.2e-4 apart (the broken ones 0.49-0.85)
+VISION_ROUNDTRIP_LR = 1e-3
+VISION_HELD_LEAVES = (("transformer", "vte", "embedding"), ("vision_head", "kernel"))
+VISION_ROUNDTRIP_RTOL = dict(ROUNDTRIP_RTOL, state=5e-2)
+
+
+def _write_vision_jsonl(path, n_lines, seed):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(n_lines):
+            frames = int(rng.integers(8, 31))
+            f.write(json.dumps({
+                "vision": rng.integers(0, 8192, frames * 256).tolist(),
+                "caption": _train_text(rng, int(rng.integers(20, 80))),
+                "fields": ["[caption],vision", "vision,caption"][i % 2]}) + "\n")
+
+
+def train_vision_argv(out_dir, name, data, layers, *extra):
+    root = Path(__file__).resolve().parent
+    return [
+        "--modality=vision,text", "--dtype=bf16", f"--seed={SEED + 9}",
+        f"--load_llama_config={TRAIN_CLI_PRESET}",
+        f"--update_llama_config=dict(num_hidden_layers={layers}, "
+        f"max_sequence_length={VISION_TRAIN_SEQ}, theta=50000000)",
+        f"--tokenizer={root / 'tests' / 'fixtures' / 'tokenizer'}",
+        "--train_dataset.type=json_vision",
+        "--train_dataset.vision_text_processor.fields_from_example=fields",
+        f"--train_dataset.json_vision_dataset.path={data}",
+        f"--train_dataset.json_vision_dataset.seq_length={VISION_TRAIN_SEQ}",
+        "--train_dataset.json_vision_dataset.batch_size=1",
+        "--train_dataset.json_vision_dataset.mode=no_pad",
+        "--optimizer.type=adamw",
+        *[f"--optimizer.adamw_optimizer.{k}={v}" for k, v in VISION_TRAIN_OPT.items()],
+        "--log_freq=1", f"--logger.output_dir={out_dir}", f"--logger.experiment_id={name}",
+        "--logger.append_uuid=False", *extra,
+    ]
+
+
+def _frozen_base_held(out_dir):
+    """(changed, kept) leaf paths of the params between the run's step-0
+    save and its last (both fp32 `streaming_params` streams, read a leaf at
+    a time): a leaf is changed unless bit-equal. The streams are removed
+    after."""
+    (last,) = out_dir.glob("streaming_params_*")
+    changed, kept = [], 0
+    for (k0, v0), (k1, v1) in itertools.zip_longest(
+            checkpoint.iter_stream(out_dir / "streaming_params"), checkpoint.iter_stream(last),
+            fillvalue=(None, None)):
+        if k0 != k1:
+            raise AssertionError(f"train vision freeze_base: the saves hold other leaves: "
+                                 f"{k0} and {k1}")
+        if np.array_equal(v0, v1):
+            kept += 1
+        else:
+            changed.append("/".join(k0))
+    for f in out_dir.glob("streaming_params*"):
+        f.unlink()
+    return changed, kept
+
+
+def train_vision_round_trip(tmp, data, what="vision round trip (freeze_base, palm)",
+                           lr=VISION_ROUNDTRIP_LR):
+    """`cli_round_trip` of the vision CLI at PaLM's `lr` under
+    --freeze_base over `data` (`pad` rows) in `tmp`, vte and vision_head
+    held at step 4."""
+    return cli_round_trip(
+        lambda name, *extra: train_vision_argv(tmp, name, data, ROUNDTRIP_LAYERS, *extra),
+        ["--train_dataset.json_vision_dataset.mode=pad", "--freeze_base=True",
+         "--optimizer.type=palm", f"--optimizer.palm_optimizer.lr={lr}"],
+        what, VISION_HELD_LEAVES, VISION_ROUNDTRIP_RTOL)
+
+
+def _vision_records(summary, what):
+    """The run's metrics.jsonl; raises unless loss, vision_loss and
+    text_loss are finite."""
+    recs = _metrics(summary)
+    for r in recs:
+        log(f"{what} step {r['step']}: loss {r['loss']:.5f} vision_loss {r['vision_loss']:.5f} "
+            f"vision_acc {r['vision_acc']:.5f} text_loss {r['text_loss']:.5f} text_acc "
+            f"{r['text_acc']:.5f} lr {r['learning_rate']:.3e} grad_norm "
+            f"{r['gradient_norm']:.4f} param_norm {r['param_norm']:.2f} example "
+            f"{r['dataset_example_index']}")
+    if not all(math.isfinite(r[k]) for r in recs for k in ("loss", "vision_loss", "text_loss")):
+        raise AssertionError(f"{what}: a loss is not finite")
+    return recs
+
+
+def phase_train_vision(profile=None):
+    """Vision-text training as a user runs it (see VISION_TRAIN_*): 6 AdamW
+    steps (finite, falling loss; both halves finite; exact K1 and backward
+    launches; step time, tokens/s, MFU share, peak memory), 2 with
+    --freeze_base (frozen params bit-unchanged, vte and vision_head moved),
+    2 with the PaLM optimizer, the round trip at 1 layer with both, then a
+    kernel-vs-plain VideoLLaMA step (`phase_train_compare(vision=True)`);
+    with a `profile` directory, one profiled AdamW step of the same model
+    on a batch from the seed (after one unprofiled). Returns each CLI run's
+    launch counts."""
+    layers, paths = VISION_TRAIN_LAYERS, []
+    cfg = train.build_model_config(TRAIN_CLI_PRESET, update_llama_config=dict(
+        num_hidden_layers=layers, max_sequence_length=VISION_TRAIN_SEQ),
+        config_cls=VideoLLaMAConfig)
+    with tempfile.TemporaryDirectory(prefix="lwm_train_vision_") as tmp:
+        tmp = Path(tmp)
+        data = tmp / "vision.jsonl"
+        _write_vision_jsonl(data, VISION_TRAIN_LINES, SEED + 9)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary, launches = _run_cli(
+            train_vision_argv(tmp, "full", data, layers, f"--total_steps={VISION_TRAIN_STEPS}"),
+            layers, VISION_TRAIN_STEPS, "vision")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        paths.append(launches)
+        recs = _vision_records(summary, "train vision")
+        losses = [r["loss"] for r in recs]
+        step_s = float(np.median(np.diff([r["_time"] for r in recs])))
+        flops = train_flops(cfg, 1, VISION_TRAIN_SEQ)
+        log(f"train vision: {TRAIN_CLI_PRESET} width x {layers} layers (VideoLLaMA, vision "
+            f"vocab {cfg.vision_vocab_size}), 1 x {VISION_TRAIN_SEQ} tokens, "
+            f"{VISION_TRAIN_STEPS} steps in {wall:.1f}s of wall (model build and init "
+            f"included); launches {launches}; step time median of steps 2-{VISION_TRAIN_STEPS} "
+            f"{step_s:.3f}s, {VISION_TRAIN_SEQ / step_s:.0f} tokens/s, model FLOPs "
+            f"{flops / 1e12:.1f} T/step (both heads) = "
+            f"{100 * flops / step_s / H100_BF16_PEAK:.1f}% of 989 TFLOP/s; peak memory "
+            f"{peak:.1f} GiB [{card()}]")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train vision: loss not falling: {losses}")
+
+        def short_run(name, *flags):
+            """A VISION_SHORT_STEPS run: its launches, records, step 2's time
+            (the gap between the records) and peak memory."""
+            torch.cuda.reset_peak_memory_stats()
+            summary, launches = _run_cli(
+                train_vision_argv(tmp, name, data, layers, f"--total_steps={VISION_SHORT_STEPS}",
+                                  *flags), layers, VISION_SHORT_STEPS, f"vision {name}")
+            recs = _vision_records(summary, f"train vision {name}")
+            step = recs[-1]["_time"] - recs[-2]["_time"]
+            log(f"train vision {name}: step {VISION_SHORT_STEPS} {step:.3f}s (the AdamW run's "
+                f"median {step_s:.3f}s), peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card()}]")
+            paths.append(launches)
+
+        # the params as the CLI saves them at step 0 and after its last
+        # step, in fp32 (only the frozen mask's leaves may differ)
+        short_run("freeze_base", "--freeze_base=True", "--checkpointer.float_dtype=fp32",
+                  f"--save_model_freq={VISION_SHORT_STEPS + 1}")
+        t0 = time.perf_counter()
+        changed, kept = _frozen_base_held(tmp / "freeze_base")
+        trainable = ["transformer/vte/embedding", "vision_head/kernel"]
+        log(f"train vision freeze_base: param leaves changed by {VISION_SHORT_STEPS} steps "
+            f"between the step-0 and the last save: {changed}; {kept} bit-unchanged (read in "
+            f"{time.perf_counter() - t0:.1f}s)")
+        if changed != trainable:
+            raise AssertionError(f"train vision freeze_base: changed {changed}, want exactly "
+                                 f"{trainable}")
+
+        short_run("palm", "--optimizer.type=palm")
+
+        rt_paths, _ = train_vision_round_trip(tmp, data)
+        paths += rt_paths
+    torch.cuda.empty_cache()
+    if profile:
+        model = VideoLLaMAForCausalLM(cfg, dtype=BF16, param_dtype=torch.float32, device="cuda")
+        model.init_weights(torch.Generator(device="cuda").manual_seed(SEED + 9))
+        state = train.create_train_state(model, dict(adamw_optimizer=VISION_TRAIN_OPT))
+        batch = _vision_batch(1, VISION_TRAIN_SEQ, SEED + 9)
+        train.train_step(state, batch)
+        profile_step(state, batch, profile, "train_vision")
+        del model, state, batch
+        torch.cuda.empty_cache()
+    phase_train_compare(vision=True)
+    return paths
+
+
 def _kernel_kind(name):
     if "flash_fwd_kernel" in name:
         return "K1 flash_fwd"
@@ -2263,11 +2669,11 @@ def _kernel_kind(name):
     return "elementwise/reduce/other"
 
 
-def profile_step(state, batch, out_dir):
+def profile_step(state, batch, out_dir, what="train"):
     """One more train step under torch.profiler: device time by kind, from
     the kernel events only (GPU-side user annotations such as the optimizer
     step span kernels already counted, and are reported apart); the full
-    table goes to out_dir/train_step_profile.txt."""
+    table goes to out_dir/<what>_step_profile.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -2291,7 +2697,7 @@ def profile_step(state, batch, out_dir):
     if busy <= 0:
         log("profile: the profiler recorded no device kernels")
         return
-    log(f"profile: one train step {wall_ms:.1f} ms wall (profiled), kernels {busy:.1f} ms: "
+    log(f"profile: one {what} step {wall_ms:.1f} ms wall (profiled), kernels {busy:.1f} ms: "
         f"device busy {100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}% "
         f"[{card()}]")
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
@@ -2299,7 +2705,7 @@ def profile_step(state, batch, out_dir):
     for name, ms in sorted(spans.items(), key=lambda kv: -kv[1])[:3]:
         log(f"profile:   span {name}: {ms:.1f} ms on the device")
     Path(out_dir).mkdir(parents=True, exist_ok=True)
-    (Path(out_dir) / "train_step_profile.txt").write_text(
+    (Path(out_dir) / f"{what}_step_profile.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
 
 
@@ -2314,6 +2720,7 @@ def main():
     *k1, k1_cases = phase_k1(gen)
     *k4, k4_cases = phase_k4(gen)
     bwd = phase_bwd(gen)
+    k1_vision, bwd_vision = phase_train_vision_kernels(gen)
     k56, k56_named = phase_k56(gen)
     torch.cuda.empty_cache()
     # each main path's counts, set to 0 just before its run and read just after
@@ -2336,6 +2743,8 @@ def main():
     path_launches.append(launches)
     torch.cuda.empty_cache()
     path_launches.extend(phase_train_cli(step_s_full))
+    torch.cuda.empty_cache()
+    path_launches.extend(phase_train_vision(profile))
     total = {k: sum(p[k] for p in path_launches) for k in KERNEL_WRAPPERS}
 
     def row(name, source, replaces, max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by):
@@ -2346,9 +2755,10 @@ def main():
 
     kernels = [
         dict(row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
-             **k1_cases),
-        row("flash_bwd", "flash_bwd.cu",
-            "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
+             **k1_cases, **{VISION_TRAIN_REPORT: k1_vision}),
+        dict(row("flash_bwd", "flash_bwd.cu",
+                 "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
+             **{VISION_TRAIN_REPORT: bwd_vision}),
         dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
              **k4_cases),
         dict(row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107",

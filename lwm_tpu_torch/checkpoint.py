@@ -11,9 +11,9 @@ Counterpart of `lwm_tpu/checkpoint.py`, without msgpack, flax or JAX
 Leaves are split into chunks of at most `chunk_bytes` (256 MiB by
 default): rows along axis 0, or the flattened elements when one row is
 larger. `save_stream` writes the JAX writer's bytes for the same leaves
-(`:90-134`); `load_stream` reads v2 and v1 streams (`:137-197`), v1 being
-the `(path, flax-serialized bytes)` records of released LWM checkpoints,
-one leaf at a time: the file is never held whole.
+(`:90-134`); `iter_stream` and `load_stream` read v2 and v1 streams
+(`:137-197`), v1 being the `(path, flax-serialized bytes)` records of
+released LWM checkpoints, one leaf at a time: the file is never held whole.
 
 Leaves load as numpy arrays, bfloat16 ones as `torch.bfloat16` tensors
 (numpy has no bfloat16); 0-d leaves as numpy scalars (0-d tensors for
@@ -155,10 +155,22 @@ def _read_leaf(unpacker, dtype_name, shape, n_chunks):
     return arr if shape else arr[()]
 
 
-def _read_stream(unpacker, first, on_leaf):
-    """Drive a v2 or v1 stream, calling on_leaf(key tuple, value)."""
-    if isinstance(first, dict):   # v2 header
-        if first.get("format") != "lwm-tpu-ckpt":
+def iter_stream(path):
+    """The (key tuple, leaf) records of a v1 or v2 stream in file order,
+    one leaf read at a time."""
+    with open(path, "rb") as fin:
+        unpacker = msgpack.Unpacker(fin)
+        try:
+            first = next(unpacker)
+        except StopIteration:
+            return
+        if not isinstance(first, dict):   # v1: (path, flax-serialized bytes) records
+            key, value = first
+            yield tuple(key), msgpack.flax_restore(value)
+            for key, value in unpacker:
+                yield tuple(key), msgpack.flax_restore(value)
+            return
+        if first.get("format") != "lwm-tpu-ckpt":   # v2 header
             raise ValueError(f"unrecognized checkpoint header: {first}")
         if first.get("version") != 2:
             raise ValueError(f"unsupported checkpoint version: {first.get('version')}")
@@ -166,40 +178,20 @@ def _read_stream(unpacker, first, on_leaf):
             kind = record[0]
             if kind == "leaf":
                 _, key, dtype_name, shape, n_chunks = record
-                on_leaf(tuple(key), _read_leaf(unpacker, dtype_name, shape, n_chunks))
+                yield tuple(key), _read_leaf(unpacker, dtype_name, shape, n_chunks)
             elif kind == "obj":
-                on_leaf(tuple(record[1]), record[2])
+                yield tuple(record[1]), record[2]
             else:
                 raise ValueError(f"unknown checkpoint record kind: {kind!r}")
-    else:                         # v1: (path, flax-serialized bytes) records
-        key, value = first
-        on_leaf(tuple(key), msgpack.flax_restore(value))
-        for key, value in unpacker:
-            on_leaf(tuple(key), msgpack.flax_restore(value))
 
 
 def load_stream(path, remove_prefix=None):
     """Read a v1 or v2 stream into a flat {path tuple: leaf} dict, one
     leaf at a time; with `remove_prefix`, only the leaves under it, the
     prefix removed."""
-    remove_prefix = None if remove_prefix is None else tuple(remove_prefix)
-    out = {}
-
-    def on_leaf(key, value):
-        if remove_prefix is not None:
-            if key[:len(remove_prefix)] != remove_prefix:
-                return
-            key = key[len(remove_prefix):]
-        out[key] = value
-
-    with open(path, "rb") as fin:
-        unpacker = msgpack.Unpacker(fin)
-        try:
-            first = next(unpacker)
-        except StopIteration:
-            return out
-        _read_stream(unpacker, first, on_leaf)
-    return out
+    prefix = () if remove_prefix is None else tuple(remove_prefix)
+    return {key[len(prefix):]: value for key, value in iter_stream(path)
+            if key[:len(prefix)] == prefix}
 
 
 def flatten_dict(tree, prefix=()):
@@ -265,7 +257,7 @@ def load_trainstate_checkpoint(load_from, disallow_trainstate=False):
 
 
 def train_state_tree(state):
-    """`train.TrainState` (model, AdamW, step) → the JAX trainer's train
+    """`train.TrainState` (model, optimizer, step) → the JAX trainer's train
     state tree: {"step": int32, "params": {"params": flax tree},
     "opt_state": optax tree} (`utils/convert.py`), its stacked leaves and
     unmade moments lazy."""
@@ -274,8 +266,10 @@ def train_state_tree(state):
     return {
         "step": np.int32(state.step),
         "params": {"params": flax_params_tree(params, model.config)},
-        "opt_state": optax_state_tree(opt.named_state(), params, model.config, opt.mu_dtype,
-                                      opt.k),
+        "opt_state": optax_state_tree(
+            opt.named_state(), {opt.names[p]: p for p in opt.params}, model.config,
+            kind=opt.KIND, mu_dtype=opt.mu_dtype, accumulate_gradient_steps=opt.k,
+            multi_transform=opt.multi_transform),
     }
 
 

@@ -53,32 +53,35 @@ JSON_DATASET_DEFAULTS = dict(
     throughput_average_window_size=200, pad=False, use_data_sharded_loader=True,
     return_local_batch=False, use_native_buffer=True, sp_layout="contiguous",
 )
-# the dataset types the port does not load keep their JAX defaults, so the
-# JAX trainer's flag tree parses unchanged
+# `lwm_tpu/data/vision.py:30-44, 140-159` (`data/vision.py` loads them)
+VISION_TEXT_PROCESSOR_DEFAULTS = dict(
+    fields_from_example="", fields_index=-1, subfield_separator=" ", add_bos_token=True,
+    add_eos_token=True, prepend_text="", max_n_frames=-1, n_tokens_per_frame=256,
+    eof_token=8192, eov_token=8193,
+)
+JSON_VISION_DATASET_DEFAULTS = dict(
+    path="", seq_length=384, batch_size=4, always_start_with_bos=False, start_seek_loc=0,
+    example_index_at_start=0, tokens_count_at_start=0, tokenizer_processes=1,
+    tokenizer_parallel_chunk_size=32, tokenizer_parallel_batch_size=1024,
+    throughput_average_window_size=200, use_data_sharded_loader=True,
+    return_local_batch=False, mode="pad", sp_layout="contiguous",
+)
+# the huggingface type, which the port does not load, keeps its JAX
+# defaults, so the JAX trainer's flag tree parses unchanged
 DATASET_DEFAULTS = dict(
     type="huggingface",
     text_processor=TEXT_PROCESSOR_DEFAULTS,
     huggingface_dataset=dict(path="c4", name="en", split="train", streaming=False,
                              seq_length=1024, batch_size=8, always_start_with_bos=False),
     json_dataset=JSON_DATASET_DEFAULTS,
-    vision_text_processor=dict(
-        fields_from_example="", fields_index=-1, subfield_separator=" ", add_bos_token=True,
-        add_eos_token=True, prepend_text="", max_n_frames=-1, n_tokens_per_frame=256,
-        eof_token=8192, eov_token=8193,
-    ),
-    json_vision_dataset=dict(
-        path="", seq_length=384, batch_size=4, always_start_with_bos=False, start_seek_loc=0,
-        example_index_at_start=0, tokens_count_at_start=0, tokenizer_processes=1,
-        tokenizer_parallel_chunk_size=32, tokenizer_parallel_batch_size=1024,
-        throughput_average_window_size=200, use_data_sharded_loader=True,
-        return_local_batch=False, mode="pad", sp_layout="contiguous",
-    ),
+    vision_text_processor=VISION_TEXT_PROCESSOR_DEFAULTS,
+    json_vision_dataset=JSON_VISION_DATASET_DEFAULTS,
 )
 
 
 class DatasetFactory:
-    """The dataset types by `config["type"]`: "json" loads; "huggingface"
-    and "json_vision" raise NotImplementedError."""
+    """The dataset types by `config["type"]`: "json" and "json_vision"
+    (`data/vision.py`) load; "huggingface" raises NotImplementedError."""
 
     @staticmethod
     def get_default_config(updates=None):
@@ -95,9 +98,11 @@ class DatasetFactory:
                 "dataset type 'huggingface' is not ported: it needs the `datasets` package "
                 "and a download (ROADMAP A3); use type 'json'")
         if config["type"] == "json_vision":
-            raise NotImplementedError(
-                "dataset type 'json_vision' is not ported yet: it comes with the vision "
-                "model (ROADMAP A5)")
+            from lwm_tpu_torch.data.vision import JsonVisionDataset, VisionTextProcessor
+
+            processor = VisionTextProcessor(config["vision_text_processor"], tokenizer)
+            return JsonVisionDataset(config["json_vision_dataset"], tokenizer, processor,
+                                     **kwargs)
         raise ValueError(f"unknown dataset type: {config['type']}")
 
 
@@ -263,6 +268,37 @@ class JsonDataset:
                 next_batch = pool.map_async(_process_in_worker, next(batches), chunksize=chunk)
                 yield from current.get()
 
+    def _examples(self):
+        """The processor's output for each example, ending in (file_loc,
+        index), with the resume point advanced past it."""
+        for out in self.parallel_example_iterator():
+            self._file_loc = out[-2]
+            self._index = out[-1] + 1   # the line at _file_loc (see get_state_dict)
+            yield out
+
+    def _metrics_fn(self, chunk_size):
+        """A function (file_loc, index) → the `dataset_*` metrics of the
+        batch of `chunk_size` tokens just counted into `_total_tokens`."""
+        window = self.config["throughput_average_window_size"]
+        start_time = last_time = time.time()
+        start_tokens, step_times = self._total_tokens, []
+
+        def metrics(loc, index):
+            nonlocal last_time, step_times
+            step_times.append(time.time() - last_time)
+            last_time = time.time()
+            step_times = step_times[-window:]
+            return {
+                "dataset_file_loc": loc,
+                "dataset_example_index": index,
+                "dataset_total_tokens": self._total_tokens,
+                "dataset_accumulated_tps": (self._total_tokens - start_tokens)
+                / max(time.time() - start_time, 1e-8),
+                "dataset_average_tps": chunk_size / max(np.mean(step_times), 1e-8),
+            }
+
+        return metrics
+
     def __iter__(self):
         c = self.config
         seq = c["seq_length"]
@@ -279,13 +315,9 @@ class JsonDataset:
             if native_available():
                 native = NativeTokenBuffer()
         token_buffer, loss_mask_buffer = [], []
-        last_time = start_time = time.time()
-        step_times = []
-        start_tokens = self._total_tokens
+        metrics = self._metrics_fn(global_chunk_size)
 
-        for tokens, loss_masks, loc, index in self.parallel_example_iterator():
-            self._file_loc = loc
-            self._index = index + 1   # the line at _file_loc (see get_state_dict)
+        for tokens, loss_masks, loc, index in self._examples():
             if c["pad"]:   # one example a row, cut or padded to seq + 1
                 tokens = list(tokens[:seq + 1])
                 tokens.extend([bos] * (seq + 1 - len(tokens)))
@@ -299,17 +331,7 @@ class JsonDataset:
 
             while (len(native) if native is not None else len(token_buffer)) > chunk_size + 1:
                 self._total_tokens += global_chunk_size
-                step_times.append(time.time() - last_time)
-                last_time = time.time()
-                step_times = step_times[-c["throughput_average_window_size"]:]
-                metrics = {
-                    "dataset_file_loc": loc,
-                    "dataset_example_index": index,
-                    "dataset_total_tokens": self._total_tokens,
-                    "dataset_accumulated_tps": (self._total_tokens - start_tokens)
-                    / max(time.time() - start_time, 1e-8),
-                    "dataset_average_tps": global_chunk_size / max(np.mean(step_times), 1e-8),
-                }
+                batch_metrics = metrics(loc, index)
                 if native is not None:
                     batch = native.emit(local_batch_size, seq)
                     if c["always_start_with_bos"]:
@@ -320,7 +342,7 @@ class JsonDataset:
                                        always_start_with_bos=c["always_start_with_bos"])
                 batch["input_vision_masks"] = np.zeros(batch["input_tokens"].shape, bool)
                 batch["target_vision_masks"] = np.zeros(batch["input_tokens"].shape, bool)
-                yield batch, metrics
+                yield batch, batch_metrics
                 if native is None:
                     if c["pad"]:
                         token_buffer, loss_mask_buffer = [], []

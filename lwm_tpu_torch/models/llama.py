@@ -225,6 +225,19 @@ class LLaMAConfig:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
+    @staticmethod
+    def get_weight_decay_exclusions():
+        """Regexes of the flax param paths weight decay skips
+        (`lwm_tpu/models/llama.py:279-280`): none."""
+        return ()
+
+    @staticmethod
+    def get_frozen_param_exclusions(freeze_base):
+        """Regexes of the flax param paths that still train under
+        `--freeze_base` (`lwm_tpu/models/llama.py:282-284`): a VideoLLaMA's
+        vision embedding and head; every other param is frozen."""
+        return ("vte", "vision_head") if freeze_base else ()
+
     @property
     def kv_heads(self):
         return self.num_key_value_heads or self.num_attention_heads

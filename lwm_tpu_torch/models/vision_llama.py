@@ -24,8 +24,15 @@ two hooks, `_embed` and `_head`.
   (`tie_vision_embeddings`, `tie_word_embeddings`) is its embedding's
   product.
 
+Training (`lwm_tpu/train.py:273-296`): a forward without a cache under
+autograd returns `sample_mode="all"`'s pair for the dual loss
+(`utils.losses.dual_cross_entropy`), its blocks rematerialized as the text
+model's; `init_weights` draws `vte` and `vision_head` N(0,
+initializer_range) as the JAX init does; `--freeze_base` trains only the
+two (`LLaMAConfig.get_frozen_param_exclusions`).
+
 Not in this slice: the classifier-free-guidance sampler (`:443-594`, it
-needs the VQGAN decoder) and vision training.
+needs the VQGAN decoder).
 """
 
 from __future__ import annotations

@@ -1,36 +1,62 @@
-"""AdamW with optax's exact semantics (`lwm_tpu/optim.py:17-97`).
+"""The JAX trainer's optimizers with optax's exact semantics
+(`lwm_tpu/optim.py`): AdamW and the PaLM optimizer (Adafactor).
 
-`OptimizerFactory.get_optimizer` builds, as the JAX factory does,
-`optax.chain(clip_by_global_norm(clip_gradient), optax.adamw(schedule, b1,
-b2, eps=1e-8, weight_decay, mask, mu_dtype))`, inside `optax.MultiSteps`
-when `accumulate_gradient_steps > 1`. What that means, step by step, and
-where torch's own tools differ (so they are not used):
-- the schedule (`warmup_cosine_decay_schedule`) is read at the count of
-  updates applied BEFORE this one: with the default `init_lr = 0` the first
-  update moves nothing, weight decay included;
+`OptimizerFactory.get_optimizer` builds, as the JAX factory does, for
+`type="adamw"` `optax.chain(clip_by_global_norm(clip_gradient),
+optax.adamw(schedule, b1, b2, eps=1e-8, weight_decay, mask, mu_dtype))`,
+for `type="palm"` `optax.chain(clip_by_global_norm(clip_gradient),
+optax.adafactor(...), optax_add_scheduled_weight_decay(...))`, either inside
+`optax.MultiSteps` when `accumulate_gradient_steps > 1`, and with a
+frozen-parameter mask inside `optax.multi_transform({True: set_to_zero(),
+False: ...})`. What that means, step by step, and where torch's own tools
+differ (so they are not used):
+- a schedule is read at the count of updates applied BEFORE this one:
+  with AdamW's default `init_lr = 0` the first update moves nothing,
+  weight decay included;
 - clipping scales every gradient by max/norm only when norm ≥ max, with no
   epsilon (`torch.nn.utils.clip_grad_norm_` divides by norm + 1e-6);
 - Adam: mu = (1−b1)·g + b1·mu, nu = (1−b2)·g² + b2·nu, bias-corrected by
   1 − b^count in fp32, update = mu_hat / (sqrt(nu_hat) + eps) — eps outside
-  the root; with `bf16_momentum` b1 itself is rounded to bf16 in b1·mu
-  (optax's weakly typed constant: 0.8984375), the product is kept in fp32
-  as XLA keeps it (excess precision), and mu is stored back in bf16;
-- decoupled weight decay adds wd·p to the update of every param (the text
-  model's mask keeps all: `get_weight_decay_exclusions() == ()`), then the
-  update is scaled by −lr and added to p;
+  the root; decoupled weight decay adds wd·p to the update of every
+  decayed param, then the update is scaled by −lr and added to p;
+- PaLM (`lwm_tpu/optim.py:100-176`, optax's `adafactor` with
+  `factored=False`, `multiply_by_parameter_scale=True`, `momentum=b1`,
+  `decay_rate=b2`, no clipping threshold): lr(step) = (lr / 0.01) /
+  sqrt(max(step, lr_warmup_steps)) in fp32; v = d·v + (1 − d)·(g² + 1e-30)
+  with d = 1 − (count + 1)^(−b2); u = g / sqrt(v) · lr(count) · max(rms(p),
+  1e-3), rms over the param's block: optax takes it over a leaf of the
+  JAX tree, and a scanned tree stacks each layer param of every layer in
+  one leaf (`param_block`, `utils.convert.flax_param_path`); the momentum
+  ema = (1 − b1)·u + b1·ema without debias; then −ema plus the scheduled
+  weight decay −(weight_decay / 1e-4)·lr(count)²·p on decayed params,
+  added to p. The unfactored second moment keeps optax's
+  one-element `v_row`/`v_col` placeholders only in the checkpoint layout
+  (`utils/convert.py`);
+- with `bf16_momentum` the momentum (AdamW's mu, PaLM's ema) is stored in
+  bf16 and b1 itself is rounded to bf16 in b1·m (optax's weakly typed
+  constant: 0.8984375); the product is kept in fp32 as XLA keeps it
+  (excess precision);
 - MultiSteps keeps the running mean of k micro-batch gradients (Welford:
-  acc + (g − acc)/(n + 1)) and applies it every k-th call.
+  acc + (g − acc)/(n + 1)) and applies it every k-th call;
+- multi_transform: frozen params are not the optimizer's at all (no
+  update, no moments, no decay), so the clip norm is over the trainable
+  params' gradients only; the trainer's logged `gradient_norm` still
+  counts every gradient, frozen ones included.
+The masks are predicates on parameter names (`train.param_masks` matches
+the config's exclusions against each param's flax path, as
+`lwm_tpu/parallel/partition.py:174-212` does).
+
 The update is a loop over tensors with per-tensor temporaries (no
 `foreach`: torch's multi-tensor path allocates whole-model temporaries that
 a 7b-width model on one card cannot afford). `named_state` and
 `load_named_state` carry the state by parameter name, the layout
-`utils/convert.py` maps to and from optax's. Not ported yet: the PaLM
-optimizer (Adafactor; its config subtree is kept so the JAX flags parse),
-weight-decay masks that exclude params and frozen-parameter masks (the
-vision slice).
+`utils/convert.py` maps to and from optax's.
 """
 
 from __future__ import annotations
+
+import collections
+import re
 
 import numpy as np
 import torch
@@ -39,6 +65,8 @@ from lwm_tpu_torch.utils.flags import merge_config
 from lwm_tpu_torch.utils.losses import global_norm
 
 EPS = 1e-8  # optax.adamw's default, outside the square root
+FACTORED_EPS = 1e-30   # optax.adafactor's eps, added to g²
+MIN_PARAM_RMS = 1e-3   # scale_by_param_block_rms's floor
 
 
 def warmup_cosine_decay_schedule(init_value, peak_value, warmup_steps, decay_steps,
@@ -66,18 +94,44 @@ def warmup_cosine_decay_schedule(init_value, peak_value, warmup_steps, decay_ste
     return schedule
 
 
-class AdamW(torch.optim.Optimizer):
-    """clip_by_global_norm + optax.adamw (+ MultiSteps), see the module
-    note. `named_params`: (name, tensor) pairs, every one decayed. Call
-    `step()` once per micro-batch after `backward()`; a param whose `.grad`
-    is None counts as a zero gradient."""
+def palm_schedule(lr, warmup_steps):
+    """The PaLM learning rate (`lwm_tpu/optim.py:135-137`): count → (lr /
+    0.01) / sqrt(max(count, warmup_steps)), in fp32."""
+    def schedule(count):
+        return float(np.float32(lr / 0.01) / np.sqrt(np.float32(max(int(count), warmup_steps))))
 
-    def __init__(self, named_params, *, learning_rate_schedule, b1=0.9, b2=0.95,
-                 weight_decay=1e-4, clip_gradient=1.0, mu_dtype=torch.float32,
-                 accumulate_gradient_steps=1):
+    return schedule
+
+
+def none_match(rules):
+    """A predicate on a flax param path: True where no regex of `rules`
+    matches it. `get_weight_decay_mask(exclusions)` (decayed) and
+    `get_frozen_base_mask(trainable_exclusions)` (frozen) are both this
+    (`lwm_tpu/parallel/partition.py:174-212`)."""
+    return lambda path: all(re.search(rule, path) is None for rule in rules)
+
+
+class _Optimizer:
+    """What both optimizers share: the parameters by name, the decay
+    mask, MultiSteps, the global-norm clip and the state by name.
+    Subclasses give `KIND` (the `utils.convert.optax_state_tree` layout),
+    `MOMENTS` (their per-param state keys, the first kept in `mu_dtype`)
+    and `_update`. Call `step()` once per micro-batch after
+    `backward()`; a param whose `.grad` is None counts as a zero gradient."""
+
+    KIND, MOMENTS = None, ()
+
+    def __init__(self, named_params, *, learning_rate_schedule, b1, b2, weight_decay,
+                 clip_gradient, mu_dtype=torch.float32, accumulate_gradient_steps=1,
+                 weight_decay_mask=None, multi_transform=False, param_block=None):
         named_params = list(named_params)
-        super().__init__([p for _, p in named_params], dict(weight_decay=weight_decay))
+        # the leaf of the JAX tree each param lies in (params of one share it)
+        self.block = {p: n if param_block is None else param_block(n) for n, p in named_params}
+        self.params = [p for _, p in named_params]   # none when every param is frozen
+        self.state = collections.defaultdict(dict)   # param → its moments (and acc)
         self.names = {p: n for n, p in named_params}
+        self.decayed = {p for n, p in named_params
+                        if weight_decay_mask is None or weight_decay_mask(n)}
         self.schedule = learning_rate_schedule
         self.b1, self.b2, self.weight_decay = b1, b2, weight_decay
         self.clip_gradient = clip_gradient
@@ -85,18 +139,21 @@ class AdamW(torch.optim.Optimizer):
         # b1 in mu's dtype (0.8984375 for bf16), the factor optax's b1·mu uses
         self._b1_mu = float(torch.tensor(b1, dtype=mu_dtype))
         self.k = accumulate_gradient_steps
-        self.count = 0          # updates applied (optax's adam and schedule counts)
+        self.multi_transform = multi_transform   # a frozen mask was given (the state's layout)
+        self.count = 0          # updates applied (optax's counts: moments, schedules)
         self.mini_step = 0      # MultiSteps: micro-batches folded into acc
         self.gradient_step = 0  # MultiSteps: updates emitted
-
-    def _params(self):
-        return [p for g in self.param_groups for p in g["params"]]
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
-            raise NotImplementedError("AdamW.step takes no closure")
-        params = self._params()
+            raise NotImplementedError(f"{type(self).__name__}.step takes no closure")
+        # the span name torch.optim.Optimizer gives a step in a profile
+        with torch.profiler.record_function(f"Optimizer.step#{type(self).__name__}.step"):
+            self._step()
+
+    def _step(self):
+        params = self.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if self.k > 1:
             n = self.mini_step
@@ -109,45 +166,34 @@ class AdamW(torch.optim.Optimizer):
                 self.mini_step += 1
                 return
             grads = [self.state[p]["acc"] for p in params]
-        self._update(params, grads)
+        if params:
+            norm = global_norm(grads)
+            clip = None if bool(norm < self.clip_gradient) else (norm, self.clip_gradient)
+            self._update(params, grads, clip)
+        self.count += 1
         if self.k > 1:
             for g in grads:
                 g.zero_()
             self.mini_step = 0
             self.gradient_step += 1
 
-    def _update(self, params, grads):
-        b1, b2 = self.b1, self.b2
-        norm = global_norm(grads)
-        clip = not bool(norm < self.clip_gradient)
-        count = self.count + 1
-        # 1 − decay^count in fp32, as optax's bias correction
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        neg_lr = -float(np.float32(self.schedule(self.count)))
-        for p, g in zip(params, grads):
-            st = self.state[p]
-            if "mu" not in st:
-                st["mu"] = torch.zeros_like(p, dtype=self.mu_dtype)
-                st["nu"] = torch.zeros_like(p)
-            if clip:
-                g = g / norm * self.clip_gradient
-            mu = g * (1 - b1) + st["mu"].float() * self._b1_mu
-            nu = st["nu"]
-            nu.copy_(g.square().mul_(1 - b2) + nu * b2)
-            u = (mu / bc1).div_((nu / bc2).sqrt_().add_(EPS))
-            if self.weight_decay:
-                u.add_(p * self.weight_decay)
-            p.add_(u.mul_(neg_lr))
-            st["mu"] = mu.to(self.mu_dtype)
-        self.count = count
+    @staticmethod
+    def _clipped(g, clip):
+        """g scaled by max/norm when `clip` = (norm, max), one tensor at a time."""
+        return g if clip is None else g / clip[0] * clip[1]
+
+    def _moment(self, p, key, dtype=None):
+        st = self.state[p]
+        if key not in st:
+            st[key] = torch.zeros_like(p, dtype=dtype)
+        return st[key]
 
     def named_state(self):
-        """{"count", "mini_step", "gradient_step", "mu", "nu", "acc"} with
+        """{"count", "mini_step", "gradient_step", *MOMENTS, "acc"} with
         per-param dicts keyed by parameter name (the layout
         `utils.convert.convert_optax_state` produces)."""
         out = dict(count=self.count, mini_step=self.mini_step, gradient_step=self.gradient_step)
-        for key in ("mu", "nu", "acc"):
+        for key in (*self.MOMENTS, "acc"):
             out[key] = {self.names[p]: s[key] for p, s in self.state.items() if key in s}
         return out
 
@@ -156,18 +202,78 @@ class AdamW(torch.optim.Optimizer):
         """The inverse of `named_state`: counts and per-parameter moments
         (and the MultiSteps accumulator) by parameter name, each copied to
         its parameter's device in the optimizer's own dtype (mu_dtype for
-        mu, the parameter's for nu and acc), as the JAX trainer casts a
-        loaded state to its target's dtypes. A moment missing from `named`
-        is left unset (zeros at the first update)."""
+        the momentum, the parameter's for the rest), as the JAX trainer
+        casts a loaded state to its target's dtypes. A moment missing from
+        `named` is left unset (zeros at the first update); a state of the
+        other optimizer raises."""
+        if not set(self.MOMENTS) <= named.keys():
+            raise ValueError(f"{type(self).__name__} cannot load an optimizer state holding "
+                             f"{sorted(k for k in named if isinstance(named[k], dict))}")
         self.count = int(named["count"])
         self.mini_step = int(named.get("mini_step", 0))
         self.gradient_step = int(named.get("gradient_step", 0))
-        for p in self._params():
-            for key in ("mu", "nu", "acc"):
+        for p in self.params:
+            for key in (*self.MOMENTS, "acc"):
                 value = named.get(key, {}).get(self.names[p])
                 if value is not None:
-                    dtype = self.mu_dtype if key == "mu" else p.dtype
+                    dtype = self.mu_dtype if key == self.MOMENTS[0] else p.dtype
                     self.state[p][key] = torch.as_tensor(value).to(p.device, dtype, copy=True)
+
+
+class AdamW(_Optimizer):
+    """clip_by_global_norm + optax.adamw (+ MultiSteps), see the module note."""
+
+    KIND, MOMENTS = "adamw", ("mu", "nu")
+
+    def _update(self, params, grads, clip):
+        b1, b2 = self.b1, self.b2
+        count = self.count + 1
+        # 1 − decay^count in fp32, as optax's bias correction
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        neg_lr = -float(np.float32(self.schedule(self.count)))
+        for p, g in zip(params, grads):
+            g = self._clipped(g, clip)
+            mu = g * (1 - b1) + self._moment(p, "mu", self.mu_dtype).float() * self._b1_mu
+            nu = self._moment(p, "nu")
+            nu.copy_(g.square().mul_(1 - b2) + nu * b2)
+            u = (mu / bc1).div_((nu / bc2).sqrt_().add_(EPS))
+            if self.weight_decay and p in self.decayed:
+                u.add_(p * self.weight_decay)
+            p.add_(u.mul_(neg_lr))
+            self.state[p]["mu"] = mu.to(self.mu_dtype)
+
+
+class Palm(_Optimizer):
+    """clip_by_global_norm + optax.adafactor as the PaLM factory sets it +
+    the scheduled weight decay (+ MultiSteps), see the module note."""
+
+    KIND, MOMENTS = "palm", ("ema", "v")
+
+    def _update(self, params, grads, clip):
+        f32 = np.float32
+        decay = f32(1) - f32(self.count + 1) ** f32(-self.b2)
+        lr = f32(self.schedule(self.count))
+        wd = float(f32(-(self.weight_decay / 1e-4)) * (lr * lr))
+        squares, sizes = {}, {}   # each block's sum of squares and size, before any update
+        for p in params:
+            b = self.block[p]
+            squares[b] = squares.get(b, 0.0) + p.float().square().sum()
+            sizes[b] = sizes.get(b, 0) + p.numel()
+        rms = {b: (squares[b] / sizes[b]).sqrt().clamp_min(MIN_PARAM_RMS) for b in squares}
+        for p, g in zip(params, grads):
+            g = self._clipped(g, clip)
+            v = self._moment(p, "v")
+            v.copy_(v * float(decay) + g.square().add_(FACTORED_EPS).mul_(float(f32(1) - decay)))
+            u = (g * v.rsqrt()).mul_(float(lr))
+            u.mul_(rms[self.block[p]])
+            ema = u.mul_(1 - self.b1).add_(
+                self._moment(p, "ema", self.mu_dtype).float() * self._b1_mu)
+            self.state[p]["ema"] = ema.to(self.mu_dtype, copy=True)
+            update = ema.neg_()
+            if p in self.decayed:
+                update.add_(p * wd)
+            p.add_(update)
 
 
 ADAMW_DEFAULTS = dict(
@@ -175,8 +281,6 @@ ADAMW_DEFAULTS = dict(
     b1=0.9, b2=0.95, clip_gradient=1.0, weight_decay=1e-4, bf16_momentum=False,
     multiply_by_parameter_scale=False,
 )
-# `lwm_tpu/optim.py:118-128`: kept so that the JAX flag tree parses; the
-# PaLM optimizer itself is not ported (type "palm" raises)
 PALM_DEFAULTS = dict(lr=0.01, lr_warmup_steps=10000, b1=0.9, b2=0.99, clip_gradient=1.0,
                      weight_decay=1e-4, bf16_momentum=False)
 
@@ -193,22 +297,35 @@ class OptimizerFactory:
         )
 
     @classmethod
-    def get_optimizer(cls, config, named_params):
-        """AdamW over `named_params` ((name, tensor) pairs, all decayed: the
-        text model's weight-decay mask keeps every param); its schedule is
-        `.schedule`."""
+    def get_optimizer(cls, config, named_params, weight_decay_mask=None,
+                      frozen_param_mask=None, param_block=None):
+        """The optimizer of `config["type"]` over `named_params` ((name,
+        tensor) pairs): `weight_decay_mask(name)` says whether a param is
+        decayed (all when None), `frozen_param_mask(name)` whether it is
+        frozen (none when None; frozen params are left out),
+        `param_block(name)` names the JAX tree leaf a param lies in (PaLM's
+        parameter scale is one a leaf; each param its own when None). Its
+        schedule is `.schedule`."""
         config = cls.get_default_config(config)
-        if config["type"] != "adamw":
-            raise NotImplementedError(
-                f"optimizer {config['type']!r} is not ported yet (adamw is; the PaLM "
-                "optimizer goes with the vision finetune recipes, ROADMAP A5)")
-        c = config["adamw_optimizer"]
-        schedule = warmup_cosine_decay_schedule(
-            c["init_lr"], c["lr"], c["lr_warmup_steps"], c["lr_decay_steps"], c["end_lr"]
-        )
-        return AdamW(
+        named_params = list(named_params)
+        if frozen_param_mask is not None:
+            named_params = [(n, p) for n, p in named_params if not frozen_param_mask(n)]
+        common = dict(accumulate_gradient_steps=config["accumulate_gradient_steps"],
+                      weight_decay_mask=weight_decay_mask,
+                      multi_transform=frozen_param_mask is not None, param_block=param_block)
+        if config["type"] == "adamw":
+            c = config["adamw_optimizer"]
+            schedule = warmup_cosine_decay_schedule(
+                c["init_lr"], c["lr"], c["lr_warmup_steps"], c["lr_decay_steps"], c["end_lr"])
+            cls_ = AdamW
+        elif config["type"] == "palm":
+            c = config["palm_optimizer"]
+            schedule = palm_schedule(c["lr"], c["lr_warmup_steps"])
+            cls_ = Palm
+        else:
+            raise ValueError(f"unknown optimizer type: {config['type']}")
+        return cls_(
             named_params, learning_rate_schedule=schedule, b1=c["b1"], b2=c["b2"],
             weight_decay=c["weight_decay"], clip_gradient=c["clip_gradient"],
-            mu_dtype=torch.bfloat16 if c["bf16_momentum"] else torch.float32,
-            accumulate_gradient_steps=config["accumulate_gradient_steps"],
+            mu_dtype=torch.bfloat16 if c["bf16_momentum"] else torch.float32, **common,
         )

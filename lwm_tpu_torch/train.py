@@ -1,44 +1,51 @@
-"""The text trainer on one device: `python -m lwm_tpu_torch.train`, the
-counterpart of `lwm_tpu/train.py` (`main`, `:124-447`) for `--modality=text`,
-and the library pieces of its step.
+"""The trainer on one device: `python -m lwm_tpu_torch.train`, the
+counterpart of `lwm_tpu/train.py` (`main`, `:124-447`) for `--modality=text`
+and `--modality=vision,text`, and the library pieces of its step.
 
     python -m lwm_tpu_torch.train --load_llama_config=7b --dtype=bf16 \
         --tokenizer=LOCAL_DIR --train_dataset.type=json \
         --train_dataset.text_processor.fields=text \
         --train_dataset.json_dataset.path=data.jsonl ...
 
-(`scripts/run_train_torch.sh` is the bundle.) The flags are the JAX
+(`scripts/run_train_torch.sh` and, for vision-text, `scripts/
+run_train_vision_torch.sh` are the bundles.) The flags are the JAX
 trainer's tree (`utils/flags.py`), plus `--device` (default `cuda`; `cpu`
 is the CLI's counterpart of JAX's `LWM_PLATFORM`, and without CUDA the CLI
 raises unless it is given). The loop: logger (`utils/logging.py`), the
 tokenizer from a local directory, autoresume from `<output_dir>/
 streaming_train_state` and `dataset.pkl` (`:148-153`), the JSONL dataset
-(`data/`), the model config (a preset or `--llama.*`, the eval'd
-`--update_llama_config`, the vocab widened to the tokenizer's length, its
-bos and eos), the model in fp32 params computing in `--dtype`, the init
-from `--seed` or from `--load_checkpoint` (`params::`,
-`trainstate_params::`, `flax_params::`, `trainstate::`), a save at the start
-when `save_model_freq` > 0, then one step a batch up to `total_steps`:
-`--profile_*` through `torch.profiler`, every `log_freq` steps the JAX
-step's metrics (`loss`, `acc`, `learning_rate`, `param_norm`,
-`gradient_norm`, `step`, the `dataset_*` ones, and the mean of `eval_steps`
-batches of `eval_dataset` as `eval_loss`, `eval_acc`) read off the device,
-milestone and rolling saves, and a last milestone save
+(`data/`: `json`, or `json_vision` for vision-text), the model config (a
+preset or `--llama.*`, the eval'd `--update_llama_config`, the vocab
+widened to the tokenizer's length, its bos and eos; a `VideoLLaMAConfig`
+for vision-text, whose `sample_mode` must be "all"), the model in fp32
+params computing in `--dtype`, the init from `--seed` or from
+`--load_checkpoint` (`params::`, `trainstate_params::`, `flax_params::`,
+`trainstate::`), a save at the start when `save_model_freq` > 0, then one
+step a batch up to `total_steps`: `--profile_*` through `torch.profiler`,
+every `log_freq` steps the JAX step's metrics (`loss`, `acc` or, for
+vision-text, `vision_loss`, `vision_acc`, `text_loss`, `text_acc`;
+`learning_rate`, `param_norm`, `gradient_norm`, `step`, the `dataset_*`
+ones, and the mean of `eval_steps` batches of `eval_dataset` as
+`eval_loss` and `eval_` + each loss metric) read off the device, milestone
+and rolling saves, and a last milestone save
 (`checkpoint.StreamingCheckpointer`: the JAX trainer's streams).
 
 The step: the JAX step keeps fp32 params and computes in the `--dtype`
 (bf16 in `scripts/run_train_text.sh`); here that is the model's
-`param_dtype` and `dtype`. The loss is `cross_entropy_loss_and_accuracy`
+`param_dtype` and `dtype`. The text loss is `cross_entropy_loss_and_accuracy`
 over full logits, or with `fused_lm_loss` `fused_lm_cross_entropy` on
-`forward_hidden` (`:241-266`); the optimizer `optim.OptimizerFactory` with
-every parameter decayed (the text model's weight-decay exclusions are
-empty, `lwm_tpu/models/llama.py:279-280`). Metrics stay on the device
-until a log reads them.
+`forward_hidden` (`:241-266`); the vision-text loss is `dual_cross_entropy`
+over the VideoLLaMA's (vision, text) logits (`:273-296`; `fused_lm_loss` is
+not read there, as in JAX), its log-softmax in chunks of 2048 rows unless
+`loss_chunk_size` names others (`compute_loss`). The optimizer is `optim.OptimizerFactory`'s
+(AdamW or PaLM) with the config's weight-decay exclusions and, under
+`--freeze_base`, its frozen-param mask (`param_masks`); the logged
+`gradient_norm` counts every gradient, frozen ones included, as JAX's
+does. Metrics stay on the device until a log reads them.
 
 Refused, naming what they wait for: a mesh of more than one device, an
-`sp_layout` but "contiguous" and `jax_distributed` (multi-GPU, ROADMAP
-A4); `--modality=vision,text`, `--freeze_base` and the PaLM optimizer (the
-vision slice, A5); the `huggingface` dataset type and `gs://` paths.
+`sp_layout` but "contiguous" and `jax_distributed` (multi-GPU, ROADMAP A4);
+the `huggingface` dataset type and `gs://` paths.
 """
 
 from __future__ import annotations
@@ -55,14 +62,17 @@ import torch
 from lwm_tpu_torch.checkpoint import StreamingCheckpointer
 from lwm_tpu_torch.data import DatasetFactory
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
-from lwm_tpu_torch.optim import AdamW, OptimizerFactory
+from lwm_tpu_torch.models.vision_llama import VideoLLaMAConfig, VideoLLaMAForCausalLM
+from lwm_tpu_torch.optim import OptimizerFactory, none_match
+from lwm_tpu_torch.utils.convert import flax_param_path
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
 from lwm_tpu_torch.utils.flags import get_user_flags, parse_flags, placeholder
 from lwm_tpu_torch.utils.io import check_exists, load_pickle, makedirs
 from lwm_tpu_torch.utils.logging import DEFAULTS as LOGGER_DEFAULTS
 from lwm_tpu_torch.utils.logging import MetricsLogger
 from lwm_tpu_torch.utils.losses import (
-    average_metrics, cross_entropy_loss_and_accuracy, fused_lm_cross_entropy, global_norm,
+    average_metrics, cross_entropy_loss_and_accuracy, dual_cross_entropy,
+    fused_lm_cross_entropy, global_norm,
 )
 from lwm_tpu_torch.utils.rng import init_generator, set_random_seed
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
@@ -70,19 +80,38 @@ from lwm_tpu_torch.utils.tokenizer import Tokenizer
 # fields a preset takes from the flags' llama config (`lwm_tpu/train.py:107-113`)
 SCAN_KEYS = ("scan_attention", "scan_mlp", "scan_query_chunk_size", "scan_key_chunk_size",
              "scan_mlp_chunk_size", "scan_layers", "param_scan_axis")
+# --modality → (config, model) (`lwm_tpu/train.py:93-98, 181-197`)
+MODALITIES = {"text": (LLaMAConfig, LLaMAForCausalLM),
+              "vision,text": (VideoLLaMAConfig, VideoLLaMAForCausalLM)}
 
 
-def build_model_config(load_llama_config="", llama=None, update_llama_config=None):
+def build_model_config(load_llama_config="", llama=None, update_llama_config=None,
+                       config_cls=LLaMAConfig):
     """Preset (or `llama` alone) → the scan knobs of `llama` overlaid on a
-    preset → `update_llama_config` (a dict; the JAX flag is its string)."""
+    preset → `update_llama_config` (a dict; the JAX flag is its string), as
+    a `config_cls` (`VideoLLaMAConfig` for vision-text)."""
     llama = dict(llama or {})
     if load_llama_config:
-        config = LLaMAConfig.load_config(load_llama_config)
-        updates = LLaMAConfig.from_dict(llama)
+        config = config_cls.load_config(load_llama_config)
+        updates = config_cls.from_dict(llama)
         config = config.replace(**{key: getattr(updates, key) for key in SCAN_KEYS})
     else:
-        config = LLaMAConfig.from_dict(llama)
+        config = config_cls.from_dict(llama)
     return config.replace(**(update_llama_config or {}))
+
+
+def param_masks(config, freeze_base=False):
+    """(decayed, frozen): predicates on parameter names from the config's
+    weight-decay and frozen-param exclusions, matched against each param's
+    flax path as the JAX trainer's masks are (`lwm_tpu/train.py:209-221`);
+    frozen is None without `freeze_base` (no multi_transform)."""
+    def by_path(predicate):
+        return lambda name: predicate(flax_param_path(name, config))
+
+    decayed = by_path(none_match(config.get_weight_decay_exclusions()))
+    if not freeze_base:
+        return decayed, None
+    return decayed, by_path(none_match(config.get_frozen_param_exclusions(True)))
 
 
 @dataclass
@@ -91,21 +120,40 @@ class TrainState:
     state, and the number of train steps taken."""
 
     model: torch.nn.Module
-    optimizer: AdamW
+    optimizer: object   # optim.AdamW or optim.Palm
     step: int = 0
 
 
-def create_train_state(model, optimizer_config=None):
-    return TrainState(model, OptimizerFactory.get_optimizer(optimizer_config,
-                                                            model.named_parameters()))
+def create_train_state(model, optimizer_config=None, freeze_base=False):
+    """The model with the optimizer of `optimizer_config` over its params,
+    decayed and frozen as its config's exclusions say (`param_masks`), each
+    param in the block of its JAX tree leaf (`flax_param_path`)."""
+    decayed, frozen = param_masks(model.config, freeze_base)
+    return TrainState(model, OptimizerFactory.get_optimizer(
+        optimizer_config, model.named_parameters(), decayed, frozen,
+        param_block=lambda name: flax_param_path(name, model.config)))
 
 
 def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
-    """Masked cross-entropy on {"input_tokens", "target_tokens",
-    "loss_masks"}: of the model's logits, or with `fused_lm_loss` of its
-    final hidden states through the lm_head (the embedding when tied) in
-    fp32 chunks of `loss_chunk_size` (2048 when 0). Returns (loss, {"acc":
-    accuracy})."""
+    """The masked cross-entropy of a batch {"input_tokens",
+    "target_tokens", "loss_masks"[, "input_vision_masks",
+    "target_vision_masks"]}. A VideoLLaMA (its sample_mode "all", as
+    `main` requires): the dual loss of its (vision, text) logits, with
+    {"vision_loss", "vision_acc", "text_loss", "text_acc"}, its fp32
+    log-softmax in chunks of `loss_chunk_size` rows recomputed in the
+    backward, 2048 when 0 (where the JAX trainer takes the whole sequence
+    at once: over 32768 rows the two heads' fp32 copies put a 7b-width
+    step at a 66.3 GiB peak, which failed on an 80 GB card when the
+    allocator's cache was fragmented). A text model:
+    of its logits, or with
+    `fused_lm_loss` of its final hidden states through the lm_head (the
+    embedding when tied) in fp32 chunks of `loss_chunk_size` (2048 when
+    0), with {"acc"}. Returns (loss, metrics)."""
+    if model.takes_vision_masks:
+        out = model(batch["input_tokens"], vision_masks=batch["input_vision_masks"])
+        return dual_cross_entropy(out.vision_logits, out.lm_logits, batch["target_tokens"],
+                                  batch["loss_masks"], batch["target_vision_masks"],
+                                  chunk_size=loss_chunk_size or 2048)
     if fused_lm_loss:
         hidden = model.forward_hidden(batch["input_tokens"])
         weight = model.wte.weight if model.lm_head is None else model.lm_head.weight
@@ -121,9 +169,10 @@ def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
 
 def train_step(state, batch, loss_chunk_size=0, fused_lm_loss=False):
     """One forward, backward and optimizer step, updating `state` in place.
-    Returns the JAX step's metrics as 0-dim tensors: loss, acc,
-    learning_rate (the schedule at the new step count), param_norm (after
-    the update) and gradient_norm."""
+    Returns the JAX step's metrics as 0-dim tensors: loss, the loss's
+    metrics (`compute_loss`), learning_rate (the schedule at the new step
+    count), param_norm (after the update) and gradient_norm (of every
+    gradient, frozen params' included)."""
     model = state.model
     model.zero_grad(set_to_none=True)
     loss, aux = compute_loss(model, batch, loss_chunk_size, fused_lm_loss)
@@ -145,7 +194,7 @@ def train_step(state, batch, loss_chunk_size=0, fused_lm_loss=False):
 
 def eval_step(state, batch, loss_chunk_size=0, fused_lm_loss=False):
     """The loss of the current params on `batch`, without gradients:
-    {"eval_loss", "eval_acc"} as 0-dim tensors."""
+    {"eval_loss", "eval_" + each loss metric} as 0-dim tensors."""
     with torch.no_grad():
         loss, aux = compute_loss(state.model, batch, loss_chunk_size, fused_lm_loss)
     return dict(eval_loss=loss, **{f"eval_{k}": v for k, v in aux.items()})
@@ -156,7 +205,8 @@ def eval_step(state, batch, loss_chunk_size=0, fused_lm_loss=False):
 PROG = "python -m lwm_tpu_torch.train"
 # one device: this host is rank 0 of 1 on every axis (`get_ranks_and_size`)
 NODE_INFO = dict(dp_node_size=1, dp_node_rank=0, mp_node_size=1, mp_node_rank=0)
-BATCH_KEYS = ("input_tokens", "target_tokens", "loss_masks")
+BATCH_KEYS = ("input_tokens", "target_tokens", "loss_masks", "input_vision_masks",
+              "target_vision_masks")
 
 
 def _llama_flag_defaults():
@@ -213,11 +263,7 @@ def check_single_device_mesh(mesh_dim):
 
 def check_supported(flags):
     """Refuse, before anything is built, what the port does not train."""
-    if flags.modality == "vision,text":
-        raise NotImplementedError(
-            "--modality=vision,text is not ported yet: it comes with the vision model "
-            "(ROADMAP A5)")
-    if flags.modality != "text":
+    if flags.modality not in MODALITIES:
         raise ValueError(f"unsupported modality: {flags.modality}")
     check_single_device_mesh(flags.mesh_dim)
     if flags.sp_layout != "contiguous":
@@ -227,10 +273,6 @@ def check_supported(flags):
     if flags.jax_distributed["initialize_jax_distributed"]:
         raise NotImplementedError("multi-process training comes with the multi-GPU module "
                                   "(ROADMAP A4)")
-    if flags.freeze_base:
-        raise NotImplementedError(
-            "--freeze_base (a vision finetune recipe: only vte and vision_head train) is not "
-            "ported yet: it comes with the vision model (ROADMAP A5)")
 
 
 def _on_device(batch, device):
@@ -276,13 +318,19 @@ def main(argv=None):
     if flags.update_llama_config:
         # the JAX CLI's spelling: a Python expression, "dict(theta=5e7, ...)"
         updates = dict(eval(flags.update_llama_config, {"dict": dict}))  # noqa: S307
-    config = build_model_config(flags.load_llama_config, flags.llama, updates)
+    config_cls, model_cls = MODALITIES[flags.modality]
+    config = build_model_config(flags.load_llama_config, flags.llama, updates, config_cls)
     config = config.replace(vocab_size=max(config.vocab_size, dataset.vocab_size),
                             bos_token_id=tokenizer.bos_token_id,
                             eos_token_id=tokenizer.eos_token_id)
-    model = LLaMAForCausalLM(config, dtype=get_float_dtype_by_name(flags.dtype),
-                             param_dtype=torch.float32, device=device)
-    state = create_train_state(model, flags.optimizer)
+    if model_cls.takes_vision_masks and config.sample_mode != "all":
+        raise ValueError(   # the JAX trainer's message (`lwm_tpu/train.py:186-197`)
+            "vision,text training needs sample_mode='all' (dual vision+text logits); got "
+            f"sample_mode='{config.sample_mode}' — 'vision'/'text' are sampling-time modes "
+            "(set them at generation, not here)")
+    model = model_cls(config, dtype=get_float_dtype_by_name(flags.dtype),
+                      param_dtype=torch.float32, device=device)
+    state = create_train_state(model, flags.optimizer, flags.freeze_base)
     checkpointer = StreamingCheckpointer(flags.checkpointer, output_dir)
     summary = dict(output_dir=output_dir, loaded=None, load_seconds=None, save_seconds=[])
     if load_checkpoint:

@@ -21,17 +21,21 @@ as it is: each quantized int8 kernel [d, f] becomes an int8 [f, d] `weight`
 and its fp32 `scale` [f] (one layer's slice of a stacked scale) is kept, for
 a model built with `quant_dense` set. `dtype=` casts neither.
 
-Any tree shaped like the params converts the same way: a gradient tree
-from `jax.grad`, optax's moments. `convert_optax_state` maps the state of
-the JAX train step's optimizer (`lwm_tpu/optim.py`: clip + adamw, possibly
-inside `optax.MultiSteps`) onto `lwm_tpu_torch.optim.AdamW.named_state`,
-from optax's own namedtuples or from the state-dict form a checkpoint
-stream holds (nested dicts keyed "0", "1", "count", "mu", ...).
+Any tree shaped like the params converts the same way, whole or in part:
+a gradient tree from `jax.grad`, optax's moments (of the trainable params
+alone under a frozen mask). Both directions go by name (`_flax_key`: a
+port parameter name → its flax path), and `flax_param_path` gives the
+path string the JAX masks match. `convert_optax_state` maps the state of
+the JAX train step's optimizer (`lwm_tpu/optim.py`: clip + adamw, or the
+PaLM chain, possibly inside `optax.MultiSteps` and `multi_transform`)
+onto the `named_state` of `lwm_tpu_torch.optim.AdamW` or `.Palm`, from
+optax's own namedtuples or from the state-dict form a checkpoint stream
+holds (nested dicts keyed "0", "1", "count", "mu", ...).
 
 The inverse maps write what the JAX trainer saves: `flax_params_tree` (the
 state dict as the flax param tree, stacked under `scan_decoder` when
 `config.scan_layers`, kernels transposed back to [in, out]) and
-`optax_state_tree` (`AdamW.named_state` as flax's `to_state_dict` of the
+`optax_state_tree` (a `named_state` as flax's `to_state_dict` of the
 optax state). Dict keys come sorted, as a tree that went through `jax.jit`
 has them, so that a stream of the port's tree is the JAX writer's bytes.
 """
@@ -39,23 +43,78 @@ has them, so that a stream of the port's tree is the JAX writer's bytes.
 from __future__ import annotations
 
 import functools
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 
-def _layer_tree(h, layer, scan_axis):
-    """Layer `layer`'s subtree of transformer/h, scanned or not."""
-    if "scan_decoder" in h:
-        def take(node):
-            if isinstance(node, dict):
-                return {k: take(v) for k, v in node.items()}
-            if isinstance(node, torch.Tensor):
-                return node.select(scan_axis, layer)
-            return np.take(np.asarray(node), layer, axis=scan_axis)
+_LAYER_DENSE = {"attention": ("wq", "wk", "wv", "wo"), "feed_forward": ("w1", "w2", "w3")}
 
-        return take(h["scan_decoder"])
-    return h[str(layer)]
+
+def _flax_key(name):
+    """A parameter name of the port → (its path in the flax tree under
+    "params", the layer as an int; whether it is a dense kernel, stored
+    transposed). `.scale` names the fp32 scale of an int8 kernel."""
+    parts = name.split(".")
+    leaf = "kernel" if parts[-1] == "weight" else "scale"
+    if parts[0] == "h":
+        i, mod = int(parts[1]), parts[2]
+        if mod in _LAYER_DENSE:
+            return ("transformer", "h", i, mod, parts[3], leaf), leaf == "kernel"
+        return ("transformer", "h", i, mod, "kernel"), False   # the two norms
+    if parts[0] in ("wte", "vte"):
+        return ("transformer", parts[0], "embedding"), False
+    if parts[0] == "ln_f":
+        return ("transformer", "ln_f", "kernel"), False
+    return (parts[0], leaf), leaf == "kernel"   # lm_head, vision_head
+
+
+def flax_param_path(name, config):
+    """The '/'-joined flax path of parameter `name` in the JAX trainer's
+    param tree ("params/transformer/h/scan_decoder/attention/wq/kernel"),
+    the string the JAX masks match their regexes against
+    (`lwm_tpu/parallel/partition.py:37-44`)."""
+    path, _ = _flax_key(name)
+    if len(path) > 2 and path[1] == "h":
+        path = (*path[:2], "scan_decoder" if config.scan_layers else str(path[2]), *path[3:])
+    return "/".join(("params", *path))
+
+
+def _candidate_names(config):
+    """Every parameter name a model of `config` may have, int8 scales too."""
+    names = ["wte.weight", "vte.weight", "ln_f.weight"]
+    heads = [] if config.tie_word_embeddings else ["lm_head"]
+    if not getattr(config, "tie_vision_embeddings", True):
+        heads.append("vision_head")
+    for head in heads:
+        names += [head + ".weight", head + ".scale"]
+    for i in range(config.num_hidden_layers):
+        for mod, dense in _LAYER_DENSE.items():
+            for n in dense:
+                names += [f"h.{i}.{mod}.{n}.weight", f"h.{i}.{mod}.{n}.scale"]
+        names += [f"h.{i}.attention_norm.weight", f"h.{i}.ffn_norm.weight"]
+    return names
+
+
+def _lookup(tree, path, scan_axis):
+    """The leaf at `path` (a layer as an int) of a scanned or unscanned
+    tree, or None where the tree has no such leaf."""
+    node = tree
+    for j, key in enumerate(path):
+        if isinstance(key, int):
+            if "scan_decoder" in node:
+                leaf = _lookup(node["scan_decoder"], path[j + 1:], scan_axis)
+                if leaf is None:
+                    return None
+                if isinstance(leaf, torch.Tensor):
+                    return leaf.select(scan_axis, key)
+                return np.take(np.asarray(leaf), key, axis=scan_axis)
+            key = str(key)
+        if not isinstance(node, Mapping) or key not in node:
+            return None
+        node = node[key]
+    return node
 
 
 def convert_flax_params(params, config, dtype=None, device=None):
@@ -63,10 +122,10 @@ def convert_flax_params(params, config, dtype=None, device=None):
     (float weights cast to `dtype` when given; int8 weights and their
     scales keep their types). With `device`, each leaf is copied there as
     it is and transposed there: a card transposes a 7b's kernels in
-    milliseconds, a host in seconds."""
+    milliseconds, a host in seconds. A tree that holds only some params
+    (optax's moments of a frozen-base finetune) gives only those."""
     if "params" in params:
         params = params["params"]
-    tr = params["transformer"]
 
     def t(x, transpose=False, cast=True):
         if device is not None and not isinstance(x, torch.Tensor):
@@ -88,79 +147,71 @@ def convert_flax_params(params, config, dtype=None, device=None):
             x = x.to(torch.bfloat16)
         return x if device is None else x.to(device)
 
-    def dense(sd, name, node):
-        sd[name + ".weight"] = t(node["kernel"], transpose=True)
-        if "scale" in node:  # int8 kernel from quantize_params_int8
-            sd[name + ".scale"] = t(node["scale"], cast=False).float()
-
-    sd = {
-        "wte.weight": t(tr["wte"]["embedding"]),
-        "ln_f.weight": t(tr["ln_f"]["kernel"]),
-    }
-    if not config.tie_word_embeddings:
-        dense(sd, "lm_head", params["lm_head"])
-    if "vte" in tr:   # a VideoLLaMA's
-        sd["vte.weight"] = t(tr["vte"]["embedding"])
-    if "vision_head" in params:   # absent when tie_vision_embeddings
-        dense(sd, "vision_head", params["vision_head"])
-    for i in range(config.num_hidden_layers):
-        blk = _layer_tree(tr["h"], i, config.param_scan_axis)
-        pre = f"h.{i}."
-        for mod, names in (("attention", "wq wk wv wo"), ("feed_forward", "w1 w2 w3")):
-            for n in names.split():
-                dense(sd, f"{pre}{mod}.{n}", blk[mod][n])
-        sd[pre + "attention_norm.weight"] = t(blk["attention_norm"]["kernel"])
-        sd[pre + "ffn_norm.weight"] = t(blk["ffn_norm"]["kernel"])
+    sd = {}
+    for name in _candidate_names(config):
+        path, dense = _flax_key(name)
+        leaf = _lookup(params, path, config.param_scan_axis)
+        if leaf is None:
+            continue
+        if path[-1] == "scale":   # of an int8 kernel from quantize_params_int8
+            sd[name] = t(leaf, cast=False).float()
+        else:
+            sd[name] = t(leaf, transpose=dense)
     return sd
 
 
-def _field(node, name):
-    return node[name] if isinstance(node, dict) else getattr(node, name)
-
-
-def _find(node, fields):
-    """The first node of an optax state tree that has all `fields`: a
-    namedtuple, or a dict of the state-dict form."""
-    if isinstance(node, dict):
-        if all(f in node for f in fields):
-            return node
-        children = node.values()
-    elif all(hasattr(node, f) for f in fields):
-        return node
+def _state_dict(node):
+    """An optax state (namedtuples, tuples, dicts) in flax's `to_state_dict`
+    form: nested dicts keyed by field name or index, empty states and
+    `MaskedNode`s dropped, as `flatten_dict` drops them. A dict of that
+    form (a checkpoint's) comes back as it is."""
+    if isinstance(node, Mapping):
+        items = ((str(k), v) for k, v in node.items())
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        items = ((f, getattr(node, f)) for f in node._fields)
     elif isinstance(node, (tuple, list)):
-        children = node
+        items = ((str(i), v) for i, v in enumerate(node))
     else:
-        return None
-    for child in children:
-        found = _find(child, fields)
-        if found is not None:
-            return found
-    return None
+        return node
+    out = {}
+    for k, v in items:
+        v = _state_dict(v)
+        if not (isinstance(v, dict) and not v):
+            out[k] = v
+    return out
 
 
 def convert_optax_state(opt_state, config, device=None):
-    """optax state of clip_by_global_norm + adamw (optionally inside
-    MultiSteps) → {"count", "mini_step", "gradient_step", "mu", "nu", "acc"}
-    as `AdamW.named_state` gives it: counts as ints, moments as state dicts
-    (mu keeps its dtype: bf16 with `bf16_momentum`), on `device` when
-    given."""
-    adam = _find(opt_state, ("count", "mu", "nu"))
-    if adam is None:
-        raise ValueError("no ScaleByAdamState in the optax state")
-    multi = _find(opt_state, ("mini_step", "gradient_step", "acc_grads"))
+    """The JAX trainer's optax state (`lwm_tpu/optim.py`: clip + adamw, or
+    the PaLM chain, optionally inside MultiSteps, and inside
+    multi_transform under a frozen mask), as optax's namedtuples or a
+    checkpoint's state-dict form → the `named_state` of the port's
+    optimizer: {"count", "mini_step", "gradient_step", "acc"} plus AdamW's
+    "mu" and "nu" or PaLM's "v" and "ema", per-param state dicts (the
+    momentum keeps its dtype: bf16 with `bf16_momentum`) on `device` when
+    given. Counts are ints."""
+    state = _state_dict(opt_state)
+    if "inner_states" in state:   # multi_transform: the trainable group
+        state = state["inner_states"]["False"]["inner_state"]
+    multi = None
+    if "inner_opt_state" in state:   # MultiSteps
+        multi, state = state, state["inner_opt_state"]
+    chain = state["1"]
 
-    def count(node, name):
-        return 0 if node is None else int(np.asarray(_field(node, name)))
+    def moments(node, key):
+        return convert_flax_params(node.get(key, {}), config, device=device)
 
-    return dict(
-        count=count(adam, "count"),
-        mini_step=count(multi, "mini_step"),
-        gradient_step=count(multi, "gradient_step"),
-        mu=convert_flax_params(_field(adam, "mu"), config, device=device),
-        nu=convert_flax_params(_field(adam, "nu"), config, device=device),
-        acc={} if multi is None else convert_flax_params(_field(multi, "acc_grads"), config,
-                                                         device=device),
-    )
+    out = dict(count=int(np.asarray(chain["0"]["count"])),
+               mini_step=0 if multi is None else int(np.asarray(multi["mini_step"])),
+               gradient_step=0 if multi is None else int(np.asarray(multi["gradient_step"])),
+               acc={} if multi is None else moments(multi, "acc_grads"))
+    if "v" in chain["0"]:   # adafactor's FactoredState, then its EMA
+        out.update(v=moments(chain["0"], "v"), ema=moments(chain["3"], "ema"))
+    elif "mu" in chain["0"]:
+        out.update(mu=moments(chain["0"], "mu"), nu=moments(chain["0"], "nu"))
+    else:
+        raise ValueError(f"no adamw or adafactor state in the optax state: {sorted(chain['0'])}")
+    return out
 
 
 def _t(x):
@@ -169,9 +220,6 @@ def _t(x):
 
 def _sorted(tree):
     return {k: _sorted(tree[k]) if isinstance(tree[k], dict) else tree[k] for k in sorted(tree)}
-
-
-_LAYER_DENSE = {"attention": ("wq", "wk", "wv", "wo"), "feed_forward": ("w1", "w2", "w3")}
 
 
 def materialize(leaf):
@@ -183,71 +231,97 @@ def _stack(parts, axis):
     return torch.stack([materialize(p) for p in parts], dim=axis)
 
 
+def _insert(tree, path, leaf):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
 def flax_params_tree(sd, config):
-    """The inverse of `convert_flax_params` for float weights: a state dict
-    ({name: tensor or a zero-argument callable making one}, any device) →
-    the flax param tree (without the top-level "params" key), dense weights
-    as [in, out] kernels (transposed views), the layers stacked on
-    `config.param_scan_axis` under `transformer/h/scan_decoder` when
-    `config.scan_layers`, else under `transformer/h/{i}`; keys sorted. A
-    stacked leaf is lazy, a callable that stacks when called (see
-    `materialize`): the checkpoint writer makes one at a time, so a 7b
-    train state never holds two stacked copies of itself."""
-    def layer(i):
-        pre = f"h.{i}."
-        tree = {mod: {n: {"kernel": _t(sd[f"{pre}{mod}.{n}.weight"])} for n in names}
-                for mod, names in _LAYER_DENSE.items()}
-        tree["attention_norm"] = {"kernel": sd[pre + "attention_norm.weight"]}
-        tree["ffn_norm"] = {"kernel": sd[pre + "ffn_norm.weight"]}
-        return tree
-
-    layers = [layer(i) for i in range(config.num_hidden_layers)]
-    if config.scan_layers:
-        def stack(nodes):
-            if isinstance(nodes[0], dict):
-                return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
-            return functools.partial(_stack, nodes, config.param_scan_axis)
-
-        h = {"scan_decoder": stack(layers)}
-    else:
-        h = {str(i): blk for i, blk in enumerate(layers)}
-    tree = {"transformer": {"wte": {"embedding": sd["wte.weight"]},
-                            "ln_f": {"kernel": sd["ln_f.weight"]}, "h": h}}
-    if not config.tie_word_embeddings:
-        tree["lm_head"] = {"kernel": _t(sd["lm_head.weight"])}
-    if "vte.weight" in sd:
-        tree["transformer"]["vte"] = {"embedding": sd["vte.weight"]}
-    if "vision_head.weight" in sd:
-        tree["vision_head"] = {"kernel": _t(sd["vision_head.weight"])}
+    """The inverse of `convert_flax_params`: a state dict ({name: tensor or
+    a zero-argument callable making one}, any device; all of a model's
+    params or some of them) → the flax param tree (without the top-level
+    "params" key), dense weights as [in, out] kernels (transposed views),
+    the layers stacked on `config.param_scan_axis` under
+    `transformer/h/scan_decoder` when `config.scan_layers`, else under
+    `transformer/h/{i}`; keys sorted. A stacked leaf is lazy, a callable
+    that stacks when called (see `materialize`): the checkpoint writer
+    makes one at a time, so a 7b train state never holds two stacked
+    copies of itself."""
+    tree, stacked = {}, {}
+    for name, x in sd.items():
+        path, dense = _flax_key(name)
+        leaf = _t(x) if dense else x
+        if len(path) > 2 and path[1] == "h":
+            if config.scan_layers:
+                stacked.setdefault(path[3:], {})[path[2]] = leaf
+                continue
+            path = (*path[:2], str(path[2]), *path[3:])
+        _insert(tree, path, leaf)
+    layers = range(config.num_hidden_layers)
+    for sub, got in stacked.items():
+        if sorted(got) != list(layers):
+            raise ValueError(f"a scanned tree needs {'/'.join(sub)} of every layer, "
+                             f"got layers {sorted(got)}")
+        _insert(tree, ("transformer", "h", "scan_decoder", *sub),
+                functools.partial(_stack, [got[i] for i in layers], config.param_scan_axis))
     return _sorted(tree)
 
 
-def optax_state_tree(named, params, config, mu_dtype=torch.float32,
-                     accumulate_gradient_steps=1):
-    """`AdamW.named_state()` → flax's `to_state_dict` of the JAX trainer's
-    optax state (`lwm_tpu/optim.py:37-92`): clip_by_global_norm + adamw, its
-    empty states dropped as `flatten_dict` drops them,
+def _map_leaves(tree, fn):
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def optax_state_tree(named, params, config, kind="adamw", mu_dtype=torch.float32,
+                     accumulate_gradient_steps=1, multi_transform=False):
+    """The `named_state()` of the port's optimizer → flax's `to_state_dict`
+    of the JAX trainer's optax state (`lwm_tpu/optim.py`), its empty states
+    dropped as `flatten_dict` drops them. AdamW (clip_by_global_norm +
+    adamw):
 
         {"1": {"0": {"count", "mu": {"params": ...}, "nu": {"params": ...}},
                "2": {"count"}}}
 
+    PaLM (clip + adafactor's FactoredState, its schedule's count and EMA +
+    the scheduled weight decay's count; `v_row` and `v_col` are
+    adafactor's one-element placeholders of an unfactored moment, one a
+    leaf, scanned leaves included):
+
+        {"1": {"0": {"count", "v_row", "v_col", "v"}, "1": {"count"},
+               "3": {"count", "ema"}}, "2": {"count"}}
+
     inside {"mini_step", "gradient_step", "inner_opt_state", "acc_grads"}
-    when `accumulate_gradient_steps` > 1 (`optax.MultiSteps`). Counts are
-    int32 scalars; a moment not made yet (no update so far) is zeros shaped
-    like `params` ({name: tensor}), mu in `mu_dtype`, made lazily as the
-    stacked leaves are."""
-    def moments(key, dtype):
+    when `accumulate_gradient_steps` > 1 (`optax.MultiSteps`), and that
+    inside {"inner_states": {"False": {"inner_state": ...}}} with
+    `multi_transform` (a frozen mask: `params` then holds only the
+    trainable params, the only leaves its trees have). Counts are int32
+    scalars; a moment not made yet (no update so far) is zeros shaped like
+    `params` ({name: tensor}), the momentum in `mu_dtype`, made lazily as
+    the stacked leaves are."""
+    def moments(key, dtype=None):
         got = named.get(key, {})
         return {"params": flax_params_tree(
             {n: got[n] if n in got else functools.partial(torch.zeros_like, p, dtype=dtype)
              for n, p in params.items()}, config)}
 
     count = np.int32(named["count"])
-    adamw = {"1": {"0": {"count": count, "mu": moments("mu", mu_dtype),
-                         "nu": moments("nu", None)},
-                   "2": {"count": count}}}
-    if accumulate_gradient_steps <= 1:
-        return adamw
-    return {"mini_step": np.int32(named["mini_step"]),
-            "gradient_step": np.int32(named["gradient_step"]),
-            "inner_opt_state": adamw, "acc_grads": moments("acc", None)}
+    if kind == "adamw":
+        state = {"1": {"0": {"count": count, "mu": moments("mu", mu_dtype), "nu": moments("nu")},
+                       "2": {"count": count}}}
+    elif kind == "palm":
+        dtype = next(iter(params.values())).dtype if params else torch.float32
+        placeholder = {"params": _map_leaves(flax_params_tree(params, config),
+                                             lambda _: torch.zeros(1, dtype=dtype))}
+        factored = {"count": count, "v_row": placeholder, "v_col": placeholder,
+                    "v": moments("v")}
+        ema = {"count": count, "ema": moments("ema", mu_dtype)}
+        state = {"1": {"0": factored, "1": {"count": count}, "3": ema}, "2": {"count": count}}
+    else:
+        raise ValueError(f"unknown optimizer kind: {kind}")
+    if accumulate_gradient_steps > 1:
+        state = {"mini_step": np.int32(named["mini_step"]),
+                 "gradient_step": np.int32(named["gradient_step"]),
+                 "inner_opt_state": state, "acc_grads": moments("acc")}
+    if multi_transform:
+        state = {"inner_states": {"False": {"inner_state": state}}}
+    return state

@@ -1,7 +1,8 @@
 """Loss and metric primitives of the train step (`lwm_tpu/utils/losses.py:8-144`).
 
 `cross_entropy_loss_and_accuracy` reads full logits (the default train
-step); `fused_lm_cross_entropy` (`--fused_lm_loss`) computes the lm_head
+step); `dual_cross_entropy` is the VideoLLaMA step's pair of them
+(`lwm_tpu/train.py:273-296`); `fused_lm_cross_entropy` (`--fused_lm_loss`) computes the lm_head
 product inside the loss, one rematerialized sequence chunk at a time, so
 the [b, s, vocab] logits never exist.
 """
@@ -49,6 +50,24 @@ def cross_entropy_loss_and_accuracy(logits, tokens, valid=None, chunk_size=None)
     loss = -(log_prob_sum / valid_text_length).mean()
     accuracy = (correct_sum / valid_text_length).mean()
     return loss, accuracy
+
+
+def dual_cross_entropy(vision_logits, text_logits, tokens, valid, target_vision_masks,
+                       chunk_size=None):
+    """The vision-text loss 0.5 × (vision CE + text CE): the vision head's
+    logits on the targets the vision masks mark (the other targets read as
+    0 and are masked out), the text head's on the rest, each a
+    `cross_entropy_loss_and_accuracy` with `chunk_size`. tokens, valid,
+    target_vision_masks [b, s]. Returns (loss, {"vision_loss",
+    "vision_acc", "text_loss", "text_acc"}), fp32 scalars."""
+    vision = target_vision_masks.bool()
+    valid = valid.float()
+    vision_loss, vision_acc = cross_entropy_loss_and_accuracy(
+        vision_logits, torch.where(vision, tokens, 0), valid * vision, chunk_size)
+    text_loss, text_acc = cross_entropy_loss_and_accuracy(
+        text_logits, torch.where(vision, 0, tokens), valid * ~vision, chunk_size)
+    return 0.5 * (vision_loss + text_loss), dict(
+        vision_loss=vision_loss, vision_acc=vision_acc, text_loss=text_loss, text_acc=text_acc)
 
 
 def _fused_chunk_stats(hidden, weight, tokens, valid):

@@ -80,6 +80,17 @@ def test_v2_stream_written_by_jax_reads_equal(tmp_path, chunk_bytes):
     assert sorted(sub) == [("bf16",), ("flat",), ("rows",), ("wte", "embedding")]
 
 
+def test_iter_stream_reads_leaves_in_file_order(tmp_path):
+    """`iter_stream` yields the stream's records one at a time, in the
+    order the JAX reader meets them, with the JAX reader's values."""
+    path = str(tmp_path / "v2.ckpt")
+    jax_ckpt.save_stream(v2_leaves(), path, chunk_bytes=32)
+    records = list(ckpt.iter_stream(path))
+    assert_same_leaves(dict(records), jax_ckpt.load_stream(path))   # keys in order too
+    assert list(ckpt.iter_stream(GOLDEN)) and dict(ckpt.iter_stream(GOLDEN)).keys() == \
+        ckpt.load_stream(GOLDEN).keys()
+
+
 @pytest.mark.parametrize("float_dtype", [None, "bf16"])
 @pytest.mark.parametrize("chunk_bytes", [32, ckpt.DEFAULT_CHUNK_BYTES])
 def test_v2_writer_gives_jax_writer_bytes(tmp_path, chunk_bytes, float_dtype):

@@ -242,9 +242,10 @@ def test_factory_and_vocab(tokenizers, jsonl):
     assert ds.vocab_size == len(hf_tok) == 457
     assert len(Tokenizer(str(REPO / "tests/fixtures/tokenizer_bpe"))) == len(
         AutoTokenizer.from_pretrained(str(REPO / "tests/fixtures/tokenizer_bpe")))
-    for kind in ("huggingface", "json_vision"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DatasetFactory.load_dataset(dict(type=kind), port_tok, node_info=NODE_INFO)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DatasetFactory.load_dataset(dict(type="huggingface"), port_tok, node_info=NODE_INFO)
+    with pytest.raises(ValueError, match="fields_from_example"):   # json_vision loads
+        DatasetFactory.load_dataset(dict(type="json_vision"), port_tok, node_info=NODE_INFO)
     with pytest.raises(ValueError):
         DatasetFactory.load_dataset(dict(type="nope"), port_tok, node_info=NODE_INFO)
     with pytest.raises(KeyError):

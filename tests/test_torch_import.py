@@ -22,7 +22,7 @@ def test_port_imports_no_jax():
                      "utils.losses", "checkpoint", "ops.prefix", "utils.msgpack",
                      "utils.tokenizer", "apps.serve", "data", "data.text", "native",
                      "native.token_buffer", "utils.flags", "utils.io", "utils.logging",
-                     "utils.rng", "models.vision_llama", "apps.serve_vision"):
+                     "utils.rng", "models.vision_llama", "apps.serve_vision", "data.vision"):
             assert "lwm_tpu_torch." + want in names, names
         bad = [m for m in ("jax", "flax", "optax", "transformers", "absl", "ml_collections",
                            "msgpack", "tokenizers", "regex", "datasets", "wandb", "gcsfs",

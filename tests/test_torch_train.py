@@ -277,16 +277,14 @@ def test_training_refuses_what_is_not_ported():
         _port_model("mha", params)(ids, segment_ids=ids)
     with pytest.raises(NotImplementedError, match="remat_block"):
         LLaMAConfig(remat_block="offload_flash")
-    with pytest.raises(NotImplementedError, match="palm"):
-        optim.OptimizerFactory.get_optimizer({"type": "palm"}, [])
+    with pytest.raises(ValueError, match="unknown optimizer type"):
+        optim.OptimizerFactory.get_optimizer({"type": "sgd"}, [])
     with pytest.raises(KeyError):
         optim.OptimizerFactory.get_default_config({"adamw_optimizer": {"learning_rate": 1}})
     with torch.no_grad():   # not training: dropout is inactive, the forward runs
         _port_model("mha", params, resid_pdrop=0.1)(ids)
     # the CLI refuses at the flag level, before it builds anything
     for argv, match in [(["--mesh_dim=1,1,2,1"], "one device"),
-                        (["--modality=vision,text"], "vision"),
-                        (["--freeze_base"], "freeze_base"),
                         (["--sp_layout=striped"], "sp_layout"),
                         (["--jax_distributed.initialize_jax_distributed"], "multi-process")]:
         with pytest.raises(NotImplementedError, match=match):

@@ -198,10 +198,7 @@ def test_autoresume_continues_the_uninterrupted_run(workdir):
 def test_cli_refusals(workdir):
     base = _argv(workdir, "refused", total_steps=1)
     for flag, match in [("--mesh_dim=1,2,1,1", "one device"),
-                        ("--modality=vision,text", "vision"),
-                        ("--freeze_base", "freeze_base"),
                         ("--train_dataset.type=huggingface", "datasets"),
-                        ("--optimizer.type=palm", "palm"),
                         ("--sp_layout=striped", "A4")]:
         with pytest.raises(NotImplementedError, match=match):
             train.main(base + [flag])

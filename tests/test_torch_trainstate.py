@@ -5,7 +5,11 @@ StreamingCheckpointer.load_into`), the port writes it back byte for byte
 as the JAX writer did, the next step matches the JAX step from the same
 file, and the JAX checkpointer reads the state the port saves after it.
 Scanned trees on axis 0 and 1, an unscanned one and `optax.MultiSteps`
-(accumulate 2), with `float_dtype` None and "bf16". The stream's keys,
+(accumulate 2), with `float_dtype` None and "bf16"; and a VideoLLaMA's
+state under AdamW and PaLM (adafactor's FactoredState with its one-element
+placeholders, the EMA and the schedules' counts), with and without
+`--freeze_base` (`optax.multi_transform`: the trainable params' moments
+alone, under `inner_states/False/inner_state`). The stream's keys,
 dtypes and order are read off the JAX writer's file, never written down.
 
 Tolerances: the next step's metrics 1e-5 relative and the params after it
@@ -27,14 +31,17 @@ from flax.traverse_util import flatten_dict
 from flax.training.train_state import TrainState as JaxTrainState
 
 from lwm_tpu.checkpoint import StreamingCheckpointer as JaxCheckpointer
-from lwm_tpu.models import FlaxLLaMAForCausalLM
+from lwm_tpu.models import FlaxLLaMAForCausalLM, FlaxVideoLLaMAForCausalLM
 from lwm_tpu.models import LLaMAConfig as JaxConfig
+from lwm_tpu.models import VideoLLaMAConfig as JaxVideoConfig
 from lwm_tpu.models.llama import FlaxLLaMAForCausalLMModule
+from lwm_tpu.models.vision_llama import FlaxVideoLLaMAForCausalLMModule
 from lwm_tpu.optim import OptimizerFactory as JaxOptimizerFactory
-from lwm_tpu.parallel.partition import get_weight_decay_mask
+from lwm_tpu.parallel.partition import get_frozen_base_mask, get_weight_decay_mask
 from lwm_tpu.utils import cross_entropy_loss_and_accuracy as jax_cross_entropy
 from lwm_tpu_torch import checkpoint, train
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
+from lwm_tpu_torch.models.vision_llama import VideoLLaMAConfig, VideoLLaMAForCausalLM
 from lwm_tpu_torch.utils.convert import convert_flax_params, materialize
 
 BASE = dict(
@@ -145,6 +152,21 @@ def _flat_numpy(tree):
 def test_train_state_round_trips_with_jax(tmp_path, structure, float_dtype):
     step, jstate = _jax_run(structure)
     steps = STRUCTURES[structure][2]
+    state = _port_state(structure)
+
+    def check_loaded(state):
+        assert state.optimizer.count == int(jstate.opt_state.gradient_step if STRUCTURES[
+            structure][1] > 1 else jstate.opt_state[1][0].count)
+
+    _round_trip(tmp_path, step, jstate, state, steps, float_dtype, _batch(steps), check_loaded)
+
+
+def _round_trip(tmp_path, step, jstate, state, steps, float_dtype, batch, check_loaded=None):
+    """The JAX checkpointer's train state of `jstate` (after `steps`) loads
+    into the port's `state`, which writes the same bytes back (and the same
+    params milestone); the next step on `batch` from that file matches in
+    both packages; the JAX checkpointer reads the state the port saves
+    after it. `check_loaded(state)` runs right after the load."""
     jdir, pdir = tmp_path / "jax", tmp_path / "port"
     jdir.mkdir()
     pdir.mkdir()
@@ -152,12 +174,11 @@ def test_train_state_round_trips_with_jax(tmp_path, structure, float_dtype):
         jstate, None, metadata=dict(step=steps), dataset=dict(index=0))
 
     # the port loads it and writes the same bytes back
-    state = _port_state(structure)
     kind = checkpoint.StreamingCheckpointer.load_into(
         f"trainstate::{jdir / 'streaming_train_state'}", state)
     assert kind == "trainstate" and state.step == steps
-    assert state.optimizer.count == int(jstate.opt_state.gradient_step if STRUCTURES[
-        structure][1] > 1 else jstate.opt_state[1][0].count)
+    if check_loaded is not None:
+        check_loaded(state)
     port_ckpt = checkpoint.StreamingCheckpointer(_ckpt_config(float_dtype), str(pdir))
     port_ckpt.save_all(state, metadata=dict(step=steps), dataset=dict(index=0))
     want = (jdir / "streaming_train_state").read_bytes()
@@ -176,7 +197,6 @@ def test_train_state_round_trips_with_jax(tmp_path, structure, float_dtype):
     # the next step from the same file, in both packages
     loaded, _ = JaxCheckpointer.load_trainstate_checkpoint(
         f"trainstate::{jdir / 'streaming_train_state'}", jstate, _casts(jstate))
-    batch = _batch(steps)
     jnext, want_metrics = step(loaded, {k: jnp.asarray(v) for k, v in batch.items()})
     got = train.train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
     for key, value in want_metrics.items():
@@ -201,3 +221,85 @@ def test_train_state_round_trips_with_jax(tmp_path, structure, float_dtype):
             v = v.to(torch.bfloat16)
         np.testing.assert_array_equal(theirs[k], v.float().numpy() if v.is_floating_point()
                                       else v.numpy(), err_msg=str(k))
+
+
+# A VideoLLaMA's train state: name → (optimizer config, freeze_base, steps
+# before the save). PaLM with --freeze_base runs inside MultiSteps (3
+# micro-steps: mini_step 1 and a live accumulator of the trainable params)
+VISION_OPT = dict(lr=1e-2, lr_warmup_steps=10000, weight_decay=1e-2)
+VISION_CASES = {
+    "adamw": (OPT, False, 2),
+    "adamw_freeze_base": (OPT, True, 2),
+    "palm_bf16_momentum": (dict(type="palm", palm_optimizer=dict(
+        VISION_OPT, bf16_momentum=True)), False, 2),
+    "palm_freeze_base_accumulate2": (dict(type="palm", accumulate_gradient_steps=2,
+                                          palm_optimizer=VISION_OPT), True, 3),
+}
+
+
+def _vision_batch(seed):
+    batch = _batch(seed)
+    vision = np.zeros((B, S + 1), bool)
+    vision[0, 3:19] = True
+    codes = np.random.default_rng(seed).integers(0, 8194, (B, S + 1))
+    toks = np.concatenate([batch["input_tokens"], batch["target_tokens"][:, -1:]], 1)
+    toks = np.where(vision, codes, toks).astype(np.int32)
+    return dict(batch, input_tokens=toks[:, :-1], target_tokens=toks[:, 1:],
+                input_vision_masks=vision[:, :-1], target_vision_masks=vision[:, 1:])
+
+
+@functools.cache
+def _jax_vision_run(case):
+    """(jitted JAX vision train step, the TrainState after the case's
+    steps): `lwm_tpu/train.py`'s dual loss and optimizer with its masks."""
+    config, freeze_base, steps = VISION_CASES[case]
+    cfg = JaxVideoConfig(**BASE, scan_layers=True, mesh_dim=None, attn_impl="xla",
+                         sample_mode="all")
+    module = FlaxVideoLLaMAForCausalLMModule(cfg, dtype=jnp.float32)
+    rngs = {"dropout": jax.random.PRNGKey(0), "params": jax.random.PRNGKey(1)}
+    frozen = (get_frozen_base_mask(JaxVideoConfig.get_frozen_param_exclusions(True))
+              if freeze_base else None)
+    tx, info = JaxOptimizerFactory.get_optimizer(config, get_weight_decay_mask(()),
+                                                 frozen_param_mask=frozen)
+
+    def loss_fn(params, batch):
+        vision_logits, text_logits = module.apply(
+            params, batch["input_tokens"], batch["input_vision_masks"], deterministic=False,
+            rngs=rngs).logits
+        tvm, masks, tgt = batch["target_vision_masks"], batch["loss_masks"], batch[
+            "target_tokens"]
+        vision_loss, _ = jax_cross_entropy(vision_logits, jnp.where(tvm, tgt, 0), masks * tvm)
+        text_loss, _ = jax_cross_entropy(text_logits, jnp.where(tvm, 0, tgt),
+                                         masks * (1.0 - tvm))
+        return 0.5 * (vision_loss + text_loss)
+
+    @jax.jit
+    def step(state, batch):
+        loss, grads = jax.value_and_grad(loss_fn)(state.params, batch)
+        state = state.apply_gradients(grads=grads)
+        return state, dict(loss=loss, gradient_norm=optax.global_norm(grads),
+                           param_norm=optax.global_norm(state.params),
+                           learning_rate=info["learning_rate_schedule"](state.step))
+
+    params = jax.device_get(FlaxVideoLLaMAForCausalLM(cfg, input_shape=(1, 8), seed=0).params)
+    state = JaxTrainState.create(params={"params": params}, tx=tx, apply_fn=None)
+    for i in range(steps):
+        state, _ = step(state, _vision_batch(i))
+    return step, state
+
+
+@pytest.mark.parametrize("case", sorted(VISION_CASES))
+def test_vision_train_state_round_trips_with_jax(tmp_path, case):
+    """A VideoLLaMA under AdamW or PaLM, with and without --freeze_base
+    (the multi_transform state: moments of vte and vision_head alone)."""
+    config, freeze_base, steps = VISION_CASES[case]
+    step, jstate = _jax_vision_run(case)
+    cfg = VideoLLaMAConfig.from_dict(dict(BASE, scan_layers=True))
+    model = VideoLLaMAForCausalLM(cfg, dtype=torch.float32, param_dtype=torch.float32,
+                                  device="cpu")
+    state = train.create_train_state(model, config, freeze_base)
+    _round_trip(tmp_path, step, jstate, state, steps, None, _vision_batch(steps))
+    trainable = {"vte.weight", "vision_head.weight"}
+    named = state.optimizer.named_state()
+    moments = set().union(*(named[k] for k in state.optimizer.MOMENTS))
+    assert moments == (trainable if freeze_base else set(dict(model.named_parameters())))
