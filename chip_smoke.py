@@ -23,6 +23,12 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      fold (all slots' query heads over one 32768-key prefix block: groups
      6, 8, 12, 16 and 32; and group 4 over the video QA path's 30976-row
      block); every case timed.
+     Then K1's and K4's fp32 routes (the needle evals' dtype) at fp32 against
+     the same twins within 1e-5 of the twin's largest value: K1 over the
+     needle batch's cache (5120 queries over 6144 slots) and its edges, and
+     at the 32k needle bundle's prefill (its twin in 1024-query chunks); K4 over the needle
+     batch's 4 rows (MHA and GQA) and one row of the bundle's 34816 slots,
+     output and partials; each timed beside SDPA at fp32 and the fp32 bound.
   5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
      its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
@@ -67,7 +73,17 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      decode logits over the video on the noise floor, one admission held
      to one forward of video + question without a cache, and the masks
      shown to matter; then 4 requests each with its own 4-frame video
-     inline (submit(vision_masks=)).
+     inline (submit(vision_masks=)). Then batched generation
+     (`lwm_tpu_torch.generation` through `apps.sampler.TextSampler`) on the
+     same weights as a shared-index model: four left-padded prompts of
+     335-3598 tokens (fixture tokenizer) in 4096, 32 new tokens, exact K1/K4
+     counts, prefill and decode times; the prefill's last logits held on the
+     noise floor to the plain path and to each prompt run alone unpadded,
+     greedy agreement printed. Then the needle evals' dtype: the weights cast
+     up to fp32, one batch of eval_needle's tester at context 4000 (4 rows x
+     5120 tokens over a 6144-slot cache, 128 new tokens) on K1's and K4's
+     fp32 routes (exact fp32 counts), its logits held to the plain fp32 path
+     at 1e-3 of the largest and two rows' greedy tokens to it exactly.
   8. The same weights quantized on the card (`quantize_params_int8`, the
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
@@ -83,6 +99,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      video QA CLI (`python -m lwm_tpu_torch.apps.serve_vision`) three
      times over a 4-layer VideoLLaMA stream and an 8-frame codes file: its
      video index saved, then loaded (the same answers), lookup verify.
+     Then both needle eval CLIs (`python -m lwm_tpu_torch.apps.eval_needle`,
+     `eval_needle_multi`) at fp32 over a 7b-width 4-layer stream and a
+     generated haystack, contexts 1000-4000 x 2 depths x 1 round, each run
+     twice: one results row a grid point, and the rerun adds none.
   9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
      grads of the kernel path against an attn_impl="plain" bf16 model and
      an fp32 copy (the noise floor), on the same weights and batch.
@@ -111,7 +131,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      tokens/s, model-FLOPs share with both heads, peak memory), 2 with
      --freeze_base (every frozen param bit-unchanged, vte and vision_head
      moved), 2 with the PaLM optimizer, the 1-layer round trip under both
-     (`pad` rows), and a kernel-vs-plain VideoLLaMA train step (7b width,
+     (`pad` rows), the 6 AdamW steps again at --loss_chunk_size=32768,
+     whose peak may be at most 1 GiB over the default run's (ROADMAP C5:
+     the dual loss takes any chunk in 2048-row pieces), and a
+     kernel-vs-plain VideoLLaMA train step (7b width,
      2 layers, seq 4096, held to the fp32 noise floor). Its attention, K1
      and the fused backward at b1 S32768 h32 causal, is timed beside SDPA
      (is_causal) with the kernel phases and held to the plain twins at 2
@@ -136,14 +159,18 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lwm_tpu_torch import checkpoint, train
+from lwm_tpu_torch import checkpoint, generation, train
 from lwm_tpu_torch import serve as serve_module
+from lwm_tpu_torch.apps import eval_needle
+from lwm_tpu_torch.apps import sampler as sampler_module
 from lwm_tpu_torch.apps import serve_vision as vision_cli
+from lwm_tpu_torch.apps.sampler import TextSampler
 from lwm_tpu_torch.models import llama as llama_module
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM, quantize_kv
 from lwm_tpu_torch.models.vision_llama import EOF, EOV, VideoLLaMAConfig, VideoLLaMAForCausalLM
@@ -152,6 +179,7 @@ from lwm_tpu_torch.ops import prefix as prefix_ops
 from lwm_tpu_torch.ops.reference import BIG_NEG
 from lwm_tpu_torch.serve import InflightServer, _lookup_proposal, build_prefix_cache, prefill_logits
 from lwm_tpu_torch.utils.convert import flax_params_tree
+from lwm_tpu_torch.utils.rng import set_random_seed
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
 
 BF16 = torch.bfloat16
@@ -659,6 +687,172 @@ def phase_k4(gen):
             others)
 
 
+# K1's and K4's fp32 routes (csrc/flash_fwd_f32.cu, csrc/flash_decode.cu's
+# fp32 instance), which the needle evals run (scripts/run_eval_needle.sh:
+# --dtype=fp32): held to the plain twins at fp32 within F32_REL_TOL of the
+# twin's largest |value| (fp32 sums over thousands of keys in another
+# order; no TF32 on either side) and timed beside SDPA at fp32 and the
+# bound, the larger of the bytes over the HBM rate and the flops over the
+# H100 SXM's fp32 rate outside the tensor cores (H100_F32_PEAK).
+# K1: name, b, h_kv, d, sq, T, causal, q_offset, head-major, bias kind. The
+# first is the shape phase_generate_f32's needle batch gives K1 (a 4000-token
+# context: max_input_length 5120 over its 6144-slot cache, per-key bias with
+# 80 left-pad keys); the second is the 32k needle bundle's prefill
+# (max_input_length 33792 over a 34816-slot cache), where the twin, whole,
+# would materialise 150 GB of scores: it runs in F32_TWIN_CHUNK-query
+# chunks (a row's softmax is its own, so the chunks compute the same
+# function), for the hold and for plain_ms; the rest hold the edges: a 16-row prompt
+# over a full-tile bias (generate's prefill of a short prompt), GQA, d 64,
+# a ragged tile with offsets, not causal, seq-major, rows with no valid key.
+F32_REL_TOL = 1e-5
+H100_F32_PEAK = 67e12     # fp32 FLOP/s outside the tensor cores, H100 SXM data sheet
+F32_TWIN_CHUNK = 1024     # queries a twin call over the bundle's 34816 keys: 4.6 GB of scores
+K1_F32_REPORT = "f32_needle_q5120_T6144"
+K1_F32_BUNDLE = "f32_bundle_q33792_T34816"
+K1_F32_CASES = [
+    (K1_F32_REPORT, 1, 32, 128, 5120, 6144, True, 0, True, "needle"),
+    (K1_F32_BUNDLE, 1, 32, 128, 33792, 34816, True, 0, True, "needle"),
+    ("f32_q16_fulltile", 2, 32, 128, 16, 1024, True, 0, True, "frontier"),
+    ("f32_gqa_hkv8_q1000", 1, 8, 128, 1000, 2048, True, 0, True, "needle"),
+    ("f32_d64_S1000_offsets", 2, 8, 64, 1000, 1000, True, 700, False, "full"),
+    ("f32_noncausal_q300_T1000", 1, 32, 128, 300, 1000, False, 0, True, "needle"),
+    ("f32_q300_rows_without_keys", 1, 32, 128, 300, 4096, True, 3000, True, "no_keys"),
+]
+# K4: name, b, h_kv, T, kv_len, the rows' first real key (left padding). The
+# needle batch's decode over its cache (4 rows, 6144 slots, after 1 to 128
+# steps), GQA, and one row of the 32k bundle's cache (34816 slots)
+K4_F32_CASES = [
+    ("f32_needle_b4_T6144", 4, 32, 6144, 5248, [0, 80, 700, 2000]),
+    ("f32_gqa_hkv8_b4_T6144", 4, 8, 6144, 5121, [0, 80, 700, 2000]),
+    ("f32_bundle_b1_T34816", 1, 32, 34816, 34816, [300]),
+]
+
+
+def _f32_hold(name, got, want):
+    """max|got - want| over max|want|, held to F32_REL_TOL; returns it."""
+    err = (got - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    log(f"{name}: max|Δ| {err:.3e}, over max|plain| {rel:.3e} (tol {F32_REL_TOL})")
+    if not rel <= F32_REL_TOL:
+        raise AssertionError(f"{name} disagrees with its plain twin at fp32")
+    return err
+
+
+def _k1_twin(q, k, v, bias, kw, chunk=None):
+    """K1's plain twin (out, lse), over `chunk` queries a call when given
+    (q_offset moved along; `bias` per key)."""
+    if chunk is None:
+        return flash.flash_attention_fwd_plain(q, k, v, bias, **kw)
+    parts = [flash.flash_attention_fwd_plain(q[:, i:i + chunk], k, v, bias,
+                                             **dict(kw, q_offset=kw["q_offset"] + i))
+             for i in range(0, q.shape[1], chunk)]
+    return torch.cat([o for o, _ in parts], 1), torch.cat([lse for _, lse in parts], 2)
+
+
+def phase_f32_kernels(gen):
+    """K1's and K4's fp32 routes at K1_F32_CASES and K4_F32_CASES. Returns
+    ({name: times} for flash_fwd, {name: times} for flash_decode, worst
+    max|Δ| of each), times as dict(ms, plain_ms, library_ms, bound_ms,
+    bound_by)."""
+    f32 = torch.float32
+    k1, k4, worst = {}, {}, {"flash_fwd": 0.0, "flash_decode": 0.0}
+    for name, b, h_kv, d, sq, T, causal, q_off, head_major, kind in K1_F32_CASES:
+        h = 32
+        q = _randn((b, sq, h, d), gen, f32)
+        kv_shape = (b, h_kv, T, d) if head_major else (b, T, h_kv, d)
+        k, v = _randn(kv_shape, gen, f32), _randn(kv_shape, gen, f32)
+        if kind == "needle":
+            keys = torch.arange(T, device="cuda")
+            valid = (keys >= 80) & (keys < q_off + sq) if causal else keys < T - 68
+            bias = torch.where(valid, 0.0, BIG_NEG)[None, None, None, :]
+        else:
+            bias, valid = _k1_bias(kind, b, sq, T, q_off, gen)
+        kw = dict(causal=causal, q_offset=q_off, kv_head_major=head_major)
+        if kind == "full":
+            kw["kv_offset"] = 300
+        n0 = flash.flash_attention_fwd.f32_launches
+        out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
+        torch.cuda.synchronize()
+        if flash.flash_attention_fwd.f32_launches != n0 + 1:
+            raise AssertionError(f"K1 {name}: the fp32 route was not launched")
+        chunk = F32_TWIN_CHUNK if name == K1_F32_BUNDLE else None
+        ref, ref_lse = _k1_twin(q, k, v, bias, kw, chunk)
+        worst["flash_fwd"] = max(worst["flash_fwd"], _f32_hold(f"K1 {name} out", out, ref))
+        live = ref_lse > BIG_NEG / 2
+        _f32_hold(f"K1 {name} lse", lse[live], ref_lse[live])
+        if kind == "no_keys":
+            rows = list(K1_EMPTY_ROWS)
+            if not (torch.all(out[:, rows] == 0) and torch.all(lse[:, :, rows] == BIG_NEG)):
+                raise AssertionError(f"K1 {name}: rows with no valid key are not 0 / BIG_NEG")
+        del ref, ref_lse, live
+        if name in (K1_F32_REPORT, K1_F32_BUNDLE):
+            iters = 3 if chunk else 10
+            ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), iters)
+            plain_ms = time_ms(lambda: _k1_twin(q, k, v, bias, kw, chunk), 1 if chunk else 2)
+            # SDPA's memory-efficient kernel takes fp32 and an additive mask
+            # (4.7 GB at the bundle's shape); its math fallback would need
+            # the 150 GB of scores, so it is not allowed to fall back
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            pos = q_off + torch.arange(sq, device="cuda")
+            mask = torch.where(torch.arange(T, device="cuda")[None] <= pos[:, None], bias,
+                               BIG_NEG)
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=h_kv != h), iters)
+            del mask
+            pairs = attn_pairs(valid, sq, q_off if causal else T)
+            n_bytes = 2 * q.numel() * 4 + 2 * int(valid.sum()) * h_kv * d * 4 + b * h * sq * 4
+            n_bytes += bias.numel() * 4
+            bnd, by = bound_ms(n_bytes, 4 * d * h * pairs, H100_F32_PEAK)
+            k1[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                            bound_by=by)
+            log(f"K1 {name}: kernel {ms:.3f} ms ({100 * bnd / ms:.1f}% of the bound), plain "
+                f"{plain_ms:.3f} ms{f' (in {chunk}-query chunks)' if chunk else ''}, SDPA fp32 "
+                f"(memory-efficient) {lib_ms:.3f} ms, bound {bnd:.3f} ms ({by}; "
+                f"{4 * d * h * pairs / 1e12:.3f} TFLOP) [{card()}]")
+        del q, k, v, out, lse, bias
+        torch.cuda.empty_cache()
+
+    for name, b, h_kv, T, kv_len, firsts in K4_F32_CASES:
+        h, d = 32, 128
+        q = _randn((b, 1, h, d), gen, f32)
+        k, v = _randn((b, h_kv, T, d), gen, f32), _randn((b, h_kv, T, d), gen, f32)
+        keys = torch.arange(T, device="cuda")
+        mask = (keys[None] >= torch.tensor(firsts, device="cuda")[:, None]) & (keys[None] < kv_len)
+        args = (q, k, v, mask, kv_len)
+        n0 = decode.flash_decode.f32_launches
+        out = decode.flash_decode(*args)
+        o, m, l = decode.flash_decode(*args, return_partials=True)
+        torch.cuda.synchronize()
+        if decode.flash_decode.f32_launches != n0 + 2:
+            raise AssertionError(f"K4 {name}: the fp32 route was not launched")
+        ref = decode.flash_decode_plain(*args)
+        ro, rm, rl = decode.flash_decode_plain(*args, return_partials=True)
+        worst["flash_decode"] = max(worst["flash_decode"], _f32_hold(f"K4 {name} out", out, ref))
+        _f32_hold(f"K4 {name} partials m", m, rm)
+        _f32_hold(f"K4 {name} partials l", l, rl)
+        if not torch.equal(o, out):
+            raise AssertionError(f"K4 {name}: o with partials differs from the plain output")
+        bnd, by, kv_bytes = k4_bound(q, k, mask, kv_len)
+        bnd, by = bound_ms(kv_bytes + 2 * q.numel() * 4 + b * kv_len,
+                           4 * int(mask.sum()) * h * d, H100_F32_PEAK)
+        sets = k4_arg_sets((q, k, v, mask, kv_len, None, None), kv_bytes)
+        ms = time_ms(lambda *a: decode.flash_decode(*a), 50, sets, graph=True)
+        plain_ms = time_ms(lambda: decode.flash_decode_plain(*args), 3)
+        seen = mask[:, None, None, :]
+        lib_ms = time_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k, v, attn_mask=seen, enable_gqa=h_kv != h), 50, sets, graph=True)
+        k4[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+        log(f"K4 {name}: kernel {ms:.4f} ms (graph; {100 * bnd / ms:.1f}% of the bound), plain "
+            f"{plain_ms:.3f} ms, SDPA fp32 {lib_ms:.4f} ms (graph), bound {bnd:.4f} ms ({by}) "
+            f"(b={b} h={h} h_kv={h_kv} T={T} kv_len={kv_len}; {len(sets)} cache copies "
+            f"cycled) [{card()}]")
+        del q, k, v, mask, args, sets, seen
+        torch.cuda.empty_cache()
+    return k1, k4, worst
+
+
 def _cosine(a, b):
     a, b = a.reshape(-1).double(), b.reshape(-1).double()
     return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
@@ -1016,7 +1210,8 @@ def expected_launches(cfg, admitted, rounds):
     k6 = body if cfg.quant_dense == "int8_w8a8" else 0
     return dict(flash_fwd=L * admitted, flash_bwd=0,
                 flash_decode=L * rounds, int8_matmul=k5 * forwards, w8a8_matmul=k6 * forwards,
-                int8_matmul_gemm=k5 * admitted, w8a8_matmul_gemm=k6 * admitted)
+                int8_matmul_gemm=k5 * admitted, w8a8_matmul_gemm=k6 * admitted,
+                flash_fwd_f32=0, flash_decode_f32=0)
 
 
 def serve(model, name, n_requests=12):
@@ -1974,6 +2169,298 @@ def phase_cli_vision():
         log("cli vision: the run loading the saved video index gave the first run's answers")
 
 
+# Batched generation (`lwm_tpu_torch.generation`, ROADMAP A7a) as
+# `apps.sampler.TextSampler` drives it, on phase_serve's bf16 7b weights
+# (32 layers) as a shared-index model: four prompts of GEN_WORDS words of
+# _cli_text (335-3598 tokens with the fixture tokenizer), cut and padded on
+# the left to the next multiple of 1024 (the bundle's scan chunks), GEN_BLOCK
+# new tokens (the sampler's block_size, through its scan chunks). The
+# prefill's last logits are held on the bf16 noise floor to the plain path
+# (attn_impl "plain", the same tensors and padding, one row at a time) with
+# an fp32 copy through it as the truth, and to each prompt run alone,
+# unpadded; greedy tokens against both are printed, not held (bf16 ties).
+GEN_WORDS = (120, 500, 850, 1300)
+GEN_BLOCK = 32
+# The needle evals' dtype (phase_generate_f32): the same weights cast up to
+# fp32, theta and max_sequence_length as scripts/run_eval_needle.sh, scan
+# chunks NEEDLE_BLOCK (so 128 new tokens a prompt), one batch of the needle
+# tester at context NEEDLE_CONTEXT over NEEDLE_DEPTHS depths (one row each):
+# max_input_length 5120 over a 6144-slot cache, K1's and K4's fp32 routes.
+# The prefill's last logits are held to the plain fp32 path on two rows at
+# NEEDLE_REL_TOL of its largest |logit| (fp32 sums in other orders over 32
+# layers; no TF32 on either side), and those rows' greedy tokens, every
+# decode step's, to the plain fp32 path's exactly
+NEEDLE_BLOCK, NEEDLE_CONTEXT, NEEDLE_DEPTHS = 128, 4000, 4
+NEEDLE_REL_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def timed_generation(model):
+    """Record what `generation.generate` does on `model` while the block
+    runs: the prefill's seconds and last logits (fp32), the whole call's
+    seconds and new tokens (both timings closed by a synchronize), and the
+    model's forwards (one prefill, then a step a token; a forward pre-hook)."""
+    record = dict(forwards=0)
+    real_prefill, real_generate = generation.prefill, sampler_module.generate
+
+    def prefill(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, kw = real_prefill(*a, **k)
+        torch.cuda.synchronize()
+        record.update(prefill_s=time.perf_counter() - t0, prefill_logits=logits.clone())
+        return logits, kw
+
+    def generate(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_generate(*a, **k)
+        torch.cuda.synchronize()
+        record.update(generate_s=time.perf_counter() - t0, tokens=out.clone())
+        return out
+
+    def count(*_):
+        record["forwards"] += 1
+
+    hook = model.register_forward_pre_hook(count)
+    generation.prefill, sampler_module.generate = prefill, generate
+    try:
+        yield record
+    finally:
+        generation.prefill, sampler_module.generate = real_prefill, real_generate
+        hook.remove()
+
+
+class RecordingSampler:
+    """A sampler that records each call's (prompts, max_input_length) in
+    `calls` and passes it on; its other attributes are the sampler's."""
+
+    def __init__(self, sampler):
+        self.sampler, self.calls = sampler, []
+
+    def __getattr__(self, name):
+        return getattr(self.sampler, name)
+
+    def __call__(self, prompts, max_input_length):
+        self.calls.append((prompts, max_input_length))
+        return self.sampler(prompts, max_input_length)
+
+
+def _generation_launches(cfg, record, f32=False):
+    """A generate call's launches: K1 a layer for the prefill, K4 a layer a
+    step after it; with `f32` all of them on the fp32 routes."""
+    L, steps = cfg.num_hidden_layers, record["forwards"] - 1
+    want = dict(expected_launches(cfg, 0, 0), flash_fwd=L, flash_decode=L * steps)
+    if f32:
+        want.update(flash_fwd_f32=L, flash_decode_f32=L * steps)
+    return want
+
+
+def _log_generation(what, record, batch, max_input, cache_len):
+    steps = record["forwards"] - 1
+    decode_s = record["generate_s"] - record["prefill_s"]
+    log(f"{what}: {batch} rows x {max_input} tokens over a {cache_len}-slot cache: prefill "
+        f"{record['prefill_s']:.3f}s ({batch * max_input / record['prefill_s']:.0f} tokens/s), "
+        f"{steps} decode steps {decode_s:.3f}s ({1e3 * decode_s / max(steps, 1):.2f} ms a step, "
+        f"{batch * steps / decode_s:.1f} tok/s); generate {record['generate_s']:.3f}s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card()}]")
+
+
+def _row_logits(model, ids, mask, new_tokens):
+    """The prefill's last logits of each row alone (its padding kept): [b, V]."""
+    return torch.cat([generation.prefill(model, ids[i:i + 1], mask[i:i + 1], new_tokens)[0]
+                      for i in range(ids.shape[0])])
+
+
+def phase_generate(model, fp32):
+    """Batched generation at bf16 (see GEN_*) over `model`'s tensors, `fp32`
+    their fp32 upcast (the truth). Returns the launch counts."""
+    cfg = model.config.replace(decode_index="shared", scan_query_chunk_size=GEN_BLOCK,
+                               scan_key_chunk_size=GEN_BLOCK)
+    gm = LLaMAForCausalLM.on_tensors(cfg, model.state_dict(), BF16)
+    tok = Tokenizer(str(FIXTURE_TOKENIZER))
+    rng = np.random.default_rng(SEED + 16)
+    texts = [_cli_text(rng, n) for n in GEN_WORDS]
+    lengths = [len(tok.encode(t)) for t in texts]
+    max_input = -(-max(lengths) // 1024) * 1024
+    sampler = TextSampler.from_model(gm, tok, greedy=True, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    with timed_generation(gm) as rec:
+        sampler(texts, max_input)
+    launches = _launch_counts()
+    want = _generation_launches(cfg, rec)
+    log(f"generate bf16: prompts of {lengths} tokens; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"generate bf16: launches {launches}, want {want}")
+    _log_generation("generate bf16", rec, len(texts), max_input,
+                    llama_module.round_cache_length(cfg, max_input + GEN_BLOCK))
+
+    ids, mask = sampler.encode(texts, max_input)
+    arms = {"plain": LLaMAForCausalLM.on_tensors(cfg.replace(attn_impl="plain"),
+                                                 model.state_dict(), BF16),
+            "fp32": LLaMAForCausalLM.on_tensors(cfg.replace(attn_impl="plain"), fp32,
+                                                torch.float32)}
+    logits = {"batched": list(rec["prefill_logits"])}
+    for name, arm in arms.items():
+        logits[name] = list(_row_logits(arm, ids, mask, GEN_BLOCK))
+    logits["single"] = [generation.prefill(gm, torch.tensor([tok.encode(t)], device="cuda"),
+                                           None, GEN_BLOCK)[0][0] for t in texts]
+    hold_to_noise_floor(logits, "batched", "plain", "fp32", argmax_of_truth=True,
+                        labels=lengths, what="generate prefill (left-padded batch)")
+    hold_to_noise_floor(logits, "batched", "single", "fp32", argmax_of_truth=True,
+                        labels=lengths, what="generate prefill (vs unpadded)", floor_ratio=None)
+    batched = rec["tokens"]
+    singles = torch.cat([generation.generate(
+        gm, torch.tensor([tok.encode(t)], device="cuda"), None, sampler.generation_config())
+        for t in texts])
+    plain = torch.cat([generation.generate(arms["plain"], ids[i:i + 1], mask[i:i + 1],
+                                           sampler.generation_config())
+                       for i in range(len(texts))])
+    for name, other in (("unpadded", singles), ("plain", plain)):
+        same = (batched == other).float().mean(-1).tolist()
+        log(f"generate bf16: greedy tokens shared with the {name} runs, a row: "
+            f"{[round(x, 3) for x in same]} (of {GEN_BLOCK}; not held: bf16 near-ties)")
+    del gm, arms, sampler
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_generate_f32(model, fp32):
+    """One needle batch at the evals' fp32 (see NEEDLE_*) through
+    eval_needle's tester and TextSampler over `fp32` (the upcast of
+    `model`'s tensors). Returns the launch counts."""
+    cfg = model.config.replace(
+        decode_index="shared", scan_query_chunk_size=NEEDLE_BLOCK,
+        scan_key_chunk_size=NEEDLE_BLOCK, theta=10_000_000, max_sequence_length=131072)
+    m32 = LLaMAForCausalLM.on_tensors(cfg, fp32, torch.float32)
+    tok = Tokenizer(str(FIXTURE_TOKENIZER))
+    sampler = TextSampler.from_model(m32, tok, greedy=True, seed=SEED,
+                                     stop_strings=("USER:", "\nUSER"))
+    rng = np.random.default_rng(SEED + 17)
+    with tempfile.TemporaryDirectory(prefix="lwm_needle_") as tmp:
+        tmp = Path(tmp)
+        haystack = tmp / "haystack.jsonl"
+        haystack.write_text("".join(json.dumps({"text": _cli_text(rng, 300) + ". "}) + "\n"
+                                    for _ in range(40)))
+        max_input = -(-(NEEDLE_CONTEXT + 1024) // NEEDLE_BLOCK) * NEEDLE_BLOCK
+        recorder = RecordingSampler(sampler)
+        flags = SimpleNamespace(**dict(
+            eval_needle.DEFAULTS, haystack_file=str(haystack), output_file=str(tmp / "r.json"),
+            n_rounds=1, max_tokens_per_batch=NEEDLE_DEPTHS * (max_input + NEEDLE_BLOCK)))
+        set_random_seed(SEED)
+        tester = eval_needle.LLMNeedleHaystackTester(
+            flags, haystack_file=str(haystack), context_lengths_min=NEEDLE_CONTEXT,
+            context_lengths_max=NEEDLE_CONTEXT, context_lengths_num_intervals=1,
+            document_depth_percent_intervals=NEEDLE_DEPTHS, sampler=recorder)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        with timed_generation(m32) as rec:
+            tester.run_test()
+        launches = _launch_counts()
+        prompts = recorder.calls
+        results = json.loads((tmp / "r.json").read_text())
+    want = _generation_launches(cfg, rec, f32=True)
+    log(f"needle fp32: {len(results)} results, responses {[r['response'][:40] for r in results]}"
+        f"; launches {launches}")
+    if launches != want or len(prompts) != 1 or len(results) != NEEDLE_DEPTHS:
+        raise AssertionError(f"needle fp32: launches {launches} (want {want}), "
+                             f"{len(prompts)} batches, {len(results)} results")
+    (batch, n), = prompts
+    if n != max_input:
+        raise AssertionError(f"needle fp32: max_input_length {n}, want {max_input}")
+    _log_generation("needle fp32", rec, len(batch), n,
+                    llama_module.round_cache_length(cfg, n + NEEDLE_BLOCK))
+    ids, mask = sampler.encode(batch, n)
+    rows = [0, len(batch) - 1]
+    plain = LLaMAForCausalLM.on_tensors(cfg.replace(attn_impl="plain"), fp32, torch.float32)
+    want_logits = _row_logits(plain, ids[rows], mask[rows], NEEDLE_BLOCK)
+    got = rec["prefill_logits"][rows]
+    rel = ((got - want_logits).abs().max() / want_logits.abs().max()).item()
+    log(f"needle fp32: prefill logits of rows {rows}, kernel vs plain fp32 path max|Δ|/max|plain| "
+        f"{rel:.3e} (tol {NEEDLE_REL_TOL}), argmax {got.argmax(-1).tolist()} / "
+        f"{want_logits.argmax(-1).tolist()}")
+    if not rel <= NEEDLE_REL_TOL:
+        raise AssertionError("needle fp32: kernel-path logits disagree with the plain fp32 path")
+    # the decode steps (K4's fp32 route over the shared-index cache): the
+    # same rows' greedy tokens through the plain fp32 path, exactly (a row
+    # at a time, as its logits: the plain prefill's scores are 7.5 GiB a row)
+    want_tokens = torch.cat([generation.generate(plain, ids[i:i + 1], mask[i:i + 1],
+                                                 sampler.generation_config()) for i in rows])
+    got_tokens = rec["tokens"][rows]
+    same = (got_tokens == want_tokens).float().mean(-1).tolist()
+    log(f"needle fp32: greedy tokens of rows {rows} shared with the plain fp32 path: {same} "
+        f"(of {got_tokens.shape[1]}; held exactly)")
+    if not torch.equal(got_tokens, want_tokens):
+        raise AssertionError("needle fp32: kernel-path greedy tokens differ from the plain fp32 "
+                             "path's")
+    del m32, plain, sampler
+    torch.cuda.empty_cache()
+    return launches
+
+
+# Both eval CLIs (`python -m lwm_tpu_torch.apps.eval_needle` and
+# `eval_needle_multi`) as subprocesses at their default fp32, at the 7b width
+# and CLI_LAYERS layers over a params stream the port writes, over a
+# haystack of _cli_text lines and the fixture tokenizer: contexts 1000 and
+# 4000, 2 depths, 1 round (the multi eval: 2 needles, both asked), scan
+# chunks NEEDLE_BLOCK. Each runs twice: one results row a grid point, and the
+# rerun over the file adds none
+EVAL_CLI_GRID = ("--context_lengths_min=1000", "--context_lengths_max=4000",
+                 "--n_context_length_intervals=2", "--n_document_depth_intervals=2",
+                 "--n_rounds=1")
+
+
+def phase_eval_clis():
+    cfg = LLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=CLI_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    model = LLaMAForCausalLM(cfg, dtype=BF16, device="cuda")
+    model.init_weights(gen)
+    rng = np.random.default_rng(SEED + 18)
+    with tempfile.TemporaryDirectory(prefix="lwm_eval_cli_") as tmp:
+        tmp = Path(tmp)
+        checkpoint.save_tree(flax_params_tree(model.state_dict(), cfg), str(tmp / "params"))
+        del model
+        torch.cuda.empty_cache()
+        (tmp / "haystack.jsonl").write_text("".join(
+            json.dumps({"text": _cli_text(rng, 300) + ". "}) + "\n" for _ in range(40)))
+        for module, rows, extra in (("eval_needle", 4, ()),
+                                    ("eval_needle_multi", 2,
+                                     ("--n_needles_total=2", "--n_needles_retrieve=2"))):
+            out = tmp / f"{module}.json"
+            argv = [sys.executable, "-m", f"lwm_tpu_torch.apps.{module}", *CLI_FLAGS,
+                    f"--load_llama_config={CLI_PRESET}",
+                    f"--update_llama_config=dict(num_hidden_layers={CLI_LAYERS},"
+                    "theta=10000000,max_sequence_length=131072,"
+                    f"scan_query_chunk_size={NEEDLE_BLOCK},scan_key_chunk_size={NEEDLE_BLOCK})",
+                    f"--tokenizer={FIXTURE_TOKENIZER}",
+                    f"--load_checkpoint=params::{tmp / 'params'}",
+                    f"--haystack_file={tmp / 'haystack.jsonl'}", f"--output_file={out}",
+                    *EVAL_CLI_GRID, *extra]
+            first = None
+            for run in ("first", "resumed"):
+                t0 = time.perf_counter()
+                proc = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                                      cwd=Path(__file__).resolve().parent)
+                wall = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise AssertionError(f"{module} {run}: exit {proc.returncode}\n"
+                                         f"{proc.stderr[-3000:]}")
+                results = json.loads(out.read_text())
+                done = [ln for ln in proc.stdout.splitlines() if ln.startswith("completed")]
+                log(f"{module} {run}: {len(results)} results in {wall:.1f}s (process wall); "
+                    f"{done} [{card()}]")
+                if len(results) != rows:
+                    raise AssertionError(f"{module} {run}: {len(results)} results, want {rows}")
+                if first is not None and results != first:
+                    raise AssertionError(f"{module}: the resumed run changed the results")
+                first = results
+            if done != [f"completed {rows}"]:
+                raise AssertionError(f"{module}: the resumed run found {done}, want {rows}")
+
+
 def _lm_batch(b, s, vocab, seed):
     """A fixed next-token batch from the seed: targets are the inputs shifted."""
     toks = np.random.default_rng(seed).integers(2, vocab, (b, s + 1))
@@ -1994,14 +2481,18 @@ KERNEL_WRAPPERS = {   # kernel name → the wrapper that counts its launches
 
 
 GEMM_WRAPPERS = ("int8_matmul", "w8a8_matmul")   # their admission GEMMs are counted apart
+F32_WRAPPERS = ("flash_fwd", "flash_decode")      # their fp32 routes are counted apart
 
 
 def _launch_counts():
-    """Each wrapper's launches, and K5's and K6's admission-GEMM launches
-    apart (as `<name>_gemm`)."""
+    """Each wrapper's launches, and apart K5's and K6's admission-GEMM
+    launches (as `<name>_gemm`) and K1's and K4's fp32-route launches (as
+    `<name>_f32`), which their totals include."""
     counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
     for name in GEMM_WRAPPERS:
         counts[name + "_gemm"] = KERNEL_WRAPPERS[name].gemm_launches
+    for name in F32_WRAPPERS:
+        counts[name + "_f32"] = KERNEL_WRAPPERS[name].f32_launches
     return counts
 
 
@@ -2010,6 +2501,8 @@ def _reset_launch_counts():
         fn.launches = 0
     for name in GEMM_WRAPPERS:
         KERNEL_WRAPPERS[name].gemm_launches = 0
+    for name in F32_WRAPPERS:
+        KERNEL_WRAPPERS[name].f32_launches = 0
 
 
 def _vision_batch(b, s, seed):
@@ -2472,6 +2965,10 @@ def phase_train_cli(step_s_full):
 # round trip at 1 layer under both (`pad` rows).
 VISION_TRAIN_LAYERS, VISION_TRAIN_STEPS, VISION_TRAIN_LINES = 16, 6, 64
 VISION_SHORT_STEPS = 2   # the --freeze_base and PaLM runs
+# ROADMAP C5: a --loss_chunk_size of the whole sequence may peak at most this
+# far above the default path (where the whole-sequence dual CE peaked 6.2
+# GiB above it and once failed to allocate)
+C5_PEAK_SLACK_GIB = 1.0
 VISION_TRAIN_OPT = dict(lr=8e-5, end_lr=8e-5, lr_warmup_steps=5, lr_decay_steps=200,
                         init_lr=8e-6)
 # The vision round trip (--freeze_base, PaLM). Only vte and vision_head
@@ -2611,6 +3108,26 @@ def phase_train_vision(profile=None):
         if not losses[-1] < losses[0]:
             raise AssertionError(f"train vision: loss not falling: {losses}")
 
+        # ROADMAP C5: a loss chunk covering the whole sequence takes the
+        # dual loss in 2048-row pieces; the same run as the default one
+        # (steps, data, seed), so the peaks differ by the loss alone
+        torch.cuda.reset_peak_memory_stats()
+        c5_summary, c5_launches = _run_cli(
+            train_vision_argv(tmp, "loss_chunk_whole", data, layers,
+                              f"--total_steps={VISION_TRAIN_STEPS}",
+                              f"--loss_chunk_size={VISION_TRAIN_SEQ}"),
+            layers, VISION_TRAIN_STEPS, "vision loss_chunk_whole")
+        c5_peak = torch.cuda.max_memory_allocated() / 2**30
+        paths.append(c5_launches)
+        c5_losses = [r["loss"] for r in _vision_records(c5_summary, "train vision loss_chunk_whole")]
+        log(f"train vision --loss_chunk_size={VISION_TRAIN_SEQ}: {VISION_TRAIN_STEPS} steps, peak "
+            f"memory {c5_peak:.2f} GiB beside the default run's {peak:.2f} GiB (limit +"
+            f"{C5_PEAK_SLACK_GIB} GiB); losses a step minus the default's "
+            f"{[f'{a - b:+.2e}' for a, b in zip(c5_losses, losses)]} [{card()}]")
+        if c5_peak > peak + C5_PEAK_SLACK_GIB:
+            raise AssertionError(f"train vision: --loss_chunk_size={VISION_TRAIN_SEQ} peaked at "
+                                 f"{c5_peak:.2f} GiB, the default at {peak:.2f} GiB")
+
         def short_run(name, *flags):
             """A VISION_SHORT_STEPS run: its launches, records, step 2's time
             (the gap between the records) and peak memory."""
@@ -2719,6 +3236,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     *k1, k1_cases = phase_k1(gen)
     *k4, k4_cases = phase_k4(gen)
+    k1_f32, k4_f32, f32_err = phase_f32_kernels(gen)
     bwd = phase_bwd(gen)
     k1_vision, bwd_vision = phase_train_vision_kernels(gen)
     k56, k56_named = phase_k56(gen)
@@ -2732,12 +3250,17 @@ def main():
     path_launches.extend(phase_serve_lookup_chunked(model))
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_vision(model))
-    del model
+    torch.cuda.empty_cache()
+    fp32 = fp32_weights(model)
+    path_launches.append(phase_generate(model, fp32))
+    path_launches.append(phase_generate_f32(model, fp32))
+    del model, fp32
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_int8(bf16_summary))
     torch.cuda.empty_cache()
     phase_cli()
     phase_cli_vision()
+    phase_eval_clis()
     phase_train_compare()
     launches, step_s_full = phase_train_full(profile)
     path_launches.append(launches)
@@ -2745,7 +3268,7 @@ def main():
     path_launches.extend(phase_train_cli(step_s_full))
     torch.cuda.empty_cache()
     path_launches.extend(phase_train_vision(profile))
-    total = {k: sum(p[k] for p in path_launches) for k in KERNEL_WRAPPERS}
+    total = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     def row(name, source, replaces, max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by):
         return dict(name=name, route="cuda", source="lwm_tpu_torch/csrc/" + source,
@@ -2753,14 +3276,22 @@ def main():
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=library_ms)
 
+    def f32_cases(cases, source, name):
+        """The fp32 route's cases, each with its source and the route's
+        launches on the main paths."""
+        return {case: dict(t, source="lwm_tpu_torch/csrc/" + source,
+                           f32_launches=total[name + "_f32"],
+                           max_abs_err=f32_err[name]) for case, t in cases.items()}
+
     kernels = [
         dict(row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
-             **k1_cases, **{VISION_TRAIN_REPORT: k1_vision}),
+             **k1_cases, **{VISION_TRAIN_REPORT: k1_vision},
+             **f32_cases(k1_f32, "flash_fwd_f32.cu", "flash_fwd")),
         dict(row("flash_bwd", "flash_bwd.cu",
                  "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
              **{VISION_TRAIN_REPORT: bwd_vision}),
         dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
-             **k4_cases),
+             **k4_cases, **f32_cases(k4_f32, "flash_decode.cu", "flash_decode")),
         dict(row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107",
                  **k56["int8_matmul"]), **k56_named["int8_matmul"]),
         dict(row("w8a8_matmul", "w8a8_matmul.cu", "lwm_tpu/ops/quant.py:182",
@@ -2769,6 +3300,9 @@ def main():
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on a main path")
+    for name in F32_WRAPPERS:
+        if total[name + "_f32"] <= 0:
+            raise AssertionError(f"{name}'s fp32 route never launched on a main path")
     log(card())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

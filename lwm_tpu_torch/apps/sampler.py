@@ -1,0 +1,146 @@
+"""Greedy or sampled text generation over a checkpoint, for the evals.
+
+Counterpart of `lwm_tpu/apps/sampler.py` (`TextSampler`) with its loading
+(`lwm_tpu/apps/loading.py`: `resolve_model_config` `:16`,
+`load_sharded_params` `:47`): the same constructor and call,
+`TextSampler(flags, greedy, stop_strings)` and `sampler(prompts,
+max_input_length)`. Prompts are tokenized with their content cut from the
+left to `max_input_length` and padded on the left
+(`Tokenizer.batch_encode`); `lwm_tpu_torch.generation.generate` decodes
+`block_size` new tokens (greedy: temperature 0, no sampling; else
+temperature 1, top-k 50, top-p 1) over the shared-index cache; the text is
+decoded without special tokens and cut at the eos text and at each stop
+string.
+
+`block_size` = max(scan_query_chunk_size, scan_key_chunk_size) × sp and
+`data_dim` = dp × fsdp, with sp = dp = fsdp = 1: the port runs on one device,
+and a `mesh_dim` of more than one device raises (multi-GPU is ROADMAP A4).
+`--unscan_for_serving` is taken: the port reads scanned and unscanned trees
+alike. The model runs on `flags.device` (the card by default; "cpu" for the
+CPU), its draws from a `torch.Generator` seeded with `flags.seed`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from lwm_tpu_torch.checkpoint import load_trainstate_checkpoint
+from lwm_tpu_torch.generation import GenerationConfig, generate
+from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
+from lwm_tpu_torch.train import check_single_device_mesh, log
+from lwm_tpu_torch.utils.convert import convert_flax_params
+from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
+from lwm_tpu_torch.utils.tokenizer import Tokenizer
+
+# the config fields a preset takes from `--llama.*` (`loading.py:20-31`)
+SCAN_FIELDS = ("scan_attention", "scan_mlp", "scan_query_chunk_size", "scan_key_chunk_size",
+               "scan_mlp_chunk_size", "scan_layers", "param_scan_axis")
+
+
+def resolve_model_config(flags, tokenizer=None):
+    """`lwm_tpu/apps/loading.py:resolve_model_config`: the preset with the
+    `--llama.*` scan fields over it (or the `--llama.*` config alone), then
+    `--update_llama_config`, then the tokenizer's bos and eos ids."""
+    llama = {k: v for k, v in flags.llama.items() if v is not None}
+    if flags.load_llama_config:
+        config = LLaMAConfig.load_config(flags.load_llama_config)
+        updates = LLaMAConfig.from_dict(llama)
+        config = config.replace(**{k: getattr(updates, k) for k in SCAN_FIELDS})
+    else:
+        config = LLaMAConfig.from_dict(llama)
+    if flags.update_llama_config:
+        # the JAX CLI's spelling: a Python expression, "dict(theta=1e7, ...)"
+        updates = eval(flags.update_llama_config, {"dict": dict})  # noqa: S307
+        config = LLaMAConfig.from_dict({**dataclasses.asdict(config), **updates})
+    if tokenizer is not None:
+        config = config.replace(bos_token_id=tokenizer.bos_token_id,
+                                eos_token_id=tokenizer.eos_token_id)
+    return config
+
+
+def load_model(config, load_checkpoint, dtype, device, unscan_for_serving=False):
+    """The checkpoint's params cast to `dtype` on `device`, as a model of
+    `config` (`loading.py:load_sharded_params` on one device). Returns
+    (model, config)."""
+    t0 = time.perf_counter()
+    _, params = load_trainstate_checkpoint(load_checkpoint, disallow_trainstate=True)
+    if unscan_for_serving:
+        config = config.replace(scan_layers=False)   # the reader takes either layout
+    dtype = get_float_dtype_by_name(dtype)
+    sd = convert_flax_params(params, config, dtype=dtype, device=device)
+    del params
+    log(f"loaded {load_checkpoint} in {time.perf_counter() - t0:.1f}s")
+    return LLaMAForCausalLM.on_tensors(config, sd, dtype), config
+
+
+class TextSampler:
+    """`lwm_tpu/apps/sampler.py:TextSampler` on the port (see the module
+    note). `from_model` wraps a model and tokenizer already built."""
+
+    def __init__(self, flags, greedy=True, stop_strings=()):
+        check_single_device_mesh(flags.mesh_dim)
+        device = torch.device(getattr(flags, "device", "cuda"))
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: pass --device=cpu to run on the CPU")
+        tokenizer = Tokenizer(flags.tokenizer)
+        config = resolve_model_config(flags, tokenizer)
+        model, config = load_model(config, flags.load_checkpoint, flags.dtype, device,
+                                   getattr(flags, "unscan_for_serving", False))
+        self._setup(model, tokenizer, greedy, stop_strings, flags.seed)
+        self.flags = flags
+
+    @classmethod
+    def from_model(cls, model, tokenizer, greedy=True, stop_strings=(), seed=0):
+        self = cls.__new__(cls)
+        self._setup(model, tokenizer, greedy, stop_strings, seed)
+        self.flags = None
+        return self
+
+    def _setup(self, model, tokenizer, greedy, stop_strings, seed):
+        self.model, self.tokenizer, self.config = model, tokenizer, model.config
+        self.greedy = greedy
+        # decoded text is cut at the first stop string (`sampler.py:23-30`)
+        self.stop_strings = tuple(stop_strings)
+        self.device = model.wte.weight.device
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    @property
+    def block_size(self):
+        return max(self.config.scan_query_chunk_size, self.config.scan_key_chunk_size)
+
+    @property
+    def data_dim(self):
+        return 1
+
+    def generation_config(self):
+        """`sampler.py:74-83`."""
+        return GenerationConfig(
+            max_new_tokens=self.block_size, pad_token_id=self.tokenizer.pad_token_id,
+            eos_token_id=self.tokenizer.eos_token_id,
+            temperature=0.0 if self.greedy else 1.0, do_sample=not self.greedy, num_beams=1,
+            top_k=50, top_p=1.0)
+
+    def encode(self, prompts, max_input_length):
+        """(input_ids, attention_mask) [len(prompts), max_input_length] on the
+        model's device: left-truncated, left-padded."""
+        ids, mask = self.tokenizer.batch_encode(prompts, max_input_length)
+        return (torch.tensor(ids, dtype=torch.long, device=self.device),
+                torch.tensor(mask, dtype=torch.long, device=self.device))
+
+    def __call__(self, prompts, max_input_length):
+        input_ids, attention_mask = self.encode(prompts, max_input_length)
+        output = generate(self.model, input_ids, attention_mask, self.generation_config(),
+                          self.generator)
+        texts = []
+        eos = self.tokenizer.eos_token
+        for text in self.tokenizer.batch_decode(output.tolist(), skip_special_tokens=True):
+            if eos and eos in text:
+                text = text.split(eos, maxsplit=1)[0]
+            for stop in self.stop_strings:
+                if stop in text:
+                    text = text.split(stop, maxsplit=1)[0]
+            texts.append(text)
+        return texts

@@ -14,7 +14,9 @@
 // key gives 0. With partials (m_out, l_out given) it also returns the row's
 // max scaled logit m and l = Σ exp(s − m) (before the v scale), and o stays
 // l-normalized: the TPU kernel's `return_partials`, with (0, BIG_NEG, 0) for
-// a row with no valid key.
+// a row with no valid key. K4's fp32 route (the needle evals run fp32) is
+// the same kernels instantiated for fp32 q over an fp32 cache: out fp32, p
+// not rounded, 3 ring stages of the 16 KB fp32 d-128 tiles.
 //
 // What bounds it on the card: one decode step reads every valid cache byte
 // once and does ~4 flops per element read, so HBM bandwidth bounds it, and
@@ -69,14 +71,14 @@ constexpr int kMaxSplit = 2048;
 constexpr int kMergeThreads = 512;
 
 struct DecParams {
-  const __nv_bfloat16* q;
+  const void* q;         // [b, 1, h, d]: bf16 over a bf16 or int8 cache, fp32 over an fp32 one
   const void* k;
   const void* v;
   const float* k_scale;
   const float* v_scale;
   const uint8_t* mask;
   float* part;           // [b, h, n_split, d + 2]: unnormalized o, then m, l
-  __nv_bfloat16* out;    // [b, 1, h, d]
+  void* out;             // [b, 1, h, d] in q's type
   float* m_out;          // [b, h] or null
   float* l_out;
   int h, h_kv, T, kv_len, split, n_split;
@@ -85,11 +87,13 @@ struct DecParams {
   float scale;
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
+// p rounded to q's type before p·v (the TPU kernel's order): bf16, or fp32 as it is
+__device__ __forceinline__ float round_p(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+__device__ __forceinline__ float round_p(float x, float) { return x; }
 
-// 8 consecutive cache elements (16 bytes bf16, 8 bytes int8) → float
+// 8 consecutive cache elements (16 bytes bf16, 8 bytes int8, 32 bytes fp32) → float
 __device__ __forceinline__ void load8(const __nv_bfloat16* src, float (&dst)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(src);
   const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -99,6 +103,13 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, float (&dst)[8])
     dst[2 * i] = f.x;
     dst[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ void load8(const float* src, float (&dst)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  dst[0] = a.x, dst[1] = a.y, dst[2] = a.z, dst[3] = a.w;
+  dst[4] = b.x, dst[5] = b.y, dst[6] = b.z, dst[7] = b.w;
 }
 
 __device__ __forceinline__ void load8(const int8_t* src, float (&dst)[8]) {
@@ -114,8 +125,9 @@ template <int D, int G, typename KV>
 struct Plan {
   static constexpr int kRowBytes = D * (int)sizeof(KV);
   static constexpr int kTileBytes = kTileKeys * kRowBytes;
-  // ~64 KB of ring: 4 stages of bf16 d 128, 8 of the narrower tiles
-  static constexpr int kStages = kTileBytes >= 8192 ? 4 : 8;
+  // ~64 KB of ring: 4 stages of bf16 d 128, 8 of the narrower tiles; 3
+  // stages (96 KB) of fp32 d 128, two blocks an SM
+  static constexpr int kStages = kTileBytes >= 16384 ? 3 : kTileBytes >= 8192 ? 4 : 8;
   static constexpr bool kQuant = sizeof(KV) == 1;
   static constexpr int kStageBytes = 2 * kTileBytes + (kQuant ? 2 * kTileKeys * 4 : 0);
   static constexpr int kRing = kStages * kStageBytes;
@@ -132,7 +144,7 @@ constexpr int kMinBlocks = G <= 4 ? 2 : 1;
 // query heads, one chunk a block, the chunks of a split next to each other
 // in the grid (so a split's repeated k/v reads come from L2); the heads of
 // a ragged last chunk past g are computed on zero q and never written
-template <int D, int G, typename KV, bool kChunked>
+template <int D, int G, typename KV, typename QT, bool kChunked>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(const DecParams p) {
   using P = Plan<D, G, KV>;
   constexpr int kLanesPerKey = D / 8;
@@ -234,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     if (!kChunked || j < nh) {
-      load8(p.q + bi * p.q_sb + (qh0 + j) * p.q_sh + li * 8, qr[j]);
+      load8(static_cast<const QT*>(p.q) + bi * p.q_sb + (qh0 + j) * p.q_sh + li * 8, qr[j]);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) qr[j][e] = 0.f;
@@ -301,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
       for (int u = 0; u < kPer; ++u) {
         const float pe = ok[u] ? exp2_approx(s[u] - m_new) : 0.f;
         l[j] += pe;
-        const float pv = bf16_round(P::kQuant ? pe * vsc[u] : pe);
+        const float pv = round_p(P::kQuant ? pe * vsc[u] : pe, QT());
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[j][e] = fmaf(pv, vf[u][e], acc[j][e]);
       }
@@ -371,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
 // one block per (batch row, query head): o = Σ w_i o_i / Σ w_i l_i over the
 // splits with a valid key, w_i = exp(m_i − max m); empty splits are skipped
 // by their m (their o was never written)
-template <int D>
+template <int D, typename QT>
 __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(const DecParams p) {
   constexpr int kCols = D / 2;                     // a float2 of o a thread
   constexpr int kGroups = kMergeThreads / kCols;   // splits walked in parallel
@@ -418,47 +430,62 @@ __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(const DecPa
     lsum += sum_l[s];
   }
   const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-  *reinterpret_cast<__nv_bfloat162*>(p.out + (long long)bh * D + 2 * col) =
-      __floats2bfloat162_rn(o.x * inv, o.y * inv);
+  QT* out = static_cast<QT*>(p.out) + (long long)bh * D + 2 * col;
+  if constexpr (sizeof(QT) == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(o.x * inv, o.y * inv);
+  } else {
+    *reinterpret_cast<float2*>(out) = make_float2(o.x * inv, o.y * inv);
+  }
   if (p.m_out != nullptr && col == 0) {
     p.m_out[bh] = lsum > 0.f ? mx : kBigNeg;
     p.l_out[bh] = lsum;
   }
 }
 
-template <int D, int G, typename KV, bool kChunked>
+template <int D, int G, typename KV, typename QT, bool kChunked>
 cudaError_t launch_kv(const DecParams& p, int b, cudaStream_t stream) {
   constexpr int smem = Plan<D, G, KV>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<D, G, KV, kChunked>,
+  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<D, G, KV, QT, kChunked>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  decode_split_kernel<D, G, KV, kChunked>
+  decode_split_kernel<D, G, KV, QT, kChunked>
       <<<dim3(p.n_split * p.n_chunk, b * p.h_kv), kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<D><<<b * p.h, kMergeThreads, 0, stream>>>(p);
+  decode_merge_kernel<D, QT><<<b * p.h, kMergeThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
+// kind: the cache's type, kCacheBf16 / kCacheInt8 (bf16 q) or kCacheF32 (fp32 q)
+constexpr int kCacheBf16 = 0, kCacheInt8 = 1, kCacheF32 = 2;
+
 template <int D, int G, bool kChunked = false>
-cudaError_t launch_g(const DecParams& p, int b, int quant, cudaStream_t stream) {
-  return quant ? launch_kv<D, G, int8_t, kChunked>(p, b, stream)
-               : launch_kv<D, G, __nv_bfloat16, kChunked>(p, b, stream);
+cudaError_t launch_g(const DecParams& p, int b, int kind, cudaStream_t stream) {
+  switch (kind) {
+    case kCacheBf16:
+      return launch_kv<D, G, __nv_bfloat16, __nv_bfloat16, kChunked>(p, b, stream);
+    case kCacheInt8:
+      return launch_kv<D, G, int8_t, __nv_bfloat16, kChunked>(p, b, stream);
+    case kCacheF32:
+      return launch_kv<D, G, float, float, kChunked>(p, b, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int D>
-cudaError_t launch_d(const DecParams& p, int b, int g, int quant, cudaStream_t stream) {
+cudaError_t launch_d(const DecParams& p, int b, int g, int kind, cudaStream_t stream) {
   switch (g) {
     case 1:
-      return launch_g<D, 1>(p, b, quant, stream);
+      return launch_g<D, 1>(p, b, kind, stream);
     case 2:
-      return launch_g<D, 2>(p, b, quant, stream);
+      return launch_g<D, 2>(p, b, kind, stream);
     case 4:
-      return launch_g<D, 4>(p, b, quant, stream);
+      return launch_g<D, 4>(p, b, kind, stream);
     case 8:
-      return launch_g<D, 8>(p, b, quant, stream);
+      return launch_g<D, 8>(p, b, kind, stream);
     default:  // any other group: chunks of 8 query heads
-      return launch_g<D, 8, true>(p, b, quant, stream);
+      return launch_g<D, 8, true>(p, b, kind, stream);
   }
 }
 
@@ -466,11 +493,12 @@ cudaError_t launch_d(const DecParams& p, int b, int g, int quant, cudaStream_t s
 
 // part: fp32 scratch of [b, h, ceil(T / split), d + 2], written and read here
 // (no initial value); m_out, l_out: [b, h] fp32, or both null for o alone.
-// split: keys a block, a multiple of 256 up to 2048.
+// split: keys a block, a multiple of 256 up to 2048. kind: the cache's
+// type, 0 bf16 and 1 int8 (q and out bf16), 2 fp32 (q and out fp32).
 extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
                                 const void* k_scale, const void* v_scale, const void* mask,
                                 void* out, void* m_out, void* l_out, void* part, int b, int h,
-                                int h_kv, int T, int d, int kv_len, int quant, int split,
+                                int h_kv, int T, int d, int kv_len, int kind, int split,
                                 long long q_sb, long long q_sh, long long kv_sb, long long kv_sh,
                                 long long kv_ss, float scale, void* stream) {
   if (split <= 0 || split % kSplitStep || split > kMaxSplit) return cudaErrorInvalidValue;
@@ -478,14 +506,14 @@ extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
   if (h_kv <= 0 || h % h_kv) return cudaErrorInvalidValue;
   if (b <= 0) return cudaSuccess;
   DecParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.q = q;
   p.k = k;
   p.v = v;
   p.k_scale = static_cast<const float*>(k_scale);
   p.v_scale = static_cast<const float*>(v_scale);
   p.mask = static_cast<const uint8_t*>(mask);
   p.part = static_cast<float*>(part);
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.out = out;
   p.m_out = static_cast<float*>(m_out);
   p.l_out = static_cast<float*>(l_out);
   p.h = h;
@@ -506,9 +534,9 @@ extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
   const int g = p.g;
   switch (d) {
     case 64:
-      return launch_d<64>(p, b, g, quant, s);
+      return launch_d<64>(p, b, g, kind, s);
     case 128:
-      return launch_d<128>(p, b, g, quant, s);
+      return launch_d<128>(p, b, g, kind, s);
     default:
       return cudaErrorInvalidValue;
   }

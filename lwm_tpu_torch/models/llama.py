@@ -172,7 +172,7 @@ class LLaMAConfig:
     kv_cache_dtype: str = "auto"   # "int8": quantized cache, fp32 scales
     quant_dense: str = "none"
     attn_impl: str = "auto"        # "auto" (kernels) | "plain"; JAX_ATTN_IMPL map to them
-    decode_index: str = "shared"   # caches need "per_row" (the serving layout)
+    decode_index: str = "shared"   # "shared" (generate's cache) | "per_row" (the server's)
     prefix_len: int = 0
     prefix_tokens: int = 0
     logits_tail: int = 0
@@ -410,15 +410,18 @@ class LayerCache:
 
 @dataclass
 class KVCache:
-    """The serving KV cache: per-layer head-major tensors plus `index`, the
-    twin of the JAX `cache_index` (the causal frontier bound: a forward of q
-    tokens reads keys below index + q; it advances by q per forward).
+    """The KV cache: per-layer head-major tensors plus `index`, the twin of
+    the JAX `cache_index` (the causal frontier bound: a forward of q tokens
+    reads keys below index + q; it advances by q per forward).
 
-    Forwards write into the tensors IN PLACE: each row's q new tokens land
-    at positions position_ids[row, 0] ... + q − 1, less the config's
-    `prefix_tokens` (the per-row write of `lwm_tpu/models/llama.py:576-641`,
-    non-sharded branch: with a shared prefix the positions are global for
-    RoPE and the cache is suffix-local)."""
+    Forwards write into the tensors IN PLACE. Under decode_index="per_row"
+    (the server's slots) each row's q new tokens land at positions
+    position_ids[row, 0] ... + q − 1, less the config's `prefix_tokens` (the
+    per-row write of `lwm_tpu/models/llama.py:576-641`, non-sharded branch:
+    with a shared prefix the positions are global for RoPE and the cache is
+    suffix-local). Under "shared" (`generate`'s left-padded batch) every
+    row writes at index ... index + q − 1 (`:642-646`), whatever its
+    position ids."""
 
     layers: list
     index: int = 0
@@ -456,8 +459,18 @@ class LLaMAAttention(nn.Module):
         self.wo = _dense_cls(config, "wo")(h * d, config.hidden_size, **kw)
 
     def _write_cache(self, cache, k, v, write_pos):
-        """Per-row write of k, v [b, q, h_kv, d] at write_pos[:, 0] + j."""
+        """Write k, v [b, q, h_kv, d]: every row at write_pos + j when it is
+        an int (the shared index), else row r at write_pos[r, 0] + j."""
         b, q = k.shape[:2]
+        if isinstance(write_pos, int):
+            idx = slice(write_pos, write_pos + q)
+            k, v = k.transpose(1, 2), v.transpose(1, 2)
+            if cache.k_scale is not None:
+                k, cache.k_scale[:, :, idx] = quantize_kv(k)
+                v, cache.v_scale[:, :, idx] = quantize_kv(v)
+            cache.k[:, :, idx] = k.to(cache.k.dtype)
+            cache.v[:, :, idx] = v.to(cache.v.dtype)
+            return
         idx = write_pos[:, :1] + torch.arange(q, device=k.device)[None]
         rows = torch.arange(b, device=k.device)[:, None]
         if cache.k_scale is not None:
@@ -471,7 +484,8 @@ class LLaMAAttention(nn.Module):
     def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None):
         """x [b, q, hidden]; rope (cos, sin) [b, q, d/2]. With layer_cache:
         mask bool [b, q, kv] (key validity ∧ causal), write_pos [b, q] the
-        rows' cache positions, kv_len bounds the keys any row reads, and
+        rows' cache positions (an int: every row's first, the shared
+        index), kv_len bounds the keys any row reads, and
         prefix_mask bool [P] the valid keys of a shared-prefix block. Without:
         mask is the additive per-key bias [b, 1, 1, q] and attention is
         causal self-attention."""
@@ -680,6 +694,34 @@ class LLaMAForCausalLM(nn.Module):
             raise ValueError("a prefix block needs a model with prefix_len set")
         return KVCache(layers)
 
+    def prepare_inputs_for_generation(self, input_ids, max_length, attention_mask=None):
+        """`generate`'s first inputs (`lwm_tpu/models/llama.py:1814-1834`): a
+        shared-index cache of round_cache_length(max_length) slots, the
+        left-padded prompt mask written over ones to that length, and
+        position ids that advance over real tokens only (cumsum − 1: a
+        row's pads sit at −1 and below, never seen by a real query).
+        Returns dict(cache, attention_mask [b, T] bool, position_ids)."""
+        if self.config.decode_index != "shared":
+            raise ValueError("generate runs on a shared-index cache: decode_index='shared'")
+        b, s = input_ids.shape
+        dev = input_ids.device
+        cache_length = round_cache_length(self.config, max_length)
+        extended = torch.ones((b, cache_length), dtype=torch.bool, device=dev)
+        if attention_mask is not None:
+            position_ids = attention_mask.long().cumsum(-1) - 1
+            extended[:, :s] = attention_mask.bool()
+        else:
+            position_ids = torch.arange(s, device=dev).expand(b, s)
+        return dict(cache=self.init_cache(b, cache_length), attention_mask=extended,
+                    position_ids=position_ids)
+
+    @staticmethod
+    def update_inputs_for_generation(model_kwargs):
+        """The next step's inputs (`lwm_tpu/models/llama.py:1836-1839`): the
+        cache advanced in place, the position one past the last."""
+        model_kwargs["position_ids"] = model_kwargs["position_ids"][:, -1:] + 1
+        return model_kwargs
+
     def _rope_table(self, device):
         if device not in self._rope:
             cfg = self.config
@@ -690,22 +732,24 @@ class LLaMAForCausalLM(nn.Module):
         return self._rope[device]
 
     def forward(self, input_ids, attention_mask=None, position_ids=None, cache=None,
-                segment_ids=None, vision_masks=None):
+                segment_ids=None, vision_masks=None, logits_tail=None):
         """input_ids [b, s]. Without a cache: attention_mask [b, s] (1 =
         real token), causal self-attention, differentiable. With a cache
-        (`init_cache`, config.decode_index='per_row'; no autograd):
-        attention_mask [b, T] key validity over the cache, position_ids
-        [b, s] the rows' positions; the new keys are written in place at
-        position_ids − config.prefix_tokens, then every query i of row r
-        sees the valid keys at cache positions ≤ that of its own, and the
-        whole valid shared prefix when the cache has one. `vision_masks`
-        [b, s] is for a model that embeds vision tokens (`_embed`). Returns
-        logits [b, s | logits_tail, vocab] in the model dtype
-        (`lwm_tpu/models/llama.py:1583-1634`)."""
+        (`init_cache`; no autograd): attention_mask [b, T] key validity over
+        the cache, position_ids [b, s] the rows' positions (RoPE's); the new
+        keys are written in place, under config.decode_index "per_row" at
+        position_ids − config.prefix_tokens, under "shared" at cache.index
+        for every row (`generate`'s left-padded batch), then every query i
+        of row r sees the valid keys at cache positions ≤ that of its own,
+        and the whole valid shared prefix when the cache has one.
+        `vision_masks` [b, s] is for a model that embeds vision tokens
+        (`_embed`). Returns logits [b, s | logits_tail, vocab] in the model
+        dtype (`lwm_tpu/models/llama.py:1583-1634`); `logits_tail` (the
+        config's when None) keeps only the last positions' logits."""
         with torch.no_grad() if cache is not None else contextlib.nullcontext():
             x = self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids,
                              vision_masks)
-            tail = self.config.logits_tail
+            tail = self.config.logits_tail if logits_tail is None else logits_tail
             if tail and x.shape[1] > tail:
                 x = x[:, -tail:]
             return self._head(x)
@@ -755,10 +799,20 @@ class LLaMAForCausalLM(nn.Module):
         if cache is not None:
             # mask construction (`lwm_tpu/models/llama.py:1124-1173`): global
             # positions for RoPE, suffix-local ones for the cache (`:581-586`)
-            if cfg.decode_index != "per_row":
-                raise NotImplementedError("the port's cache writes are per-row: set decode_index='per_row'")
-            write_pos = position_ids - cfg.prefix_tokens
-            causal = torch.arange(kv, device=dev)[None, None, :] <= write_pos[:, :, None]
+            if cfg.decode_index == "per_row":
+                write_pos = position_ids - cfg.prefix_tokens
+                frontier = write_pos[:, :, None]
+            elif cfg.decode_index == "shared":
+                # every row writes at the shared index, and its frontier
+                # comes from it (`:642-646`, `:1146-1150`)
+                if cache.index + s > kv:
+                    raise ValueError(f"{s} tokens at index {cache.index} overrun the "
+                                     f"{kv}-slot cache")
+                write_pos = cache.index
+                frontier = (cache.index + torch.arange(s, device=dev))[None, :, None]
+            else:
+                raise ValueError(f"decode_index {cfg.decode_index!r}: use 'shared' or 'per_row'")
+            causal = torch.arange(kv, device=dev)[None, None, :] <= frontier
             mask = attention_mask.bool()[:, None, :] & causal          # [b, s, kv]
             kv_len = cache.index + s
             pre = cache.layers[0].prefix

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "lwm_flash_decode": [
         _P, _P, _P, _P, _P, _P, _P,       # q, k, v, k_scale, v_scale, mask, out
         _P, _P, _P,                       # m_out, l_out (or NULL), split scratch (fp32)
-        _I, _I, _I, _I, _I, _I, _I, _I,   # b, h, h_kv, T, d, kv_len, int8 cache, split keys
+        _I, _I, _I, _I, _I, _I, _I, _I,   # b, h, h_kv, T, d, kv_len, cache kind, split keys
         _L, _L,                           # q strides (batch, head)
         _L, _L, _L,                       # k/v strides (batch, head, seq)
         _F,                               # scale
@@ -85,6 +85,7 @@ _BWD_DIMS = [
     _P,                                   # cudaStream_t
 ]
 _SIGNATURES["lwm_flash_bwd"] = [*_BWD_INPUTS, _P, _P, _P, *_BWD_DIMS]  # + dq_accum (fp32), dk, dv
+_SIGNATURES["lwm_flash_fwd_f32"] = _SIGNATURES["lwm_flash_fwd"]      # K1's fp32 route, fp32 tensors
 
 
 def _nvcc():

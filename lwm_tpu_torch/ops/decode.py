@@ -8,8 +8,10 @@ the card (HBM bytes of the cache) and how it is laid out: the keys are split
 across blocks (`SPLIT_KEYS` a block), each block writes its split's partial
 (o, m, l) to fp32 scratch, and a merge kernel combines them.
 
-Ported: bf16 and int8 caches (k scales folded into the logits, v scales into
-p before p is rounded for p·v), per-key masks, the `kv_len` scan bound, GQA
+Ported: bf16 and int8 caches under bf16 q (k scales folded into the logits, v
+scales into p before p is rounded for p·v), fp32 caches under fp32 q (the
+same kernels instantiated for fp32, p not rounded: the needle evals' dtype;
+counted apart in `flash_decode.f32_launches`), per-key masks, the `kv_len` scan bound, GQA
 at any group g = h / h_kv (the g query heads of a kv head share one cache
 read; a group other than 1/2/4/8 runs in chunks of 8 heads, as the
 shared-prefix fold of `ops.prefix` gives slots·g), and `return_partials` (o
@@ -31,6 +33,9 @@ from lwm_tpu_torch.ops import _build
 from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD
 
 HEAD_DIMS = (64, 128)
+# q dtype → the caches it reads, each with its kernel's `kind` (the C entry's
+# cache type: bf16, int8 or fp32)
+CACHE_KINDS = {torch.bfloat16: {torch.bfloat16: 0, torch.int8: 1}, torch.float32: {torch.float32: 2}}
 SPLIT_KEYS = 512            # keys a block of the kernel's first pass (a multiple of 256, ≤ 2048)
 
 
@@ -126,11 +131,15 @@ def flash_decode_split_plain(q, k, v, mask, kv_len, k_scale=None, v_scale=None, 
 
 
 def check_decode_args(q, k, v, mask, k_scale, v_scale):
-    """Raise on anything the CUDA kernel does not take."""
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_decode kernel takes bf16 q, got {q.dtype}")
-    if k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
-        raise TypeError(f"flash_decode kernel takes a bf16 or int8 cache, got {k.dtype}/{v.dtype}")
+    """Raise on anything the CUDA kernel does not take: bf16 q over a bf16
+    or int8 cache, or fp32 q over an fp32 cache."""
+    caches = CACHE_KINDS.get(q.dtype)
+    if caches is None:
+        raise TypeError(f"flash_decode kernel takes bf16 or fp32 q, got {q.dtype}")
+    if k.dtype not in caches or v.dtype != k.dtype:
+        kinds = " or ".join(str(t).removeprefix("torch.") for t in caches)
+        raise TypeError(f"flash_decode kernel takes a {kinds} cache under {q.dtype} q, "
+                        f"got {k.dtype}/{v.dtype}")
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale are given exactly when the cache is int8")
@@ -168,8 +177,8 @@ def check_decode_args(q, k, v, mask, k_scale, v_scale):
 
 def flash_decode(q, k, v, mask, kv_len, k_scale=None, v_scale=None, *, scale=None,
                  return_partials=False):
-    """q: [b, 1, h, d]; k, v: head-major [b, h_kv, T, d] (bf16, or int8 with
-    k_scale/v_scale [b, h_kv, T] fp32); mask: bool [b, T], True = attend;
+    """q: [b, 1, h, d]; k, v: head-major [b, h_kv, T, d] (bf16 q: bf16, or
+    int8 with k_scale/v_scale [b, h_kv, T] fp32; fp32 q: fp32); mask: bool [b, T], True = attend;
     kv_len: int, keys at or past it are not read (an upper bound on every
     row's frontier). Returns [b, 1, h, d] in q.dtype; a row with no valid
     key gives 0. With `return_partials`, returns (o, m, l) as the JAX kernel
@@ -201,13 +210,15 @@ def flash_decode(q, k, v, mask, kv_len, k_scale=None, v_scale=None, *, scale=Non
         mask.data_ptr(), out.data_ptr(),
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         part.data_ptr(),
-        b, h, h_kv, T, d, max(min(int(kv_len), T), 0), int(quant), SPLIT_KEYS,
+        b, h, h_kv, T, d, max(min(int(kv_len), T), 0), CACHE_KINDS[q.dtype][k.dtype], SPLIT_KEYS,
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         float(scale), _build.stream_handle(q.device),
     )
     _build.check(rc, "lwm_flash_decode")
     flash_decode.launches += 1
+    flash_decode.f32_launches += q.dtype == torch.float32
     return out if m is None else (out, m, l)
 
 
 flash_decode.launches = 0
+flash_decode.f32_launches = 0   # of them, the fp32 route's

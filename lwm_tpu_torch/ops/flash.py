@@ -7,7 +7,11 @@ replaces `_bwd_dq_kernel` (`:288-353`) and `_bwd_dkv_kernel` (`:356-445`)
 reached through `flash_attention_bwd_pallas` (`:798`) with one kernel that
 writes dq, dk and dv. The CUDA kernels are `lwm_tpu_torch/csrc/flash_fwd.cu`
 and `csrc/flash_bwd.cu`; their source notes say what bounds them on the card
-(tensor-core flops at these widths) and how they are laid out.
+(tensor-core flops at these widths) and how they are laid out. K1 has an
+fp32 route too, `csrc/flash_fwd_f32.cu` (fp32 FMAs on the CUDA cores: TF32
+would not hold the fp32 suite's 1e-5), taken for fp32 q, k and v and
+counted apart in `flash_attention_fwd.f32_launches`; the backward takes bf16
+only (its fp32 route is not ported yet).
 
 Ported: causal or not, `q_offset`/`kv_offset`, per-key and full-tile
 additive bias, GQA, seq-major or head-major kv, lse. Not ported yet: segment
@@ -65,11 +69,16 @@ def _kv_strides(x, head_major):
     return (sb, s2, s1) if head_major else (sb, s1, s2)
 
 
-def check_fwd_args(q, k, v, kv_head_major):
-    """Raise on anything the CUDA kernel does not take. Returns (skv, h_kv)."""
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+FWD_DTYPES = (torch.bfloat16, torch.float32)   # K1's routes: csrc/flash_fwd.cu, flash_fwd_f32.cu
+
+
+def check_fwd_args(q, k, v, kv_head_major, dtypes=FWD_DTYPES, name="flash_attention_fwd"):
+    """Raise on anything the CUDA kernel `name` does not take: q, k and v of
+    one of `dtypes`. Returns (skv, h_kv)."""
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        kinds = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
         raise TypeError(
-            f"flash_attention_fwd kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
+            f"{name} kernel takes {kinds} q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
         )
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q/k/v on different devices: {q.device}, {k.device}, {v.device}")
@@ -83,8 +92,9 @@ def check_fwd_args(q, k, v, kv_head_major):
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if h % h_kv:
         raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
+    row = 16 // q.element_size()   # elements a 16-byte step
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        if x.stride(-1) != 1 or any(s % row for s in x.stride()[:-1]) or x.data_ptr() % 16:
             raise ValueError(
                 f"{name}: head dim must be contiguous with 16-byte aligned rows "
                 f"(strides {x.stride()})"
@@ -99,7 +109,8 @@ def flash_attention_fwd(
     """q: [b, sq, h, d]; k, v: [b, skv, h_kv, d], or [b, h_kv, skv, d] with
     kv_head_major (the cache layout, read in place); bias broadcastable as
     [b|1, 1, sq|1, skv]. Returns (out [b, sq, h, d] in q.dtype,
-    lse [b, h, sq] fp32)."""
+    lse [b, h, sq] fp32). CUDA: bf16 operands launch `csrc/flash_fwd.cu`,
+    fp32 ones `csrc/flash_fwd_f32.cu`; CPU: the plain twin."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(
             q, k, v, bias, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
@@ -117,8 +128,10 @@ def flash_attention_fwd(
         bias_ptr = bias.data_ptr()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    f32 = q.dtype == torch.float32
     lib = _build.load()
-    rc = lib.lwm_flash_fwd(
+    entry = lib.lwm_flash_fwd_f32 if f32 else lib.lwm_flash_fwd
+    rc = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
         lse.data_ptr(), b, sq, skv, h, h_kv, d,
         q.stride(0), q.stride(1), q.stride(2),
@@ -126,12 +139,14 @@ def flash_attention_fwd(
         bias_sb, bias_sr, int(causal), int(q_offset), int(kv_offset), float(scale),
         _build.stream_handle(q.device),
     )
-    _build.check(rc, "lwm_flash_fwd")
+    _build.check(rc, "lwm_flash_fwd_f32" if f32 else "lwm_flash_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.f32_launches += f32
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.f32_launches = 0   # of them, the fp32 route's
 
 
 # ------------------------------------------------------------------ backward
@@ -177,7 +192,8 @@ def flash_attention_bwd_plain(
 def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset, scale):
     """Check the arguments and launch the backward kernel writing `outs` =
     (dq_accum fp32, zeroed; dk; dv); the wrapper counts the launch."""
-    skv, h_kv = check_fwd_args(q, k, v, kv_head_major=False)
+    skv, h_kv = check_fwd_args(q, k, v, kv_head_major=False, dtypes=(torch.bfloat16,),
+                               name="flash_attention_bwd")
     b, sq, h, d = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q {tuple(q.shape)} {q.dtype}")

@@ -141,10 +141,11 @@ def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
     `main` requires): the dual loss of its (vision, text) logits, with
     {"vision_loss", "vision_acc", "text_loss", "text_acc"}, its fp32
     log-softmax in chunks of `loss_chunk_size` rows recomputed in the
-    backward, 2048 when 0 (where the JAX trainer takes the whole sequence
-    at once: over 32768 rows the two heads' fp32 copies put a 7b-width
-    step at a 66.3 GiB peak, which failed on an 80 GB card when the
-    allocator's cache was fragmented). A text model:
+    backward, 2048 when 0, and any chunk longer than 2048 rows in 2048-row
+    pieces (where the JAX trainer takes the whole sequence at once: over
+    32768 rows the two heads' fp32 copies put a 7b-width step at a 66.3 GiB
+    peak, which failed on an 80 GB card when the allocator's cache was
+    fragmented; the values are the same). A text model:
     of its logits, or with
     `fused_lm_loss` of its final hidden states through the lm_head (the
     embedding when tied) in fp32 chunks of `loss_chunk_size` (2048 when

@@ -24,25 +24,36 @@ def _chunk_stats(logits, tokens, valid):
     return token_log_prob.sum(-1), correct.sum(-1).float()
 
 
-def cross_entropy_loss_and_accuracy(logits, tokens, valid=None, chunk_size=None):
+# the most rows the dual loss takes its fp32 log-softmax over at once
+DUAL_PIECE_ROWS = 2048
+
+
+def cross_entropy_loss_and_accuracy(logits, tokens, valid=None, chunk_size=None,
+                                    max_piece=None):
     """Masked mean cross-entropy and accuracy: each row's masked mean, then
     the mean over rows. logits [b, s, vocab]; tokens [b, s] int; valid [b, s]
     (1.0 = counted) or None. With chunk_size dividing s (and below it), the
     sequence goes in chunks whose log-softmax is recomputed in the backward
     (`jax.checkpoint(nothing_saveable)`), so the fp32 logits never exist at
-    full length. Returns (loss, accuracy) fp32 scalars."""
+    full length; otherwise the whole sequence is one chunk. With
+    `max_piece`, the chunks are at most that many rows (the last may be
+    shorter): the same values, fewer fp32 rows alive at once. Returns
+    (loss, accuracy) fp32 scalars."""
     tokens = tokens.long()
     if valid is None:
         valid = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     valid = valid.float()
     valid_text_length = valid.sum(-1).clamp_min(1e-10)
     seq = tokens.shape[1]
-    if chunk_size is None or chunk_size >= seq or seq % chunk_size:
+    chunk = seq if chunk_size is None or chunk_size >= seq or seq % chunk_size else chunk_size
+    if max_piece is not None:
+        chunk = min(chunk, max_piece)
+    if chunk == seq:
         log_prob_sum, correct_sum = _chunk_stats(logits, tokens, valid)
     else:
         log_prob_sum = correct_sum = 0.0
-        for i in range(0, seq, chunk_size):
-            sl = slice(i, i + chunk_size)
+        for i in range(0, seq, chunk):
+            sl = slice(i, i + chunk)
             lp, c = checkpoint(_chunk_stats, logits[:, sl], tokens[:, sl], valid[:, sl],
                                use_reentrant=False)
             log_prob_sum = log_prob_sum + lp
@@ -57,15 +68,20 @@ def dual_cross_entropy(vision_logits, text_logits, tokens, valid, target_vision_
     """The vision-text loss 0.5 × (vision CE + text CE): the vision head's
     logits on the targets the vision masks mark (the other targets read as
     0 and are masked out), the text head's on the rest, each a
-    `cross_entropy_loss_and_accuracy` with `chunk_size`. tokens, valid,
-    target_vision_masks [b, s]. Returns (loss, {"vision_loss",
-    "vision_acc", "text_loss", "text_acc"}), fp32 scalars."""
+    `cross_entropy_loss_and_accuracy` with `chunk_size`, any chunk longer
+    than DUAL_PIECE_ROWS taken in pieces of that many rows (a whole 32768-row
+    sequence of both heads' fp32 log-softmax at once peaked a 7b-width step
+    at 66.3 GiB and failed on a fragmented cache; the values are the
+    same). tokens, valid, target_vision_masks [b, s]. Returns (loss,
+    {"vision_loss", "vision_acc", "text_loss", "text_acc"}), fp32 scalars."""
     vision = target_vision_masks.bool()
     valid = valid.float()
     vision_loss, vision_acc = cross_entropy_loss_and_accuracy(
-        vision_logits, torch.where(vision, tokens, 0), valid * vision, chunk_size)
+        vision_logits, torch.where(vision, tokens, 0), valid * vision, chunk_size,
+        DUAL_PIECE_ROWS)
     text_loss, text_acc = cross_entropy_loss_and_accuracy(
-        text_logits, torch.where(vision, 0, tokens), valid * ~vision, chunk_size)
+        text_logits, torch.where(vision, 0, tokens), valid * ~vision, chunk_size,
+        DUAL_PIECE_ROWS)
     return 0.5 * (vision_loss + text_loss), dict(
         vision_loss=vision_loss, vision_acc=vision_acc, text_loss=text_loss, text_acc=text_acc)
 

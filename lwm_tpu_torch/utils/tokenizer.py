@@ -4,9 +4,13 @@ The JAX CLI reads its tokenizer through `transformers.AutoTokenizer`
 (`lwm_tpu/apps/serve.py:101-103`); the GPU machine has neither
 `transformers` nor `tokenizers`, so the port's CLI reads the files itself:
 `tokenizer.json`, plus `tokenizer_config.json` / `special_tokens_map.json`
-for the bos and eos tokens, from a local directory. `encode`,
-`decode(ids, skip_special_tokens=...)`, `bos_token_id`, `eos_token_id` and
-`len()` give what `AutoTokenizer` gives for two layouts:
+for the bos, eos and pad tokens, from a local directory. `encode`,
+`decode(ids, skip_special_tokens=...)`, `batch_decode`, `bos_token_id`,
+`eos_token_id`, `pad_token_id` and `len()` give what `AutoTokenizer` gives,
+and `batch_encode` what `AutoTokenizer(truncation_side="left",
+padding_side="left")(texts, padding="max_length", truncation=True,
+max_length=n)` gives (the JAX `TextSampler`'s prompts,
+`lwm_tpu/apps/sampler.py:33-35, 97-103`), for two layouts:
 
 - byte-level BPE (GPT-2's): a `ByteLevel` pre-tokenizer, optionally after a
   `Digits` one, and a `ByteLevel` decoder (the vendored fixtures
@@ -365,6 +369,9 @@ class Tokenizer:
 
         self.bos_token_id = token_of("bos_token")
         self.eos_token_id = token_of("eos_token")
+        self.pad_token_id = token_of("pad_token")
+        self.eos_token = None if self.eos_token_id is None else self.id_to_token[self.eos_token_id]
+        self.pad_token = None if self.pad_token_id is None else self.id_to_token[self.pad_token_id]
 
     def __reduce__(self):
         # rebuilt from its directory: the parsed pieces hold closures, which
@@ -416,6 +423,29 @@ class Tokenizer:
                     if word:
                         ids += self.model.tokenize(word)
         return self.post_process(ids) if add_special_tokens else ids
+
+    def batch_encode(self, texts, max_length):
+        """Each text encoded with its special tokens, its content cut from the
+        LEFT so that it fits `max_length` with them, then padded on the LEFT
+        with `pad_token_id` to `max_length`. Returns (ids, attention_mask),
+        two [len(texts), max_length] lists of lists (mask 1 = real token)."""
+        if self.pad_token_id is None:
+            raise ValueError(f"tokenizer {self.path!r} has no pad token: a batch cannot be "
+                             "padded")
+        n_special = len(self.post_process([]))
+        ids, mask = [], []
+        for text in texts:
+            content = self.encode(text, add_special_tokens=False)
+            keep = max(max_length - n_special, 0)
+            row = self.post_process(content[max(len(content) - keep, 0):] if keep else [])
+            pad = max_length - len(row)
+            ids.append([self.pad_token_id] * pad + row)
+            mask.append([0] * pad + [1] * len(row))
+        return ids, mask
+
+    def batch_decode(self, rows, skip_special_tokens=False):
+        """`decode` of each row."""
+        return [self.decode(row, skip_special_tokens=skip_special_tokens) for row in rows]
 
     def decode(self, ids, skip_special_tokens=False):
         toks = []

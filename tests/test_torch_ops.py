@@ -494,7 +494,7 @@ def test_kernel_argument_checks():
     k = torch.zeros((1, 2, 32, 64), dtype=bf)
     assert flash.check_fwd_args(q, k, k, kv_head_major=True) == (32, 2)
     with pytest.raises(TypeError):
-        flash.check_fwd_args(q.float(), k.float(), k.float(), True)
+        flash.check_fwd_args(q.double(), k.double(), k.double(), True)
     with pytest.raises(ValueError, match="head_dim"):
         flash.check_fwd_args(q[..., :48], k[..., :48], k[..., :48], True)
     with pytest.raises(ValueError, match="multiple"):
@@ -542,3 +542,79 @@ def test_kernel_argument_checks():
     with pytest.raises(ValueError, match="65535"):
         decode.check_decode_args(qm, km, km, torch.empty((65536, 32), dtype=torch.bool,
                                                         device="meta"), None, None)
+
+
+# ------------------------------------------------------------- fp32 routes
+# K1's and K4's fp32 routes (csrc/flash_fwd_f32.cu and flash_decode.cu's fp32
+# instance) run the needle evals' fp32 model; on the CPU their wrappers take
+# the same plain twins, held here at fp32 against the JAX kernels in
+# interpret mode, at the arrangement the shared-cache prefill and decode
+# give them
+
+
+def test_k1_fp32_route_over_a_cache_matches_pallas_kernel():
+    """K1 as a left-padded prefill calls it at fp32 (through the wrapper):
+    40 queries at q_offset 24 (the cache index) over a head-major 256-slot
+    cache, GQA (8 heads over 2), the per-key bias of left-pad holes and of
+    the slots past the frontier."""
+    rng = np.random.default_rng(21)
+    b, h, h_kv, sq, T, d, q_off = 2, 8, 2, 40, 256, 64, 24
+    q = rng.standard_normal((b, sq, h, d), np.float32)
+    k = rng.standard_normal((b, h_kv, T, d), np.float32)
+    v = rng.standard_normal((b, h_kv, T, d), np.float32)
+    valid = np.arange(T)[None] < q_off + sq
+    valid = valid & (np.arange(T)[None] >= np.asarray([0, 9])[:, None])   # row 1's pads
+    bias = np.where(valid, 0.0, BIG_NEG).astype(np.float32)[:, None, None, :]
+    want_out, want_lse = flash_attention_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), causal=True,
+        q_offset=q_off, block_k=128, interpret=True, kv_head_major=True)
+    n = flash.flash_attention_fwd.f32_launches
+    out, lse = flash.flash_attention_fwd(_t(q), _t(k), _t(v), _t(bias), causal=True,
+                                         q_offset=q_off, kv_head_major=True)
+    assert out.dtype == torch.float32 and flash.flash_attention_fwd.f32_launches == n
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **FP32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FP32_TOL)
+
+
+@pytest.mark.parametrize("h,h_kv", [(4, 4), (8, 2)])
+def test_k4_fp32_route_matches_pallas_kernel(h, h_kv):
+    """K4 as a shared-cache decode step calls it at fp32 (through the
+    wrapper): rows with left-pad holes, a ragged kv_len (the cache index +
+    1), MHA and GQA; the output and the (o, m, l) partials."""
+    q, k, v, mask, lengths = _k4_inputs(h, h_kv, seed=h)
+    kv_len = int(lengths.max()) + 1
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), kv_len)
+    want = flash_decode_pallas(*args, block_k=128, interpret=True)
+    want_parts = flash_decode_pallas(*args, block_k=128, interpret=True, return_partials=True)
+    targs = (_t(q), _t(k), _t(v), _t(mask), kv_len)
+    n = decode.flash_decode.f32_launches
+    got = decode.flash_decode(*targs)
+    parts = decode.flash_decode(*targs, return_partials=True)
+    assert got.dtype == torch.float32 and decode.flash_decode.f32_launches == n
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
+    for a, w in zip(parts, want_parts):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w).reshape(a.shape), **FP32_TOL)
+
+
+def test_fp32_route_argument_checks():
+    """fp32 q, k and v take K1's fp32 route and fp32 q over an fp32 cache
+    K4's; the backward keeps refusing fp32, and K4 mixed types."""
+    q = torch.zeros((1, 8, 4, 64))
+    k = torch.zeros((1, 2, 32, 64))
+    assert flash.check_fwd_args(q, k, k, kv_head_major=True) == (32, 2)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        flash.check_fwd_args(q, k.bfloat16(), k, True)
+    ks = torch.zeros((1, 32, 2, 64))
+    lse = torch.zeros((1, 4, 8))
+    with pytest.raises(TypeError, match="flash_attention_bwd kernel takes bfloat16"):
+        flash._bwd_launch((q, ks, ks), q, ks, ks, q, lse, lse, None, causal=True, q_offset=0,
+                          kv_offset=0, scale=None)
+    mask = torch.ones((1, 32), dtype=torch.bool)
+    decode.check_decode_args(q[:, :1], k, k, mask, None, None)
+    with pytest.raises(TypeError, match="float32 cache"):
+        decode.check_decode_args(q[:, :1], k.bfloat16(), k.bfloat16(), mask, None, None)
+    k8, sc = k.to(torch.int8), torch.ones((1, 2, 32))
+    with pytest.raises(TypeError, match="float32 cache"):
+        decode.check_decode_args(q[:, :1], k8, k8, mask, sc, sc)
+    with pytest.raises(TypeError, match="bf16 or fp32 q"):
+        decode.check_decode_args(q[:, :1].double(), k, k, mask, None, None)

@@ -403,6 +403,57 @@ def test_dual_loss_chunks_2048_rows_by_default(monkeypatch):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6, atol=1e-12)
 
 
+@pytest.mark.parametrize("seq", [4096, 5000])
+def test_dual_loss_chunk_of_the_whole_sequence_goes_in_2048_row_pieces(seq, monkeypatch):
+    """A `loss_chunk_size` that covers the whole sequence (ROADMAP C5)
+    takes the dual loss's log-softmax in 2048-row pieces (the last one
+    ragged when 2048 does not divide the sequence), each recomputed in the
+    backward: loss, metrics and gradients equal those of 2048-row chunks
+    (fp32 rounding) and JAX's whole-sequence loss (1e-5)."""
+    from lwm_tpu_torch.utils import losses
+
+    rng = np.random.default_rng(seq)
+    vision_logits = rng.standard_normal((1, seq, 24)).astype(np.float32)
+    text_logits = rng.standard_normal((1, seq, 40)).astype(np.float32)
+    vision = rng.random((1, seq)) < 0.5
+    tokens = np.where(vision, rng.integers(0, 24, (1, seq)), rng.integers(0, 40, (1, seq)))
+    valid = (rng.random((1, seq)) < 0.9).astype(np.float32)
+
+    def port(chunk):
+        vl, tl = (torch.tensor(x, requires_grad=True) for x in (vision_logits, text_logits))
+        loss, metrics = losses.dual_cross_entropy(
+            vl, tl, torch.from_numpy(tokens), torch.from_numpy(valid),
+            torch.from_numpy(vision), chunk_size=chunk)
+        return loss, metrics, torch.autograd.grad(loss, (vl, tl))
+
+    pieces = []
+    real = losses.checkpoint
+    monkeypatch.setattr(losses, "checkpoint", lambda fn, *a, **kw: (
+        pieces.append(a[0].shape[1]), real(fn, *a, **kw))[1])
+    whole = port(seq)
+    tail = seq % 2048
+    assert pieces == 2 * ([2048] * (seq // 2048) + ([tail] if tail else []))
+
+    def jax_loss(vl, tl):
+        tvm = jnp.asarray(vision)
+        v_loss, _ = jax_cross_entropy(vl, jnp.where(tvm, tokens, 0), valid * tvm)
+        t_loss, _ = jax_cross_entropy(tl, jnp.where(tvm, 0, tokens), valid * (1.0 - tvm))
+        return 0.5 * (v_loss + t_loss)
+
+    want, want_grads = jax.value_and_grad(jax_loss, argnums=(0, 1))(
+        jnp.asarray(vision_logits), jnp.asarray(text_logits))
+    np.testing.assert_allclose(whole[0].item(), float(want), rtol=1e-5)
+    for g, w in zip(whole[2], want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-12)
+    if seq % 2048 == 0:
+        chunked = port(2048)
+        np.testing.assert_allclose(whole[0].item(), chunked[0].item(), rtol=1e-6)
+        for k, v in chunked[1].items():
+            np.testing.assert_allclose(whole[1][k].item(), v.item(), rtol=1e-6, err_msg=k)
+        for g, w in zip(whole[2], chunked[2]):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6, atol=1e-12)
+
+
 @pytest.mark.parametrize("freeze_base", [False, True])
 @pytest.mark.parametrize("optimizer", ["adamw", "palm"])
 def test_cli_metrics_match_jax_loop(workdir, optimizer, freeze_base):
