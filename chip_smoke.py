@@ -32,7 +32,14 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
   5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
      its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
-     and a full-tile bias, causal or not; d 64 at 8 kv heads).
+     and a full-tile bias, causal or not; d 64 at 8 kv heads). Then its
+     fp32 route (csrc/flash_bwd_f32.cu, the trainers' default fp32) within
+     1e-5 of the twin's largest dq, dk and dv (phase_bwd_f32): the train
+     shape, one row of 8192 (the 8K stage of run_context_extension.sh),
+     GQA, ragged sq/skv with offsets causal and not over a full-tile bias,
+     d 64, rows with no valid key (dq 0); both long shapes timed beside the
+     fp32 bound, SDPA's fp32 backward and the twin, K1's fp32 route at the
+     train shape too.
   6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
      serving shapes: decode (8 slots; also the 1b preset's wq and w2) and
      admission at each bucket (m 256/
@@ -84,6 +91,14 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      5120 tokens over a 6144-slot cache, 128 new tokens) on K1's and K4's
      fp32 routes (exact fp32 counts), its logits held to the plain fp32 path
      at 1e-3 of the largest and two rows' greedy tokens to it exactly.
+     Then speculative decoding (`lwm_tpu_torch.speculative`) on the fp32
+     copy, 4 rows of 1024-token prompts, 128 new tokens, k 7: the target
+     as its own draft (every proposal accepted), a 2-layer draft at the 7b
+     width, prompt lookup on repeating prompts, each arm's greedy tokens
+     equal to generate's (or apart first at a reported near tie), exact
+     K1/K4 counts, ms a round, tokens/s beside generate; then a bf16 arm
+     over an int8 cache (K4 int8 in the draft's steps); K1 at the verify's
+     q 8 and K4 at a draft step timed at fp32.
   8. The same weights quantized on the card (`quantize_params_int8`, the
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
@@ -105,12 +120,23 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      twice: one results row a grid point, and the rerun adds none.
   9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
      grads of the kernel path against an attn_impl="plain" bf16 model and
-     an fp32 copy (the noise floor), on the same weights and batch.
+     an fp32 copy (the noise floor), on the same weights and batch; and the
+     kernel path at fp32 compute (K1's and the backward's fp32 routes) held
+     to that fp32 copy (loss 1e-6 relative, each grad 1e-5 of its largest
+     element).
  10. Train the 7b width at 16 of its 32 layers (fp32 master weights, bf16
      compute, remat save_flash, AdamW as scripts/run_train_text.sh), batch
      2 x 4096, 6 steps on one fixed batch from the seed: finite, falling
      loss, and K1 and the backward launched layers x steps times on that
-     path.
+     path. The same at fp32 compute (phase_train_f32, the trainers'
+     default --dtype): K1's and the backward's fp32 routes launched
+     exactly layers x steps. Then scripts/run_spec_natural.sh's path
+     (phase_spec_cli): the training CLI at fp32 with its target and draft
+     configs, BPE fixture tokenizer and `[question],answer,[postpad]`
+     fields (the target's copy run, a second run warm-started from it with
+     params::, the draft's run; exact fp32 launch counts), then both saved
+     streams loaded and decoded by speculative_generate and
+     prompt_lookup_generate: greedy tokens equal to generate's.
  11. The training CLI (`lwm_tpu_torch.train.main`, in-process) on a JSONL
      from the seed and the fixture tokenizer: the same width and depth for
      6 steps (finite, falling loss; K1 and the backward launched exactly
@@ -129,8 +155,9 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      row of 32768 tokens (`no_pad`), 6 AdamW steps (finite, falling loss;
      K1 and the backward launched exactly 16 x 6 times; step time,
      tokens/s, model-FLOPs share with both heads, peak memory), 2 with
-     --freeze_base (every frozen param bit-unchanged, vte and vision_head
-     moved), 2 with the PaLM optimizer, the 1-layer round trip under both
+     --freeze_base at 4 layers (every frozen param bit-unchanged, vte and
+     vision_head moved), 2 with the PaLM optimizer at 4 layers, the
+     1-layer round trip under both
      (`pad` rows), the 6 AdamW steps again at --loss_chunk_size=32768,
      whose peak may be at most 1 GiB over the default run's (ROADMAP C5:
      the dual loss takes any chunk in 2048-row pieces), and a
@@ -165,7 +192,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lwm_tpu_torch import checkpoint, generation, train
+from lwm_tpu_torch import checkpoint, generation, speculative, train
 from lwm_tpu_torch import serve as serve_module
 from lwm_tpu_torch.apps import eval_needle
 from lwm_tpu_torch.apps import sampler as sampler_module
@@ -946,6 +973,139 @@ def phase_bwd(gen):
     return worst, *timing
 
 
+# The fused backward's fp32 route (csrc/flash_bwd_f32.cu), which the
+# trainers run at their default --dtype=fp32: held to the plain twin at fp32,
+# each of dq, dk and dv within F32_REL_TOL of its largest |value| (fp32 sums
+# in another order, dq's across key tiles by atomics; no TF32 on either
+# side). Cases: name, b, h_kv, d, sq, skv, causal, q_offset, kv_offset, bias
+# kind ("per_key": the model's, 300 right-padded keys in row 1; "zero": the
+# all-ones mask's; "full": a full-tile bias with 20% holes; "late_keys":
+# the same with holes at key 0 too, and the keys start at kv_offset 64, so
+# the first 64 rows causally see none and their dq is 0). The first is the
+# train step's attention (7b width, 2 x 4096) and the second the 8K stage
+# of scripts/run_context_extension.sh (one row of 8192): both timed beside
+# the bound at H100_F32_PEAK, SDPA's fp32 backward (memory-efficient, the
+# same float mask) and the twin. K1's fp32 route is held to its twin and
+# timed at the first too (the forward of the same step)
+BWD_F32_REPORT, BWD_F32_8K = "f32_b2_S4096_h32_causal_padkeys", "f32_b1_S8192_h32_causal"
+BWD_F32_CASES = [
+    (BWD_F32_REPORT, 2, 32, 128, 4096, 4096, True, 0, 0, "per_key"),
+    (BWD_F32_8K, 1, 32, 128, 8192, 8192, True, 0, 0, "zero"),
+    ("f32_gqa_hkv8_S4096", 2, 8, 128, 4096, 4096, True, 0, 0, "per_key"),
+    ("f32_ragged_sq1000_skv1100_causal_offsets_fulltile", 2, 8, 128, 1000, 1100, True, 700,
+     300, "full"),
+    ("f32_ragged_sq1000_skv1100_noncausal_offsets", 2, 32, 128, 1000, 1100, False, 700, 300,
+     "full"),
+    ("f32_d64_hkv8_S4096", 2, 8, 64, 4096, 4096, True, 0, 0, "per_key"),
+    ("f32_rows_without_keys_sq200_skv300", 2, 32, 128, 200, 300, True, 0, 64, "late_keys"),
+]
+
+
+def _bwd_f32_bias(kind, b, sq, skv, gen):
+    """(bias, valid keys [b, skv] or None) of a BWD_F32_CASES kind."""
+    if kind == "per_key":
+        return _bwd_bias(kind, b, skv, gen)
+    if kind == "zero":
+        return (torch.zeros((b, 1, 1, skv), device="cuda"),
+                torch.ones((b, skv), dtype=torch.bool, device="cuda"))
+    holes = torch.rand((b, sq, skv), generator=gen, device="cuda") < 0.2
+    if kind == "full":
+        holes[:, :, 0] = False
+    vals = torch.randn((b, sq, skv), generator=gen, device="cuda")
+    return torch.where(holes, BIG_NEG, vals)[:, None], None
+
+
+def phase_bwd_f32(gen):
+    """The backward's fp32 route at BWD_F32_CASES against its twin, and K1's
+    fp32 route held and timed at the train shape. Returns (max_abs_err, {case:
+    times} of the backward, times of K1 at the train shape), times as
+    dict(ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    f32, h = torch.float32, 32
+    worst, timed, k1_train = 0.0, {}, None
+    for name, b, h_kv, d, sq, skv, causal, q_off, kv_off, kind in BWD_F32_CASES:
+        q, g = _randn((b, sq, h, d), gen, f32), _randn((b, sq, h, d), gen, f32)
+        k, v = _randn((b, skv, h_kv, d), gen, f32), _randn((b, skv, h_kv, d), gen, f32)
+        bias, valid = _bwd_f32_bias(kind, b, sq, skv, gen)
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+        out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
+        delta = torch.einsum("bqhd,bqhd->bhq", g, out).contiguous()
+        args = (q, k, v, g, lse, delta, bias)
+        n0 = flash.flash_attention_bwd.f32_launches
+        got = flash.flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        if flash.flash_attention_bwd.f32_launches != n0 + 1:
+            raise AssertionError(f"flash_bwd {name}: the fp32 route was not launched")
+        want = flash.flash_attention_bwd_plain(*args, **kw)
+        for oname, a, r in zip(("dq", "dk", "dv"), got, want):
+            if a.dtype != f32 or a.shape != r.shape:
+                raise AssertionError(f"flash_bwd {name} {oname}: {a.dtype} {tuple(a.shape)}")
+            worst = max(worst, _f32_hold(f"flash_bwd {name} {oname}", a, r))
+        if kind == "late_keys":
+            empty = got[0][:, :kv_off - q_off]
+            if not torch.all(empty == 0):
+                raise AssertionError(f"flash_bwd {name}: rows with no valid key have dq "
+                                     f"{empty.abs().max().item():.3e}, want 0")
+            log(f"flash_bwd {name}: the {kv_off - q_off} rows with no valid key have dq 0")
+        del got, want
+        torch.cuda.empty_cache()
+        if name in (BWD_F32_REPORT, BWD_F32_8K):
+            # yardsticks: SDPA's memory-efficient kernel (fp32, additive
+            # mask; the math fallback is not allowed), forward and backward
+            pos = torch.arange(sq, device="cuda")
+            mask = torch.where(pos[None] <= pos[:, None], bias, BIG_NEG)
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   enable_gqa=h_kv != h)
+                gt = g.transpose(1, 2)
+                lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), gt,
+                                                             retain_graph=True), 5)
+                if name == BWD_F32_REPORT:
+                    fwd_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                        qt.detach(), kt.detach(), vt.detach(), attn_mask=mask,
+                        enable_gqa=h_kv != h), 5)
+            del qt, kt, vt, o, mask
+            ms = time_ms(lambda: flash.flash_attention_bwd(*args, **kw), 5)
+            plain_ms = time_ms(lambda: flash.flash_attention_bwd_plain(*args, **kw), 2)
+            torch.cuda.empty_cache()
+            pairs = attn_pairs(valid, sq, q_off)
+            # q, g, k, v read, dq, dk, dv written, dq's buffer zeroed, all
+            # fp32; lse, delta and the bias read. Five products of 2·d
+            # flops a (query, key) pair and head
+            n_bytes = (2 * q.numel() + 2 * k.numel()) * 4 * 2 + q.numel() * 4
+            n_bytes += 2 * b * h * sq * 4 + bias.numel() * 4
+            bnd, by = bound_ms(n_bytes, 10 * d * h * pairs, H100_F32_PEAK)
+            timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                               bound_by=by)
+            log(f"flash_bwd {name}: kernel {ms:.3f} ms ({100 * bnd / ms:.1f}% of the bound), "
+                f"plain backward {plain_ms:.3f} ms, SDPA fp32 backward (memory-efficient) "
+                f"{lib_ms:.3f} ms, bound {bnd:.3f} ms ({by}; "
+                f"{10 * d * h * pairs / 1e12:.3f} TFLOP at 67 TFLOP/s) [{card()}]")
+            if name == BWD_F32_REPORT:
+                # K1's out and lse (the backward's inputs above) held to the
+                # twin at this shape, lse on the rows with a valid key
+                ref, ref_lse = flash.flash_attention_fwd_plain(q, k, v, bias, **kw)
+                f_err = _f32_hold(f"K1 {name} out", out, ref)
+                live = ref_lse > BIG_NEG / 2
+                _f32_hold(f"K1 {name} lse", lse[live], ref_lse[live])
+                del ref, ref_lse, live
+                f_ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), 5)
+                f_plain = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 2)
+                n_bytes = 2 * q.numel() * 4 + 2 * int(valid.sum()) * h_kv * d * 4
+                n_bytes += b * h * sq * 4 + bias.numel() * 4
+                fb, fby = bound_ms(n_bytes, 4 * d * h * pairs, H100_F32_PEAK)
+                k1_train = dict(ms=f_ms, plain_ms=f_plain, library_ms=fwd_lib_ms, bound_ms=fb,
+                                bound_by=fby, max_abs_err=f_err)
+                log(f"K1 {name}: kernel {f_ms:.3f} ms ({100 * fb / f_ms:.1f}% of the bound), "
+                    f"plain {f_plain:.3f} ms, SDPA fp32 (memory-efficient) {fwd_lib_ms:.3f} ms, "
+                    f"bound {fb:.3f} ms ({fby}) [{card()}]")
+        del q, k, v, g, out, lse, delta, args, bias
+        torch.cuda.empty_cache()
+    return worst, timed, k1_train
+
+
 # The vision-text bundle's attention (scripts/run_train_vision_text.sh: one
 # row of 32768 tokens, 7b width, causal; its all-ones attention mask gives
 # a zero per-key bias): K1 and the fused backward timed at h32 with SDPA
@@ -1211,7 +1371,7 @@ def expected_launches(cfg, admitted, rounds):
     return dict(flash_fwd=L * admitted, flash_bwd=0,
                 flash_decode=L * rounds, int8_matmul=k5 * forwards, w8a8_matmul=k6 * forwards,
                 int8_matmul_gemm=k5 * admitted, w8a8_matmul_gemm=k6 * admitted,
-                flash_fwd_f32=0, flash_decode_f32=0)
+                flash_fwd_f32=0, flash_bwd_f32=0, flash_decode_f32=0)
 
 
 def serve(model, name, n_requests=12):
@@ -2401,6 +2561,462 @@ def phase_generate_f32(model, fp32):
     return launches
 
 
+# Speculative decoding (lwm_tpu_torch.speculative) at the 7b preset, 32
+# layers, on the serving weights' fp32 copy (phase_speculative): SPEC_ROWS
+# rows of equal-length SPEC_PROMPT-token prompts, SPEC_NEW new tokens, k
+# SPEC_K, greedy, in four arms over the fp32 target: the target as its own
+# draft; a SPEC_DRAFT_LAYERS-layer draft at the 7b width (the target's first
+# layers and its embedding and head); the bf16 serving weights as the draft
+# (the same tensors, SPEC_NEW / 2 new tokens; bf16 and fp32 greedy tokens
+# fork, so rounds accept part of their proposals and rewind into the verify
+# window); prompt lookup, n-gram SPEC_NGRAM, on prompts that repeat a span.
+# Each arm's tokens are held to `generation.generate`'s on the same
+# weights: at fp32 the verify (K1 over k + 1 rows) and a one-token step
+# (K4) differ by summation order alone, so a greedy token may flip only at
+# a near tie, where the first differing position's top-2 logit gap (one
+# forward without a cache) must be below SPEC_TIE_GAP, and is reported.
+# Each arm's acceptance is held to the rounds a correct runner makes
+# (_predicted_rounds): every emitted token is the verify's argmax, so the
+# runner's own tokens and the draft's greedy tokens on their prefixes (the
+# runner's own draft calls, teacher-forced; or the lookup's proposals) give
+# each round's match length. Stale cache rows after a rewind would change
+# the draft's proposals and fail it. The target as its own draft accepts
+# every proposal but where its K4 step and the verify's K1 flip a near tie
+# (SPEC_TIE_GAP on the step's logits). Then one bf16 arm over an int8 cache
+# (K4's int8 route in the draft's steps), half the new tokens: its
+# acceptance held the same way, its tokens reported beside bf16 generate's
+# (bf16 paths fork)
+SPEC_ROWS, SPEC_PROMPT, SPEC_NEW, SPEC_K, SPEC_NGRAM = 4, 1024, 128, 7, 3
+SPEC_DRAFT_LAYERS = 2
+# fp32 logits of two paths agreed to ~1.5e-5 of the largest on an H100 80GB
+# HBM3 at 700 W (PERF.md, the needle batch): a gap below this is a near tie
+SPEC_TIE_GAP = 1e-3
+
+
+def _draft_of(model, layers, cfg):
+    """The target's first `layers` layers with its embedding, norm and
+    head, as a model of `cfg` on the same tensors (no copy)."""
+    keep = {f"h.{i}." for i in range(layers)}
+    sd = {k: v for k, v in model.state_dict().items()
+          if not k.startswith("h.") or any(k.startswith(p) for p in keep)}
+    return type(model).on_tensors(cfg.replace(num_hidden_layers=layers), sd, model.dtype)
+
+
+def _top2_gap(model, seq, at):
+    """The top-2 logit gap of each row at sequence position `at` (the
+    logits that chose the token there), from one forward of seq [b, n]
+    without a cache."""
+    with torch.no_grad():
+        logits = model(seq[:, :at], logits_tail=1)[:, -1].float()
+    top = logits.topk(2, -1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
+def _spec_hold(what, got, want, model, prompt):
+    """Tokens `got` [b, prompt + new] against generate's `want`: equal, or
+    first differing at a near tie (SPEC_TIE_GAP)."""
+    diff = (got != want).any(0).nonzero()
+    if len(diff):
+        at = int(diff[0])
+        gaps = _top2_gap(model, want, at)
+        log(f"{what}: tokens differ from generate's first at position {at - prompt} of the new "
+            f"tokens; top-2 logit gaps there {[f'{g:.2e}' for g in gaps]} (near tie below "
+            f"{SPEC_TIE_GAP})")
+        rows = (got[:, at] != want[:, at]).nonzero()[:, 0].tolist()
+        if not all(gaps[r] < SPEC_TIE_GAP for r in rows):
+            raise AssertionError(f"{what}: greedy tokens differ from generate's off a near tie")
+
+
+def _teacher_forced(draft, seq, prompt, cache_len):
+    """The draft's greedy token at each position of seq [b, end] from seq's
+    prefix, through the runner's own draft calls (the prompt's prefill, then
+    one-token steps over a shared-index cache of cache_len slots, all-ones
+    mask): [b, end] with -1 up to `prompt`; and the margin [b, end] of the
+    draft's logit of its token over its logit of seq's."""
+    b, end = seq.shape
+    ones = torch.ones((b, cache_len), dtype=torch.bool, device=seq.device)
+    cache = draft.init_cache(b, cache_len)
+    props = torch.full((b, end), -1, dtype=seq.dtype, device=seq.device)
+    margin = torch.zeros((b, end), device=seq.device)
+    with torch.no_grad():
+        pos = torch.arange(prompt, device=seq.device).expand(b, prompt)
+        draft(seq[:, :prompt], ones, pos, cache, logits_tail=1)
+        for p in range(prompt, end - 1):
+            logits = draft(seq[:, p:p + 1], ones, torch.full((b, 1), p, device=seq.device),
+                           cache)[:, -1]
+            props[:, p + 1] = logits.argmax(-1)
+            logits = logits.float()
+            margin[:, p + 1] = logits.max(-1).values - logits.gather(-1, seq[:, p + 1:p + 2])[:, 0]
+    return props, margin
+
+
+def _predicted_rounds(seq, prompt, k, proposals_at):
+    """The rounds a correct greedy runner makes, from its tokens seq [b,
+    end] (each after `prompt` the verify's argmax) and proposals_at(n) →
+    [b, k], the proposals for n + 1 .. n + k of a round that starts at n.
+    Proposals past `end` cannot be checked, so the last round's match
+    length is a range. Returns (rounds, accepted lo, accepted hi, the match
+    length of each round)."""
+    b, end = seq.shape
+    target = torch.cat([seq, torch.full((b, k), -2, dtype=seq.dtype, device=seq.device)], 1)
+    n, lo, hi, ms = prompt, 0, 0, []
+    while n < end:
+        match = proposals_at(n) == target[:, n + 1:n + k + 1]
+        known = (n + 1 + torch.arange(k, device=seq.device)) < end
+        m = int(match.long().cumprod(1).sum(1).min())
+        lo, hi, n = lo + m, hi + int((match | ~known).long().cumprod(1).sum(1).min()), n + m + 1
+        ms.append(m)
+    return len(ms), lo, hi, ms
+
+
+def _acceptance_hold(what, res, prompt, k, draft=None, ngram=None):
+    """res's rounds and accepted count against _predicted_rounds, the
+    proposals from `draft` teacher-forced or, without one, prompt lookup.
+    Returns (match lengths, the draft's margins where its token is not the
+    runner's, or None)."""
+    seq = res.sequences
+    b, end = seq.shape
+    cache_len = speculative._cache_len(prompt, end - prompt, k, None)
+    flips = None
+    if draft is not None:
+        props, margin = _teacher_forced(draft, seq, prompt, cache_len)
+        flips = margin[:, prompt + 1:][props[:, prompt + 1:] != seq[:, prompt + 1:]]
+        props = torch.cat([props, torch.full((b, k), -1, dtype=seq.dtype, device=seq.device)], 1)
+
+        def proposals_at(n):
+            return props[:, n + 1:n + k + 1]
+    else:
+        def proposals_at(n):
+            cur = torch.zeros((b, cache_len), dtype=seq.dtype, device=seq.device)
+            cur[:, :n + 1] = seq[:, :n + 1]
+            return speculative._lookup_proposals(cur, n, seq[:, n], k, ngram)
+    rounds, lo, hi, ms = _predicted_rounds(seq, prompt, k, proposals_at)
+    partial = sum(0 < m < k for m in ms)
+    log(f"{what}: {res.steps} rounds accepting {res.accepted}; a correct runner makes {rounds} "
+        f"accepting {lo}" + (f"-{hi}" if hi != lo else "") + f" ({partial} rounds partial)")
+    if res.steps != rounds or not lo <= res.accepted <= hi:
+        raise AssertionError(f"{what}: {res.steps} rounds accepting {res.accepted}, a correct "
+                             f"runner {rounds} accepting {lo}-{hi}")
+    return ms, flips
+
+
+def _spec_prompts(vocab, repeat=False):
+    """SPEC_ROWS prompts of SPEC_PROMPT tokens from the seed; with `repeat`,
+    each a 64-token span over and over (so that the lookup finds it)."""
+    rng = np.random.default_rng(SEED + 21)
+    if not repeat:
+        return torch.from_numpy(rng.integers(2, vocab, (SPEC_ROWS, SPEC_PROMPT))).cuda()
+    span = rng.integers(2, vocab, (SPEC_ROWS, 64))
+    return torch.from_numpy(np.tile(span, (1, SPEC_PROMPT // 64))).cuda()
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _spec_arm(what, run, target, draft, ids, gen_s, gen_tokens, k=SPEC_K):
+    """One arm: `run()` → SpecResult, timed, launch counts set to 0 just
+    before and read just after, held to the exact counts the arm implies
+    (K1 a target layer at the prefill and a round, a draft layer at its
+    prefill; K4 a draft layer a step, k + 1 steps a round; the fp32 routes'
+    share by each model's dtype), and logs ms a round beside the prefills.
+    Returns (result, launches)."""
+    _reset_launch_counts()
+    res, wall = _timed(run)
+    launches = _launch_counts()
+    t32 = target.dtype == torch.float32
+    d32 = draft is not None and draft.dtype == torch.float32
+    k1t = target.config.num_hidden_layers * (1 + res.steps)
+    k1d = 0 if draft is None else draft.config.num_hidden_layers
+    k4 = k1d * (k + 1) * res.steps
+    want = dict(expected_launches(target.config, 0, 0), flash_fwd=k1t + k1d, flash_decode=k4,
+                flash_fwd_f32=k1t * t32 + k1d * d32, flash_decode_f32=k4 * d32)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    # the prefills alone (both models over the prompt), to split the wall
+    ones = torch.ones((ids.shape[0], ids.shape[1] + 1), dtype=torch.bool, device="cuda")
+    pos = torch.arange(ids.shape[1], device="cuda").expand_as(ids)
+
+    def prefill():
+        with torch.no_grad():
+            for m in (target,) if draft is None else (target, draft):
+                m(ids, ones, pos, m.init_cache(ids.shape[0], ids.shape[1] + 1), logits_tail=1)
+
+    _, pre_s = _timed(prefill)
+    round_ms = 1e3 * (wall - pre_s) / res.steps
+    new = res.sequences.shape[1] - ids.shape[1]
+    same = (res.sequences[:, ids.shape[1]:] == gen_tokens[:, :new]).float().mean().item()
+    log(f"{what}: {res.steps} rounds, accepted {res.accepted} ({res.accepted / res.steps:.2f} a "
+        f"round of k {k}), {wall:.3f}s ({ids.shape[0] * new / wall:.1f} tok/s; generate "
+        f"{gen_tokens.numel() / gen_s:.1f} tok/s on the same rows at {gen_tokens.shape[1]} "
+        f"new), a round {round_ms:.2f} ms "
+        f"beside the prefills' {pre_s:.3f}s; tokens shared with generate {same:.3f}; launches "
+        f"{launches} [{card()}]")
+    return res, launches
+
+
+def phase_speculative(model, fp32):
+    """Speculative decoding on the serving weights (see SPEC_*): four fp32
+    greedy arms held to generate's tokens and to a correct runner's rounds,
+    then a bf16 arm over an int8 cache. Then K1 at the verify's shape and K4
+    at the draft's steps, fp32, timed. Returns (each arm's launch counts,
+    {case: times} of K1 and of K4)."""
+    cfg = model.config.replace(decode_index="shared")
+    m32 = LLaMAForCausalLM.on_tensors(cfg, fp32, torch.float32)
+    drafts = {"self": m32, "draft": _draft_of(m32, SPEC_DRAFT_LAYERS, cfg),
+              "bf16 draft": type(model).on_tensors(cfg, model.state_dict(), model.dtype),
+              "lookup": None}
+    paths = []
+    gcfg = generation.GenerationConfig(max_new_tokens=SPEC_NEW, pad_token_id=0)
+    for arm, draft in drafts.items():
+        if arm in ("self", "lookup"):   # the draft arms decode the self arm's prompts
+            ids = _spec_prompts(cfg.vocab_size, repeat=arm == "lookup")
+            _reset_launch_counts()
+            gen_tokens, gen_s = _timed(lambda: generation.generate(m32, ids, config=gcfg))
+            L = cfg.num_hidden_layers
+            want = dict(expected_launches(cfg, 0, 0), flash_fwd=L,
+                        flash_decode=L * (SPEC_NEW - 1), flash_fwd_f32=L,
+                        flash_decode_f32=L * (SPEC_NEW - 1))
+            if _launch_counts() != want:
+                raise AssertionError(f"speculative {arm}: generate's launches {_launch_counts()}")
+            paths.append(want)
+            want_seq = torch.cat([ids, gen_tokens], 1)
+        new = SPEC_NEW // 2 if arm == "bf16 draft" else SPEC_NEW
+        what = f"speculative fp32 {arm} ({SPEC_ROWS} x {SPEC_PROMPT}, {new} new, k {SPEC_K})"
+        if draft is None:
+            res, launches = _spec_arm(what, lambda: speculative.prompt_lookup_generate(
+                m32, ids, new, k=SPEC_K, ngram=SPEC_NGRAM), m32, None, ids, gen_s, gen_tokens)
+        else:
+            res, launches = _spec_arm(what, lambda: speculative.speculative_generate(
+                m32, draft, ids, new, k=SPEC_K), m32, draft, ids, gen_s, gen_tokens)
+        paths.append(launches)
+        _spec_hold(what, res.sequences, want_seq[:, :SPEC_PROMPT + new], m32, SPEC_PROMPT)
+        ms, flips = _acceptance_hold(what, res, SPEC_PROMPT, SPEC_K, draft, SPEC_NGRAM)
+        if arm == "self":
+            # a miss only where the step (K4) and the verify (K1) flip a near tie
+            log(f"{what}: {flips.numel()} positions where the step's token and the verify's "
+                f"differ, margins {[f'{x:.2e}' for x in flips.tolist()]} (near tie below "
+                f"{SPEC_TIE_GAP})")
+            if not torch.all(flips < SPEC_TIE_GAP):
+                raise AssertionError(f"{what}: the target as its own draft missed off a near tie")
+        if arm == "bf16 draft" and not any(0 < m < SPEC_K for m in ms):
+            raise AssertionError(f"{what}: no round accepted part of its proposals")
+        del res
+        torch.cuda.empty_cache()
+    del gen_tokens, want_seq, drafts
+    torch.cuda.empty_cache()
+
+    # bf16 over an int8 cache: the target and a draft of its first layers
+    icfg = model.config.replace(decode_index="shared", kv_cache_dtype="int8")
+    m8 = type(model).on_tensors(icfg, model.state_dict(), model.dtype)
+    d8 = _draft_of(m8, SPEC_DRAFT_LAYERS, icfg)
+    ids = _spec_prompts(cfg.vocab_size)
+    new = SPEC_NEW // 2   # tokens reported, not held: half the rounds suffice
+    _reset_launch_counts()
+    gen_tokens, gen_s = _timed(lambda: generation.generate(
+        m8, ids, config=generation.GenerationConfig(max_new_tokens=new, pad_token_id=0)))
+    paths.append(_launch_counts())
+    what = f"speculative bf16 int8 cache ({new} new), draft of {SPEC_DRAFT_LAYERS} layers"
+    res, launches = _spec_arm(what, lambda: speculative.speculative_generate(
+        m8, d8, ids, new, k=SPEC_K), m8, d8, ids, gen_s, gen_tokens)
+    paths.append(launches)
+    _acceptance_hold(what, res, SPEC_PROMPT, SPEC_K, d8)
+    del m8, d8, gen_tokens, res
+    torch.cuda.empty_cache()
+
+    # the kernels at this path's shapes, fp32: K1 as the verify calls it (k
+    # + 1 queries at the cache index over the head-major 2048-slot cache,
+    # the full-tile bias of the mask's frontier) and K4 as a draft step
+    # (one query over the same cache)
+    f32, h, d = torch.float32, cfg.num_attention_heads, cfg.head_dim
+    T = speculative._cache_len(SPEC_PROMPT, SPEC_NEW, SPEC_K, None)
+    n = SPEC_PROMPT + SPEC_NEW // 2     # a round halfway
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    q = _randn((SPEC_ROWS, SPEC_K + 1, h, d), gen, f32)
+    k, v = (_randn((SPEC_ROWS, h, T, d), gen, f32) for _ in range(2))
+    keys = torch.arange(T, device="cuda")
+    frontier = n + torch.arange(SPEC_K + 1, device="cuda")
+    valid = keys[None] <= frontier[:, None]                       # [q, T]
+    bias = torch.where(valid, 0.0, BIG_NEG)[None, None]           # [1, 1, q, T]
+    kw = dict(causal=True, q_offset=n, kv_head_major=True)
+    out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
+    ref, ref_lse = flash.flash_attention_fwd_plain(q, k, v, bias, **kw)
+    err = _f32_hold("K1 f32 verify", out, ref)
+    ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), 50, graph=True)
+    plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                                            attn_mask=bias), 50, graph=True)
+    pairs = int(valid.sum()) * SPEC_ROWS
+    n_bytes = 2 * q.numel() * 4 + 2 * (n + SPEC_K + 1) * SPEC_ROWS * h * d * 4
+    n_bytes += SPEC_ROWS * h * (SPEC_K + 1) * 4 + bias.numel() * 4
+    bnd, by = bound_ms(n_bytes, 4 * d * h * pairs, H100_F32_PEAK)
+    k1 = {f"f32_verify_b{SPEC_ROWS}_q{SPEC_K + 1}_T{T}": dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by, max_abs_err=err)}
+    log(f"K1 f32 verify (b {SPEC_ROWS}, q {SPEC_K + 1} at {n} over {T} slots): kernel {ms:.4f} ms "
+        f"(graph; {100 * bnd / ms:.1f}% of the bound), plain {plain_ms:.3f} ms, SDPA fp32 "
+        f"{lib_ms:.4f} ms (graph), bound {bnd:.4f} ms ({by}) [{card()}]")
+    dmask = keys[None].expand(SPEC_ROWS, T) < n
+    args = (q[:, :1].contiguous(), k, v, dmask, n)
+    got = decode.flash_decode(*args)
+    err = _f32_hold("K4 f32 draft step", got, decode.flash_decode_plain(*args))
+    bnd, by, kv_bytes = k4_bound(args[0], k, dmask, n)
+    ms = time_ms(lambda: decode.flash_decode(*args), 50, graph=True)
+    plain_ms = time_ms(lambda: decode.flash_decode_plain(*args), 5)
+    seen = dmask[:, None, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        args[0].transpose(1, 2), k, v, attn_mask=seen), 50, graph=True)
+    bnd, by = bound_ms(kv_bytes + 2 * args[0].numel() * 4 + SPEC_ROWS * n,
+                       4 * int(dmask.sum()) * h * d, H100_F32_PEAK)
+    k4 = {f"f32_draft_step_b{SPEC_ROWS}_T{T}": dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by, max_abs_err=err)}
+    log(f"K4 f32 draft step (b {SPEC_ROWS}, kv_len {n} of {T}): kernel {ms:.4f} ms (graph; "
+        f"{100 * bnd / ms:.1f}% of the bound), plain {plain_ms:.3f} ms, SDPA fp32 {lib_ms:.4f} ms "
+        f"(graph), bound {bnd:.4f} ms ({by}) [{card()}]")
+    del m32, q, k, v, out, lse, ref, ref_lse, args, got, seen, bias
+    torch.cuda.empty_cache()
+    return paths, k1, k4
+
+
+# scripts/run_spec_natural.sh's path on the port (phase_spec_cli): the
+# training CLI (`lwm_tpu_torch.train.main`, in-process) at the bundle's
+# --dtype=fp32 with its TARGET_CFG and DRAFT_CFG (copied below), the BPE
+# fixture tokenizer and its `[question],answer,[postpad]` fields joined by
+# an empty separator, over a copy-task JSONL the phase writes ("{span}
+# REPEAT: " then the span, then filler): the target's copy run (seq 512 x
+# 64) for SPEC_CLI_STEPS steps, its second run warm-started from the first
+# one's last params with `params::` (seq 2048 x 16), the draft's copy run;
+# each with exact fp32 launch counts (remat nothing_saveable: K1 twice a
+# layer a step, the backward once). Then both saved param streams are
+# loaded at fp32, and speculative_generate and prompt_lookup_generate run
+# over them on copy prompts: greedy tokens equal to generate's (or first
+# apart at a near tie), rounds and acceptance a correct runner's
+# (_acceptance_hold)
+SPEC_TARGET_CFG = ("dict(vocab_size=2048,hidden_size=768,intermediate_size=2048,"
+                   "num_hidden_layers=6,num_attention_heads=6,max_sequence_length=2048,"
+                   "scan_attention=True,scan_query_chunk_size=256,scan_key_chunk_size=256,"
+                   "scan_mlp=False,scan_layers=True,param_scan_axis=0,"
+                   "remat_block='nothing_saveable',theta=10000)")
+SPEC_DRAFT_CFG = ("dict(vocab_size=2048,hidden_size=256,intermediate_size=768,"
+                  "num_hidden_layers=2,num_attention_heads=2,max_sequence_length=2048,"
+                  "scan_attention=True,scan_query_chunk_size=256,scan_key_chunk_size=256,"
+                  "scan_mlp=False,scan_layers=True,param_scan_axis=0,"
+                  "remat_block='nothing_saveable',theta=10000)")
+SPEC_CLI_STEPS, SPEC_CLI_LINES, SPEC_CLI_NEW = 4, 3000, 64
+
+
+def spec_cli_argv(out_dir, name, cfg, data, seq, batch, *extra):
+    """The bundle's `train` function's flags (run_spec_natural.sh:79-99)."""
+    return [
+        "--mesh_dim=1,1,1,1", "--dtype=fp32", f"--total_steps={SPEC_CLI_STEPS}", "--log_freq=1",
+        f"--save_model_freq={SPEC_CLI_STEPS}", f"--update_llama_config={cfg}",
+        f"--tokenizer={FIXTURE_TOKENIZER}", "--train_dataset.type=json",
+        "--train_dataset.text_processor.fields=[question],answer,[postpad]",
+        "--train_dataset.text_processor.subfield_separator=",
+        f"--train_dataset.json_dataset.path={data}",
+        f"--train_dataset.json_dataset.seq_length={seq}",
+        f"--train_dataset.json_dataset.batch_size={batch}",
+        "--optimizer.adamw_optimizer.lr=1e-3", "--optimizer.adamw_optimizer.end_lr=3e-4",
+        "--optimizer.adamw_optimizer.lr_warmup_steps=100",
+        "--optimizer.adamw_optimizer.lr_decay_steps=1500",
+        f"--logger.output_dir={out_dir}", f"--logger.experiment_id={name}", *extra,
+    ]
+
+
+def _copy_jsonl(path, n_lines, seed):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n_lines):
+            span = _cli_text(rng, int(rng.integers(10, 60)))
+            f.write(json.dumps({"question": span + " REPEAT: ", "answer": span,
+                                "postpad": " " + _cli_text(rng, int(rng.integers(5, 40)))})
+                    + "\n")
+
+
+def _spec_cfg(cfg_text):
+    return eval(cfg_text, {"dict": dict})   # noqa: S307 (the JAX flag's spelling)
+
+
+def _spec_cli_run(argv, layers, what):
+    """One in-process CLI run at fp32 with remat nothing_saveable: K1's and
+    the backward's fp32 routes launched exactly 2 x layers x steps and
+    layers x steps. Returns (the last saved params stream, launches)."""
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    torch.cuda.empty_cache()
+    recs = [json.loads(line) for line in open(Path(summary["output_dir"]) / "metrics.jsonl")]
+    losses = [r["loss"] for r in recs]
+    log(f"spec cli {what}: {len(recs)} steps in {wall:.1f}s of wall, losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches}")
+    n = layers * SPEC_CLI_STEPS
+    want = dict(flash_fwd=2 * n, flash_fwd_f32=2 * n, flash_bwd=n, flash_bwd_f32=n)
+    if any(launches[k] != v for k, v in want.items()) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"spec cli {what}: launches {launches} (want {want}), losses {losses}")
+    saved = sorted(Path(summary["output_dir"]).glob("streaming_params*"))[-1]
+    return saved, launches
+
+
+def phase_spec_cli():
+    """scripts/run_spec_natural.sh's trainer runs and speculative decoding
+    over their checkpoints (see SPEC_CLI_*). Returns every run's launch
+    counts."""
+    paths = []
+    with tempfile.TemporaryDirectory(prefix="lwm_spec_") as tmp:
+        tmp = Path(tmp)
+        data = tmp / "copy.jsonl"
+        _copy_jsonl(data, SPEC_CLI_LINES, SEED + 23)
+        t_layers = _spec_cfg(SPEC_TARGET_CFG)["num_hidden_layers"]
+        d_layers = _spec_cfg(SPEC_DRAFT_CFG)["num_hidden_layers"]
+        copy_a, launches = _spec_cli_run(spec_cli_argv(
+            tmp / "run_target_copy", "c", SPEC_TARGET_CFG, data, 512, 64), t_layers,
+            "target copy")
+        paths.append(launches)
+        target_ckpt, launches = _spec_cli_run(spec_cli_argv(
+            tmp / "run_target", "m", SPEC_TARGET_CFG, data, 2048, 16,
+            f"--load_checkpoint=params::{copy_a}"), t_layers, "target warm start (params::)")
+        paths.append(launches)
+        draft_ckpt, launches = _spec_cli_run(spec_cli_argv(
+            tmp / "run_draft_copy", "c", SPEC_DRAFT_CFG, data, 512, 64), d_layers, "draft copy")
+        paths.append(launches)
+
+        tok = Tokenizer(str(FIXTURE_TOKENIZER))
+        models = []
+        for cfg_text, ckpt in ((SPEC_TARGET_CFG, target_ckpt), (SPEC_DRAFT_CFG, draft_ckpt)):
+            cfg = train.build_model_config(update_llama_config=_spec_cfg(cfg_text))
+            models.append(sampler_module.load_model(cfg, f"params::{ckpt}", "fp32", "cuda")[0])
+    target, draft = models
+    rng = np.random.default_rng(SEED + 24)
+    rows = [tok.encode(_cli_text(rng, 40) + " REPEAT: ") for _ in range(SPEC_ROWS)]
+    width = min(len(r) for r in rows)
+    ids = torch.tensor([r[:width] for r in rows], device="cuda")
+    gcfg = generation.GenerationConfig(max_new_tokens=SPEC_CLI_NEW, pad_token_id=0)
+    _reset_launch_counts()
+    want = torch.cat([ids, generation.generate(target, ids, config=gcfg)], 1)
+    paths.append(_launch_counts())
+    for what, run, by in (
+            ("draft", lambda: speculative.speculative_generate(target, draft, ids, SPEC_CLI_NEW),
+             draft),
+            ("lookup", lambda: speculative.prompt_lookup_generate(target, ids, SPEC_CLI_NEW),
+             None)):
+        _reset_launch_counts()
+        res = run()
+        paths.append(_launch_counts())
+        log(f"spec cli {what} over the saved checkpoints ({SPEC_ROWS} x {width}, "
+            f"{SPEC_CLI_NEW} new, k 7): {res.steps} rounds, accepted {res.accepted}; launches "
+            f"{paths[-1]}")
+        _spec_hold(f"spec cli {what}", res.sequences, want, target, width)
+        _acceptance_hold(f"spec cli {what}", res, width, 7, by, 3)
+    del target, draft, models
+    torch.cuda.empty_cache()
+    return paths
+
+
 # Both eval CLIs (`python -m lwm_tpu_torch.apps.eval_needle` and
 # `eval_needle_multi`) as subprocesses at their default fp32, at the 7b width
 # and CLI_LAYERS layers over a params stream the port writes, over a
@@ -2481,7 +3097,7 @@ KERNEL_WRAPPERS = {   # kernel name → the wrapper that counts its launches
 
 
 GEMM_WRAPPERS = ("int8_matmul", "w8a8_matmul")   # their admission GEMMs are counted apart
-F32_WRAPPERS = ("flash_fwd", "flash_decode")      # their fp32 routes are counted apart
+F32_WRAPPERS = ("flash_fwd", "flash_bwd", "flash_decode")   # fp32 routes, counted apart
 
 
 def _launch_counts():
@@ -2520,10 +3136,21 @@ def _vision_batch(b, s, seed):
                 input_vision_masks=on(vision[:, :-1]), target_vision_masks=on(vision[:, 1:]))
 
 
+# The kernel path at fp32 compute (K1's and the backward's fp32 routes) vs
+# the plain fp32 path on the same weights and batch (phase_train_compare's
+# fourth arm): the loss within F32_LOSS_RTOL relative, every parameter's
+# grad within F32_GRAD_REL_TOL of its largest |element| (the fp32 suite's
+# 1e-5; the two paths sum attention in other orders, and the backward's dq
+# across key tiles by atomics)
+F32_LOSS_RTOL = 1e-6
+F32_GRAD_REL_TOL = 1e-5
+
+
 def phase_train_compare(vision=False):
     """One train step's loss and grads at 7b width (2 layers, seq 4096):
     the kernel path vs attn_impl="plain" on the same fp32 weights (both
-    computing in bf16), each held to an fp32 copy. With `vision`, a
+    computing in bf16), each held to an fp32 copy; and the kernel path at
+    fp32 compute held to that fp32 copy (F32_*). With `vision`, a
     VideoLLaMA's step (the dual loss over a batch whose middle half is VQ
     codes)."""
     config_cls, model_cls = (VideoLLaMAConfig, VideoLLaMAForCausalLM) if vision else (
@@ -2538,7 +3165,8 @@ def phase_train_compare(vision=False):
     what = "train compare" + (" vision" if vision else "")
     results = {}
     for name, impl, dtype in [("kernel", "auto", BF16), ("plain", "plain", BF16),
-                              ("fp32", "plain", torch.float32)]:
+                              ("fp32", "plain", torch.float32),
+                              ("kernel_f32", "auto", torch.float32)]:
         if name == "kernel":
             model = kernel
         else:
@@ -2557,6 +3185,7 @@ def phase_train_compare(vision=False):
             del model
     (l_k, g_k, t_k, n_k, a_k), (l_p, g_p, t_p, _, a_p), (l_32, g_32, t_32, _, a_32) = (
         results[n] for n in ("kernel", "plain", "fp32"))
+    l_k32, g_k32, t_k32, n_k32, a_k32 = results["kernel_f32"]
     log(f"{what} (7b width, 2 layers, 1 x 4096): loss kernel {l_k:.6f} plain {l_p:.6f} "
         f"fp32 {l_32:.6f} (|kernel - plain| tol {LOSS_TOL}); fwd+bwd s (one unwarmed call each) "
         f"kernel {t_k:.2f} plain {t_p:.2f} fp32 {t_32:.2f}; kernel-path launches {n_k}"
@@ -2575,7 +3204,26 @@ def phase_train_compare(vision=False):
                                  f"cosine to fp32 {c_k32:.6f} vs plain {c_p32:.6f}")
     log(f"{what}: every grad within {FLOOR_RATIO}x the plain path's distance to fp32 "
         f"(+{GRAD_COS_SLACK}); largest ratio {worst[0]:.3f} ({worst[1]})")
-    del results, g_k, g_p, g_32, kernel
+
+    # the fp32 kernel arm: one backward launch a layer on the fp32 route
+    loss_rel = abs(l_k32 - l_32) / abs(l_32)
+    layers = cfg.num_hidden_layers
+    worst = max((((g_k32[n] - g_32[n]).abs().max() / g_32[n].abs().max().clamp_min(1e-30)).item(),
+                 n) for n in g_32)
+    log(f"{what} fp32 kernel arm: loss {l_k32:.8f} vs plain fp32 {l_32:.8f} (relative "
+        f"{loss_rel:.3e}, tol {F32_LOSS_RTOL}); largest grad max|Δ|/max|plain fp32| "
+        f"{worst[0]:.3e} ({worst[1]}; tol {F32_GRAD_REL_TOL}); fwd+bwd {t_k32:.2f}s (unwarmed); "
+        f"launches {n_k32}" + (f"; metrics {a_k32}" if vision else ""))
+    if not (math.isfinite(l_k32) and loss_rel <= F32_LOSS_RTOL):
+        raise AssertionError(f"{what}: the fp32 kernel path's loss disagrees with plain fp32")
+    if not worst[0] <= F32_GRAD_REL_TOL:
+        raise AssertionError(f"{what}: the fp32 kernel path's grad of {worst[1]} disagrees with "
+                             f"plain fp32")
+    if n_k32["flash_bwd_f32"] != layers or n_k32["flash_bwd"] != layers or min(
+            n_k32["flash_fwd_f32"], n_k32["flash_fwd"]) < layers:
+        raise AssertionError(f"{what}: the fp32 kernel path's launches {n_k32}, want the fp32 "
+                             f"backward {layers} times and K1's fp32 route at least as often")
+    del results, g_k, g_p, g_32, g_k32, kernel
     torch.cuda.empty_cache()
 
 
@@ -2590,15 +3238,19 @@ def train_flops(cfg, b, s):
     return 6 * dense * b * s + L * 6 * b * s * s * h
 
 
-def phase_train_full(profile=None):
-    """The 7b width at 16 of its 32 layers, 6 AdamW steps (then, with a
-    `profile` directory, one profiled step). Returns the launch counts of
-    the 6-step run and its median step time."""
+def phase_train_full(profile=None, dtype=BF16):
+    """The 7b width at 16 of its 32 layers, 6 AdamW steps computing in
+    `dtype` (bf16; fp32 for phase_train_f32: K1's and the backward's fp32
+    routes, each launched exactly layers x steps under save_flash) (then,
+    with a `profile` directory, one profiled step). Returns the launch
+    counts of the 6-step run and its median step time."""
     layers, b, s, steps = 16, 2, 4096, 6
+    f32 = dtype == torch.float32
+    what = "train f32" if f32 else "train"
     cfg = train.build_model_config("7b", update_llama_config=dict(num_hidden_layers=layers))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     t0 = time.perf_counter()
-    model = LLaMAForCausalLM(cfg, dtype=BF16, param_dtype=torch.float32, device="cuda")
+    model = LLaMAForCausalLM(cfg, dtype=dtype, param_dtype=torch.float32, device="cuda")
     model.init_weights(gen)
     # scripts/run_train_text.sh:29-35, with init_lr > 0 so that step 1 moves
     state = train.create_train_state(model, dict(adamw_optimizer=dict(
@@ -2607,9 +3259,9 @@ def phase_train_full(profile=None):
     batch = _lm_batch(b, s, cfg.vocab_size, SEED + 2)
     n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
-    log(f"train: 7b width x {layers} layers ({n_params / 1e9:.2f}B params, fp32 master "
-        f"weights, bf16 compute, remat {cfg.remat_block}), batch {b} x {s}, built in "
-        f"{time.perf_counter() - t0:.1f}s")
+    log(f"{what}: 7b width x {layers} layers ({n_params / 1e9:.2f}B params, fp32 master "
+        f"weights, {'fp32' if f32 else 'bf16'} compute, remat {cfg.remat_block}), batch {b} x "
+        f"{s}, built in {time.perf_counter() - t0:.1f}s")
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     losses, times = [], []
@@ -2619,25 +3271,35 @@ def phase_train_full(profile=None):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(m["loss"].item())
-        log(f"train step {i + 1}: loss {losses[-1]:.5f} acc {m['acc'].item():.5f} "
+        log(f"{what} step {i + 1}: loss {losses[-1]:.5f} acc {m['acc'].item():.5f} "
             f"lr {m['learning_rate'].item():.3e} grad_norm {m['gradient_norm'].item():.4f} "
             f"param_norm {m['param_norm'].item():.2f} time {times[-1]:.3f}s")
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_s = float(np.median(times[1:]))
     flops = train_flops(cfg, b, s)
-    log(f"train: {steps} steps, launches {launches}; step time median of steps 2-{steps} "
+    peak_rate, peak_name = (H100_F32_PEAK, "67 TFLOP/s fp32") if f32 else (
+        H100_BF16_PEAK, "989 TFLOP/s")
+    log(f"{what}: {steps} steps, launches {launches}; step time median of steps 2-{steps} "
         f"{step_s:.3f}s, {b * s / step_s:.0f} tokens/s, model FLOPs {flops / 1e12:.1f} T/step "
-        f"= {flops / step_s / 1e12:.1f} TFLOP/s = {100 * flops / step_s / H100_BF16_PEAK:.1f}% "
-        f"of 989 TFLOP/s; peak memory {peak:.1f} GiB [{card()}]")
+        f"= {flops / step_s / 1e12:.1f} TFLOP/s = {100 * flops / step_s / peak_rate:.1f}% "
+        f"of {peak_name}; peak memory {peak:.1f} GiB [{card()}]")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss not finite and falling: {losses}")
-    for k in ("flash_fwd", "flash_bwd"):
+        raise AssertionError(f"{what}: training loss not finite and falling: {losses}")
+    for k in ("flash_fwd", "flash_bwd") + (("flash_fwd_f32", "flash_bwd_f32") if f32 else ()):
         if launches[k] != layers * steps:
-            raise AssertionError(f"{k} launched {launches[k]} times, want {layers * steps}")
+            raise AssertionError(f"{what}: {k} launched {launches[k]} times, want "
+                                 f"{layers * steps}")
     if profile:
         profile_step(state, batch, profile)
     return launches, step_s
+
+
+def phase_train_f32():
+    """phase_train_full at fp32 compute (the trainers' default --dtype):
+    the 7b width at 16 layers, 2 x 4096, 6 steps on K1's and the backward's
+    fp32 routes. Returns the launch counts."""
+    return phase_train_full(dtype=torch.float32)[0]
 
 
 # The training CLI on the card (phase_train_cli): `lwm_tpu_torch.train.main`
@@ -2964,7 +3626,10 @@ def phase_train_cli(step_s_full):
 # bit-unchanged, vte and vision_head moved), the PaLM optimizer, and the
 # round trip at 1 layer under both (`pad` rows).
 VISION_TRAIN_LAYERS, VISION_TRAIN_STEPS, VISION_TRAIN_LINES = 16, 6, 64
-VISION_SHORT_STEPS = 2   # the --freeze_base and PaLM runs
+# the --freeze_base and PaLM runs: 2 steps at 4 layers (at 16 they were
+# timed again only; the held behaviour, frozen leaves bit-unchanged and a
+# PaLM step, does not depend on the depth)
+VISION_SHORT_STEPS, VISION_SHORT_LAYERS = 2, 4
 # ROADMAP C5: a --loss_chunk_size of the whole sequence may peak at most this
 # far above the default path (where the whole-sequence dual CE peaked 6.2
 # GiB above it and once failed to allocate)
@@ -3133,12 +3798,13 @@ def phase_train_vision(profile=None):
             (the gap between the records) and peak memory."""
             torch.cuda.reset_peak_memory_stats()
             summary, launches = _run_cli(
-                train_vision_argv(tmp, name, data, layers, f"--total_steps={VISION_SHORT_STEPS}",
-                                  *flags), layers, VISION_SHORT_STEPS, f"vision {name}")
+                train_vision_argv(tmp, name, data, VISION_SHORT_LAYERS,
+                                  f"--total_steps={VISION_SHORT_STEPS}", *flags),
+                VISION_SHORT_LAYERS, VISION_SHORT_STEPS, f"vision {name}")
             recs = _vision_records(summary, f"train vision {name}")
             step = recs[-1]["_time"] - recs[-2]["_time"]
-            log(f"train vision {name}: step {VISION_SHORT_STEPS} {step:.3f}s (the AdamW run's "
-                f"median {step_s:.3f}s), peak memory "
+            log(f"train vision {name} ({VISION_SHORT_LAYERS} layers): step {VISION_SHORT_STEPS} "
+                f"{step:.3f}s (the {layers}-layer AdamW run's median {step_s:.3f}s), peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card()}]")
             paths.append(launches)
 
@@ -3231,6 +3897,11 @@ def main():
     if args and (args[0] != "--profile" or len(args) != 2):
         raise SystemExit("usage: chip_smoke.py [--profile DIR]")
     profile = args[1] if args else None
+    t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"[{time.perf_counter() - t_start:.0f}s] {what} done")
+
     phase_env()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3238,9 +3909,11 @@ def main():
     *k4, k4_cases = phase_k4(gen)
     k1_f32, k4_f32, f32_err = phase_f32_kernels(gen)
     bwd = phase_bwd(gen)
+    bwd_f32_err, bwd_f32, k1_f32_train = phase_bwd_f32(gen)
     k1_vision, bwd_vision = phase_train_vision_kernels(gen)
     k56, k56_named = phase_k56(gen)
     torch.cuda.empty_cache()
+    mark("kernel phases")
     # each main path's counts, set to 0 just before its run and read just after
     path_launches = []
     launches, bf16_summary, model = phase_serve()
@@ -3251,23 +3924,39 @@ def main():
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_vision(model))
     torch.cuda.empty_cache()
+    mark("serving, its modes and video QA")
     fp32 = fp32_weights(model)
     path_launches.append(phase_generate(model, fp32))
     path_launches.append(phase_generate_f32(model, fp32))
+    mark("generate")
+    spec_paths, k1_spec, k4_spec = phase_speculative(model, fp32)
+    path_launches.extend(spec_paths)
+    mark("speculative decoding")
     del model, fp32
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_int8(bf16_summary))
     torch.cuda.empty_cache()
+    mark("int8 serving")
     phase_cli()
     phase_cli_vision()
     phase_eval_clis()
+    mark("the serving and eval CLIs")
     phase_train_compare()
     launches, step_s_full = phase_train_full(profile)
     path_launches.append(launches)
     torch.cuda.empty_cache()
+    mark("train compare and the bf16 train step")
+    path_launches.append(phase_train_f32())
+    torch.cuda.empty_cache()
+    mark("fp32 training")
+    path_launches.extend(phase_spec_cli())
+    torch.cuda.empty_cache()
+    mark("run_spec_natural.sh's path")
     path_launches.extend(phase_train_cli(step_s_full))
     torch.cuda.empty_cache()
+    mark("the training CLI")
     path_launches.extend(phase_train_vision(profile))
+    mark("vision-text training")
     total = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     def row(name, source, replaces, max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by):
@@ -3281,17 +3970,24 @@ def main():
         launches on the main paths."""
         return {case: dict(t, source="lwm_tpu_torch/csrc/" + source,
                            f32_launches=total[name + "_f32"],
-                           max_abs_err=f32_err[name]) for case, t in cases.items()}
+                           max_abs_err=t.get("max_abs_err", f32_err[name]))
+                for case, t in cases.items()}
 
     kernels = [
         dict(row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
              **k1_cases, **{VISION_TRAIN_REPORT: k1_vision},
-             **f32_cases(k1_f32, "flash_fwd_f32.cu", "flash_fwd")),
+             **f32_cases(dict(k1_f32, **{BWD_F32_REPORT: k1_f32_train}, **k1_spec),
+                         "flash_fwd_f32.cu", "flash_fwd")),
         dict(row("flash_bwd", "flash_bwd.cu",
                  "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
              **{VISION_TRAIN_REPORT: bwd_vision}),
+        dict(row("flash_bwd_f32", "flash_bwd_f32.cu",
+                 "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356",
+                 bwd_f32_err, **bwd_f32[BWD_F32_REPORT]),
+             **{BWD_F32_8K: bwd_f32[BWD_F32_8K]}),
         dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
-             **k4_cases, **f32_cases(k4_f32, "flash_decode.cu", "flash_decode")),
+             **k4_cases, **f32_cases(dict(k4_f32, **k4_spec), "flash_decode.cu",
+                                     "flash_decode")),
         dict(row("int8_matmul", "int8_matmul.cu", "lwm_tpu/ops/quant.py:107",
                  **k56["int8_matmul"]), **k56_named["int8_matmul"]),
         dict(row("w8a8_matmul", "w8a8_matmul.cu", "lwm_tpu/ops/quant.py:182",

@@ -86,6 +86,7 @@ _BWD_DIMS = [
 ]
 _SIGNATURES["lwm_flash_bwd"] = [*_BWD_INPUTS, _P, _P, _P, *_BWD_DIMS]  # + dq_accum (fp32), dk, dv
 _SIGNATURES["lwm_flash_fwd_f32"] = _SIGNATURES["lwm_flash_fwd"]      # K1's fp32 route, fp32 tensors
+_SIGNATURES["lwm_flash_bwd_f32"] = _SIGNATURES["lwm_flash_bwd"]      # the backward's, fp32 tensors
 
 
 def _nvcc():

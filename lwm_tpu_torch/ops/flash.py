@@ -10,8 +10,9 @@ and `csrc/flash_bwd.cu`; their source notes say what bounds them on the card
 (tensor-core flops at these widths) and how they are laid out. K1 has an
 fp32 route too, `csrc/flash_fwd_f32.cu` (fp32 FMAs on the CUDA cores: TF32
 would not hold the fp32 suite's 1e-5), taken for fp32 q, k and v and
-counted apart in `flash_attention_fwd.f32_launches`; the backward takes bf16
-only (its fp32 route is not ported yet).
+counted apart in `flash_attention_fwd.f32_launches`; so has the backward,
+`csrc/flash_bwd_f32.cu` (the same fp32 FMAs; the trainers' default
+`--dtype=fp32`), counted apart in `flash_attention_bwd.f32_launches`.
 
 Ported: causal or not, `q_offset`/`kv_offset`, per-key and full-tile
 additive bias, GQA, seq-major or head-major kv, lse. Not ported yet: segment
@@ -192,12 +193,12 @@ def flash_attention_bwd_plain(
 def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset, scale):
     """Check the arguments and launch the backward kernel writing `outs` =
     (dq_accum fp32, zeroed; dk; dv); the wrapper counts the launch."""
-    skv, h_kv = check_fwd_args(q, k, v, kv_head_major=False, dtypes=(torch.bfloat16,),
-                               name="flash_attention_bwd")
+    skv, h_kv = check_fwd_args(q, k, v, kv_head_major=False, name="flash_attention_bwd")
     b, sq, h, d = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q {tuple(q.shape)} {q.dtype}")
-    if g.stride(-1) != 1 or any(s % 8 for s in g.stride()[:-1]) or g.data_ptr() % 16:
+    row = 16 // g.element_size()   # elements a 16-byte step
+    if g.stride(-1) != 1 or any(s % row for s in g.stride()[:-1]) or g.data_ptr() % 16:
         raise ValueError(f"g: head dim must be contiguous with 16-byte aligned rows ({g.stride()})")
     for name, x in (("lse", lse), ("delta", delta)):
         if (x.shape != (b, h, sq) or x.dtype != torch.float32 or not x.is_contiguous()
@@ -210,14 +211,15 @@ def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset,
     if bias is not None:
         bias, bias_sb, bias_sr = _normalize_bias(bias.to(q.device), b, sq, skv)
         bias_ptr = bias.data_ptr()
-    rc = _build.load().lwm_flash_bwd(
+    entry = "lwm_flash_bwd_f32" if q.dtype == torch.float32 else "lwm_flash_bwd"
+    rc = getattr(_build.load(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), bias_ptr, *(o.data_ptr() for o in outs), b, sq, skv, h, h_kv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
         bias_sb, bias_sr, int(causal), int(q_offset), int(kv_offset), float(scale),
         _build.stream_handle(q.device),
     )
-    _build.check(rc, "lwm_flash_bwd")
+    _build.check(rc, entry)
 
 
 def flash_attention_bwd(
@@ -230,7 +232,9 @@ def flash_attention_bwd(
     differentiated). Returns (dq, dk, dv) in the input dtypes, dk/dv at
     h_kv heads (each group summed in fp32). CUDA: one kernel launch, dq
     summed in an fp32 buffer by atomics (its order, and so its last bit,
-    changes from run to run) and rounded once; CPU: the plain twin."""
+    changes from run to run) and rounded once; bf16 operands launch
+    `csrc/flash_bwd.cu`, fp32 ones `csrc/flash_bwd_f32.cu`; CPU: the plain
+    twin."""
     kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, g, lse, delta, bias, **kw)
@@ -241,7 +245,9 @@ def flash_attention_bwd(
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _bwd_launch((dq_accum, dk, dv), q, k, v, g, lse, delta, bias, **kw)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.f32_launches += q.dtype == torch.float32
     return dq_accum.to(q.dtype), dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.f32_launches = 0   # of them, the fp32 route's

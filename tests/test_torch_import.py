@@ -33,7 +33,8 @@ def test_port_imports_no_jax():
                      "utils.tokenizer", "apps.serve", "data", "data.text", "native",
                      "native.token_buffer", "utils.flags", "utils.io", "utils.logging",
                      "utils.rng", "models.vision_llama", "apps.serve_vision", "data.vision",
-                     "generation", "apps.sampler", "apps.eval_needle", "apps.eval_needle_multi"):
+                     "generation", "apps.sampler", "apps.eval_needle", "apps.eval_needle_multi",
+                     "speculative"):
             assert "lwm_tpu_torch." + want in names, names
         bad = [m for m in ("jax", "flax", "optax", "transformers", "absl", "ml_collections",
                            "msgpack", "tokenizers", "regex", "datasets", "wandb", "gcsfs",

@@ -596,9 +596,21 @@ def test_k4_fp32_route_matches_pallas_kernel(h, h_kv):
         np.testing.assert_allclose(a.numpy(), np.asarray(w).reshape(a.shape), **FP32_TOL)
 
 
-def test_fp32_route_argument_checks():
-    """fp32 q, k and v take K1's fp32 route and fp32 q over an fp32 cache
-    K4's; the backward keeps refusing fp32, and K4 mixed types."""
+class _FakeKernels:
+    """Stands in for the built library: records which C entry was called."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, len(args))) or 0
+
+
+def test_fp32_route_argument_checks(monkeypatch):
+    """fp32 q, k and v take K1's fp32 route, fp32 q over an fp32 cache
+    K4's, and fp32 q, k, v and g the backward's (`lwm_flash_bwd_f32`, with
+    lwm_flash_bwd's arguments); fp16, mixed types and a head dim outside
+    HEAD_DIMS still raise, and K4 mixed types."""
     q = torch.zeros((1, 8, 4, 64))
     k = torch.zeros((1, 2, 32, 64))
     assert flash.check_fwd_args(q, k, k, kv_head_major=True) == (32, 2)
@@ -606,9 +618,28 @@ def test_fp32_route_argument_checks():
         flash.check_fwd_args(q, k.bfloat16(), k, True)
     ks = torch.zeros((1, 32, 2, 64))
     lse = torch.zeros((1, 4, 8))
-    with pytest.raises(TypeError, match="flash_attention_bwd kernel takes bfloat16"):
-        flash._bwd_launch((q, ks, ks), q, ks, ks, q, lse, lse, None, causal=True, q_offset=0,
-                          kv_offset=0, scale=None)
+    lib = _FakeKernels()
+    monkeypatch.setattr(flash._build, "load", lambda: lib)
+    monkeypatch.setattr(flash._build, "stream_handle", lambda device: None)
+    kw = dict(causal=True, q_offset=0, kv_offset=0, scale=None)
+    for dt, entry in ((torch.float32, "lwm_flash_bwd_f32"), (torch.bfloat16, "lwm_flash_bwd")):
+        qd, kd = q.to(dt), ks.to(dt)
+        flash._bwd_launch((q, kd, kd), qd, kd, kd, qd, lse, lse, None, **kw)
+        assert lib.calls[-1] == (entry, len(flash._build._SIGNATURES["lwm_flash_bwd"]))
+    assert flash._build._SIGNATURES["lwm_flash_bwd_f32"] == flash._build._SIGNATURES[
+        "lwm_flash_bwd"]
+    with pytest.raises(TypeError, match="flash_attention_bwd kernel takes bfloat16 or float32"):
+        h16, k16 = q.half(), ks.half()
+        flash._bwd_launch((q, k16, k16), h16, k16, k16, h16, lse, lse, None, **kw)
+    with pytest.raises(TypeError, match="flash_attention_bwd kernel"):
+        flash._bwd_launch((q, ks, ks), q, ks.bfloat16(), ks, q, lse, lse, None, **kw)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        q96, k96 = torch.zeros((1, 8, 4, 96)), torch.zeros((1, 32, 2, 96))
+        flash._bwd_launch((q96, k96, k96), q96, k96, k96, q96, lse, lse, None, **kw)
+    with pytest.raises(ValueError, match="g: head dim"):
+        g_strided = torch.zeros((1, 8, 4, 66))[..., :64]       # 264-byte rows: not 16-aligned
+        flash._bwd_launch((q, ks, ks), q, ks, ks, g_strided, lse, lse, None, **kw)
+    assert len(lib.calls) == 2
     mask = torch.ones((1, 32), dtype=torch.bool)
     decode.check_decode_args(q[:, :1], k, k, mask, None, None)
     with pytest.raises(TypeError, match="float32 cache"):

@@ -5,7 +5,12 @@ the JAX checkpointer (`--load_checkpoint=params::`), the JAX `JsonDataset`
 on the same batches. Every `metrics.jsonl` record of 4 steps matches, with
 the default loss and with `--fused_lm_loss`, eval averaged in; an
 autoresumed run continues the uninterrupted one; the flag tree refuses
-unknown keys and the CLI what the port does not train.
+unknown keys and the CLI what the port does not train. The flag shapes of
+scripts/run_spec_natural.sh (`[question],answer,[postpad]` fields joined by
+an empty separator, the BPE fixture tokenizer, a scanned remat model and a
+`params::` warm start from the port's own saved stream, at fp32) match the
+JAX trainer's loop too, the second run read from that stream by the JAX
+checkpointer.
 
 Tolerances: `loss`, `acc`, `learning_rate`, `param_norm`, `gradient_norm`,
 `eval_loss` and `eval_acc` 1e-5 relative (fp32 on both sides; summation
@@ -98,7 +103,14 @@ def _records(workdir, name):
 def _jax_loop(path, fused, eval_steps):
     """The JAX trainer's step on the JAX dataset's batches: per-step
     metrics as `lwm_tpu.train.main` logs them at log_freq 1."""
-    cfg = JaxConfig(**dict(MODEL, vocab_size=457), mesh_dim=None, attn_impl="xla")
+    return _jax_records(tuple(dict(MODEL, vocab_size=457).items()), TOKENIZER,
+                        (("fields", "text"),), path, _jax_params(), fused, eval_steps)
+
+
+def _jax_records(model, tokenizer, processor, path, params, fused=False, eval_steps=0):
+    """`_jax_loop` for a model config, tokenizer, text-processor flags and
+    initial params."""
+    cfg = JaxConfig(**dict(model), mesh_dim=None, attn_impl="xla")
     module = FlaxLLaMAForCausalLMModule(cfg, dtype=jnp.float32)
     rngs = {"dropout": jax.random.PRNGKey(0), "params": jax.random.PRNGKey(1)}
     tx, info = JaxOptimizerFactory.get_optimizer(dict(adamw_optimizer=ADAMW),
@@ -123,10 +135,10 @@ def _jax_loop(path, fused, eval_steps):
                            learning_rate=info["learning_rate_schedule"](state.step))
 
     eval_fn = jax.jit(loss_fn)
-    tok = AutoTokenizer.from_pretrained(TOKENIZER)
+    tok = AutoTokenizer.from_pretrained(tokenizer)
 
     def dataset():
-        proc = JaxTextProcessor(JaxTextProcessor.get_default_config(dict(fields="text")), tok)
+        proc = JaxTextProcessor(JaxTextProcessor.get_default_config(dict(processor)), tok)
         config = JaxJsonDataset.get_default_config(dict(
             path=path, seq_length=SEQ, batch_size=BATCH, return_local_batch=True))
         return iter(JaxJsonDataset(config, tok, proc, node_info=dict(dp_node_size=1,
@@ -136,7 +148,7 @@ def _jax_loop(path, fused, eval_steps):
         return {k: jnp.asarray(batch[k]) for k in ("input_tokens", "target_tokens",
                                                    "loss_masks")}
 
-    state = JaxTrainState.create(params=_jax_params(), tx=tx, apply_fn=None)
+    state = JaxTrainState.create(params=params, tx=tx, apply_fn=None)
     train_batches, eval_batches = dataset(), dataset()
     out = []
     for i in range(STEPS):
@@ -210,3 +222,63 @@ def test_cli_refusals(workdir):
             train.main(base + [flag])
     with pytest.raises(RuntimeError, match="--device=cpu"):
         train.main([a for a in base if a != "--device=cpu"])
+
+
+# scripts/run_spec_natural.sh's target at a tiny width (TARGET_CFG's
+# shape: scanned layers on axis 0, scanned attention, remat
+# nothing_saveable, theta 10000, vocab 2048 over the BPE fixture's 938
+# tokens) and its data flags
+SPEC_TOKENIZER = "tests/fixtures/tokenizer_bpe"
+SPEC_MODEL = dict(vocab_size=2048, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                  num_attention_heads=2, max_sequence_length=64, scan_attention=True,
+                  scan_query_chunk_size=16, scan_key_chunk_size=16, scan_mlp=False,
+                  scan_layers=True, param_scan_axis=0, remat_block="nothing_saveable",
+                  theta=10000)
+SPEC_FIELDS = (("fields", "[question],answer,[postpad]"), ("subfield_separator", ""))
+
+
+def test_spec_natural_flags_with_a_params_warm_start_match_jax(workdir):
+    """run_spec_natural.sh's two trainer runs at fp32: A from a JAX init,
+    then B warm-started with `params::` from A's last saved params (bf16,
+    the checkpointer's default); both match the JAX loop, B's from the same
+    stream as the JAX checkpointer reads it."""
+    rng = np.random.default_rng(1)
+    words = ["the", "magic", "number", "is", "blue", "seven", "haystack", "needle"]
+    path = workdir / "copy.jsonl"
+    with open(path, "w") as f:
+        for _ in range(64):
+            span = " ".join(rng.choice(words, rng.integers(2, 8)))
+            pad = " ".join(rng.choice(words, rng.integers(1, 6)))
+            f.write(json.dumps({"question": span + " REPEAT: ", "answer": span,
+                                "postpad": pad}) + "\n")
+    cfg = JaxConfig(**SPEC_MODEL, mesh_dim=None, attn_impl="xla")
+    init = {"params": jax.device_get(FlaxLLaMAForCausalLM(cfg, input_shape=(1, 8),
+                                                          seed=3).params)}
+    JaxCheckpointer.save_train_state_to_file(init["params"], str(workdir / "spec_init"))
+
+    def argv(name, load):
+        return [
+            "--device=cpu", "--dtype=fp32", f"--tokenizer={SPEC_TOKENIZER}",
+            f"--update_llama_config=dict({','.join(f'{k}={v!r}' for k, v in SPEC_MODEL.items())})",
+            f"--load_checkpoint=params::{load}", f"--total_steps={STEPS}",
+            f"--save_model_freq={STEPS}", "--log_freq=1", f"--logger.output_dir={workdir}",
+            f"--logger.experiment_id={name}", "--logger.append_uuid=False",
+            *[f"--optimizer.adamw_optimizer.{k}={v}" for k, v in ADAMW.items()],
+            *_dataset_flags("train_dataset", path, **{
+                "text_processor.fields": "[question],answer,[postpad]",
+                "text_processor.subfield_separator": ""}),
+        ]
+
+    model = tuple(SPEC_MODEL.items())
+    train.main(argv("spec_a", workdir / "spec_init"))
+    assert_records_match(_records(workdir, "spec_a"),
+                         _jax_records(model, SPEC_TOKENIZER, SPEC_FIELDS, str(path), init))
+    saved = workdir / "spec_a" / f"streaming_params_{STEPS}"   # the milestone at the end
+    assert saved.exists()
+    summary = train.main(argv("spec_b", saved))
+    assert summary["loaded"] == "params" and summary["start_step"] == 0
+    warm = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
+                                  JaxCheckpointer.load_checkpoint(str(saved)))
+    assert_records_match(_records(workdir, "spec_b"),
+                         _jax_records(model, SPEC_TOKENIZER, SPEC_FIELDS, str(path),
+                                      {"params": warm}))
