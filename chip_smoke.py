@@ -77,8 +77,9 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      codes) built in 2048-token chunks and 8 questions through 4 slots
      (cache 1024, buckets 64/128/256): exact K1/K4 counts, build seconds,
      each admission's seconds, decode tok/s, peak memory; admission and
-     decode logits over the video on the noise floor, one admission held
-     to one forward of video + question without a cache, and the masks
+     decode logits over the video on the noise floor (the block built
+     again through K1's plain twin at 4 of the 32 layers), one admission
+     held to one forward of video + question without a cache, and the masks
      shown to matter; then 4 requests each with its own 4-frame video
      inline (submit(vision_masks=)). Then batched generation
      (`lwm_tpu_torch.generation` through `apps.sampler.TextSampler`) on the
@@ -107,14 +108,16 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      of K5 against the "int8_xla" dequant arm on the same int8 tensors,
      and of both (and W8A8) against an fp32 copy of the dequantized
      weights.
-     Then the serving CLI (`python -m lwm_tpu_torch.apps.serve`) as a
-     subprocess, three times over a 7b-width 4-layer params stream written
-     by the port: a prefix document, its index saved then loaded (the same
-     completions), lookup verify; and with --quantize_weights. Then the
-     video QA CLI (`python -m lwm_tpu_torch.apps.serve_vision`) three
-     times over a 4-layer VideoLLaMA stream and an 8-frame codes file: its
-     video index saved, then loaded (the same answers), lookup verify.
-     Then both needle eval CLIs (`python -m lwm_tpu_torch.apps.eval_needle`,
+     Then the CLIs, each once as a `python -m` subprocess (the module entry
+     point on the card, its wall time split into imports, the params
+     stream's read and the work) and its other runs through its `main` in
+     this process: the serving CLI (`lwm_tpu_torch.apps.serve`) three times
+     over a 7b-width 4-layer params stream written by the port: a prefix
+     document, its index saved then loaded (the same completions), lookup
+     verify; and with --quantize_weights. The video QA CLI
+     (`apps.serve_vision`) three times over a 4-layer VideoLLaMA stream and
+     an 8-frame codes file: its video index saved, then loaded (the same
+     answers), lookup verify. Both needle eval CLIs (`apps.eval_needle`,
      `eval_needle_multi`) at fp32 over a 7b-width 4-layer stream and a
      generated haystack, contexts 1000-4000 x 2 depths x 1 round, each run
      twice: one results row a grid point, and the rerun adds none.
@@ -178,9 +181,11 @@ The last lines: the card, one JSON object listing every kernel, and
 """
 
 import contextlib
+import io
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -194,7 +199,8 @@ import torch.nn.functional as F
 
 from lwm_tpu_torch import checkpoint, generation, speculative, train
 from lwm_tpu_torch import serve as serve_module
-from lwm_tpu_torch.apps import eval_needle
+from lwm_tpu_torch.apps import eval_needle, eval_needle_multi
+from lwm_tpu_torch.apps import serve as serve_cli
 from lwm_tpu_torch.apps import sampler as sampler_module
 from lwm_tpu_torch.apps import serve_vision as vision_cli
 from lwm_tpu_torch.apps.sampler import TextSampler
@@ -1971,6 +1977,14 @@ INLINE_FRAMES, INLINE_QUESTION_LENS, INLINE_BUDGETS = 4, [20, 60, 35, 48], [32, 
 # The video block built again without a kernel (K1's plain twin), in chunks
 # of TWIN_CHUNK: ~4 GB of fp32 scores a chunk, beside the weights and both blocks.
 TWIN_CHUNK = 1024
+TWIN_LAYERS = 4   # the layers of the video block built again without kernels
+
+
+def _first_layers(model, n):
+    """`model` cut to its first n layers, on its own tensors."""
+    sd = {k: v for k, v in model.state_dict().items()
+          if not k.startswith("h.") or int(k.split(".")[1]) < n}
+    return type(model).on_tensors(model.config.replace(num_hidden_layers=n), sd, model.dtype)
 FIXTURE_TOKENIZER = Path(__file__).resolve().parent / "tests" / "fixtures" / "tokenizer_bpe"
 
 
@@ -2021,7 +2035,8 @@ def phase_serve_vision(model):
     floor (hold_over_prefix: the attention_twins arm, the plain concat
     oracle, an fp32 copy reading the same bf16 block), and to the same
     logits through the plain concat oracle over a second block that K1's
-    plain twin built (TWIN_CHUNK-token chunks): no kernel on that arm's
+    plain twin built (TWIN_CHUNK-token chunks) at TWIN_LAYERS layers,
+    against the kernels' block of those layers: no kernel on that arm's
     path. One admission held at that floor to one forward of video +
     question without a cache (and the same forward with the masks cleared
     must land off that floor).
@@ -2101,35 +2116,41 @@ def phase_serve_vision(model):
     check = questions[:VISION_SLOTS]
     adm = prefix_logits({"kernel": kernel}, block, p_true, check, [0] * len(check))
     tokens = [int(x.argmax()) for x in adm["kernel"][:len(check)]]
+    # the block built without kernels, at TWIN_LAYERS of the layers (a
+    # layer's keys depend on the layers below it alone, so the kernels'
+    # block's first TWIN_LAYERS layers are that shallow model's block):
     # before the fp32 copy, which would leave no room for a second block
+    shallow = {name: _first_layers(m, TWIN_LAYERS) for name, m in
+               (("base", vmodel), ("kernel", kernel))}
     t0 = time.perf_counter()
     with attention_twins():
-        twin_block = build_prefix_cache(vmodel, prefix, TWIN_CHUNK, prefix_vm)[0].layers
+        twin_block = build_prefix_cache(shallow["base"], prefix, TWIN_CHUNK,
+                                        prefix_vm)[0].layers
     torch.cuda.synchronize()
-    log(f"video block built again through K1's plain twin in chunks of {TWIN_CHUNK}: "
-        f"{time.perf_counter() - t0:.3f}s")
-    oracle = type(kernel).on_tensors(kernel.config.replace(attn_impl="plain"),
-                                     kernel.state_dict(), kernel.dtype)
+    log(f"video block built again through K1's plain twin in chunks of {TWIN_CHUNK}, "
+        f"{TWIN_LAYERS} of {L} layers: {time.perf_counter() - t0:.3f}s")
+    k = shallow["kernel"]
+    oracle = type(k).on_tensors(k.config.replace(attn_impl="plain"), k.state_dict(), k.dtype)
     twin = prefix_logits({"twin_build": oracle}, twin_block, p_true, check, tokens)
-    del twin_block, oracle
+    twin.update(prefix_logits({"kernel": k, "fp32": plain_arms(k)["fp32"]},
+                              block[:TWIN_LAYERS], p_true, check, tokens))
+    del twin_block, oracle, shallow, k
     torch.cuda.empty_cache()
     fp32 = fp32_weights(vmodel)
     models = {"kernel": kernel, **plain_arms(kernel, fp32)}
     logits = prefix_logits(models, block, p_true, check, tokens)
     with attention_twins():
         logits.update(prefix_logits({"split": kernel}, block, p_true, check, tokens))
-    logits.update(twin)
     labels = [f"{len(q)} (video {p_true})" for q in check]
     n = len(check)
     for what, rows in (("video admission", slice(0, n)), ("video decode", slice(n, 2 * n))):
-        part = {k: v[rows] for k, v in logits.items()}
-        hold_over_prefix(part, "kernel", labels, what)
+        hold_over_prefix({k: v[rows] for k, v in logits.items()}, "kernel", labels, what)
         # fp32 reads the kernels' block, so the distance ratio favours them:
         # logged; cosine and argmax held
-        hold_to_noise_floor(part, "kernel", "twin_build", "fp32", labels=labels,
-                            argmax_of_truth=True, floor_ratio=None,
-                            what=f"{what} (block built without kernels)")
-    del models, block
+        hold_to_noise_floor({k: v[rows] for k, v in twin.items()}, "kernel", "twin_build",
+                            "fp32", labels=labels, argmax_of_truth=True, floor_ratio=None,
+                            what=f"{what} (block built without kernels, {TWIN_LAYERS} layers)")
+    del models, block, twin
     torch.cuda.empty_cache()
 
     # one admission against one forward of the whole sequence, no cache
@@ -2185,11 +2206,67 @@ def phase_serve_vision(model):
 # saved as a params stream by the port's writer, served by
 # `python -m lwm_tpu_torch.apps.serve` with the vendored BPE tokenizer, a
 # shared prefix document, a prefix index and lookup verify; run twice (the
-# second loads the index) and once more with --quantize_weights.
+# second loads the index) and once more with --quantize_weights. Each CLI
+# runs once as a subprocess, which pays ~21 s (~15 s of it imports) for 1-6 s
+# of work on an H100; its other runs go through its `main` in this process.
 CLI_PRESET, CLI_LAYERS, CLI_NEW = "7b", 4, 32
 CLI_FLAGS = ()   # more flags for every CLI run (a rehearsal on the CPU adds --device=cpu)
 CLI_WORDS = ("the grass is green and the sky is blue here we go there and back again "
              "special magic number city sun yellow river stone one two three").split()
+
+
+def _cli_log_split(what, wall, stderr, imports=None):
+    """Log a CLI run's wall time split into its imports (a subprocess's, from
+    `-X importtime`: all, torch's part), reading the params stream (the
+    CLI's own "loaded ... in Ns" lines) and the rest, the work."""
+    stream = sum(float(m) for m in re.findall(r"\] loaded \S+ in ([0-9.]+)s", stderr))
+    parts = dict(imports or {}, stream=stream)
+    parts["work"] = wall - stream - (imports or {}).get("imports", 0.0)
+    log(f"{what}: {wall:.1f}s of wall = " + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items())
+        + f" [{card()}]")
+
+
+def run_cli_process(module, args, what):
+    """`python -m <module> <args>` in a fresh process (the module entry point
+    on the card), its wall time split by `_cli_log_split` (the imports'
+    share from `-X importtime`; the kernel library's load, 0.0-0.1 s a
+    process when measured apart, falls in the work). Raises on a non-zero
+    exit; returns the CompletedProcess."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m", module, *args],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    top, own = {}, {}   # "import time: self [us] | cumulative | name", nested names indented
+    for ln in proc.stderr.splitlines():
+        m = re.match(r"import time:\s+(\d+) \|\s+(\d+) \| ( *)(\S+)$", ln)
+        if m:
+            own[m.group(4)] = int(m.group(1)) / 1e6
+            if not m.group(3):
+                top[m.group(4)] = int(m.group(2)) / 1e6
+    _cli_log_split(what, wall, proc.stderr,
+                   dict(imports=sum(top.values()), torch=top.get("torch", 0.0)))
+    log(f"{what}: slowest imports by own time " + ", ".join(
+        f"{k} {v:.2f}s" for k, v in sorted(own.items(), key=lambda kv: -kv[1])[:6]))
+    proc.stderr = "\n".join(ln for ln in proc.stderr.splitlines()
+                             if not ln.startswith("import time:"))
+    return proc
+
+
+def run_cli_in_process(main, args, what):
+    """`main(args)` of a CLI in this process, its stdout and stderr captured
+    (and returned, as (stdout, stderr)) and its wall time split as
+    `run_cli_process` splits a subprocess's (no imports to pay here)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        main(list(args))
+    torch.cuda.synchronize()
+    _cli_log_split(f"{what} (in-process)", time.perf_counter() - t0, err.getvalue())
+    torch.cuda.empty_cache()
+    return out.getvalue(), err.getvalue()
 
 
 def _cli_text(rng, n_words, quote=None):
@@ -2202,8 +2279,9 @@ def _cli_text(rng, n_words, quote=None):
 
 
 def phase_cli():
-    """The serving CLI as a subprocess on the card, three runs over one
-    saved checkpoint (see CLI_LAYERS). Checks each output file has one line
+    """The serving CLI on the card, three runs over one saved checkpoint
+    (see CLI_LAYERS): the first a `python -m` subprocess, the others
+    through its main in this process. Checks each output file has one line
     per request and that the run loading the index gives the first run's
     completions."""
     cfg = LLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=CLI_LAYERS)
@@ -2224,7 +2302,7 @@ def phase_cli():
         prompts = [_cli_text(rng, 20 + 10 * i, quote=q) for i, q in enumerate(quotes)]
         (tmp / "requests.jsonl").write_text("".join(json.dumps({"prompt": p}) + "\n"
                                                     for p in prompts))
-        base = [sys.executable, "-m", "lwm_tpu_torch.apps.serve", *CLI_FLAGS,
+        base = [*CLI_FLAGS,
                 f"--load_llama_config={CLI_PRESET}",
                 f"--update_llama_config=dict(num_hidden_layers={CLI_LAYERS},scan_attention=False,"
                 "scan_mlp=False,theta=50000000)",
@@ -2236,23 +2314,20 @@ def phase_cli():
                 "index loaded": [f"--prefix_cache={tmp / 'doc.index'}"],
                 "quantized": ["--quantize_weights"]}
         outputs = {}
-        for name, extra in runs.items():
+        for i, (name, extra) in enumerate(runs.items()):
             out = tmp / f"{name.replace(' ', '_')}.jsonl"
-            t0 = time.perf_counter()
-            proc = subprocess.run(base + extra + [f"--output_file={out}"], capture_output=True,
-                                  text=True, timeout=600, cwd=Path(__file__).resolve().parent)
-            wall = time.perf_counter() - t0
-            tail = [ln for ln in proc.stderr.splitlines() if ln.startswith("[")][-4:]
-            for ln in tail:
+            argv = base + extra + [f"--output_file={out}"]
+            if i == 0:   # the module entry point once; the other runs through its main
+                err = run_cli_process("lwm_tpu_torch.apps.serve", argv, f"cli {name}").stderr
+            else:
+                err = run_cli_in_process(serve_cli.main, argv, f"cli {name}")[1]
+            for ln in [ln for ln in err.splitlines() if ln.startswith("[")][-4:]:
                 log(f"cli {name}: {ln}")
-            if proc.returncode != 0:
-                raise AssertionError(f"cli {name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
             lines = [json.loads(ln) for ln in out.read_text().splitlines()]
             if sorted(r["prompt"] for r in lines) != sorted(prompts):
                 raise AssertionError(f"cli {name}: {len(lines)} lines for {len(prompts)} requests")
             outputs[name] = {r["prompt"]: r["completion"] for r in lines}
-            log(f"cli {name}: {len(lines)} completions in {wall:.1f}s (process wall) "
-                f"[{card()}]")
+            log(f"cli {name}: {len(lines)} completions [{card()}]")
         if outputs["index loaded"] != outputs["index built"]:
             raise AssertionError("cli: the run that loaded the prefix index changed completions")
         log("cli: the run loading the saved prefix index gave the first run's completions")
@@ -2269,8 +2344,8 @@ CLI_VIDEO_FRAMES = 8
 
 
 def phase_cli_vision():
-    """The video QA CLI as a subprocess on the card, three runs over one
-    saved checkpoint. Checks each answers file has one line per question
+    """The video QA CLI on the card, three runs over one saved checkpoint:
+    the first a `python -m` subprocess, the others through its main. Checks each answers file has one line per question
     and that the run loading the video index gives the first run's
     answers."""
     cfg = VideoLLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=CLI_LAYERS)
@@ -2293,7 +2368,7 @@ def phase_cli_vision():
         questions = [_cli_text(rng, 6 + 4 * i) + "?" for i in range(8)]
         (tmp / "questions.jsonl").write_text("".join(json.dumps({"question": q}) + "\n"
                                                      for q in questions))
-        base = [sys.executable, "-m", "lwm_tpu_torch.apps.serve_vision", *CLI_FLAGS,
+        base = [*CLI_FLAGS,
                 f"--load_llama_config={CLI_PRESET}",
                 f"--update_llama_config=dict(num_hidden_layers={CLI_LAYERS},scan_attention=False,"
                 "scan_mlp=False,theta=50000000)",
@@ -2306,24 +2381,22 @@ def phase_cli_vision():
                 "index loaded": [f"--prefix_cache={tmp / 'video.index'}"],
                 "lookup": [f"--lookup_k={LOOKUP_K}"]}
         outputs = {}
-        for name, extra in runs.items():
+        for i, (name, extra) in enumerate(runs.items()):
             out = tmp / f"{name.replace(' ', '_')}.jsonl"
-            t0 = time.perf_counter()
-            proc = subprocess.run(base + extra + [f"--output_file={out}"], capture_output=True,
-                                  text=True, timeout=600, cwd=Path(__file__).resolve().parent)
-            wall = time.perf_counter() - t0
-            for ln in [ln for ln in proc.stderr.splitlines() if ln.startswith("[")][-5:]:
+            argv = base + extra + [f"--output_file={out}"]
+            if i == 0:
+                err = run_cli_process("lwm_tpu_torch.apps.serve_vision", argv,
+                                      f"cli vision {name}").stderr
+            else:
+                err = run_cli_in_process(vision_cli.main, argv, f"cli vision {name}")[1]
+            for ln in [ln for ln in err.splitlines() if ln.startswith("[")][-5:]:
                 log(f"cli vision {name}: {ln}")
-            if proc.returncode != 0:
-                raise AssertionError(f"cli vision {name}: exit {proc.returncode}\n"
-                                     f"{proc.stderr[-3000:]}")
             lines = [json.loads(ln) for ln in out.read_text().splitlines()]
             if sorted(r["question"] for r in lines) != sorted(questions):
                 raise AssertionError(f"cli vision {name}: {len(lines)} lines for "
                                      f"{len(questions)} questions")
             outputs[name] = {r["question"]: r["answer"] for r in lines}
-            log(f"cli vision {name}: {len(lines)} answers in {wall:.1f}s (process wall) "
-                f"[{card()}]")
+            log(f"cli vision {name}: {len(lines)} answers [{card()}]")
         if outputs["index loaded"] != outputs["index built"]:
             raise AssertionError("cli vision: the run that loaded the video index changed answers")
         log("cli vision: the run loading the saved video index gave the first run's answers")
@@ -3018,12 +3091,14 @@ def phase_spec_cli():
 
 
 # Both eval CLIs (`python -m lwm_tpu_torch.apps.eval_needle` and
-# `eval_needle_multi`) as subprocesses at their default fp32, at the 7b width
+# `eval_needle_multi`) at their default fp32, at the 7b width
 # and CLI_LAYERS layers over a params stream the port writes, over a
 # haystack of _cli_text lines and the fixture tokenizer: contexts 1000 and
 # 4000, 2 depths, 1 round (the multi eval: 2 needles, both asked), scan
-# chunks NEEDLE_BLOCK. Each runs twice: one results row a grid point, and the
+# chunks NEEDLE_BLOCK. Each runs twice, first as a `python -m` subprocess, then
+# through its main in this process: one results row a grid point, and the
 # rerun over the file adds none
+EVAL_MAINS = {"eval_needle": eval_needle.main, "eval_needle_multi": eval_needle_multi.main}
 EVAL_CLI_GRID = ("--context_lengths_min=1000", "--context_lengths_max=4000",
                  "--n_context_length_intervals=2", "--n_document_depth_intervals=2",
                  "--n_rounds=1")
@@ -3046,7 +3121,7 @@ def phase_eval_clis():
                                     ("eval_needle_multi", 2,
                                      ("--n_needles_total=2", "--n_needles_retrieve=2"))):
             out = tmp / f"{module}.json"
-            argv = [sys.executable, "-m", f"lwm_tpu_torch.apps.{module}", *CLI_FLAGS,
+            argv = [*CLI_FLAGS,
                     f"--load_llama_config={CLI_PRESET}",
                     f"--update_llama_config=dict(num_hidden_layers={CLI_LAYERS},"
                     "theta=10000000,max_sequence_length=131072,"
@@ -3057,17 +3132,14 @@ def phase_eval_clis():
                     *EVAL_CLI_GRID, *extra]
             first = None
             for run in ("first", "resumed"):
-                t0 = time.perf_counter()
-                proc = subprocess.run(argv, capture_output=True, text=True, timeout=600,
-                                      cwd=Path(__file__).resolve().parent)
-                wall = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    raise AssertionError(f"{module} {run}: exit {proc.returncode}\n"
-                                         f"{proc.stderr[-3000:]}")
+                if run == "first":   # the module entry point; the rerun through its main
+                    stdout = run_cli_process(f"lwm_tpu_torch.apps.{module}", argv,
+                                             f"{module} {run}").stdout
+                else:
+                    stdout = run_cli_in_process(EVAL_MAINS[module], argv, f"{module} {run}")[0]
                 results = json.loads(out.read_text())
-                done = [ln for ln in proc.stdout.splitlines() if ln.startswith("completed")]
-                log(f"{module} {run}: {len(results)} results in {wall:.1f}s (process wall); "
-                    f"{done} [{card()}]")
+                done = [ln for ln in stdout.splitlines() if ln.startswith("completed")]
+                log(f"{module} {run}: {len(results)} results; {done} [{card()}]")
                 if len(results) != rows:
                     raise AssertionError(f"{module} {run}: {len(results)} results, want {rows}")
                 if first is not None and results != first:
