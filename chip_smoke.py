@@ -28,7 +28,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      needle batch's cache (5120 queries over 6144 slots) and its edges, and
      at the 32k needle bundle's prefill (its twin in 1024-query chunks); K4 over the needle
      batch's 4 rows (MHA and GQA) and one row of the bundle's 34816 slots,
-     output and partials; each timed beside SDPA at fp32 and the fp32 bound.
+     output and partials; and both at vision_generation's CFG pair (K1 its
+     image prefill, 128 queries over 385 slots, and the 8-frame video's, 385
+     over 3072; K4 a step over each); each timed beside SDPA at fp32 and
+     the fp32 bound.
   5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
      its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
@@ -100,6 +103,18 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      K1/K4 counts, ms a round, tokens/s beside generate; then a bf16 arm
      over an int8 cache (K4 int8 in the draft's steps); K1 at the verify's
      q 8 and K4 at a draft step timed at fp32.
+     Then VQGAN (phase_vqgan): the released architecture with random
+     weights from the seed encodes and decodes 8 frames of 256^2 at fp32
+     (TF32 off), timed a frame beside the same calls with TF32; one frame
+     on the host CPU gives the card's codes (but at reported near ties)
+     and pixels. Then text to image and video (phase_vision_generation):
+     scripts/run_sample_{image,video}_torch.sh's CFG sampler at the 7b
+     width, 32 layers, fp32, on the fp32 copy as a VideoLLaMA: the image
+     (cfg 5, top-k 8192, 257 tokens) and a 3-frame video on it (cfg 1,
+     top-k 100), exact K1/K4 fp32 counts, EOF every 257th token, ms a step,
+     tokens/s, peak; the first step's guided logits held to the plain fp32
+     path at 1e-3 of the largest, a top-k 1 image's tokens to its tokens;
+     the frames decoded to uint8 pixels.
   8. The same weights quantized on the card (`quantize_params_int8`, the
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
@@ -120,7 +135,11 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      answers), lookup verify. Both needle eval CLIs (`apps.eval_needle`,
      `eval_needle_multi`) at fp32 over a 7b-width 4-layer stream and a
      generated haystack, contexts 1000-4000 x 2 depths x 1 round, each run
-     twice: one results row a grid point, and the rerun adds none.
+     twice: one results row a grid point, and the rerun adds none. The
+     text-to-image CLI (`apps.vision_generation`) over a 4-layer VideoLLaMA
+     stream and phase_vqgan's model as the released pickle, both written by
+     the port: the subprocess's PNG equals the in-process run's, pixel for
+     pixel, with exact K1/K4 fp32 counts.
   9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
      grads of the kernel path against an attn_impl="plain" bf16 model and
      an fp32 copy (the noise floor), on the same weights and batch; and the
@@ -203,15 +222,24 @@ from lwm_tpu_torch.apps import eval_needle, eval_needle_multi
 from lwm_tpu_torch.apps import serve as serve_cli
 from lwm_tpu_torch.apps import sampler as sampler_module
 from lwm_tpu_torch.apps import serve_vision as vision_cli
+from lwm_tpu_torch.apps import vision_generation as vision_app
 from lwm_tpu_torch.apps.sampler import TextSampler
 from lwm_tpu_torch.models import llama as llama_module
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM, quantize_kv
-from lwm_tpu_torch.models.vision_llama import EOF, EOV, VideoLLaMAConfig, VideoLLaMAForCausalLM
+from lwm_tpu_torch.models.vision_llama import (
+    EOF,
+    EOV,
+    TOKENS_PER_FRAME,
+    VideoLLaMAConfig,
+    VideoLLaMAForCausalLM,
+)
+from lwm_tpu_torch.models.vqgan import VQGAN, VQGANConfig, VQGANModel, full_fp32
 from lwm_tpu_torch.ops import _build, decode, flash, quant
 from lwm_tpu_torch.ops import prefix as prefix_ops
 from lwm_tpu_torch.ops.reference import BIG_NEG
 from lwm_tpu_torch.serve import InflightServer, _lookup_proposal, build_prefix_cache, prefill_logits
-from lwm_tpu_torch.utils.convert import flax_params_tree
+from lwm_tpu_torch.utils.convert import flax_params_tree, save_vqgan_pickle
+from lwm_tpu_torch.utils.image import read_png
 from lwm_tpu_torch.utils.rng import set_random_seed
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
 
@@ -738,13 +766,24 @@ def phase_k4(gen):
 # over a full-tile bias (generate's prefill of a short prompt), GQA, d 64,
 # a ragged tile with offsets, not causal, seq-major, rows with no valid key.
 F32_REL_TOL = 1e-5
+# the first real key of the CFG pair's rows: the cond prompt and the uncond
+# "<s><vision>" left-padded to 128 tokens (phase_vision_generation's batch)
+CFG_FIRST_KEYS = (90, 122)
 H100_F32_PEAK = 67e12     # fp32 FLOP/s outside the tensor cores, H100 SXM data sheet
 F32_TWIN_CHUNK = 1024     # queries a twin call over the bundle's 34816 keys: 4.6 GB of scores
 K1_F32_REPORT = "f32_needle_q5120_T6144"
 K1_F32_BUNDLE = "f32_bundle_q33792_T34816"
+K1_F32_CFG = ("f32_cfg_image_b2_q128_T385", "f32_cfg_video_b2_q385_T3072")
+K1_F32_TIMED = (K1_F32_REPORT, K1_F32_BUNDLE, *K1_F32_CFG)
 K1_F32_CASES = [
     (K1_F32_REPORT, 1, 32, 128, 5120, 6144, True, 0, True, "needle"),
     (K1_F32_BUNDLE, 1, 32, 128, 33792, 34816, True, 0, True, "needle"),
+    # vision_generation's prefills (the bundles' CFG batch: the cond row's
+    # prompt over the uncond "<s><vision>"'s, left-padded to 128): the image
+    # over round_cache_length(128 + 257) slots, the 8-frame video's prompt
+    # and first frame over the 3072 slots of 128 + 257 + 7 x 257 tokens
+    (K1_F32_CFG[0], 2, 32, 128, 128, 385, True, 0, True, "cfg"),
+    (K1_F32_CFG[1], 2, 32, 128, 385, 3072, True, 0, True, "cfg"),
     ("f32_q16_fulltile", 2, 32, 128, 16, 1024, True, 0, True, "frontier"),
     ("f32_gqa_hkv8_q1000", 1, 8, 128, 1000, 2048, True, 0, True, "needle"),
     ("f32_d64_S1000_offsets", 2, 8, 64, 1000, 1000, True, 700, False, "full"),
@@ -756,6 +795,10 @@ K1_F32_CASES = [
 # steps), GQA, and one row of the 32k bundle's cache (34816 slots)
 K4_F32_CASES = [
     ("f32_needle_b4_T6144", 4, 32, 6144, 5248, [0, 80, 700, 2000]),
+    # vision_generation's steps: the CFG pair (CFG_FIRST_KEYS) at the image's
+    # last step and at the 8-frame video's
+    ("f32_cfg_image_b2_T385", 2, 32, 385, 385, list(CFG_FIRST_KEYS)),
+    ("f32_cfg_video_b2_T3072", 2, 32, 3072, 2184, list(CFG_FIRST_KEYS)),
     ("f32_gqa_hkv8_b4_T6144", 4, 8, 6144, 5121, [0, 80, 700, 2000]),
     ("f32_bundle_b1_T34816", 1, 32, 34816, 34816, [300]),
 ]
@@ -798,6 +841,11 @@ def phase_f32_kernels(gen):
             keys = torch.arange(T, device="cuda")
             valid = (keys >= 80) & (keys < q_off + sq) if causal else keys < T - 68
             bias = torch.where(valid, 0.0, BIG_NEG)[None, None, None, :]
+        elif kind == "cfg":   # each row's left padding, its keys up to the last query
+            keys = torch.arange(T, device="cuda")[None]
+            first = torch.tensor(CFG_FIRST_KEYS, device="cuda")[:, None]
+            valid = (keys >= first) & (keys < q_off + sq)
+            bias = torch.where(valid, 0.0, BIG_NEG)[:, None, None, :]
         else:
             bias, valid = _k1_bias(kind, b, sq, T, q_off, gen)
         kw = dict(causal=causal, q_offset=q_off, kv_head_major=head_major)
@@ -818,7 +866,7 @@ def phase_f32_kernels(gen):
             if not (torch.all(out[:, rows] == 0) and torch.all(lse[:, :, rows] == BIG_NEG)):
                 raise AssertionError(f"K1 {name}: rows with no valid key are not 0 / BIG_NEG")
         del ref, ref_lse, live
-        if name in (K1_F32_REPORT, K1_F32_BUNDLE):
+        if name in K1_F32_TIMED:
             iters = 3 if chunk else 10
             ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), iters)
             plain_ms = time_ms(lambda: _k1_twin(q, k, v, bias, kw, chunk), 1 if chunk else 2)
@@ -3149,6 +3197,327 @@ def phase_eval_clis():
                 raise AssertionError(f"{module}: the resumed run found {done}, want {rows}")
 
 
+# VQGAN (phase_vqgan): the released architecture (models.vqgan.VQGANConfig's
+# defaults: 256 x 256, 146,244,675 params) with random weights from the seed
+# in the released layout, its codebook drawn N(0, 1) (a trained codebook's
+# spread; the init's ±1/8192 would put every code within fp32 rounding of
+# the next), VQ_FRAMES frames of random pixels as one 5-D video encoded and
+# decoded on the card at fp32 (TF32 off, `vqgan.full_fp32`), each timed per
+# frame; the same calls with TF32 allowed, timed, their codes and pixels
+# beside the fp32 ones (what TF32 would change); one frame through the same
+# module on the host CPU: its codes equal the card's but where the card's
+# top-2 distance gap is below VQ_TIE_GAP (printed), its pixels from the
+# card's codes within VQ_PIXEL_TOL of the largest
+VQ_FRAMES = 8
+VQ_TIE_GAP = 1e-3      # distances ~1e2 apart by ~1e-4 between two fp32 conv paths
+VQ_PIXEL_TOL = 1e-4
+
+
+def _vq_distances(model, z):
+    """Distances [n, n_e] float64 of z [..., e_dim] to the codebook."""
+    e = model.quantize.embeddings.double()
+    flat = z.reshape(-1, z.shape[-1]).double()
+    return (flat ** 2).sum(1, keepdim=True) + (e ** 2).sum(1)[None] - 2 * flat @ e.T
+
+
+def phase_vqgan():
+    """See VQ_*. Returns (the model on the card, its times)."""
+    cfg = VQGANConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    model = VQGANModel(cfg, device="cuda")
+    model.init_weights(gen)
+    with torch.no_grad():
+        model.quantize.embeddings.normal_(generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    video = torch.rand((1, VQ_FRAMES, cfg.resolution, cfg.resolution, 3), generator=gen,
+                       device="cuda") * 2 - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30   # the earlier phases' weights among it
+    with torch.no_grad():
+        q, codes = model.encode(video)
+        pixels = model.decode(codes)
+        enc_ms = time_ms(lambda: model.encode(video), 3) / VQ_FRAMES
+        dec_ms = time_ms(lambda: model.decode(codes), 3) / VQ_FRAMES
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # what TF32 would change: the same modules with cuDNN's default
+        flat = video.reshape(-1, *video.shape[2:])
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            tf32_codes = model.quantize(model._z(flat))[1]
+            tf32_pixels = model._pixels(model.quantize.lookup(codes.reshape(-1, 16, 16)))
+            enc_tf32 = time_ms(lambda: model.quantize(model._z(flat)), 3) / VQ_FRAMES
+            dec_tf32 = time_ms(lambda: model._pixels(model.quantize.lookup(
+                codes.reshape(-1, 16, 16))), 3) / VQ_FRAMES
+        with full_fp32():
+            d = _vq_distances(model, model._z(flat[:1]))
+    if q.shape != (1, VQ_FRAMES, 16, 16, 64) or pixels.shape != video.shape:
+        raise AssertionError(f"vqgan: shapes {tuple(q.shape)}, {tuple(pixels.shape)}")
+    if not (torch.isfinite(pixels).all() and pixels.abs().max() <= 1):
+        raise AssertionError("vqgan: decoded pixels not finite in [-1, 1]")
+    tf32_apart = int((tf32_codes.reshape(codes.shape) != codes).sum())
+    tf32_err = (tf32_pixels.clamp(-1, 1).reshape(pixels.shape) - pixels).abs().max().item()
+    log(f"vqgan: {n_params:,} params, {VQ_FRAMES} frames of {cfg.resolution}^2 at fp32 without "
+        f"TF32: encode {enc_ms:.2f} ms a frame, decode {dec_ms:.2f} ms a frame, peak "
+        f"{peak:.2f} GiB ({peak - held:.2f} over the {held:.2f} held before); with TF32 allowed: encode {enc_tf32:.2f}, decode {dec_tf32:.2f} ms a "
+        f"frame, {tf32_apart} of {codes.numel()} codes apart, pixels max|Δ| {tf32_err:.2e} "
+        f"[{card()}]")
+
+    # one frame on the host CPU through the same module
+    host = VQGANModel(cfg, device="meta")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
+    host.eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, host_codes = host.encode(video[0, :1].cpu())
+        host_pixels = host.decode(codes[0, :1].cpu())
+    host_s = time.perf_counter() - t0
+    top2 = d.topk(2, -1, largest=False).values
+    gap = (top2[:, 1] - top2[:, 0]).cpu()
+    apart = (host_codes.reshape(-1) != codes[0, 0].reshape(-1).cpu())
+    near = gap < VQ_TIE_GAP
+    pix_err = (host_pixels - pixels[0, :1].cpu()).abs().max().item()
+    log(f"vqgan host CPU: one frame encoded and decoded in {host_s:.1f}s; codes apart from the "
+        f"card's at {apart.nonzero()[:, 0].tolist()} (near ties, top-2 gap below {VQ_TIE_GAP}: "
+        f"{near.nonzero()[:, 0].tolist()}; smallest gap {gap.min().item():.3e}); pixels from "
+        f"the card's codes max|Δ| {pix_err:.3e} (tol {VQ_PIXEL_TOL} of the largest)")
+    if (apart & ~near).any():
+        raise AssertionError("vqgan: host codes differ from the card's away from a near tie")
+    if not pix_err <= VQ_PIXEL_TOL * max(pixels.abs().max().item(), 1.0):
+        raise AssertionError("vqgan: host pixels disagree with the card's")
+    del host, video, q, pixels, tf32_codes, tf32_pixels, flat
+    torch.cuda.empty_cache()
+    return model, dict(encode_ms=enc_ms, decode_ms=dec_ms, encode_tf32_ms=enc_tf32,
+                       decode_tf32_ms=dec_tf32, peak_gib=peak - held)
+
+
+# Text to image and video (phase_vision_generation): the bundles
+# (scripts/run_sample_image_torch.sh, run_sample_video_torch.sh) at the 7b
+# width, all 32 layers, fp32, theta 5e7, sample_mode "vision", on the
+# serving weights' fp32 copy with vte and vision_head from the seed, through
+# apps.vision_generation's VisionGenerator (the fixture tokenizer, VG_PROMPT):
+# the image arm (cfg 5.0, top-k 8192, temperature 1.0, 257 tokens), the video
+# arm (cfg 1.0, top-k 100) conditioned on the image's frame at VG_FRAMES
+# frames; exact K1/K4 fp32 counts (K1 a layer for the prefill, K4 a layer a
+# later token), EOF at every 257th, ms a step, tokens/s, peak. The first
+# step's guided logits held to an attn_impl="plain" arm at NEEDLE_REL_TOL of
+# the largest; a top-k 1 image run's tokens equal to the plain arm's, or
+# apart first at a near tie (SPEC_TIE_GAP on the guided logits). The frames
+# decoded through phase_vqgan's model to uint8.
+VG_PROMPT = "Fireworks over the city"
+VG_FRAMES = 3
+VG_CONFIG = dict(sample_mode="vision", theta=50_000_000, max_sequence_length=32768,
+                 scan_attention=False, scan_query_chunk_size=128, scan_key_chunk_size=128,
+                 scan_mlp=False, scan_mlp_chunk_size=8192)
+
+
+def vision_generation_model(cfg, fp32, attn_impl="auto"):
+    """A VideoLLaMA of `cfg` on the fp32 tensors `fp32` (a text model's),
+    its vte and vision_head drawn from the seed (cached in `fp32`)."""
+    if "vte.weight" not in fp32:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+        for name in ("vte.weight", "vision_head.weight"):
+            fp32[name] = torch.randn((cfg.vision_vocab_size, cfg.hidden_size), generator=gen,
+                                     device="cuda") * cfg.initializer_range
+    return VideoLLaMAForCausalLM.on_tensors(cfg.replace(attn_impl=attn_impl), fp32,
+                                            torch.float32)
+
+
+@contextlib.contextmanager
+def timed_forwards(model):
+    """Record each forward's synced seconds in the yielded list."""
+    seconds = []
+    real = model.forward
+
+    def forward(*a, **kw):
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    model.forward = forward
+    try:
+        yield seconds
+    finally:
+        del model.forward
+
+
+def _generate_arm(gen, what, prompt, prefix, n_tokens, cfg, top_k, temp=1.0, counted=True):
+    """One generate_frames call: (new tokens [n_tokens], forwards' seconds,
+    launches or None), exact K1/K4 fp32 counts held when `counted`."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    _reset_launch_counts()
+    with timed_forwards(gen.model) as sec:
+        tokens = gen.generate_frames([prompt], prefix, n_tokens, cfg, top_k, temp)[0]
+    launches = _launch_counts() if counted else None
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(sec) - 1
+    eos = gen.model.config.eos_token_id
+    if steps + 1 < n_tokens and tokens[steps] != eos:
+        raise AssertionError(f"{what}: stopped after {steps + 1} tokens without an eos")
+    for at in range(TOKENS_PER_FRAME - 1, steps + 1, TOKENS_PER_FRAME):
+        if tokens[at] != EOF:
+            raise AssertionError(f"{what}: token {at} is {tokens[at]}, not EOF")
+    if counted:
+        want = _generation_launches(gen.model.config, dict(forwards=len(sec)), f32=True)
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+    wall = sum(sec)
+    log(f"{what}: {steps + 1} tokens (cfg {cfg}, top-k {top_k}) in {wall:.2f}s: prefill "
+        f"{sec[0] * 1e3:.1f} ms, {1e3 * sum(sec[1:]) / max(steps, 1):.2f} ms a step, "
+        f"{(steps + 1) / wall:.1f} tokens/s, peak {peak:.1f} GiB ({peak - held:.2f} over the "
+        f"{held:.1f} held before); launches {launches} "
+        f"[{card()}]")
+    return tokens, sec, launches
+
+
+def _guided(model, ids, mask, vm, cfg, prefill=False):
+    """The guided logits [b, vocab] of the CFG batch's last position: with
+    `prefill`, generate_vision's (the prompt into a fresh shared-index
+    cache), else one forward without a cache (positions from the mask, as
+    generate's)."""
+    with torch.no_grad():
+        if prefill:
+            kw = model.prepare_inputs_for_generation(ids, ids.shape[1] + TOKENS_PER_FRAME,
+                                                     mask, vm)
+            lg = model(ids, kw["attention_mask"], kw["position_ids"], kw["cache"],
+                       vision_masks=vm, logits_tail=1)
+        else:
+            lg = model(ids, mask, (mask.cumsum(-1) - 1).clamp_min(0), vision_masks=vm,
+                       logits_tail=1)
+    cond, uncond = lg[:, -1].float().chunk(2)
+    return uncond + cfg * (cond - uncond)
+
+
+def phase_vision_generation(model, fp32, vq):
+    """See VG_*. Returns the launch counts of the counted runs."""
+    tok = Tokenizer(str(FIXTURE_TOKENIZER))
+    cfg = VideoLLaMAConfig.load_config("7b").replace(
+        **VG_CONFIG, bos_token_id=tok.bos_token_id, eos_token_id=tok.eos_token_id)
+    vmodel = vision_generation_model(cfg, fp32)
+    plain = vision_generation_model(cfg, fp32, "plain")
+    gen = vision_app.VisionGenerator(vmodel, tok, VQGAN.from_model(vq), SEED)
+    image_prompt = vision_app.image_prompt(VG_PROMPT)
+    paths = []
+    first, sec, launches = _generate_arm(gen, "vision generation image", image_prompt, None,
+                                         TOKENS_PER_FRAME, 5.0, 8192)
+    paths.append(launches)
+    video_n = (VG_FRAMES - 1) * TOKENS_PER_FRAME
+    rest, vsec, launches = _generate_arm(gen, f"vision generation video ({VG_FRAMES} frames)",
+                                         vision_app.video_prompt(VG_PROMPT), first[None],
+                                         video_n, 1.0, 100)
+    paths.append(launches)
+    step_s = sum(vsec[1:]) / max(len(vsec) - 1, 1)
+    log(f"vision generation video: 8 frames ({7 * TOKENS_PER_FRAME} tokens, 3072 cache slots) "
+        f"would take ~{vsec[0] + 7 * TOKENS_PER_FRAME * step_s:.1f}s at this run's "
+        f"{1e3 * step_s:.2f} ms a step (steps lengthen with the cache)")
+
+    # the first step's guided logits, kernel path against the plain arm
+    ids, mask, vm = gen.batch([image_prompt])
+    got, want = (_guided(m, ids, mask, vm, 5.0, prefill=True) for m in (vmodel, plain))
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"vision generation: first step's guided logits (cfg 5.0), kernel vs plain fp32 "
+        f"max|Δ|/max|plain| {rel:.3e} (tol {NEEDLE_REL_TOL}), argmax {got.argmax(-1).tolist()} / "
+        f"{want.argmax(-1).tolist()}")
+    if not rel <= NEEDLE_REL_TOL:
+        raise AssertionError("vision generation: guided logits disagree with the plain fp32 path")
+
+    # top-k 1: the kernel path's tokens against the plain arm's
+    greedy, _, launches = _generate_arm(gen, "vision generation image top-k 1", image_prompt,
+                                        None, TOKENS_PER_FRAME, 5.0, 1)
+    paths.append(launches)
+    plain_gen = vision_app.VisionGenerator(plain, tok, gen.vqgan, SEED)
+    want_tokens = _generate_arm(plain_gen, "vision generation image top-k 1, plain arm",
+                                image_prompt, None, TOKENS_PER_FRAME, 5.0, 1, counted=False)[0]
+    apart = np.flatnonzero(greedy != want_tokens)
+    if len(apart):
+        at = int(apart[0])
+        new = torch.tensor(want_tokens[:at], device="cuda")[None].repeat(2, 1)
+        lg = _guided(plain, torch.cat([ids, new], 1), torch.cat([mask, torch.ones_like(new)], 1),
+                     torch.cat([vm, torch.ones(new.shape, dtype=torch.bool, device="cuda")], 1),
+                     5.0)
+        top = lg.topk(2, -1).values[0]
+        gap = (top[0] - top[1]).item()
+        log(f"vision generation top-k 1: tokens apart from the plain arm's first at {at}; "
+            f"top-2 guided gap there {gap:.2e} (near tie below {SPEC_TIE_GAP})")
+        if not gap < SPEC_TIE_GAP:
+            raise AssertionError("vision generation: top-k 1 tokens differ off a near tie")
+    else:
+        log(f"vision generation top-k 1: all {len(greedy)} tokens equal the plain arm's")
+    del plain, plain_gen
+
+    # the frames through VQGAN's decoder
+    codes = np.concatenate([first[None], rest.reshape(VG_FRAMES - 1, TOKENS_PER_FRAME)])
+    t0 = time.perf_counter()
+    frames = gen.decode(codes[:, :-1].reshape(1, VG_FRAMES, 16, 16))
+    log(f"vision generation: {VG_FRAMES} frames decoded to uint8 {frames.shape} in "
+        f"{time.perf_counter() - t0:.2f}s; pixel mean {frames.mean():.1f}")
+    if frames.shape != (1, VG_FRAMES, 256, 256, 3) or frames.dtype != np.uint8:
+        raise AssertionError(f"vision generation: frames {frames.shape} {frames.dtype}")
+    del gen, vmodel
+    for name in ("vte.weight", "vision_head.weight"):
+        del fp32[name]
+    torch.cuda.empty_cache()
+    return paths
+
+
+# The text-to-image CLI (phase_cli_vision_generation): `python -m
+# lwm_tpu_torch.apps.vision_generation` at n_frames 1 over a 7b-width
+# VideoLLaMA of CLI_LAYERS layers and a VQGAN pickle, both written by the
+# port (the pickle from phase_vqgan's model), the bundle's image flags; then
+# the same flags through its main in this process: the same PNG, pixel for
+# pixel (read back with utils.image.read_png), and exact K1/K4 fp32 counts.
+def phase_cli_vision_generation(vq):
+    cfg = VideoLLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=CLI_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    model = VideoLLaMAForCausalLM(cfg, dtype=BF16, device="cuda")
+    model.init_weights(gen)
+    with tempfile.TemporaryDirectory(prefix="lwm_vision_generation_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        checkpoint.save_tree(flax_params_tree(model.state_dict(), cfg), str(tmp / "params"))
+        del model
+        save_vqgan_pickle(vq.state_dict(), tmp / "vqgan.pkl")
+        torch.cuda.empty_cache()
+        log(f"cli vision generation: a {CLI_PRESET}-width {CLI_LAYERS}-layer VideoLLaMA stream "
+            f"and the VQGAN pickle ({(tmp / 'vqgan.pkl').stat().st_size / 1e6:.0f} MB) saved in "
+            f"{time.perf_counter() - t0:.1f}s")
+        base = [*CLI_FLAGS, f"--prompt={VG_PROMPT}", "--n_frames=1", f"--seed={SEED}",
+                f"--load_llama_config={CLI_PRESET}",
+                "--update_llama_config=dict(num_hidden_layers="
+                f"{CLI_LAYERS},sample_mode='vision',theta=50000000,max_sequence_length=32768,"
+                "scan_attention=False,scan_mlp=False)",
+                f"--tokenizer={FIXTURE_TOKENIZER}", f"--vqgan_checkpoint={tmp / 'vqgan.pkl'}",
+                f"--load_checkpoint=params::{tmp / 'params'}", "--cfg_scale_image=5.0",
+                "--top_k_image=8192", "--temperature_image=1.0"]
+        run_cli_process("lwm_tpu_torch.apps.vision_generation",
+                        base + [f"--output_file={tmp / 'sub.png'}"], "cli vision generation")
+        forwards = []
+        real = VideoLLaMAForCausalLM.forward
+        VideoLLaMAForCausalLM.forward = lambda *a, **kw: (forwards.append(1), real(*a, **kw))[1]
+        try:
+            _reset_launch_counts()
+            run_cli_in_process(vision_app.main, base + [f"--output_file={tmp / 'main.png'}"],
+                               "cli vision generation")
+            launches = _launch_counts()
+        finally:
+            VideoLLaMAForCausalLM.forward = real
+        sub, main_png = read_png(tmp / "sub.png"), read_png(tmp / "main.png")
+    want = _generation_launches(cfg, dict(forwards=len(forwards)), f32=True)
+    log(f"cli vision generation: PNG {sub.shape}, {len(forwards)} tokens; the subprocess's and "
+        f"the in-process run's pixels equal: {np.array_equal(sub, main_png)}; launches "
+        f"{launches}")
+    if sub.shape != (256, 256, 3) or launches != want:
+        raise AssertionError(f"cli vision generation: PNG {sub.shape}, launches {launches} "
+                             f"(want {want})")
+    if not np.array_equal(sub, main_png):
+        raise AssertionError("cli vision generation: the subprocess's PNG differs from the same "
+                             "flags' in-process run")
+    return [launches]
+
+
 def _lm_batch(b, s, vocab, seed):
     """A fixed next-token batch from the seed: targets are the inputs shifted."""
     toks = np.random.default_rng(seed).integers(2, vocab, (b, s + 1))
@@ -4004,6 +4373,9 @@ def main():
     spec_paths, k1_spec, k4_spec = phase_speculative(model, fp32)
     path_launches.extend(spec_paths)
     mark("speculative decoding")
+    vq, _ = phase_vqgan()
+    path_launches.extend(phase_vision_generation(model, fp32, vq))
+    mark("VQGAN and vision generation")
     del model, fp32
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_int8(bf16_summary))
@@ -4012,7 +4384,10 @@ def main():
     phase_cli()
     phase_cli_vision()
     phase_eval_clis()
-    mark("the serving and eval CLIs")
+    path_launches.extend(phase_cli_vision_generation(vq))
+    del vq
+    torch.cuda.empty_cache()
+    mark("the serving, eval and vision generation CLIs")
     phase_train_compare()
     launches, step_s_full = phase_train_full(profile)
     path_launches.append(launches)

@@ -40,30 +40,32 @@ SCAN_FIELDS = ("scan_attention", "scan_mlp", "scan_query_chunk_size", "scan_key_
                "scan_mlp_chunk_size", "scan_layers", "param_scan_axis")
 
 
-def resolve_model_config(flags, tokenizer=None):
+def resolve_model_config(flags, tokenizer=None, config_cls=LLaMAConfig):
     """`lwm_tpu/apps/loading.py:resolve_model_config`: the preset with the
     `--llama.*` scan fields over it (or the `--llama.*` config alone), then
-    `--update_llama_config`, then the tokenizer's bos and eos ids."""
+    `--update_llama_config`, then the tokenizer's bos and eos ids; a
+    `config_cls` config (`VideoLLaMAConfig` for the vision apps)."""
     llama = {k: v for k, v in flags.llama.items() if v is not None}
     if flags.load_llama_config:
-        config = LLaMAConfig.load_config(flags.load_llama_config)
-        updates = LLaMAConfig.from_dict(llama)
+        config = config_cls.load_config(flags.load_llama_config)
+        updates = config_cls.from_dict(llama)
         config = config.replace(**{k: getattr(updates, k) for k in SCAN_FIELDS})
     else:
-        config = LLaMAConfig.from_dict(llama)
+        config = config_cls.from_dict(llama)
     if flags.update_llama_config:
         # the JAX CLI's spelling: a Python expression, "dict(theta=1e7, ...)"
         updates = eval(flags.update_llama_config, {"dict": dict})  # noqa: S307
-        config = LLaMAConfig.from_dict({**dataclasses.asdict(config), **updates})
+        config = config_cls.from_dict({**dataclasses.asdict(config), **updates})
     if tokenizer is not None:
         config = config.replace(bos_token_id=tokenizer.bos_token_id,
                                 eos_token_id=tokenizer.eos_token_id)
     return config
 
 
-def load_model(config, load_checkpoint, dtype, device, unscan_for_serving=False):
-    """The checkpoint's params cast to `dtype` on `device`, as a model of
-    `config` (`loading.py:load_sharded_params` on one device). Returns
+def load_model(config, load_checkpoint, dtype, device, unscan_for_serving=False,
+               model_cls=LLaMAForCausalLM):
+    """The checkpoint's params cast to `dtype` on `device`, as a `model_cls`
+    of `config` (`loading.py:load_sharded_params` on one device). Returns
     (model, config)."""
     t0 = time.perf_counter()
     _, params = load_trainstate_checkpoint(load_checkpoint, disallow_trainstate=True)
@@ -73,7 +75,7 @@ def load_model(config, load_checkpoint, dtype, device, unscan_for_serving=False)
     sd = convert_flax_params(params, config, dtype=dtype, device=device)
     del params
     log(f"loaded {load_checkpoint} in {time.perf_counter() - t0:.1f}s")
-    return LLaMAForCausalLM.on_tensors(config, sd, dtype), config
+    return model_cls.on_tensors(config, sd, dtype), config
 
 
 class TextSampler:

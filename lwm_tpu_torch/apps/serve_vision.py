@@ -15,10 +15,13 @@ Prompt layout (prefix-first, so the video is shared):
            EOS or the budget
 
 Input: `--input_codes_file`, pre-tokenized VQ codes, one JSON list a frame a
-line (the vision data pipeline's format). `--input_file` (a video or an
-image through VQGAN) raises: VQGAN is not ported yet; `--vqgan_checkpoint`
-and `--max_n_frames` only serve that input, and are taken so that the JAX
-command line parses. Questions:
+line (the vision data pipeline's format); or `--input_file`, an image
+(.png/.jpg/.jpeg) or a video (up to `--max_n_frames` frames sampled evenly),
+center-cropped to 256 x 256 and encoded by the port's VQGAN
+(`--vqgan_checkpoint`, on `--device`). Reading the file needs PIL, and a
+video OpenCV too, imported only then (`utils.image`): where they are not
+installed (the card's machine) it raises ImportError, so there the input is
+a codes file. Questions:
 `--questions_file`, JSONL ({"question": ..., optional "max_new_tokens" /
 "temperature"}), answered into `--output_file` (JSONL: id, question, answer,
 stop reason, token count) in completion order; or interactive, one question
@@ -46,10 +49,12 @@ import torch
 
 from lwm_tpu_torch.checkpoint import load_trainstate_checkpoint
 from lwm_tpu_torch.models.vision_llama import EOF, EOV, VideoLLaMAConfig, VideoLLaMAForCausalLM
+from lwm_tpu_torch.models.vqgan import VQGAN
 from lwm_tpu_torch.serve import InflightServer
 from lwm_tpu_torch.utils.convert import convert_flax_params
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
 from lwm_tpu_torch.utils.flags import parse_flags as parse_flags_tree
+from lwm_tpu_torch.utils.image import center_crop_resize, read_video_frames
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
 
 DEFAULTS = dict(
@@ -72,22 +77,37 @@ def log(msg):
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
 
+def encode_file_frames(flags):
+    """The codes [t, 16, 16] of `--input_file` through VQGAN
+    (`lwm_tpu/apps/serve_vision.py:92-111`)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("--input_file needs PIL to read an image or a video's frames (and "
+                          "OpenCV for a video); pass --input_codes_file instead") from e
+    vqgan = VQGAN(flags.vqgan_checkpoint, replicate=False, device=flags.device)
+    if flags.input_file.endswith((".png", ".jpg", ".jpeg")):
+        imgs = center_crop_resize(Image.open(flags.input_file).convert("RGB"), 256)[None]
+    else:
+        video = read_video_frames(flags.input_file, flags.max_n_frames)
+        imgs = np.stack([center_crop_resize(Image.fromarray(f), 256) for f in video])
+    return vqgan.encode(imgs)[1].cpu().numpy().astype(np.int64)
+
+
 def encode_video_tokens(flags):
     """The video as VQ codes, EOF after each frame and EOV after the last
     (`lwm_tpu/apps/serve_vision.py:84-116`)."""
-    if not flags.input_codes_file:
-        raise NotImplementedError(
-            "--input_file needs VQGAN to turn a video or an image into codes, and VQGAN is not "
-            "ported yet (ROADMAP A6): pass --input_codes_file"
-        )
-    frames = []
-    with open(flags.input_codes_file, encoding="utf-8") as f:
-        for line in f:
-            if line.strip():
-                frames.append(np.asarray(json.loads(line), np.int64).reshape(-1))
+    if flags.input_codes_file:
+        frames = []
+        with open(flags.input_codes_file, encoding="utf-8") as f:
+            for line in f:
+                if line.strip():
+                    frames.append(np.asarray(json.loads(line), np.int64).reshape(-1))
+    else:
+        frames = list(encode_file_frames(flags))
     tokens = []
     for t, codes in enumerate(frames):
-        tokens.extend(codes.tolist())
+        tokens.extend(np.asarray(codes).reshape(-1).tolist())
         tokens.append(EOV if t == len(frames) - 1 else EOF)
     return tokens
 

@@ -31,8 +31,13 @@ model's; `init_weights` draws `vte` and `vision_head` N(0,
 initializer_range) as the JAX init does; `--freeze_base` trains only the
 two (`LLaMAConfig.get_frozen_param_exclusions`).
 
-Not in this slice: the classifier-free-guidance sampler (`:443-594`, it
-needs the VQGAN decoder).
+Generation (`:409-594`): `prepare_inputs_for_generation` also carries the
+prompt's vision masks, which the prompt's forward reads; the one-token
+steps embed through `sample_mode`'s table. `generate_vision` is the
+classifier-free-guidance sampler of `_sample_vision`/`generate_vision`
+(`:443-594`), on the shared-index cache of `generation.generate`: its
+prefill reaches K1 (`ops.flash`, the fp32 route at fp32) and every step K4
+(`ops.decode`, its fp32 instance at fp32).
 """
 
 from __future__ import annotations
@@ -43,9 +48,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from lwm_tpu_torch.generation import GenerationConfig, warp_logits
 from lwm_tpu_torch.models.llama import Embed, LLaMAConfig, LLaMAForCausalLM, _dense_cls
 
 EOF, EOV = 8192, 8193   # the frame and video ends among the vision specials
+TOKENS_PER_FRAME = 257  # 256 VQ codes and the EOF that closes the frame
 SAMPLE_MODES = ("all", "text", "vision")
 
 
@@ -115,3 +122,81 @@ class VideoLLaMAForCausalLM(LLaMAForCausalLM):
         if mode == "vision":
             return self._vision_logits(x)
         return VideoLLaMADualOutput(self._vision_logits(x), super()._head(x))
+
+    def prepare_inputs_for_generation(self, input_ids, max_length, attention_mask=None,
+                                      vision_masks=None):
+        """The text model's (`LLaMAForCausalLM.prepare_inputs_for_generation`)
+        plus the prompt's `vision_masks` [b, s] (`:409-433`)."""
+        kwargs = super().prepare_inputs_for_generation(input_ids, max_length, attention_mask)
+        kwargs["vision_masks"] = vision_masks
+        return kwargs
+
+    @torch.no_grad()
+    def generate_vision(self, input_ids, cfg_scales, attention_mask=None, vision_masks=None,
+                        config=None, generator=None):
+        """Sampling with classifier-free guidance (`:443-594`). input_ids
+        [2b, s] stacks the cond rows over the uncond ones (left-padded,
+        `attention_mask` [2b, s], 1 = real; `vision_masks` [2b, s] marks
+        vision tokens), cfg_scales [b] (or a number) the guidance of each
+        cond row. Returns the sequences [2b, s + config.max_new_tokens]:
+        the prompt, then the new tokens, `pad_token_id` after an early end.
+
+        A step mixes the last logits as uncond + cfg·(cond − uncond) over
+        the cond rows, runs the warpers (`generation.warp_logits`), and
+        draws one token a cond row from `generator`; the 257k-th new token
+        is EOF (a frame's end), and the same token goes to the row's cond
+        and uncond halves. The first token comes from the prefill. A row
+        is finished at `eos_token_id` (the config's, else the model
+        config's, as JAX falls back to the model's generation config), and
+        the loop stops at max_length or when every row has finished.
+        `sample_mode` must be "vision" for the steps to embed VQ codes.
+
+        The JAX run's logits processors (transformers 4.57.6's Flax
+        `_get_logits_processor`, `flax_utils.py:499-552`, from the app's
+        config) change nothing: without an eos id in the generation config
+        (the app's) the list is empty, and with one it holds a min-length
+        processor at min_length 0, which only acts while the length is
+        below it; so none is applied here."""
+        config = config or GenerationConfig(do_sample=True)
+        if not (config.do_sample and config.num_beams == 1):
+            raise NotImplementedError(
+                "generate_vision supports sampling (do_sample=True, num_beams=1)")
+        eos = config.eos_token_id if config.eos_token_id is not None else self.config.eos_token_id
+        pad = config.pad_token_id
+        if pad is None:
+            pad = config.eos_token_id   # `:566-570`: the config's eos, not the model's
+        if pad is None:
+            raise ValueError("generate_vision needs a pad_token_id")
+        pairs, s = input_ids.shape
+        if pairs % 2:
+            raise ValueError(f"{pairs} rows: the batch stacks cond over uncond rows")
+        dev = input_ids.device
+        cfg = torch.as_tensor(cfg_scales, dtype=torch.float32, device=dev).reshape(-1)
+        cfg = cfg.expand(pairs // 2)
+        max_length = s + config.max_new_tokens
+        seq = torch.full((pairs, max_length), pad, dtype=torch.long, device=dev)
+        seq[:, :s] = input_ids
+        kw = self.prepare_inputs_for_generation(input_ids, max_length, attention_mask,
+                                                vision_masks)
+        logits = self(input_ids, kw["attention_mask"], kw["position_ids"], kw["cache"],
+                      vision_masks=kw["vision_masks"], logits_tail=1)[:, -1]
+        finished = torch.zeros(pairs, dtype=torch.bool, device=dev)
+        for pos in range(s, max_length):
+            if pos > s:
+                kw = self.update_inputs_for_generation(kw)
+                logits = self(token[:, None], kw["attention_mask"], kw["position_ids"],
+                              kw["cache"])[:, -1]
+            cond, uncond = logits.chunk(2)
+            # as JAX promotes: cond − uncond in the logits' dtype, the mix fp32
+            guided = uncond.float() + cfg[:, None] * (cond - uncond).float()
+            guided = warp_logits(guided, config)
+            sampled = torch.multinomial(torch.softmax(guided, -1), 1, generator=generator)[:, 0]
+            if (pos - s + 1) % TOKENS_PER_FRAME == 0:
+                sampled = torch.full_like(sampled, EOF)
+            token = sampled.repeat(2)
+            seq[:, pos] = token
+            if eos is not None:
+                finished |= token == eos
+                if bool(finished.all()):
+                    break
+        return seq

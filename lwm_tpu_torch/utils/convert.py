@@ -43,10 +43,13 @@ has them, so that a stream of the port's tree is the JAX writer's bytes.
 from __future__ import annotations
 
 import functools
+import pickle
 from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from lwm_tpu_torch.utils.io import open_file
 
 
 _LAYER_DENSE = {"attention": ("wq", "wk", "wv", "wo"), "feed_forward": ("w1", "w2", "w3")}
@@ -325,3 +328,105 @@ def optax_state_tree(named, params, config, kind="adamw", mu_dtype=torch.float32
     if multi_transform:
         state = {"inner_states": {"False": {"inner_state": state}}}
     return state
+
+
+# VQGAN (`lwm_tpu/models/vqgan.py`): the port's modules carry the flax
+# auto-names, so a leaf's path is its module path; conv kernels [kh, kw,
+# in, out] become [out, in, kh, kw], a GroupNorm's `scale` is its `weight`.
+_VQGAN_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "embeddings": "embeddings"}
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+def vqgan_param_name(path, shape):
+    """A flax VQGAN leaf (its path as a tuple of keys, its shape) → (the
+    port's parameter name, its shape there)."""
+    if path[-1] not in _VQGAN_LEAF:
+        raise ValueError(f"VQGAN leaf {'/'.join(path)}: not a kernel, bias, scale or codebook")
+    shape = tuple(shape)
+    if path[-1] == "kernel":
+        shape = (shape[3], shape[2], shape[0], shape[1])
+    return ".".join((*path[:-1], _VQGAN_LEAF[path[-1]])), shape
+
+
+def vqgan_params_from_flax(tree, config=None):
+    """The flax VQGAN param tree (nested dicts of arrays, with or without a
+    top-level "params" key) → the state dict of `models.vqgan.VQGANModel(
+    config)` (the released architecture when None) as fp32 CPU tensors.
+    Every leaf maps to exactly one parameter of the right shape, and every
+    parameter has its leaf; anything else raises."""
+    from lwm_tpu_torch.models.vqgan import VQGANModel
+
+    if "params" in tree and len(tree) == 1:
+        tree = tree["params"]
+    want = {k: tuple(v.shape) for k, v in VQGANModel(config, device="meta").state_dict().items()}
+    sd = {}
+    for path, leaf in _flat(tree):
+        x = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        name, shape = vqgan_param_name(path, x.shape)
+        if want.get(name) != shape:
+            raise ValueError(f"VQGAN leaf {'/'.join(path)} {tuple(x.shape)}: the model has "
+                             f"{name} {want.get(name)}")
+        sd[name] = x.permute(3, 2, 0, 1).contiguous() if path[-1] == "kernel" else x
+    missing = sorted(set(want) - set(sd))
+    if missing:
+        raise ValueError(f"VQGAN tree lacks {len(missing)} params: {missing[:5]}")
+    return sd
+
+
+def vqgan_params_to_flax(sd):
+    """The inverse: a VQGANModel state dict → the flax param tree (no
+    "params" key) of fp32 numpy arrays, keys sorted, as the released pickle
+    holds it."""
+    to_leaf = {"weight": "kernel", "bias": "bias", "embeddings": "embeddings"}
+    tree = {}
+    for name, x in sd.items():
+        parts = name.split(".")
+        x = x.detach().float().cpu()
+        leaf = to_leaf[parts[-1]]
+        if leaf == "kernel" and x.dim() == 1:
+            leaf = "scale"   # a GroupNorm's
+        elif leaf == "kernel":
+            x = x.permute(2, 3, 1, 0)
+        _insert(tree, (*parts[:-1], leaf), np.ascontiguousarray(x.numpy()))
+    return _sorted(tree)
+
+
+# the globals a pickle of numpy arrays in nested dicts needs
+_PICKLE_BUILTINS = frozenset(("dict", "list", "tuple", "set", "frozenset", "int", "float",
+                              "complex", "bool", "str", "bytes", "bytearray"))
+_PICKLE_NUMPY = frozenset(("_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"))
+
+
+class _VQGANUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        top = module.split(".")[0]
+        if module == "builtins" and name in _PICKLE_BUILTINS:
+            return super().find_class(module, name)
+        if top == "numpy" and name in _PICKLE_NUMPY:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"the VQGAN pickle holds {module}.{name}: only builtins and numpy arrays are "
+            "read (a flax or jax object must be saved as numpy, e.g. jax.device_get)")
+
+
+def load_vqgan_pickle(path):
+    """The released VQGAN params (`lwm_tpu/models/vqgan.py:44-45`: a pickle
+    of the flax param tree) through a restricted unpickler that admits
+    builtins and numpy and raises, naming the class, on anything else."""
+    with open_file(path, "rb") as f:
+        return _VQGANUnpickler(f).load()
+
+
+def save_vqgan_pickle(sd, path):
+    """A VQGANModel state dict as the released pickle: the flax tree of
+    numpy arrays (`vqgan_params_to_flax`)."""
+    with open_file(path, "wb") as f:
+        pickle.dump(vqgan_params_to_flax(sd), f)

@@ -362,7 +362,7 @@ def test_cli_flags_and_refusals(cli_inputs, tmp_path):
         cli.parse_flags(["--jax_platform=cpu"])
     _, _, qs, base = cli_inputs
     no_codes = [f for f in base if not f.startswith("--input_codes_file")]
-    with pytest.raises(NotImplementedError, match="VQGAN"):
+    with pytest.raises(ValueError, match="vqgan_checkpoint"):
         cli.main(no_codes + [f"--input_file={tmp_path / 'clip.mp4'}", f"--questions_file={qs}"])
     with pytest.raises(RuntimeError, match="--device=cpu"):
         cli.main([f for f in base if f != "--device=cpu"])
