@@ -753,8 +753,11 @@ def phase_k4(gen):
 # --dtype=fp32): held to the plain twins at fp32 within F32_REL_TOL of the
 # twin's largest |value| (fp32 sums over thousands of keys in another
 # order; no TF32 on either side) and timed beside SDPA at fp32 and the
-# bound, the larger of the bytes over the HBM rate and the flops over the
-# H100 SXM's fp32 rate outside the tensor cores (H100_F32_PEAK).
+# bound, the larger of the bytes over the HBM rate and the flops: K1's at
+# three TF32 products a product over the H100 SXM's TF32 rate
+# (H100_TF32_PEAK, its design since the three-product redesign), its fp32
+# FMA bound (H100_F32_PEAK, the rate outside the tensor cores) beside as
+# fma_bound_ms; K4's at H100_F32_PEAK.
 # K1: name, b, h_kv, d, sq, T, causal, q_offset, head-major, bias kind. The
 # first is the shape phase_generate_f32's needle batch gives K1 (a 4000-token
 # context: max_input_length 5120 over its 6144-slot cache, per-key bias with
@@ -762,7 +765,11 @@ def phase_k4(gen):
 # (max_input_length 33792 over a 34816-slot cache), where the twin, whole,
 # would materialise 150 GB of scores: it runs in F32_TWIN_CHUNK-query
 # chunks (a row's softmax is its own, so the chunks compute the same
-# function), for the hold and for plain_ms; the rest hold the edges: a 16-row prompt
+# function), for the hold and for plain_ms; then the CFG prefills, and the
+# speculative verify (phase_speculative's shape: 8 queries at the cache
+# index 1088 of SPEC_ROWS rows over the 2048-slot cache, the full-tile bias
+# of the mask's frontier; timed from CUDA-graph replays, as there); the
+# rest hold the edges: a 16-row prompt
 # over a full-tile bias (generate's prefill of a short prompt), GQA, d 64,
 # a ragged tile with offsets, not causal, seq-major, rows with no valid key.
 F32_REL_TOL = 1e-5
@@ -770,11 +777,13 @@ F32_REL_TOL = 1e-5
 # "<s><vision>" left-padded to 128 tokens (phase_vision_generation's batch)
 CFG_FIRST_KEYS = (90, 122)
 H100_F32_PEAK = 67e12     # fp32 FLOP/s outside the tensor cores, H100 SXM data sheet
+H100_TF32_PEAK = 495e12   # dense TF32 FLOP/s on the tensor cores, H100 SXM data sheet
 F32_TWIN_CHUNK = 1024     # queries a twin call over the bundle's 34816 keys: 4.6 GB of scores
 K1_F32_REPORT = "f32_needle_q5120_T6144"
 K1_F32_BUNDLE = "f32_bundle_q33792_T34816"
 K1_F32_CFG = ("f32_cfg_image_b2_q128_T385", "f32_cfg_video_b2_q385_T3072")
-K1_F32_TIMED = (K1_F32_REPORT, K1_F32_BUNDLE, *K1_F32_CFG)
+K1_F32_VERIFY = "f32_verify_b4_q8_qoff1088_T2048"   # phase_speculative: f32_verify_b4_q8_T2048
+K1_F32_TIMED = (K1_F32_REPORT, K1_F32_BUNDLE, *K1_F32_CFG, K1_F32_VERIFY)
 K1_F32_CASES = [
     (K1_F32_REPORT, 1, 32, 128, 5120, 6144, True, 0, True, "needle"),
     (K1_F32_BUNDLE, 1, 32, 128, 33792, 34816, True, 0, True, "needle"),
@@ -784,6 +793,7 @@ K1_F32_CASES = [
     # and first frame over the 3072 slots of 128 + 257 + 7 x 257 tokens
     (K1_F32_CFG[0], 2, 32, 128, 128, 385, True, 0, True, "cfg"),
     (K1_F32_CFG[1], 2, 32, 128, 385, 3072, True, 0, True, "cfg"),
+    (K1_F32_VERIFY, 4, 32, 128, 8, 2048, True, 1088, True, "verify"),
     ("f32_q16_fulltile", 2, 32, 128, 16, 1024, True, 0, True, "frontier"),
     ("f32_gqa_hkv8_q1000", 1, 8, 128, 1000, 2048, True, 0, True, "needle"),
     ("f32_d64_S1000_offsets", 2, 8, 64, 1000, 1000, True, 700, False, "full"),
@@ -814,6 +824,58 @@ def _f32_hold(name, got, want):
     return err
 
 
+def k1_f32_bound(n_bytes, pair_flops):
+    """K1's fp32 route's bounds at a case: the bytes over the HBM rate
+    against three TF32 products of `pair_flops` at H100_TF32_PEAK (the
+    route's design), and against `pair_flops` at H100_F32_PEAK (the fp32
+    FMA bound of the rows before it). Returns (bound_ms, bound_by,
+    fma_bound_ms)."""
+    bnd, by = bound_ms(n_bytes, 3 * pair_flops, H100_TF32_PEAK)
+    return bnd, by, bound_ms(n_bytes, pair_flops, H100_F32_PEAK)[0]
+
+
+def k1_f32_inputs(case, gen):
+    """q, k, v, bias, kw and the valid keys ([T], [b, T] or, for "verify",
+    [sq, T]) of a K1_F32_CASES case."""
+    name, b, h_kv, d, sq, T, causal, q_off, head_major, kind = case
+    f32, h = torch.float32, 32
+    q = _randn((b, sq, h, d), gen, f32)
+    kv_shape = (b, h_kv, T, d) if head_major else (b, T, h_kv, d)
+    k, v = _randn(kv_shape, gen, f32), _randn(kv_shape, gen, f32)
+    keys = torch.arange(T, device="cuda")
+    if kind == "needle":
+        valid = (keys >= 80) & (keys < q_off + sq) if causal else keys < T - 68
+        bias = torch.where(valid, 0.0, BIG_NEG)[None, None, None, :]
+    elif kind == "cfg":   # each row's left padding, its keys up to the last query
+        first = torch.tensor(CFG_FIRST_KEYS, device="cuda")[:, None]
+        valid = (keys[None] >= first) & (keys[None] < q_off + sq)
+        bias = torch.where(valid, 0.0, BIG_NEG)[:, None, None, :]
+    elif kind == "verify":   # the mask's frontier: query i sees keys <= q_off + i
+        valid = keys[None] <= q_off + torch.arange(sq, device="cuda")[:, None]
+        bias = torch.where(valid, 0.0, BIG_NEG)[None, None]
+    else:
+        bias, valid = _k1_bias(kind, b, sq, T, q_off, gen)
+    kw = dict(causal=causal, q_offset=q_off, kv_head_major=head_major)
+    if kind == "full":
+        kw["kv_offset"] = 300
+    return q, k, v, bias, kw, valid
+
+
+def k1_f32_work(case, q, bias, valid):
+    """(bytes, flops) of a timed K1_F32_CASES case: q read and out written,
+    the keys the rows see read once from k and v, lse written, the bias
+    read; 4·d flops a (query, key) pair and head, each product once
+    (k1_f32_bound counts the route's three)."""
+    name, b, h_kv, d, sq, T, causal, q_off, head_major, kind = case
+    h = q.shape[2]
+    if kind == "verify":
+        pairs, kv_rows = int(valid.sum()) * b, (q_off + sq) * b
+    else:
+        pairs, kv_rows = attn_pairs(valid, sq, q_off if causal else T), int(valid.sum())
+    n_bytes = 2 * q.numel() * 4 + 2 * kv_rows * h_kv * d * 4 + b * h * sq * 4
+    return n_bytes + bias.numel() * 4, 4 * d * h * pairs
+
+
 def _k1_twin(q, k, v, bias, kw, chunk=None):
     """K1's plain twin (out, lse), over `chunk` queries a call when given
     (q_offset moved along; `bias` per key)."""
@@ -829,28 +891,13 @@ def phase_f32_kernels(gen):
     """K1's and K4's fp32 routes at K1_F32_CASES and K4_F32_CASES. Returns
     ({name: times} for flash_fwd, {name: times} for flash_decode, worst
     max|Δ| of each), times as dict(ms, plain_ms, library_ms, bound_ms,
-    bound_by)."""
+    bound_by), K1's also with fma_bound_ms and its max_abs_err."""
     f32 = torch.float32
     k1, k4, worst = {}, {}, {"flash_fwd": 0.0, "flash_decode": 0.0}
-    for name, b, h_kv, d, sq, T, causal, q_off, head_major, kind in K1_F32_CASES:
-        h = 32
-        q = _randn((b, sq, h, d), gen, f32)
-        kv_shape = (b, h_kv, T, d) if head_major else (b, T, h_kv, d)
-        k, v = _randn(kv_shape, gen, f32), _randn(kv_shape, gen, f32)
-        if kind == "needle":
-            keys = torch.arange(T, device="cuda")
-            valid = (keys >= 80) & (keys < q_off + sq) if causal else keys < T - 68
-            bias = torch.where(valid, 0.0, BIG_NEG)[None, None, None, :]
-        elif kind == "cfg":   # each row's left padding, its keys up to the last query
-            keys = torch.arange(T, device="cuda")[None]
-            first = torch.tensor(CFG_FIRST_KEYS, device="cuda")[:, None]
-            valid = (keys >= first) & (keys < q_off + sq)
-            bias = torch.where(valid, 0.0, BIG_NEG)[:, None, None, :]
-        else:
-            bias, valid = _k1_bias(kind, b, sq, T, q_off, gen)
-        kw = dict(causal=causal, q_offset=q_off, kv_head_major=head_major)
-        if kind == "full":
-            kw["kv_offset"] = 300
+    for case in K1_F32_CASES:
+        name, b, h_kv, d, sq, T, causal, q_off, head_major, kind = case
+        q, k, v, bias, kw, valid = k1_f32_inputs(case, gen)
+        h = q.shape[2]
         n0 = flash.flash_attention_fwd.f32_launches
         out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
         torch.cuda.synchronize()
@@ -858,7 +905,8 @@ def phase_f32_kernels(gen):
             raise AssertionError(f"K1 {name}: the fp32 route was not launched")
         chunk = F32_TWIN_CHUNK if name == K1_F32_BUNDLE else None
         ref, ref_lse = _k1_twin(q, k, v, bias, kw, chunk)
-        worst["flash_fwd"] = max(worst["flash_fwd"], _f32_hold(f"K1 {name} out", out, ref))
+        err = _f32_hold(f"K1 {name} out", out, ref)
+        worst["flash_fwd"] = max(worst["flash_fwd"], err)
         live = ref_lse > BIG_NEG / 2
         _f32_hold(f"K1 {name} lse", lse[live], ref_lse[live])
         if kind == "no_keys":
@@ -867,8 +915,12 @@ def phase_f32_kernels(gen):
                 raise AssertionError(f"K1 {name}: rows with no valid key are not 0 / BIG_NEG")
         del ref, ref_lse, live
         if name in K1_F32_TIMED:
-            iters = 3 if chunk else 10
-            ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), iters)
+            # the verify's 8 queries from CUDA-graph replays (a few us of
+            # work), as phase_speculative times it; the rest eager
+            graph = kind == "verify"
+            iters = 50 if graph else 3 if chunk else 10
+            ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), iters,
+                         graph=graph)
             plain_ms = time_ms(lambda: _k1_twin(q, k, v, bias, kw, chunk), 1 if chunk else 2)
             # SDPA's memory-efficient kernel takes fp32 and an additive mask
             # (4.7 GB at the bundle's shape); its math fallback would need
@@ -880,18 +932,20 @@ def phase_f32_kernels(gen):
                                BIG_NEG)
             with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=h_kv != h), iters)
+                    q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=h_kv != h), iters,
+                    graph=graph)
             del mask
-            pairs = attn_pairs(valid, sq, q_off if causal else T)
-            n_bytes = 2 * q.numel() * 4 + 2 * int(valid.sum()) * h_kv * d * 4 + b * h * sq * 4
-            n_bytes += bias.numel() * 4
-            bnd, by = bound_ms(n_bytes, 4 * d * h * pairs, H100_F32_PEAK)
+            n_bytes, flops = k1_f32_work(case, q, bias, valid)
+            bnd, by, fma = k1_f32_bound(n_bytes, flops)
             k1[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
-                            bound_by=by)
-            log(f"K1 {name}: kernel {ms:.3f} ms ({100 * bnd / ms:.1f}% of the bound), plain "
-                f"{plain_ms:.3f} ms{f' (in {chunk}-query chunks)' if chunk else ''}, SDPA fp32 "
-                f"(memory-efficient) {lib_ms:.3f} ms, bound {bnd:.3f} ms ({by}; "
-                f"{4 * d * h * pairs / 1e12:.3f} TFLOP) [{card()}]")
+                            bound_by=by, fma_bound_ms=fma, max_abs_err=err)
+            log(f"K1 {name}: kernel {ms:.4f} ms{' (graph)' if graph else ''} "
+                f"({100 * bnd / ms:.1f}% of the bound, {100 * fma / ms:.1f}% of the FMA "
+                f"bound), plain {plain_ms:.3f} ms"
+                f"{f' (in {chunk}-query chunks)' if chunk else ''}, SDPA fp32 "
+                f"(memory-efficient) {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}; three TF32 "
+                f"products of {flops / 1e12:.3f} TFLOP at 495 TFLOP/s), FMA bound {fma:.4f} "
+                f"ms (67 TFLOP/s) [{card()}]")
         del q, k, v, out, lse, bias
         torch.cuda.empty_cache()
 
@@ -1149,12 +1203,13 @@ def phase_bwd_f32(gen):
                 f_plain = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 2)
                 n_bytes = 2 * q.numel() * 4 + 2 * int(valid.sum()) * h_kv * d * 4
                 n_bytes += b * h * sq * 4 + bias.numel() * 4
-                fb, fby = bound_ms(n_bytes, 4 * d * h * pairs, H100_F32_PEAK)
+                fb, fby, fma = k1_f32_bound(n_bytes, 4 * d * h * pairs)
                 k1_train = dict(ms=f_ms, plain_ms=f_plain, library_ms=fwd_lib_ms, bound_ms=fb,
-                                bound_by=fby, max_abs_err=f_err)
-                log(f"K1 {name}: kernel {f_ms:.3f} ms ({100 * fb / f_ms:.1f}% of the bound), "
-                    f"plain {f_plain:.3f} ms, SDPA fp32 (memory-efficient) {fwd_lib_ms:.3f} ms, "
-                    f"bound {fb:.3f} ms ({fby}) [{card()}]")
+                                bound_by=fby, fma_bound_ms=fma, max_abs_err=f_err)
+                log(f"K1 {name}: kernel {f_ms:.3f} ms ({100 * fb / f_ms:.1f}% of the bound, "
+                    f"{100 * fma / f_ms:.1f}% of the FMA bound), plain {f_plain:.3f} ms, SDPA "
+                    f"fp32 (memory-efficient) {fwd_lib_ms:.3f} ms, bound {fb:.3f} ms ({fby}; "
+                    f"three TF32 products at 495 TFLOP/s), FMA bound {fma:.3f} ms [{card()}]")
         del q, k, v, g, out, lse, delta, args, bias
         torch.cuda.empty_cache()
     return worst, timed, k1_train
@@ -2974,12 +3029,14 @@ def phase_speculative(model, fp32):
     pairs = int(valid.sum()) * SPEC_ROWS
     n_bytes = 2 * q.numel() * 4 + 2 * (n + SPEC_K + 1) * SPEC_ROWS * h * d * 4
     n_bytes += SPEC_ROWS * h * (SPEC_K + 1) * 4 + bias.numel() * 4
-    bnd, by = bound_ms(n_bytes, 4 * d * h * pairs, H100_F32_PEAK)
+    bnd, by, fma = k1_f32_bound(n_bytes, 4 * d * h * pairs)
     k1 = {f"f32_verify_b{SPEC_ROWS}_q{SPEC_K + 1}_T{T}": dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by, max_abs_err=err)}
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+        fma_bound_ms=fma, max_abs_err=err)}
     log(f"K1 f32 verify (b {SPEC_ROWS}, q {SPEC_K + 1} at {n} over {T} slots): kernel {ms:.4f} ms "
         f"(graph; {100 * bnd / ms:.1f}% of the bound), plain {plain_ms:.3f} ms, SDPA fp32 "
-        f"{lib_ms:.4f} ms (graph), bound {bnd:.4f} ms ({by}) [{card()}]")
+        f"{lib_ms:.4f} ms (graph), bound {bnd:.4f} ms ({by}), FMA bound {fma:.4f} ms "
+        f"[{card()}]")
     dmask = keys[None].expand(SPEC_ROWS, T) < n
     args = (q[:, :1].contiguous(), k, v, dmask, n)
     got = decode.flash_decode(*args)

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` (lwm_tpu/ops/pallas_flash.py:199-285,
 // reached through flash_attention_fwd_pallas :624-795) for fp32 operands, as
-// the needle evals run it (scripts/run_eval_needle.sh: --dtype=fp32). Same
-// contract as csrc/flash_fwd.cu:
+// the needle evals, fp32 training, speculative decoding and the CFG sampler
+// run it. Same contract as csrc/flash_fwd.cu:
 //   out = softmax(q·kᵀ·scale + bias, masked) · v, lse = m + log(l)
 // with an additive fp32 bias per key [bb, 1, skv] or per (row, key)
 // [bb, sq, skv], global-position causal masking (query i at q_offset + i,
@@ -14,38 +14,66 @@
 // stays fp32 (the twin rounds p to v.dtype, here fp32: no rounding).
 //
 // What bounds it on the card: 4·d flops per (query, key) pair and head on
-// O((sq + skv)·d) bytes. The fp32 suite holds this route at 1e-5, and TF32
-// (`wgmma`'s only fp32 input) keeps ~3 digits, so the products run as fp32
-// FMAs on the CUDA cores: 67 TFLOP/s on an H100 SXM, the bound here. The
-// design is the simple tiled one:
-// - One block of 256 threads per (b·h, 64-query tile), the heaviest (causally
-//   last) tiles launched first; 64-key tiles up to the block's causal
-//   frontier. q, k and v tiles are copied row by row into shared memory by
-//   16-byte cp.async (keys or rows past the end zero-filled), rows padded by
-//   4 floats so that the 16-byte reads below meet distinct banks.
-// - Thread (ty, tx) of a 16 × 16 grid owns query rows ty + 16i and keys
-//   tx + 16j (i, j < 4): s = q·kᵀ in registers from 16-byte reads along d.
-// - Online softmax per row in fp32 (`expf`, not the SFU's ex2.approx), the
-//   row's 16 threads reduced by shuffles; p goes to shared memory (over the
-//   k tile, which s no longer needs), and the same thread adds p·v for its
-//   rows and columns (tx + 16c)·4 .. + 3.
-// - Two blocks an SM (~101 KB of shared memory each at d 128), so one
-//   block's copies overlap the other's arithmetic.
+// O((sq + skv)·d) bytes, so the products, far above the ridge at every
+// shape but the verify's 8 queries. fp32 FMAs on the CUDA cores top out at
+// 67 TFLOP/s; the tensor cores take TF32 at 495, but TF32 alone keeps ~3
+// digits and the fp32 suite holds this route at 1e-5. So each product runs
+// as three TF32 products on the tensor cores (CUTLASS's "3xTF32"): every
+// fp32 operand x is split into hi = x rounded to TF32 (to nearest, ties
+// away: `cvt.rna.tf32.f32`'s rounding) and lo = x − hi rounded the same
+// way, and a·b is taken as hi·hi + lo·hi + hi·lo. The dropped lo·lo and
+// lo's rounding leave ~2^-22 of |a·b|, an fp32 product's error. hi is
+// rounded explicitly because the tensor cores read an fp32 bit pattern as
+// TF32 by dropping its low 13 bits: lo must be taken from the hi that the
+// product sees. Three products at the TF32 peak make 165 TFLOP/s at fp32
+// accuracy, the bound beside this route's times. The tensor cores' fp32
+// sums lose more than a rounding each (one accumulator across all keys put
+// the verify 1.7e-5 off; PERF.md §6), so s sums hi·hi apart from the small
+// cross terms, and each key tile's p·v starts from zero, cross terms first,
+// and is added to o by an FMA.
+// The design (FlashAttention-2's loop on `wgmma`, the keys split between
+// two warpgroups):
+// - One block per (b·h, 64-query tile), the heaviest (causally last) tiles
+//   launched first. q arrives by TMA and is split in place once: its hi and
+//   lo tiles stay in shared memory for every key tile.
+// - Two warpgroups take alternate 32-key tiles over the same 64 rows, each
+//   with its own slots, barriers and online softmax, and merge (m, l, o)
+//   through shared memory at the end. So neither waits on the other: one's
+//   softmax and split run while the other's products hold the tensor cores.
+// - `wgmma` TF32 reads B (and A, unless from registers) K-major from
+//   shared memory: for s = q·kᵀ that is k as it lies (keys are rows, d
+//   contiguous), for o += p·v it is vᵀ (d rows, keys contiguous). So each
+//   tile of k and v arrives raw by TMA (4-D tensor maps over the strides,
+//   seq-major and head-major kv alike; keys past the end arrive as zeros)
+//   into the warpgroup's slots; k is split there in place (lo beside it), v
+//   into vᵀ's hi and lo tiles. As soon as q·kᵀ is done, the warpgroup's
+//   first thread sends its next tile's TMA, whose copy then overlaps this
+//   tile's softmax and p·v and the other warpgroup's tile.
+// - s = q·kᵀ: m64n32k8 from shared memory, 3 × d/8 products. o += p·v:
+//   m64n(d)k8 with p's hi and lo from registers: the accumulator of s is
+//   the A fragment once p·v takes the keys of each group of 8 in the order
+//   (0, 2, 4, 6, 1, 3, 5, 7), and vᵀ's columns are written in that order.
+// - Online softmax per row in fp32, exponentials by the SFU's ex2.approx
+//   (it holds the fp32 tolerance as expf does, 12-14% faster: PERF.md §6),
+//   each row in one quad of threads; the causal and end-of-keys masks only
+//   on tiles that cross them; tiles past the block's frontier never load.
+// Tried (PERF.md §6, scripts/time_flash.py fwd32): `mma.sync` m16n8k8 with
+// the split in registers (no hi/lo tiles, no transposed v): 124 TFLOP/s
+// TF32 in its product loop against `wgmma`'s 475 (scripts/
+// time_tf32_products.py), slower than the fp32 FMA route; 128-query blocks
+// whose two warpgroups share each key tile (1.3× slower: they wait on each
+// other at every tile's split); the next tile's split overlapped with p·v
+// (no gain).
 
 #include "hopper.cuh"
 
 namespace {
 
-using lwm::cp_async16;
-using lwm::cp_async_commit;
-using lwm::cp_async_wait_all;
-using lwm::kBigNeg;
-using lwm::kMaskGuard;
-using lwm::smem_addr;
+using namespace lwm;
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;  // queries a block
-constexpr int kBK = 64;  // keys a tile
+constexpr int kThreads = 256;  // two warpgroups, over alternate key tiles
+constexpr int kBQ = 64;        // queries a block: the `wgmma` M
+constexpr int kBK = 32;        // keys a tile: one 128-byte row of vᵀ
 
 struct F32Params {
   const float* q;
@@ -59,198 +87,401 @@ struct F32Params {
   long long bias_sb, bias_sr;
   int causal, q_offset, kv_offset;
   float scale;
+  int q_dim[3], k_dim[3], v_dim[3];  // the tensor maps' dims of (seq, head, batch), 1..3
 };
 
+// Shared memory of one block, byte offsets from a 1024-aligned base (224 KB
+// at d 128). A tile of R rows × D floats is D / 32 column groups of R rows ×
+// 128 bytes, 128-byte swizzled (swz32); vᵀ is D rows of kBK keys. Each
+// warpgroup has its own k and v slots: TMA lands k in kK (split there in
+// place into hi, lo beside it) and v in kV (split into vᵀ's hi and lo)
 template <int D>
-struct F32Smem {
-  static constexpr int kRow = D + 4;  // floats a padded row
-  static constexpr int kTile = kBK * kRow;
-  static constexpr int kBytes = 3 * kTile * 4;  // q, k (then p), v
+struct Smem {
+  static constexpr int kQTile = kBQ * D * 4;
+  static constexpr int kTile = kBK * D * 4;  // a k, v or vᵀ tile
+  static constexpr int kQHi = 0;             // q arrives here, then is split in place
+  static constexpr int kQLo = kQTile;
+  static constexpr int kK = 2 * kQTile;      // + kWg * warpgroup
+  static constexpr int kKLo = kK + kTile;
+  static constexpr int kV = kKLo + kTile;
+  static constexpr int kVHi = kV + kTile;
+  static constexpr int kVLo = kVHi + kTile;
+  static constexpr int kWg = 5 * kTile;
+  static constexpr int kBar = kK + 2 * kWg;  // q's mbarrier, then each warpgroup's
+  static constexpr int kBytes = kBar + 24;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-// ROWS rows of D floats, row r at src + r * stride, into a padded tile;
-// rows at or past `valid` are zero-filled (no bytes read)
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src, long long stride,
-                                          int valid, int tid) {
-  constexpr int kChunks = D / 4;
-#pragma unroll
-  for (int j = 0; j < ROWS * kChunks / kThreads; ++j) {
-    const int i = tid + j * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool in = r < valid;
-    cp_async16(smem_addr(dst + r * F32Smem<D>::kRow + c), in ? src + r * stride + c : src,
-               in ? 16 : 0);
-  }
+// byte offset of float (r, c) in an R-row tile
+template <int R>
+__device__ __forceinline__ int swz32(int r, int c) {
+  return (c >> 5) * R * 128 + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) + (c & 3) * 4;
 }
 
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// x rounded to TF32: to nearest, ties away from zero, as cvt.rna.tf32.f32
+// rounds a finite x, on its bits (half a TF32 ulp added to the magnitude,
+// the low 13 bits cleared): 2 instructions where the cvt takes 5 with its
+// NaN test (PERF.md §6)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo + O(2^-22 |x|), both TF32 bit patterns
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split4(const float4 x, float4& hi, float4& lo) {
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                   __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                   __uint_as_float(l[3]));
+}
+
+// d[64 × 32] (+)= A (64 × 8) · B (8 × 32), TF32, both K-major in shared
+// memory; scale_d 0 ignores d's old value
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 × N] (+)= A (64 × 8: four TF32 registers a thread) · B (8 × N,
+// K-major in shared memory), N = 64 or 128
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " LWM_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : LWM_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " LWM_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : LWM_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_f32_kernel(const F32Params p) {
-  using L = F32Smem<D>;
-  constexpr int kR4 = L::kRow / 4;  // float4s a padded row
-  constexpr int kC = D / 64;        // float4 column groups a thread
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = smem + L::kTile;  // the k tile, then p [kBQ][kRow]
-  float* vs = smem + 2 * L::kTile;
-  const float4* qs4 = reinterpret_cast<const float4*>(qs);
-  const float4* ks4 = reinterpret_cast<const float4*>(ks);
-  const float4* vs4 = reinterpret_cast<const float4*>(vs);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map, const F32Params p) {
+  using L = Smem<D>;
+  constexpr int kGroups = D / 32;  // 128-byte column groups of a row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127, warp = wtid >> 5;
+  const int lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
   const int bi = blockIdx.x / p.h, qh = blockIdx.x % p.h;
   const int kvh = qh / (p.h / p.h_kv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // the heaviest tiles first
-  const int rows = min(kBQ, p.sq - q0);
-  // keys past the block's last query are never seen
-  int kv_end = p.skv;
-  if (p.causal) kv_end = max(0, min(p.skv, p.q_offset + q0 + rows - p.kv_offset));
-
-  const float* kg = p.k + bi * p.k_sb + kvh * p.k_sh;
-  const float* vg = p.v + bi * p.v_sb + kvh * p.v_sh;
-  const float* bias = p.bias ? p.bias + bi * p.bias_sb : nullptr;
-  copy_rows<D, kBQ>(qs, p.q + bi * p.q_sb + q0 * p.q_ss + qh * p.q_sh, p.q_ss, rows, tid);
-  cp_async_commit();
-
-  float m[4], l[4], acc[4][kC][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kBigNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  // key tiles that the block's rows see; warpgroup wg takes tiles wg, wg + 2, ..
+  int n_tiles = 0;
+  {
+    const int end = min(q0 + kBQ, p.sq);
+    const int kv_end = p.causal ? min(p.skv, p.q_offset + end - p.kv_offset) : p.skv;
+    n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
   }
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the last tile's p and v are consumed
-    const int keys = min(kBK, p.skv - k0);
-    copy_rows<D, kBK>(ks, kg + k0 * p.k_ss, p.k_ss, keys, tid);
-    copy_rows<D, kBK>(vs, vg + k0 * p.v_ss, p.v_ss, keys, tid);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-
-    float s[4][4];
+  auto coord = [](const int (&dim)[3], int c, int seq, int head, int batch) {
+    return dim[0] == c ? seq : dim[1] == c ? head : batch;
+  };
+  const uint32_t q_bar = base + L::kBar, kv_bar = base + L::kBar + 8 + 8 * wg;
+  const uint32_t ws = base + L::kK + wg * L::kWg;  // this warpgroup's slots
+  // tile j's raw k and v into this warpgroup's slots, from its first thread
+  auto load_kv = [&](int j) {
+    const int k0 = j * kBK;
+    mbar_expect_tx(kv_bar, 2 * L::kTile);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs4[(ty + 16 * i) * kR4 + d4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks4[(tx + 16 * j) * kR4 + d4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], b[j], s[i][j]);
+    for (int c = 0; c < kGroups; ++c) {
+      tma_load4(ws + c * kBK * 128, &k_map, kv_bar, 32 * c, coord(p.k_dim, 1, k0, kvh, bi),
+                coord(p.k_dim, 2, k0, kvh, bi), coord(p.k_dim, 3, k0, kvh, bi));
+      tma_load4(ws + (L::kV - L::kK) + c * kBK * 128, &v_map, kv_bar, 32 * c,
+                coord(p.v_dim, 1, k0, kvh, bi), coord(p.v_dim, 2, k0, kvh, bi),
+                coord(p.v_dim, 3, k0, kvh, bi));
     }
+  };
 
-    // scale, bias and masks; then the online softmax of each row (s
-    // becomes p in place)
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(base + L::kBar + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_bar, L::kQTile);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = kBigNeg;
+    for (int c = 0; c < kGroups; ++c)
+      tma_load4(base + L::kQHi + c * kBQ * 128, &q_map, q_bar, 32 * c,
+                coord(p.q_dim, 1, q0, qh, bi), coord(p.q_dim, 2, q0, qh, bi),
+                coord(p.q_dim, 3, q0, qh, bi));
+  }
+  __syncthreads();  // the barriers are initialised
+  if (wtid == 0 && wg < n_tiles) load_kv(wg);
+  mbar_wait(q_bar, 0);
+  // q → hi in place, lo beside it; the same swizzled offsets
+  float4* q_hi = reinterpret_cast<float4*>(smem + L::kQHi);
+  float4* q_lo = reinterpret_cast<float4*>(smem + L::kQLo);
+  for (int i = tid; i < kBQ * D / 4; i += kThreads) split4(q_hi[i], q_hi[i], q_lo[i]);
+  fence_async_smem();
+  __syncthreads();
+
+  const float* bias_g = p.bias ? p.bias + bi * p.bias_sb : nullptr;
+  const bool key_bias = bias_g && p.bias_sr == 0;
+  const int row = q0 + 16 * warp + g8;  // this thread's rows: row, row + 8
+  const int q_pos = p.q_offset + row;   // the global position of the first
+  const bool rows_in[2] = {row < p.sq, row + 8 < p.sq};
+  float m[2] = {kBigNeg, kBigNeg};  // running row max (natural scale)
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float o[D / 2];                   // the m64n(D) accumulator's layout (hopper.cuh)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float x = s[i][j] * p.scale;
-        ok[j] = kj < p.skv && qi < p.sq;
-        if (ok[j] && bias) x += __ldg(bias + qi * p.bias_sr + kj);
-        ok[j] = ok[j] && x > kMaskGuard &&
-                (!p.causal || p.kv_offset + kj <= p.q_offset + qi);
-        s[i][j] = x;
-        if (ok[j]) mx = fmaxf(mx, x);
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  uint8_t* wsm = smem + L::kK + wg * L::kWg;
+  float4* k_hi = reinterpret_cast<float4*>(wsm);  // the raw k tile, split in place
+  float4* k_lo = reinterpret_cast<float4*>(wsm + (L::kKLo - L::kK));
+  const uint8_t* raw_v = wsm + (L::kV - L::kK);
+  float* v_hi = reinterpret_cast<float*>(wsm + (L::kVHi - L::kK));
+  float* v_lo = reinterpret_cast<float*>(wsm + (L::kVLo - L::kK));
+  // v is read a row-chunk a thread (key `lane`, d 4c .. 4c + 3) and written to
+  // column v_pos of vᵀ's rows 4c .. 4c + 3: in each group of 8, keys (0, 2,
+  // 4, 6, 1, 3, 5, 7) take columns 0..7
+  const int v_pos = (lane & 24) | ((lane & 1) << 2) | ((lane >> 1) & 3);
+
+  for (int j = wg, u = 0; j < n_tiles; j += 2, ++u) {
+    const int k0 = j * kBK;
+    if (u > 0) bar_sync(1 + wg, 128);  // every warp's p·v of the last tile is done: vᵀ is free
+    mbar_wait(kv_bar, u & 1);          // tile j's raw k and v
+    for (int i = wtid; i < kBK * D / 4; i += 128) split4(k_hi[i], k_hi[i], k_lo[i]);
+    for (int c = warp; c < D / 4; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(raw_v + swz32<kBK>(lane, 4 * c));
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t hi, lo;
+        split_tf32(xs[e], hi, lo);
+        const int off = swz32<D>(4 * c + e, v_pos) >> 2;
+        v_hi[off] = __uint_as_float(hi);
+        v_lo[off] = __uint_as_float(lo);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);  // 1 while the row has no valid key
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
     }
-    __syncthreads();  // every thread is done reading the k tile: p goes there
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ks[(ty + 16 * i) * L::kRow + tx + 16 * j] = s[i][j];
-    __syncthreads();
+    fence_async_smem();
+    bar_sync(1 + wg, 128);  // this warpgroup's split tiles are whole
 
-#pragma unroll 2
-    for (int k4 = 0; k4 < kBK / 4; ++k4) {
-      float4 pa[4];
+    // s = q·kᵀ, 64 rows × 32 keys: hi·hi in sm, the cross terms in sc
+    float sm[16], sc[16];
+    fence_acc(sm);
+    fence_acc(sc);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = ks4[(ty + 16 * i) * kR4 + k4];
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t qo = (kk >> 2) * kBQ * 128 + (kk & 3) * 32;
+      const uint32_t ko = (kk >> 2) * kBK * 128 + (kk & 3) * 32;
+      const uint64_t q_h = smem_desc(base + L::kQHi + qo), k_h = smem_desc(ws + ko);
+      wgmma_tf32_n32(sc, smem_desc(base + L::kQLo + qo), k_h, kk > 0);
+      wgmma_tf32_n32(sc, q_h, smem_desc(ws + (L::kKLo - L::kK) + ko), 1);
+      wgmma_tf32_n32(sm, q_h, k_h, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sm);
+    fence_acc(sc);
+    bar_sync(1 + wg, 128);  // every warp's q·kᵀ is done: the k slot is free
+    if (wtid == 0 && j + 2 < n_tiles) load_kv(j + 2);
+
+    // logits: scale and bias; element i is row row + 8·((i / 2) % 2), key
+    // k0 + 8·(i / 4) + 2·t4 + i % 2. The causal and end-of-keys masks only on
+    // tiles that cross them; MASK_GUARD on every logit (the bias masks too).
+    // A per-key bias is read once a key
+    const bool edge = k0 + kBK > p.skv ||
+                      (p.causal && p.kv_offset + k0 + kBK - 1 > p.q_offset + q0);
+    float kb[8];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 vb[kC];
+    for (int c = 0; c < 8; ++c) {
+      const int key = k0 + 8 * (c >> 1) + 2 * t4 + (c & 1);
+      kb[c] = key_bias && key < p.skv ? __ldg(bias_g + key) : 0.f;
+    }
+    float mx[2] = {m[0], m[1]};
+    float* s = sm;  // the logits, in place
 #pragma unroll
-        for (int c = 0; c < kC; ++c) vb[c] = vs4[(4 * k4 + u) * kR4 + tx + 16 * c];
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i >> 1) & 1, key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      float x = (sm[i] + sc[i]) * p.scale + kb[((i >> 2) << 1) | (i & 1)];
+      const bool in = key < p.skv && rows_in[r];
+      if (bias_g && !key_bias && in) x += bias_g[(row + 8 * r) * p.bias_sr + key];
+      bool ok = x > kMaskGuard;
+      if (edge) ok = ok && in && (!p.causal || p.kv_offset + key <= q_pos + 8 * r);
+      s[i] = ok ? x : kBigNeg;
+      mx[r] = fmaxf(mx[r], s[i]);
+    }
+    float alpha[2], ml[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pu = u == 0 ? pa[i].x : u == 1 ? pa[i].y : u == 2 ? pa[i].z : pa[i].w;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2_approx((m[r] - mx[r]) * kLog2e);  // 1 while the row has no valid key
+      m[r] = mx[r];
+      ml[r] = m[r] * kLog2e;
+    }
+    // p = exp(x − m) by the SFU (ex2.approx holds the fp32 tolerance:
+    // PERF.md §6), 0 where masked; then its hi and lo A fragments: key
+    // chunk jj's (a0, a1, a2, a3) are elements 4jj + (0, 2, 1, 3)
+    float rs[2] = {0.f, 0.f};
+    uint32_t ph[4][4], pl[4][4];
 #pragma unroll
-          for (int c = 0; c < kC; ++c) {
-            acc[i][c][0] = fmaf(pu, vb[c].x, acc[i][c][0]);
-            acc[i][c][1] = fmaf(pu, vb[c].y, acc[i][c][1]);
-            acc[i][c][2] = fmaf(pu, vb[c].z, acc[i][c][2]);
-            acc[i][c][3] = fmaf(pu, vb[c].w, acc[i][c][3]);
-          }
-        }
-      }
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i >> 1) & 1;
+      const float pe = s[i] > kMaskGuard ? exp2_approx(fmaf(s[i], kLog2e, -ml[r])) : 0.f;
+      rs[r] += pe;
+      split_tf32(pe, ph[i >> 2][(i & 1) * 2 + r], pl[i >> 2][(i & 1) * 2 + r]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+
+    // this tile's p·v from zero (t), the cross terms first so that each
+    // hi·hi lands on a sum they have moved; then o = o·alpha + t
+    float t[D / 2];
+    fence_acc(t);
+    fence_frag(ph);
+    fence_frag(pl);
+    wgmma_fence();
+    const uint32_t vh = ws + (L::kVHi - L::kK), vl = ws + (L::kVLo - L::kK);
+#pragma unroll
+    for (int jj = 0; jj < kBK / 8; ++jj) {
+      wgmma_tf32_rs(t, pl[jj], smem_desc(vh + jj * 32), jj > 0);
+      wgmma_tf32_rs(t, ph[jj], smem_desc(vl + jj * 32), 1);
+    }
+#pragma unroll
+    for (int jj = 0; jj < kBK / 8; ++jj) wgmma_tf32_rs(t, ph[jj], smem_desc(vh + jj * 32), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(t);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], t[i]);
+  }
+
+  // the two warpgroups' rows merged by warpgroup 0: warpgroup 1 leaves its
+  // (m, l, o), thread by thread, in its own slots
+  __syncthreads();
+  float* xchg = reinterpret_cast<float*>(smem + L::kK + L::kWg);
+  if (wg == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      xchg[r * 128 + wtid] = m[r];
+      xchg[(2 + r) * 128 + wtid] = l[r];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) xchg[(4 + i) * 128 + wtid] = o[i];
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  float a1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = xchg[r * 128 + wtid], mm = fmaxf(m[r], m1);
+    const float a0 = exp2_approx((m[r] - mm) * kLog2e);
+    a1[r] = exp2_approx((m1 - mm) * kLog2e);
+    l[r] = l[r] * a0 + xchg[(2 + r) * 128 + wtid] * a1[r];
+    m[r] = mm;
+#pragma unroll
+    for (int i = 2 * r; i < D / 2; i += 4) {
+      o[i] *= a0;
+      o[i + 1] *= a0;
     }
   }
-  cp_async_wait_all();  // the q copy, when no key tile ran
-
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= p.sq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    float* o = p.out + (((long long)bi * p.sq + qi) * p.h + qh) * D;
+  for (int i = 0; i < D / 2; ++i) o[i] = fmaf(xchg[(4 + i) * 128 + wtid], a1[(i >> 1) & 1], o[i]);
 #pragma unroll
-    for (int c = 0; c < kC; ++c)
-      *reinterpret_cast<float4*>(o + (tx + 16 * c) * 4) =
-          make_float4(acc[i][c][0] * inv, acc[i][c][1] * inv, acc[i][c][2] * inv,
-                      acc[i][c][3] * inv);
-    if (tx == 0)
-      p.lse[((long long)bi * p.h + qh) * p.sq + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : kBigNeg;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!rows_in[r]) continue;
+    const int qi = row + 8 * r;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    float* o_g = p.out + (((long long)bi * p.sq + qi) * p.h + qh) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(o_g + 8 * n + 2 * t4) =
+          make_float2(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    if (t4 == 0)
+      p.lse[((long long)bi * p.h + qh) * p.sq + qi] = l[r] > 0.f ? m[r] + logf(l[r]) : kBigNeg;
   }
 }
 
+// A (seq, head, batch) fp32 tensor with element strides as a 4-D map of
+// [32 floats × `rows` of seq] boxes, 128-byte swizzled, the outer dims in
+// increasing stride; dim[] says where seq, head and batch went
+cudaError_t map4(CUtensorMap* map, int (&dim)[3], const void* ptr, int d, int seq, int heads,
+                 int b, long long ss, long long sh, long long sb, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  long long size[3] = {seq, heads, b}, stride[3] = {ss, sh, sb};
+  int box[3] = {rows, 1, 1}, order[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)  // sort the outer dims by stride
+    for (int k = i + 1; k < 3; ++k)
+      if (stride[order[k]] < stride[order[i]]) {
+        const int t = order[i];
+        order[i] = order[k];
+        order[k] = t;
+      }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d)}, strides[3];
+  cuuint32_t boxes[4] = {32}, steps[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = static_cast<cuuint64_t>(size[order[i]]);
+    strides[i] = static_cast<cuuint64_t>(stride[order[i]]) * 4;
+    boxes[i + 1] = box[order[i]];
+    dim[order[i]] = i + 1;
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
+                            strides, boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
-cudaError_t launch(const F32Params& p, int b, cudaStream_t stream) {
-  constexpr int smem = F32Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+cudaError_t launch(F32Params& p, int b, cudaStream_t stream) {
+  CUtensorMap q_map, k_map = {}, v_map = {};  // no keys: no kv tile is loaded
+  cudaError_t e = map4(&q_map, p.q_dim, p.q, D, p.sq, p.h, b, p.q_ss, p.q_sh, p.q_sb, kBQ);
+  if (e == cudaSuccess && p.skv > 0)
+    e = map4(&k_map, p.k_dim, p.k, D, p.skv, p.h_kv, b, p.k_ss, p.k_sh, p.k_sb, kBK);
+  if (e == cudaSuccess && p.skv > 0)
+    e = map4(&v_map, p.v_dim, p.v, D, p.skv, p.h_kv, b, p.v_ss, p.v_sh, p.v_sb, kBK);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = Smem<D>::kAlloc;
+  e = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  // blockIdx.x walks (b, head), blockIdx.y the query tiles, heaviest first
   const dim3 grid(b * p.h, (p.sq + kBQ - 1) / kBQ);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(q_map, k_map, v_map, p);
   return cudaGetLastError();
 }
 

@@ -8,10 +8,12 @@ reached through `flash_attention_bwd_pallas` (`:798`) with one kernel that
 writes dq, dk and dv. The CUDA kernels are `lwm_tpu_torch/csrc/flash_fwd.cu`
 and `csrc/flash_bwd.cu`; their source notes say what bounds them on the card
 (tensor-core flops at these widths) and how they are laid out. K1 has an
-fp32 route too, `csrc/flash_fwd_f32.cu` (fp32 FMAs on the CUDA cores: TF32
-would not hold the fp32 suite's 1e-5), taken for fp32 q, k and v and
+fp32 route too, `csrc/flash_fwd_f32.cu` (each product as three TF32
+products on the tensor cores, hi·hi + hi·lo + lo·hi of each operand's
+split, which holds the fp32 suite's 1e-5 where TF32 alone keeps ~3
+digits), taken for fp32 q, k and v and
 counted apart in `flash_attention_fwd.f32_launches`; so has the backward,
-`csrc/flash_bwd_f32.cu` (the same fp32 FMAs; the trainers' default
+`csrc/flash_bwd_f32.cu` (fp32 FMAs on the CUDA cores; the trainers' default
 `--dtype=fp32`), counted apart in `flash_attention_bwd.f32_launches`.
 
 Ported: causal or not, `q_offset`/`kv_offset`, per-key and full-tile

@@ -2,13 +2,17 @@
 """Time copies of a flash-attention kernel (or of K5 or K6) against each other.
 
     python3 scripts/time_flash.py fwd [SRC.cu ...]
+    python3 scripts/time_flash.py fwd32 [SRC.cu ...]
     python3 scripts/time_flash.py bwd [SRC.cu ...]
     python3 scripts/time_flash.py int8 [SRC.cu ...]
     python3 scripts/time_flash.py w8a8 [SRC.cu ...]
     python3 scripts/time_flash.py dec [ROOT[@SPLIT] ...]
 
-fwd, bwd, int8, w8a8: each SRC is a copy of `lwm_tpu_torch/csrc/flash_fwd.cu`
-(fwd: K1, C entry `lwm_flash_fwd`), `csrc/flash_bwd.cu` (bwd: the fused
+fwd, fwd32, bwd, int8, w8a8: each SRC is a copy of
+`lwm_tpu_torch/csrc/flash_fwd.cu` (fwd: K1, C entry `lwm_flash_fwd`),
+`csrc/flash_fwd_f32.cu` (fwd32: K1's fp32 route, `lwm_flash_fwd_f32`; the
+route before its three-product redesign has the same entry),
+`csrc/flash_bwd.cu` (bwd: the fused
 backward, `lwm_flash_bwd`), `csrc/int8_matmul.cu` (int8: K5,
 `lwm_int8_matmul`) or `csrc/w8a8_matmul.cu` (w8a8: K6, `lwm_w8a8_matmul`), a
 variant under test or another commit's kernel with the same entry; default:
@@ -23,6 +27,11 @@ N..1, with CUDA events over calls of the wrapper. Shapes:
 - fwd: chip_smoke.py's two timed K1 cases, a 2048-token admission over the
   4096-slot cache and the train step's attention (b 2, seq 4096, 32 heads,
   d 128, causal, 300 right-padded keys in row 1); BF16_TOL and LSE_TOL.
+- fwd32: chip_smoke.py's timed K1_F32_CASES (the needle batch, the 32k
+  bundle's prefill, the CFG prefills, the speculative verify, the last
+  timed from CUDA-graph replays) and the fp32 train step's attention
+  (BWD_F32_CASES[0]); out and lse within F32_REL_TOL of the twin's largest
+  |value|, the bound of three TF32 products (chip_smoke.k1_f32_bound).
 - bwd: the train step's attention as above (dq_accum zeroing and the bf16
   rounding included in each call); BWD_REL_TOL and BWD_COS_MIN.
 - int8: every chip_smoke.QUANT_SHAPES case that takes K5's decode GEMV
@@ -72,15 +81,18 @@ import chip_smoke as smoke  # noqa: E402
 import lwm_tpu_torch.ops as ops_pkg  # noqa: E402
 from lwm_tpu_torch.ops import _build, decode, flash, quant  # noqa: E402
 
-ENTRY = {"fwd": "lwm_flash_fwd", "bwd": "lwm_flash_bwd", "int8": "lwm_int8_matmul",
-         "w8a8": "lwm_w8a8_matmul", "dec": None}
-SOURCE = {"fwd": "flash_fwd.cu", "bwd": "flash_bwd.cu", "int8": "int8_matmul.cu",
-          "w8a8": "w8a8_matmul.cu"}
+ENTRY = {"fwd": "lwm_flash_fwd", "fwd32": "lwm_flash_fwd_f32", "bwd": "lwm_flash_bwd",
+         "int8": "lwm_int8_matmul", "w8a8": "lwm_w8a8_matmul", "dec": None}
+SOURCE = {"fwd": "flash_fwd.cu", "fwd32": "flash_fwd_f32.cu", "bwd": "flash_bwd.cu",
+          "int8": "int8_matmul.cu", "w8a8": "w8a8_matmul.cu"}
 
 
 def iters(name):
-    """Launches per timing: 50 for a decode GEMV (10-50 us), else 10."""
-    return 50 if name.startswith("decode") else 10
+    """Launches per timing: 50 for a decode GEMV or the verify (10-200 us),
+    3 for the 32k bundle's prefill (~0.3 s), else 10."""
+    if name.startswith("decode") or name == smoke.K1_F32_VERIFY:
+        return 50
+    return 3 if name == smoke.K1_F32_BUNDLE else 10
 
 
 def build(srcs, entry):
@@ -135,6 +147,49 @@ def fwd_shapes(gen):
         call = (lambda q=q, k=k, v=v, bias=bias, kw=kw:
                 flash.flash_attention_fwd(q, k, v, bias, **kw))
         shapes[name] = (check, call, smoke.k1_bound(q, k, bias, valid, kw)[0])
+    return shapes
+
+
+def _f32_check(ref, ref_lse):
+    """check(got) of the fp32 route: out and lse (rows with a valid key)
+    over the twin's largest |value|, held to F32_REL_TOL."""
+    live = ref_lse > smoke.BIG_NEG / 2
+
+    def check(got):
+        rel = ((got[0] - ref).abs().max() / ref.abs().max()).item()
+        lse_rel = ((got[1][live] - ref_lse[live]).abs().max()
+                   / ref_lse[live].abs().max()).item()
+        ok = rel <= smoke.F32_REL_TOL and lse_rel <= smoke.F32_REL_TOL
+        return (f"max|out-plain|/max|plain| {rel:.3e} max|lse-plain|/max|plain| {lse_rel:.3e} "
+                f"{'ok' if ok else 'FAILS'}")
+
+    return check
+
+
+def fwd32_shapes(gen):
+    """{name: (check, call, bound ms)} at K1's timed fp32 cases and the fp32
+    train step's attention."""
+    shapes = {}
+    for case in smoke.K1_F32_CASES:
+        if case[0] not in smoke.K1_F32_TIMED:
+            continue
+        q, k, v, bias, kw, valid = smoke.k1_f32_inputs(case, gen)
+        chunk = smoke.F32_TWIN_CHUNK if case[0] == smoke.K1_F32_BUNDLE else None
+        call = (lambda q=q, k=k, v=v, bias=bias, kw=kw:
+                flash.flash_attention_fwd(q, k, v, bias, **kw))
+        bound = smoke.k1_f32_bound(*smoke.k1_f32_work(case, q, bias, valid))[0]
+        shapes[case[0]] = (_f32_check(*smoke._k1_twin(q, k, v, bias, kw, chunk)), call, bound)
+    name, b, h_kv, d, sq, skv, causal, q_off, kv_off, kind = smoke.BWD_F32_CASES[0]
+    f32, h = torch.float32, 32
+    q = smoke._randn((b, sq, h, d), gen, f32)
+    k, v = smoke._randn((b, skv, h_kv, d), gen, f32), smoke._randn((b, skv, h_kv, d), gen, f32)
+    bias, valid = smoke._bwd_f32_bias(kind, b, sq, skv, gen)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    n_bytes = 2 * q.numel() * 4 + 2 * int(valid.sum()) * h_kv * d * 4 + b * h * sq * 4
+    pairs = smoke.attn_pairs(valid, sq, q_off)
+    bound = smoke.k1_f32_bound(n_bytes + bias.numel() * 4, 4 * d * h * pairs)[0]
+    shapes[name] = (_f32_check(*flash.flash_attention_fwd_plain(q, k, v, bias, **kw)),
+                    lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), bound)
     return shapes
 
 
@@ -349,7 +404,7 @@ def main_dec(specs):
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in ENTRY:
         raise SystemExit(
-            "usage: time_flash.py fwd|bwd|int8|w8a8 [SRC.cu ...] | dec [ROOT[@SPLIT] ...]")
+            "usage: time_flash.py fwd|fwd32|bwd|int8|w8a8 [SRC.cu ...] | dec [ROOT[@SPLIT] ...]")
     kind, srcs = sys.argv[1], sys.argv[2:]
     if kind == "dec":
         return main_dec(srcs)
@@ -357,7 +412,7 @@ def main():
     smoke.phase_env()
     libs = build(srcs, ENTRY[kind])
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    shapes = {"fwd": fwd_shapes, "bwd": bwd_shapes, "int8": int8_shapes,
+    shapes = {"fwd": fwd_shapes, "fwd32": fwd32_shapes, "bwd": bwd_shapes, "int8": int8_shapes,
               "w8a8": w8a8_shapes}[kind](gen)
 
     def run(lib, call):
@@ -388,8 +443,9 @@ def main():
             continue
         times = {i: [] for i in built}
         for i in built + built[::-1]:
+            graph = kind in ("int8", "w8a8") or name == smoke.K1_F32_VERIFY
             times[i].append(smoke.time_ms(lambda: run(libs[i][0], call), iters(name),
-                                          graph=kind in ("int8", "w8a8")))
+                                          graph=graph))
         for i in built:
             ms = times[i]
             print(f"{name} {srcs[i]}: " + ", ".join(f"{t:.4f}" for t in ms) + f" ms "

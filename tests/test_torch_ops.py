@@ -13,19 +13,22 @@ gives 0 — that case is checked against the contract separately.
 """
 
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from lwm_tpu.ops import reference_attention as jax_reference_attention
 from lwm_tpu.ops.pallas_decode import flash_decode_pallas
 from lwm_tpu.ops.pallas_flash import flash_attention_bwd_pallas, flash_attention_fwd_pallas
 from lwm_tpu.ops.ring import flash_attention as jax_flash_attention
 from lwm_tpu_torch.ops import decode, flash, ring
-from lwm_tpu_torch.ops.reference import BIG_NEG, reference_attention
+from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD, reference_attention
 
 FP32_TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -574,6 +577,127 @@ def test_k1_fp32_route_over_a_cache_matches_pallas_kernel():
     assert out.dtype == torch.float32 and flash.flash_attention_fwd.f32_launches == n
     np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **FP32_TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FP32_TOL)
+
+
+# K1's fp32 route runs both products on the tensor cores as three TF32
+# products (csrc/flash_fwd_f32.cu): x = hi + lo with hi = tf32(x) rounded to
+# nearest (ties away, `cvt.rna.tf32.f32`) and lo = tf32(x - hi), and a·b as
+# lo·hi + hi·lo + hi·hi summed in fp32. Emulated here in plain PyTorch: the
+# TF32 rounding on the int32 view, and the products as fp32 matmuls of
+# TF32 values (exact products, fp32 sums, as in the tensor cores)
+
+
+def _tf32_rna(x):
+    """fp32 → the nearest TF32 value (10 stored mantissa bits), ties away
+    from zero: + half a TF32 ulp on the magnitude bits, then the low 13
+    bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's three TF32 products, the small terms first."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@given(st.floats(width=32, allow_nan=False, allow_infinity=False).filter(
+    lambda x: x == 0 or 2.0 ** -100 <= abs(x) <= 2.0 ** 100))
+@settings(max_examples=300, deadline=None)
+def test_tf32_split_keeps_fp32_accuracy(x):
+    """hi and lo are TF32 bit patterns (low 13 bits zero) and hi + lo gives
+    x back within 2^-21 of |x| (normal x: lo's rounding costs 2^-22)."""
+    t = torch.tensor([x, -x], dtype=torch.float32)
+    hi, lo = _split_tf32(t)
+    for part in (hi, lo):
+        assert not torch.any(part.view(torch.int32) & 0x1FFF)
+    back = hi.double() + lo.double()
+    assert torch.all((back - t.double()).abs() <= 2.0 ** -21 * t.double().abs())
+    # ties go away from zero, as cvt.rna does
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)], dtype=torch.float32)
+    assert _tf32_rna(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+
+
+def _attention_3xtf32(q, k, v, bias, *, q_offset, block=64):
+    """K1's fp32 route in plain PyTorch: causal, head-major kv, GQA, a
+    per-key or full-tile bias; 64-key tiles with the kernel's online
+    softmax (fp32 expf, MASK_GUARD per logit), both products as three TF32
+    products. Returns (out [b, sq, h, d], lse [b, h, sq])."""
+    b, sq, h, d = q.shape
+    h_kv, skv = k.shape[1], k.shape[2]
+    qg = q.permute(0, 2, 1, 3).reshape(b, h_kv, h // h_kv, sq, d)
+    m = torch.full((b, h_kv, h // h_kv, sq, 1), BIG_NEG)
+    l, o = torch.zeros_like(m), torch.zeros_like(qg)
+    qpos = q_offset + torch.arange(sq)[:, None]
+    for k0 in range(0, skv, block):
+        kt, vt = k[:, :, None, k0:k0 + block], v[:, :, None, k0:k0 + block]
+        x = _mm_3xtf32(qg, kt.transpose(-1, -2)) * d ** -0.5
+        x = x + bias[:, :, None, :, k0:k0 + block]
+        ok = (x > MASK_GUARD) & (k0 + torch.arange(kt.shape[3])[None] <= qpos)
+        x = torch.where(ok, x, BIG_NEG)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(x - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _mm_3xtf32(p, vt)
+        m = m_new
+    out = torch.where(l > 0, o / torch.where(l > 0, l, 1.0), 0.0)
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), BIG_NEG)
+    return (out.reshape(b, h, sq, d).permute(0, 2, 1, 3),
+            lse.reshape(b, h, sq))
+
+
+# name: (seed, b, h, h_kv, sq, T, d, q_offset, first real key of each row,
+# bias kind). The arrangement of the fp32 route over a cache above, and a
+# d-128 prefill over 1024 slots (a ragged 72-row tile, the last row seeing
+# every key), with a full-tile bias of random values and 30% holes
+FP32_SPLIT_CASES = {
+    "cache_d64_T256": (21, 2, 8, 2, 40, 256, 64, 24, (0, 9), "key"),
+    "prefill_d128_T1024": (22, 1, 4, 2, 72, 1024, 128, 952, (0,), "full"),
+}
+
+
+@functools.cache
+def _fp32_split_case(name):
+    """(inputs, the JAX kernel's out and lse) of a FP32_SPLIT_CASES case,
+    the Pallas kernel run once a case in interpret mode."""
+    seed, b, h, h_kv, sq, T, d, q_off, firsts, kind = FP32_SPLIT_CASES[name]
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d), np.float32)
+    k = rng.standard_normal((b, h_kv, T, d), np.float32)
+    v = rng.standard_normal((b, h_kv, T, d), np.float32)
+    valid = (np.arange(T)[None] < q_off + sq) & (
+        np.arange(T)[None] >= np.asarray(firsts)[:, None])
+    if kind == "key":
+        bias = np.where(valid, 0.0, BIG_NEG).astype(np.float32)[:, None, None, :]
+    else:
+        holes = rng.random((b, sq, T)) < 0.3
+        holes[:, :, firsts[0]] = False
+        bias = np.where(valid[:, None] & ~holes, rng.standard_normal((b, sq, T)), BIG_NEG)
+        bias = bias.astype(np.float32)[:, None]
+    want = flash_attention_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), causal=True,
+        q_offset=q_off, block_k=128, interpret=True, kv_head_major=True)
+    return (q, k, v, bias, q_off), tuple(np.asarray(w) for w in want)
+
+
+@pytest.mark.parametrize("name", sorted(FP32_SPLIT_CASES))
+def test_k1_fp32_three_tf32_products_match_pallas_kernel(name):
+    """The kernel's arithmetic, both products as three TF32 products, holds
+    the JAX kernel at the fp32 tolerance; TF32 alone (hi·hi) does not."""
+    (q, k, v, bias, q_off), (want_out, want_lse) = _fp32_split_case(name)
+    out, lse = _attention_3xtf32(_t(q), _t(k), _t(v), _t(bias), q_offset=q_off)
+    np.testing.assert_allclose(out.numpy(), want_out, **FP32_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, **FP32_TOL)
+    one = _attention_3xtf32
+    with mock.patch(f"{__name__}._mm_3xtf32", lambda a, b: _tf32_rna(a) @ _tf32_rna(b)):
+        out1, _ = one(_t(q), _t(k), _t(v), _t(bias), q_offset=q_off)
+    assert np.abs(out1.numpy() - want_out).max() > 10 * FP32_TOL["atol"]
 
 
 @pytest.mark.parametrize("h,h_kv", [(4, 4), (8, 2)])
