@@ -38,11 +38,13 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      and a full-tile bias, causal or not; d 64 at 8 kv heads). Then its
      fp32 route (csrc/flash_bwd_f32.cu, the trainers' default fp32) within
      1e-5 of the twin's largest dq, dk and dv (phase_bwd_f32): the train
-     shape, one row of 8192 (the 8K stage of run_context_extension.sh),
-     GQA, ragged sq/skv with offsets causal and not over a full-tile bias,
-     d 64, rows with no valid key (dq 0); both long shapes timed beside the
-     fp32 bound, SDPA's fp32 backward and the twin, K1's fp32 route at the
-     train shape too.
+     shape, one row of 8192 and one of 32768 at 6 heads (the 8K and 32K
+     stages of run_context_extension.sh; the 32K one held to the twin's
+     arithmetic in float64 on 2 heads), GQA, ragged sq/skv with offsets
+     causal and not over a full-tile bias, d 64, rows with no valid key (dq
+     0); the three long shapes timed beside the bound of three TF32
+     products a product and the fp32 FMA bound, SDPA's fp32 backward and
+     the twin, K1's fp32 route at the train shape too.
   6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
      serving shapes: decode (8 slots; also the 1b preset's wq and w2) and
      admission at each bucket (m 256/
@@ -152,7 +154,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      loss, and K1 and the backward launched layers x steps times on that
      path. The same at fp32 compute (phase_train_f32, the trainers'
      default --dtype): K1's and the backward's fp32 routes launched
-     exactly layers x steps. Then scripts/run_spec_natural.sh's path
+     exactly layers x steps; and 4 steps of run_context_extension.sh's 32K
+     stage (phase_train_ctx32k: hidden 768, 6 layers, 1 x 32768, fp32,
+     remat nothing_saveable; exact fp32 counts), its step time beside the
+     backward's share. Then scripts/run_spec_natural.sh's path
      (phase_spec_cli): the training CLI at fp32 with its target and draft
      configs, BPE fixture tokenizer and `[question],answer,[postpad]`
      fields (the target's copy run, a second run warm-started from it with
@@ -236,7 +241,7 @@ from lwm_tpu_torch.models.vision_llama import (
 from lwm_tpu_torch.models.vqgan import VQGAN, VQGANConfig, VQGANModel, full_fp32
 from lwm_tpu_torch.ops import _build, decode, flash, quant
 from lwm_tpu_torch.ops import prefix as prefix_ops
-from lwm_tpu_torch.ops.reference import BIG_NEG
+from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD
 from lwm_tpu_torch.serve import InflightServer, _lookup_proposal, build_prefix_cache, prefill_logits
 from lwm_tpu_torch.utils.convert import flax_params_tree, save_vqgan_pickle
 from lwm_tpu_torch.utils.image import read_png
@@ -824,12 +829,12 @@ def _f32_hold(name, got, want):
     return err
 
 
-def k1_f32_bound(n_bytes, pair_flops):
-    """K1's fp32 route's bounds at a case: the bytes over the HBM rate
-    against three TF32 products of `pair_flops` at H100_TF32_PEAK (the
-    route's design), and against `pair_flops` at H100_F32_PEAK (the fp32
-    FMA bound of the rows before it). Returns (bound_ms, bound_by,
-    fma_bound_ms)."""
+def tf32_bounds(n_bytes, pair_flops):
+    """An fp32 route's bounds at a case (K1's and the backward's): the bytes
+    over the HBM rate against three TF32 products of `pair_flops` at
+    H100_TF32_PEAK (the routes' design), and against `pair_flops` at
+    H100_F32_PEAK (the fp32 FMA bound of the rows before it). Returns
+    (bound_ms, bound_by, fma_bound_ms)."""
     bnd, by = bound_ms(n_bytes, 3 * pair_flops, H100_TF32_PEAK)
     return bnd, by, bound_ms(n_bytes, pair_flops, H100_F32_PEAK)[0]
 
@@ -865,7 +870,7 @@ def k1_f32_work(case, q, bias, valid):
     """(bytes, flops) of a timed K1_F32_CASES case: q read and out written,
     the keys the rows see read once from k and v, lse written, the bias
     read; 4·d flops a (query, key) pair and head, each product once
-    (k1_f32_bound counts the route's three)."""
+    (tf32_bounds counts the route's three)."""
     name, b, h_kv, d, sq, T, causal, q_off, head_major, kind = case
     h = q.shape[2]
     if kind == "verify":
@@ -936,7 +941,7 @@ def phase_f32_kernels(gen):
                     graph=graph)
             del mask
             n_bytes, flops = k1_f32_work(case, q, bias, valid)
-            bnd, by, fma = k1_f32_bound(n_bytes, flops)
+            bnd, by, fma = tf32_bounds(n_bytes, flops)
             k1[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                             bound_by=by, fma_bound_ms=fma, max_abs_err=err)
             log(f"K1 {name}: kernel {ms:.4f} ms{' (graph)' if graph else ''} "
@@ -1083,22 +1088,36 @@ def phase_bwd(gen):
 
 # The fused backward's fp32 route (csrc/flash_bwd_f32.cu), which the
 # trainers run at their default --dtype=fp32: held to the plain twin at fp32,
-# each of dq, dk and dv within F32_REL_TOL of its largest |value| (fp32 sums
-# in another order, dq's across key tiles by atomics; no TF32 on either
-# side). Cases: name, b, h_kv, d, sq, skv, causal, q_offset, kv_offset, bias
-# kind ("per_key": the model's, 300 right-padded keys in row 1; "zero": the
+# each of dq, dk and dv within F32_REL_TOL of its largest |value| (every
+# product as three TF32 products on the tensor cores and fp32 sums in
+# another order, dq's across key tiles by atomics; the twin takes no TF32).
+# Cases: name, b, h_kv, d, sq, skv, causal, q_offset, kv_offset, bias kind
+# ("per_key": the model's, 300 right-padded keys in row 1; "zero": the
 # all-ones mask's; "full": a full-tile bias with 20% holes; "late_keys":
 # the same with holes at key 0 too, and the keys start at kv_offset 64, so
-# the first 64 rows causally see none and their dq is 0). The first is the
-# train step's attention (7b width, 2 x 4096) and the second the 8K stage
-# of scripts/run_context_extension.sh (one row of 8192): both timed beside
-# the bound at H100_F32_PEAK, SDPA's fp32 backward (memory-efficient, the
-# same float mask) and the twin. K1's fp32 route is held to its twin and
-# timed at the first too (the forward of the same step)
+# the first 64 rows causally see none and their dq is 0), at 32 query
+# heads unless BWD_F32_HEADS says otherwise. The first is the train step's
+# attention (7b width, 2 x 4096); the second and third are the 8K and 32K
+# stages of scripts/run_context_extension.sh (one row of 8192 at the 7b's 32
+# heads; one row of 32768 at its BASE_CFG's 6 heads, on BWD_F32_TWIN_HEADS of
+# them: the twin's fp32 [h, S, S] intermediates do not fit at 6). At 32768
+# the fp32 twin's own sums over the queries sit 1.1e-5 (dk) and 1.3e-5 (dv)
+# of their largest value from float64 (an H100 80GB HBM3 at 700 W, PERF.md),
+# so that case is held to the twin's arithmetic in float64 (_bwd_f64), the
+# fp32 twin's distance logged beside. These three are timed beside the
+# bound of the route's design (three TF32 products a product at
+# H100_TF32_PEAK; the fp32 FMA bound beside as fma_bound_ms), SDPA's fp32
+# backward (memory-efficient, the same float mask) and the twin. K1's fp32
+# route is held to its twin and timed at the first too (the forward of the
+# same step)
 BWD_F32_REPORT, BWD_F32_8K = "f32_b2_S4096_h32_causal_padkeys", "f32_b1_S8192_h32_causal"
+BWD_F32_32K = "f32_b1_S32768_h6_causal"
+BWD_F32_TIMED = (BWD_F32_REPORT, BWD_F32_8K, BWD_F32_32K)
+BWD_F32_HEADS, BWD_F32_TWIN_HEADS = {BWD_F32_32K: 6}, 2
 BWD_F32_CASES = [
     (BWD_F32_REPORT, 2, 32, 128, 4096, 4096, True, 0, 0, "per_key"),
     (BWD_F32_8K, 1, 32, 128, 8192, 8192, True, 0, 0, "zero"),
+    (BWD_F32_32K, 1, 6, 128, 32768, 32768, True, 0, 0, "zero"),
     ("f32_gqa_hkv8_S4096", 2, 8, 128, 4096, 4096, True, 0, 0, "per_key"),
     ("f32_ragged_sq1000_skv1100_causal_offsets_fulltile", 2, 8, 128, 1000, 1100, True, 700,
      300, "full"),
@@ -1107,6 +1126,42 @@ BWD_F32_CASES = [
     ("f32_d64_hkv8_S4096", 2, 8, 64, 4096, 4096, True, 0, 0, "per_key"),
     ("f32_rows_without_keys_sq200_skv300", 2, 32, 128, 200, 300, True, 0, 64, "late_keys"),
 ]
+
+
+def _bwd_f64(q, k, v, g, lse, delta, bias, *, causal, q_offset, kv_offset, chunk=2048):
+    """The twin's arithmetic in float64, `chunk` queries at a time: (dq, dk,
+    dv) of MHA inputs with a per-key bias (inputs as the twin's)."""
+    b, sq, h, d = q.shape
+    if k.shape[2] != h or bias.shape[2] != 1:
+        raise ValueError("_bwd_f64 takes MHA inputs and a per-key bias")
+    f64, scale = torch.float64, d ** -0.5
+    dq, dk, dv = (torch.zeros(x.shape, dtype=f64, device=x.device) for x in (q, k, v))
+    keys = kv_offset + torch.arange(k.shape[1], device=q.device)
+    for bi, hh in itertools.product(range(b), range(h)):
+        kk, vv = k[bi, :, hh].to(f64), v[bi, :, hh].to(f64)
+        kb = bias[bi if bias.shape[0] > 1 else 0, 0, 0].to(f64)
+        for c0 in range(0, sq, chunk):
+            qq, gg = q[bi, c0:c0 + chunk, hh].to(f64), g[bi, c0:c0 + chunk, hh].to(f64)
+            x = qq @ kk.T * scale + kb
+            if causal:
+                pos = q_offset + c0 + torch.arange(qq.shape[0], device=q.device)
+                x = x.masked_fill(keys[None] > pos[:, None], BIG_NEG)
+            p = torch.where(x > MASK_GUARD, torch.exp(x - lse[bi, hh, c0:c0 + chunk, None]), 0.0)
+            ds = p * (gg @ vv.T - delta[bi, hh, c0:c0 + chunk, None]) * scale
+            dq[bi, c0:c0 + chunk, hh] = ds @ kk
+            dk[bi, :, hh] += ds.T @ qq
+            dv[bi, :, hh] += p.T @ gg
+    return dq, dk, dv
+
+
+def bwd_f32_work(q, k, bias, pairs):
+    """(bytes, flops) of the fp32 backward at a case: q, g, k, v read, dq,
+    dk, dv written, dq's buffer zeroed, all fp32; lse, delta and the bias
+    read; five products of 2·d flops a (query, key) pair and head, each once
+    (tf32_bounds counts the route's three)."""
+    b, sq, h, d = q.shape
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * 4 * 2 + q.numel() * 4
+    return n_bytes + 2 * b * h * sq * 4 + bias.numel() * 4, 10 * d * h * pairs
 
 
 def _bwd_f32_bias(kind, b, sq, skv, gen):
@@ -1127,12 +1182,14 @@ def phase_bwd_f32(gen):
     """The backward's fp32 route at BWD_F32_CASES against its twin, and K1's
     fp32 route held and timed at the train shape. Returns (max_abs_err, {case:
     times} of the backward, times of K1 at the train shape), times as
-    dict(ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    dict(ms, plain_ms, library_ms, bound_ms, bound_by, fma_bound_ms), the
+    32K case's also with plain_heads."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    f32, h = torch.float32, 32
+    f32 = torch.float32
     worst, timed, k1_train = 0.0, {}, None
     for name, b, h_kv, d, sq, skv, causal, q_off, kv_off, kind in BWD_F32_CASES:
+        h = BWD_F32_HEADS.get(name, 32)
         q, g = _randn((b, sq, h, d), gen, f32), _randn((b, sq, h, d), gen, f32)
         k, v = _randn((b, skv, h_kv, d), gen, f32), _randn((b, skv, h_kv, d), gen, f32)
         bias, valid = _bwd_f32_bias(kind, b, sq, skv, gen)
@@ -1145,7 +1202,24 @@ def phase_bwd_f32(gen):
         torch.cuda.synchronize()
         if flash.flash_attention_bwd.f32_launches != n0 + 1:
             raise AssertionError(f"flash_bwd {name}: the fp32 route was not launched")
-        want = flash.flash_attention_bwd_plain(*args, **kw)
+        # the twin over all heads, or (MHA, each head its own) over the
+        # first BWD_F32_TWIN_HEADS
+        twin_args, twin_h = args, h
+        if name in BWD_F32_HEADS:
+            twin_h = BWD_F32_TWIN_HEADS
+            twin_args = (*(x[:, :, :twin_h].contiguous() for x in (q, k, v, g)),
+                         *(x[:, :twin_h].contiguous() for x in (lse, delta)), bias)
+            got = tuple(x[:, :, :twin_h] for x in got)
+        want = flash.flash_attention_bwd_plain(*twin_args, **kw)
+        if name in BWD_F32_HEADS:   # held to float64 (above), the fp32 twin beside
+            ref = _bwd_f64(*twin_args, **kw)
+            for oname, a, w, r in zip(("dq", "dk", "dv"), got, want, ref):
+                twin_rel = ((w - r).abs().max() / r.abs().max()).item()
+                route_rel = ((a - w).abs().max() / w.abs().max()).item()
+                log(f"flash_bwd {name} {oname}: the fp32 twin's max|Δ| from float64 over "
+                    f"max|float64| {twin_rel:.3e}, the route's from the fp32 twin {route_rel:.3e}")
+            want = ref
+            del ref
         for oname, a, r in zip(("dq", "dk", "dv"), got, want):
             if a.dtype != f32 or a.shape != r.shape:
                 raise AssertionError(f"flash_bwd {name} {oname}: {a.dtype} {tuple(a.shape)}")
@@ -1158,7 +1232,7 @@ def phase_bwd_f32(gen):
             log(f"flash_bwd {name}: the {kv_off - q_off} rows with no valid key have dq 0")
         del got, want
         torch.cuda.empty_cache()
-        if name in (BWD_F32_REPORT, BWD_F32_8K):
+        if name in BWD_F32_TIMED:
             # yardsticks: SDPA's memory-efficient kernel (fp32, additive
             # mask; the math fallback is not allowed), forward and backward
             pos = torch.arange(sq, device="cuda")
@@ -1176,21 +1250,21 @@ def phase_bwd_f32(gen):
                         enable_gqa=h_kv != h), 5)
             del qt, kt, vt, o, mask
             ms = time_ms(lambda: flash.flash_attention_bwd(*args, **kw), 5)
-            plain_ms = time_ms(lambda: flash.flash_attention_bwd_plain(*args, **kw), 2)
+            plain_ms = time_ms(lambda: flash.flash_attention_bwd_plain(*twin_args, **kw), 2)
             torch.cuda.empty_cache()
             pairs = attn_pairs(valid, sq, q_off)
-            # q, g, k, v read, dq, dk, dv written, dq's buffer zeroed, all
-            # fp32; lse, delta and the bias read. Five products of 2·d
-            # flops a (query, key) pair and head
-            n_bytes = (2 * q.numel() + 2 * k.numel()) * 4 * 2 + q.numel() * 4
-            n_bytes += 2 * b * h * sq * 4 + bias.numel() * 4
-            bnd, by = bound_ms(n_bytes, 10 * d * h * pairs, H100_F32_PEAK)
+            n_bytes, flops = bwd_f32_work(q, k, bias, pairs)
+            bnd, by, fma = tf32_bounds(n_bytes, flops)
             timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
-                               bound_by=by)
-            log(f"flash_bwd {name}: kernel {ms:.3f} ms ({100 * bnd / ms:.1f}% of the bound), "
-                f"plain backward {plain_ms:.3f} ms, SDPA fp32 backward (memory-efficient) "
-                f"{lib_ms:.3f} ms, bound {bnd:.3f} ms ({by}; "
-                f"{10 * d * h * pairs / 1e12:.3f} TFLOP at 67 TFLOP/s) [{card()}]")
+                               bound_by=by, fma_bound_ms=fma)
+            if twin_h != h:
+                timed[name]["plain_heads"] = twin_h
+            log(f"flash_bwd {name}: kernel {ms:.3f} ms ({100 * bnd / ms:.1f}% of the bound, "
+                f"{100 * fma / ms:.1f}% of the FMA bound), plain backward {plain_ms:.3f} ms"
+                f"{f' at {twin_h} heads' if twin_h != h else ''}, SDPA fp32 backward "
+                f"(memory-efficient) {lib_ms:.3f} ms, bound {bnd:.3f} ms ({by}; three TF32 "
+                f"products of {flops / 1e12:.3f} TFLOP at 495 TFLOP/s), FMA bound {fma:.3f} "
+                f"ms (67 TFLOP/s) [{card()}]")
             if name == BWD_F32_REPORT:
                 # K1's out and lse (the backward's inputs above) held to the
                 # twin at this shape, lse on the rows with a valid key
@@ -1203,14 +1277,14 @@ def phase_bwd_f32(gen):
                 f_plain = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, bias, **kw), 2)
                 n_bytes = 2 * q.numel() * 4 + 2 * int(valid.sum()) * h_kv * d * 4
                 n_bytes += b * h * sq * 4 + bias.numel() * 4
-                fb, fby, fma = k1_f32_bound(n_bytes, 4 * d * h * pairs)
+                fb, fby, fma = tf32_bounds(n_bytes, 4 * d * h * pairs)
                 k1_train = dict(ms=f_ms, plain_ms=f_plain, library_ms=fwd_lib_ms, bound_ms=fb,
                                 bound_by=fby, fma_bound_ms=fma, max_abs_err=f_err)
                 log(f"K1 {name}: kernel {f_ms:.3f} ms ({100 * fb / f_ms:.1f}% of the bound, "
                     f"{100 * fma / f_ms:.1f}% of the FMA bound), plain {f_plain:.3f} ms, SDPA "
                     f"fp32 (memory-efficient) {fwd_lib_ms:.3f} ms, bound {fb:.3f} ms ({fby}; "
                     f"three TF32 products at 495 TFLOP/s), FMA bound {fma:.3f} ms [{card()}]")
-        del q, k, v, g, out, lse, delta, args, bias
+        del q, k, v, g, out, lse, delta, args, twin_args, bias
         torch.cuda.empty_cache()
     return worst, timed, k1_train
 
@@ -3029,7 +3103,7 @@ def phase_speculative(model, fp32):
     pairs = int(valid.sum()) * SPEC_ROWS
     n_bytes = 2 * q.numel() * 4 + 2 * (n + SPEC_K + 1) * SPEC_ROWS * h * d * 4
     n_bytes += SPEC_ROWS * h * (SPEC_K + 1) * 4 + bias.numel() * 4
-    bnd, by, fma = k1_f32_bound(n_bytes, 4 * d * h * pairs)
+    bnd, by, fma = tf32_bounds(n_bytes, 4 * d * h * pairs)
     k1 = {f"f32_verify_b{SPEC_ROWS}_q{SPEC_K + 1}_T{T}": dict(
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by,
         fma_bound_ms=fma, max_abs_err=err)}
@@ -3800,6 +3874,63 @@ def phase_train_f32():
     return phase_train_full(dtype=torch.float32)[0]
 
 
+# The 32K stage of scripts/run_context_extension.sh (ext32k: its BASE_CFG at
+# max_sequence_length 32768, theta 2e6, scan chunks 1024, one row,
+# --dtype=fp32, remat nothing_saveable; its AdamW schedule): CTX32K_STEPS
+# train steps on random tokens, the median of steps 2 on beside the
+# backward's fp32 route's share (one launch a layer a step, at its time at
+# BWD_F32_32K, the same attention)
+CTX32K_CFG = dict(
+    vocab_size=2048, hidden_size=768, intermediate_size=2048, num_hidden_layers=6,
+    num_attention_heads=6, scan_attention=True, scan_mlp=False, scan_layers=True,
+    param_scan_axis=0, remat_block="nothing_saveable", max_sequence_length=32768,
+    theta=2000000, scan_query_chunk_size=1024, scan_key_chunk_size=1024)
+CTX32K_STEPS = 4
+
+
+def phase_train_ctx32k(bwd_ms):
+    """CTX32K_STEPS train steps of the context-extension bundle's 32K stage
+    (above); `bwd_ms` is the backward's fp32 route at BWD_F32_32K. K1's and
+    the backward's fp32 routes launch exactly 2 x layers x steps (remat runs
+    the forward again) and layers x steps. Returns the launch counts."""
+    cfg = train.build_model_config(update_llama_config=CTX32K_CFG)
+    layers, b, s = cfg.num_hidden_layers, 1, cfg.max_sequence_length
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    model = LLaMAForCausalLM(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+    model.init_weights(gen)
+    state = train.create_train_state(model, dict(adamw_optimizer=dict(
+        lr=3e-4, end_lr=1e-4, lr_warmup_steps=100, lr_decay_steps=500)))
+    batch = _lm_batch(b, s, cfg.vocab_size, SEED + 9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    losses, times = [], []
+    for _ in range(CTX32K_STEPS):
+        t0 = time.perf_counter()
+        m = train.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    launches = _launch_counts()
+    step_s = float(np.median(times[1:]))
+    attn_s = layers * bwd_ms / 1e3
+    log(f"train ctx32k (run_context_extension.sh's 32K stage: hidden {cfg.hidden_size}, "
+        f"{layers} layers, "
+        f"{cfg.num_attention_heads} heads, 1 x {s}, fp32, remat {cfg.remat_block}): steps "
+        f"{', '.join(f'{t:.3f}' for t in times)} s, median of steps 2-{CTX32K_STEPS} "
+        f"{step_s:.3f} s, {b * s / step_s:.0f} tokens/s; the backward's fp32 route {layers} x "
+        f"{bwd_ms:.3f} ms = {attn_s:.3f} s ({100 * attn_s / step_s:.1f}% of the step); "
+        f"losses {[round(x, 4) for x in losses]}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches} [{card()}]")
+    n = layers * CTX32K_STEPS
+    if not all(map(math.isfinite, losses)) or launches["flash_bwd_f32"] != n or launches[
+            "flash_fwd_f32"] != 2 * n:
+        raise AssertionError(f"train ctx32k: losses {losses}, launches {launches} (want "
+                             f"flash_fwd_f32 {2 * n}, flash_bwd_f32 {n})")
+    del model, state, batch
+    return launches
+
+
 # The training CLI on the card (phase_train_cli): `lwm_tpu_torch.train.main`
 # in-process over a JSONL of random words made from the seed (so that the
 # tokenizer's word cache cannot serve them) and the fixture tokenizer, with
@@ -4452,6 +4583,8 @@ def main():
     mark("train compare and the bf16 train step")
     path_launches.append(phase_train_f32())
     torch.cuda.empty_cache()
+    path_launches.append(phase_train_ctx32k(bwd_f32[BWD_F32_32K]["ms"]))
+    torch.cuda.empty_cache()
     mark("fp32 training")
     path_launches.extend(phase_spec_cli())
     torch.cuda.empty_cache()
@@ -4487,8 +4620,10 @@ def main():
              **{VISION_TRAIN_REPORT: bwd_vision}),
         dict(row("flash_bwd_f32", "flash_bwd_f32.cu",
                  "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356",
-                 bwd_f32_err, **bwd_f32[BWD_F32_REPORT]),
-             **{BWD_F32_8K: bwd_f32[BWD_F32_8K]}),
+                 bwd_f32_err, *(bwd_f32[BWD_F32_REPORT][k] for k in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))),
+             fma_bound_ms=bwd_f32[BWD_F32_REPORT]["fma_bound_ms"],
+             **{name: bwd_f32[name] for name in (BWD_F32_8K, BWD_F32_32K)}),
         dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
              **k4_cases, **f32_cases(dict(k4_f32, **k4_spec), "flash_decode.cu",
                                      "flash_decode")),

@@ -15,63 +15,69 @@
 // with an additive fp32 bias per key [bb, 1, skv] or per (row, key)
 // [bb, sq, skv], GQA (query head qh reads kv head qh / g) and dk/dv
 // returned at h_kv heads, every group member summed in fp32. Nothing is
-// rounded: p and ds stay fp32, as the TPU kernels keep them at fp32 inputs.
+// rounded to another type: p and ds stay fp32, as the TPU kernels keep them
+// at fp32 inputs.
 //
 // What bounds it on the card: five products of 2·d flops per (query, key)
-// pair and head (two recompute the forward's q·kᵀ and g·vᵀ), 10·sq·skv·d
-// flops per head, half of them for a causal row, on O((sq + skv)·d) bytes.
-// The fp32 suite holds this route at 1e-5, and TF32 (`wgmma`'s only fp32
-// input) keeps ~3 digits, so the products run as fp32 FMAs on the CUDA
-// cores: 67 TFLOP/s on an H100 SXM, the bound here. The design is the
-// simple tiled one of flash_fwd_f32.cu turned around, as flash_bwd.cu is:
-// - One block of 256 threads per (b·h_kv, 64-key tile), the heaviest
-//   (causally first) key tiles of every head launched first. The block's k
-//   and v tiles stay in shared memory; it walks every (group member,
-//   64-query tile) from the causal start. q, g, lse and delta of the next
-//   tile are copied by 16-byte `cp.async` into the other of two stages
-//   while this tile computes (rows past sq and keys past skv zero-filled).
-// - Thread (ty, tx) of a 16 × 16 grid owns keys ty + 16i and queries
-//   tx + 16j (i, j < 4): sᵀ = k·qᵀ and dpᵀ = v·gᵀ in registers from 16-byte
-//   reads along d. k and v rows are read by a quarter-warp at one address
-//   (a broadcast); q and g rows by eight rows at once, so their 16-byte
-//   chunks are swizzled (chunk c of row r at c ^ (r % 8)) instead of padded:
-//   padding would not fit the block's 225 KB at d 128.
-// - pᵀ and dsᵀ go to shared memory [64 keys × 64 queries]; the same thread
-//   adds dv += pᵀ·g and dk += dsᵀ·q for its keys and columns (tx + 16c)·4
-//   .. + 3. dk and dv stay in fp32 registers (2 × 4 keys × d / 16 floats a
-//   thread: 64 at d 128) for the whole block and are written once, with no
-//   atomics.
-// - dq = ds·k over the block's 64 keys: thread (dc, qa) = (tid / 16,
-//   tid % 16) owns queries 4qa .. 4qa + 3 (one 16-byte read of dsᵀ a key)
-//   and columns (dc + 16c)·4 .. + 3, and adds them into the fp32 dq_accum
-//   [b, sq, h, d] with float2 atomics, as flash_bwd.cu does. Atomics rather
-//   than a second pass over the keys: a second pass would recompute p and
-//   ds (four more products of the five), and the atomics' traffic (d floats
-//   a query a key tile) is small beside the products. The order of those
-//   sums changes from run to run, so dq is not bit-reproducible (dk and dv
-//   are).
-// - One block an SM (225 KB of shared memory at d 128, 129 KB at d 64);
-//   the two-stage copies hide the loads.
-// It runs at 50% of its fp32 bound at the train shape (b2 S4096 h32, and
-// b1 S8192) on an H100 80GB HBM3 at 700 W (PERF.md): its inner loops read
-// shared memory once every 8-11 FMAs, so shared memory, not the FMA pipes,
-// is what it waits on; larger register tiles are the lever left.
+// pair and head (two recompute the forward's q·kᵀ and g·vᵀ), half of them
+// for a causal row, on O((sq + skv)·d) bytes. The fp32 suite holds this
+// route at 1e-5, so every product runs as three TF32 products on the tensor
+// cores (csrc/tf32.cuh: hi·hi + lo·hi + hi·lo of each operand's split): 15
+// TF32 products at 495 TFLOP/s, the bound beside this route's times, 2.46×
+// below the fp32 FMA bound. The design keeps the loop of the FMA route it
+// replaces (a block owns a key tile and walks the queries; dq by atomics),
+// every product on `wgmma`:
+// - One block of two warpgroups per (b·h_kv, 64-key tile), the heaviest
+//   (causally first) key tiles of every head launched first. k and v are
+//   split once into hi and lo tiles that stay in shared memory; the block
+//   walks every (group member, 32-query stage) from the causal start; a
+//   stage's q and g are split into hi/lo tiles as they lie, their rows
+//   prefetched into the L2 a stage ahead.
+// - sᵀ = k·qᵀ (warpgroup 0) and dpᵀ = v·gᵀ (warpgroup 1) side by side:
+//   m64n32k8 from the tiles, hi·hi summed apart from the cross terms (dp −
+//   delta cancels, so dp's error shows in ds). Each warpgroup hands the
+//   other its sums of half the queries, and turns its half into p (expf)
+//   and ds, written as pᵀ and dsᵀ hi/lo tiles.
+// - `wgmma` reads 32-bit operands K-major only, and dv, dk and dq contract
+//   over queries and keys, so they run transposed with A from registers:
+//   dvᵀ = gᵀ·p, dkᵀ = qᵀ·ds (m64n64k8) and dqᵀ = kᵀ·dsᵀ (m64n32k8), their A
+//   fragments gathered by 32-bit shared loads from the g, q and k tiles as
+//   they lie (conflict-free in the swizzle), their B the pᵀ, dsᵀ and ds
+//   tiles, whose columns take each group of 8 in the order (0, 2, 4, 6, 1,
+//   3, 5, 7) that makes the gathered k index t4 row 2t4. At d 128 each
+//   warpgroup takes 64 rows of d, so dkᵀ and dvᵀ cost it 64 fp32 registers.
+// - Each stage's share of dv and dk starts from zero, cross terms first
+//   (lo·lo among them: dv and dk sum over every query of the key), and is
+//   added to them in fp32 registers (the tensor cores' fp32 sums lose more
+//   than a rounding each; over 1024 stages at S32768 that would show); they
+//   are written once, with no atomics. dq's share of the
+//   block's 64 keys (hi·hi apart) is staged in shared memory and added into
+//   the fp32 dq_accum [b, sq, h, d] with float4 atomics, whose order changes
+//   from run to run: dq is not bit-reproducible.
+// - Rows past sq and keys past skv arrive as zeros and are masked; the
+//   causal and end masks only on stages that cross them.
+// Shared memory at d 128: 224.25 KB of the 227 (one block an SM): k, v
+// hi/lo 128, the stage's q, g hi/lo 64, pᵀ (then ds) 16 and dsᵀ 16 hi/lo.
+// Registers: 255, with a few spilled. Measured (PERF.md §6, scripts/
+// time_flash.py bwd32 and time_tf32_products.py, an H100 at 700 W): the
+// FMA route it replaced 20.6-21.3 ms at b2 S4096, this one 16.4 (15.1 with
+// ex2.approx and three products in dv and dk, as accurate against float64
+// but further from the plain fp32 path in the fp32 train step's grads);
+// `mma.sync` from hi/lo tiles runs 167 TFLOP/s TF32 against `wgmma`'s 475,
+// so dv, dk and dq on it only tied the FMA route; by ablation, dqᵀ and its
+// atomics take ~5.6 ms of 16.0, the two cross products 3.8; grouping heads
+// so that dq's rows in flight fit the L2, and deriving addresses anew each
+// stage, were slower (more spills).
 
-#include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-using lwm::cp_async16;
-using lwm::cp_async4;
-using lwm::cp_async_commit;
-using lwm::cp_async_wait_all;
-using lwm::kBigNeg;
-using lwm::kMaskGuard;
-using lwm::smem_addr;
+using namespace lwm;
 
-constexpr int kThreads = 256;
-constexpr int kBK = 64;  // keys a block
-constexpr int kBQ = 64;  // queries a tile
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kBK = 64;        // keys a block: the `wgmma` M of sᵀ and dpᵀ
+constexpr int kBQ = 32;        // queries a stage: their `wgmma` N
 
 struct BwdF32Params {
   const float* q;
@@ -91,285 +97,417 @@ struct BwdF32Params {
   float scale;
 };
 
-// Shared memory of one block, in floats: k and v [kBK][D], q and g
-// [2 stages][kBQ][D] (swizzled), pᵀ and dsᵀ [kBK][kBQ], lse and delta
-// [2 stages][2][kBQ]
+// Shared memory of one block, byte offsets from a 1024-aligned base, every
+// tile swz32: k and v hi/lo [kBK][D] and the stage's q and g hi/lo [kBQ][D]
+// as they lie; pᵀ hi/lo [kBK][kBQ] (later in the stage ds hi/lo [kBQ][kBK]
+// in its place) and dsᵀ hi/lo [kBK][kBQ], whose columns take each group of
+// 8 in the order (0, 2, 4, 6, 1, 3, 5, 7). The warpgroups' sums pass
+// [16][128 threads] in dsᵀ's place, and the stage's dq [kBQ][D + 4] fp32 in
+// pᵀ's and dsᵀ's; lse and delta [2][kBQ]
 template <int D>
-struct SmemF32 {
-  static constexpr int kKV = kBK * D;
-  static constexpr int kQG = kBQ * D;
-  static constexpr int kK = 0;
-  static constexpr int kV = kKV;
-  static constexpr int kQ = 2 * kKV;
-  static constexpr int kG = kQ + 2 * kQG;
-  static constexpr int kP = kG + 2 * kQG;
-  static constexpr int kDS = kP + kBK * kBQ;
-  static constexpr int kStat = kDS + kBK * kBQ;
-  static constexpr int kBytes = (kStat + 2 * 2 * kBQ) * 4;
+struct Smem {
+  static constexpr int kKV = kBK * D * 4;
+  static constexpr int kQG = kBQ * D * 4;
+  static constexpr int kPT = kBK * kBQ * 4;
+  static constexpr int kKHi = 0;
+  static constexpr int kKLo = kKV;
+  static constexpr int kVHi = 2 * kKV;
+  static constexpr int kVLo = 3 * kKV;
+  static constexpr int kQHi = 4 * kKV;
+  static constexpr int kQLo = kQHi + kQG;
+  static constexpr int kGHi = kQLo + kQG;
+  static constexpr int kGLo = kGHi + kQG;
+  static constexpr int kPHi = kGLo + kQG;  // pᵀ, then ds
+  static constexpr int kPLo = kPHi + kPT;
+  static constexpr int kDsHi = kPLo + kPT;  // p passed on, then dsᵀ
+  static constexpr int kDsLo = kDsHi + kPT;
+  static constexpr int kStat = kDsLo + kPT;
+  static constexpr int kBytes = kStat + 2 * kBQ * 4;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
-// float4 index of chunk c of row r in a swizzled [rows][D] tile
-template <int D>
-__device__ __forceinline__ int sw4(int r, int c) {
-  return r * (D / 4) + (c ^ (r & 7));
+// column of element c of a group of 8 in pᵀ, dsᵀ and ds: (0, 2, 4, 6, 1, 3,
+// 5, 7) take columns 0..7
+__device__ __forceinline__ int perm8(int c) {
+  return (c & ~7) | ((c & 1) << 2) | ((c >> 1) & 3);
 }
 
-// ROWS rows of D floats, row r at src + r * stride, into shared memory at
-// `dst` (swizzled or not); rows at or past `valid` are zero-filled (no
-// bytes read), so masked rows never carry garbage into a product
-template <int D, int ROWS, bool SWIZZLE>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src, long long stride,
-                                          int valid, int tid) {
-  constexpr int kChunks = D / 4;
+__device__ __forceinline__ uint32_t ld32(const uint8_t* base, int off) {
+  return *reinterpret_cast<const uint32_t*>(base + off);
+}
+
+// The A fragment of a product whose A is the transpose of an R-row tile
+// (rows: the product's k, columns: its M): k chunk at row r = 8j + 2t4
+// (k index t4; t4 + 4 is row r + 1), M rows c and c + 8 of this thread
+template <int R>
+__device__ __forceinline__ void gather_t(const uint8_t* tile, int r, int c, uint32_t (&a)[4]) {
+  a[0] = ld32(tile, swz32<R>(r, c));
+  a[1] = ld32(tile, swz32<R>(r, c + 8));
+  a[2] = ld32(tile, swz32<R>(r + 1, c));
+  a[3] = ld32(tile, swz32<R>(r + 1, c + 8));
+}
+
+// d = Aᵀ·B over kBQ queries as four TF32 products, from zero, lo·hi, hi·lo
+// and lo·lo before hi·hi: A's hi/lo tile x (a stage's q or g, gathered), B's
+// the tile at b_hi / b_lo (pᵀ or dsᵀ, K-major); 64 d rows from column c of
+// x, 64 keys
+__device__ __forceinline__ void product_over_queries(float (&t)[32], const uint8_t* x_hi,
+                                                     const uint8_t* x_lo, int c, uint32_t b_hi,
+                                                     uint32_t b_lo, int t4) {
+  uint32_t fh[kBQ / 8][4], fl[kBQ / 8][4];
 #pragma unroll
-  for (int j = 0; j < ROWS * kChunks / kThreads; ++j) {
-    const int i = tid + j * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool in = r < valid;
-    const int at = SWIZZLE ? sw4<D>(r, c) : r * kChunks + c;
-    cp_async16(smem_addr(dst + 4 * at), in ? src + r * stride + 4 * c : src, in ? 16 : 0);
+  for (int j = 0; j < kBQ / 8; ++j) {
+    gather_t<kBQ>(x_hi, 8 * j + 2 * t4, c, fh[j]);
+    gather_t<kBQ>(x_lo, 8 * j + 2 * t4, c, fl[j]);
   }
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float lane4(const float4 a, int u) {
-  return u == 0 ? a.x : u == 1 ? a.y : u == 2 ? a.z : a.w;
-}
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4 b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
+  fence_acc(t);
+  fence_frag(fh);
+  fence_frag(fl);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kBQ / 8; ++j) {
+    wgmma_tf32_rs(t, fl[j], smem_desc(b_hi + 32 * j), j > 0);
+    wgmma_tf32_rs(t, fh[j], smem_desc(b_lo + 32 * j), 1);
+    wgmma_tf32_rs(t, fl[j], smem_desc(b_lo + 32 * j), 1);
+  }
+#pragma unroll
+  for (int j = 0; j < kBQ / 8; ++j) wgmma_tf32_rs(t, fh[j], smem_desc(b_hi + 32 * j), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(t);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32Params p) {
-  using L = SmemF32<D>;
-  constexpr int kD4 = D / 4;   // float4s a row
-  constexpr int kC = D / 64;   // float4 column groups a thread
-  constexpr int kQ4 = kBQ / 4;
-  extern __shared__ __align__(16) float smem[];
-  const float4* ks4 = reinterpret_cast<const float4*>(smem + L::kK);
-  const float4* vs4 = reinterpret_cast<const float4*>(smem + L::kV);
-  float* ps = smem + L::kP;
-  float* dss = smem + L::kDS;
-  const float4* ps4 = reinterpret_cast<const float4*>(ps);
-  const float4* dss4 = reinterpret_cast<const float4*>(dss);
+  using L = Smem<D>;
+  constexpr int kD4 = D / 4;                        // float4 chunks of a row
+  constexpr int kStage4 = kBQ * kD4;                // float4 chunks of a stage's q (or g)
+  constexpr int kPre = 2 * kStage4 / kThreads;      // of q and g, a thread's chunks
+  // at d 128 each warpgroup takes 64 columns of dvᵀ, dkᵀ and dqᵀ; at d 64
+  // warpgroup 0 takes dvᵀ, 1 dkᵀ, and each half of dqᵀ's keys
+  constexpr bool kHalves = D == 128;
+  constexpr int kDqRow = D + 4;  // floats a row of dq in shared memory
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127, warp = wtid >> 5;
+  const int lane = tid & 31, g8 = lane >> 2, t4 = lane & 3;
   const int bi = blockIdx.x / p.h_kv, kvh = blockIdx.x % p.h_kv;
   const int group = p.h / p.h_kv;
   const int k0 = blockIdx.y * kBK;
   const int keys = min(kBK, p.skv - k0);
   const float* bias_g = p.bias ? p.bias + bi * p.bias_sb : nullptr;
 
-  // the (group member, query tile) walk: from the first query that sees
+  // the (group member, query stage) walk: from the first query that sees
   // any key of this tile
   const int q_start = p.causal ? max(0, p.kv_offset + k0 - p.q_offset) : 0;
   const int qt0 = q_start / kBQ;
   const int per = max(0, (p.sq + kBQ - 1) / kBQ - qt0);
   const int n_iter = group * per;
 
-  auto load_q = [&](int it, int s) {
+  // k and v, raw, into their hi tiles (rows past skv zero-filled)
+  {
+    const float* kg = p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh;
+    const float* vg = p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh;
+    for (int i = tid; i < kBK * kD4; i += kThreads) {
+      const int r = i / kD4, c = i % kD4;
+      const bool in = r < keys;
+      const int off = swz32<kBK>(r, 4 * c);
+      cp_async16(base + L::kKHi + off, in ? kg + r * p.k_ss + 4 * c : kg, in ? 16 : 0);
+      cp_async16(base + L::kVHi + off, in ? vg + r * p.v_ss + 4 * c : vg, in ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+
+  // the next stage's q and g rows into the L2 ahead of their split: one
+  // 128-byte line a thread
+  auto prefetch_l2 = [&](int it) {
+    const int qh = kvh * group + it / per, q0 = (qt0 + it % per) * kBQ;
+    constexpr int kLines = D / 32;   // of a row
+    const int i = tid % (kBQ * kLines), r = i / kLines, c = 32 * (i % kLines);
+    if (tid < 2 * kBQ * kLines && q0 + r < p.sq) {
+      const float* src = tid < kBQ * kLines
+                             ? p.q + bi * p.q_sb + (long long)(q0 + r) * p.q_ss + qh * p.q_sh
+                             : p.g + bi * p.g_sb + (long long)(q0 + r) * p.g_ss + qh * p.g_sh;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(src + c));
+    }
+  };
+  // a stage's q and g (rows past sq zero) split into their hi/lo tiles, and
+  // its lse and delta (threads 0..63)
+  auto load_stage = [&](int it) {
     const int qh = kvh * group + it / per, q0 = (qt0 + it % per) * kBQ;
     const int rows = min(kBQ, p.sq - q0);
-    copy_rows<D, kBQ, true>(smem + L::kQ + s * L::kQG,
-                            p.q + bi * p.q_sb + (long long)q0 * p.q_ss + qh * p.q_sh, p.q_ss,
-                            rows, tid);
-    copy_rows<D, kBQ, true>(smem + L::kG + s * L::kQG,
-                            p.g + bi * p.g_sb + (long long)q0 * p.g_ss + qh * p.g_sh, p.g_ss,
-                            rows, tid);
-    if (tid < 2 * kBQ) {  // lse (threads 0..63) and delta (64..127)
+    const float* qg = p.q + bi * p.q_sb + (long long)q0 * p.q_ss + qh * p.q_sh;
+    const float* gg = p.g + bi * p.g_sb + (long long)q0 * p.g_ss + qh * p.g_sh;
+    float4 x[kPre];
+#pragma unroll
+    for (int j = 0; j < kPre; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = (i % kStage4) / kD4, c = i % kD4;
+      const float* src = i < kStage4 ? qg + r * p.q_ss : gg + r * p.g_ss;
+      x[j] = r < rows ? __ldg(reinterpret_cast<const float4*>(src + 4 * c))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (tid < 2 * kBQ) {
       const int r = tid % kBQ;
       const float* src = (tid < kBQ ? p.lse : p.delta) + ((long long)bi * p.h + qh) * p.sq + q0;
-      cp_async4(smem_addr(smem + L::kStat + s * 2 * kBQ + tid), src + (r < rows ? r : 0),
-                r < rows ? 4 : 0);
+      reinterpret_cast<float*>(smem + L::kStat)[tid] = r < rows ? __ldg(src + r) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kPre; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = (i % kStage4) / kD4, c = i % kD4;
+      const int off = swz32<kBQ>(r, 4 * c);
+      float4 hi, lo;
+      split4(x[j], hi, lo);
+      *reinterpret_cast<float4*>(smem + (i < kStage4 ? L::kQHi : L::kGHi) + off) = hi;
+      *reinterpret_cast<float4*>(smem + (i < kStage4 ? L::kQLo : L::kGLo) + off) = lo;
     }
   };
 
-  copy_rows<D, kBK, false>(smem + L::kK,
-                           p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss,
-                           keys, tid);
-  copy_rows<D, kBK, false>(smem + L::kV,
-                           p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss,
-                           keys, tid);
-  if (n_iter > 0) load_q(0, 0);
-  cp_async_commit();
-
-  // this thread's keys ty + 16i: their per-key bias, when the bias has one row
-  float key_bias[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    key_bias[i] = bias_g && p.bias_sr == 0 && key < p.skv ? bias_g[key] : 0.f;
+  if (n_iter > 0) load_stage(0);  // while k and v land
+  cp_async_wait_all();
+  __syncthreads();  // k and v have landed
+  {
+    float4* k_hi = reinterpret_cast<float4*>(smem + L::kKHi);
+    float4* k_lo = reinterpret_cast<float4*>(smem + L::kKLo);
+    float4* v_hi = reinterpret_cast<float4*>(smem + L::kVHi);
+    float4* v_lo = reinterpret_cast<float4*>(smem + L::kVLo);
+    for (int i = tid; i < kBK * kD4; i += kThreads) {
+      split4(k_hi[i], k_hi[i], k_lo[i]);
+      split4(v_hi[i], v_hi[i], v_lo[i]);
+    }
   }
-  const bool full_bias = bias_g && p.bias_sr != 0;
+  fence_async_smem();
+  __syncthreads();
 
-  float dk[4][kC][4], dv[4][kC][4];
+  // this thread's rows of sᵀ and dpᵀ: keys key_row and + 8 of the tile
+  const int key_row = 16 * warp + g8;
+  const bool key_bias = bias_g && p.bias_sr == 0;
+  const bool full_bias = bias_g && p.bias_sr != 0;
+  float kb[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + key_row + 8 * r;
+    kb[r] = key_bias && key < p.skv ? bias_g[key] : 0.f;
+  }
+
+  // warpgroup 0: sᵀ = k·qᵀ → pᵀ; warpgroup 1: dpᵀ = v·gᵀ → dsᵀ
+  const uint32_t a_hi = base + (wg ? L::kVHi : L::kKHi), a_lo = base + (wg ? L::kVLo : L::kKLo);
+  const uint32_t b_hi = base + (wg ? L::kGHi : L::kQHi), b_lo = base + (wg ? L::kGLo : L::kQLo);
+  float* swap = reinterpret_cast<float*>(smem + L::kDsHi);
+  float* pt_hi = reinterpret_cast<float*>(smem + L::kPHi);
+  float* pt_lo = reinterpret_cast<float*>(smem + L::kPLo);
+  float* dst_hi = reinterpret_cast<float*>(smem + L::kDsHi);
+  float* dst_lo = reinterpret_cast<float*>(smem + L::kDsLo);
+  const float* stat = reinterpret_cast<const float*>(smem + L::kStat);
+  // this thread's M rows (d) of dvᵀ, dkᵀ and dqᵀ: c_row and + 8
+  const int d0 = kHalves ? 64 * wg : 0, c_row = d0 + 16 * warp + g8;
+
+  // dvᵀ and dkᵀ [d0 .. d0 + 63][64 keys]: element i is d c_row + 8·((i / 2)
+  // % 2), key 8·(i / 4) + 2t4 + i % 2
+  float acc_v[32], acc_k[32];
 #pragma unroll
-    for (int c = 0; c < kC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[i][c][e] = dv[i][c][e] = 0.f;
+  for (int i = 0; i < 32; ++i) acc_v[i] = acc_k[i] = 0.f;
 
   for (int it = 0; it < n_iter; ++it) {
-    const int s = it & 1;
     const int qh = kvh * group + it / per, q0 = (qt0 + it % per) * kBQ;
-    cp_async_wait_all();  // this thread's copies of stage s (and of k, v)
-    __syncthreads();      // stage s complete; iteration it − 1 is done with the rest
-    if (it + 1 < n_iter) load_q(it + 1, s ^ 1);
-    cp_async_commit();
+    if (it + 1 < n_iter) prefetch_l2(it + 1);
 
-    const float4* qs4 = reinterpret_cast<const float4*>(smem + L::kQ + s * L::kQG);
-    const float4* gs4 = reinterpret_cast<const float4*>(smem + L::kG + s * L::kQG);
-    const float* lse_s = smem + L::kStat + s * 2 * kBQ;
-    const float* delta_s = lse_s + kBQ;
-
-    // sᵀ = k·qᵀ and dpᵀ = v·gᵀ: keys ty + 16i, queries tx + 16j
-    float st[4][4], dpt[4][4];
+    // sᵀ or dpᵀ, 64 keys × 32 queries: hi·hi in xm, the cross terms in xc.
+    // Element i: key key_row + 8·((i / 2) % 2), query 8·(i / 4) + 2t4 + i % 2
+    float xm[16], xc[16];
+    fence_acc(xm);
+    fence_acc(xc);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 2
-    for (int d4 = 0; d4 < kD4; ++d4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ks4[(ty + 16 * i) * kD4 + d4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = qs4[sw4<D>(tx + 16 * j, d4)];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dot4(a[i], b[j], st[i][j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = vs4[(ty + 16 * i) * kD4 + d4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = gs4[sw4<D>(tx + 16 * j, d4)];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dpt[i][j] = dot4(a[i], b[j], dpt[i][j]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t ao = (kk >> 2) * kBK * 128 + (kk & 3) * 32;
+      const uint32_t bo = (kk >> 2) * kBQ * 128 + (kk & 3) * 32;
+      const uint64_t ah = smem_desc(a_hi + ao), bh = smem_desc(b_hi + bo);
+      wgmma_tf32_n32(xc, smem_desc(a_lo + ao), bh, kk > 0);
+      wgmma_tf32_n32(xc, ah, smem_desc(b_lo + bo), 1);
+      wgmma_tf32_n32(xm, ah, bh, kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(xm);
+    fence_acc(xc);
 
-    // pᵀ and dsᵀ, to shared memory
+    // p and ds, each warpgroup of half the elements (0: i < 8, queries 0..15;
+    // 1: i >= 8): each passes the other its sums (warpgroup 0 sᵀ's, 1
+    // dpᵀ's) of the other half in dsᵀ's place
+    float sv[8], dpv[8];
+    if (wg == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qj = tx + 16 * j, qrow = q0 + qj;
-      const float lse = lse_s[qj], delta = delta_s[qj];
+      for (int i = 0; i < 8; ++i) {
+        sv[i] = xm[i] + xc[i];
+        swap[i * 128 + wtid] = xm[8 + i] + xc[8 + i];
+      }
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ki = ty + 16 * i, key = k0 + ki;
-        float x = st[i][j] * p.scale + key_bias[i];
-        bool valid = key < p.skv && qrow < p.sq;
-        if (valid && full_bias) x += bias_g[qrow * p.bias_sr + key];
-        if (p.causal && p.kv_offset + key > p.q_offset + qrow) valid = false;
-        const float pe = valid && x > kMaskGuard ? expf(x - lse) : 0.f;
-        ps[ki * kBQ + qj] = pe;
-        dss[ki * kBQ + qj] = pe * (dpt[i][j] - delta) * p.scale;
+      for (int i = 0; i < 8; ++i) {
+        dpv[i] = xm[8 + i] + xc[8 + i];
+        swap[(8 + i) * 128 + wtid] = xm[i] + xc[i];
       }
     }
-    __syncthreads();
-
-    // dv += pᵀ·g, dk += dsᵀ·q: keys ty + 16i, columns (tx + 16c)·4 .. + 3
-#pragma unroll 2
-    for (int q4 = 0; q4 < kQ4; ++q4) {
-      float4 pa[4], da[4];
+    bar_sync(1, kThreads);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = ps4[(ty + 16 * i) * kQ4 + q4];
-        da[i] = dss4[(ty + 16 * i) * kQ4 + q4];
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int row = 4 * q4 + u;
-        float4 gb[kC], qb[kC];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          gb[c] = gs4[sw4<D>(row, tx + 16 * c)];
-          qb[c] = qs4[sw4<D>(row, tx + 16 * c)];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pu = lane4(pa[i], u), du = lane4(da[i], u);
-#pragma unroll
-          for (int c = 0; c < kC; ++c) {
-            fma4(dv[i][c], pu, gb[c]);
-            fma4(dk[i][c], du, qb[c]);
-          }
-        }
-      }
+    for (int i = 0; i < 8; ++i) {
+      const float x = swap[((1 - wg) * 8 + i) * 128 + wtid];
+      if (wg == 0) dpv[i] = x;
+      else sv[i] = x;
     }
-
-    // dq = ds·k over this tile's keys: queries 4qa .. 4qa + 3, columns
-    // (dc + 16c)·4 .. + 3
+    bar_sync(1, kThreads);  // every sum is read: dsᵀ takes their place
+    // element i of this warpgroup: key key_row + 8·((i / 2) % 2), query
+    // 16·wg + 8·(i / 4) + 2t4 + i % 2. The logits: scale and bias; the
+    // causal and end masks only on stages that cross them; MASK_GUARD on
+    // every logit (the bias masks too)
+    float ds[8];
     {
-      const int qa = tid % 16, dc = tid / 16;
-      float dq[4][kC][4];
+      const bool edge = k0 + kBK > p.skv || q0 + kBQ > p.sq ||
+                        (p.causal && p.kv_offset + k0 + kBK - 1 > p.q_offset + q0);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < kC; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dq[r][c][e] = 0.f;
-#pragma unroll 4
-      for (int kj = 0; kj < kBK; ++kj) {
-        const float4 dsv = dss4[kj * kQ4 + qa];
-        float4 kb[kC];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) kb[c] = ks4[kj * kD4 + dc + 16 * c];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          fma4(dq[0][c], dsv.x, kb[c]);
-          fma4(dq[1][c], dsv.y, kb[c]);
-          fma4(dq[2][c], dsv.z, kb[c]);
-          fma4(dq[3][c], dsv.w, kb[c]);
-        }
+      for (int i = 0; i < 8; ++i) {
+        const int r = (i >> 1) & 1, kr = key_row + 8 * r, key = k0 + kr;
+        const int qc = 16 * wg + 8 * (i >> 2) + 2 * t4 + (i & 1), qrow = q0 + qc;
+        float x = sv[i] * p.scale + kb[r];
+        bool ok = true;
+        if (edge)
+          ok = key < p.skv && qrow < p.sq &&
+               (!p.causal || p.kv_offset + key <= p.q_offset + qrow);
+        if (ok && full_bias) x += bias_g[(long long)qrow * p.bias_sr + key];
+        const float pe =
+            ok && x > kMaskGuard ? expf(x - stat[qc]) : 0.f;
+        ds[i] = pe * (dpv[i] - stat[kBQ + qc]) * p.scale;
+        const int at = swz32<kBK>(kr, perm8(qc)) >> 2;
+        uint32_t hi, lo;
+        split_tf32(pe, hi, lo);
+        pt_hi[at] = __uint_as_float(hi);
+        pt_lo[at] = __uint_as_float(lo);
+        split_tf32(ds[i], hi, lo);
+        dst_hi[at] = __uint_as_float(hi);
+        dst_lo[at] = __uint_as_float(lo);
       }
+    }
+    fence_async_smem();
+    __syncthreads();  // pᵀ and dsᵀ whole
+
+    // dvᵀ += gᵀ·p (A gathered from g's tiles, B pᵀ), this stage's share
+    // from zero, added in fp32
+    if (kHalves || wg == 0) {
+      float t[32];
+      product_over_queries(t, smem + L::kGHi, smem + L::kGLo, c_row, base + L::kPHi,
+                           base + L::kPLo, t4);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int qrow = q0 + 4 * qa + r;
-        if (qrow >= p.sq) continue;
-        float* dst = p.dq_accum + (((long long)bi * p.sq + qrow) * p.h + qh) * D;
+      for (int i = 0; i < 32; ++i) acc_v[i] += t[i];
+    }
+    // dkᵀ += qᵀ·ds (A gathered from q's tiles, B dsᵀ)
+    if (kHalves || wg == 1) {
+      float t[32];
+      product_over_queries(t, smem + L::kQHi, smem + L::kQLo, c_row, base + L::kDsHi,
+                           base + L::kDsLo, t4);
 #pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          const int col = (dc + 16 * c) * 4;
-          atomicAdd(reinterpret_cast<float2*>(dst + col), make_float2(dq[r][c][0], dq[r][c][1]));
-          atomicAdd(reinterpret_cast<float2*>(dst + col + 2),
-                    make_float2(dq[r][c][2], dq[r][c][3]));
+      for (int i = 0; i < 32; ++i) acc_k[i] += t[i];
+    }
+    __syncthreads();  // pᵀ read: ds takes its place
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint32_t hi, lo;
+      split_tf32(ds[i], hi, lo);
+      const int at = swz32<kBQ>(16 * wg + 8 * (i >> 2) + 2 * t4 + (i & 1),
+                                perm8(key_row + 8 * ((i >> 1) & 1))) >> 2;
+      pt_hi[at] = __uint_as_float(hi);
+      pt_lo[at] = __uint_as_float(lo);
+    }
+    fence_async_smem();
+    __syncthreads();  // ds whole
+
+    // dqᵀ = kᵀ·dsᵀ over the block's keys (A gathered from k's tiles, B ds):
+    // d c_row + 8·((i / 2) % 2), query 8·(i / 4) + 2t4 + i % 2; hi·hi in
+    // tm, the cross terms in tc; added into dq_accum by atomics
+    {
+      constexpr int kSteps = kHalves ? kBK / 8 : kBK / 16;  // of 8 keys, this warpgroup's
+      const int kk0 = kHalves ? 0 : wg * kSteps;
+      float tm[16], tc[16];
+      fence_acc(tm);
+      fence_acc(tc);
+#pragma unroll
+      for (int half = 0; half < kSteps / 4; ++half) {
+        uint32_t fh[4][4], fl[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kk = kk0 + 4 * half + j;
+          gather_t<kBK>(smem + L::kKHi, 8 * kk + 2 * t4, c_row, fh[j]);
+          gather_t<kBK>(smem + L::kKLo, 8 * kk + 2 * t4, c_row, fl[j]);
         }
+        fence_frag(fh);
+        fence_frag(fl);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kk = kk0 + 4 * half + j;
+          const uint32_t bo = (kk >> 2) * kBQ * 128 + (kk & 3) * 32;
+          const uint64_t bh = smem_desc(base + L::kPHi + bo);
+          wgmma_tf32_rs(tc, fl[j], bh, half > 0 || j > 0);
+          wgmma_tf32_rs(tc, fh[j], smem_desc(base + L::kPLo + bo), 1);
+          wgmma_tf32_rs(tm, fh[j], bh, half > 0 || j > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(tm);
+        fence_acc(tc);
       }
+      // dq [kBQ][D] (each warpgroup's part at d 64) into shared memory in
+      // ds's and dsᵀ's place, rows padded to kDqRow floats, then added into
+      // dq_accum by float4 atomics
+      __syncthreads();  // ds and dsᵀ read
+      float* dq_s = reinterpret_cast<float*>(smem + L::kPHi) + (kHalves ? 0 : wg * kBQ * kDqRow);
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        dq_s[(8 * (i >> 2) + 2 * t4 + (i & 1)) * kDqRow + c_row + 8 * ((i >> 1) & 1)] =
+            tm[i] + tc[i];
+    }
+    __syncthreads();  // dq whole; every read of this stage's tiles and stats is done
+    {
+      const float* dq_s = reinterpret_cast<const float*>(smem + L::kPHi);
+#pragma unroll
+      for (int j = 0; j < kBQ * kD4 / kThreads; ++j) {
+        const int i = tid + j * kThreads, r = i / kD4, c = 4 * (i % kD4);
+        float4 x = *reinterpret_cast<const float4*>(dq_s + r * kDqRow + c);
+        if (!kHalves) {
+          const float4 y = *reinterpret_cast<const float4*>(dq_s + (kBQ + r) * kDqRow + c);
+          x = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+        }
+        if (q0 + r < p.sq)
+          atomicAdd(reinterpret_cast<float4*>(p.dq_accum +
+                                              (((long long)bi * p.sq + q0 + r) * p.h + qh) * D + c),
+                    x);
+      }
+    }
+    if (it + 1 < n_iter) {
+      load_stage(it + 1);
+      fence_async_smem();
+      __syncthreads();
     }
   }
 
-  cp_async_wait_all();  // no copy is left in flight when the block exits
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
+  for (int i = 0; i < 32; ++i) {
+    const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
     if (key >= p.skv) continue;
-    const long long off = (((long long)bi * p.skv + key) * p.h_kv + kvh) * D;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int col = (tx + 16 * c) * 4;
-      *reinterpret_cast<float4*>(p.dk + off + col) =
-          make_float4(dk[i][c][0], dk[i][c][1], dk[i][c][2], dk[i][c][3]);
-      *reinterpret_cast<float4*>(p.dv + off + col) =
-          make_float4(dv[i][c][0], dv[i][c][1], dv[i][c][2], dv[i][c][3]);
-    }
+    const long long off = (((long long)bi * p.skv + key) * p.h_kv + kvh) * D + c_row +
+                          8 * ((i >> 1) & 1);
+    if (kHalves || wg == 0) p.dv[off] = acc_v[i];
+    if (kHalves || wg == 1) p.dk[off] = acc_k[i];
   }
 }
 
 template <int D>
 cudaError_t launch(const BwdF32Params& p, int b, cudaStream_t stream) {
-  constexpr int smem = SmemF32<D>::kBytes;
+  constexpr int smem = Smem<D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -13,8 +13,9 @@ products on the tensor cores, hi·hi + hi·lo + lo·hi of each operand's
 split, which holds the fp32 suite's 1e-5 where TF32 alone keeps ~3
 digits), taken for fp32 q, k and v and
 counted apart in `flash_attention_fwd.f32_launches`; so has the backward,
-`csrc/flash_bwd_f32.cu` (fp32 FMAs on the CUDA cores; the trainers' default
-`--dtype=fp32`), counted apart in `flash_attention_bwd.f32_launches`.
+`csrc/flash_bwd_f32.cu` (all five products as three TF32 products on the
+tensor cores, as K1's; the trainers' default `--dtype=fp32`), counted apart
+in `flash_attention_bwd.f32_launches`.
 
 Ported: causal or not, `q_offset`/`kv_offset`, per-key and full-tile
 additive bias, GQA, seq-major or head-major kv, lse. Not ported yet: segment

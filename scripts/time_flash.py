@@ -4,6 +4,7 @@
     python3 scripts/time_flash.py fwd [SRC.cu ...]
     python3 scripts/time_flash.py fwd32 [SRC.cu ...]
     python3 scripts/time_flash.py bwd [SRC.cu ...]
+    python3 scripts/time_flash.py bwd32 [SRC.cu ...]
     python3 scripts/time_flash.py int8 [SRC.cu ...]
     python3 scripts/time_flash.py w8a8 [SRC.cu ...]
     python3 scripts/time_flash.py dec [ROOT[@SPLIT] ...]
@@ -13,7 +14,9 @@ fwd, fwd32, bwd, int8, w8a8: each SRC is a copy of
 `csrc/flash_fwd_f32.cu` (fwd32: K1's fp32 route, `lwm_flash_fwd_f32`; the
 route before its three-product redesign has the same entry),
 `csrc/flash_bwd.cu` (bwd: the fused
-backward, `lwm_flash_bwd`), `csrc/int8_matmul.cu` (int8: K5,
+backward, `lwm_flash_bwd`), `csrc/flash_bwd_f32.cu` (bwd32: its fp32 route,
+`lwm_flash_bwd_f32`; the route before its three-product redesign has the
+same entry), `csrc/int8_matmul.cu` (int8: K5,
 `lwm_int8_matmul`) or `csrc/w8a8_matmul.cu` (w8a8: K6, `lwm_w8a8_matmul`), a
 variant under test or another commit's kernel with the same entry; default:
 the package's own source. A w8a8 copy is called through the wrapper, which
@@ -31,9 +34,15 @@ N..1, with CUDA events over calls of the wrapper. Shapes:
   bundle's prefill, the CFG prefills, the speculative verify, the last
   timed from CUDA-graph replays) and the fp32 train step's attention
   (BWD_F32_CASES[0]); out and lse within F32_REL_TOL of the twin's largest
-  |value|, the bound of three TF32 products (chip_smoke.k1_f32_bound).
+  |value|, the bound of three TF32 products (chip_smoke.tf32_bounds).
 - bwd: the train step's attention as above (dq_accum zeroing and the bf16
   rounding included in each call); BWD_REL_TOL and BWD_COS_MIN.
+- bwd32: chip_smoke.py's timed BWD_F32_CASES (the fp32 train step's
+  attention, the 8K and 32K stages of the context-extension bundle); dq, dk
+  and dv within F32_REL_TOL of the twin's largest |value| (at 32K on
+  BWD_F32_TWIN_HEADS heads, and of the twin's arithmetic in float64, as
+  chip_smoke.phase_bwd_f32 holds it), the bound of three TF32 products
+  (chip_smoke.tf32_bounds).
 - int8: every chip_smoke.QUANT_SHAPES case that takes K5's decode GEMV
   (m <= 16), held to the twin within QUANT_REL_TOL; the decode shapes (m 8)
   timed from CUDA-graph replays of the C entry (50 calls a graph) with
@@ -82,9 +91,10 @@ import lwm_tpu_torch.ops as ops_pkg  # noqa: E402
 from lwm_tpu_torch.ops import _build, decode, flash, quant  # noqa: E402
 
 ENTRY = {"fwd": "lwm_flash_fwd", "fwd32": "lwm_flash_fwd_f32", "bwd": "lwm_flash_bwd",
-         "int8": "lwm_int8_matmul", "w8a8": "lwm_w8a8_matmul", "dec": None}
+         "bwd32": "lwm_flash_bwd_f32", "int8": "lwm_int8_matmul", "w8a8": "lwm_w8a8_matmul",
+         "dec": None}
 SOURCE = {"fwd": "flash_fwd.cu", "fwd32": "flash_fwd_f32.cu", "bwd": "flash_bwd.cu",
-          "int8": "int8_matmul.cu", "w8a8": "w8a8_matmul.cu"}
+          "bwd32": "flash_bwd_f32.cu", "int8": "int8_matmul.cu", "w8a8": "w8a8_matmul.cu"}
 
 
 def iters(name):
@@ -177,7 +187,7 @@ def fwd32_shapes(gen):
         chunk = smoke.F32_TWIN_CHUNK if case[0] == smoke.K1_F32_BUNDLE else None
         call = (lambda q=q, k=k, v=v, bias=bias, kw=kw:
                 flash.flash_attention_fwd(q, k, v, bias, **kw))
-        bound = smoke.k1_f32_bound(*smoke.k1_f32_work(case, q, bias, valid))[0]
+        bound = smoke.tf32_bounds(*smoke.k1_f32_work(case, q, bias, valid))[0]
         shapes[case[0]] = (_f32_check(*smoke._k1_twin(q, k, v, bias, kw, chunk)), call, bound)
     name, b, h_kv, d, sq, skv, causal, q_off, kv_off, kind = smoke.BWD_F32_CASES[0]
     f32, h = torch.float32, 32
@@ -187,7 +197,7 @@ def fwd32_shapes(gen):
     kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
     n_bytes = 2 * q.numel() * 4 + 2 * int(valid.sum()) * h_kv * d * 4 + b * h * sq * 4
     pairs = smoke.attn_pairs(valid, sq, q_off)
-    bound = smoke.k1_f32_bound(n_bytes + bias.numel() * 4, 4 * d * h * pairs)[0]
+    bound = smoke.tf32_bounds(n_bytes + bias.numel() * 4, 4 * d * h * pairs)[0]
     shapes[name] = (_f32_check(*flash.flash_attention_fwd_plain(q, k, v, bias, **kw)),
                     lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), bound)
     return shapes
@@ -218,6 +228,44 @@ def bwd_shapes(gen):
     pairs = smoke.attn_pairs(valid, S, 0)
     bound = smoke.bound_ms(0, 10 * d * h * pairs, smoke.H100_BF16_PEAK)[0]
     return {name: (check, lambda: flash.flash_attention_bwd(*args), bound)}
+
+
+def bwd32_shapes(gen):
+    """{name: (check, call, bound ms)} at the fp32 backward's timed cases."""
+    shapes = {}
+    for name, b, h_kv, d, sq, skv, causal, q_off, kv_off, kind in smoke.BWD_F32_CASES:
+        if name not in smoke.BWD_F32_TIMED:
+            continue
+        h = smoke.BWD_F32_HEADS.get(name, 32)
+        f32 = torch.float32
+        q, g = smoke._randn((b, sq, h, d), gen, f32), smoke._randn((b, sq, h, d), gen, f32)
+        k, v = smoke._randn((b, skv, h_kv, d), gen, f32), smoke._randn((b, skv, h_kv, d), gen, f32)
+        bias, valid = smoke._bwd_f32_bias(kind, b, sq, skv, gen)
+        kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+        out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
+        delta = torch.einsum("bqhd,bqhd->bhq", g, out).contiguous()
+        args = (q, k, v, g, lse, delta, bias)
+        n = smoke.BWD_F32_TWIN_HEADS if name in smoke.BWD_F32_HEADS else h
+        twin_args = (*(x[:, :, :n].contiguous() for x in (q, k, v, g)),
+                     *(x[:, :n].contiguous() for x in (lse, delta)), bias)
+        want = (smoke._bwd_f64 if name in smoke.BWD_F32_HEADS else
+                flash.flash_attention_bwd_plain)(*twin_args, **kw)
+        torch.cuda.empty_cache()
+
+        def check(got, want=want, n=n):
+            parts = []
+            for oname, a, r in zip(("dq", "dk", "dv"), got, want):
+                rel = ((a[:, :, :n] - r).abs().max() / r.abs().max()).item()
+                parts.append(f"{oname} max|Δ|/max|plain| {rel:.3e} "
+                             f"{'ok' if rel <= smoke.F32_REL_TOL else 'FAILS'}")
+            return "; ".join(parts)
+
+        pairs = smoke.attn_pairs(valid, sq, q_off)
+        bound = smoke.tf32_bounds(*smoke.bwd_f32_work(q, k, bias, pairs))[0]
+        shapes[name] = (check, lambda args=args, kw=kw: flash.flash_attention_bwd(*args, **kw),
+                        bound)
+        del out, twin_args
+    return shapes
 
 
 def _weight_sets(w, s, timed):
@@ -403,8 +451,8 @@ def main_dec(specs):
 
 def main():
     if len(sys.argv) < 2 or sys.argv[1] not in ENTRY:
-        raise SystemExit(
-            "usage: time_flash.py fwd|fwd32|bwd|int8|w8a8 [SRC.cu ...] | dec [ROOT[@SPLIT] ...]")
+        raise SystemExit("usage: time_flash.py fwd|fwd32|bwd|bwd32|int8|w8a8 [SRC.cu ...] | "
+                         "dec [ROOT[@SPLIT] ...]")
     kind, srcs = sys.argv[1], sys.argv[2:]
     if kind == "dec":
         return main_dec(srcs)
@@ -412,8 +460,8 @@ def main():
     smoke.phase_env()
     libs = build(srcs, ENTRY[kind])
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    shapes = {"fwd": fwd_shapes, "fwd32": fwd32_shapes, "bwd": bwd_shapes, "int8": int8_shapes,
-              "w8a8": w8a8_shapes}[kind](gen)
+    shapes = {"fwd": fwd_shapes, "fwd32": fwd32_shapes, "bwd": bwd_shapes,
+              "bwd32": bwd32_shapes, "int8": int8_shapes, "w8a8": w8a8_shapes}[kind](gen)
 
     def run(lib, call):
         with mock.patch.object(_build, "load", lambda: lib):

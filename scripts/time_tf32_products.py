@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Time the two prototypes of K1's fp32 product loop (scripts/tf32_products.cu).
+"""Time the prototypes of the fp32 routes' product loops (scripts/tf32_products.cu).
 
     python3 scripts/time_tf32_products.py
 
 Builds `scripts/tf32_products.cu` with nvcc (against the package's
-`csrc/hopper.cuh`), checks each prototype's s = q·kᵀ (one pass, three TF32
-products) against float64 within 1e-5 of max|s|, then times each over the
-whole card, `ITERS` passes a block, with CUDA events: `mma.sync` m16n8k8
-(the route's loop: raw fp32 tiles split in registers) and `wgmma` m64n64k8
-(pre-split hi/lo tiles, both operands from shared memory). Prints the
-TF32 rate (three products counted) and the fp32 rate it gives (a third),
-beside the H100 SXM's 495 TFLOP/s TF32 and 67 TFLOP/s fp32 peaks, with
-the card's name and power limit. Needs one NVIDIA GPU and nvcc.
+`csrc/tf32.cuh`), checks each prototype's product (one pass, three TF32
+products) against float64 within 1e-5 of its largest element, then times
+each over the whole card, `ITERS` passes a block, with CUDA events. K1's
+forward, s = q·kᵀ at d 128: `mma.sync` m16n8k8 (raw fp32 tiles split in
+registers at every fragment) and `wgmma` m64n64k8 (pre-split hi/lo tiles).
+The backward's dv += pᵀ·g over a 32-query stage: `mma.sync` m16n8k8 with
+p's fragments in registers and g's gathered from hi/lo tiles as they lie,
+and `wgmma` m64n128k8 with p from registers and gᵀ's hi/lo tiles; its sᵀ =
+k·qᵀ at 32 queries by `wgmma` m64n32k8. Prints the TF32 rate (three
+products counted) and the fp32 rate it gives (a third), beside the H100
+SXM's 495 TFLOP/s TF32 and 67 TFLOP/s fp32 peaks, with the card's name and
+power limit. Needs one NVIDIA GPU and nvcc.
 """
 
 import ctypes
@@ -27,8 +31,19 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as smoke  # noqa: E402
 from lwm_tpu_torch.ops import _build  # noqa: E402
 
-ITERS, D, BK = 2000, 128, 64
-NAMES = ("mma.sync m16n8k8 (split in registers)", "wgmma m64n64k8 (hi/lo tiles in shared memory)")
+ITERS = 2000
+# (which, name, a's shape, b's shape, out = a·bᵀ (True) or a·b); every block
+# computes the same product
+LOOPS = [
+    (0, "fwd s: mma.sync m16n8k8 (split in registers)", (64, 128), (64, 128), True),
+    (1, "fwd s: wgmma m64n64k8 (hi/lo tiles in shared memory)", (128, 128), (64, 128), True),
+    (2, "bwd dv: mma.sync m16n8k8 (p in registers, g's hi/lo tiles as they lie)",
+     (128, 32), (32, 128), False),
+    (3, "bwd dv: wgmma m64n128k8 (p in registers, gT's hi/lo tiles)", (128, 32), (32, 128),
+     False),
+    (4, "bwd sT: wgmma m64n32k8 x 2 warpgroups (hi/lo tiles in shared memory)", (64, 128),
+     (32, 128), True),
+]
 
 
 def main():
@@ -46,25 +61,25 @@ def main():
     lib = ctypes.CDLL(str(so))
     fn = lib.tf32_products
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [I, P, P, P, I, I, P, P, P]
+    fn.argtypes = [I, P, P, P, I, I, P, P]
     fn.restype = I
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
-    k = torch.randn((BK, D), generator=gen, device="cuda")
-    stream = _build.stream_handle(k.device)
-    for which, name in enumerate(NAMES):
-        rows, blocks = ctypes.c_int(), ctypes.c_int()
-        q = torch.randn((64 * (which + 1), D), generator=gen, device="cuda")
-        s = torch.zeros((q.shape[0], BK), device="cuda")
+    stream = _build.stream_handle(torch.device("cuda"))
+    for which, name, a_shape, b_shape, transposed in LOOPS:
+        a = torch.randn(a_shape, generator=gen, device="cuda")
+        b = torch.randn(b_shape, generator=gen, device="cuda")
+        want = a.double() @ (b.double().T if transposed else b.double())
+        got = torch.zeros(want.shape, device="cuda")
+        blocks = ctypes.c_int()
 
         def run(iters, n_blocks=0):
-            rc = fn(which, q.data_ptr(), k.data_ptr(), s.data_ptr(), iters, n_blocks,
-                    ctypes.byref(rows), ctypes.byref(blocks), stream)
+            rc = fn(which, a.data_ptr(), b.data_ptr(), got.data_ptr(), iters, n_blocks,
+                    ctypes.byref(blocks), stream)
             _build.check(rc, f"tf32_products {name}")
 
         run(1, 1)
         torch.cuda.synchronize()
-        want = q.double() @ k.double().T
-        rel = ((s.double() - want).abs().max() / want.abs().max()).item()
+        rel = ((got.double() - want).abs().max() / want.abs().max()).item()
         verdict = "ok" if rel <= 1e-5 else "FAILS"
         run(ITERS)
         torch.cuda.synchronize()
@@ -74,13 +89,14 @@ def main():
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end)
-        flop = 3 * 2 * rows.value * BK * D * ITERS * blocks.value
-        tf32 = flop / ms / 1e9
-        print(f"{name}: {blocks.value} blocks of {rows.value} rows, {ms:.3f} ms for {ITERS} "
-              f"passes a block: {tf32:.1f} TFLOP/s TF32 ({100 * tf32 / 495:.1f}% of 495), "
-              f"{tf32 / 3:.1f} TFLOP/s at fp32 accuracy ({tf32 / 3 / 67:.2f}x the 67 TFLOP/s "
-              f"FMA peak); one pass vs float64: max|Δ|/max|s| {rel:.2e} {verdict} "
-              f"[{smoke.card()}]", flush=True)
+        # three products of the block's tile a pass (loop 4: both warpgroups')
+        pass_flop = 3 * 2 * want.shape[0] * want.shape[1] * a_shape[1] * (2 if which == 4 else 1)
+        tf32 = pass_flop * ITERS * blocks.value / ms / 1e9
+        print(f"{name}: {blocks.value} blocks, {ms:.3f} ms for {ITERS} passes a block: "
+              f"{tf32:.1f} TFLOP/s TF32 ({100 * tf32 / 495:.1f}% of 495), {tf32 / 3:.1f} "
+              f"TFLOP/s at fp32 accuracy ({tf32 / 3 / 67:.2f}x the 67 TFLOP/s FMA peak); one "
+              f"pass vs float64: max|Δ|/max|out| {rel:.2e} {verdict} [{smoke.card()}]",
+              flush=True)
 
 
 if __name__ == "__main__":

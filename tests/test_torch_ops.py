@@ -700,6 +700,104 @@ def test_k1_fp32_three_tf32_products_match_pallas_kernel(name):
     assert np.abs(out1.numpy() - want_out).max() > 10 * FP32_TOL["atol"]
 
 
+def _mm_3xtf32_apart(a, b):
+    """a @ b as three TF32 products, hi·hi summed apart from the cross terms."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def _mm_4xtf32(a, b):
+    """a @ b as four TF32 products (lo·lo too), the small terms first."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return al @ bh + ah @ bl + al @ bl + ah @ bh
+
+
+def _attention_bwd_3xtf32(q, k, v, g, lse, delta, bias, *, causal, q_offset, kv_offset):
+    """The backward's fp32 route (csrc/flash_bwd_f32.cu) in plain PyTorch,
+    seq-major q, g [b, sq, h, d] and k, v [b, skv, h_kv, d], GQA: 64-key
+    blocks, each walking 32-query stages; sᵀ and dpᵀ as three TF32 products
+    with hi·hi summed apart; each stage's pᵀ·g and dsᵀ·q as four (lo·lo too)
+    from zero, the small terms first, added to dv and dk in fp32; a block's
+    ds·k as three with hi·hi apart, added to dq. Returns (dq, dk, dv)."""
+    b, sq, h, d = q.shape
+    skv, h_kv = k.shape[1], k.shape[2]
+    grp, scale = h // h_kv, d ** -0.5
+
+    def heads(x):   # [b, s, h, d] → [b, h_kv, grp, s, d]
+        return x.permute(0, 2, 1, 3).reshape(b, h_kv, grp, x.shape[1], d)
+
+    qg, gg = heads(q), heads(g)
+    kh, vh = (x.permute(0, 2, 1, 3)[:, :, None] for x in (k, v))
+    lse, delta = (x.reshape(b, h_kv, grp, sq, 1) for x in (lse, delta))
+    bias = torch.zeros((1, 1, 1, skv)) if bias is None else bias
+    bias = bias[:, None]   # [bb, 1, 1, rows, skv]
+    dq = torch.zeros_like(qg)
+    dk, dv = torch.zeros((b, h_kv, skv, d)), torch.zeros((b, h_kv, skv, d))
+    for k0 in range(0, skv, 64):
+        ks, vs = kh[..., k0:k0 + 64, :], vh[..., k0:k0 + 64, :]
+        keys = kv_offset + k0 + torch.arange(ks.shape[-2])
+        dq_block = torch.zeros_like(qg)
+        for q0 in range(0, sq, 32):
+            rows = slice(q0, q0 + 32)
+            qs, gs = qg[..., rows, :], gg[..., rows, :]
+            x = _mm_3xtf32_apart(qs, ks.transpose(-1, -2)) * scale
+            x = x + bias[..., rows if bias.shape[-2] > 1 else slice(None), k0:k0 + 64]
+            ok = x > MASK_GUARD
+            if causal:
+                ok = ok & (keys[None] <= q_offset + q0 + torch.arange(qs.shape[-2])[:, None])
+            p = torch.where(ok, torch.exp(x - lse[..., rows, :]), 0.0)
+            ds = p * (_mm_3xtf32_apart(gs, vs.transpose(-1, -2)) - delta[..., rows, :]) * scale
+            dv[..., k0:k0 + 64, :] += _mm_4xtf32(p.transpose(-1, -2), gs).sum(2)
+            dk[..., k0:k0 + 64, :] += _mm_4xtf32(ds.transpose(-1, -2), qs).sum(2)
+            dq_block[..., rows, :] = _mm_3xtf32_apart(ds, ks)
+        dq += dq_block
+    return (dq.reshape(b, h, sq, d).permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3),
+            dv.permute(0, 2, 1, 3))
+
+
+# name: (seed, b, h, h_kv, sq, skv, d, causal, q_offset, kv_offset, bias kind).
+# GQA with offsets off the tile grid and a full-tile bias of random values
+# with holes; d 64 with sq over eight 32-query stages, left-pad holes
+BWD_SPLIT_CASES = {
+    "gqa_offsets_fulltile_d128": (31, 1, 4, 2, 64, 256, 128, True, 150, 10, "full"),
+    "d64_stages_holes": (32, 2, 2, 2, 256, 128, 64, True, 0, 0, "holes"),
+}
+
+
+@functools.cache
+def _bwd_split_case(name):
+    """(inputs, the JAX kernels' dq, dk, dv) of a BWD_SPLIT_CASES case,
+    lse and delta from the fp32 forward twin, the Pallas kernels run once a
+    case in interpret mode."""
+    seed, b, h, h_kv, sq, skv, d, causal, q_off, kv_off, kind = BWD_SPLIT_CASES[name]
+    q, k, v, bias = _k1_inputs(h, h_kv, sq, skv, causal, q_off, kv_off, kind, seed=seed, b=b, d=d)
+    g = np.random.default_rng(seed + 100).standard_normal(q.shape, np.float32)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    out, lse = flash.flash_attention_fwd_plain(_t(q), _t(k), _t(v), _t(bias), **kw)
+    delta = np.einsum("bqhd,bqhd->bhq", g, out.numpy())
+    want = flash_attention_bwd_pallas(
+        *(jnp.asarray(x) for x in (q, k, v, g, lse.numpy(), delta, bias)),
+        block_q=64, block_k=128, interpret=True, **kw)
+    return (q, k, v, g, lse.numpy(), delta, bias, kw), tuple(np.asarray(w) for w in want)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_SPLIT_CASES))
+def test_bwd_fp32_three_tf32_products_match_pallas_kernels(name):
+    """The fp32 backward route's arithmetic (its tile order, every product
+    as three or four TF32 products, its sums) holds the JAX kernels at the
+    fp32 tolerance; TF32 alone (hi·hi) does not."""
+    (q, k, v, g, lse, delta, bias, kw), want = _bwd_split_case(name)
+    args = [_t(x) for x in (q, k, v, g, lse, delta, bias)]
+    got = _attention_bwd_3xtf32(*args, **kw)
+    for oname, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, err_msg=oname, **FP32_TOL)
+    hi_only = lambda a, b: _tf32_rna(a) @ _tf32_rna(b)   # noqa: E731
+    with mock.patch(f"{__name__}._mm_4xtf32", hi_only), \
+            mock.patch(f"{__name__}._mm_3xtf32_apart", hi_only):
+        one = _attention_bwd_3xtf32(*args, **kw)
+    assert max(np.abs(a.numpy() - w).max() for a, w in zip(one, want)) > 10 * FP32_TOL["atol"]
+
+
 @pytest.mark.parametrize("h,h_kv", [(4, 4), (8, 2)])
 def test_k4_fp32_route_matches_pallas_kernel(h, h_kv):
     """K4 as a shared-cache decode step calls it at fp32 (through the
