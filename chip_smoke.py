@@ -116,7 +116,13 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      top-k 100), exact K1/K4 fp32 counts, EOF every 257th token, ms a step,
      tokens/s, peak; the first step's guided logits held to the plain fp32
      path at 1e-3 of the largest, a top-k 1 image's tokens to its tokens;
-     the frames decoded to uint8 pixels.
+     the frames decoded to uint8 pixels. Then image and video QA
+     (phase_vision_chat): scripts/run_vision_chat_torch.sh's path through
+     apps.vision_chat.Sampler on the same fp32 VideoLLaMA in sample_mode
+     'text': 8 decoded frames through phase_vqgan's model, the bundle's
+     2432-token prompt, 128 new tokens at temperature 0.2 (exact K1/K4 fp32
+     counts, prefill seconds, ms a step); at top-k 1 the prefill logits and
+     the tokens held to the plain fp32 path.
   8. The same weights quantized on the card (`quantize_params_int8`, the
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
@@ -154,10 +160,19 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      loss, and K1 and the backward launched layers x steps times on that
      path. The same at fp32 compute (phase_train_f32, the trainers'
      default --dtype): K1's and the backward's fp32 routes launched
-     exactly layers x steps; and 4 steps of run_context_extension.sh's 32K
-     stage (phase_train_ctx32k: hidden 768, 6 layers, 1 x 32768, fp32,
-     remat nothing_saveable; exact fp32 counts), its step time beside the
-     backward's share. Then scripts/run_spec_natural.sh's path
+     exactly layers x steps. Then run_context_extension_torch.sh's chain
+     (phase_context_extension, at its widths: hidden 768, 6 layers, fp32,
+     remat nothing_saveable): its data from the port's generators in a host
+     process started after the build, 2 steps each of its 512, 2048 and
+     8192 stages and 4 of its 32K stage (1 x 32768, timed beside the
+     backward's share), each warm-started from the last stage's params::
+     milestone, exact fp32 counts, the 2048 stage's first batch held kernel
+     vs plain; the 32K stream unscanned by convert_checkpoint (as
+     run_needle_validation.sh does) and through an HF directory and back,
+     leaf for leaf; eval_needle at 30000 tokens over the unscanned stream
+     (exact K1/K4 fp32 counts), summarize_needle, and probe_needle_digits
+     (exact K1 fp32 counts; logits and argmaxes held to the plain path).
+     Then scripts/run_spec_natural.sh's path
      (phase_spec_cli): the training CLI at fp32 with its target and draft
      configs, BPE fixture tokenizer and `[question],answer,[postpad]`
      fields (the target's copy run, a second run warm-started from it with
@@ -185,7 +200,7 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      --freeze_base at 4 layers (every frozen param bit-unchanged, vte and
      vision_head moved), 2 with the PaLM optimizer at 4 layers, the
      1-layer round trip under both
-     (`pad` rows), the 6 AdamW steps again at --loss_chunk_size=32768,
+     (`pad` rows), 2 of the AdamW steps again at --loss_chunk_size=32768,
      whose peak may be at most 1 GiB over the default run's (ROADMAP C5:
      the dual loss takes any chunk in 2048-row pieces), and a
      kernel-vs-plain VideoLLaMA train step (7b width,
@@ -204,12 +219,14 @@ The last lines: the card, one JSON object listing every kernel, and
 {"ok": true, "device": {...}}.
 """
 
+import atexit
 import contextlib
 import io
 import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -223,7 +240,13 @@ import torch.nn.functional as F
 
 from lwm_tpu_torch import checkpoint, generation, speculative, train
 from lwm_tpu_torch import serve as serve_module
-from lwm_tpu_torch.apps import eval_needle, eval_needle_multi
+from lwm_tpu_torch.apps import (
+    convert_checkpoint,
+    eval_needle,
+    eval_needle_multi,
+    probe_needle_digits,
+    vision_chat,
+)
 from lwm_tpu_torch.apps import serve as serve_cli
 from lwm_tpu_torch.apps import sampler as sampler_module
 from lwm_tpu_torch.apps import serve_vision as vision_cli
@@ -243,7 +266,11 @@ from lwm_tpu_torch.ops import _build, decode, flash, quant
 from lwm_tpu_torch.ops import prefix as prefix_ops
 from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD
 from lwm_tpu_torch.serve import InflightServer, _lookup_proposal, build_prefix_cache, prefill_logits
-from lwm_tpu_torch.utils.convert import flax_params_tree, save_vqgan_pickle
+from lwm_tpu_torch.utils.convert import (
+    convert_flax_params,
+    flax_params_tree,
+    save_vqgan_pickle,
+)
 from lwm_tpu_torch.utils.image import read_png
 from lwm_tpu_torch.utils.rng import set_random_seed
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
@@ -3274,9 +3301,11 @@ def phase_spec_cli():
 # and CLI_LAYERS layers over a params stream the port writes, over a
 # haystack of _cli_text lines and the fixture tokenizer: contexts 1000 and
 # 4000, 2 depths, 1 round (the multi eval: 2 needles, both asked), scan
-# chunks NEEDLE_BLOCK. Each runs twice, first as a `python -m` subprocess, then
-# through its main in this process: one results row a grid point, and the
-# rerun over the file adds none
+# chunks NEEDLE_BLOCK. Each runs twice, eval_needle first as a `python -m`
+# subprocess (eval_needle_multi's first run is in-process, to make room: the
+# two share their imports), then through its main in this
+# process: one results row a grid point, and the rerun over the file adds
+# none
 EVAL_MAINS = {"eval_needle": eval_needle.main, "eval_needle_multi": eval_needle_multi.main}
 EVAL_CLI_GRID = ("--context_lengths_min=1000", "--context_lengths_max=4000",
                  "--n_context_length_intervals=2", "--n_document_depth_intervals=2",
@@ -3311,7 +3340,7 @@ def phase_eval_clis():
                     *EVAL_CLI_GRID, *extra]
             first = None
             for run in ("first", "resumed"):
-                if run == "first":   # the module entry point; the rerun through its main
+                if run == "first" and module == "eval_needle":   # the module entry point
                     stdout = run_cli_process(f"lwm_tpu_torch.apps.{module}", argv,
                                              f"{module} {run}").stdout
                 else:
@@ -3588,6 +3617,126 @@ def phase_vision_generation(model, fp32, vq):
     if frames.shape != (1, VG_FRAMES, 256, 256, 3) or frames.dtype != np.uint8:
         raise AssertionError(f"vision generation: frames {frames.shape} {frames.dtype}")
     del gen, vmodel
+    torch.cuda.empty_cache()
+    return paths
+
+
+# Image and video QA (phase_vision_chat): scripts/run_vision_chat_torch.sh's
+# path through apps.vision_chat.Sampler at the 7b width, all 32 layers, fp32,
+# on phase_vision_generation's tensors (the serving weights' fp32 copy as a
+# VideoLLaMA, vte and vision_head from the seed) in sample_mode "text" at the
+# bundle's config (VC_CONFIG): VC_FRAMES frames of seeded pixels, already
+# decoded, through phase_vqgan's model (`Sampler.encode_frames`: each frame's
+# codes and EOF, EOV after the last), the prompt by `construct_input` with
+# the fixture tokenizer (VC_PROMPT tokens, left-padded), then 128 new tokens
+# (block_size) at temperature 0.2 and top-k 50: exact K1/K4 fp32 counts (K1 a
+# layer for the prefill, K4 a layer a step), prefill seconds, ms a step. Then
+# top-k 1 on the kernel path and on an attn_impl="plain" arm of the same
+# tensors: the prefill's last logits held at NEEDLE_REL_TOL of the largest,
+# the tokens equal (or apart first at a near tie, SPEC_TIE_GAP).
+VC_FRAMES = 8
+VC_PROMPT = 2432   # ceil((8 x 257 + 256) / 128) x 128
+VC_QUESTION = "What is happening in this video?"
+VC_CONFIG = dict(sample_mode="text", theta=50_000_000, max_sequence_length=131072,
+                 scan_attention=False, scan_query_chunk_size=128, scan_key_chunk_size=128,
+                 scan_mlp=False, scan_mlp_chunk_size=2048)
+
+
+def _vision_chat_arm(sampler, batch, what, counted=True):
+    """One `Sampler.generate` of `batch`'s row: (its new tokens, the
+    forwards' seconds, launches or None), exact K1/K4 fp32 counts held when
+    `counted`."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    _reset_launch_counts()
+    with timed_forwards(sampler.model) as sec:
+        tokens = sampler.generate(batch)[0].cpu().numpy()
+    launches = _launch_counts() if counted else None
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(sec) - 1
+    if counted:
+        want = _generation_launches(sampler.model.config, dict(forwards=len(sec)), f32=True)
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+    step_ms = 1e3 * sum(sec[1:]) / max(steps, 1)
+    log(f"{what}: {steps + 1} new tokens over a {VC_PROMPT}-token prompt: prefill "
+        f"{sec[0]:.3f}s ({VC_PROMPT / sec[0]:.0f} tokens/s), {step_ms:.2f} ms a step, peak "
+        f"{peak:.1f} GiB ({peak - held:.2f} over the {held:.1f} held before); "
+        f"launches {launches} [{card()}]")
+    return tokens, sec, launches
+
+
+def phase_vision_chat(fp32, vq):
+    """See VC_*. Returns the launch counts of the counted runs."""
+    tok = Tokenizer(str(FIXTURE_TOKENIZER))
+    cfg = VideoLLaMAConfig.load_config("7b").replace(
+        **VC_CONFIG, bos_token_id=tok.bos_token_id, eos_token_id=tok.eos_token_id)
+    vmodel = vision_generation_model(cfg, fp32)
+    plain = vision_generation_model(cfg, fp32, "plain")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    frames = torch.rand((VC_FRAMES, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    sampler = vision_chat.Sampler.from_model(vmodel, tok, VQGAN.from_model(vq), 0.2, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = sampler.construct_input([dict(frames=frames, question=VC_QUESTION)], VC_FRAMES)
+    encode_s = time.perf_counter() - t0
+    ids, vm = batch["input_ids"][0], batch["vision_masks"][0]
+    vision = ids[vm]
+    n_real = int(batch["attention_mask"][0].sum())
+    log(f"vision chat: {VC_FRAMES} frames encoded and the prompt built in {encode_s:.2f}s: "
+        f"{ids.shape[0]} tokens, {n_real} real, {len(vision)} vision (EOF x "
+        f"{int((vision == EOF).sum())}, EOV x {int((vision == EOV).sum())})")
+    if (batch["input_ids"].shape != (1, VC_PROMPT) or len(vision) != VC_FRAMES * TOKENS_PER_FRAME
+            or vision[-1] != EOV or int((vision == EOF).sum()) != VC_FRAMES - 1
+            or not (vision[:-1][TOKENS_PER_FRAME - 1::TOKENS_PER_FRAME] == EOF).all()):
+        raise AssertionError("vision chat: the prompt is not the bundle's layout")
+    paths = []
+    tokens, _, launches = _vision_chat_arm(sampler, batch,
+                                           "vision chat (temperature 0.2, top-k 50)")
+    paths.append(launches)
+    answer = sampler.answers(torch.as_tensor(tokens)[None])[0]
+    log(f"vision chat answer: {len(answer)} characters, {answer[:80]!r}")
+    if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError("vision chat: a new token outside the text vocabulary")
+
+    sampler.top_k = 1
+    greedy, _, launches = _vision_chat_arm(sampler, batch, "vision chat top-k 1")
+    paths.append(launches)
+    plain_sampler = vision_chat.Sampler.from_model(plain, tok, sampler.vqgan, 0.2, SEED)
+    plain_sampler.top_k = 1
+    want_tokens = _vision_chat_arm(plain_sampler, batch, "vision chat top-k 1, plain arm",
+                                   counted=False)[0]
+    on = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    got, want = (generation.prefill(m, on["input_ids"].long(), on["attention_mask"].long(),
+                                    sampler.block_size, on["vision_masks"])[0]
+                 for m in (vmodel, plain))
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"vision chat: prefill's last logits, kernel vs plain fp32 max|Δ|/max|plain| "
+        f"{rel:.3e} (tol {NEEDLE_REL_TOL}), argmax {got.argmax(-1).tolist()} / "
+        f"{want.argmax(-1).tolist()}")
+    if not rel <= NEEDLE_REL_TOL:
+        raise AssertionError("vision chat: prefill logits disagree with the plain fp32 path")
+    apart = np.flatnonzero(greedy != want_tokens)
+    if len(apart):
+        at = int(apart[0])
+        new = torch.as_tensor(want_tokens[:at], device="cuda")[None]
+        ext = torch.cat([on["input_ids"].long(), new], 1)
+        mask = torch.cat([on["attention_mask"].long(), torch.ones_like(new)], 1)
+        vms = torch.cat([on["vision_masks"], torch.zeros(new.shape, dtype=torch.bool,
+                                                         device="cuda")], 1)
+        with torch.no_grad():
+            lg = plain(ext, mask, (mask.cumsum(-1) - 1).clamp_min(0), vision_masks=vms,
+                       logits_tail=1)[0, -1].float()
+        top = lg.topk(2).values
+        gap = (top[0] - top[1]).item()
+        log(f"vision chat top-k 1: tokens apart from the plain arm's first at {at}; top-2 gap "
+            f"there {gap:.2e} (near tie below {SPEC_TIE_GAP})")
+        if not gap < SPEC_TIE_GAP:
+            raise AssertionError("vision chat: top-k 1 tokens differ off a near tie")
+    else:
+        log(f"vision chat top-k 1: all {len(greedy)} tokens equal the plain arm's")
+    del sampler, plain_sampler, vmodel, plain, got, want, on
     for name in ("vte.weight", "vision_head.weight"):
         del fp32[name]
     torch.cuda.empty_cache()
@@ -3874,61 +4023,375 @@ def phase_train_f32():
     return phase_train_full(dtype=torch.float32)[0]
 
 
-# The 32K stage of scripts/run_context_extension.sh (ext32k: its BASE_CFG at
-# max_sequence_length 32768, theta 2e6, scan chunks 1024, one row,
-# --dtype=fp32, remat nothing_saveable; its AdamW schedule): CTX32K_STEPS
-# train steps on random tokens, the median of steps 2 on beside the
-# backward's fp32 route's share (one launch a layer a step, at its time at
-# BWD_F32_32K, the same attention)
-CTX32K_CFG = dict(
-    vocab_size=2048, hidden_size=768, intermediate_size=2048, num_hidden_layers=6,
-    num_attention_heads=6, scan_attention=True, scan_mlp=False, scan_layers=True,
-    param_scan_axis=0, remat_block="nothing_saveable", max_sequence_length=32768,
-    theta=2000000, scan_query_chunk_size=1024, scan_key_chunk_size=1024)
-CTX32K_STEPS = 4
+# scripts/run_context_extension_torch.sh's chain (phase_context_extension) at
+# the bundle's widths (CTX_BASE_CFG: 6 layers of 768, 6 heads, vocab 2048,
+# remat nothing_saveable; fp32; the BPE fixture tokenizer):
+# - data: the port's generators with the bundle's flags, n_train cut to what
+#   the steps read (CTX_DATA), each a `python -m` process, and the bundle's
+#   mixing step, in one host process started after phase_build
+#   (start_context_extension_data), so that it overlaps the kernel phases;
+# - training: the four stages (CTX_STAGES: the bundle's seq, theta, batch,
+#   data, scan chunk and lr, its lr schedule over its own total steps) for
+#   their smoke steps, each warm-started with params:: from the last stage's
+#   milestone, found as the bundle's `ls` finds it; exact K1 and backward
+#   fp32 counts (2 x layers x steps, layers x steps) and finite losses.
+#   Stage 3 is the 32K stage that was timed alone before: its steps synced
+#   and timed, the median of steps 2 on beside the backward's fp32 route's
+#   share (one launch a layer a step at its time at BWD_F32_32K).
+#   Stage 1's first batch is held kernel vs plain at fp32 on the stage-0
+#   weights (loss F32_LOSS_RTOL, every grad F32_GRAD_REL_TOL of its largest);
+# - conversion: run_needle_validation.sh's unscan of stage 3's stream (a
+#   `python -m` process), every layer equal to its slice; streaming_to_hf
+#   then hf_to_streaming of the same stream, leaf for leaf;
+# - eval: eval_needle at CTX_EVAL_CONTEXT tokens, one depth, one round over
+#   the unscanned stream (exact K1/K4 fp32 counts: a prefill and a step of
+#   each layer), its results_32k.json a row; summarize_needle (`python -m`);
+#   probe_needle_digits in this process on CTX_PROBE_N prompts with exact K1
+#   fp32 counts (its `python -m` run, 30 s of imports on the card's host, was
+#   cut for room), its logits held kernel vs plain at NEEDLE_REL_TOL and its
+#   argmaxes equal (or apart at a near tie).
+CTX_BASE_CFG = ("vocab_size=2048,hidden_size=768,intermediate_size=2048,num_hidden_layers=6,"
+                "num_attention_heads=6,scan_attention=True,scan_mlp=False,scan_layers=True,"
+                "param_scan_axis=0,remat_block='nothing_saveable'")
+# name, seq, theta, the bundle's steps, batch, data, scan chunk, lr, the smoke's steps
+CTX_STAGES = (("copy", 512, 10000, 1500, 64, "copy.jsonl", 256, "1e-3", 2),
+              ("base2k", 2048, 10000, 4000, 16, "train_mixed.jsonl", 256, "1e-3", 2),
+              ("ext8k", 8192, 200000, 800, 4, "needle_8k.jsonl", 1024, "4e-4", 2),
+              ("ext32k", 32768, 2000000, 500, 1, "needle_32k.jsonl", 1024, "3e-4", 4))
+_NEEDLE = "--filler_mode pool --n_distractors 2 --qa_all_needles"
+CTX_DATA = (   # module, the bundle's flags with n_train cut ({w}: the work directory)
+    ("create_copy_pretrain_data", "--seq_length 512 --n_train 128 --output {w}/copy.jsonl"),
+    ("create_copy_pretrain_data",
+     "--seq_length 1024 --n_train 16 --output {w}/copy_mix.jsonl --seed 3"),
+    ("create_needle_train_data", f"--seq_length 1024 --n_train 16 {_NEEDLE} "
+     "--min_context_tokens 32 --max_context_tokens 450 --train_output {w}/needle_short.jsonl"),
+    ("create_needle_train_data", f"--seq_length 2048 --n_train 16 {_NEEDLE} "
+     "--min_context_tokens 256 --seed 2 --train_output {w}/needle_long.jsonl "
+     "--haystack_output {w}/haystack.jsonl --haystack_sentences 80000"),
+    ("create_needle_train_data", f"--seq_length 8192 --n_train 8 {_NEEDLE} "
+     "--min_context_tokens 1024 --seed 4 --train_output {w}/needle_8k.jsonl"),
+    ("create_needle_train_data", f"--seq_length 32768 --n_train 4 {_NEEDLE} "
+     "--min_context_tokens 4096 --seed 5 --train_output {w}/needle_32k.jsonl"),
+)
+CTX_EVAL_CONTEXT, CTX_PROBE_N = 30000, 4
+CTX_LAYERS = _spec_cfg(f"dict({CTX_BASE_CFG})")["num_hidden_layers"]
+CTX_DATA_SCRIPT = r'''
+import json, random, subprocess, sys, time
+jobs, w = json.loads(sys.argv[1]), sys.argv[2]
+for module, args in jobs:
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "lwm_tpu_torch.apps." + module, *args],
+                         capture_output=True, text=True)
+    if out.returncode:
+        sys.exit(f"{module} {args}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    print(json.dumps([module, round(time.perf_counter() - t0, 2), out.stdout.strip()]),
+          flush=True)
+# the bundle's mixing step: 2048-token groups of [copy|needle_short pairs] + [needle_long]
+rng = random.Random(99)
+copy_ = open(f"{w}/copy_mix.jsonl").read().strip().splitlines()
+a = open(f"{w}/needle_short.jsonl").read().strip().splitlines()
+b = open(f"{w}/needle_long.jsonl").read().strip().splitlines()
+rng.shuffle(copy_); rng.shuffle(a); rng.shuffle(b)
+groups = []
+for i in range(min(len(copy_), len(a))):
+    pair = [copy_[i], a[i]]
+    rng.shuffle(pair)
+    groups.append(pair)
+a = a[len(copy_):]
+groups += [[a[i], a[i + 1]] for i in range(0, len(a) - 1, 2)]
+groups += [[x] for x in b]
+rng.shuffle(groups)
+with open(f"{w}/train_mixed.jsonl", "w") as f:
+    for g in groups:
+        f.write("\n".join(g) + "\n")
+print(json.dumps(["mix", len(groups)]), flush=True)
+'''
 
 
-def phase_train_ctx32k(bwd_ms):
-    """CTX32K_STEPS train steps of the context-extension bundle's 32K stage
-    (above); `bwd_ms` is the backward's fp32 route at BWD_F32_32K. K1's and
-    the backward's fp32 routes launch exactly 2 x layers x steps (remat runs
-    the forward again) and layers x steps. Returns the launch counts."""
-    cfg = train.build_model_config(update_llama_config=CTX32K_CFG)
-    layers, b, s = cfg.num_hidden_layers, 1, cfg.max_sequence_length
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    model = LLaMAForCausalLM(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
-    model.init_weights(gen)
-    state = train.create_train_state(model, dict(adamw_optimizer=dict(
-        lr=3e-4, end_lr=1e-4, lr_warmup_steps=100, lr_decay_steps=500)))
-    batch = _lm_batch(b, s, cfg.vocab_size, SEED + 9)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launch_counts()
-    losses, times = [], []
-    for _ in range(CTX32K_STEPS):
+def start_context_extension_data():
+    """The host process that makes phase_context_extension's data (see
+    CTX_DATA): (its Popen, the work directory). Both are ended and removed
+    at exit, whatever happens in between."""
+    work = Path(tempfile.mkdtemp(prefix="lwm_ctx_ext_"))
+    jobs = [(m, a.format(w=work).split() + ["--tokenizer", str(FIXTURE_TOKENIZER)])
+            for m, a in CTX_DATA]
+    proc = subprocess.Popen([sys.executable, "-c", CTX_DATA_SCRIPT, json.dumps(jobs), str(work)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=Path(__file__).resolve().parent)
+    atexit.register(shutil.rmtree, work, True)
+    atexit.register(proc.kill)
+    return proc, work
+
+
+def _ctx_argv(work, stage, warm):
+    """The bundle's `train` function's flags for a stage (its own steps)."""
+    name, seq, theta, total, batch, data, chunk, lr, steps = stage
+    return [
+        *CLI_FLAGS, "--mesh_dim=1,1,1,1", "--dtype=fp32", f"--total_steps={steps}",
+        "--log_freq=1", f"--save_model_freq={steps}",
+        *([f"--load_checkpoint=params::{warm}"] if warm else []),
+        f"--update_llama_config=dict({CTX_BASE_CFG},max_sequence_length={seq},theta={theta},"
+        f"scan_query_chunk_size={chunk},scan_key_chunk_size={chunk})",
+        f"--tokenizer={FIXTURE_TOKENIZER}", "--train_dataset.type=json",
+        "--train_dataset.text_processor.fields=[question],answer,[postpad]",
+        "--train_dataset.text_processor.subfield_separator=",
+        f"--train_dataset.json_dataset.path={work / data}",
+        f"--train_dataset.json_dataset.seq_length={seq}",
+        f"--train_dataset.json_dataset.batch_size={batch}",
+        f"--optimizer.adamw_optimizer.lr={lr}", "--optimizer.adamw_optimizer.end_lr=1e-4",
+        "--optimizer.adamw_optimizer.lr_warmup_steps=100",
+        f"--optimizer.adamw_optimizer.lr_decay_steps={total}",
+        f"--logger.output_dir={work / ('run_' + name)}", f"--logger.experiment_id={name}",
+    ]
+
+
+def _ctx_config(seq, theta, chunk):
+    return train.build_model_config(update_llama_config=_spec_cfg(
+        f"dict({CTX_BASE_CFG},max_sequence_length={seq},theta={theta},"
+        f"scan_query_chunk_size={chunk},scan_key_chunk_size={chunk})"))
+
+
+def _ctx_step_hold(work, stage, warm):
+    """Stage `stage`'s first batch (the CLI's dataset flags) on the weights
+    of `warm`: loss and grads of the kernel path at fp32 against the plain
+    fp32 path."""
+    from lwm_tpu_torch.data import DatasetFactory
+
+    name, seq, theta, _, batch_size, data, chunk, _, _ = stage
+    cfg = _ctx_config(seq, theta, chunk)
+    batches = iter(DatasetFactory.load_dataset(dict(
+        type="json", text_processor=dict(fields="[question],answer,[postpad]",
+                                         subfield_separator=""),
+        json_dataset=dict(path=str(work / data), seq_length=seq, batch_size=batch_size)),
+        Tokenizer(str(FIXTURE_TOKENIZER)), node_info=train.NODE_INFO))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(batches)[0].items()
+             if k in train.BATCH_KEYS}
+    batches.close()
+    sd = convert_flax_params(checkpoint.load_checkpoint(str(warm)), cfg, dtype=torch.float32,
+                             device="cuda")
+    results = {}
+    for impl in ("auto", "plain"):
+        model = LLaMAForCausalLM(cfg.replace(attn_impl=impl), dtype=torch.float32,
+                                 param_dtype=torch.float32, device="cuda")
+        model.load_state_dict(sd)
+        loss, _ = train.compute_loss(model, batch)
+        loss.backward()
+        results[impl] = (loss.item(), {n: p.grad for n, p in model.named_parameters()})
+        del model
+    (l_k, g_k), (l_p, g_p) = results["auto"], results["plain"]
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    worst = max((((g_k[n] - g_p[n]).abs().max() / g_p[n].abs().max().clamp_min(1e-30)).item(),
+                 n) for n in g_p)
+    log(f"context extension {name}'s first batch ({batch_size} x {seq}) on the last stage's "
+        f"weights, kernel vs plain fp32: loss {l_k:.8f} / {l_p:.8f} (relative {loss_rel:.3e}, "
+        f"tol {F32_LOSS_RTOL}); largest grad max|Δ|/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
+        f"{F32_GRAD_REL_TOL})")
+    if not (math.isfinite(l_k) and loss_rel <= F32_LOSS_RTOL and worst[0] <= F32_GRAD_REL_TOL):
+        raise AssertionError(f"context extension {name}: the kernel path's step disagrees with "
+                             "the plain fp32 path")
+    del results, g_k, g_p, sd
+    torch.cuda.empty_cache()
+
+
+def _ctx_stage(work, stage, warm, bwd_ms):
+    """One stage's CLI run in this process (exact fp32 counts, finite
+    losses), the 32K stage's steps synced and timed. Returns (its
+    milestone, the launch counts)."""
+    name, seq, _, _, batch, _, _, _, steps = stage
+    layers = CTX_LAYERS
+    times, real_step = [], train.train_step
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m = train.train_step(state, batch)
+        out = real_step(*a, **kw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        losses.append(m["loss"].item())
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    train.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        summary = train.main(_ctx_argv(work, stage, warm))
+    finally:
+        train.train_step = real_step
+    wall = time.perf_counter() - t0
     launches = _launch_counts()
-    step_s = float(np.median(times[1:]))
-    attn_s = layers * bwd_ms / 1e3
-    log(f"train ctx32k (run_context_extension.sh's 32K stage: hidden {cfg.hidden_size}, "
-        f"{layers} layers, "
-        f"{cfg.num_attention_heads} heads, 1 x {s}, fp32, remat {cfg.remat_block}): steps "
-        f"{', '.join(f'{t:.3f}' for t in times)} s, median of steps 2-{CTX32K_STEPS} "
-        f"{step_s:.3f} s, {b * s / step_s:.0f} tokens/s; the backward's fp32 route {layers} x "
-        f"{bwd_ms:.3f} ms = {attn_s:.3f} s ({100 * attn_s / step_s:.1f}% of the step); "
-        f"losses {[round(x, 4) for x in losses]}; peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches} [{card()}]")
-    n = layers * CTX32K_STEPS
-    if not all(map(math.isfinite, losses)) or launches["flash_bwd_f32"] != n or launches[
-            "flash_fwd_f32"] != 2 * n:
-        raise AssertionError(f"train ctx32k: losses {losses}, launches {launches} (want "
-                             f"flash_fwd_f32 {2 * n}, flash_bwd_f32 {n})")
-    del model, state, batch
-    return launches
+    losses = [r["loss"] for r in _metrics(summary)]
+    n = layers * steps
+    want = dict(flash_fwd=2 * n, flash_fwd_f32=2 * n, flash_bwd=n, flash_bwd_f32=n,
+                flash_decode=0)
+    start = f"warm from {Path(warm).parent.name}/{Path(warm).name}" if warm else "from the seed"
+    log(f"context extension {name} ({batch} x {seq}, {start}): {steps} steps in {wall:.1f}s "
+        f"of wall, steps {', '.join(f'{t:.3f}' for t in times)} s, losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches}")
+    if any(launches[k] != v for k, v in want.items()) or len(losses) != steps or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"context extension {name}: launches {launches} (want {want}), "
+                             f"losses {losses}")
+    if seq == 32768:
+        step_s = float(np.median(times[1:]))
+        attn_s = layers * bwd_ms / 1e3
+        log(f"train ctx32k (run_context_extension.sh's 32K stage: hidden 768, {layers} layers, "
+            f"6 heads, 1 x {seq}, fp32, remat nothing_saveable; warm from stage 2, on the "
+            f"generated data): median of steps 2-{steps} {step_s:.3f} s, {seq / step_s:.0f} "
+            f"tokens/s; the backward's fp32 route {layers} x {bwd_ms:.3f} ms = {attn_s:.3f} s "
+            f"({100 * attn_s / step_s:.1f}% of the step); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card()}]")
+    milestone = sorted(Path(summary["output_dir"]).glob("streaming_params_*"))[-1]
+    torch.cuda.empty_cache()
+    return milestone, launches
+
+
+def _stream_equal(got, want, what):
+    """Two flat streams leaf for leaf (fp32; `want` widened from bf16)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys differ")
+    for key, value in want.items():
+        if not np.array_equal(np.asarray(got[key]), torch.as_tensor(value).float().numpy()):
+            raise AssertionError(f"{what}: {'/'.join(key)} differs")
+
+
+def _probe_hold(args):
+    """The probe's prompts through its kernel model and an attn_impl="plain"
+    one on the same tensors: the first prompt's logits at NEEDLE_REL_TOL of
+    the largest, every argmax equal or apart at a near tie."""
+    model = probe_needle_digits.load_model(args)
+    plain = LLaMAForCausalLM.on_tensors(model.config.replace(attn_impl="plain"),
+                                        dict(model.named_parameters()), torch.float32)
+    enc = Tokenizer(args.tokenizer)
+    rows_k = probe_needle_digits.probe(model, enc, args)[3]
+    rows_p = probe_needle_digits.probe(plain, enc, args)[3]
+    worst, ties = 0.0, []
+    for i, ((ids, pk), (_, pp)) in enumerate(zip(rows_k, rows_p)):
+        x = torch.tensor([ids], device="cuda")
+        pos = torch.arange(len(ids), device="cuda")[None]
+        with torch.no_grad():
+            lk, lp = (m(x, torch.ones_like(x), pos)[0].float() for m in (model, plain))
+        worst = max(worst, ((lk - lp).abs().max() / lp.abs().max()).item())
+        for at in np.flatnonzero(np.asarray(pk) != np.asarray(pp)):
+            top = lp[at].topk(2).values
+            ties.append((i, int(at), (top[0] - top[1]).item()))
+    log(f"probe: {len(rows_k)} prompts, kernel vs plain fp32 logits max|Δ|/max|plain| "
+        f"{worst:.3e} (tol {NEEDLE_REL_TOL}); argmaxes apart at {ties} (near tie below "
+        f"{SPEC_TIE_GAP})")
+    if not worst <= NEEDLE_REL_TOL or any(gap >= SPEC_TIE_GAP for *_, gap in ties):
+        raise AssertionError("probe: the kernel path disagrees with the plain fp32 path")
+    del model, plain
+    torch.cuda.empty_cache()
+
+
+def phase_context_extension(data, bwd_ms):
+    """See CTX_*; `data` is start_context_extension_data's (process, work
+    directory), `bwd_ms` the backward's fp32 route at
+    BWD_F32_32K. Returns every counted run's launch counts."""
+    proc, work = data
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"context extension data: exit {proc.returncode}\n{err[-3000:]}")
+    jobs = [json.loads(line) for line in out.splitlines()]
+    for job in jobs:
+        log(f"context extension data: {job}")
+    log(f"context extension data: its generators took {sum(j[1] for j in jobs[:-1]):.1f}s "
+        f"of the host process beside the earlier phases; waited {waited:.1f}s for it here")
+    paths, warm = [], None
+    for i, stage in enumerate(CTX_STAGES):
+        if i == 1:
+            _ctx_step_hold(work, stage, warm)
+        warm, launches = _ctx_stage(work, stage, warm, bwd_ms)
+        paths.append(launches)
+    _, seq, theta, _, _, _, chunk, _, _ = CTX_STAGES[-1]
+    update = (f"dict({CTX_BASE_CFG},max_sequence_length={seq},theta={theta},"
+              f"scan_query_chunk_size={chunk},scan_key_chunk_size={chunk})")
+    scanned = checkpoint.load_stream(str(warm))
+
+    # run_needle_validation.sh's unscan, then the HF round trip
+    unscanned = work / "params_unscanned"
+    run_cli_process("lwm_tpu_torch.apps.convert_checkpoint", [
+        "--direction=unscan", "--llama_config=debug", f"--update_llama_config={update}",
+        "--scan_layers=True", "--param_scan_axis=0", f"--streaming_path={warm}",
+        f"--output={unscanned}"], "convert_checkpoint unscan")
+    flat = checkpoint.load_stream(str(unscanned))
+    layers = {}
+    for key, value in scanned.items():
+        if "scan_decoder" in key:
+            i = key.index("scan_decoder")
+            for layer in range(value.shape[0]):
+                layers[key[:i] + (str(layer),) + key[i + 1:]] = value[layer]
+        else:
+            layers[key] = value
+    _stream_equal(flat, layers, "convert_checkpoint unscan")
+    conv = ["--llama_config=debug", f"--update_llama_config={update}", "--scan_layers=True",
+            "--param_scan_axis=0"]
+    t0 = time.perf_counter()
+    run_cli_in_process(convert_checkpoint.main, conv + [
+        "--direction=streaming_to_hf", f"--streaming_path={warm}", f"--output={work / 'hf'}"],
+        "convert_checkpoint streaming_to_hf")
+    run_cli_in_process(convert_checkpoint.main, conv + [
+        "--direction=hf_to_streaming", f"--hf_path={work / 'hf'}",
+        f"--output={work / 'params_back'}"], "convert_checkpoint hf_to_streaming")
+    _stream_equal(checkpoint.load_stream(str(work / "params_back")), scanned,
+                  "convert_checkpoint HF round trip")
+    log(f"convert_checkpoint: stage 3's stream unscanned ({len(flat)} leaves, each layer its "
+        f"slice) and through an HF directory and back ({len(scanned)} leaves equal) in "
+        f"{time.perf_counter() - t0:.1f}s of in-process runs")
+
+    # eval_needle at one 32K-class context over the unscanned stream
+    results = work / "results_32k.json"
+    eval_argv = [*CLI_FLAGS, f"--haystack_file={work / 'haystack.jsonl'}",
+                 f"--output_file={results}", f"--context_lengths_min={CTX_EVAL_CONTEXT}",
+                 f"--context_lengths_max={CTX_EVAL_CONTEXT}", "--n_context_length_intervals=1",
+                 "--n_document_depth_intervals=1", "--n_rounds=1",
+                 f"--load_checkpoint=params::{unscanned}", "--unscan_for_serving=True",
+                 f"--update_llama_config={update}", f"--tokenizer={FIXTURE_TOKENIZER}",
+                 "--mesh_dim=1,1,1,1", "--dtype=fp32", "--max_tokens_per_batch=65536"]
+    shapes, real = [], LLaMAForCausalLM.forward
+    LLaMAForCausalLM.forward = lambda self, ids, *a, **kw: (shapes.append(ids.shape[1]),
+                                                            real(self, ids, *a, **kw))[1]
+    _reset_launch_counts()
+    try:
+        run_cli_in_process(eval_needle.main, eval_argv, "eval_needle 32k")
+    finally:
+        LLaMAForCausalLM.forward = real
+    launches = _launch_counts()
+    paths.append(launches)
+    prefills, steps = sum(s > 1 for s in shapes), sum(s == 1 for s in shapes)
+    want = dict(flash_fwd=CTX_LAYERS * prefills, flash_fwd_f32=CTX_LAYERS * prefills,
+                flash_decode=CTX_LAYERS * steps, flash_decode_f32=CTX_LAYERS * steps,
+                flash_bwd=0)
+    rows = json.loads(results.read_text())
+    got = [(r["context_length"], r["depth_percent"], r["correct"]) for r in rows]
+    log(f"eval_needle 32k: {len(rows)} row(s) {got}, {prefills} prefill of {max(shapes)} "
+        f"tokens, {steps} decode steps; launches {launches}")
+    if any(launches[k] != v for k, v in want.items()) or len(rows) != 1 or rows[0][
+            "context_length"] != CTX_EVAL_CONTEXT:
+        raise AssertionError(f"eval_needle 32k: launches {launches} (want {want}), rows {rows}")
+    summary = run_cli_process("lwm_tpu_torch.apps.summarize_needle", [str(results)],
+                              "summarize_needle").stdout
+    log("summarize_needle: " + " | ".join(summary.strip().splitlines()))
+    if "overall: " not in summary or f"{CTX_EVAL_CONTEXT:<10}" not in summary:
+        raise AssertionError(f"summarize_needle: {summary!r}")
+
+    # the probe: a counted run in this process, then the hold
+    probe = [f"--checkpoint={unscanned}", f"--tokenizer={FIXTURE_TOKENIZER}",
+             f"--update_llama_config={update}", *CLI_FLAGS]
+    _reset_launch_counts()
+    line = run_cli_in_process(probe_needle_digits.main, probe + [f"--n={CTX_PROBE_N}"],
+                              "probe_needle_digits")[0].strip()
+    launches = _launch_counts()
+    paths.append(launches)
+    want = dict(flash_fwd=CTX_LAYERS * CTX_PROBE_N, flash_fwd_f32=CTX_LAYERS * CTX_PROBE_N,
+                flash_decode=0, flash_bwd=0)
+    log(f"probe_needle_digits: {line!r} ({CTX_PROBE_N} prompts); launches {launches}")
+    if any(launches[k] != v for k, v in want.items()) or not line.startswith("digit acc"):
+        raise AssertionError(f"probe_needle_digits: launches {launches} (want {want})")
+    _probe_hold(probe_needle_digits.parse_args(probe + [f"--n={CTX_PROBE_N}"]))
+    shutil.rmtree(work, ignore_errors=True)
+    return paths
 
 
 # The training CLI on the card (phase_train_cli): `lwm_tpu_torch.train.main`
@@ -4263,6 +4726,7 @@ VISION_SHORT_STEPS, VISION_SHORT_LAYERS = 2, 4
 # far above the default path (where the whole-sequence dual CE peaked 6.2
 # GiB above it and once failed to allocate)
 C5_PEAK_SLACK_GIB = 1.0
+C5_STEPS = 2   # the loss's pieces peak in every step alike (cut from 6 for room)
 VISION_TRAIN_OPT = dict(lr=8e-5, end_lr=8e-5, lr_warmup_steps=5, lr_decay_steps=200,
                         init_lr=8e-6)
 # The vision round trip (--freeze_base, PaLM). Only vte and vision_head
@@ -4408,13 +4872,13 @@ def phase_train_vision(profile=None):
         torch.cuda.reset_peak_memory_stats()
         c5_summary, c5_launches = _run_cli(
             train_vision_argv(tmp, "loss_chunk_whole", data, layers,
-                              f"--total_steps={VISION_TRAIN_STEPS}",
+                              f"--total_steps={C5_STEPS}",
                               f"--loss_chunk_size={VISION_TRAIN_SEQ}"),
-            layers, VISION_TRAIN_STEPS, "vision loss_chunk_whole")
+            layers, C5_STEPS, "vision loss_chunk_whole")
         c5_peak = torch.cuda.max_memory_allocated() / 2**30
         paths.append(c5_launches)
         c5_losses = [r["loss"] for r in _vision_records(c5_summary, "train vision loss_chunk_whole")]
-        log(f"train vision --loss_chunk_size={VISION_TRAIN_SEQ}: {VISION_TRAIN_STEPS} steps, peak "
+        log(f"train vision --loss_chunk_size={VISION_TRAIN_SEQ}: {C5_STEPS} steps, peak "
             f"memory {c5_peak:.2f} GiB beside the default run's {peak:.2f} GiB (limit +"
             f"{C5_PEAK_SLACK_GIB} GiB); losses a step minus the default's "
             f"{[f'{a - b:+.2e}' for a, b in zip(c5_losses, losses)]} [{card()}]")
@@ -4533,6 +4997,7 @@ def main():
 
     phase_env()
     phase_build()
+    ctx_data = start_context_extension_data()   # host work beside the kernel phases
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     *k1, k1_cases = phase_k1(gen)
     *k4, k4_cases = phase_k4(gen)
@@ -4563,7 +5028,8 @@ def main():
     mark("speculative decoding")
     vq, _ = phase_vqgan()
     path_launches.extend(phase_vision_generation(model, fp32, vq))
-    mark("VQGAN and vision generation")
+    path_launches.extend(phase_vision_chat(fp32, vq))
+    mark("VQGAN, vision generation and vision chat")
     del model, fp32
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_int8(bf16_summary))
@@ -4583,9 +5049,10 @@ def main():
     mark("train compare and the bf16 train step")
     path_launches.append(phase_train_f32())
     torch.cuda.empty_cache()
-    path_launches.append(phase_train_ctx32k(bwd_f32[BWD_F32_32K]["ms"]))
-    torch.cuda.empty_cache()
     mark("fp32 training")
+    path_launches.extend(phase_context_extension(ctx_data, bwd_f32[BWD_F32_32K]["ms"]))
+    torch.cuda.empty_cache()
+    mark("the context-extension chain")
     path_launches.extend(phase_spec_cli())
     torch.cuda.empty_cache()
     mark("run_spec_natural.sh's path")

@@ -48,13 +48,17 @@ import numpy as np
 import torch
 
 from lwm_tpu_torch.checkpoint import load_trainstate_checkpoint
-from lwm_tpu_torch.models.vision_llama import EOF, EOV, VideoLLaMAConfig, VideoLLaMAForCausalLM
+from lwm_tpu_torch.models.vision_llama import (
+    VideoLLaMAConfig,
+    VideoLLaMAForCausalLM,
+    frame_tokens,
+)
 from lwm_tpu_torch.models.vqgan import VQGAN
 from lwm_tpu_torch.serve import InflightServer
 from lwm_tpu_torch.utils.convert import convert_flax_params
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
 from lwm_tpu_torch.utils.flags import parse_flags as parse_flags_tree
-from lwm_tpu_torch.utils.image import center_crop_resize, read_video_frames
+from lwm_tpu_torch.utils.image import read_frames
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
 
 DEFAULTS = dict(
@@ -81,16 +85,12 @@ def encode_file_frames(flags):
     """The codes [t, 16, 16] of `--input_file` through VQGAN
     (`lwm_tpu/apps/serve_vision.py:92-111`)."""
     try:
-        from PIL import Image
+        import PIL  # noqa: F401
     except ImportError as e:
         raise ImportError("--input_file needs PIL to read an image or a video's frames (and "
                           "OpenCV for a video); pass --input_codes_file instead") from e
     vqgan = VQGAN(flags.vqgan_checkpoint, replicate=False, device=flags.device)
-    if flags.input_file.endswith((".png", ".jpg", ".jpeg")):
-        imgs = center_crop_resize(Image.open(flags.input_file).convert("RGB"), 256)[None]
-    else:
-        video = read_video_frames(flags.input_file, flags.max_n_frames)
-        imgs = np.stack([center_crop_resize(Image.fromarray(f), 256) for f in video])
+    imgs = read_frames(flags.input_file, flags.max_n_frames)
     return vqgan.encode(imgs)[1].cpu().numpy().astype(np.int64)
 
 
@@ -105,11 +105,7 @@ def encode_video_tokens(flags):
                     frames.append(np.asarray(json.loads(line), np.int64).reshape(-1))
     else:
         frames = list(encode_file_frames(flags))
-    tokens = []
-    for t, codes in enumerate(frames):
-        tokens.extend(np.asarray(codes).reshape(-1).tolist())
-        tokens.append(EOV if t == len(frames) - 1 else EOF)
-    return tokens
+    return frame_tokens(frames)
 
 
 def load_model(flags):

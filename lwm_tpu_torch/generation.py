@@ -11,7 +11,10 @@ transformers nor flax, so it keeps its own copy of those semantics:
   a shared-index cache of `round_cache_length(prompt + max_new_tokens)`
   slots (`model.prepare_inputs_for_generation`); the first new token comes
   from the prefill's last logits, each later one from a one-token step
-  (`model.update_inputs_for_generation`);
+  (`model.update_inputs_for_generation`). A VideoLLaMA's prompt may carry
+  `vision_masks`: the prefill reads them, and the one-token steps embed by
+  the model's `sample_mode`, as the JAX model keeps the masks for the
+  prompt alone (`lwm_tpu/models/vision_llama.py:139-149, 409-441`);
 - greedy (`do_sample` False) takes the argmax (the first of equal logits);
   sampling applies the warpers in transformers' order: temperature when it
   is not 1.0, top-k when it is not 0, top-p when it is below 1.0, then
@@ -84,23 +87,30 @@ def _next_token(logits, config, generator):
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def prefill(model, input_ids, attention_mask, max_new_tokens):
+def prefill(model, input_ids, attention_mask, max_new_tokens, vision_masks=None):
     """The prompt's forward into a fresh shared-index cache: returns (its
     last position's logits [b, vocab] fp32, the model kwargs of the next
-    step)."""
-    kwargs = model.prepare_inputs_for_generation(
-        input_ids, input_ids.shape[1] + max_new_tokens, attention_mask)
+    step). `vision_masks` [b, s] (a VideoLLaMA's) marks the prompt's vision
+    tokens."""
+    length = input_ids.shape[1] + max_new_tokens
+    if vision_masks is None:
+        kwargs = model.prepare_inputs_for_generation(input_ids, length, attention_mask)
+    else:
+        kwargs = model.prepare_inputs_for_generation(input_ids, length, attention_mask,
+                                                     vision_masks)
     logits = model(input_ids, kwargs["attention_mask"], kwargs["position_ids"],
-                   kwargs["cache"], logits_tail=1)
+                   kwargs["cache"], vision_masks=vision_masks, logits_tail=1)
     return logits[:, -1].float(), kwargs
 
 
 @torch.no_grad()
-def generate(model, input_ids, attention_mask=None, config=None, generator=None):
+def generate(model, input_ids, attention_mask=None, config=None, generator=None,
+             vision_masks=None):
     """New tokens [b, max_new_tokens] (int64, on input_ids' device) for the
     left-padded prompts input_ids [b, s] with attention_mask [b, s] (1 =
-    real token; None: all real), under `config` (a GenerationConfig). See
-    the module note."""
+    real token; None: all real) and, for a VideoLLaMA, the prompt's
+    vision_masks [b, s], under `config` (a GenerationConfig). See the
+    module note."""
     config = config or GenerationConfig()
     if config.num_beams != 1:
         raise NotImplementedError("beam search (num_beams > 1) is not ported: no caller uses it")
@@ -113,7 +123,8 @@ def generate(model, input_ids, attention_mask=None, config=None, generator=None)
     out = torch.full((b, config.max_new_tokens), pad, dtype=torch.long, device=input_ids.device)
     if config.max_new_tokens <= 0:
         return out
-    logits, kwargs = prefill(model, input_ids, attention_mask, config.max_new_tokens)
+    logits, kwargs = prefill(model, input_ids, attention_mask, config.max_new_tokens,
+                             vision_masks)
     finished = torch.zeros(b, dtype=torch.bool, device=input_ids.device)
     for i in range(config.max_new_tokens):
         if i:

@@ -45,6 +45,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -54,6 +55,16 @@ from lwm_tpu_torch.models.llama import Embed, LLaMAConfig, LLaMAForCausalLM, _de
 EOF, EOV = 8192, 8193   # the frame and video ends among the vision specials
 TOKENS_PER_FRAME = 257  # 256 VQ codes and the EOF that closes the frame
 SAMPLE_MODES = ("all", "text", "vision")
+
+
+def frame_tokens(frames):
+    """Frames of VQ codes (each any shape, e.g. [16, 16]) → the token stream:
+    each frame's codes then EOF, EOV after the last frame."""
+    tokens = []
+    for t, codes in enumerate(frames):
+        tokens.extend(np.asarray(codes).reshape(-1).tolist())
+        tokens.append(EOV if t == len(frames) - 1 else EOF)
+    return tokens
 
 
 @dataclass

@@ -11,7 +11,8 @@
 - `center_crop_resize` and `read_video_frames`: the JAX readers
   (`lwm_tpu/apps/vision_chat.py:58-109`), a PIL image resized on its short
   side and center-cropped to [-1, 1] floats, and up to n RGB frames
-  sampled evenly from a video file through OpenCV.
+  sampled evenly from a video file through OpenCV; `read_frames` is the
+  vision apps' file path through both (`vision_chat.py:149-158`).
 
 PIL, imageio and cv2 are imported only inside the functions that need them.
 """
@@ -145,3 +146,18 @@ def read_video_frames(path, max_n_frames):
             out.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
     cap.release()
     return np.stack(out)
+
+
+def read_frames(path, max_n_frames, size=256):
+    """An image (.png/.jpg/.jpeg) as one frame, or up to `max_n_frames`
+    frames of a video, each center-cropped to size x size: float32 [t,
+    size, size, 3] in [-1, 1]. Raises ImportError without PIL."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("reading an image or a video's frames needs PIL (and OpenCV for a "
+                          "video)") from e
+    if path.endswith((".png", ".jpg", ".jpeg")):
+        return center_crop_resize(Image.open(path).convert("RGB"), size)[None]
+    video = read_video_frames(path, max_n_frames)
+    return np.stack([center_crop_resize(Image.fromarray(f), size) for f in video])

@@ -2,7 +2,8 @@
 modules pulls in none of jax, flax, optax, transformers, tokenizers, msgpack,
 regex, absl, ml_collections, datasets, wandb, gcsfs or tqdm, nor PIL,
 imageio or cv2 (the vision apps import those only in their file readers and
-writers), and builds no kernel and no native code (nor needs g++)."""
+writers), nor safetensors (`utils.hf_dir` reads and writes the format
+itself), and builds no kernel and no native code (nor needs g++)."""
 
 import subprocess
 import sys
@@ -35,11 +36,16 @@ def test_port_imports_no_jax():
                      "native.token_buffer", "utils.flags", "utils.io", "utils.logging",
                      "utils.rng", "models.vision_llama", "apps.serve_vision", "data.vision",
                      "generation", "apps.sampler", "apps.eval_needle", "apps.eval_needle_multi",
-                     "speculative", "models.vqgan", "apps.vision_generation", "utils.image"):
+                     "speculative", "models.vqgan", "apps.vision_generation", "utils.image",
+                     "apps.create_needle_train_data", "apps.create_copy_pretrain_data",
+                     "apps.summarize_needle", "apps.probe_needle_digits",
+                     "utils.checkpoint_convert", "utils.hf_dir", "apps.convert_checkpoint",
+                     "apps.vision_chat"):
             assert "lwm_tpu_torch." + want in names, names
         bad = [m for m in ("jax", "flax", "optax", "transformers", "absl", "ml_collections",
                            "msgpack", "tokenizers", "regex", "datasets", "wandb", "gcsfs",
-                           "tqdm", "lwm_tpu", "PIL", "imageio", "cv2") if m in sys.modules]
+                           "tqdm", "lwm_tpu", "PIL", "imageio", "cv2", "safetensors")
+               if m in sys.modules]
         assert not bad, bad
         from lwm_tpu_torch.ops import _build
         assert _build.load.cache_info().currsize == 0
