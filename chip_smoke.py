@@ -30,8 +30,13 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      batch's 4 rows (MHA and GQA) and one row of the bundle's 34816 slots,
      output and partials; and both at vision_generation's CFG pair (K1 its
      image prefill, 128 queries over 385 slots, and the 8-frame video's, 385
-     over 3072; K4 a step over each); each timed beside SDPA at fp32 and
-     the fp32 bound.
+     over 3072; K4 a step over each), and at the apps' prefills and last
+     steps (vision chat's 2432 queries over 3072 slots; the 32K eval's 31744
+     over 32768 at 6 heads; the 128-frame vision-needle eval's 33024 over
+     34816 at 6 heads of 64); each timed beside SDPA at fp32 and the fp32
+     bound. K1 and the fused backward in bf16 at the vision-needle bundle's
+     stage C row (1 x 33024, 6 heads of 64), timed beside SDPA, held to the
+     twins at 2 heads.
   5. The fused backward flash_attention_bwd (dq, dk, dv in one kernel) vs
      its plain twin at the training shapes (b 2, seq 4096, 32 heads, d 128;
      GQA; a ragged seq) and at edges of its tiles (seq 1000 with offsets
@@ -112,7 +117,7 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      and pixels. Then text to image and video (phase_vision_generation):
      scripts/run_sample_{image,video}_torch.sh's CFG sampler at the 7b
      width, 32 layers, fp32, on the fp32 copy as a VideoLLaMA: the image
-     (cfg 5, top-k 8192, 257 tokens) and a 3-frame video on it (cfg 1,
+     (cfg 5, top-k 8192, 257 tokens) and a 2-frame video on it (cfg 1,
      top-k 100), exact K1/K4 fp32 counts, EOF every 257th token, ms a step,
      tokens/s, peak; the first step's guided logits held to the plain fp32
      path at 1e-3 of the largest, a top-k 1 image's tokens to its tokens;
@@ -122,7 +127,11 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      'text': 8 decoded frames through phase_vqgan's model, the bundle's
      2432-token prompt, 128 new tokens at temperature 0.2 (exact K1/K4 fp32
      counts, prefill seconds, ms a step); at top-k 1 the prefill logits and
-     the tokens held to the plain fp32 path.
+     the tokens held to the plain fp32 path. Then the VQ tokenizer's trainer
+     (phase_train_vqgan): scripts/run_vqgan_128px_torch.sh's flags (128 px,
+     batch 16, 1024 codes) through apps.train_vqgan's main over synthetic
+     PNGs, 20 steps with two revivals, the round trip's PSNR and usage, ms
+     a step, peak; step 1's loss and codes held to the host CPU's.
   8. The same weights quantized on the card (`quantize_params_int8`, the
      run_serve.sh QUANTIZE=1 bundle): serve the 12 requests with
      quant_dense="int8" (K5 for every dense product) and 4 with
@@ -131,10 +140,10 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      of K5 against the "int8_xla" dequant arm on the same int8 tensors,
      and of both (and W8A8) against an fp32 copy of the dequantized
      weights.
-     Then the CLIs, each once as a `python -m` subprocess (the module entry
-     point on the card, its wall time split into imports, the params
-     stream's read and the work) and its other runs through its `main` in
-     this process: the serving CLI (`lwm_tpu_torch.apps.serve`) three times
+     Then the CLIs, the serving CLI's first run as a `python -m` subprocess
+     (the module entry point on the card, its wall time split into imports,
+     the params stream's read and the work), every other run through its
+     `main` in this process: the serving CLI (`lwm_tpu_torch.apps.serve`) three times
      over a 7b-width 4-layer params stream written by the port: a prefix
      document, its index saved then loaded (the same completions), lookup
      verify; and with --quantize_weights. The video QA CLI
@@ -143,11 +152,11 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      answers), lookup verify. Both needle eval CLIs (`apps.eval_needle`,
      `eval_needle_multi`) at fp32 over a 7b-width 4-layer stream and a
      generated haystack, contexts 1000-4000 x 2 depths x 1 round, each run
-     twice: one results row a grid point, and the rerun adds none. The
+     twice in this process: one results row a grid point, and the rerun
+     adds none. The
      text-to-image CLI (`apps.vision_generation`) over a 4-layer VideoLLaMA
      stream and phase_vqgan's model as the released pickle, both written by
-     the port: the subprocess's PNG equals the in-process run's, pixel for
-     pixel, with exact K1/K4 fp32 counts.
+     the port, run twice in this process: the same PNG, pixel for pixel, with exact K1/K4 fp32 counts.
   9. Train step at 7b width (2 layers, seq 4096): loss and per-parameter
      grads of the kernel path against an attn_impl="plain" bf16 model and
      an fp32 copy (the noise floor), on the same weights and batch; and the
@@ -158,9 +167,9 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      compute, remat save_flash, AdamW as scripts/run_train_text.sh), batch
      2 x 4096, 6 steps on one fixed batch from the seed: finite, falling
      loss, and K1 and the backward launched layers x steps times on that
-     path. The same at fp32 compute (phase_train_f32, the trainers'
-     default --dtype): K1's and the backward's fp32 routes launched
-     exactly layers x steps. Then run_context_extension_torch.sh's chain
+     path. The same at fp32 compute for 4 steps (phase_train_f32, the
+     trainers' default --dtype): K1's and the backward's fp32 routes
+     launched exactly layers x steps. Then run_context_extension_torch.sh's chain
      (phase_context_extension, at its widths: hidden 768, 6 layers, fp32,
      remat nothing_saveable): its data from the port's generators in a host
      process started after the build, 2 steps each of its 512, 2048 and
@@ -172,6 +181,15 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      leaf for leaf; eval_needle at 30000 tokens over the unscanned stream
      (exact K1/K4 fp32 counts), summarize_needle, and probe_needle_digits
      (exact K1 fp32 counts; logits and argmaxes held to the plain path).
+     Before the chain, scripts/run_vision_needle_torch.sh's path
+     (phase_vision_needle: hidden 384, 4 layers, 6 heads of 64; its data
+     from the same host process; stages A-E at their shapes and dtypes, 2
+     steps each, warm-started through params::; the whole 30-point eval
+     grid at fp32 and the summary; one 32-frame prefill held kernel vs
+     plain, a point a frame count's answer held to the twins') and
+     scripts/run_vision_validation_torch.sh's (phase_vision_validation: the
+     pattern data, 4 dual-head steps, the CFG probe on the card over 6 of
+     its 12 patterns, one pattern's 257 tokens held to the plain path's).
      Then scripts/run_spec_natural.sh's path
      (phase_spec_cli): the training CLI at fp32 with its target and draft
      configs, BPE fixture tokenizer and `[question],answer,[postpad]`
@@ -181,8 +199,8 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      prompt_lookup_generate: greedy tokens equal to generate's.
  11. The training CLI (`lwm_tpu_torch.train.main`, in-process) on a JSONL
      from the seed and the fixture tokenizer: the same width and depth for
-     6 steps (finite, falling loss; K1 and the backward launched exactly
-     16 x 6 times; step time beside phase 10's, tokens/s, model-FLOPs
+     4 steps (finite, falling loss; K1 and the backward launched exactly
+     16 x 4 times; step time beside phase 10's, tokens/s, model-FLOPs
      share, peak memory, the data pipeline's rate), 2 steps with
      --fused_lm_loss (step 1's loss held to the bf16 noise floor of the
      default run's, against an fp32 run of the same weights and batch), and
@@ -194,8 +212,8 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      --modality=vision,text as scripts/run_train_vision_torch.sh runs it,
      over a JSONL of clips of 8-30 frames of random codes and random-word
      captions from the seed: the 7b width as a VideoLLaMA at 16 layers, one
-     row of 32768 tokens (`no_pad`), 6 AdamW steps (finite, falling loss;
-     K1 and the backward launched exactly 16 x 6 times; step time,
+     row of 32768 tokens (`no_pad`), 3 AdamW steps (finite, falling loss;
+     K1 and the backward launched exactly 16 x 3 times; step time,
      tokens/s, model-FLOPs share with both heads, peak memory), 2 with
      --freeze_base at 4 layers (every frozen param bit-unchanged, vte and
      vision_head moved), 2 with the PaLM optimizer at 4 layers, the
@@ -244,7 +262,11 @@ from lwm_tpu_torch.apps import (
     convert_checkpoint,
     eval_needle,
     eval_needle_multi,
+    eval_vision_needle,
     probe_needle_digits,
+    probe_vision_patterns,
+    summarize_vision_needle,
+    train_vqgan,
     vision_chat,
 )
 from lwm_tpu_torch.apps import serve as serve_cli
@@ -271,7 +293,7 @@ from lwm_tpu_torch.utils.convert import (
     flax_params_tree,
     save_vqgan_pickle,
 )
-from lwm_tpu_torch.utils.image import read_png
+from lwm_tpu_torch.utils.image import read_png, write_png
 from lwm_tpu_torch.utils.rng import set_random_seed
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
 
@@ -815,34 +837,58 @@ K1_F32_REPORT = "f32_needle_q5120_T6144"
 K1_F32_BUNDLE = "f32_bundle_q33792_T34816"
 K1_F32_CFG = ("f32_cfg_image_b2_q128_T385", "f32_cfg_video_b2_q385_T3072")
 K1_F32_VERIFY = "f32_verify_b4_q8_qoff1088_T2048"   # phase_speculative: f32_verify_b4_q8_T2048
-K1_F32_TIMED = (K1_F32_REPORT, K1_F32_BUNDLE, *K1_F32_CFG, K1_F32_VERIFY)
+# the apps' prefills (phase_vision_chat's, phase_context_extension's
+# eval_needle, phase_vision_needle's eval at 128 frames)
+K1_F32_APPS = ("f32_vision_chat_q2432_T3072", "f32_eval32k_h6_q31744_T32768",
+               "f32_vneedle_h6_d64_q33024_T34816")
+K1_F32_TIMED = (K1_F32_REPORT, K1_F32_BUNDLE, *K1_F32_CFG, K1_F32_VERIFY, *K1_F32_APPS)
+K1_F32_CHUNKED = (K1_F32_BUNDLE, *K1_F32_APPS[1:])   # their twins in F32_TWIN_CHUNK-query calls
+# the left padding of each "needle" case: the real keys start here (80
+# unless named: the vision chat's 2095 real of 2432, the 32K eval's 30000
+# context tokens and scaffold, the 128-frame prompt's 32,944 real)
+K1_F32_PAD = {K1_F32_APPS[0]: 337, K1_F32_APPS[1]: 1600}
 K1_F32_CASES = [
-    (K1_F32_REPORT, 1, 32, 128, 5120, 6144, True, 0, True, "needle"),
-    (K1_F32_BUNDLE, 1, 32, 128, 33792, 34816, True, 0, True, "needle"),
+    # name, b, h, h_kv, d, sq, T, causal, q_offset, kv head-major, kind
+    (K1_F32_REPORT, 1, 32, 32, 128, 5120, 6144, True, 0, True, "needle"),
+    (K1_F32_BUNDLE, 1, 32, 32, 128, 33792, 34816, True, 0, True, "needle"),
     # vision_generation's prefills (the bundles' CFG batch: the cond row's
     # prompt over the uncond "<s><vision>"'s, left-padded to 128): the image
     # over round_cache_length(128 + 257) slots, the 8-frame video's prompt
     # and first frame over the 3072 slots of 128 + 257 + 7 x 257 tokens
-    (K1_F32_CFG[0], 2, 32, 128, 128, 385, True, 0, True, "cfg"),
-    (K1_F32_CFG[1], 2, 32, 128, 385, 3072, True, 0, True, "cfg"),
-    (K1_F32_VERIFY, 4, 32, 128, 8, 2048, True, 1088, True, "verify"),
-    ("f32_q16_fulltile", 2, 32, 128, 16, 1024, True, 0, True, "frontier"),
-    ("f32_gqa_hkv8_q1000", 1, 8, 128, 1000, 2048, True, 0, True, "needle"),
-    ("f32_d64_S1000_offsets", 2, 8, 64, 1000, 1000, True, 700, False, "full"),
-    ("f32_noncausal_q300_T1000", 1, 32, 128, 300, 1000, False, 0, True, "needle"),
-    ("f32_q300_rows_without_keys", 1, 32, 128, 300, 4096, True, 3000, True, "no_keys"),
+    (K1_F32_CFG[0], 2, 32, 32, 128, 128, 385, True, 0, True, "cfg"),
+    (K1_F32_CFG[1], 2, 32, 32, 128, 385, 3072, True, 0, True, "cfg"),
+    (K1_F32_VERIFY, 4, 32, 32, 128, 8, 2048, True, 1088, True, "verify"),
+    # vision chat's 2432-token prompt over round_cache_length(2432 + 128);
+    # eval_needle's 31744-token prompt at 6 heads over its 32768 slots;
+    # eval_vision_needle's 128-frame prompt (33024 tokens) at 6 heads of 64
+    # over round_cache_length(33024 + 10) = 34816 slots
+    (K1_F32_APPS[0], 1, 32, 32, 128, 2432, 3072, True, 0, True, "needle"),
+    (K1_F32_APPS[1], 1, 6, 6, 128, 31744, 32768, True, 0, True, "needle"),
+    (K1_F32_APPS[2], 1, 6, 6, 64, 33024, 34816, True, 0, True, "needle"),
+    ("f32_q16_fulltile", 2, 32, 32, 128, 16, 1024, True, 0, True, "frontier"),
+    ("f32_gqa_hkv8_q1000", 1, 32, 8, 128, 1000, 2048, True, 0, True, "needle"),
+    ("f32_d64_S1000_offsets", 2, 32, 8, 64, 1000, 1000, True, 700, False, "full"),
+    ("f32_noncausal_q300_T1000", 1, 32, 32, 128, 300, 1000, False, 0, True, "needle"),
+    ("f32_q300_rows_without_keys", 1, 32, 32, 128, 300, 4096, True, 3000, True, "no_keys"),
 ]
-# K4: name, b, h_kv, T, kv_len, the rows' first real key (left padding). The
-# needle batch's decode over its cache (4 rows, 6144 slots, after 1 to 128
-# steps), GQA, and one row of the 32k bundle's cache (34816 slots)
+# K4: name, b, h, h_kv, d, T, kv_len, the rows' first real key (left
+# padding). The needle batch's decode over its cache (4 rows, 6144 slots,
+# after 1 to 128 steps), GQA, and one row of the 32k bundle's cache (34816
+# slots)
 K4_F32_CASES = [
-    ("f32_needle_b4_T6144", 4, 32, 6144, 5248, [0, 80, 700, 2000]),
+    ("f32_needle_b4_T6144", 4, 32, 32, 128, 6144, 5248, [0, 80, 700, 2000]),
     # vision_generation's steps: the CFG pair (CFG_FIRST_KEYS) at the image's
     # last step and at the 8-frame video's
-    ("f32_cfg_image_b2_T385", 2, 32, 385, 385, list(CFG_FIRST_KEYS)),
-    ("f32_cfg_video_b2_T3072", 2, 32, 3072, 2184, list(CFG_FIRST_KEYS)),
-    ("f32_gqa_hkv8_b4_T6144", 4, 8, 6144, 5121, [0, 80, 700, 2000]),
-    ("f32_bundle_b1_T34816", 1, 32, 34816, 34816, [300]),
+    ("f32_cfg_image_b2_T385", 2, 32, 32, 128, 385, 385, list(CFG_FIRST_KEYS)),
+    ("f32_cfg_video_b2_T3072", 2, 32, 32, 128, 3072, 2184, list(CFG_FIRST_KEYS)),
+    ("f32_gqa_hkv8_b4_T6144", 4, 32, 8, 128, 6144, 5121, [0, 80, 700, 2000]),
+    ("f32_bundle_b1_T34816", 1, 32, 32, 128, 34816, 34816, [300]),
+    # the apps' last steps: vision chat's (2432 + 127 keys of 3072), the 32K
+    # eval's (31744 + 1023 of 32768, 6 heads), the 128-frame eval's (33024 +
+    # 10 of 34816, 6 heads of 64)
+    ("f32_vision_chat_b1_T3072", 1, 32, 32, 128, 3072, 2559, [337]),
+    ("f32_eval32k_h6_b1_T32768", 1, 6, 6, 128, 32768, 32767, [1600]),
+    ("f32_vneedle_h6_d64_b1_T34816", 1, 6, 6, 64, 34816, 33034, [80]),
 ]
 
 
@@ -869,14 +915,15 @@ def tf32_bounds(n_bytes, pair_flops):
 def k1_f32_inputs(case, gen):
     """q, k, v, bias, kw and the valid keys ([T], [b, T] or, for "verify",
     [sq, T]) of a K1_F32_CASES case."""
-    name, b, h_kv, d, sq, T, causal, q_off, head_major, kind = case
-    f32, h = torch.float32, 32
+    name, b, h, h_kv, d, sq, T, causal, q_off, head_major, kind = case
+    f32 = torch.float32
     q = _randn((b, sq, h, d), gen, f32)
     kv_shape = (b, h_kv, T, d) if head_major else (b, T, h_kv, d)
     k, v = _randn(kv_shape, gen, f32), _randn(kv_shape, gen, f32)
     keys = torch.arange(T, device="cuda")
     if kind == "needle":
-        valid = (keys >= 80) & (keys < q_off + sq) if causal else keys < T - 68
+        pad = K1_F32_PAD.get(name, 80)
+        valid = (keys >= pad) & (keys < q_off + sq) if causal else keys < T - 68
         bias = torch.where(valid, 0.0, BIG_NEG)[None, None, None, :]
     elif kind == "cfg":   # each row's left padding, its keys up to the last query
         first = torch.tensor(CFG_FIRST_KEYS, device="cuda")[:, None]
@@ -898,8 +945,7 @@ def k1_f32_work(case, q, bias, valid):
     the keys the rows see read once from k and v, lse written, the bias
     read; 4·d flops a (query, key) pair and head, each product once
     (tf32_bounds counts the route's three)."""
-    name, b, h_kv, d, sq, T, causal, q_off, head_major, kind = case
-    h = q.shape[2]
+    name, b, h, h_kv, d, sq, T, causal, q_off, head_major, kind = case
     if kind == "verify":
         pairs, kv_rows = int(valid.sum()) * b, (q_off + sq) * b
     else:
@@ -927,15 +973,14 @@ def phase_f32_kernels(gen):
     f32 = torch.float32
     k1, k4, worst = {}, {}, {"flash_fwd": 0.0, "flash_decode": 0.0}
     for case in K1_F32_CASES:
-        name, b, h_kv, d, sq, T, causal, q_off, head_major, kind = case
+        name, b, h, h_kv, d, sq, T, causal, q_off, head_major, kind = case
         q, k, v, bias, kw, valid = k1_f32_inputs(case, gen)
-        h = q.shape[2]
         n0 = flash.flash_attention_fwd.f32_launches
         out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
         torch.cuda.synchronize()
         if flash.flash_attention_fwd.f32_launches != n0 + 1:
             raise AssertionError(f"K1 {name}: the fp32 route was not launched")
-        chunk = F32_TWIN_CHUNK if name == K1_F32_BUNDLE else None
+        chunk = F32_TWIN_CHUNK if name in K1_F32_CHUNKED else None
         ref, ref_lse = _k1_twin(q, k, v, bias, kw, chunk)
         err = _f32_hold(f"K1 {name} out", out, ref)
         worst["flash_fwd"] = max(worst["flash_fwd"], err)
@@ -981,8 +1026,7 @@ def phase_f32_kernels(gen):
         del q, k, v, out, lse, bias
         torch.cuda.empty_cache()
 
-    for name, b, h_kv, T, kv_len, firsts in K4_F32_CASES:
-        h, d = 32, 128
+    for name, b, h, h_kv, d, T, kv_len, firsts in K4_F32_CASES:
         q = _randn((b, 1, h, d), gen, f32)
         k, v = _randn((b, h_kv, T, d), gen, f32), _randn((b, h_kv, T, d), gen, f32)
         keys = torch.arange(T, device="cuda")
@@ -1324,6 +1368,9 @@ def phase_bwd_f32(gen):
 # 8.6 GB a head pair, ~40 GB at the backward's peak; h32 would not fit)
 VISION_TRAIN_REPORT = "train_vision_b1_S32768_h32_causal"
 VISION_TRAIN_SEQ, VISION_TWIN_HEADS = 32768, 2
+# run_vision_needle_torch.sh's stage C row (bf16, 1 x 33024, 6 heads of 64),
+# timed and held as above but without the planted faults
+VN_TRAIN_REPORT = "train_vneedle_b1_S33024_h6_d64_causal"
 # K1's output at that length: a row over n random keys has |out| ~
 # sqrt(e/n) (0.009 at n 32768), below BF16_TOL, and lse does not read v.
 # So out is also held by cosine to the twin (BWD_COS_MIN) and per (query,
@@ -1345,12 +1392,14 @@ def _k1_out_held(err, cos, row_rel):
     return err <= BF16_TOL and cos >= BWD_COS_MIN and row_rel <= FWD_ROW_REL_TOL
 
 
-def phase_train_vision_kernels(gen):
-    """K1 and the fused backward at VISION_TRAIN_SEQ (see above). Returns
-    ({ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err,
-    plain_heads} of K1, the same of the backward); plain_ms is the twin's
-    at VISION_TWIN_HEADS heads."""
-    S, d, b = VISION_TRAIN_SEQ, 128, 1
+def phase_train_vision_kernels(gen, S=VISION_TRAIN_SEQ, heads=32, d=128,
+                               name=VISION_TRAIN_REPORT, faults=True):
+    """K1 and the fused backward over one causal row of S tokens (see
+    above), timed at `heads` heads of d, held at VISION_TWIN_HEADS, with the
+    planted faults when `faults`. Returns ({ms, plain_ms, library_ms,
+    bound_ms, bound_by, max_abs_err, plain_heads} of K1, the same of the
+    backward); plain_ms is the twin's at VISION_TWIN_HEADS heads."""
+    b = 1
     kw = dict(causal=True, q_offset=0, kv_offset=0)
     bias = torch.zeros((b, 1, 1, S), device="cuda")   # the all-ones mask's per-key bias
     valid = torch.ones((b, S), dtype=torch.bool, device="cuda")
@@ -1362,27 +1411,27 @@ def phase_train_vision_kernels(gen):
     torch.cuda.synchronize()
     err, cos, row_rel = _k1_out_hold(out, ref)
     lse_err = (lse - ref_lse).abs().max().item()
-    log(f"K1 {VISION_TRAIN_REPORT} at h{h}: max|out-plain| {err:.3e} (tol {BF16_TOL}), "
+    log(f"K1 {name} at h{h}: max|out-plain| {err:.3e} (tol {BF16_TOL}), "
         f"cosine {cos:.7f} (min {BWD_COS_MIN}), largest row |out-plain|/|plain| "
         f"{row_rel:.3e} (tol {FWD_ROW_REL_TOL}), max|lse-plain| {lse_err:.3e} (tol {LSE_TOL})")
     if not (_k1_out_held(err, cos, row_rel) and lse_err <= LSE_TOL):
-        raise AssertionError(f"K1 {VISION_TRAIN_REPORT} disagrees with its plain twin")
+        raise AssertionError(f"K1 {name} disagrees with its plain twin")
     # planted faults, the kernel fed what a faulty kernel would read: v of
     # the other head, and one 128-key tile of v (keys 16384-16511) read
     # from the next tile; lse stays exact, so the output hold must fail
     tile = S // 2
     v_tile = v.clone()
     v_tile[:, tile:tile + 128] = v[:, tile + 128:tile + 256]
-    for fault, v_bad in (("v of the other head", v.flip(2)),
-                         (f"v's tile at key {tile} read from the next", v_tile)):
+    for fault, v_bad in ((("v of the other head", v.flip(2)),
+                          (f"v's tile at key {tile} read from the next", v_tile)) if faults else ()):
         bad, bad_lse = flash.flash_attention_fwd(q, k, v_bad, bias, **kw)
         reading = _k1_out_hold(bad, ref)
-        log(f"K1 {VISION_TRAIN_REPORT} planted fault ({fault}): max|out-plain| "
+        log(f"K1 {name} planted fault ({fault}): max|out-plain| "
             f"{reading[0]:.3e}, cosine {reading[1]:.7f}, largest row relative error "
             f"{reading[2]:.3e}, max|lse-plain| {(bad_lse - ref_lse).abs().max().item():.3e}: "
             f"{'passes' if _k1_out_held(*reading) else 'fails'} the hold")
         if _k1_out_held(*reading):
-            raise AssertionError(f"K1 {VISION_TRAIN_REPORT}: the hold passed a planted fault "
+            raise AssertionError(f"K1 {name}: the hold passed a planted fault "
                                  f"({fault})")
         del bad, bad_lse
     del ref, ref_lse, v_tile
@@ -1400,9 +1449,9 @@ def phase_train_vision_kernels(gen):
         rel, cos = diff / r.float().abs().max().item(), _cosine(a, r)
         parts.append(f"{oname} max|Δ|/max|ref| {rel:.3e} cos {cos:.6f}")
         if not (rel <= BWD_REL_TOL and cos >= BWD_COS_MIN):
-            raise AssertionError(f"flash_bwd {VISION_TRAIN_REPORT} {oname} disagrees with the twin")
+            raise AssertionError(f"flash_bwd {name} {oname} disagrees with the twin")
         bwd_err = max(bwd_err, diff)
-    log(f"flash_bwd {VISION_TRAIN_REPORT} at h{h}: " + "; ".join(parts) +
+    log(f"flash_bwd {name} at h{h}: " + "; ".join(parts) +
         f" (bounds {BWD_REL_TOL}, cos {BWD_COS_MIN})")
     del got, want
     torch.cuda.empty_cache()
@@ -1410,7 +1459,7 @@ def phase_train_vision_kernels(gen):
     del q, k, v, g, out, lse, delta, args
     torch.cuda.empty_cache()
 
-    h = 32
+    h = heads
     q, k, v, g = (_randn((b, S, h, d), gen) for _ in range(4))
     fwd_ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), 10)
     fwd_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1437,8 +1486,8 @@ def phase_train_vision_kernels(gen):
     rows["flash_bwd"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=bwd_lib_ms,
                              bound_ms=bbnd[0], bound_by=bbnd[1], max_abs_err=bwd_err,
                              plain_heads=VISION_TWIN_HEADS)
-    for name, r in rows.items():
-        log(f"{name} {VISION_TRAIN_REPORT}: kernel {r['ms']:.3f} ms "
+    for kernel, r in rows.items():
+        log(f"{kernel} {name}: kernel {r['ms']:.3f} ms "
             f"({100 * r['bound_ms'] / r['ms']:.1f}% of the bound), SDPA (is_causal) "
             f"{r['library_ms']:.3f} ms, plain twin at "
             f"h{VISION_TWIN_HEADS} {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
@@ -2539,7 +2588,7 @@ def phase_cli():
 
 # The video QA CLI on the card (phase_cli_vision): a 7b-width VideoLLaMA of
 # CLI_LAYERS layers from the seed, saved as a params stream by the port's
-# writer, served by `python -m lwm_tpu_torch.apps.serve_vision` at
+# writer, served by `lwm_tpu_torch.apps.serve_vision`'s main at
 # scripts/run_serve_vision_torch.sh's flags over a CLI_VIDEO_FRAMES-frame
 # codes file (2075 prefix tokens, built in two 2048-token chunks) and a
 # questions file: the video index saved, then loaded (the same answers),
@@ -2548,8 +2597,9 @@ CLI_VIDEO_FRAMES = 8
 
 
 def phase_cli_vision():
-    """The video QA CLI on the card, three runs over one saved checkpoint:
-    the first a `python -m` subprocess, the others through its main. Checks each answers file has one line per question
+    """The video QA CLI on the card, three runs over one saved checkpoint
+    through its main in this process (its `python -m` run, 14-17 s of
+    imports, cut for room). Checks each answers file has one line per question
     and that the run loading the video index gives the first run's
     answers."""
     cfg = VideoLLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=CLI_LAYERS)
@@ -2588,11 +2638,7 @@ def phase_cli_vision():
         for i, (name, extra) in enumerate(runs.items()):
             out = tmp / f"{name.replace(' ', '_')}.jsonl"
             argv = base + extra + [f"--output_file={out}"]
-            if i == 0:
-                err = run_cli_process("lwm_tpu_torch.apps.serve_vision", argv,
-                                      f"cli vision {name}").stderr
-            else:
-                err = run_cli_in_process(vision_cli.main, argv, f"cli vision {name}")[1]
+            err = run_cli_in_process(vision_cli.main, argv, f"cli vision {name}")[1]
             for ln in [ln for ln in err.splitlines() if ln.startswith("[")][-5:]:
                 log(f"cli vision {name}: {ln}")
             lines = [json.loads(ln) for ln in out.read_text().splitlines()]
@@ -2844,9 +2890,11 @@ def phase_generate_f32(model, fp32):
 # SPEC_K, greedy, in four arms over the fp32 target: the target as its own
 # draft; a SPEC_DRAFT_LAYERS-layer draft at the 7b width (the target's first
 # layers and its embedding and head); the bf16 serving weights as the draft
-# (the same tensors, SPEC_NEW / 2 new tokens; bf16 and fp32 greedy tokens
+# (the same tensors; bf16 and fp32 greedy tokens
 # fork, so rounds accept part of their proposals and rewind into the verify
 # window); prompt lookup, n-gram SPEC_NGRAM, on prompts that repeat a span.
+# The self arm decodes SPEC_NEW tokens, the other three SPEC_NEW / 2 (cut
+# for room: the draft and lookup arms accept nothing on random weights).
 # Each arm's tokens are held to `generation.generate`'s on the same
 # weights: at fp32 the verify (K1 over k + 1 rows) and a one-token step
 # (K4) differ by summation order alone, so a greedy token may flip only at
@@ -3062,7 +3110,7 @@ def phase_speculative(model, fp32):
                 raise AssertionError(f"speculative {arm}: generate's launches {_launch_counts()}")
             paths.append(want)
             want_seq = torch.cat([ids, gen_tokens], 1)
-        new = SPEC_NEW // 2 if arm == "bf16 draft" else SPEC_NEW
+        new = SPEC_NEW if arm == "self" else SPEC_NEW // 2
         what = f"speculative fp32 {arm} ({SPEC_ROWS} x {SPEC_PROMPT}, {new} new, k {SPEC_K})"
         if draft is None:
             res, launches = _spec_arm(what, lambda: speculative.prompt_lookup_generate(
@@ -3301,11 +3349,10 @@ def phase_spec_cli():
 # and CLI_LAYERS layers over a params stream the port writes, over a
 # haystack of _cli_text lines and the fixture tokenizer: contexts 1000 and
 # 4000, 2 depths, 1 round (the multi eval: 2 needles, both asked), scan
-# chunks NEEDLE_BLOCK. Each runs twice, eval_needle first as a `python -m`
-# subprocess (eval_needle_multi's first run is in-process, to make room: the
-# two share their imports), then through its main in this
-# process: one results row a grid point, and the rerun over the file adds
-# none
+# chunks NEEDLE_BLOCK. Each runs twice through its main in this process
+# (both first runs are in-process to make room: a `python -m` run costs
+# 14-17 s of imports): one
+# results row a grid point, and the rerun over the file adds none
 EVAL_MAINS = {"eval_needle": eval_needle.main, "eval_needle_multi": eval_needle_multi.main}
 EVAL_CLI_GRID = ("--context_lengths_min=1000", "--context_lengths_max=4000",
                  "--n_context_length_intervals=2", "--n_document_depth_intervals=2",
@@ -3340,11 +3387,7 @@ def phase_eval_clis():
                     *EVAL_CLI_GRID, *extra]
             first = None
             for run in ("first", "resumed"):
-                if run == "first" and module == "eval_needle":   # the module entry point
-                    stdout = run_cli_process(f"lwm_tpu_torch.apps.{module}", argv,
-                                             f"{module} {run}").stdout
-                else:
-                    stdout = run_cli_in_process(EVAL_MAINS[module], argv, f"{module} {run}")[0]
+                stdout = run_cli_in_process(EVAL_MAINS[module], argv, f"{module} {run}")[0]
                 results = json.loads(out.read_text())
                 done = [ln for ln in stdout.splitlines() if ln.startswith("completed")]
                 log(f"{module} {run}: {len(results)} results; {done} [{card()}]")
@@ -3464,7 +3507,7 @@ def phase_vqgan():
 # apart first at a near tie (SPEC_TIE_GAP on the guided logits). The frames
 # decoded through phase_vqgan's model to uint8.
 VG_PROMPT = "Fireworks over the city"
-VG_FRAMES = 3
+VG_FRAMES = 2
 VG_CONFIG = dict(sample_mode="vision", theta=50_000_000, max_sequence_length=32768,
                  scan_attention=False, scan_query_chunk_size=128, scan_key_chunk_size=128,
                  scan_mlp=False, scan_mlp_chunk_size=8192)
@@ -3500,6 +3543,25 @@ def timed_forwards(model):
         yield seconds
     finally:
         del model.forward
+
+
+@contextlib.contextmanager
+def recorded_forwards():
+    """Each model forward's (input length, synced seconds), any model."""
+    record, real = [], LLaMAForCausalLM.forward
+
+    def forward(self, ids, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(self, ids, *a, **kw)
+        torch.cuda.synchronize()
+        record.append((ids.shape[1], time.perf_counter() - t0))
+        return out
+
+    LLaMAForCausalLM.forward = forward
+    try:
+        yield record
+    finally:
+        LLaMAForCausalLM.forward = real
 
 
 def _generate_arm(gen, what, prompt, prefix, n_tokens, cfg, top_k, temp=1.0, counted=True):
@@ -3743,6 +3805,117 @@ def phase_vision_chat(fp32, vq):
     return paths
 
 
+# scripts/run_vqgan_128px_torch.sh's path (phase_train_vqgan): apps.train_vqgan's
+# main in this process with the bundle's flags (TV_ARGS: 128 px, batch 16,
+# channels 64 x 1,2,2,4, 2 res blocks, z 64, 1024 codes, 64 held-out crops)
+# over TV_IMAGES synthetic photos from the seed (TV_SIZE pixels, smooth
+# waves and noise, PNGs by utils.image.write_png: the card's machine has no
+# photos and no PIL), TV_STEPS steps (cut from 4000) with revival every
+# TV_REVIVE steps (cut from 200: it runs twice); each step's loss, the ms a
+# step (median of steps 2 on), the round-trip line (PSNR, codebook usage) and
+# the peak. Step 1 held to the same step on the host CPU: the CLI's seeded
+# init and its first crops (RandomState(seed)) through a CPU copy, the loss
+# at TV_LOSS_RTOL relative and the codes equal but at near ties (codes whose
+# distances, in float64 from each path's z, are closer than the two paths'
+# distances disagree). The path runs cuDNN's convolutions and no
+# kernel of the port: its launch counts are all 0.
+TV_ARGS = ("--resolution=128", "--batch=16", "--hidden_channels=64", "--channel_mult=1,2,2,4",
+           "--num_res_blocks=2", "--z_channels=64", "--num_embeddings=1024", "--eval_crops=64")
+TV_IMAGES, TV_SIZE, TV_STEPS, TV_REVIVE = 8, (160, 192), 20, 10
+TV_LOSS_RTOL = 1e-5
+
+
+def _tv_photos(work):
+    rng = np.random.default_rng(SEED + 40)
+    h, w = TV_SIZE
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(TV_IMAGES):
+        fy, fx, phase = rng.uniform(0.01, 0.12, 3), rng.uniform(0.01, 0.12, 3), rng.uniform(0, 6, 3)
+        wave = 127.5 + 90 * np.sin(yy[..., None] * fy + xx[..., None] * fx + phase)
+        px = np.clip(wave + rng.normal(0, 15, (h, w, 3)), 0, 255).astype(np.uint8)
+        write_png(work / f"photo{i}.png", px)
+
+
+def phase_train_vqgan():
+    """See TV_*. Returns the launch counts of its run."""
+    work = Path(tempfile.mkdtemp(prefix="lwm_vq128_"))
+    atexit.register(shutil.rmtree, work, True)
+    _tv_photos(work)
+    argv = [f"--image_dir={work}", f"--output={work / 'vqgan128.pkl'}", *TV_ARGS,
+            f"--steps={TV_STEPS}", f"--revive_every={TV_REVIVE}", f"--seed={SEED}", *CLI_FLAGS]
+    steps, revived, first = [], [], {}
+
+    def record(step, info):
+        if "revived" in info:
+            revived.append((step, len(info["revived"][0])))
+            return
+        steps.append((info["loss"], info["rec"], time.perf_counter()))
+        if step == 1:
+            first["codes"] = info["codes"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    _reset_launch_counts()
+    out, _ = run_cli_in_process(lambda a: train_vqgan.main(a, record=record), argv,
+                                "train_vqgan")
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line = out.strip().splitlines()[-1]
+    psnr = float(line.split("PSNR ")[1].split(" dB")[0])
+    usage = int(line.split("codebook usage ")[1].split("/")[0])
+    step_ms = 1e3 * float(np.median(np.diff([t for *_, t in steps])))
+    for i, (loss, rec, _) in enumerate(steps):
+        log(f"train_vqgan step {i + 1}: loss {loss:.6f} rec {rec:.6f}")
+    log(f"train_vqgan: {line}")
+    log(f"train_vqgan (128 px, batch 16, 1024 codes): {len(steps)} steps, {step_ms:.1f} ms a "
+        f"step (median of steps 2-{len(steps)}), revivals {revived} (step, codes set), PSNR "
+        f"{psnr:.2f} dB, usage {usage}/1024, peak {peak:.2f} GiB ({peak - held:.2f} over the "
+        f"{held:.2f} held before); launches {launches} [{card()}]")
+    if (any(launches.values()) or len(steps) != TV_STEPS
+            or not all(math.isfinite(x) for s in steps for x in s[:2])
+            or [s for s, _ in revived] != [TV_REVIVE, 2 * TV_REVIVE]
+            or not (math.isfinite(psnr) and 0 < usage <= 1024)):
+        raise AssertionError(f"train_vqgan: launches {launches}, {len(steps)} steps, revivals "
+                             f"{revived}, {line!r}")
+
+    # step 1 on the host CPU: the CLI's init and first crops
+    args = train_vqgan.parse_args(argv)
+    cfg = VQGANConfig.get_default_config(train_vqgan.config_updates(args))
+    model = VQGANModel(cfg, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(args.seed))
+    host = VQGANModel(cfg, device="meta")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
+    x = train_vqgan.crop_batch(train_vqgan.load_images(str(work), args.resolution),
+                               np.random.RandomState(args.seed), args.batch, args.resolution)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _, codes = train_vqgan.objective(host, torch.from_numpy(x), args.beta)
+    host_s = time.perf_counter() - t0
+    # a near tie: two codes closer than the two paths' distances disagree
+    # (twice the largest disagreement in float64, plus the quantizer's own
+    # fp32 rounding of the largest distance)
+    with torch.no_grad(), full_fp32():
+        d = _vq_distances(model, model.train_forward(torch.from_numpy(x).cuda())[1]).cpu()
+        d_host = _vq_distances(host, host.train_forward(torch.from_numpy(x))[1])
+    tie = 2 * (d - d_host).abs().max().item() + 8 * np.finfo(np.float32).eps * d.max().item()
+    top2 = d.topk(2, -1, largest=False).values
+    gaps = top2[:, 1] - top2[:, 0]
+    near = (gaps < tie).numpy()
+    apart = codes.numpy().reshape(-1) != first["codes"].reshape(-1)
+    rel = abs(loss.item() - steps[0][0]) / abs(steps[0][0])
+    log(f"train_vqgan step 1 on the host CPU ({host_s:.1f}s): loss {loss.item():.7f} vs the "
+        f"card's {steps[0][0]:.7f} (relative {rel:.2e}, tol {TV_LOSS_RTOL}); codes apart at "
+        f"{np.flatnonzero(apart).tolist()} of {apart.size}; near ties (top-2 gap below "
+        f"{tie:.2e}) {int(near.sum())}, median gap {gaps.median().item():.2e}")
+    if not rel <= TV_LOSS_RTOL or (apart & ~near).any():
+        raise AssertionError("train_vqgan: the card's step 1 disagrees with the host CPU's")
+    del model, host, d
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 # The text-to-image CLI (phase_cli_vision_generation): `python -m
 # lwm_tpu_torch.apps.vision_generation` at n_frames 1 over a 7b-width
 # VideoLLaMA of CLI_LAYERS layers and a VQGAN pickle, both written by the
@@ -3772,29 +3945,23 @@ def phase_cli_vision_generation(vq):
                 f"--tokenizer={FIXTURE_TOKENIZER}", f"--vqgan_checkpoint={tmp / 'vqgan.pkl'}",
                 f"--load_checkpoint=params::{tmp / 'params'}", "--cfg_scale_image=5.0",
                 "--top_k_image=8192", "--temperature_image=1.0"]
-        run_cli_process("lwm_tpu_torch.apps.vision_generation",
-                        base + [f"--output_file={tmp / 'sub.png'}"], "cli vision generation")
-        forwards = []
-        real = VideoLLaMAForCausalLM.forward
-        VideoLLaMAForCausalLM.forward = lambda *a, **kw: (forwards.append(1), real(*a, **kw))[1]
-        try:
-            _reset_launch_counts()
+        run_cli_in_process(vision_app.main, base + [f"--output_file={tmp / 'sub.png'}"],
+                           "cli vision generation, first")
+        _reset_launch_counts()
+        with recorded_forwards() as forwards:
             run_cli_in_process(vision_app.main, base + [f"--output_file={tmp / 'main.png'}"],
                                "cli vision generation")
-            launches = _launch_counts()
-        finally:
-            VideoLLaMAForCausalLM.forward = real
+        launches = _launch_counts()
         sub, main_png = read_png(tmp / "sub.png"), read_png(tmp / "main.png")
     want = _generation_launches(cfg, dict(forwards=len(forwards)), f32=True)
-    log(f"cli vision generation: PNG {sub.shape}, {len(forwards)} tokens; the subprocess's and "
-        f"the in-process run's pixels equal: {np.array_equal(sub, main_png)}; launches "
-        f"{launches}")
+    log(f"cli vision generation: PNG {sub.shape}, {len(forwards)} tokens; the two runs' pixels "
+        f"equal: {np.array_equal(sub, main_png)}; launches {launches}")
     if sub.shape != (256, 256, 3) or launches != want:
         raise AssertionError(f"cli vision generation: PNG {sub.shape}, launches {launches} "
                              f"(want {want})")
     if not np.array_equal(sub, main_png):
-        raise AssertionError("cli vision generation: the subprocess's PNG differs from the same "
-                             "flags' in-process run")
+        raise AssertionError("cli vision generation: two runs of the same flags and seed wrote "
+                             "different PNGs")
     return [launches]
 
 
@@ -3959,13 +4126,13 @@ def train_flops(cfg, b, s):
     return 6 * dense * b * s + L * 6 * b * s * s * h
 
 
-def phase_train_full(profile=None, dtype=BF16):
-    """The 7b width at 16 of its 32 layers, 6 AdamW steps computing in
+def phase_train_full(profile=None, dtype=BF16, steps=6):
+    """The 7b width at 16 of its 32 layers, `steps` AdamW steps computing in
     `dtype` (bf16; fp32 for phase_train_f32: K1's and the backward's fp32
     routes, each launched exactly layers x steps under save_flash) (then,
     with a `profile` directory, one profiled step). Returns the launch
-    counts of the 6-step run and its median step time."""
-    layers, b, s, steps = 16, 2, 4096, 6
+    counts of the run and its median step time."""
+    layers, b, s = 16, 2, 4096
     f32 = dtype == torch.float32
     what = "train f32" if f32 else "train"
     cfg = train.build_model_config("7b", update_llama_config=dict(num_hidden_layers=layers))
@@ -4018,9 +4185,10 @@ def phase_train_full(profile=None, dtype=BF16):
 
 def phase_train_f32():
     """phase_train_full at fp32 compute (the trainers' default --dtype):
-    the 7b width at 16 layers, 2 x 4096, 6 steps on K1's and the backward's
-    fp32 routes. Returns the launch counts."""
-    return phase_train_full(dtype=torch.float32)[0]
+    the 7b width at 16 layers, 2 x 4096, 4 steps (phase_train_full's 6,
+    cut for room) on K1's and the backward's fp32 routes. Returns the launch
+    counts."""
+    return phase_train_full(dtype=torch.float32, steps=4)[0]
 
 
 # scripts/run_context_extension_torch.sh's chain (phase_context_extension) at
@@ -4040,8 +4208,8 @@ def phase_train_f32():
 #   share (one launch a layer a step at its time at BWD_F32_32K).
 #   Stage 1's first batch is held kernel vs plain at fp32 on the stage-0
 #   weights (loss F32_LOSS_RTOL, every grad F32_GRAD_REL_TOL of its largest);
-# - conversion: run_needle_validation.sh's unscan of stage 3's stream (a
-#   `python -m` process), every layer equal to its slice; streaming_to_hf
+# - conversion: run_needle_validation.sh's unscan of stage 3's stream (in
+#   this process), every layer equal to its slice; streaming_to_hf
 #   then hf_to_streaming of the same stream, leaf for leaf;
 # - eval: eval_needle at CTX_EVAL_CONTEXT tokens, one depth, one round over
 #   the unscanned stream (exact K1/K4 fp32 counts: a prefill and a step of
@@ -4076,8 +4244,8 @@ CTX_DATA = (   # module, the bundle's flags with n_train cut ({w}: the work dire
 CTX_EVAL_CONTEXT, CTX_PROBE_N = 30000, 4
 CTX_LAYERS = _spec_cfg(f"dict({CTX_BASE_CFG})")["num_hidden_layers"]
 CTX_DATA_SCRIPT = r'''
-import json, random, subprocess, sys, time
-jobs, w = json.loads(sys.argv[1]), sys.argv[2]
+import contextlib, importlib, io, json, random, subprocess, sys, time
+jobs, w, vjobs = json.loads(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
 for module, args in jobs:
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "lwm_tpu_torch.apps." + module, *args],
@@ -4087,6 +4255,7 @@ for module, args in jobs:
     print(json.dumps([module, round(time.perf_counter() - t0, 2), out.stdout.strip()]),
           flush=True)
 # the bundle's mixing step: 2048-token groups of [copy|needle_short pairs] + [needle_long]
+t0 = time.perf_counter()
 rng = random.Random(99)
 copy_ = open(f"{w}/copy_mix.jsonl").read().strip().splitlines()
 a = open(f"{w}/needle_short.jsonl").read().strip().splitlines()
@@ -4104,23 +4273,67 @@ rng.shuffle(groups)
 with open(f"{w}/train_mixed.jsonl", "w") as f:
     for g in groups:
         f.write("\n".join(g) + "\n")
-print(json.dumps(["mix", len(groups)]), flush=True)
+print(json.dumps(["mix", round(time.perf_counter() - t0, 2), f"{len(groups)} groups"]),
+      flush=True)
+# the vision bundles' data (VN_DATA), the generators in this process (they
+# import no torch), and run_vision_needle.sh's `mix` (a shuffled concat)
+for module, args in vjobs:
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    if module == "mix":
+        out, first, second = args
+        rows = open(first).read().strip().splitlines()
+        rows += open(second).read().strip().splitlines()
+        random.Random(8).shuffle(rows)
+        open(out, "w").write("\n".join(rows) + "\n")
+        print(f"mixed {len(rows)} rows into {out}", file=buf)
+    else:
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module("lwm_tpu_torch.apps." + module).main(args)
+    print(json.dumps([module, round(time.perf_counter() - t0, 2), buf.getvalue().strip()]),
+          flush=True)
 '''
 
 
 def start_context_extension_data():
     """The host process that makes phase_context_extension's data (see
-    CTX_DATA): (its Popen, the work directory). Both are ended and removed
+    CTX_DATA) and the vision phases' (VN_DATA, under its `vision`
+    directory): (its Popen, the work directory). Both are ended and removed
     at exit, whatever happens in between."""
     work = Path(tempfile.mkdtemp(prefix="lwm_ctx_ext_"))
+    (work / "vision").mkdir()
     jobs = [(m, a.format(w=work).split() + ["--tokenizer", str(FIXTURE_TOKENIZER)])
             for m, a in CTX_DATA]
-    proc = subprocess.Popen([sys.executable, "-c", CTX_DATA_SCRIPT, json.dumps(jobs), str(work)],
+    vjobs = [(m, a.format(v=work / "vision").split()) for m, a in VN_DATA]
+    proc = subprocess.Popen([sys.executable, "-c", CTX_DATA_SCRIPT, json.dumps(jobs), str(work),
+                             json.dumps(vjobs)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             cwd=Path(__file__).resolve().parent)
     atexit.register(shutil.rmtree, work, True)
     atexit.register(proc.kill)
     return proc, work
+
+
+_HOST_DATA = {}
+
+
+def host_data(data):
+    """The data process's jobs, each [module, seconds, its output], waited
+    for on the first call (and logged then)."""
+    proc, _ = data
+    if proc not in _HOST_DATA:
+        t0 = time.perf_counter()
+        out, err = proc.communicate(timeout=900)
+        waited = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"host data: exit {proc.returncode}\n{err[-3000:]}")
+        jobs = [json.loads(line) for line in out.splitlines()]
+        for job in jobs:
+            log(f"host data: {job}")
+        log(f"host data: its jobs took {sum(j[1] for j in jobs):.1f}s of the host process "
+            f"beside the earlier phases; waited {waited:.1f}s for it here")
+        _HOST_DATA[proc] = jobs
+    return _HOST_DATA[proc]
 
 
 def _ctx_argv(work, stage, warm):
@@ -4194,43 +4407,17 @@ def _ctx_step_hold(work, stage, warm):
 
 
 def _ctx_stage(work, stage, warm, bwd_ms):
-    """One stage's CLI run in this process (exact fp32 counts, finite
-    losses), the 32K stage's steps synced and timed. Returns (its
-    milestone, the launch counts)."""
+    """One stage's CLI run in this process (`_train_stage`), the 32K
+    stage's time beside the backward's share. Returns (its milestone, the
+    launch counts)."""
     name, seq, _, _, batch, _, _, _, steps = stage
     layers = CTX_LAYERS
-    times, real_step = [], train.train_step
-
-    def timed_step(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_step(*a, **kw)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        return out
-
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launch_counts()
-    train.train_step = timed_step
-    t0 = time.perf_counter()
-    try:
-        summary = train.main(_ctx_argv(work, stage, warm))
-    finally:
-        train.train_step = real_step
-    wall = time.perf_counter() - t0
-    launches = _launch_counts()
-    losses = [r["loss"] for r in _metrics(summary)]
-    n = layers * steps
-    want = dict(flash_fwd=2 * n, flash_fwd_f32=2 * n, flash_bwd=n, flash_bwd_f32=n,
-                flash_decode=0)
+    milestone, launches, times, losses, wall = _train_stage(
+        _ctx_argv(work, stage, warm), f"context extension {name}", layers, steps, True)
     start = f"warm from {Path(warm).parent.name}/{Path(warm).name}" if warm else "from the seed"
     log(f"context extension {name} ({batch} x {seq}, {start}): {steps} steps in {wall:.1f}s "
         f"of wall, steps {', '.join(f'{t:.3f}' for t in times)} s, losses "
         f"{[round(x, 4) for x in losses]}; launches {launches}")
-    if any(launches[k] != v for k, v in want.items()) or len(losses) != steps or not all(
-            map(math.isfinite, losses)):
-        raise AssertionError(f"context extension {name}: launches {launches} (want {want}), "
-                             f"losses {losses}")
     if seq == 32768:
         step_s = float(np.median(times[1:]))
         attn_s = layers * bwd_ms / 1e3
@@ -4240,8 +4427,6 @@ def _ctx_stage(work, stage, warm, bwd_ms):
             f"tokens/s; the backward's fp32 route {layers} x {bwd_ms:.3f} ms = {attn_s:.3f} s "
             f"({100 * attn_s / step_s:.1f}% of the step); peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card()}]")
-    milestone = sorted(Path(summary["output_dir"]).glob("streaming_params_*"))[-1]
-    torch.cuda.empty_cache()
     return milestone, launches
 
 
@@ -4287,17 +4472,8 @@ def phase_context_extension(data, bwd_ms):
     """See CTX_*; `data` is start_context_extension_data's (process, work
     directory), `bwd_ms` the backward's fp32 route at
     BWD_F32_32K. Returns every counted run's launch counts."""
-    proc, work = data
-    t0 = time.perf_counter()
-    out, err = proc.communicate(timeout=900)
-    waited = time.perf_counter() - t0
-    if proc.returncode:
-        raise AssertionError(f"context extension data: exit {proc.returncode}\n{err[-3000:]}")
-    jobs = [json.loads(line) for line in out.splitlines()]
-    for job in jobs:
-        log(f"context extension data: {job}")
-    log(f"context extension data: its generators took {sum(j[1] for j in jobs[:-1]):.1f}s "
-        f"of the host process beside the earlier phases; waited {waited:.1f}s for it here")
+    _, work = data
+    host_data(data)
     paths, warm = [], None
     for i, stage in enumerate(CTX_STAGES):
         if i == 1:
@@ -4311,7 +4487,7 @@ def phase_context_extension(data, bwd_ms):
 
     # run_needle_validation.sh's unscan, then the HF round trip
     unscanned = work / "params_unscanned"
-    run_cli_process("lwm_tpu_torch.apps.convert_checkpoint", [
+    run_cli_in_process(convert_checkpoint.main, [
         "--direction=unscan", "--llama_config=debug", f"--update_llama_config={update}",
         "--scan_layers=True", "--param_scan_axis=0", f"--streaming_path={warm}",
         f"--output={unscanned}"], "convert_checkpoint unscan")
@@ -4349,15 +4525,11 @@ def phase_context_extension(data, bwd_ms):
                  f"--load_checkpoint=params::{unscanned}", "--unscan_for_serving=True",
                  f"--update_llama_config={update}", f"--tokenizer={FIXTURE_TOKENIZER}",
                  "--mesh_dim=1,1,1,1", "--dtype=fp32", "--max_tokens_per_batch=65536"]
-    shapes, real = [], LLaMAForCausalLM.forward
-    LLaMAForCausalLM.forward = lambda self, ids, *a, **kw: (shapes.append(ids.shape[1]),
-                                                            real(self, ids, *a, **kw))[1]
     _reset_launch_counts()
-    try:
+    with recorded_forwards() as fwd:
         run_cli_in_process(eval_needle.main, eval_argv, "eval_needle 32k")
-    finally:
-        LLaMAForCausalLM.forward = real
     launches = _launch_counts()
+    shapes = [n for n, _ in fwd]
     paths.append(launches)
     prefills, steps = sum(s > 1 for s in shapes), sum(s == 1 for s in shapes)
     want = dict(flash_fwd=CTX_LAYERS * prefills, flash_fwd_f32=CTX_LAYERS * prefills,
@@ -4394,6 +4566,346 @@ def phase_context_extension(data, bwd_ms):
     return paths
 
 
+# scripts/run_vision_needle_torch.sh's path (phase_vision_needle) at the
+# bundle's widths (VN_BASE_CFG: hidden 384, 4 layers, 6 heads of 64, vision
+# vocab 8448, remat nothing_saveable, the char-level fixture tokenizer):
+# - data: the vision-needle generator with the bundle's flags, n_train cut
+#   to the rows the steps read, and its two mixes (VN_DATA), made in the
+#   host process of start_context_extension_data beside the kernel phases;
+# - training: stages A-E (VN_STAGES: the bundle's seq, theta, batch, lr,
+#   dtype and data, its lr schedule over its own steps) for VN_STEPS steps
+#   each (cut from 3000/800/400/1800/3000), each warm-started from the
+#   last stage's params:: milestone; exact K1 and backward counts on the
+#   route of the stage's dtype (2 x layers x steps and layers x steps: the
+#   remat recomputes the forward), finite losses, each step timed;
+# - eval: the bundle's whole grid (32/64/128 frames x 5 depths x 2 rounds)
+#   through eval_vision_needle's main from E's milestone at fp32, exact K1
+#   and K4 fp32 counts (a prefill and each step, a launch a layer), the
+#   prefill seconds and ms a step at each frame count; the rerun over its
+#   results adds nothing; then summarize_vision_needle. One 32-frame point's
+#   prefill logits held, kernel path against an attn_impl="plain" model on
+#   the same tensors, at NEEDLE_REL_TOL of the largest; at one point a frame
+#   count the greedy answer held to that of the kernel path's structure with
+#   K1 and K4 replaced by their plain twins (K1's in F32_TWIN_CHUNK-query
+#   chunks: the plain model's scores at 128 frames would take 28 GB a
+#   tensor), equal or apart first at a near tie (SPEC_TIE_GAP).
+VN_TOKENIZER = Path(__file__).resolve().parent / "tests" / "fixtures" / "tokenizer"
+VN_BASE_CFG = ("vocab_size=512,vision_vocab_size=8448,hidden_size=384,intermediate_size=1024,"
+               "num_hidden_layers=4,num_attention_heads=6,scan_attention=True,"
+               "scan_query_chunk_size=256,scan_key_chunk_size=256,scan_mlp=False,"
+               "scan_layers=True,param_scan_axis=0,remat_block='nothing_saveable',"
+               "sample_mode='all'")
+VN_LAYERS = 4
+VN_STEPS = 2
+# name, data, seq, theta, the bundle's steps, batch, lr, dtype
+VN_STAGES = (("A", "train_short.jsonl", 2560, 10000, 3000, 16, "1e-3", "fp32"),
+             ("B", "train_mid.jsonl", 8448, 200000, 800, 4, "5e-4", "bf16"),
+             ("C", "train_long.jsonl", 33024, 2000000, 400, 1, "3e-4", "bf16"),
+             ("D", "train_stageD.jsonl", 33024, 2000000, 1800, 2, "3e-4", "bf16"),
+             ("E", "train_stageE.jsonl", 33024, 2000000, 3000, 2, "3e-4", "bf16"))
+VN_DATA = (   # module (or the bundle's mix), its flags with n_train cut ({v}: the directory)
+    ("create_vision_needle_data",
+     "--n_train 32 --min_frames 1 --max_frames 8 --seed 11 --output {v}/train_short.jsonl"),
+    ("create_vision_needle_data",
+     "--n_train 8 --min_frames 8 --max_frames 32 --seed 12 --output {v}/train_mid.jsonl"),
+    ("create_vision_needle_data",
+     "--n_train 2 --min_frames 96 --max_frames 128 --seed 13 --output {v}/train_long.jsonl"),
+    ("create_vision_needle_data", "--n_train 2 --min_frames 24 --max_frames 128 --seed 14 "
+     "--output {v}/train_mix_long.jsonl"),
+    ("mix", "{v}/train_stageD.jsonl {v}/train_mix_long.jsonl {v}/train_long.jsonl"),
+    ("create_vision_needle_data", "--n_train 4 --min_frames 24 --max_frames 128 --seed 15 "
+     "--output {v}/train_mix2.jsonl"),
+    ("mix", "{v}/train_stageE.jsonl {v}/train_mix2.jsonl {v}/train_stageD.jsonl"),
+    # run_vision_validation.sh's pattern data: 4 steps of 32 rows
+    ("create_vision_train_data", "--n_train 128 --n_patterns 12 --output {v}/train.jsonl"),
+)
+VN_FRAMES, VN_DEPTHS, VN_ROUNDS = (32, 64, 128), (0, 25, 50, 75, 100), 2
+VN_EVAL_CFG = f"dict({VN_BASE_CFG},max_sequence_length=33040,theta=2000000)"
+VN_HELD_DEPTH = 50   # the depth of the points held to the plain path
+PLATFORM_FLAGS = ()  # the --platform apps' flags (a rehearsal on the CPU adds --platform=cpu)
+
+
+def _vn_argv(work, stage, warm):
+    """run_vision_needle.sh's `stage` flags for a stage (its own steps)."""
+    name, data, seq, theta, total, batch, lr, dtype = stage
+    return [
+        "--modality=vision,text", *CLI_FLAGS, "--mesh_dim=1,1,1,1", f"--dtype={dtype}",
+        f"--total_steps={VN_STEPS}", "--log_freq=1", f"--save_model_freq={VN_STEPS}",
+        *([f"--load_checkpoint=params::{warm}"] if warm else []),
+        f"--update_llama_config=dict({VN_BASE_CFG},max_sequence_length={seq},theta={theta})",
+        f"--tokenizer={VN_TOKENIZER}", "--train_dataset.type=json_vision",
+        "--train_dataset.vision_text_processor.fields_from_example=fields",
+        f"--train_dataset.json_vision_dataset.path={work / data}",
+        f"--train_dataset.json_vision_dataset.seq_length={seq}",
+        f"--train_dataset.json_vision_dataset.batch_size={batch}",
+        "--train_dataset.json_vision_dataset.mode=pad",
+        f"--optimizer.adamw_optimizer.lr={lr}", "--optimizer.adamw_optimizer.end_lr=1e-4",
+        "--optimizer.adamw_optimizer.lr_warmup_steps=100",
+        f"--optimizer.adamw_optimizer.lr_decay_steps={total}",
+        f"--logger.output_dir={work / ('run_' + name)}", "--logger.experiment_id=v",
+    ]
+
+
+def _train_stage(argv, what, layers, steps, f32):
+    """One training CLI run in this process, its steps synced and timed:
+    exact K1 and backward counts on the route of its dtype (2 x layers x
+    steps and layers x steps: remat nothing_saveable recomputes the
+    forward), finite losses. Returns (its last milestone, the launch counts,
+    the step seconds, the losses, the wall seconds)."""
+    times, real_step = [], train.train_step
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    train.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        summary = train.main(argv)
+    finally:
+        train.train_step = real_step
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    losses = [r["loss"] for r in _metrics(summary)]
+    n = layers * steps
+    want = dict(flash_fwd=2 * n, flash_fwd_f32=2 * n if f32 else 0, flash_bwd=n,
+                flash_bwd_f32=n if f32 else 0, flash_decode=0)
+    if any(launches[k] != v for k, v in want.items()) or len(losses) != steps or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: launches {launches} (want {want}), losses {losses}")
+    milestone = sorted(Path(summary["output_dir"]).glob("streaming_params_*"))[-1]
+    torch.cuda.empty_cache()
+    return milestone, launches, times, losses, wall
+
+
+@contextlib.contextmanager
+def chunked_twins():
+    """The kernel path's structure with K1 and K4 replaced by their plain
+    twins where the model calls them, K1's over F32_TWIN_CHUNK queries a
+    call."""
+    saved = llama_module.flash_attention_fwd, llama_module.flash_decode
+    llama_module.flash_attention_fwd = (
+        lambda q, k, v, bias, **kw: _k1_twin(q, k, v, bias, kw, F32_TWIN_CHUNK))
+    llama_module.flash_decode = decode.flash_decode_plain
+    try:
+        yield
+    finally:
+        llama_module.flash_attention_fwd, llama_module.flash_decode = saved
+
+
+def _greedy_held(model, args, proc, n_frames, what):
+    """One grid point's greedy tokens through `model` and through the same
+    model under chunked_twins: equal, or apart first at a near tie of the
+    twins' logits."""
+    key, _, ids, vm, am = eval_vision_needle.point(args, proc, n_frames, VN_HELD_DEPTH, 0)
+    on = [torch.as_tensor(x, device="cuda") for x in (ids, vm, am)]
+    cfg = generation.GenerationConfig(max_new_tokens=args.max_new_tokens, pad_token_id=0,
+                                      eos_token_id=proc.tokenizer.eos_token_id)
+    got = generation.generate(model, on[0], on[2], cfg, vision_masks=on[1])[0]
+    with chunked_twins():
+        want = generation.generate(model, on[0], on[2], cfg, vision_masks=on[1])[0]
+        apart = torch.nonzero(got != want)[:, 0].tolist()
+        gap = None
+        if apart:
+            at = apart[0]
+            ext = torch.cat([on[0], want[None, :at]], 1)
+            mask = torch.cat([on[2], torch.ones_like(want[None, :at])], 1)
+            vms = torch.cat([on[1], torch.zeros_like(want[None, :at], dtype=torch.bool)], 1)
+            lg = generation.prefill(model, ext, mask, 1, vms)[0][0]
+            top = lg.topk(2).values
+            gap = (top[0] - top[1]).item()
+    text = proc.tokenizer.decode(got.tolist(), skip_special_tokens=True).strip()
+    log(f"{what} {key} ({ids.shape[1]} tokens): kernel answer {text!r}, "
+        f"{'equal to the twins' if not apart else f'apart from the twins first at {apart[0]}, top-2 gap {gap:.2e}'}")
+    if apart and not gap < SPEC_TIE_GAP:
+        raise AssertionError(f"{what} {key}: the kernel path's answer differs from the twins' "
+                             "off a near tie")
+
+
+def phase_vision_needle(data):
+    """See VN_*; `data` is start_context_extension_data's. Returns every
+    counted run's launch counts."""
+    work = data[1] / "vision"
+    host_data(data)
+    paths, warm = [], None
+    for stage in VN_STAGES:
+        name, _, seq, _, _, batch, _, dtype = stage
+        warm, launches, times, losses, wall = _train_stage(
+            _vn_argv(work, stage, warm), f"vision needle stage {name}", VN_LAYERS, VN_STEPS,
+            dtype == "fp32")
+        paths.append(launches)
+        log(f"vision needle stage {name} ({batch} x {seq}, {dtype}): {VN_STEPS} steps in "
+            f"{wall:.1f}s of wall, steps {', '.join(f'{t:.3f}' for t in times)} s "
+            f"({batch * seq / times[-1]:.0f} tokens/s at the last), losses "
+            f"{[round(x, 4) for x in losses]}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {launches} "
+            f"[{card()}]")
+
+    results = work / "results.json"
+    argv = ["--checkpoint", str(warm), "--tokenizer", str(VN_TOKENIZER),
+            "--update_llama_config", VN_EVAL_CFG, "--n_frames", ",".join(map(str, VN_FRAMES)),
+            "--depths", ",".join(map(str, VN_DEPTHS)), "--rounds", str(VN_ROUNDS),
+            "--output", str(results),
+            *PLATFORM_FLAGS]
+    _reset_launch_counts()
+    with recorded_forwards() as fwd:
+        out = run_cli_in_process(eval_vision_needle.main, argv, "eval_vision_needle")[0]
+    launches = _launch_counts()
+    paths.append(launches)
+    prefills = [i for i, (n, _) in enumerate(fwd) if n > 1]
+    n_steps = len(fwd) - len(prefills)
+    want = dict(flash_fwd=VN_LAYERS * len(prefills), flash_fwd_f32=VN_LAYERS * len(prefills),
+                flash_decode=VN_LAYERS * n_steps, flash_decode_f32=VN_LAYERS * n_steps,
+                flash_bwd=0)
+    rows = json.loads(results.read_text())
+    log(f"eval_vision_needle: {len(rows)} points, {out.strip().splitlines()[-1]}; "
+        f"launches {launches}")
+    n_points = len(VN_FRAMES) * len(VN_DEPTHS) * VN_ROUNDS
+    if (any(launches[k] != v for k, v in want.items()) or len(rows) != n_points
+            or len(prefills) != n_points):
+        raise AssertionError(f"eval_vision_needle: launches {launches} (want {want}), "
+                             f"{len(rows)} points, {len(prefills)} prefills")
+    ends = prefills[1:] + [len(fwd)]
+    by_frames = {}   # the points in the results' order, which is the grid's
+    for (s, e), key in zip(zip(prefills, ends), rows):
+        by_frames.setdefault(rows[key]["n_frames"], []).append((fwd[s], fwd[s + 1:e]))
+    for n_frames, pts in by_frames.items():
+        pre = [p[1] for p, _ in pts]
+        step = [t for _, steps in pts for _, t in steps]
+        log(f"eval_vision_needle {n_frames} frames: {len(pts)} points of {pts[0][0][0]} "
+            f"tokens, prefill {np.median(pre):.3f}s (median; {pts[0][0][0] / np.median(pre):.0f} "
+            f"tokens/s), {1e3 * np.mean(step):.2f} ms a step over {len(step)} steps "
+            f"[{card()}]")
+    again = run_cli_in_process(eval_vision_needle.main, argv, "eval_vision_needle rerun")[0]
+    if json.loads(results.read_text()) != rows or len(again.strip().splitlines()) != 1:
+        raise AssertionError("eval_vision_needle: the rerun did not skip the done points")
+    grid = run_cli_in_process(summarize_vision_needle.main, [str(results)],
+                              "summarize_vision_needle")[0]
+    for line in grid.strip().splitlines():
+        log(f"summarize_vision_needle: {line}")
+    if len(grid.strip().splitlines()) != 5 or not grid.startswith("frames(vis-toks)"):
+        raise AssertionError(f"summarize_vision_needle: {grid!r}")
+
+    # the holds: the 32-frame point's prefill logits against the plain
+    # model, and a point a frame count's answer against the twins
+    args = eval_vision_needle.parse_args(argv)
+    proc = eval_vision_needle.processor(Tokenizer(str(VN_TOKENIZER)), args.n_per_frame)
+    model = eval_vision_needle.load_vision_model(args, torch.device("cuda"),
+                                                 eval_vision_needle.FORCED)
+    plain = VideoLLaMAForCausalLM.on_tensors(model.config.replace(attn_impl="plain"),
+                                             dict(model.named_parameters()), torch.float32)
+    key, _, ids, vm, am = eval_vision_needle.point(args, proc, VN_FRAMES[0], VN_HELD_DEPTH, 0)
+    on = [torch.as_tensor(x, device="cuda") for x in (ids, am, vm)]
+    got, want = (generation.prefill(m, *on[:2], args.max_new_tokens, on[2])[0]
+                 for m in (model, plain))
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"eval_vision_needle {key}: prefill's last logits ({ids.shape[1]} tokens), kernel vs "
+        f"plain fp32 max|Δ|/max|plain| {rel:.3e} (tol {NEEDLE_REL_TOL})")
+    if not rel <= NEEDLE_REL_TOL:
+        raise AssertionError("eval_vision_needle: prefill logits disagree with the plain path")
+    del plain, got, want
+    torch.cuda.empty_cache()
+    for n_frames in VN_FRAMES:
+        _greedy_held(model, args, proc, n_frames, "eval_vision_needle")
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
+# scripts/run_vision_validation_torch.sh's path (phase_vision_validation):
+# its pattern data (VN_DATA's last job: 128 rows, 4 steps of 32), the
+# dual-head trainer at its config and flags (hidden 384, 4 layers,
+# sample_mode 'all', fp32, 32 x 384, `pad`) for VV_STEPS steps (cut from
+# 3000; exact K1 and backward fp32 counts), then probe_vision_patterns over
+# its milestone on the card for VV_PATTERNS patterns (of the bundle's 12,
+# cut for room): 257 CFG steps each
+# at top-k 1, exact K1/K4 fp32 counts (a prefill and each step, a launch a
+# layer), ms a step; one pattern's 257 tokens equal to those of an
+# attn_impl="plain" model on the same tensors.
+VV_BASE_CFG = ("vocab_size=512,vision_vocab_size=8448,hidden_size=384,intermediate_size=1024,"
+               "num_hidden_layers=4,num_attention_heads=6,max_sequence_length=512,"
+               "scan_attention=False,scan_mlp=False,scan_layers=True,param_scan_axis=0,"
+               "remat_block='nothing_saveable'")
+VV_STEPS, VV_PATTERNS, VV_HELD_PATTERN = 4, 6, 3
+
+
+def phase_vision_validation(data):
+    """See VV_*; `data` is start_context_extension_data's. Returns the
+    counted runs' launch counts."""
+    work = data[1] / "vision"
+    host_data(data)
+    argv = [
+        "--modality=vision,text", *CLI_FLAGS, "--mesh_dim=1,1,1,1", "--dtype=fp32",
+        f"--total_steps={VV_STEPS}", "--log_freq=1", f"--save_model_freq={VV_STEPS}",
+        f"--update_llama_config=dict({VV_BASE_CFG},sample_mode='all')",
+        f"--tokenizer={VN_TOKENIZER}", "--train_dataset.type=json_vision",
+        "--train_dataset.vision_text_processor.fields_from_example=fields",
+        f"--train_dataset.json_vision_dataset.path={work / 'train.jsonl'}",
+        "--train_dataset.json_vision_dataset.seq_length=384",
+        "--train_dataset.json_vision_dataset.batch_size=32",
+        "--train_dataset.json_vision_dataset.mode=pad",
+        "--optimizer.adamw_optimizer.lr=1e-3", "--optimizer.adamw_optimizer.end_lr=1e-4",
+        "--optimizer.adamw_optimizer.lr_warmup_steps=100",
+        "--optimizer.adamw_optimizer.lr_decay_steps=3000",
+        f"--logger.output_dir={work / 'run'}", "--logger.experiment_id=patterns",
+    ]
+    milestone, launches, times, losses, wall = _train_stage(
+        argv, "vision validation trainer", VN_LAYERS, VV_STEPS, True)
+    paths = [launches]
+    log(f"vision validation trainer (32 x 384, fp32, sample_mode 'all'): {VV_STEPS} steps in "
+        f"{wall:.1f}s of wall, steps {', '.join(f'{t:.3f}' for t in times)} s, losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches} [{card()}]")
+
+    probe = ["--checkpoint", str(milestone), "--tokenizer", str(VN_TOKENIZER),
+             "--update_llama_config", f"dict({VV_BASE_CFG})",
+             "--n_patterns", str(VV_PATTERNS), *PLATFORM_FLAGS]
+    _reset_launch_counts()
+    with recorded_forwards() as fwd:
+        out = run_cli_in_process(probe_vision_patterns.main, probe, "probe_vision_patterns")[0]
+    launches = _launch_counts()
+    paths.append(launches)
+    lines = out.strip().splitlines()
+    prefills = sum(n > 1 for n, _ in fwd)
+    n_steps = len(fwd) - prefills
+    want = dict(flash_fwd=VN_LAYERS * prefills, flash_fwd_f32=VN_LAYERS * prefills,
+                flash_decode=VN_LAYERS * n_steps, flash_decode_f32=VN_LAYERS * n_steps,
+                flash_bwd=0)
+    for line in lines:
+        log(f"probe_vision_patterns: {line}")
+    step_ms = 1e3 * np.mean([t for n, t in fwd if n == 1])
+    log(f"probe_vision_patterns: {prefills} CFG prefills of {fwd[0][0]} tokens x 2 rows, "
+        f"{n_steps} steps, {step_ms:.2f} ms a step; launches {launches} [{card()}]")
+    if (any(launches[k] != v for k, v in want.items()) or prefills != VV_PATTERNS
+            or len(lines) != VV_PATTERNS + 1 or not lines[-1].startswith("code acc")):
+        raise AssertionError(f"probe_vision_patterns: launches {launches} (want {want}), "
+                             f"{prefills} prefills, lines {lines}")
+
+    args = probe_vision_patterns.parse_args(probe)
+    proc = eval_vision_needle.processor(Tokenizer(str(VN_TOKENIZER)))
+    model = eval_vision_needle.load_vision_model(args, torch.device("cuda"),
+                                                 probe_vision_patterns.FORCED)
+    plain = VideoLLaMAForCausalLM.on_tensors(model.config.replace(attn_impl="plain"),
+                                             dict(model.named_parameters()), torch.float32)
+    prompt, _ = probe_vision_patterns.pattern_prompt(proc, VV_HELD_PATTERN)
+    got, want = (probe_vision_patterns.draw(m, prompt, args.cfg_scale, VV_HELD_PATTERN)
+                 for m in (model, plain))
+    apart = np.flatnonzero(got != want)
+    if len(apart):
+        raise AssertionError(f"probe_vision_patterns pattern {VV_HELD_PATTERN}: tokens apart "
+                             f"from the plain path's first at {int(apart[0])}")
+    log(f"probe_vision_patterns pattern {VV_HELD_PATTERN}: all {len(got)} tokens equal the "
+        f"plain fp32 path's")
+    del model, plain
+    torch.cuda.empty_cache()
+    return paths
+
+
 # The training CLI on the card (phase_train_cli): `lwm_tpu_torch.train.main`
 # in-process over a JSONL of random words made from the seed (so that the
 # tokenizer's word cache cannot serve them) and the fixture tokenizer, with
@@ -4405,7 +4917,8 @@ def phase_context_extension(data, bwd_ms):
 # autoresume to 4, C: 0 to 4 uninterrupted), one example a row (`pad`) so
 # that a resume sees the uninterrupted run's batches.
 TRAIN_CLI_PRESET, TRAIN_CLI_LAYERS, TRAIN_CLI_SEQ, TRAIN_CLI_BATCH = "7b", 16, 4096, 2
-TRAIN_CLI_STEPS, TRAIN_CLI_FUSED_STEPS, ROUNDTRIP_LAYERS, TRAIN_CLI_POOL = 6, 2, 1, 4
+# (TRAIN_CLI_STEPS and VISION_TRAIN_STEPS cut from 6 to 4 and 3 for room)
+TRAIN_CLI_STEPS, TRAIN_CLI_FUSED_STEPS, ROUNDTRIP_LAYERS, TRAIN_CLI_POOL = 4, 2, 1, 4
 TRAIN_CLI_WORDS, ROUNDTRIP_WORDS = 100, 1200   # a line: ~590 / ~7200 fixture tokens
 TRAIN_CLI_LINES, PIPELINE_BATCHES = 1200, 48   # batches timed after the first, the pipeline alone
 # The fused loss's head computes its logits in fp32, the default path's in
@@ -4617,7 +5130,7 @@ def cli_round_trip(argv_of, rt_flags, what, held_leaves=(), rtol=ROUNDTRIP_RTOL)
 
 def phase_train_cli(step_s_full):
     """The training CLI as a user runs it (see TRAIN_CLI_*): the 7b width
-    for 6 steps (finite, falling loss; exact K1 and backward launches; step
+    for TRAIN_CLI_STEPS steps (finite, falling loss; exact K1 and backward launches; step
     time, tokens/s, MFU share, peak memory, dataset_average_tps; the data
     pipeline's own rate in one process and in the run's pool, beside the
     step's tokens/s and `step_s_full`, phase_train_full's step), then
@@ -4717,7 +5230,7 @@ def phase_train_cli(step_s_full):
 # "vision,caption" (text targets too). Then --freeze_base (frozen params
 # bit-unchanged, vte and vision_head moved), the PaLM optimizer, and the
 # round trip at 1 layer under both (`pad` rows).
-VISION_TRAIN_LAYERS, VISION_TRAIN_STEPS, VISION_TRAIN_LINES = 16, 6, 64
+VISION_TRAIN_LAYERS, VISION_TRAIN_STEPS, VISION_TRAIN_LINES = 16, 3, 64
 # the --freeze_base and PaLM runs: 2 steps at 4 layers (at 16 they were
 # timed again only; the held behaviour, frozen leaves bit-unchanged and a
 # PaLM step, does not depend on the depth)
@@ -4826,8 +5339,8 @@ def _vision_records(summary, what):
 
 
 def phase_train_vision(profile=None):
-    """Vision-text training as a user runs it (see VISION_TRAIN_*): 6 AdamW
-    steps (finite, falling loss; both halves finite; exact K1 and backward
+    """Vision-text training as a user runs it (see VISION_TRAIN_*):
+    VISION_TRAIN_STEPS AdamW steps (finite, falling loss; both halves finite; exact K1 and backward
     launches; step time, tokens/s, MFU share, peak memory), 2 with
     --freeze_base (frozen params bit-unchanged, vte and vision_head moved),
     2 with the PaLM optimizer, the round trip at 1 layer with both, then a
@@ -5005,6 +5518,8 @@ def main():
     bwd = phase_bwd(gen)
     bwd_f32_err, bwd_f32, k1_f32_train = phase_bwd_f32(gen)
     k1_vision, bwd_vision = phase_train_vision_kernels(gen)
+    k1_vneedle, bwd_vneedle = phase_train_vision_kernels(gen, 33024, 6, 64, VN_TRAIN_REPORT,
+                                                         faults=False)
     k56, k56_named = phase_k56(gen)
     torch.cuda.empty_cache()
     mark("kernel phases")
@@ -5029,7 +5544,8 @@ def main():
     vq, _ = phase_vqgan()
     path_launches.extend(phase_vision_generation(model, fp32, vq))
     path_launches.extend(phase_vision_chat(fp32, vq))
-    mark("VQGAN, vision generation and vision chat")
+    path_launches.append(phase_train_vqgan())
+    mark("VQGAN, vision generation, vision chat and the VQ trainer")
     del model, fp32
     torch.cuda.empty_cache()
     path_launches.extend(phase_serve_int8(bf16_summary))
@@ -5050,6 +5566,12 @@ def main():
     path_launches.append(phase_train_f32())
     torch.cuda.empty_cache()
     mark("fp32 training")
+    path_launches.extend(phase_vision_needle(ctx_data))
+    torch.cuda.empty_cache()
+    mark("the vision-needle bundle's path")
+    path_launches.extend(phase_vision_validation(ctx_data))
+    torch.cuda.empty_cache()
+    mark("the vision-validation bundle's path")
     path_launches.extend(phase_context_extension(ctx_data, bwd_f32[BWD_F32_32K]["ms"]))
     torch.cuda.empty_cache()
     mark("the context-extension chain")
@@ -5079,12 +5601,12 @@ def main():
 
     kernels = [
         dict(row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
-             **k1_cases, **{VISION_TRAIN_REPORT: k1_vision},
+             **k1_cases, **{VISION_TRAIN_REPORT: k1_vision, VN_TRAIN_REPORT: k1_vneedle},
              **f32_cases(dict(k1_f32, **{BWD_F32_REPORT: k1_f32_train}, **k1_spec),
                          "flash_fwd_f32.cu", "flash_fwd")),
         dict(row("flash_bwd", "flash_bwd.cu",
                  "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
-             **{VISION_TRAIN_REPORT: bwd_vision}),
+             **{VISION_TRAIN_REPORT: bwd_vision, VN_TRAIN_REPORT: bwd_vneedle}),
         dict(row("flash_bwd_f32", "flash_bwd_f32.cu",
                  "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356",
                  bwd_f32_err, *(bwd_f32[BWD_F32_REPORT][k] for k in (

@@ -1,9 +1,11 @@
 """Image and video files for the vision apps.
 
-- `write_png` / `read_png`: 8-bit RGB PNG with the standard library alone
-  (zlib, struct, CRC32), since the card's machine has no PIL. The file
-  holds exactly the pixels given (every row unfiltered, one IDAT), so
-  that a PNG reader (PIL's among them) returns them.
+- `write_png` / `read_png`: PNG with the standard library and numpy alone
+  (zlib, struct, CRC32), since the card's machine has no PIL. `write_png`
+  writes 8-bit RGB, exactly the pixels given (every row unfiltered, one
+  IDAT), so that a PNG reader (PIL's among them) returns them; `read_png`
+  reads any 8-bit PNG that is not interlaced, filtered rows and gray,
+  palette and alpha images included, as PIL's decode to RGB gives it.
 - `write_video`: the JAX app's MP4 writer (`lwm_tpu/apps/
   vision_generation.py:200-218`): imageio, else OpenCV; `check_video_writer`
   raises `ImportError` naming both when neither is installed, for a caller
@@ -46,13 +48,57 @@ def write_png(path, pixels):
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
+# samples a pixel of each PNG color type: gray, RGB, palette, gray + alpha, RGBA
+_PNG_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(raw, h, stride, bpp, path):
+    """The rows [h, stride] uint8 of a PNG's decompressed scanlines, each
+    filter (None, Sub, Up, Average, Paeth) undone."""
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:]
+        if kind == 0:
+            row = line
+        elif kind == 1:   # + the byte a pixel to the left: a running sum a channel
+            row = (np.cumsum(line.reshape(-1, bpp), 0, dtype=np.uint64) % 256).astype(
+                np.uint8).reshape(-1)
+        elif kind == 2:
+            row = line + prior
+        elif kind in (3, 4):
+            row, up = bytearray(line.tobytes()), prior.tolist()
+            for i in range(stride):
+                left = row[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    row[i] = (row[i] + ((left + up[i]) >> 1)) & 255
+                else:
+                    row[i] = (row[i] + _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)) & 255
+            row = np.frombuffer(bytes(row), np.uint8)
+        else:
+            raise ValueError(f"{path}: row {y} has filter type {kind}")
+        out[y] = prior = row
+    return out
+
+
 def read_png(path):
-    """The pixels uint8 [H, W, 3] of an 8-bit RGB PNG whose rows are
-    unfiltered (as `write_png` writes them); checks every chunk's CRC."""
+    """The pixels uint8 [H, W, 3] of an 8-bit PNG (gray, RGB, palette, each
+    with or without alpha; not interlaced), as PIL's `Image.open(path).
+    convert("RGB")` gives them: gray repeated over the three channels, a
+    palette index looked up, alpha dropped. Checks every chunk's CRC; any
+    other PNG raises, naming the file."""
     data = open(path, "rb").read()
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG")
-    pos, idat, header = len(PNG_SIGNATURE), [], None
+    pos, idat, header, palette = len(PNG_SIGNATURE), [], None, None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
@@ -61,16 +107,31 @@ def read_png(path):
             raise ValueError(f"{path}: bad CRC in {kind!r}")
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"IEND":
+            break
         pos += 12 + n
     w, h, depth, color, _, _, interlace = header
-    if (depth, color, interlace) != (8, 2, 0):
-        raise ValueError(f"{path}: want 8-bit RGB without interlace, got {header}")
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * 3)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: filtered rows are not read here")
-    return rows[:, 1:].reshape(h, w, 3).copy()
+    if depth != 8 or color not in _PNG_SAMPLES or interlace:
+        raise ValueError(f"{path}: a PNG of bit depth {depth}, color type {color}, interlace "
+                         f"{interlace} is not read here (8-bit, not interlaced, is)")
+    bpp = _PNG_SAMPLES[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * bpp)
+    if raw[:, 0].any():
+        rows = _unfilter(raw, h, w * bpp, bpp, path)
+    else:
+        rows = raw[:, 1:]
+    px = rows.reshape(h, w, bpp)
+    if color == 3:
+        if palette is None:
+            raise ValueError(f"{path}: a palette image without a PLTE chunk")
+        return palette[px[..., 0]]
+    if color in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
 
 
 def check_video_writer():

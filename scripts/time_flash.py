@@ -32,7 +32,8 @@ N..1, with CUDA events over calls of the wrapper. Shapes:
   d 128, causal, 300 right-padded keys in row 1); BF16_TOL and LSE_TOL.
 - fwd32: chip_smoke.py's timed K1_F32_CASES (the needle batch, the 32k
   bundle's prefill, the CFG prefills, the speculative verify, the last
-  timed from CUDA-graph replays) and the fp32 train step's attention
+  timed from CUDA-graph replays, and the apps' prefills: vision chat's, the
+  32K eval's and the 128-frame vision-needle eval's) and the fp32 train step's attention
   (BWD_F32_CASES[0]); out and lse within F32_REL_TOL of the twin's largest
   |value|, the bound of three TF32 products (chip_smoke.tf32_bounds).
 - bwd: the train step's attention as above (dq_accum zeroing and the bf16
@@ -99,10 +100,10 @@ SOURCE = {"fwd": "flash_fwd.cu", "fwd32": "flash_fwd_f32.cu", "bwd": "flash_bwd.
 
 def iters(name):
     """Launches per timing: 50 for a decode GEMV or the verify (10-200 us),
-    3 for the 32k bundle's prefill (~0.3 s), else 10."""
+    3 for the 32k-class prefills (~0.03-0.3 s), else 10."""
     if name.startswith("decode") or name == smoke.K1_F32_VERIFY:
         return 50
-    return 3 if name == smoke.K1_F32_BUNDLE else 10
+    return 3 if name in smoke.K1_F32_CHUNKED else 10
 
 
 def build(srcs, entry):
@@ -184,7 +185,7 @@ def fwd32_shapes(gen):
         if case[0] not in smoke.K1_F32_TIMED:
             continue
         q, k, v, bias, kw, valid = smoke.k1_f32_inputs(case, gen)
-        chunk = smoke.F32_TWIN_CHUNK if case[0] == smoke.K1_F32_BUNDLE else None
+        chunk = smoke.F32_TWIN_CHUNK if case[0] in smoke.K1_F32_CHUNKED else None
         call = (lambda q=q, k=k, v=v, bias=bias, kw=kw:
                 flash.flash_attention_fwd(q, k, v, bias, **kw))
         bound = smoke.tf32_bounds(*smoke.k1_f32_work(case, q, bias, valid))[0]
