@@ -49,7 +49,14 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      causal and not over a full-tile bias, d 64, rows with no valid key (dq
      0); the three long shapes timed beside the bound of three TF32
      products a product and the fp32 FMA bound, SDPA's fp32 backward and
-     the twin, K1's fp32 route at the train shape too.
+     the twin, K1's fp32 route at the train shape too. Then the ring's blocks
+     (phase_ring_kernels): all four routes with pos_stride 2 and segment
+     ids of three packed documents, as an sp-2 striped ring step gives them
+     (queries at offset 1 over keys at 0, then 0 over 1, whose first row
+     sees no key: out 0, lse BIG_NEG, dq 0), bf16 at the 7b width's block
+     (1 x 4096, h32) and fp32 at the 32K stage's (1 x 16384, h6, the
+     backward held to float64 on 2 heads), timed beside their bounds, twins
+     and SDPA with the equivalent bool mask.
   6. K5 int8_matmul and K6 w8a8_matmul vs their plain twins at the int8
      serving shapes: decode (8 slots; also the 1b preset's wq and w2) and
      admission at each bucket (m 256/
@@ -140,10 +147,8 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      of K5 against the "int8_xla" dequant arm on the same int8 tensors,
      and of both (and W8A8) against an fp32 copy of the dequantized
      weights.
-     Then the CLIs, the serving CLI's first run as a `python -m` subprocess
-     (the module entry point on the card, its wall time split into imports,
-     the params stream's read and the work), every other run through its
-     `main` in this process: the serving CLI (`lwm_tpu_torch.apps.serve`) three times
+     Then the CLIs, each run through its `main` in this process (its wall
+     time split into the params stream's read and the work): the serving CLI (`lwm_tpu_torch.apps.serve`) three times
      over a 7b-width 4-layer params stream written by the port: a prefix
      document, its index saved then loaded (the same completions), lookup
      verify; and with --quantize_weights. The video QA CLI
@@ -161,15 +166,24 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      grads of the kernel path against an attn_impl="plain" bf16 model and
      an fp32 copy (the noise floor), on the same weights and batch; and the
      kernel path at fp32 compute (K1's and the backward's fp32 routes) held
-     to that fp32 copy (loss 1e-6 relative, each grad 1e-5 of its largest
-     element).
+     to the same step in float64 (f64_step: loss 1e-6 relative, each grad
+     1e-5 relative in L2 and of its largest element, or within 1.25x the
+     plain fp32 path's own distance where that misses 1e-5).
  10. Train the 7b width at 16 of its 32 layers (fp32 master weights, bf16
      compute, remat save_flash, AdamW as scripts/run_train_text.sh), batch
      2 x 4096, 6 steps on one fixed batch from the seed: finite, falling
      loss, and K1 and the backward launched layers x steps times on that
      path. The same at fp32 compute for 4 steps (phase_train_f32, the
      trainers' default --dtype): K1's and the backward's fp32 routes
-     launched exactly layers x steps. Then run_context_extension_torch.sh's chain
+     launched exactly layers x steps. Then sequence-parallel training
+     (phase_train_ring): two ranks share the card over gloo on a mesh of sp
+     2 and train through lwm_tpu_torch.train's step in both layouts: the 7b
+     width at 4 layers, bf16, 1 x 8192, 3 steps, the losses held to a
+     one-rank run at the bf16 noise floor; the 32K stage's model (6 layers
+     of 768, fp32, nothing_saveable) at 1 x 32768, 2 steps, step 1's loss
+     and grads held to the float64 step beside a one-rank run's; each
+     rank's exact K1/backward counts, step times, the gradients' all-reduce
+     and the ring's exchanges timed. Then run_context_extension_torch.sh's chain
      (phase_context_extension, at its widths: hidden 768, 6 layers, fp32,
      remat nothing_saveable): its data from the port's generators in a host
      process started after the build, 2 steps each of its 512, 2048 and
@@ -1199,15 +1213,17 @@ BWD_F32_CASES = [
 ]
 
 
-def _bwd_f64(q, k, v, g, lse, delta, bias, *, causal, q_offset, kv_offset, chunk=2048):
+def _bwd_f64(q, k, v, g, lse, delta, bias, *, causal, q_offset, kv_offset, pos_stride=1,
+             q_seg=None, kv_seg=None, chunk=2048):
     """The twin's arithmetic in float64, `chunk` queries at a time: (dq, dk,
-    dv) of MHA inputs with a per-key bias (inputs as the twin's)."""
+    dv) of MHA inputs with a per-key bias (inputs as the twin's; positions
+    `pos_stride` apart, segment ids [b, sq] and [b, skv] or None)."""
     b, sq, h, d = q.shape
     if k.shape[2] != h or bias.shape[2] != 1:
         raise ValueError("_bwd_f64 takes MHA inputs and a per-key bias")
     f64, scale = torch.float64, d ** -0.5
     dq, dk, dv = (torch.zeros(x.shape, dtype=f64, device=x.device) for x in (q, k, v))
-    keys = kv_offset + torch.arange(k.shape[1], device=q.device)
+    keys = kv_offset + pos_stride * torch.arange(k.shape[1], device=q.device)
     for bi, hh in itertools.product(range(b), range(h)):
         kk, vv = k[bi, :, hh].to(f64), v[bi, :, hh].to(f64)
         kb = bias[bi if bias.shape[0] > 1 else 0, 0, 0].to(f64)
@@ -1215,8 +1231,10 @@ def _bwd_f64(q, k, v, g, lse, delta, bias, *, causal, q_offset, kv_offset, chunk
             qq, gg = q[bi, c0:c0 + chunk, hh].to(f64), g[bi, c0:c0 + chunk, hh].to(f64)
             x = qq @ kk.T * scale + kb
             if causal:
-                pos = q_offset + c0 + torch.arange(qq.shape[0], device=q.device)
+                pos = q_offset + pos_stride * (c0 + torch.arange(qq.shape[0], device=q.device))
                 x = x.masked_fill(keys[None] > pos[:, None], BIG_NEG)
+            if q_seg is not None:
+                x = x.masked_fill(q_seg[bi, c0:c0 + chunk, None] != kv_seg[bi, None], BIG_NEG)
             p = torch.where(x > MASK_GUARD, torch.exp(x - lse[bi, hh, c0:c0 + chunk, None]), 0.0)
             ds = p * (gg @ vv.T - delta[bi, hh, c0:c0 + chunk, None]) * scale
             dq[bi, c0:c0 + chunk, hh] = ds @ kk
@@ -1358,6 +1376,171 @@ def phase_bwd_f32(gen):
         del q, k, v, g, out, lse, delta, args, twin_args, bias
         torch.cuda.empty_cache()
     return worst, timed, k1_train
+
+
+# The ring's blocks (phase_ring_kernels): each route of K1 and the fused
+# backward with pos_stride 2 and with segment ids, as an sp-2 striped ring
+# step gives them: rank 1 over block 0 (q_offset 1, kv_offset 0: row i sees
+# keys j <= i), then rank 0 over block 1 (0, 1: row i sees j <= i - 1, so
+# row 0 sees no key and must give out 0, lse BIG_NEG and dq 0), each block
+# of RING_DOCS packed documents over the global positions, the model's
+# per-key bias of an all-ones mask (0). bf16 at the 7b width's sp-2 block of
+# S 8192 (phase_train_ring (a)); fp32 at the context-extension 32K stage's
+# sp-2 block (b). Held to the plain twins at the suite's tolerances (bf16:
+# out BF16_TOL, lse LSE_TOL, the backward BWD_REL_TOL and BWD_COS_MIN as
+# phase_bwd; fp32: F32_REL_TOL of the largest value, K1 to the twin and the
+# backward to the twin's arithmetic in float64, `_bwd_f64`, on
+# RING_TWIN_HEADS heads as the 32K case of phase_bwd_f32, since the fp32
+# twin's own sums over 16384 queries sit near 1e-5 of float64); each timed
+# beside its bound (the (query, key) pairs this mask keeps), its twin and
+# SDPA (efficient attention) with the equivalent bool mask.
+RING_BF16_BLOCK = (1, 4096, 32, 128)    # b, s_local, h, d
+RING_F32_BLOCK = (1, 16384, 6, 128)
+RING_OFFSETS = ((1, 0), (0, 1))         # (q_offset, kv_offset): ranks 1 over 0, 0 over 1
+RING_STRIDE, RING_DOCS, RING_TWIN_HEADS = 2, 3, 2
+
+
+def _ring_block_segments(b, s, q_off, kv_off, stride=RING_STRIDE, docs=RING_DOCS):
+    """Segment ids of `docs` equal documents over the positions 0 ..
+    stride·s − 1, at a block's query and key positions: int32 [b, s] each."""
+    total = stride * s
+
+    def ids(off):
+        pos = off + stride * torch.arange(s, device="cuda")
+        return (pos * docs // total).to(torch.int32).expand(b, s).contiguous()
+
+    return ids(q_off), ids(kv_off)
+
+
+def _ring_case_name(dtype, b, s, h, q_off, kv_off):
+    kind = "f32_" if dtype == torch.float32 else ""
+    return (f"{kind}ring_b{b}_S{s}_h{h}_stride{RING_STRIDE}_q{q_off}_kv{kv_off}_"
+            f"{RING_DOCS}docs")
+
+
+def phase_ring_kernels(gen):
+    """K1 and the fused backward, both routes, at the ring's blocks (see
+    RING_*). Returns {kernel row: {case: dict(ms, plain_ms, library_ms,
+    bound_ms, bound_by, max_abs_err)}} for the rows flash_fwd, flash_bwd
+    (bf16) and flash_fwd_f32, flash_bwd_f32."""
+    from lwm_tpu_torch.ops.reference import attention_mask
+
+    out_rows = {"flash_fwd": {}, "flash_bwd": {}, "flash_fwd_f32": {}, "flash_bwd_f32": {}}
+    f32 = torch.float32
+    for dtype, (b, s, h, d) in ((BF16, RING_BF16_BLOCK), (f32, RING_F32_BLOCK)):
+        for q_off, kv_off in RING_OFFSETS:
+            name = _ring_case_name(dtype, b, s, h, q_off, kv_off)
+            q, g = _randn((b, s, h, d), gen, dtype), _randn((b, s, h, d), gen, dtype)
+            k, v = _randn((b, s, h, d), gen, dtype), _randn((b, s, h, d), gen, dtype)
+            bias = torch.zeros((b, 1, 1, s), device="cuda")
+            q_seg, kv_seg = _ring_block_segments(b, s, q_off, kv_off)
+            kw = dict(causal=True, q_offset=q_off, kv_offset=kv_off, pos_stride=RING_STRIDE,
+                      q_seg=q_seg, kv_seg=kv_seg)
+            n_fwd, n_bwd = flash.flash_attention_fwd.launches, flash.flash_attention_bwd.launches
+            out, lse = flash.flash_attention_fwd(q, k, v, bias, **kw)
+            delta = torch.einsum("bqhd,bqhd->bhq", g.float(), out.float()).contiguous()
+            args = (q, k, v, g, lse, delta, bias)
+            got = flash.flash_attention_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            if (flash.flash_attention_fwd.launches - n_fwd, flash.flash_attention_bwd.launches
+                    - n_bwd) != (1, 1):
+                raise AssertionError(f"ring block {name}: a kernel was not launched")
+            keep = attention_mask(s, s, "cuda", **{k_: kw[k_] for k_ in (
+                "q_offset", "kv_offset", "pos_stride", "q_seg", "kv_seg")})
+            pairs = int(keep.sum())
+            blind = ~keep.any(-1)[:, 0]                          # [b, s]: rows with no key
+            n_blind = int(blind.sum())
+            if (kv_off > q_off and not blind[:, 0].all()) or not (
+                    torch.all(out[blind] == 0) and torch.all(lse.transpose(1, 2)[blind] == BIG_NEG)
+                    and torch.all(got[0][blind] == 0)):
+                raise AssertionError(f"ring block {name}: rows with no key ({n_blind}) do not "
+                                     "give out 0, lse BIG_NEG and dq 0")
+            # the twins: all heads in bf16; fp32 on RING_TWIN_HEADS (MHA, each head its own)
+            th = h if dtype == BF16 else RING_TWIN_HEADS
+            t_args = (*(x[:, :, :th].contiguous() for x in (q, k, v, g)),
+                      *(x[:, :th].contiguous() for x in (lse, delta)), bias)
+            ref, ref_lse = flash.flash_attention_fwd_plain(*t_args[:3], bias, **kw)
+            live = ref_lse > BIG_NEG / 2
+            if dtype == BF16:
+                f_err = (out.float() - ref.float()).abs().max().item()
+                l_err = (lse[live] - ref_lse[live]).abs().max().item()
+                log(f"K1 {name}: max|out-plain| {f_err:.3e} (tol {BF16_TOL}), max|lse-plain| "
+                    f"{l_err:.3e} (tol {LSE_TOL}); {n_blind} rows with no key")
+                if not (f_err <= BF16_TOL and l_err <= LSE_TOL):
+                    raise AssertionError(f"K1 {name} disagrees with its plain twin")
+                want = flash.flash_attention_bwd_plain(*args, **kw)
+                b_err, parts = 0.0, []
+                for oname, a, r in zip(("dq", "dk", "dv"), got, want):
+                    diff = (a.float() - r.float()).abs().max().item()
+                    rel, cos = diff / r.float().abs().max().item(), _cosine(a, r)
+                    parts.append(f"{oname} max|Δ|/max|ref| {rel:.3e} cos {cos:.6f}")
+                    if not (rel <= BWD_REL_TOL and cos >= BWD_COS_MIN):
+                        raise AssertionError(f"flash_bwd {name} {oname} disagrees with its twin")
+                    b_err = max(b_err, diff)
+                log(f"flash_bwd {name}: " + "; ".join(parts) +
+                    f" (bounds {BWD_REL_TOL}, cos {BWD_COS_MIN})")
+            else:
+                f_err = _f32_hold(f"K1 {name} out", out[:, :, :th], ref)
+                _f32_hold(f"K1 {name} lse", lse[:, :th][live], ref_lse[live])
+                want32 = flash.flash_attention_bwd_plain(*t_args, **kw)
+                want = _bwd_f64(*t_args, **kw)
+                b_err = 0.0
+                for oname, a, w32, r in zip(("dq", "dk", "dv"), got, want32, want):
+                    twin_rel = ((w32 - r).abs().max() / r.abs().max()).item()
+                    log(f"flash_bwd {name} {oname}: the fp32 twin's max|Δ| from float64 over "
+                        f"max|float64| {twin_rel:.3e}")
+                    b_err = max(b_err, _f32_hold(f"flash_bwd {name} {oname}",
+                                                 a[:, :, :th].double(), r))
+                del want32
+            del ref, ref_lse, want
+            torch.cuda.empty_cache()
+            # times: the kernels, the twins (at their heads), SDPA with the
+            # equivalent bool mask (efficient attention; rows with no key
+            # give NaN there, which the timing does not read)
+            fwd_ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, bias, **kw), 5)
+            bwd_ms = time_ms(lambda: flash.flash_attention_bwd(*args, **kw), 5)
+            fwd_plain = time_ms(lambda: flash.flash_attention_fwd_plain(*t_args[:3], bias, **kw), 2)
+            bwd_plain = time_ms(lambda: flash.flash_attention_bwd_plain(*t_args, **kw), 2)
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt.detach(), kt.detach(), vt.detach(), attn_mask=keep), 5)
+                o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+                bwd_lib = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), g.transpose(1, 2),
+                                                              retain_graph=True), 5)
+            del qt, kt, vt, o
+            el = q.element_size()
+            seg_bytes = 2 * b * s * 4
+            fwd_bytes = (2 * q.numel() + 2 * k.numel()) * el + b * h * s * 4 + b * s * 4 + seg_bytes
+            bwd_bytes = ((2 * q.numel() + 2 * k.numel()) * el * 2 + q.numel() * 4 * 2
+                         + 2 * b * h * s * 4 + b * s * 4 + seg_bytes)
+            pair_flops = d * h * pairs
+            if dtype == BF16:
+                fb, fby = bound_ms(fwd_bytes, 4 * pair_flops, H100_BF16_PEAK)
+                bb, bby = bound_ms(bwd_bytes, 10 * pair_flops, H100_BF16_PEAK)
+                rows = ("flash_fwd", "flash_bwd")
+            else:
+                fb, fby, _ = tf32_bounds(fwd_bytes, 4 * pair_flops)
+                bb, bby, _ = tf32_bounds(bwd_bytes, 10 * pair_flops)
+                rows = ("flash_fwd_f32", "flash_bwd_f32")
+            for row, ms, plain_ms, lib, bnd, by, err in (
+                    (rows[0], fwd_ms, fwd_plain, fwd_lib, fb, fby, f_err),
+                    (rows[1], bwd_ms, bwd_plain, bwd_lib, bb, bby, b_err)):
+                out_rows[row][name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd,
+                                           bound_by=by, max_abs_err=err)
+                if th != h:
+                    out_rows[row][name]["plain_heads"] = th
+            log(f"ring block {name}: {pairs} (query, key) pairs of {s * s} a head and row, "
+                f"{n_blind} rows with no key; K1 {fwd_ms:.3f} ms (bound {fb:.3f}, {fby}; "
+                f"{100 * fb / fwd_ms:.1f}%), plain {fwd_plain:.3f} ms at {th} heads, SDPA with "
+                f"the bool mask {fwd_lib:.3f} ms; backward {bwd_ms:.3f} ms (bound {bb:.3f}, {bby}; "
+                f"{100 * bb / bwd_ms:.1f}%), plain {bwd_plain:.3f} ms, SDPA {bwd_lib:.3f} ms "
+                f"[{card()}]")
+            del q, k, v, g, out, lse, delta, args, t_args, got, keep, bias
+            torch.cuda.empty_cache()
+    return out_rows
 
 
 # The vision-text bundle's attention (scripts/run_train_vision_text.sh: one
@@ -2533,10 +2716,10 @@ def _cli_text(rng, n_words, quote=None):
 
 def phase_cli():
     """The serving CLI on the card, three runs over one saved checkpoint
-    (see CLI_LAYERS): the first a `python -m` subprocess, the others
-    through its main in this process. Checks each output file has one line
-    per request and that the run loading the index gives the first run's
-    completions."""
+    (see CLI_LAYERS), each through its main in this process (a `python -m`
+    run paid 24 s of imports; summarize_needle's is the smoke's module
+    entry point). Checks each output file has one line per request and that
+    the run loading the index gives the first run's completions."""
     cfg = LLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=CLI_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     model = LLaMAForCausalLM(cfg, dtype=BF16, device="cuda")
@@ -2567,13 +2750,10 @@ def phase_cli():
                 "index loaded": [f"--prefix_cache={tmp / 'doc.index'}"],
                 "quantized": ["--quantize_weights"]}
         outputs = {}
-        for i, (name, extra) in enumerate(runs.items()):
+        for name, extra in runs.items():
             out = tmp / f"{name.replace(' ', '_')}.jsonl"
             argv = base + extra + [f"--output_file={out}"]
-            if i == 0:   # the module entry point once; the other runs through its main
-                err = run_cli_process("lwm_tpu_torch.apps.serve", argv, f"cli {name}").stderr
-            else:
-                err = run_cli_in_process(serve_cli.main, argv, f"cli {name}")[1]
+            err = run_cli_in_process(serve_cli.main, argv, f"cli {name}")[1]
             for ln in [ln for ln in err.splitlines() if ln.startswith("[")][-4:]:
                 log(f"cli {name}: {ln}")
             lines = [json.loads(ln) for ln in out.read_text().splitlines()]
@@ -4024,12 +4204,12 @@ def _vision_batch(b, s, seed):
                 input_vision_masks=on(vision[:, :-1]), target_vision_masks=on(vision[:, 1:]))
 
 
-# The kernel path at fp32 compute (K1's and the backward's fp32 routes) vs
-# the plain fp32 path on the same weights and batch (phase_train_compare's
-# fourth arm): the loss within F32_LOSS_RTOL relative, every parameter's
-# grad within F32_GRAD_REL_TOL of its largest |element| (the fp32 suite's
-# 1e-5; the two paths sum attention in other orders, and the backward's dq
-# across key tiles by atomics)
+# The kernel path at fp32 compute (K1's and the backward's fp32 routes) held
+# to the float64 step on the same weights and batch (phase_train_compare's
+# fourth arm, `f64_arm`): the loss within F32_LOSS_RTOL relative, every
+# parameter's grad within F32_GRAD_REL_TOL of the float64 grad's largest
+# |element| (the fp32 suite's 1e-5), the plain fp32 path's distance logged
+# beside
 F32_LOSS_RTOL = 1e-6
 F32_GRAD_REL_TOL = 1e-5
 
@@ -4038,7 +4218,7 @@ def phase_train_compare(vision=False):
     """One train step's loss and grads at 7b width (2 layers, seq 4096):
     the kernel path vs attn_impl="plain" on the same fp32 weights (both
     computing in bf16), each held to an fp32 copy; and the kernel path at
-    fp32 compute held to that fp32 copy (F32_*). With `vision`, a
+    fp32 compute held to the float64 step (F32_*, `f64_arm`). With `vision`, a
     VideoLLaMA's step (the dual loss over a batch whose middle half is VQ
     codes)."""
     config_cls, model_cls = (VideoLLaMAConfig, VideoLLaMAForCausalLM) if vision else (
@@ -4093,20 +4273,17 @@ def phase_train_compare(vision=False):
     log(f"{what}: every grad within {FLOOR_RATIO}x the plain path's distance to fp32 "
         f"(+{GRAD_COS_SLACK}); largest ratio {worst[0]:.3f} ({worst[1]})")
 
-    # the fp32 kernel arm: one backward launch a layer on the fp32 route
-    loss_rel = abs(l_k32 - l_32) / abs(l_32)
+    # the fp32 kernel arm, held to the float64 step: one backward launch a
+    # layer on the fp32 route
     layers = cfg.num_hidden_layers
-    worst = max((((g_k32[n] - g_32[n]).abs().max() / g_32[n].abs().max().clamp_min(1e-30)).item(),
-                 n) for n in g_32)
-    log(f"{what} fp32 kernel arm: loss {l_k32:.8f} vs plain fp32 {l_32:.8f} (relative "
-        f"{loss_rel:.3e}, tol {F32_LOSS_RTOL}); largest grad max|Δ|/max|plain fp32| "
-        f"{worst[0]:.3e} ({worst[1]}; tol {F32_GRAD_REL_TOL}); fwd+bwd {t_k32:.2f}s (unwarmed); "
-        f"launches {n_k32}" + (f"; metrics {a_k32}" if vision else ""))
-    if not (math.isfinite(l_k32) and loss_rel <= F32_LOSS_RTOL):
-        raise AssertionError(f"{what}: the fp32 kernel path's loss disagrees with plain fp32")
-    if not worst[0] <= F32_GRAD_REL_TOL:
-        raise AssertionError(f"{what}: the fp32 kernel path's grad of {worst[1]} disagrees with "
-                             f"plain fp32")
+    t0 = time.perf_counter()
+    ref = f64_step(kernel, batch)
+    log(f"{what} fp32 kernel arm: fwd+bwd {t_k32:.2f}s (unwarmed); the float64 step "
+        f"{time.perf_counter() - t0:.2f}s; launches {n_k32}" + (f"; metrics {a_k32}" if vision
+                                                                else ""))
+    f64_arm(what, ref, {"fp32 kernel": (l_k32, g_k32), "plain fp32": (l_32, g_32)},
+            held=("fp32 kernel",), plain="plain fp32")
+    del ref
     if n_k32["flash_bwd_f32"] != layers or n_k32["flash_bwd"] != layers or min(
             n_k32["flash_fwd_f32"], n_k32["flash_fwd"]) < layers:
         raise AssertionError(f"{what}: the fp32 kernel path's launches {n_k32}, want the fp32 "
@@ -4189,6 +4366,422 @@ def phase_train_f32():
     cut for room) on K1's and the backward's fp32 routes. Returns the launch
     counts."""
     return phase_train_full(dtype=torch.float32, steps=4)[0]
+
+
+# The float64 arm: an fp32 path's train step held to the same step in
+# float64 (`f64_step`: the model's arithmetic in plain torch, every operation
+# in float64, on the same weights cast up and the same batch), not to a
+# second fp32 run: two fp32 runs differ by both their noises. Each held fp32
+# path's loss within F32_LOSS_RTOL of the float64 loss, and each gradient
+# within F32_GRAD_REL_TOL of the float64 gradient in two measures: the
+# relative L2 distance ‖g − g64‖ / ‖g64‖, and the largest |element| distance
+# over the largest |g64| element. Where the plain fp32 path (no kernel,
+# measured beside) itself misses F32_GRAD_REL_TOL in a measure, the held
+# path may sit at most FLOOR_RATIO x the plain path's distance there, as
+# bf16 paths are held to their noise floor: at the 7b width every fp32
+# path's wq and wk gradients of layer 1 sit 1.3-1.5e-5 from float64 in both
+# measures (ds = p·(dp − delta) cancels over near-uniform attention), the
+# plain one's included (PERF.md §6).
+F64_ATTN_CHUNK = 1024   # queries a float64 attention chunk (recomputed in the backward)
+
+
+def _attend_f64(q, k, v, chunk=F64_ATTN_CHUNK):
+    """Causal softmax attention in float64 over `chunk` queries at a time,
+    each chunk's scores recomputed in the backward; q [b, s, h, d], k, v
+    [b, s, h_kv, d] (kv head i serves query heads i·g .. i·g + g − 1)."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, s, h, d = q.shape
+    k, v = (x.repeat_interleave(h // x.shape[2], 2) for x in (k, v))
+
+    def part(qc, kc, vc, c0):
+        x = torch.einsum("bqhd,bkhd->bhqk", qc, kc) * d ** -0.5
+        pos = c0 + torch.arange(qc.shape[1], device=q.device)
+        x = x.masked_fill(torch.arange(kc.shape[1], device=q.device)[None] > pos[:, None],
+                          float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(x, -1), vc)
+
+    return torch.cat([checkpoint(part, q[:, c0:c0 + chunk], k[:, :c0 + chunk],
+                                 v[:, :c0 + chunk], c0, use_reentrant=False)
+                      for c0 in range(0, s, chunk)], 1)
+
+
+def _ce_f64(logits, tokens, valid):
+    """`cross_entropy_loss_and_accuracy`'s loss in float64."""
+    lp = torch.log_softmax(logits, -1).gather(-1, tokens.long()[..., None])[..., 0]
+    lp = torch.where(valid > 0, lp, 0.0)
+    return -(lp.sum(-1) / valid.double().sum(-1).clamp_min(1e-10)).mean()
+
+
+def f64_step(model, batch):
+    """The float64 arm of one train step of `model` (LLaMA or, with vision
+    masks, VideoLLaMA with the dual loss) on `batch`: (loss, {name: grad}),
+    float64. The weights are the model's parameters cast up; RoPE reads the
+    model's own table (its fp32 constants); nothing runs a kernel."""
+    cfg, f64 = model.config, torch.float64
+    w = {n: p.detach().to(f64).requires_grad_() for n, p in model.named_parameters()}
+    ids = batch["input_tokens"]
+    b, s = ids.shape
+    h, d = cfg.num_attention_heads, cfg.head_dim
+    cos, sin = (t.to(f64)[:, :, None, :] for t in llama_module.take_freqs(
+        model._rope_table(ids.device), torch.arange(s, device=ids.device).expand(b, s)))
+
+    def norm(x, name):
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + cfg.rms_norm_eps) * w[name]
+
+    def rope(x):
+        x0, x1 = x.reshape(*x.shape[:-1], -1, 2).unbind(-1)
+        return torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], -1).reshape(x.shape)
+
+    def dense(x, name):
+        return x @ w[name].T
+
+    vision = model.takes_vision_masks
+    x = w["wte.weight"][ids]
+    if vision:
+        vm = batch["input_vision_masks"].bool()
+        x = torch.where(vm[..., None], w["vte.weight"][torch.where(vm, ids, 0)],
+                        w["wte.weight"][torch.where(vm, 0, ids)])
+    for i in range(cfg.num_hidden_layers):
+        p = f"h.{i}."
+        y = norm(x, p + "attention_norm.weight")
+        q = rope(dense(y, p + "attention.wq.weight").view(b, s, h, d))
+        k = rope(dense(y, p + "attention.wk.weight").view(b, s, -1, d))
+        v = dense(y, p + "attention.wv.weight").view(b, s, -1, d)
+        x = x + dense(_attend_f64(q, k, v).reshape(b, s, h * d), p + "attention.wo.weight")
+        y = norm(x, p + "ffn_norm.weight")
+        x = x + dense(F.silu(dense(y, p + "feed_forward.w1.weight"))
+                      * dense(y, p + "feed_forward.w3.weight"), p + "feed_forward.w2.weight")
+    x = norm(x, "ln_f.weight")
+    logits = x @ w["lm_head.weight" if "lm_head.weight" in w else "wte.weight"].T
+    tokens, valid = batch["target_tokens"], batch["loss_masks"].double()
+    if vision:
+        tv = batch["target_vision_masks"].bool()
+        vlogits = x @ w["vision_head.weight" if "vision_head.weight" in w else "vte.weight"].T
+        loss = 0.5 * (_ce_f64(vlogits, torch.where(tv, tokens, 0), valid * tv)
+                      + _ce_f64(logits, torch.where(tv, 0, tokens), valid * ~tv))
+    else:
+        loss = _ce_f64(logits, tokens, valid)
+    loss.backward()
+    return loss.item(), {n: t.grad for n, t in w.items()}
+
+
+def _f64_distances(grads, ref_grads):
+    """{param: (‖Δ‖/‖g64‖, max|Δ|/max|g64|)} of fp32 grads from float64 ones."""
+    out = {}
+    for n, g in ref_grads.items():
+        d = grads[n].double() - g
+        out[n] = ((d.norm() / g.norm().clamp_min(1e-300)).item(),
+                  (d.abs().max() / g.abs().max().clamp_min(1e-300)).item())
+    return out
+
+
+def f64_arm(what, ref, paths, held, plain=None):
+    """Hold each of `held` (names of `paths`: {name: (loss, {param: grad})})
+    to the float64 step `ref` (loss, grads) as the comment above says, the
+    path named `plain` (the plain fp32 path, when given) as the floor; every
+    path's distances are logged. Returns {path: its largest max-element
+    distance}."""
+    ref_loss, ref_grads = ref
+    dist = {name: _f64_distances(grads, ref_grads) for name, (_, grads) in paths.items()}
+    losses = {name: abs(loss - ref_loss) / abs(ref_loss) for name, (loss, _) in paths.items()}
+    for name, (loss, _) in paths.items():
+        l2, l2_at = max((d[0], n) for n, d in dist[name].items())
+        mx, mx_at = max((d[1], n) for n, d in dist[name].items())
+        log(f"{what} float64 arm, {name}: loss {loss:.8f} vs float64 {ref_loss:.8f} (relative "
+            f"{losses[name]:.3e}, tol {F32_LOSS_RTOL}); largest grad ‖Δ‖/‖float64‖ {l2:.3e} "
+            f"({l2_at}), largest max|Δ|/max|float64| {mx:.3e} ({mx_at}; tol "
+            f"{F32_GRAD_REL_TOL})" + ("" if name in held else " (logged, not held)"))
+    floor = dist.get(plain, {})
+    for name in held:
+        over = []
+        for n, got in dist[name].items():
+            for m, measure in enumerate(("‖Δ‖/‖float64‖", "max|Δ|/max|float64|")):
+                fl = floor[n][m] if n in floor else 0.0
+                limit = FLOOR_RATIO * fl if fl > F32_GRAD_REL_TOL else F32_GRAD_REL_TOL
+                if not got[m] <= limit:
+                    over.append((n, measure, got[m], limit))
+                elif got[m] > F32_GRAD_REL_TOL:
+                    log(f"{what} float64 arm, {name}: {n} {measure} {got[m]:.3e}, held to "
+                        f"{FLOOR_RATIO} x the plain fp32 path's {fl:.3e}")
+        if not (math.isfinite(paths[name][0]) and losses[name] <= F32_LOSS_RTOL) or over:
+            raise AssertionError(f"{what}: the {name} path's step leaves the float64 step's: "
+                                 f"loss {losses[name]:.3e}, grads {over}")
+    return {name: max(d[1] for d in dist[name].values()) for name in paths}
+
+
+# The ring on the card (phase_train_ring): two ranks share the one card
+# (gloo: NCCL refuses two ranks on one device; the ring's blocks are staged
+# through host memory) and train through lwm_tpu_torch.train's step on a
+# mesh of sp 2 (`1,1,1,2`), each reading the global batch and keeping its
+# slice, in both layouts:
+# (a) the 7b width at RING_A_LAYERS layers, bf16 compute, save_flash, one row
+#     of RING_A_SEQ (RING_A_SEQ / 2 a rank), RING_A_STEPS AdamW steps
+#     (TRAIN_CLI_OPT), the losses held to a one-rank run of the same steps
+#     at FLOOR_RATIO x the bf16 noise floor (the one-rank run against an
+#     fp32 one of the same weights and batch) + FUSED_SLACK;
+# (b) run_context_extension.sh's 32K stage's model whole (CTX_BASE_CFG at
+#     its seq, theta and chunk: 6 layers of 768, 6 heads of 128, fp32,
+#     nothing_saveable), one row of 32768 random tokens, the stage's AdamW,
+#     2 steps; step 1's loss and gradients, and a one-rank run's, held to
+#     the float64 step (f64_arm), both steps' losses to the one-rank run's
+#     at F32_LOSS_RTOL.
+# Each rank checks its exact K1 and backward launches (ring_launches); each
+# layout's step time is logged beside its exchanges' time: the gradients'
+# all-reduce timed inside the steps (synchronised), the ring's blocks timed
+# alone (an upper bound of what the step spends on them: in the step they
+# overlap the kernels). Two ranks on one
+# card measure correctness and the exchange's cost, not multi-GPU speed.
+RING_A_LAYERS, RING_A_SEQ, RING_A_STEPS = 4, 8192, 3
+RING_B_STEPS = 2
+RING_LAYOUTS = ("contiguous", "striped")
+
+
+def ring_launches(rank, sp, layout, remat, layers, steps):
+    """K1's and the backward's launches on one rank of a ring: a step
+    computes every block in the striped layout and blocks 0..rank in the
+    contiguous one (the later ones are wholly masked), a layer a step, K1
+    twice under nothing_saveable (the backward replays the block)."""
+    blocks = sp if layout == "striped" else rank + 1
+    fwd = layers * steps * blocks
+    return dict(flash_fwd=fwd * (2 if remat == "nothing_saveable" else 1), flash_bwd=fwd)
+
+
+def _ring_runs():
+    """(name, spec) of phase_train_ring's runs."""
+    runs = []
+    for layout in RING_LAYOUTS:
+        runs.append((f"a_{layout}", dict(
+            kind="a", layout=layout, steps=RING_A_STEPS, dtype="bf16", seq=RING_A_SEQ)))
+    for layout in RING_LAYOUTS:
+        runs.append((f"b_{layout}", dict(
+            kind="b", layout=layout, steps=RING_B_STEPS, dtype="fp32", seq=32768)))
+    return runs
+
+
+def _ring_model(kind, dtype):
+    """(model, optimizer config, batch) of a ring run: the same weights
+    (from the seed, on the card) and the same global batch on every rank."""
+    if kind == "a":
+        cfg = train.build_model_config("7b", update_llama_config=dict(
+            num_hidden_layers=RING_A_LAYERS, max_sequence_length=RING_A_SEQ))
+        opt, seq, seed = dict(adamw_optimizer=TRAIN_CLI_OPT), RING_A_SEQ, SEED + 8
+    else:
+        _, seq, theta, total, _, _, chunk, lr, _ = CTX_STAGES[-1]
+        cfg = _ctx_config(seq, theta, chunk)
+        # the stage's AdamW, its warm-up started one step in (init_lr = lr /
+        # 100, the stage's second step's), so that step 1 moves the weights
+        opt = dict(adamw_optimizer=dict(init_lr=float(lr) / 100, lr=float(lr), end_lr=1e-4,
+                                        lr_warmup_steps=100, lr_decay_steps=total))
+        seed = SEED + 9
+    model = LLaMAForCausalLM(cfg, dtype=dtype, param_dtype=torch.float32, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    batch = _lm_batch(1, seq, cfg.vocab_size, seed)
+    return model, opt, {k: v.cpu().numpy() for k, v in batch.items()}
+
+
+def _train_steps(model, opt, batch, steps, keep_grads=False):
+    """`steps` train steps (train.train_step) on `batch`: (losses, step
+    seconds, step 1's gradients after any all-reduce, or None)."""
+    state = train.create_train_state(model, opt)
+    grads = {}
+    if keep_grads:
+        step = state.optimizer.step
+
+        def keep():
+            if not grads:
+                grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+            step()
+
+        state.optimizer.step = keep
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = train.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    return losses, times, grads or None
+
+
+def _ring_seconds(model, batch_shape, exchange, dtype):
+    """The ring's exchanges of one step alone (synchronised, each the median
+    of 3): a layer's k and v blocks once in the forward (twice when the
+    backward replays it), once in the backward with dk and dv (fp32)."""
+    cfg = model.config
+    b, s = batch_shape
+    blk = torch.zeros((b, s, cfg.kv_heads, cfg.head_dim), dtype=dtype, device="cuda")
+    blk32 = blk.float()
+
+    def timed(fn):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    kv = timed(lambda: exchange.finish(exchange.start((blk, blk))))
+    dkv = timed(lambda: exchange.finish(exchange.start((blk32, blk32), tag=2)))
+    fwd_passes = 2 if cfg.remat_block == "nothing_saveable" else 1
+    return (cfg.num_hidden_layers * (exchange.size - 1) * ((fwd_passes + 1) * kv)
+            + cfg.num_hidden_layers * exchange.size * dkv)
+
+
+def _timed_all_reduce(seconds):
+    """train.all_reduce_grads, synchronised and its seconds appended to
+    `seconds` (the gradients' all-reduce of each step)."""
+    real = train.all_reduce_grads
+
+    def timed(params, group=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(params, group)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+
+    return timed
+
+
+def _ring_rank(rank, port, workdir):
+    """One of phase_train_ring's two ranks (spawned): every run of
+    _ring_runs on a mesh of sp 2, results to workdir."""
+    import torch.distributed as dist
+
+    from lwm_tpu_torch.data.text import shard_batch
+    from lwm_tpu_torch.ops.ring import RingExchange
+    from lwm_tpu_torch.parallel.mesh import create_mesh, get_ranks_and_size
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    train_all_reduce = train.all_reduce_grads
+    results = {}
+    try:
+        for name, spec in _ring_runs():
+            model, opt, batch = _ring_model(spec["kind"], BF16 if spec["dtype"] == "bf16"
+                                            else torch.float32)
+            mesh = create_mesh("1,1,1,2", "cuda", spec["layout"])
+            model.mesh = mesh
+            part = {k: torch.from_numpy(v).cuda() for k, v in shard_batch(
+                {k: batch[k] for k in ("input_tokens", "target_tokens", "loss_masks")},
+                get_ranks_and_size(mesh)).items()}
+            _reset_launch_counts()
+            reduce_s = []
+            train.all_reduce_grads = _timed_all_reduce(reduce_s)
+            losses, times, grads = _train_steps(model, opt, part, spec["steps"],
+                                                keep_grads=spec["kind"] == "b")
+            train.all_reduce_grads = train_all_reduce
+            launches = _launch_counts()
+            ring_s = _ring_seconds(model, part["input_tokens"].shape,
+                                   RingExchange(mesh.group("sp")), model.dtype)
+            reduce_s = float(np.median(reduce_s[1:]))
+            want = ring_launches(rank, 2, spec["layout"], model.config.remat_block,
+                                 model.config.num_hidden_layers, spec["steps"])
+            if spec["dtype"] == "fp32":
+                want.update(flash_fwd_f32=want["flash_fwd"], flash_bwd_f32=want["flash_bwd"])
+            results[name] = dict(losses=losses, times=times, launches=launches, want=want,
+                                 ring_s=ring_s, reduce_s=reduce_s,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            if grads is not None and rank == 0:
+                torch.save({n: g.cpu() for n, g in grads.items()}, Path(workdir) / f"{name}.pt")
+            del model, grads, part
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    finally:
+        (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(results))
+        dist.destroy_process_group()
+
+
+def phase_train_ring():
+    """See RING_* and ring_launches: the two ranks' runs, then the one-rank
+    runs and the float64 step they are held to. Returns the launch counts
+    of every rank's runs."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lwm_ring_") as work, socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        t0 = time.perf_counter()
+        mp.spawn(_ring_rank, args=(port, work), nprocs=2, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((Path(work) / f"rank{r}.json").read_text()) for r in range(2)]
+        grads_b = {name: torch.load(Path(work) / f"{name}.pt")
+                   for name, spec in _ring_runs() if spec["kind"] == "b"}
+    log(f"train ring: two ranks on the card (gloo), {len(_ring_runs())} runs in {wall:.1f}s of "
+        "wall (imports, builds and exchange timings included)")
+    paths = []
+    for name, spec in _ring_runs():
+        for r in range(2):
+            got = ranks[r][name]
+            paths.append(got["launches"])
+            step_s = float(np.median(got["times"][1:]))
+            log(f"train ring {name} rank {r}: losses {[round(x, 6) for x in got['losses']]}, "
+                f"steps {', '.join(f'{t:.3f}' for t in got['times'])} s (median of steps 2-"
+                f"{spec['steps']} {step_s:.3f} s); a step's exchanges: the gradients' all-reduce "
+                f"{got['reduce_s']:.3f} s in the step ({100 * got['reduce_s'] / step_s:.1f}%), the "
+                f"ring's blocks {got['ring_s']:.3f} s timed alone ({100 * got['ring_s'] / step_s:.1f}"
+                f"%, overlapping the kernels in the step); peak "
+                f"{got['peak_gib']:.1f} GiB; launches {got['launches']} (want {got['want']}) "
+                f"[{card()}]")
+            if any(got["launches"][k] != v for k, v in got["want"].items()):
+                raise AssertionError(f"train ring {name} rank {r}: launches {got['launches']}, "
+                                     f"want {got['want']}")
+        if ranks[0][name]["losses"] != ranks[1][name]["losses"]:
+            raise AssertionError(f"train ring {name}: the ranks' losses differ")
+
+    # (a): the one-rank runs, bf16 and fp32 (the noise floor)
+    one = {}
+    for dtype in (BF16, torch.float32):
+        model, opt, batch = _ring_model("a", dtype)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        one[dtype] = _train_steps(model, opt, batch, RING_A_STEPS)[:2]
+        del model
+        torch.cuda.empty_cache()
+    (l_one, t_one), (l_32, _) = one[BF16], one[torch.float32]
+    for layout in RING_LAYOUTS:
+        l_ring = ranks[0][f"a_{layout}"]["losses"]
+        for i, (a, o, f) in enumerate(zip(l_ring, l_one, l_32)):
+            floor = abs(o - f)
+            log(f"train ring a_{layout} step {i + 1}: loss sp 2 {a:.6f}, one rank {o:.6f}, one "
+                f"rank fp32 {f:.6f}: |sp 2 - one rank| {abs(a - o):.2e}, the bf16 floor "
+                f"|one rank - fp32| {floor:.2e} (limit {FLOOR_RATIO} x floor + {FUSED_SLACK})")
+            if not (math.isfinite(a) and abs(a - o) <= FLOOR_RATIO * floor + FUSED_SLACK):
+                raise AssertionError(f"train ring a_{layout}: step {i + 1}'s loss leaves the "
+                                     "one-rank run's by more than the bf16 noise floor")
+    log(f"train ring (a): one rank's step (1 x {RING_A_SEQ}) median {np.median(t_one[1:]):.3f} s "
+        f"[{card()}]")
+
+    # (b): the one-rank run and the float64 step
+    model, opt, batch = _ring_model("b", torch.float32)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    ref = f64_step(model, batch)
+    torch.cuda.empty_cache()
+    l_b, t_b, g_b = _train_steps(model, opt, batch, RING_B_STEPS, keep_grads=True)
+    del model
+    torch.cuda.empty_cache()
+    f64_paths = {"one rank": (l_b[0], g_b)}
+    for layout in RING_LAYOUTS:
+        got = ranks[0][f"b_{layout}"]["losses"]
+        f64_paths[f"sp 2 {layout}"] = (got[0], {n: g.cuda() for n, g in grads_b[
+            f"b_{layout}"].items()})
+        rel = max(abs(a - o) / abs(o) for a, o in zip(got, l_b))
+        log(f"train ring b_{layout}: losses sp 2 {got}, one rank {l_b} (largest relative "
+            f"{rel:.3e}, tol {F32_LOSS_RTOL})")
+        if not rel <= F32_LOSS_RTOL:
+            raise AssertionError(f"train ring b_{layout}: the losses leave the one-rank run's")
+    f64_arm("train ring (b) step 1", ref, f64_paths, held=tuple(f64_paths))
+    log(f"train ring (b): one rank's step (1 x 32768, fp32) median {np.median(t_b[1:]):.3f} s "
+        f"[{card()}]")
+    del ref, f64_paths, grads_b, g_b
+    torch.cuda.empty_cache()
+    return paths
 
 
 # scripts/run_context_extension_torch.sh's chain (phase_context_extension) at
@@ -4366,8 +4959,8 @@ def _ctx_config(seq, theta, chunk):
 
 def _ctx_step_hold(work, stage, warm):
     """Stage `stage`'s first batch (the CLI's dataset flags) on the weights
-    of `warm`: loss and grads of the kernel path at fp32 against the plain
-    fp32 path."""
+    of `warm`: loss and grads of the kernel path at fp32 held to the float64
+    step (`f64_arm`), the plain fp32 path's beside."""
     from lwm_tpu_torch.data import DatasetFactory
 
     name, seq, theta, _, batch_size, data, chunk, _, _ = stage
@@ -4389,20 +4982,13 @@ def _ctx_step_hold(work, stage, warm):
         model.load_state_dict(sd)
         loss, _ = train.compute_loss(model, batch)
         loss.backward()
-        results[impl] = (loss.item(), {n: p.grad for n, p in model.named_parameters()})
-        del model
-    (l_k, g_k), (l_p, g_p) = results["auto"], results["plain"]
-    loss_rel = abs(l_k - l_p) / abs(l_p)
-    worst = max((((g_k[n] - g_p[n]).abs().max() / g_p[n].abs().max().clamp_min(1e-30)).item(),
-                 n) for n in g_p)
+        results["fp32 kernel" if impl == "auto" else "plain fp32"] = (
+            loss.item(), {n: p.grad for n, p in model.named_parameters()})
     log(f"context extension {name}'s first batch ({batch_size} x {seq}) on the last stage's "
-        f"weights, kernel vs plain fp32: loss {l_k:.8f} / {l_p:.8f} (relative {loss_rel:.3e}, "
-        f"tol {F32_LOSS_RTOL}); largest grad max|Δ|/max|plain| {worst[0]:.3e} ({worst[1]}; tol "
-        f"{F32_GRAD_REL_TOL})")
-    if not (math.isfinite(l_k) and loss_rel <= F32_LOSS_RTOL and worst[0] <= F32_GRAD_REL_TOL):
-        raise AssertionError(f"context extension {name}: the kernel path's step disagrees with "
-                             "the plain fp32 path")
-    del results, g_k, g_p, sd
+        "weights, at fp32, held to the float64 step:")
+    f64_arm(f"context extension {name}", f64_step(model, batch), results, held=("fp32 kernel",),
+            plain="plain fp32")
+    del results, sd, model
     torch.cuda.empty_cache()
 
 
@@ -5517,6 +6103,7 @@ def main():
     k1_f32, k4_f32, f32_err = phase_f32_kernels(gen)
     bwd = phase_bwd(gen)
     bwd_f32_err, bwd_f32, k1_f32_train = phase_bwd_f32(gen)
+    ring_blocks = phase_ring_kernels(gen)
     k1_vision, bwd_vision = phase_train_vision_kernels(gen)
     k1_vneedle, bwd_vneedle = phase_train_vision_kernels(gen, 33024, 6, 64, VN_TRAIN_REPORT,
                                                          faults=False)
@@ -5566,6 +6153,9 @@ def main():
     path_launches.append(phase_train_f32())
     torch.cuda.empty_cache()
     mark("fp32 training")
+    path_launches.extend(phase_train_ring())
+    torch.cuda.empty_cache()
+    mark("ring training (two ranks on the card)")
     path_launches.extend(phase_vision_needle(ctx_data))
     torch.cuda.empty_cache()
     mark("the vision-needle bundle's path")
@@ -5602,17 +6192,21 @@ def main():
     kernels = [
         dict(row("flash_fwd", "flash_fwd.cu", "lwm_tpu/ops/pallas_flash.py:199", *k1),
              **k1_cases, **{VISION_TRAIN_REPORT: k1_vision, VN_TRAIN_REPORT: k1_vneedle},
-             **f32_cases(dict(k1_f32, **{BWD_F32_REPORT: k1_f32_train}, **k1_spec),
+             **ring_blocks["flash_fwd"],
+             **f32_cases(dict(k1_f32, **{BWD_F32_REPORT: k1_f32_train}, **k1_spec,
+                              **ring_blocks["flash_fwd_f32"]),
                          "flash_fwd_f32.cu", "flash_fwd")),
         dict(row("flash_bwd", "flash_bwd.cu",
                  "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356", *bwd),
-             **{VISION_TRAIN_REPORT: bwd_vision, VN_TRAIN_REPORT: bwd_vneedle}),
+             **{VISION_TRAIN_REPORT: bwd_vision, VN_TRAIN_REPORT: bwd_vneedle},
+             **ring_blocks["flash_bwd"]),
         dict(row("flash_bwd_f32", "flash_bwd_f32.cu",
                  "lwm_tpu/ops/pallas_flash.py:288 and lwm_tpu/ops/pallas_flash.py:356",
                  bwd_f32_err, *(bwd_f32[BWD_F32_REPORT][k] for k in (
                      "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))),
              fma_bound_ms=bwd_f32[BWD_F32_REPORT]["fma_bound_ms"],
-             **{name: bwd_f32[name] for name in (BWD_F32_8K, BWD_F32_32K)}),
+             **{name: bwd_f32[name] for name in (BWD_F32_8K, BWD_F32_32K)},
+             **ring_blocks["flash_bwd_f32"]),
         dict(row("flash_decode", "flash_decode.cu", "lwm_tpu/ops/pallas_decode.py:66", *k4),
              **k4_cases, **f32_cases(dict(k4_f32, **k4_spec), "flash_decode.cu",
                                      "flash_decode")),

@@ -6,7 +6,9 @@
 // `_flash_attention_bwd_single` (:903-1127). Same contract, the backward of
 // K1 (flash_fwd.cu):
 //   logits = q·kᵀ·scale + bias, masked (causal by global position: query i
-//            at q_offset + i, key j at kv_offset + j; keys ≥ skv, rows ≥ sq)
+//            at q_offset + i·pos_stride, key j at kv_offset + j·pos_stride;
+//            segment ids: kept only where the query's id equals the key's;
+//            keys ≥ skv, rows ≥ sq)
 //   p  = logits > MASK_GUARD ? exp(logits − lse) : 0     (lse from K1)
 //   dp = g·vᵀ,  ds = p·(dp − delta)·scale                  (delta = Σ g·out)
 //   dv = pᵀ·g, dk = dsᵀ·q, dq = ds·k   (p and ds rounded to bf16 before these)
@@ -23,8 +25,12 @@
 //   owns 64 keys, the `wgmma` M rows. The block's k and v tiles stay in
 //   128-byte-swizzled shared memory for the whole block.
 // - The block walks every (group member, 64-query tile) from the causal
-//   start. q, g, lse and delta of the next tile are loaded by `cp.async`
-//   (every thread) into the other of two stages while this tile computes.
+//   start (from global positions, so any pos_stride); the masks run on the
+//   tiles that cross the frontier or an edge, and on every tile while
+//   segment ids are given (each query's id read through the read-only
+//   cache, each thread's two keys' ids held in registers). q, g, lse and
+//   delta of the next tile are loaded by `cp.async` (every thread) into the
+//   other of two stages while this tile computes.
 // - Per query tile, each warpgroup computes sᵀ = k·qᵀ and dpᵀ = v·gᵀ
 //   (m64n64k16, both operands from shared memory), forms pᵀ and dsᵀ in
 //   registers, and adds dv += pᵀ·g and dk += dsᵀ·q with pᵀ and dsᵀ as the
@@ -72,8 +78,10 @@ struct BwdParams {
   int sq, skv, h, h_kv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh;
   long long bias_sb, bias_sr;
-  int causal, q_offset, kv_offset;
+  int causal, q_offset, kv_offset, pos_stride;
   float scale;
+  const int* q_seg;   // [b, sq] or null
+  const int* kv_seg;  // [b, skv]
 };
 
 // Shared memory of one block, byte offsets from a 1024-aligned base; tiles
@@ -113,7 +121,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
 
   // the (group member, query tile) walk: from the first query that sees
   // any key of this tile
-  const int q_start = p.causal ? max(0, p.kv_offset + k0 - p.q_offset) : 0;
+  const int q_start =
+      p.causal ? first_query(p.kv_offset + k0 * p.pos_stride, p.q_offset, p.pos_stride) : 0;
   const int qt0 = q_start / kBQ;
   const int per = max(0, (p.sq + kBQ - 1) / kBQ - qt0);
   const int n_iter = group * per;
@@ -146,12 +155,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
 
   // this thread's two keys (accumulator rows g8 and g8 + 8 of its warp)
   const int key_row = wg * 64 + warp * 16 + g8;  // within the tile
-  int key[2];
+  int key[2], kseg[2] = {0, 0};
   float key_bias[2] = {0.f, 0.f};  // the per-key bias, when the bias has one row
+  const int* qseg_g = p.q_seg ? p.q_seg + (long long)bi * p.sq : nullptr;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     key[r] = k0 + key_row + 8 * r;
     if (bias_g && p.bias_sr == 0 && key[r] < p.skv) key_bias[r] = bias_g[key[r]];
+    if (qseg_g && key[r] < p.skv) kseg[r] = p.kv_seg[(long long)bi * p.skv + key[r]];
   }
   const bool full_bias = bias_g && p.bias_sr != 0;
 
@@ -189,8 +200,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
     // pᵀ and dsᵀ in place
     const float* lse_s = stat_s + s * 2 * kBQ;
     const float* delta_s = lse_s + kBQ;
-    const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv ||
-                      (p.causal && p.kv_offset + k0 + kBK - 1 > p.q_offset + q0);
+    const bool edge = q0 + kBQ > p.sq || k0 + kBK > p.skv || qseg_g ||
+                      (p.causal && p.kv_offset + (k0 + kBK - 1) * p.pos_stride >
+                                       p.q_offset + q0 * p.pos_stride);
     uint32_t pa[4][4], dsa[4][4];  // bf16 A fragments of the 4 query chunks of 16
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -202,7 +214,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
         if (edge || full_bias) {
           bool valid = key[r] < p.skv && qrow < p.sq;
           if (valid && full_bias) x += bias_g[qrow * p.bias_sr + key[r]];
-          if (p.causal && p.kv_offset + key[r] > p.q_offset + qrow) valid = false;
+          if (p.causal && p.kv_offset + key[r] * p.pos_stride > p.q_offset + qrow * p.pos_stride)
+            valid = false;
+          if (valid && qseg_g && __ldg(qseg_g + qrow) != kseg[r]) valid = false;
           x = valid ? x : kBigNeg;
         }
         const float pe = x > kMaskGuard ? exp2f((x - lse_s[qi]) * kLog2e) : 0.f;
@@ -333,7 +347,9 @@ extern "C" int lwm_flash_bwd(const void* q, const void* k, const void* v, const 
                              long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                              long long v_sh, long long g_sb, long long g_ss, long long g_sh,
                              long long bias_sb, long long bias_sr, int causal, int q_offset,
-                             int kv_offset, float scale, void* stream) {
+                             int kv_offset, int pos_stride, float scale, const void* q_seg,
+                             const void* kv_seg, void* stream) {
+  if (pos_stride < 1 || (q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -366,7 +382,10 @@ extern "C" int lwm_flash_bwd(const void* q, const void* k, const void* v, const 
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_offset = kv_offset;
+  p.pos_stride = pos_stride;
   p.scale = scale;
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || skv <= 0) return cudaSuccess;  // nothing to write (dq stays 0)
   switch (d) {

@@ -8,7 +8,9 @@
 // scripts/run_spec_natural.sh, run_context_extension.sh). Same contract as
 // csrc/flash_bwd.cu, the backward of K1's fp32 route (flash_fwd_f32.cu):
 //   logits = q·kᵀ·scale + bias, masked (causal by global position: query i
-//            at q_offset + i, key j at kv_offset + j; keys ≥ skv, rows ≥ sq)
+//            at q_offset + i·pos_stride, key j at kv_offset + j·pos_stride;
+//            segment ids: kept only where the query's id equals the key's,
+//            tested on every stage while they are given; keys ≥ skv, rows ≥ sq)
 //   p  = logits > MASK_GUARD ? exp(logits − lse) : 0     (lse from K1)
 //   dp = g·vᵀ,  ds = p·(dp − delta)·scale                  (delta = Σ g·out)
 //   dv = pᵀ·g, dk = dsᵀ·q, dq = ds·k
@@ -93,8 +95,10 @@ struct BwdF32Params {
   int sq, skv, h, h_kv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss, g_sh;
   long long bias_sb, bias_sr;
-  int causal, q_offset, kv_offset;
+  int causal, q_offset, kv_offset, pos_stride;
   float scale;
+  const int* q_seg;   // [b, sq] or null
+  const int* kv_seg;  // [b, skv]
 };
 
 // Shared memory of one block, byte offsets from a 1024-aligned base, every
@@ -202,7 +206,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
 
   // the (group member, query stage) walk: from the first query that sees
   // any key of this tile
-  const int q_start = p.causal ? max(0, p.kv_offset + k0 - p.q_offset) : 0;
+  const int q_start =
+      p.causal ? first_query(p.kv_offset + k0 * p.pos_stride, p.q_offset, p.pos_stride) : 0;
   const int qt0 = q_start / kBQ;
   const int per = max(0, (p.sq + kBQ - 1) / kBQ - qt0);
   const int n_iter = group * per;
@@ -288,10 +293,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
   const bool key_bias = bias_g && p.bias_sr == 0;
   const bool full_bias = bias_g && p.bias_sr != 0;
   float kb[2];
+  int kseg[2] = {0, 0};
+  const int* qseg_g = p.q_seg ? p.q_seg + (long long)bi * p.sq : nullptr;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + key_row + 8 * r;
     kb[r] = key_bias && key < p.skv ? bias_g[key] : 0.f;
+    if (qseg_g && key < p.skv) kseg[r] = p.kv_seg[(long long)bi * p.skv + key];
   }
 
   // warpgroup 0: sᵀ = k·qᵀ → pᵀ; warpgroup 1: dpᵀ = v·gᵀ → dsᵀ
@@ -367,8 +375,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
     // every logit (the bias masks too)
     float ds[8];
     {
-      const bool edge = k0 + kBK > p.skv || q0 + kBQ > p.sq ||
-                        (p.causal && p.kv_offset + k0 + kBK - 1 > p.q_offset + q0);
+      const bool edge = k0 + kBK > p.skv || q0 + kBQ > p.sq || qseg_g ||
+                        (p.causal && p.kv_offset + (k0 + kBK - 1) * p.pos_stride >
+                                         p.q_offset + q0 * p.pos_stride);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int r = (i >> 1) & 1, kr = key_row + 8 * r, key = k0 + kr;
@@ -377,7 +386,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
         bool ok = true;
         if (edge)
           ok = key < p.skv && qrow < p.sq &&
-               (!p.causal || p.kv_offset + key <= p.q_offset + qrow);
+               (!p.causal ||
+                p.kv_offset + key * p.pos_stride <= p.q_offset + qrow * p.pos_stride) &&
+               (!qseg_g || __ldg(qseg_g + qrow) == kseg[r]);
         if (ok && full_bias) x += bias_g[(long long)qrow * p.bias_sr + key];
         const float pe =
             ok && x > kMaskGuard ? expf(x - stat[qc]) : 0.f;
@@ -531,8 +542,10 @@ extern "C" int lwm_flash_bwd_f32(const void* q, const void* k, const void* v, co
                                  long long v_sb, long long v_ss, long long v_sh, long long g_sb,
                                  long long g_ss, long long g_sh, long long bias_sb,
                                  long long bias_sr, int causal, int q_offset, int kv_offset,
-                                 float scale, void* stream) {
-  if (h_kv <= 0 || h % h_kv) return cudaErrorInvalidValue;
+                                 int pos_stride, float scale, const void* q_seg,
+                                 const void* kv_seg, void* stream) {
+  if (h_kv <= 0 || h % h_kv || pos_stride < 1 || (q_seg == nullptr) != (kv_seg == nullptr))
+    return cudaErrorInvalidValue;
   BwdF32Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -565,7 +578,10 @@ extern "C" int lwm_flash_bwd_f32(const void* q, const void* k, const void* v, co
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_offset = kv_offset;
+  p.pos_stride = pos_stride;
   p.scale = scale;
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || skv <= 0) return cudaSuccess;  // nothing to write (dq stays 0)
   switch (d) {

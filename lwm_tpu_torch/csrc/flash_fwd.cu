@@ -4,8 +4,11 @@
 // reached through flash_attention_fwd_pallas :624-795). Same contract:
 //   out = softmax(q·kᵀ·scale + bias, masked) · v, lse = m + log(l)
 // with an additive fp32 bias per key [bb, 1, skv] or per (row, key)
-// [bb, sq, skv], global-position causal masking (query i at q_offset + i,
-// key j at kv_offset + j), GQA (query head qh reads kv head qh / g), and any
+// [bb, sq, skv], global-position causal masking (query i at q_offset +
+// i·pos_stride, key j at kv_offset + j·pos_stride; pos_stride > 1 is the
+// ring's striped layout), segment ids (a logit is kept only where the
+// query's id equals the key's: `_mask_logits`, pallas_flash.py:72-87), GQA
+// (query head qh reads kv head qh / g), and any
 // kv layout whose head dim is contiguous (seq-major or the cache's
 // head-major [b, h_kv, T, d]: the strides say which). p is rounded to bf16
 // before p·v. Rows with no valid key give out 0 and lse BIG_NEG (the TPU
@@ -42,10 +45,12 @@
 //   2^(−huge) = 0 exactly, as the twin's guard does. p, rounded to bf16 in
 //   pairs, is exactly the A fragment of p·v (hopper.cuh).
 // - The full-tile bias and the causal test run only on the tiles that need
-//   them (a full-tile bias; tiles that cross the warpgroup's diagonal); a
-//   warpgroup skips tiles past its own frontier, and tiles past the
-//   block's are never loaded. The heaviest query tiles (causally the last)
-//   launch in the first waves.
+//   them (a full-tile bias; tiles that cross the warpgroup's diagonal, both
+//   from global positions, so any pos_stride); a warpgroup skips tiles past
+//   its own frontier, and tiles past the block's are never loaded. Segment
+//   ids can mask any logit, so while they are given their test (each key's
+//   id read through the read-only cache) runs on every tile. The heaviest
+//   query tiles (causally the last) launch in the first waves.
 // Tried (PERF.md §6, timed by scripts/time_flash.py on an H100): exp2f with
 // a compare per logit (1.3× slower: the softmax is issue-bound), k and v by
 // cp.async from every thread (1.07×), p·v after the softmax instead of
@@ -74,8 +79,10 @@ struct FwdParams {
   int sq, skv, h, h_kv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long bias_sb, bias_sr;
-  int causal, q_offset, kv_offset;
+  int causal, q_offset, kv_offset, pos_stride;
   float scale;
+  const int* q_seg;   // [b, sq] or null
+  const int* kv_seg;  // [b, skv]
   int k_dim[3], v_dim[3];  // the tensor maps' dims of (seq, head, batch), 1..3
 };
 
@@ -128,8 +135,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // kv tiles that the query rows [first, end) see
   auto n_tiles_for = [&](int first, int end) {
     if (end <= first) return 0;
-    const int kv_end = p.causal ? min(p.skv, p.q_offset + end - p.kv_offset) : p.skv;
-    return kv_end > 0 ? (kv_end + kBN - 1) / kBN : 0;
+    const int kv_end = p.causal ? causal_keys(p.q_offset + (end - 1) * p.pos_stride, p.kv_offset,
+                                              p.pos_stride, p.skv)
+                                : p.skv;
+    return (kv_end + kBN - 1) / kBN;
   };
   const int wq0 = q0 + wg * 64;  // this warpgroup's first row
   const int n_tiles = n_tiles_for(q0, min(q0 + kBM, p.sq));
@@ -176,7 +185,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // this thread's two rows (accumulator rows g8 and g8 + 8 of its warp)
   const int row = wq0 + warp * 16 + g8;
-  const int q_pos = p.q_offset + row;  // global position of row 0 (row 1: + 8)
+  const int q_pos = p.q_offset + row * p.pos_stride;  // row 0's position (row 1: + 8 rows)
+  const int* kseg_g = p.kv_seg ? p.kv_seg + (long long)bi * p.skv : nullptr;
+  int qseg[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (kseg_g && row + 8 * r < p.sq) qseg[r] = p.q_seg[(long long)bi * p.sq + row + 8 * r];
   float m[2] = {kBigNeg, kBigNeg};     // running row max (natural scale)
   float l[2] = {0.f, 0.f};             // thread-partial row sums (quad-reduced at the end)
   float o[kHalves][32];
@@ -243,14 +257,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         sa[4 * c8 + 2 * r + 1] = fmaf(sa[4 * c8 + 2 * r + 1], p.scale, b2.y);
       }
     }
-    const bool diag = p.causal && p.kv_offset + k0 + kBN - 1 > p.q_offset + wq0;
-    if (full_bias || diag)
+    const bool diag = p.causal && p.kv_offset + (k0 + kBN - 1) * p.pos_stride >
+                                      p.q_offset + wq0 * p.pos_stride;
+    if (full_bias || diag || kseg_g)
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         const int r = (i >> 1) & 1, key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
         if (full_bias && key < p.skv)
           sa[i] += bias_g[min(row + 8 * r, p.sq - 1) * p.bias_sr + key];
-        if (diag && p.kv_offset + key > q_pos + 8 * r) sa[i] = kBigNeg;
+        if (diag && p.kv_offset + key * p.pos_stride > q_pos + 8 * r * p.pos_stride)
+          sa[i] = kBigNeg;
+        if (kseg_g && key < p.skv && __ldg(kseg_g + key) != qseg[r]) sa[i] = kBigNeg;
       }
     float mt[2] = {m[0], m[1]};  // the row max
 #pragma unroll
@@ -388,7 +405,9 @@ extern "C" int lwm_flash_fwd(const void* q, const void* k, const void* v, const 
                              long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                              long long v_ss, long long v_sh, long long bias_sb,
                              long long bias_sr, int causal, int q_offset, int kv_offset,
-                             float scale, void* stream) {
+                             int pos_stride, float scale, const void* q_seg, const void* kv_seg,
+                             void* stream) {
+  if (pos_stride < 1 || (q_seg == nullptr) != (kv_seg == nullptr)) return cudaErrorInvalidValue;
   FwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -414,7 +433,10 @@ extern "C" int lwm_flash_fwd(const void* q, const void* k, const void* v, const 
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_offset = kv_offset;
+  p.pos_stride = pos_stride;
   p.scale = scale;
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sq <= 0 || b <= 0) return cudaSuccess;
   switch (d) {

@@ -6,8 +6,10 @@
 // run it. Same contract as csrc/flash_fwd.cu:
 //   out = softmax(q·kᵀ·scale + bias, masked) · v, lse = m + log(l)
 // with an additive fp32 bias per key [bb, 1, skv] or per (row, key)
-// [bb, sq, skv], global-position causal masking (query i at q_offset + i,
-// key j at kv_offset + j), GQA (query head qh reads kv head qh / g), any kv
+// [bb, sq, skv], global-position causal masking (query i at q_offset +
+// i·pos_stride, key j at kv_offset + j·pos_stride), segment ids (a logit
+// kept only where the query's id equals the key's; their test on every
+// tile while they are given), GQA (query head qh reads kv head qh / g), any kv
 // layout whose head dim is contiguous (seq-major, or the cache's head-major
 // [b, h_kv, T, d]: the strides say which). Logits at or below MASK_GUARD
 // count as masked; rows with no valid key give out 0 and lse BIG_NEG. p
@@ -85,8 +87,10 @@ struct F32Params {
   int sq, skv, h, h_kv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long bias_sb, bias_sr;
-  int causal, q_offset, kv_offset;
+  int causal, q_offset, kv_offset, pos_stride;
   float scale;
+  const int* q_seg;   // [b, sq] or null
+  const int* kv_seg;  // [b, skv]
   int q_dim[3], k_dim[3], v_dim[3];  // the tensor maps' dims of (seq, head, batch), 1..3
 };
 
@@ -133,8 +137,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   int n_tiles = 0;
   {
     const int end = min(q0 + kBQ, p.sq);
-    const int kv_end = p.causal ? min(p.skv, p.q_offset + end - p.kv_offset) : p.skv;
-    n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+    const int kv_end = p.causal ? causal_keys(p.q_offset + (end - 1) * p.pos_stride, p.kv_offset,
+                                              p.pos_stride, p.skv)
+                                : p.skv;
+    n_tiles = (kv_end + kBK - 1) / kBK;
   }
 
   auto coord = [](const int (&dim)[3], int c, int seq, int head, int batch) {
@@ -179,8 +185,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* bias_g = p.bias ? p.bias + bi * p.bias_sb : nullptr;
   const bool key_bias = bias_g && p.bias_sr == 0;
   const int row = q0 + 16 * warp + g8;  // this thread's rows: row, row + 8
-  const int q_pos = p.q_offset + row;   // the global position of the first
+  const int q_pos = p.q_offset + row * p.pos_stride;  // the global position of the first
   const bool rows_in[2] = {row < p.sq, row + 8 < p.sq};
+  const int* kseg_g = p.kv_seg ? p.kv_seg + (long long)bi * p.skv : nullptr;
+  int qseg[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (kseg_g && rows_in[r]) qseg[r] = p.q_seg[(long long)bi * p.sq + row + 8 * r];
   float m[2] = {kBigNeg, kBigNeg};  // running row max (natural scale)
   float l[2] = {0.f, 0.f};          // this thread's share of the row sums
   float o[D / 2];                   // the m64n(D) accumulator's layout (hopper.cuh)
@@ -243,8 +254,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // k0 + 8·(i / 4) + 2·t4 + i % 2. The causal and end-of-keys masks only on
     // tiles that cross them; MASK_GUARD on every logit (the bias masks too).
     // A per-key bias is read once a key
-    const bool edge = k0 + kBK > p.skv ||
-                      (p.causal && p.kv_offset + k0 + kBK - 1 > p.q_offset + q0);
+    const bool edge = k0 + kBK > p.skv || kseg_g ||
+                      (p.causal && p.kv_offset + (k0 + kBK - 1) * p.pos_stride >
+                                       p.q_offset + q0 * p.pos_stride);
     float kb[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
@@ -260,7 +272,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool in = key < p.skv && rows_in[r];
       if (bias_g && !key_bias && in) x += bias_g[(row + 8 * r) * p.bias_sr + key];
       bool ok = x > kMaskGuard;
-      if (edge) ok = ok && in && (!p.causal || p.kv_offset + key <= q_pos + 8 * r);
+      if (edge)
+        ok = ok && in &&
+             (!p.causal || p.kv_offset + key * p.pos_stride <= q_pos + 8 * r * p.pos_stride) &&
+             (!kseg_g || __ldg(kseg_g + key) == qseg[r]);
       s[i] = ok ? x : kBigNeg;
       mx[r] = fmaxf(mx[r], s[i]);
     }
@@ -423,8 +438,10 @@ extern "C" int lwm_flash_fwd_f32(const void* q, const void* k, const void* v, co
                                  long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                                  long long v_ss, long long v_sh, long long bias_sb,
                                  long long bias_sr, int causal, int q_offset, int kv_offset,
-                                 float scale, void* stream) {
-  if (h_kv <= 0 || h % h_kv) return cudaErrorInvalidValue;
+                                 int pos_stride, float scale, const void* q_seg,
+                                 const void* kv_seg, void* stream) {
+  if (h_kv <= 0 || h % h_kv || pos_stride < 1 || (q_seg == nullptr) != (kv_seg == nullptr))
+    return cudaErrorInvalidValue;
   if (sq <= 0 || b <= 0) return cudaSuccess;
   F32Params p;
   p.q = static_cast<const float*>(q);
@@ -451,7 +468,10 @@ extern "C" int lwm_flash_fwd_f32(const void* q, const void* k, const void* v, co
   p.causal = causal;
   p.q_offset = q_offset;
   p.kv_offset = kv_offset;
+  p.pos_stride = pos_stride;
   p.scale = scale;
+  p.q_seg = static_cast<const int*>(q_seg);
+  p.kv_seg = static_cast<const int*>(kv_seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:

@@ -27,6 +27,23 @@ constexpr float kBigNeg = -1e30f;     // a masked logit
 constexpr float kMaskGuard = -1e29f;  // logits at or below count as masked: p = 0
 constexpr float kLog2e = 1.4426950408889634f;
 
+// floor(a / b) and ceil(a / b) for b > 0 and a of either sign
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+__device__ __forceinline__ int ceil_div(int a, int b) { return -floor_div(-a, b); }
+
+// Causal attention by global position, queries at q_offset + i·stride and
+// keys at kv_offset + j·stride (stride > 1: the striped sequence layout).
+// The keys [0, n) that the row at position `pos` sees, n in [0, skv]
+__device__ __forceinline__ int causal_keys(int pos, int kv_offset, int stride, int skv) {
+  return max(0, min(skv, floor_div(pos - kv_offset, stride) + 1));
+}
+// The first query row that sees the key at position `kpos`
+__device__ __forceinline__ int first_query(int kpos, int q_offset, int stride) {
+  return max(0, ceil_div(kpos - q_offset, stride));
+}
+
 // byte offset of element (r, c) of an R-row swizzled tile
 template <int R>
 __device__ __forceinline__ int swz(int r, int c) {

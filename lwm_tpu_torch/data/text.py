@@ -18,10 +18,11 @@ next-token targets.
   mean wall time between batches, so inside a training loop it reads the
   loop's rate, not the tokenizer's.
 
-Batches stay numpy; the trainer moves them to the model's device. The
-port runs on one device, so the host batch is the global batch:
-`shard_batch_to_global` (the SP slice and the global jax.Array) waits for
-the multi-GPU module. Configs are nested dicts (`get_default_config`); a
+Batches stay numpy; the trainer moves them to the model's device. On a
+mesh every rank reads the same global batch and keeps its part of it
+(`shard_batch`, the counterpart of `shard_batch_to_global`, `:160-172`):
+its dp rows and its sp columns, after the stripe permutation in the striped
+layout; so the loader's state is the same on every rank. Configs are nested dicts (`get_default_config`); a
 dataset state written by the JAX trainer, whose config is a pickled
 `ConfigDict`, loads through `lwm_tpu_torch.utils.io.load_pickle`.
 
@@ -39,6 +40,7 @@ import time
 
 import numpy as np
 
+from lwm_tpu_torch.ops.striped import stripe_permute
 from lwm_tpu_torch.utils.flags import merge_config
 from lwm_tpu_torch.utils.io import open_file
 
@@ -173,6 +175,27 @@ def pack_batch(token_buffer, loss_mask_buffer, batch_size, seq_length, bos_id=No
 
 
 _WORKER_PROCESSOR = None   # a pool worker's text processor (set by _init_worker)
+
+
+def shard_batch(batch, node_info):
+    """This rank's part of a global batch {name: [b, s] array}: with
+    `sp_layout` "striped" the sequence first goes into the stripe-slot order
+    (`ops.striped.stripe_permute`), then the rank keeps rows
+    [dp_rank·b/dp, (dp_rank + 1)·b/dp) and columns [sp_rank·s/sp, (sp_rank
+    + 1)·s/sp) (`lwm_tpu/data/text.py:160-172`). `node_info` is
+    `parallel.mesh.get_ranks_and_size`'s; without dp/sp sizes (one device)
+    the batch is returned as it is."""
+    dp, sp = node_info.get("dp_size", 1), node_info.get("sp_size", 1)
+    if dp == 1 and sp == 1:
+        return batch
+    b, s = next(iter(batch.values())).shape[:2]
+    if b % dp or s % sp:
+        raise ValueError(f"a batch of {b} x {s} does not split over dp {dp} x sp {sp}")
+    if node_info["sp_layout"] == "striped":
+        batch = {k: stripe_permute(v, sp, axis=1) for k, v in batch.items()}
+    rows = slice(node_info["dp_rank"] * (b // dp), (node_info["dp_rank"] + 1) * (b // dp))
+    cols = slice(node_info["sp_rank"] * (s // sp), (node_info["sp_rank"] + 1) * (s // sp))
+    return {k: np.ascontiguousarray(v[rows, cols]) for k, v in batch.items()}
 
 
 def _init_worker(processor):

@@ -23,7 +23,10 @@ batch with next-token targets, loss masks and vision masks.
   "no_pad", the packed stream. Batches carry `input_vision_masks` and
   `target_vision_masks` (bool). As in the JAX dataset,
   `always_start_with_bos` is not read, and the packing runs in Python
-  lists (the native buffer has no vision stream).
+  lists (the native buffer has no vision stream). On a mesh each rank
+  keeps its part of the global batch, vision masks included, through
+  `data.text.shard_batch`, as the JAX dataset's batches go through
+  `shard_batch_to_global` (`lwm_tpu/data/vision.py:256-262`).
 
 Resume: the state names the line after the last one read, as the port's
 text dataset's does, so a resumed run continues the uninterrupted run's

@@ -57,8 +57,22 @@ Subclasses supply the embeddings and the logits through `_embed` and
 `_head` (`models/vision_llama.py`: the vision embedding mix and its heads);
 the blocks, caches and prefix machinery are shared.
 
-Not in this slice: dropout (`*_pdrop` > 0 raise in training), segment ids,
-meshes.
+Segment ids (`segment_ids` [b, s], packed documents) keep a logit only
+where the query's and the key's ids are equal, in K1 and the fused backward
+(JAX: `flash_attention(segment_ids=)`, `llama.py:725-733`).
+
+On a mesh (`model.mesh`, a `parallel.mesh.Mesh` the trainer sets) the
+training forward takes this rank's rows and its slice of the sequence
+(`input_ids` [b_local, s_local]) and, when sp > 1, runs attention through
+`ops.ring.ring_attention` over the mesh's sp group (`_ring_train`,
+`llama.py:687-776`): position ids are global (rank i's slot r holds
+position i·s_local + r contiguous, i + r·sp striped), the per-key bias comes
+from the whole sequence's attention mask and the segment ids from the
+whole sequence's (each gathered over sp when given). A forward over a cache
+(serving) refuses a mesh of more than one device: `ring_attention_inference`
+comes with a later multi-GPU slice (ROADMAP A4).
+
+Not in this slice: dropout (`*_pdrop` > 0 raise in training).
 """
 
 from __future__ import annotations
@@ -83,7 +97,7 @@ from lwm_tpu_torch.ops.quant import (
     W8A8_EXCLUDE, int8_matmul, int8_matmul_dequant, w8a8_matmul,
 )
 from lwm_tpu_torch.ops.reference import BIG_NEG, reference_attention
-from lwm_tpu_torch.ops.ring import flash_attention, save_flash_policy
+from lwm_tpu_torch.ops.ring import flash_attention, ring_attention, save_flash_policy
 
 REMAT_BLOCKS = ("none", "nothing_saveable", "save_flash")
 # quant_dense spelling → Int8Dense impl (`lwm_tpu/models/llama.py:385-396`)
@@ -481,14 +495,17 @@ class LLaMAAttention(nn.Module):
         cache.k[rows, :, idx] = k.to(cache.k.dtype)
         cache.v[rows, :, idx] = v.to(cache.v.dtype)
 
-    def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None):
+    def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None,
+                segment_ids=None, mesh=None):
         """x [b, q, hidden]; rope (cos, sin) [b, q, d/2]. With layer_cache:
         mask bool [b, q, kv] (key validity ∧ causal), write_pos [b, q] the
         rows' cache positions (an int: every row's first, the shared
         index), kv_len bounds the keys any row reads, and
         prefix_mask bool [P] the valid keys of a shared-prefix block. Without:
-        mask is the additive per-key bias [b, 1, 1, q] and attention is
-        causal self-attention."""
+        mask is the additive per-key bias [b, 1, 1, kv] and attention is
+        causal self-attention, within `segment_ids` [b, kv] when given, over
+        the ring of `mesh`'s sp ranks when it has more than one (mask and
+        segment ids then over the whole sequence)."""
         cfg = self.config
         b, q, _ = x.shape
         d = cfg.head_dim
@@ -496,18 +513,25 @@ class LLaMAAttention(nn.Module):
         xk = apply_rotary(self.wk(x).view(b, q, -1, d), *rope)
         xv = self.wv(x).view(b, q, -1, d)
         if layer_cache is None:
-            out = self._self_attend(xq, xk, xv, mask)
+            out = self._self_attend(xq, xk, xv, mask, segment_ids, mesh)
         else:
             self._write_cache(layer_cache, xk, xv, write_pos)
             out = self._attend(xq, layer_cache, mask, kv_len, prefix_mask)
         return self.wo(out.reshape(b, q, -1))
 
-    def _self_attend(self, xq, xk, xv, bias):
+    def _self_attend(self, xq, xk, xv, bias, segment_ids=None, mesh=None):
         """Causal self-attention, seq-major kv [b, s, h_kv, d] (the JAX
         training branch, `llama.py:1083-1122`)."""
+        if mesh is not None and mesh.sp > 1:
+            if self.config.attn_impl == "plain":
+                raise NotImplementedError("attn_impl='plain' has no ring: an sp mesh trains on "
+                                          "the kernels (attn_impl='auto')")
+            return ring_attention(xq, xk, xv, bias, segment_ids, group=mesh.group("sp"),
+                                  layout=mesh.layout)
         if self.config.attn_impl == "plain":
-            return reference_attention(xq, xk, xv, bias, causal=True)[0]
-        return flash_attention(xq, xk, xv, bias, causal=True)
+            return reference_attention(xq, xk, xv, bias, causal=True, q_seg=segment_ids,
+                                       kv_seg=segment_ids)[0]
+        return flash_attention(xq, xk, xv, bias, segment_ids, causal=True)
 
     def _attend(self, xq, layer_cache, mask, kv_len, prefix_mask=None):
         """xq [b, q, h, d] over the head-major cache [b, h_kv, kv, d], and
@@ -599,9 +623,11 @@ class LLaMABlock(nn.Module):
         self.attention_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
-    def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None):
+    def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None,
+                segment_ids=None, mesh=None):
         x = x + self.attention(
-            self.attention_norm(x), mask, write_pos, rope, layer_cache, kv_len, prefix_mask
+            self.attention_norm(x), mask, write_pos, rope, layer_cache, kv_len, prefix_mask,
+            segment_ids, mesh,
         )
         h = self.ffn_norm(x)
         chunk = self.config.scan_mlp_chunk_size
@@ -643,6 +669,7 @@ class LLaMAForCausalLM(nn.Module):
             else _dense_cls(config, "lm_head")(config.hidden_size, config.vocab_size, **kw)
         )
         self._rope = {}  # device → factored RoPE table, built at first use
+        self.mesh = None  # a parallel.mesh.Mesh: the training forward's dp and sp ranks
 
     @classmethod
     def on_tensors(cls, config, state_dict, dtype):
@@ -743,9 +770,12 @@ class LLaMAForCausalLM(nn.Module):
         of row r sees the valid keys at cache positions ≤ that of its own,
         and the whole valid shared prefix when the cache has one.
         `vision_masks` [b, s] is for a model that embeds vision tokens
-        (`_embed`). Returns logits [b, s | logits_tail, vocab] in the model
-        dtype (`lwm_tpu/models/llama.py:1583-1634`); `logits_tail` (the
-        config's when None) keeps only the last positions' logits."""
+        (`_embed`); `segment_ids` [b, s] (int, no cache) mark packed
+        documents. On a mesh (`self.mesh`) every [b, s] argument is this
+        rank's rows and slice of the sequence. Returns logits [b, s |
+        logits_tail, vocab] in the model dtype (`lwm_tpu/models/llama.py:
+        1583-1634`); `logits_tail` (the config's when None) keeps only the
+        last positions' logits."""
         with torch.no_grad() if cache is not None else contextlib.nullcontext():
             x = self._hidden(input_ids, attention_mask, position_ids, cache, segment_ids,
                              vision_masks)
@@ -778,21 +808,36 @@ class LLaMAForCausalLM(nn.Module):
     def _hidden(self, input_ids, attention_mask, position_ids, cache, segment_ids,
                 vision_masks=None):
         cfg = self.config
-        if segment_ids is not None:
-            raise NotImplementedError("segment ids are not ported yet (K1 has no segment masking)")
+        mesh = self.mesh if self.mesh is not None and self.mesh.size > 1 else None
+        if mesh is not None and cache is not None:
+            raise NotImplementedError(
+                "a forward over a cache on a mesh of more than one device needs "
+                "ring_attention_inference, which comes with a later multi-GPU slice (ROADMAP A4)")
+        if segment_ids is not None and cache is not None:
+            raise ValueError("segment ids are for forwards without a cache")
         if self.training and torch.is_grad_enabled() and max(
             cfg.attn_pdrop, cfg.embd_pdrop, cfg.resid_pdrop
         ) > 0:
-            raise NotImplementedError("dropout in training is not ported yet (K1 has no dropout)")
+            raise NotImplementedError("dropout in training is not ported yet: K1 has no dropout "
+                                      "(ROADMAP A3, A4)")
         b, s = input_ids.shape
         dev = input_ids.device
-        if s > cfg.max_sequence_length:
-            raise ValueError(f"input length {s} > max_sequence_length {cfg.max_sequence_length}")
+        sp = 1 if mesh is None else mesh.sp
+        if s * sp > cfg.max_sequence_length:
+            raise ValueError(f"input length {s * sp} > max_sequence_length "
+                             f"{cfg.max_sequence_length}")
         if position_ids is None:
             if cache is not None:
                 raise ValueError("position_ids required with a cache")
-            position_ids = torch.arange(s, device=dev).expand(b, s)
-        kv = s if cache is None else cache.length
+            r = torch.arange(s, device=dev)
+            if sp > 1:   # the global positions of this rank's slots (`ops.striped`)
+                r = mesh.sp_rank + r * sp if mesh.layout == "striped" else mesh.sp_rank * s + r
+            position_ids = r.expand(b, s)
+        if sp > 1 and attention_mask is not None:
+            attention_mask = mesh.gather_sequence(attention_mask)
+        if sp > 1 and segment_ids is not None:
+            segment_ids = mesh.gather_sequence(segment_ids)
+        kv = s * sp if cache is None else cache.length
         if attention_mask is None:
             attention_mask = torch.ones(b, kv, dtype=torch.bool, device=dev)
         write_pos, prefix_mask = position_ids, None
@@ -830,7 +875,7 @@ class LLaMAForCausalLM(nn.Module):
         remat = cfg.remat_block != "none" and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
             args = (x, mask, write_pos, rope, None if cache is None else cache.layers[i], kv_len,
-                    prefix_mask)
+                    prefix_mask, segment_ids, mesh)
             if remat:
                 x = checkpoint(block, *args, use_reentrant=False, context_fn=self._remat_context)
             else:

@@ -48,7 +48,8 @@ _SIGNATURES = {
         _L, _L, _L,                       # k strides
         _L, _L, _L,                       # v strides
         _L, _L,                           # bias strides (batch, q row)
-        _I, _I, _I, _F,                   # causal, q_offset, kv_offset, scale
+        _I, _I, _I, _I, _F,               # causal, q_offset, kv_offset, pos_stride, scale
+        _P, _P,                           # q_seg [b, sq], kv_seg [b, skv] int32 (or NULL)
         _P,                               # cudaStream_t
     ],
     "lwm_flash_decode": [
@@ -81,7 +82,8 @@ _BWD_DIMS = [
     _L, _L, _L,                           # v strides
     _L, _L, _L,                           # g strides
     _L, _L,                               # bias strides (batch, q row)
-    _I, _I, _I, _F,                       # causal, q_offset, kv_offset, scale
+    _I, _I, _I, _I, _F,                   # causal, q_offset, kv_offset, pos_stride, scale
+    _P, _P,                               # q_seg [b, sq], kv_seg [b, skv] int32 (or NULL)
     _P,                                   # cudaStream_t
 ]
 _SIGNATURES["lwm_flash_bwd"] = [*_BWD_INPUTS, _P, _P, _P, *_BWD_DIMS]  # + dq_accum (fp32), dk, dv

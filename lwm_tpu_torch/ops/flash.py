@@ -17,9 +17,12 @@ counted apart in `flash_attention_fwd.f32_launches`; so has the backward,
 tensor cores, as K1's; the trainers' default `--dtype=fp32`), counted apart
 in `flash_attention_bwd.f32_launches`.
 
-Ported: causal or not, `q_offset`/`kv_offset`, per-key and full-tile
-additive bias, GQA, seq-major or head-major kv, lse. Not ported yet: segment
-ids, `pos_stride` and dropout (training and multi-GPU), per-head bias.
+Ported: causal or not, `q_offset`/`kv_offset` and `pos_stride` (query i
+at q_offset + i·pos_stride, key j at kv_offset + j·pos_stride: the striped
+layout of the ring's steps), segment ids (`q_seg` [b, sq], `kv_seg` [b,
+skv]: a logit is kept only where they are equal), per-key and full-tile
+additive bias, GQA, seq-major or head-major kv, lse. Not ported yet:
+dropout, per-head bias.
 
 Each wrapper (`flash_attention_fwd`, `flash_attention_bwd`) launches its
 kernel for CUDA tensors and raises on what it does not take; for CPU
@@ -35,20 +38,21 @@ from __future__ import annotations
 import torch
 
 from lwm_tpu_torch.ops import _build
-from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD, reference_attention
+from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD, attention_mask, reference_attention
 
 HEAD_DIMS = (64, 128)
 
 
 def flash_attention_fwd_plain(
-    q, k, v, bias=None, *, causal=True, q_offset=0, kv_offset=0, scale=None,
-    kv_head_major=False,
+    q, k, v, bias=None, *, causal=True, q_offset=0, kv_offset=0, pos_stride=1, q_seg=None,
+    kv_seg=None, scale=None, kv_head_major=False,
 ):
     """The kernel's arithmetic in plain PyTorch: fp32 logits from the input
     dtype, p rounded to v.dtype before p·v. Returns (out, lse)."""
     return reference_attention(
         q, k, v, bias, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
-        kv_head_major=kv_head_major, scale=scale, p_dtype=v.dtype,
+        pos_stride=pos_stride, q_seg=q_seg, kv_seg=kv_seg, kv_head_major=kv_head_major,
+        scale=scale, p_dtype=v.dtype,
     )
 
 
@@ -65,6 +69,32 @@ def _normalize_bias(bias, b, sq, skv):
         )
     bias = bias.float().contiguous()
     return bias, (0 if bb == 1 else bsq * skv), (0 if bsq == 1 else skv)
+
+
+def _segments(q_seg, kv_seg, b, sq, skv, device):
+    """Segment ids → (q_seg, kv_seg) contiguous int32 [b, sq] and [b, skv]
+    on `device`, or (None, None); both or neither."""
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("segment ids need both q_seg and kv_seg")
+    if q_seg is None:
+        return None, None
+    if tuple(q_seg.shape) != (b, sq) or tuple(kv_seg.shape) != (b, skv):
+        raise ValueError(f"segment ids {tuple(q_seg.shape)}, {tuple(kv_seg.shape)}: want "
+                         f"[{b}, {sq}] and [{b}, {skv}]")
+    if q_seg.dtype.is_floating_point or kv_seg.dtype.is_floating_point:
+        raise TypeError(f"segment ids must be integers, got {q_seg.dtype}, {kv_seg.dtype}")
+    return (q_seg.to(device=device, dtype=torch.int32).contiguous(),
+            kv_seg.to(device=device, dtype=torch.int32).contiguous())
+
+
+def _stride(pos_stride):
+    if int(pos_stride) != pos_stride or pos_stride < 1:
+        raise ValueError(f"pos_stride must be a positive integer, got {pos_stride}")
+    return int(pos_stride)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _kv_strides(x, head_major):
@@ -107,18 +137,25 @@ def check_fwd_args(q, k, v, kv_head_major, dtypes=FWD_DTYPES, name="flash_attent
 
 
 def flash_attention_fwd(
-    q, k, v, bias=None, *, causal=True, q_offset=0, kv_offset=0, scale=None,
-    kv_head_major=False,
+    q, k, v, bias=None, *, causal=True, q_offset=0, kv_offset=0, pos_stride=1, q_seg=None,
+    kv_seg=None, scale=None, kv_head_major=False,
 ):
     """q: [b, sq, h, d]; k, v: [b, skv, h_kv, d], or [b, h_kv, skv, d] with
     kv_head_major (the cache layout, read in place); bias broadcastable as
-    [b|1, 1, sq|1, skv]. Returns (out [b, sq, h, d] in q.dtype,
-    lse [b, h, sq] fp32). CUDA: bf16 operands launch `csrc/flash_fwd.cu`,
-    fp32 ones `csrc/flash_fwd_f32.cu`; CPU: the plain twin."""
+    [b|1, 1, sq|1, skv]; query i sits at q_offset + i·pos_stride, key j at
+    kv_offset + j·pos_stride; segment ids q_seg [b, sq], kv_seg [b, skv]
+    (int, both or neither). Returns (out [b, sq, h, d] in q.dtype,
+    lse [b, h, sq] fp32); rows with no visible key give out 0 and lse
+    BIG_NEG. CUDA: bf16 operands launch `csrc/flash_fwd.cu`, fp32 ones
+    `csrc/flash_fwd_f32.cu`; CPU: the plain twin."""
+    pos_stride = _stride(pos_stride)
+    skv = k.shape[2] if kv_head_major else k.shape[1]
+    q_seg, kv_seg = _segments(q_seg, kv_seg, q.shape[0], q.shape[1], skv, q.device)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(
             q, k, v, bias, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
-            scale=scale, kv_head_major=kv_head_major,
+            pos_stride=pos_stride, q_seg=q_seg, kv_seg=kv_seg, scale=scale,
+            kv_head_major=kv_head_major,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention_fwd kernel for device {q.device}")
@@ -140,8 +177,8 @@ def flash_attention_fwd(
         lse.data_ptr(), b, sq, skv, h, h_kv, d,
         q.stride(0), q.stride(1), q.stride(2),
         *_kv_strides(k, kv_head_major), *_kv_strides(v, kv_head_major),
-        bias_sb, bias_sr, int(causal), int(q_offset), int(kv_offset), float(scale),
-        _build.stream_handle(q.device),
+        bias_sb, bias_sr, int(causal), int(q_offset), int(kv_offset), pos_stride, float(scale),
+        _ptr(q_seg), _ptr(kv_seg), _build.stream_handle(q.device),
     )
     _build.check(rc, "lwm_flash_fwd_f32" if f32 else "lwm_flash_fwd")
     flash_attention_fwd.launches += 1
@@ -157,11 +194,13 @@ flash_attention_fwd.f32_launches = 0   # of them, the fp32 route's
 
 
 def flash_attention_bwd_plain(
-    q, k, v, g, lse, delta, bias=None, *, causal=True, q_offset=0, kv_offset=0, scale=None,
+    q, k, v, g, lse, delta, bias=None, *, causal=True, q_offset=0, kv_offset=0, pos_stride=1,
+    q_seg=None, kv_seg=None, scale=None,
 ):
     """The backward kernel's arithmetic in plain PyTorch (the TPU kernels'
     `pallas_flash.py:314-349`, `:396-440`): fp32 logits from the input dtype plus bias, the causal mask
-    by global position, p = exp(logits − lse) where logits > MASK_GUARD,
+    by global position (`pos_stride` apart) and the segment mask as K1's,
+    p = exp(logits − lse) where logits > MASK_GUARD,
     dp = g·vᵀ, ds = p·(dp − delta)·scale; p is rounded to g.dtype before
     pᵀ·g and ds to k.dtype / q.dtype before ds·k / dsᵀ·q. q, g: [b, sq, h, d];
     k, v: [b, skv, h_kv, d]; lse, delta: [b, h, sq] fp32. Returns (dq, dk,
@@ -175,10 +214,10 @@ def flash_attention_bwd_plain(
     logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
     if bias is not None:
         logits = logits + bias.float()[:, :, None]
-    if causal:
-        qpos = q_offset + torch.arange(sq, device=q.device)
-        kpos = kv_offset + torch.arange(skv, device=q.device)
-        logits = logits.masked_fill(kpos[None, :] > qpos[:, None], BIG_NEG)
+    keep = attention_mask(sq, skv, q.device, causal=causal, q_offset=q_offset,
+                          kv_offset=kv_offset, pos_stride=pos_stride, q_seg=q_seg, kv_seg=kv_seg)
+    if keep is not None:
+        logits = logits.masked_fill(~keep[:, :, None], BIG_NEG)
     lse = lse.float().reshape(b, h_kv, grp, sq, 1)
     delta = delta.float().reshape(b, h_kv, grp, sq, 1)
     p = torch.where(logits > MASK_GUARD, torch.exp(logits - lse), 0.0)
@@ -193,7 +232,8 @@ def flash_attention_bwd_plain(
     return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset, scale):
+def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset, scale,
+                pos_stride=1, q_seg=None, kv_seg=None):
     """Check the arguments and launch the backward kernel writing `outs` =
     (dq_accum fp32, zeroed; dk; dv); the wrapper counts the launch."""
     skv, h_kv = check_fwd_args(q, k, v, kv_head_major=False, name="flash_attention_bwd")
@@ -208,6 +248,7 @@ def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset,
                 or x.device != q.device):
             raise ValueError(f"{name} must be contiguous fp32 [{b}, {h}, {sq}] on {q.device}, "
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    q_seg, kv_seg = _segments(q_seg, kv_seg, b, sq, skv, q.device)
     scale = d ** -0.5 if scale is None else scale
     bias_sb = bias_sr = 0
     bias_ptr = None
@@ -219,26 +260,29 @@ def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), bias_ptr, *(o.data_ptr() for o in outs), b, sq, skv, h, h_kv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
-        bias_sb, bias_sr, int(causal), int(q_offset), int(kv_offset), float(scale),
-        _build.stream_handle(q.device),
+        bias_sb, bias_sr, int(causal), int(q_offset), int(kv_offset), pos_stride, float(scale),
+        _ptr(q_seg), _ptr(kv_seg), _build.stream_handle(q.device),
     )
     _build.check(rc, entry)
 
 
 def flash_attention_bwd(
-    q, k, v, g, lse, delta, bias=None, *, causal=True, q_offset=0, kv_offset=0, scale=None,
+    q, k, v, g, lse, delta, bias=None, *, causal=True, q_offset=0, kv_offset=0, pos_stride=1,
+    q_seg=None, kv_seg=None, scale=None,
 ):
     """The backward of `flash_attention_fwd` with seq-major kv, the contract
     of `flash_attention_bwd_pallas` (`pallas_flash.py:798`): q, g [b, sq, h,
     d]; k, v [b, skv, h_kv, d]; lse (from the forward) and delta = Σ_d g·out
     [b, h, sq] fp32; bias broadcastable as [b|1, 1, sq|1, skv] (not
-    differentiated). Returns (dq, dk, dv) in the input dtypes, dk/dv at
+    differentiated); positions and segment ids as `flash_attention_fwd`. Returns (dq, dk, dv) in the input dtypes, dk/dv at
     h_kv heads (each group summed in fp32). CUDA: one kernel launch, dq
     summed in an fp32 buffer by atomics (its order, and so its last bit,
     changes from run to run) and rounded once; bf16 operands launch
     `csrc/flash_bwd.cu`, fp32 ones `csrc/flash_bwd_f32.cu`; CPU: the plain
     twin."""
-    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset, scale=scale)
+    q_seg, kv_seg = _segments(q_seg, kv_seg, q.shape[0], q.shape[1], k.shape[1], q.device)
+    kw = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+              pos_stride=_stride(pos_stride), q_seg=q_seg, kv_seg=kv_seg, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, g, lse, delta, bias, **kw)
     if q.device.type != "cuda":

@@ -13,14 +13,34 @@ BIG_NEG = -1e30     # masked logit
 MASK_GUARD = -1e29  # logits at or below this count as masked: p = 0
 
 
+def attention_mask(sq, skv, device, *, causal=True, q_offset=0, kv_offset=0, pos_stride=1,
+                   q_seg=None, kv_seg=None):
+    """The logits a query may keep, bool [b|1, 1, sq, skv], or None when
+    every one is kept: causal by global position (query i at q_offset +
+    i·pos_stride, key j at kv_offset + j·pos_stride) and, with segment ids
+    (int [b, sq] and [b, skv]), only where q_seg == kv_seg
+    (`lwm_tpu/ops/pallas_flash.py:72-87` `_mask_logits`)."""
+    keep = None
+    if causal:
+        qpos = q_offset + pos_stride * torch.arange(sq, device=device)
+        kpos = kv_offset + pos_stride * torch.arange(skv, device=device)
+        keep = (kpos[None, :] <= qpos[:, None])[None, None]
+    if q_seg is not None:
+        same = (q_seg[:, :, None] == kv_seg[:, None, :])[:, None]
+        keep = same if keep is None else keep & same
+    return keep
+
+
 def reference_attention(
-    q, k, v, bias=None, *, causal=True, q_offset=0, kv_offset=0,
-    kv_head_major=False, scale=None, p_dtype=torch.float32,
+    q, k, v, bias=None, *, causal=True, q_offset=0, kv_offset=0, pos_stride=1,
+    q_seg=None, kv_seg=None, kv_head_major=False, scale=None, p_dtype=torch.float32,
 ):
     """q: [b, sq, h, d]; k, v: [b, skv, h_kv, d], or [b, h_kv, skv, d] with
     kv_head_major; h_kv divides h. bias: additive, broadcastable to
     [b, 1, sq, skv]. Causal masking is by global position: query i sits at
-    q_offset + i, key j at kv_offset + j.
+    q_offset + i·pos_stride, key j at kv_offset + j·pos_stride (pos_stride >
+    1: the striped sequence layout). Segment ids q_seg [b, sq], kv_seg
+    [b, skv] (int) keep a logit only where they are equal.
 
     p_dtype: the softmax weights are rounded to it before p·v (the
     kernels round p to the value dtype); fp32 by default.
@@ -40,10 +60,10 @@ def reference_attention(
     logits = logits.reshape(b, h, sq, skv)
     if bias is not None:
         logits = logits + bias.float()
-    if causal:
-        qpos = q_offset + torch.arange(sq, device=q.device)
-        kpos = kv_offset + torch.arange(skv, device=q.device)
-        logits = logits.masked_fill(kpos[None, :] > qpos[:, None], BIG_NEG)
+    keep = attention_mask(sq, skv, q.device, causal=causal, q_offset=q_offset,
+                          kv_offset=kv_offset, pos_stride=pos_stride, q_seg=q_seg, kv_seg=kv_seg)
+    if keep is not None:
+        logits = logits.masked_fill(~keep, BIG_NEG)
     m = logits.amax(-1, keepdim=True)
     p = torch.where(logits > MASK_GUARD, torch.exp(logits - m), 0.0)
     l = p.sum(-1, keepdim=True)

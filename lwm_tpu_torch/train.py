@@ -1,11 +1,14 @@
-"""The trainer on one device: `python -m lwm_tpu_torch.train`, the
-counterpart of `lwm_tpu/train.py` (`main`, `:124-447`) for `--modality=text`
-and `--modality=vision,text`, and the library pieces of its step.
+"""The trainer: `python -m lwm_tpu_torch.train`, the counterpart of
+`lwm_tpu/train.py` (`main`, `:124-447`) for `--modality=text` and
+`--modality=vision,text`, and the library pieces of its step.
 
     python -m lwm_tpu_torch.train --load_llama_config=7b --dtype=bf16 \
         --tokenizer=LOCAL_DIR --train_dataset.type=json \
         --train_dataset.text_processor.fields=text \
         --train_dataset.json_dataset.path=data.jsonl ...
+
+    torchrun --nproc_per_node=4 -m lwm_tpu_torch.train --mesh_dim=2,1,1,2 \
+        --sp_layout=striped ...          # dp 2 x sp 2, one rank a card
 
 (`scripts/run_train_torch.sh` and, for vision-text, `scripts/
 run_train_vision_torch.sh` are the bundles.) The flags are the JAX
@@ -43,9 +46,20 @@ not read there, as in JAX), its log-softmax in chunks of 2048 rows unless
 `gradient_norm` counts every gradient, frozen ones included, as JAX's
 does. Metrics stay on the device until a log reads them.
 
-Refused, naming what they wait for: a mesh of more than one device, an
-`sp_layout` but "contiguous" and `jax_distributed` (multi-GPU, ROADMAP A4);
-the `huggingface` dataset type and `gs://` paths.
+On a mesh (`--mesh_dim` over the job's ranks, `parallel.mesh`; the process
+group from torchrun's environment, or from `--jax_distributed.*` when
+`initialize_jax_distributed` is set; NCCL on the card, gloo on the CPU)
+every rank reads the same global batch and keeps its dp rows and sp columns
+(`data.text.shard_batch`, after the stripe permutation under
+`--sp_layout=striped`); the model runs its sp slice through the ring
+(`ops.ring.ring_attention`), the loss is the one-device mean on every rank
+(`utils.losses`), and the gradients are summed over every rank before the
+optimizer (`all_reduce_grads`), so every rank holds the same parameters.
+Only rank 0 logs (unless `log_all_worker`), writes metrics and saves
+checkpoints (`lwm_tpu/train.py:132`, `:332`); autoresume reads on every rank.
+
+Refused, naming what they wait for: fsdp or tp > 1 (the partition rules,
+ROADMAP A4); the `huggingface` dataset type and `gs://` paths.
 """
 
 from __future__ import annotations
@@ -58,12 +72,17 @@ import time
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from lwm_tpu_torch.checkpoint import StreamingCheckpointer
 from lwm_tpu_torch.data import DatasetFactory
+from lwm_tpu_torch.data.text import shard_batch
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
 from lwm_tpu_torch.models.vision_llama import VideoLLaMAConfig, VideoLLaMAForCausalLM
 from lwm_tpu_torch.optim import OptimizerFactory, none_match
+from lwm_tpu_torch.parallel.mesh import (
+    SP_LAYOUTS, create_mesh, get_ranks_and_size, initialize_distributed,
+)
 from lwm_tpu_torch.utils.convert import flax_param_path
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
 from lwm_tpu_torch.utils.flags import get_user_flags, parse_flags, placeholder
@@ -134,6 +153,12 @@ def create_train_state(model, optimizer_config=None, freeze_base=False):
         param_block=lambda name: flax_param_path(name, model.config)))
 
 
+def _mesh_of(model):
+    """The model's mesh when it has more than one rank, else None."""
+    mesh = getattr(model, "mesh", None)
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
 def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
     """The masked cross-entropy of a batch {"input_tokens",
     "target_tokens", "loss_masks"[, "input_vision_masks",
@@ -149,23 +174,62 @@ def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
     of its logits, or with
     `fused_lm_loss` of its final hidden states through the lm_head (the
     embedding when tied) in fp32 chunks of `loss_chunk_size` (2048 when
-    0), with {"acc"}. Returns (loss, metrics)."""
+    0), with {"acc"}. On the model's mesh (`model.mesh`) the batch is this
+    rank's part and the loss the whole batch's. Returns (loss, metrics)."""
+    mesh = _mesh_of(model)
     if model.takes_vision_masks:
         out = model(batch["input_tokens"], vision_masks=batch["input_vision_masks"])
         return dual_cross_entropy(out.vision_logits, out.lm_logits, batch["target_tokens"],
                                   batch["loss_masks"], batch["target_vision_masks"],
-                                  chunk_size=loss_chunk_size or 2048)
+                                  chunk_size=loss_chunk_size or 2048, mesh=mesh)
     if fused_lm_loss:
         hidden = model.forward_hidden(batch["input_tokens"])
         weight = model.wte.weight if model.lm_head is None else model.lm_head.weight
         loss, acc = fused_lm_cross_entropy(hidden, weight, batch["target_tokens"],
-                                           batch["loss_masks"], chunk_size=loss_chunk_size or 2048)
+                                           batch["loss_masks"], chunk_size=loss_chunk_size or 2048,
+                                           mesh=mesh)
         return loss, dict(acc=acc)
     logits = model(batch["input_tokens"])
     loss, acc = cross_entropy_loss_and_accuracy(
         logits, batch["target_tokens"], batch["loss_masks"], chunk_size=loss_chunk_size or None,
+        mesh=mesh,
     )
     return loss, dict(acc=acc)
+
+
+GRAD_BUCKET_BYTES = 256 << 20   # gradients summed in flat buckets of about this size,
+GRAD_BUCKETS_IN_FLIGHT = 4      # this many at a time
+
+
+def all_reduce_grads(params, group=None):
+    """Sum every parameter's gradient over the ranks of `group` (every
+    rank when None), in flat buckets of GRAD_BUCKET_BYTES, up to
+    GRAD_BUCKETS_IN_FLIGHT all-reduces in flight (a bucket is packed while
+    the ones before it travel)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    buckets, i = [], 0
+    while i < len(grads):
+        j, size = i, 0
+        while j < len(grads) and (j == i or size + grads[j].nbytes <= GRAD_BUCKET_BYTES):
+            size += grads[j].nbytes
+            j += 1
+        buckets.append(grads[i:j])
+        i = j
+    pending = []
+
+    def finish():
+        work, flat, bucket = pending.pop(0)
+        work.wait()
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
+
+    for bucket in buckets:
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        pending.append((dist.all_reduce(flat, group=group, async_op=True), flat, bucket))
+        if len(pending) >= GRAD_BUCKETS_IN_FLIGHT:
+            finish()
+    while pending:
+        finish()
 
 
 def train_step(state, batch, loss_chunk_size=0, fused_lm_loss=False):
@@ -173,12 +237,15 @@ def train_step(state, batch, loss_chunk_size=0, fused_lm_loss=False):
     Returns the JAX step's metrics as 0-dim tensors: loss, the loss's
     metrics (`compute_loss`), learning_rate (the schedule at the new step
     count), param_norm (after the update) and gradient_norm (of every
-    gradient, frozen params' included)."""
+    gradient, frozen params' included). On the model's mesh the gradients
+    are summed over its ranks before the optimizer."""
     model = state.model
     model.zero_grad(set_to_none=True)
     loss, aux = compute_loss(model, batch, loss_chunk_size, fused_lm_loss)
     loss.backward()
     params = list(model.parameters())
+    if _mesh_of(model) is not None:
+        all_reduce_grads(params, model.mesh.group())
     gradient_norm = global_norm([p.grad for p in params if p.grad is not None])
     state.optimizer.step()
     model.zero_grad(set_to_none=True)
@@ -246,9 +313,8 @@ def log(msg):
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
 
-def check_single_device_mesh(mesh_dim):
-    """`mesh_dim` must resolve to one device (every axis 1, one of them
-    possibly -1), as the port trains on one."""
+def _mesh_dims(mesh_dim):
+    """The four axis sizes of `mesh_dim` as written (a -1 not inferred)."""
     text = mesh_dim.strip().lstrip("!")
     try:
         dims = [int(d) for d in text.split(",")]
@@ -256,28 +322,50 @@ def check_single_device_mesh(mesh_dim):
         raise ValueError(f"--mesh_dim={mesh_dim}: not a list of 4 integers") from None
     if len(dims) != 4 or dims.count(-1) > 1:
         raise ValueError(f"--mesh_dim={mesh_dim}: want 4 axis sizes, at most one of them -1")
-    if any(d not in (1, -1) for d in dims):
+    return dims
+
+
+def check_single_device_mesh(mesh_dim):
+    """`mesh_dim` must resolve to one device (every axis 1, one of them
+    possibly -1): the serving, sampling and eval apps run on one (their
+    forwards over a cache wait for `ring_attention_inference`)."""
+    if any(d not in (1, -1) for d in _mesh_dims(mesh_dim)):
         raise NotImplementedError(
-            f"--mesh_dim={mesh_dim}: the port trains on one device (a mesh such as 1,-1,1,1); "
-            "meshes of more devices come with the multi-GPU module (ROADMAP A4)")
+            f"--mesh_dim={mesh_dim}: the port runs this on one device (a mesh such as "
+            "1,-1,1,1); meshes of more devices come with the multi-GPU module (ROADMAP A4)")
+
+
+def check_mesh(mesh_dim):
+    """`mesh_dim` in the grammar, fsdp and tp 1: what the port trains on.
+    The sizes are checked against the job's ranks when the mesh is built."""
+    for axis, size in zip(("fsdp", "tp"), _mesh_dims(mesh_dim)[1:3]):
+        if size > 1:
+            raise NotImplementedError(
+                f"--mesh_dim={mesh_dim}: {axis} = {size} needs the partition rules, which come "
+                "with a later multi-GPU slice (ROADMAP A4); the port trains on dp and sp")
 
 
 def check_supported(flags):
     """Refuse, before anything is built, what the port does not train."""
     if flags.modality not in MODALITIES:
         raise ValueError(f"unsupported modality: {flags.modality}")
-    check_single_device_mesh(flags.mesh_dim)
-    if flags.sp_layout != "contiguous":
-        raise NotImplementedError(
-            f"--sp_layout={flags.sp_layout}: sequence-parallel layouts come with the "
-            "multi-GPU module (ROADMAP A4)")
-    if flags.jax_distributed["initialize_jax_distributed"]:
-        raise NotImplementedError("multi-process training comes with the multi-GPU module "
-                                  "(ROADMAP A4)")
+    check_mesh(flags.mesh_dim)
+    if flags.sp_layout not in SP_LAYOUTS:
+        raise ValueError(f"--sp_layout={flags.sp_layout}: use one of {SP_LAYOUTS}")
 
 
-def _on_device(batch, device):
-    return {k: torch.from_numpy(batch[k]).to(device) for k in BATCH_KEYS}
+def _on_device(batch, device, node_info=NODE_INFO):
+    batch = shard_batch({k: batch[k] for k in BATCH_KEYS}, node_info)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _rank0_value(value):
+    """Rank 0's `value` on every rank (the value itself on one rank)."""
+    if not dist.is_initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def _host(value):
@@ -294,10 +382,25 @@ def main(argv=None):
     device = torch.device(flags.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass --device=cpu to train on the CPU")
+    joined = not dist.is_initialized()
+    initialize_distributed(flags.jax_distributed, device)
+    joined = joined and dist.is_initialized()
+    try:
+        return _main(flags, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _main(flags, device):
+    mesh = create_mesh(flags.mesh_dim, device, flags.sp_layout)
+    if device.type == "cuda" and dist.is_initialized():
+        device = torch.device("cuda", torch.cuda.current_device())
+    node_info = get_ranks_and_size(mesh)
     variant = get_user_flags(flags, DEFAULTS)
     set_random_seed(flags.seed)
-    logger = MetricsLogger(flags.logger, variant)
-    output_dir = logger.output_dir
+    logger = MetricsLogger(flags.logger, variant, enable=mesh.is_rank0 or flags.log_all_worker)
+    output_dir = _rank0_value(logger.output_dir)
     tokenizer = Tokenizer(flags.tokenizer)
 
     load_checkpoint, load_dataset_state = flags.load_checkpoint, flags.load_dataset_state
@@ -306,13 +409,13 @@ def main(argv=None):
         load_checkpoint = "trainstate::" + os.path.join(output_dir, "streaming_train_state")
         load_dataset_state = os.path.join(output_dir, "dataset.pkl")
 
-    dataset = DatasetFactory.load_dataset(flags.train_dataset, tokenizer, node_info=NODE_INFO)
+    dataset = DatasetFactory.load_dataset(flags.train_dataset, tokenizer, node_info=node_info)
     if load_dataset_state:
         dataset.load_state_dict(load_pickle(load_dataset_state))
     eval_batches = None
     if flags.eval_steps > 0:
         eval_dataset = DatasetFactory.load_dataset(flags.eval_dataset, dataset.tokenizer,
-                                                   node_info=NODE_INFO)
+                                                   node_info=node_info)
         eval_batches = iter(eval_dataset)
 
     updates = {}
@@ -331,8 +434,9 @@ def main(argv=None):
             "(set them at generation, not here)")
     model = model_cls(config, dtype=get_float_dtype_by_name(flags.dtype),
                       param_dtype=torch.float32, device=device)
+    model.mesh = mesh
     state = create_train_state(model, flags.optimizer, flags.freeze_base)
-    checkpointer = StreamingCheckpointer(flags.checkpointer, output_dir)
+    checkpointer = StreamingCheckpointer(flags.checkpointer, output_dir, enable=mesh.is_rank0)
     summary = dict(output_dir=output_dir, loaded=None, load_seconds=None, save_seconds=[])
     if load_checkpoint:
         t0 = time.perf_counter()
@@ -344,6 +448,8 @@ def main(argv=None):
     summary["start_step"] = start_step = state.step
 
     def save_checkpoint(milestone=False):
+        if not mesh.is_rank0:
+            return
         metadata = dict(step=state.step, variant=variant, flags=variant,
                         llama_config=dataclasses.asdict(config))
         seconds = checkpointer.save_all(state, metadata=metadata,
@@ -365,8 +471,8 @@ def main(argv=None):
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=activities)
                 profiler.start()
-            metrics = train_step(state, _on_device(batch, device), flags.loss_chunk_size,
-                                 flags.fused_lm_loss)
+            metrics = train_step(state, _on_device(batch, device, node_info),
+                                 flags.loss_chunk_size, flags.fused_lm_loss)
             if profiler is not None and step >= profile_end:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
@@ -378,14 +484,15 @@ def main(argv=None):
             if flags.log_freq > 0 and (step + 1) % flags.log_freq == 0:
                 if eval_batches is not None:
                     metrics.update(average_metrics([
-                        eval_step(state, _on_device(next(eval_batches)[0], device),
+                        eval_step(state, _on_device(next(eval_batches)[0], device, node_info),
                                   flags.loss_chunk_size, flags.fused_lm_loss)
                         for _ in range(flags.eval_steps)]))
                 log_metrics = {"step": step + 1, **metrics, **dataset_metrics}
                 log_metrics = {k: _host(v) for k, v in log_metrics.items()}
                 logger.log(log_metrics)
-                log(pprint.pformat({k: v for k, v in log_metrics.items()
-                                    if not k.startswith("dataset_")}))
+                if mesh.is_rank0:
+                    log(pprint.pformat({k: v for k, v in log_metrics.items()
+                                        if not k.startswith("dataset_")}))
             if flags.save_milestone_freq > 0 and (step + 1) % flags.save_milestone_freq == 0:
                 save_checkpoint(milestone=True)
             elif flags.save_model_freq > 0 and (step + 1) % flags.save_model_freq == 0:

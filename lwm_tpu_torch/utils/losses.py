@@ -5,13 +5,55 @@ step); `dual_cross_entropy` is the VideoLLaMA step's pair of them
 (`lwm_tpu/train.py:273-296`); `fused_lm_cross_entropy` (`--fused_lm_loss`) computes the lm_head
 product inside the loss, one rematerialized sequence chunk at a time, so
 the [b, s, vocab] logits never exist.
+
+On a mesh (`mesh`, a `parallel.mesh.Mesh`; each rank holding its dp rows
+and its sp slice of the sequence) each loss sums a row's target log-probs,
+correct argmaxes and counted tokens locally, sums them over the sp ranks,
+takes each row's mean and sums the rows over the dp ranks: the value, on
+every rank, is the one-device mean over all rows. The sums pass their
+gradient straight through (`SumOverRanks`), so each rank's backward gives
+the gradient of that one value with respect to its own tokens, and the
+trainer's sum of the ranks' gradients is the one-device gradient.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+
+class SumOverRanks(torch.autograd.Function):
+    """all_reduce(SUM) over a process group whose gradient is passed
+    through: every rank goes on to compute the same function of the sum, so
+    each one's share of the gradient is the sum's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _mean_over_rows(log_prob_sum, correct_sum, valid, mesh=None):
+    """(loss, accuracy): each row's masked mean, then the mean over rows,
+    over the whole mesh's rows and sequence when `mesh` has several ranks."""
+    count = valid.sum(-1)
+    if mesh is not None and mesh.sp > 1:
+        log_prob_sum, correct_sum, count = SumOverRanks.apply(
+            torch.stack([log_prob_sum, correct_sum, count]), mesh.group("sp"))
+    count = count.clamp_min(1e-10)
+    loss_rows, acc_rows = -(log_prob_sum / count), correct_sum / count
+    if mesh is None or mesh.dp == 1:
+        return loss_rows.mean(), acc_rows.mean()
+    total = SumOverRanks.apply(torch.stack([loss_rows.sum(), acc_rows.sum()]), mesh.group("dp"))
+    total = total / (loss_rows.shape[0] * mesh.dp)
+    return total[0], total[1]
 
 
 def _chunk_stats(logits, tokens, valid):
@@ -29,7 +71,7 @@ DUAL_PIECE_ROWS = 2048
 
 
 def cross_entropy_loss_and_accuracy(logits, tokens, valid=None, chunk_size=None,
-                                    max_piece=None):
+                                    max_piece=None, mesh=None):
     """Masked mean cross-entropy and accuracy: each row's masked mean, then
     the mean over rows. logits [b, s, vocab]; tokens [b, s] int; valid [b, s]
     (1.0 = counted) or None. With chunk_size dividing s (and below it), the
@@ -37,13 +79,13 @@ def cross_entropy_loss_and_accuracy(logits, tokens, valid=None, chunk_size=None,
     (`jax.checkpoint(nothing_saveable)`), so the fp32 logits never exist at
     full length; otherwise the whole sequence is one chunk. With
     `max_piece`, the chunks are at most that many rows (the last may be
-    shorter): the same values, fewer fp32 rows alive at once. Returns
+    shorter): the same values, fewer fp32 rows alive at once. On a `mesh`,
+    the mean over its ranks' rows and sequence (module note). Returns
     (loss, accuracy) fp32 scalars."""
     tokens = tokens.long()
     if valid is None:
         valid = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     valid = valid.float()
-    valid_text_length = valid.sum(-1).clamp_min(1e-10)
     seq = tokens.shape[1]
     chunk = seq if chunk_size is None or chunk_size >= seq or seq % chunk_size else chunk_size
     if max_piece is not None:
@@ -58,13 +100,11 @@ def cross_entropy_loss_and_accuracy(logits, tokens, valid=None, chunk_size=None,
                                use_reentrant=False)
             log_prob_sum = log_prob_sum + lp
             correct_sum = correct_sum + c
-    loss = -(log_prob_sum / valid_text_length).mean()
-    accuracy = (correct_sum / valid_text_length).mean()
-    return loss, accuracy
+    return _mean_over_rows(log_prob_sum, correct_sum, valid, mesh)
 
 
 def dual_cross_entropy(vision_logits, text_logits, tokens, valid, target_vision_masks,
-                       chunk_size=None):
+                       chunk_size=None, mesh=None):
     """The vision-text loss 0.5 × (vision CE + text CE): the vision head's
     logits on the targets the vision masks mark (the other targets read as
     0 and are masked out), the text head's on the rest, each a
@@ -78,10 +118,10 @@ def dual_cross_entropy(vision_logits, text_logits, tokens, valid, target_vision_
     valid = valid.float()
     vision_loss, vision_acc = cross_entropy_loss_and_accuracy(
         vision_logits, torch.where(vision, tokens, 0), valid * vision, chunk_size,
-        DUAL_PIECE_ROWS)
+        DUAL_PIECE_ROWS, mesh)
     text_loss, text_acc = cross_entropy_loss_and_accuracy(
         text_logits, torch.where(vision, 0, tokens), valid * ~vision, chunk_size,
-        DUAL_PIECE_ROWS)
+        DUAL_PIECE_ROWS, mesh)
     return 0.5 * (vision_loss + text_loss), dict(
         vision_loss=vision_loss, vision_acc=vision_acc, text_loss=text_loss, text_acc=text_acc)
 
@@ -91,7 +131,7 @@ def _fused_chunk_stats(hidden, weight, tokens, valid):
     return _chunk_stats(torch.matmul(hidden.float(), weight.float().t()), tokens, valid)
 
 
-def fused_lm_cross_entropy(hidden, weight, tokens, valid=None, chunk_size=2048):
+def fused_lm_cross_entropy(hidden, weight, tokens, valid=None, chunk_size=2048, mesh=None):
     """`cross_entropy_loss_and_accuracy` of the logits hidden @ weightᵀ,
     computed in fp32 one sequence chunk at a time and recomputed in the
     backward (`torch.utils.checkpoint`, the JAX `nothing_saveable` policy),
@@ -99,14 +139,14 @@ def fused_lm_cross_entropy(hidden, weight, tokens, valid=None, chunk_size=2048):
     (any float dtype; the model's ln_f output); weight [vocab, H], the
     lm_head's weight or, when tied, the embedding's; tokens, valid [b, s].
     The chunk is `chunk_size` capped at s, and the whole sequence when it
-    does not divide s. Gradients flow to hidden and weight. Returns (loss,
-    accuracy) fp32 scalars."""
+    does not divide s. Gradients flow to hidden and weight. On a `mesh`,
+    the mean over its ranks' rows and sequence. Returns (loss, accuracy)
+    fp32 scalars."""
     tokens = tokens.long()
     b, seq = tokens.shape
     if valid is None:
         valid = torch.ones((b, seq), dtype=torch.float32, device=tokens.device)
     valid = valid.float()
-    valid_text_length = valid.sum(-1).clamp_min(1e-10)
     chunk = min(chunk_size, seq)
     if seq % chunk:
         chunk = seq
@@ -117,9 +157,7 @@ def fused_lm_cross_entropy(hidden, weight, tokens, valid=None, chunk_size=2048):
                            valid[:, sl], use_reentrant=False)
         log_prob_sum = log_prob_sum + lp
         correct_sum = correct_sum + c
-    loss = -(log_prob_sum / valid_text_length).mean()
-    accuracy = (correct_sum / valid_text_length).mean()
-    return loss, accuracy
+    return _mean_over_rows(log_prob_sum, correct_sum, valid, mesh)
 
 
 def global_norm(tensors):

@@ -40,7 +40,7 @@ def test_port_imports_no_jax():
                      "apps.create_needle_train_data", "apps.create_copy_pretrain_data",
                      "apps.summarize_needle", "apps.probe_needle_digits",
                      "utils.checkpoint_convert", "utils.hf_dir", "apps.convert_checkpoint",
-                     "apps.vision_chat"):
+                     "apps.vision_chat", "parallel", "parallel.mesh", "ops.striped"):
             assert "lwm_tpu_torch." + want in names, names
         bad = [m for m in ("jax", "flax", "optax", "transformers", "absl", "ml_collections",
                            "msgpack", "tokenizers", "regex", "datasets", "wandb", "gcsfs",

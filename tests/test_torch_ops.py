@@ -279,6 +279,153 @@ def test_flash_attention_matches_jax_vjp(h_kv):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **FP32_TOL)
 
 
+# ------------------------------------------- pos_stride and segment ids
+# A ring step's block: queries at q_offset + i·pos_stride over keys at
+# kv_offset + j·pos_stride (the striped layout puts q_offset = my rank and
+# kv_offset = the block's source rank, both below the stride), segment ids
+# from three packed documents over the global positions. With kv_offset >
+# q_offset the first row sees no key: the twins give it out 0 and lse
+# BIG_NEG (the Pallas forward leaves a mean of v there), and no gradient.
+
+STRIDE_CASES = {
+    # name: (h, h_kv, causal, q_offset, kv_offset, pos_stride, segments, bias kind)
+    "stride2_rank1_over_block0": (4, 4, True, 1, 0, 2, False, "holes"),
+    "stride2_rank0_over_block1_first_row_blind": (4, 2, True, 0, 1, 2, False, None),
+    "stride4_rank3_over_block1": (4, 4, True, 3, 1, 4, False, None),
+    "stride4_rank1_over_block3_first_row_blind": (4, 4, True, 1, 3, 4, False, "holes"),
+    "segments_three_documents": (4, 2, True, 0, 0, 1, True, "holes"),
+    "segments_non_causal": (4, 4, False, 0, 0, 1, True, None),
+    "segments_stride2_rank0_over_block1": (4, 4, True, 0, 1, 2, True, None),
+    "segments_stride4_rank2_over_block1_gqa": (8, 2, True, 2, 1, 4, True, "holes"),
+}
+STRIDE_SEQ = 256
+
+
+def _documents(positions, b):
+    """Segment ids [b, n] of three packed documents over global positions:
+    row 0 cut at 300 and 700, row 1 at 150 and 520 (of 4 × 256)."""
+    cuts = np.asarray([[300, 700], [150, 520]])[:b]
+    return (positions[None, :] >= cuts[:, :1]).astype(np.int32) + (
+        positions[None, :] >= cuts[:, 1:]).astype(np.int32)
+
+
+def _stride_inputs(case, seed):
+    h, h_kv, causal, q_off, kv_off, stride, segs, bias_kind = STRIDE_CASES[case]
+    q, k, v, bias = _k1_inputs(h, h_kv, STRIDE_SEQ, STRIDE_SEQ, causal, q_off, kv_off,
+                               bias_kind, seed=seed)
+    q_seg = kv_seg = None
+    if segs:
+        n = np.arange(STRIDE_SEQ)
+        q_seg, kv_seg = _documents(q_off + n * stride, 2), _documents(kv_off + n * stride, 2)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off, pos_stride=stride)
+    return q, k, v, bias, q_seg, kv_seg, kw
+
+
+def _seg_t(x):
+    return None if x is None else _t(x)
+
+
+def _jnp(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(STRIDE_CASES))
+def test_k1_twin_with_stride_and_segments_matches_pallas_kernel(case, dt):
+    q, k, v, bias, q_seg, kv_seg, kw = _stride_inputs(case, seed=len(case))
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    want_out, want_lse = flash_attention_fwd_pallas(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), _jnp(bias), _jnp(q_seg),
+        _jnp(kv_seg), block_k=128, interpret=True, **kw,
+    )
+    out, lse = flash.flash_attention_fwd(
+        *(_t(x, tdt) for x in (q, k, v)), _seg_t(bias), q_seg=_seg_t(q_seg),
+        kv_seg=_seg_t(kv_seg), **kw,
+    )
+    live = lse.numpy() > BIG_NEG / 2                     # [b, h, sq]: rows that see a key
+    blind = ~live.transpose(0, 2, 1)                     # [b, sq, h]
+    assert np.all(out.float().numpy()[blind] == 0) and np.all(lse.numpy()[~live] == BIG_NEG)
+    if kw["kv_offset"] > kw["q_offset"] and kw["causal"]:
+        assert blind[:, 0].all(), "the first row sees no key"
+    assert live.mean() > 0.5
+    tol = FP32_TOL if dt == "fp32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(out.float().numpy()[~blind],
+                               np.asarray(want_out, np.float32)[~blind], **tol)
+    np.testing.assert_allclose(lse.numpy()[live], np.asarray(want_lse)[live],
+                               **(FP32_TOL if dt == "fp32" else dict(atol=1e-4, rtol=1e-5)))
+    ref, ref_lse = reference_attention(_t(q), _t(k), _t(v), _seg_t(bias), q_seg=_seg_t(q_seg),
+                                       kv_seg=_seg_t(kv_seg), **kw)
+    if dt == "fp32":
+        assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(STRIDE_CASES))
+def test_bwd_twin_with_stride_and_segments_matches_pallas_kernels(case, dt):
+    q, k, v, bias, q_seg, kv_seg, kw = _stride_inputs(case, seed=len(case) + 1)
+    g = np.random.default_rng(7).standard_normal(q.shape, np.float32)
+    seg = dict(q_seg=_seg_t(q_seg), kv_seg=_seg_t(kv_seg))
+    out, lse = flash.flash_attention_fwd(_t(q), _t(k), _t(v), _seg_t(bias), **seg, **kw)
+    delta = np.einsum("bqhd,bqhd->bhq", g, out.numpy())
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    want = flash_attention_bwd_pallas(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v, g)), jnp.asarray(lse.numpy()),
+        jnp.asarray(delta), _jnp(bias), _jnp(q_seg), _jnp(kv_seg), block_q=128, block_k=128,
+        interpret=True, **kw,
+    )
+    got = flash.flash_attention_bwd(
+        *(_t(x, tdt) for x in (q, k, v, g)), lse, _t(delta), _seg_t(bias), **seg, **kw,
+    )
+    blind = lse.numpy().transpose(0, 2, 1) <= BIG_NEG / 2
+    assert np.all(got[0].float().numpy()[blind] == 0)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == tdt and a.shape == b.shape, name
+        np.testing.assert_allclose(
+            a.float().numpy(), np.asarray(b, np.float32), err_msg=name, **BWD_TOL[dt]
+        )
+
+
+def test_segment_and_stride_arguments_are_checked():
+    q = torch.zeros((1, 8, 2, 64))
+    seg = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="both q_seg and kv_seg"):
+        flash.flash_attention_fwd(q, q, q, q_seg=seg)
+    with pytest.raises(ValueError, match="pos_stride"):
+        flash.flash_attention_fwd(q, q, q, pos_stride=0)
+    with pytest.raises(ValueError, match="want"):
+        flash._segments(seg, seg[:, :4], 1, 8, 8, "cpu")
+    with pytest.raises(TypeError, match="integers"):
+        flash._segments(seg.float(), seg, 1, 8, 8, "cpu")
+    a, b = flash._segments(seg.long(), seg, 1, 8, 8, "cpu")
+    assert a.dtype == b.dtype == torch.int32 and a.is_contiguous()
+
+
+def test_flash_attention_with_segment_ids_matches_jax_vjp():
+    """Packed documents through the single-device autograd Function (K1 and
+    the fused backward with segment ids) against `jax.vjp` of the JAX
+    flash attention with the same segment ids (`lwm_tpu/ops/ring.py:473`),
+    fp32, 1e-5; every query sees at least itself."""
+    q, k, v, w, _, _ = _train_attention_inputs(2, seed=4)
+    segs = np.zeros((2, q.shape[1]), np.int32)
+    segs[0, 17:] = 1
+    segs[0, 30:] = 2
+    segs[1, 9:] = 5
+    bias = np.zeros((2, 1, 1, q.shape[1]), np.float32)
+    out, grads = _port_grads(lambda *a: ring.flash_attention(*a, _t(segs), causal=True),
+                             q, k, v, w, bias)
+
+    def f(q, k, v):
+        return jax_flash_attention(q, k, v, jnp.asarray(bias), jnp.asarray(segs), causal=True,
+                                   query_chunk_size=16, key_chunk_size=16, dtype=jnp.float32)
+
+    want, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **FP32_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, vjp(jnp.asarray(w))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **FP32_TOL)
+    whole, _ = _port_grads(lambda *a: ring.flash_attention(*a, causal=True), q, k, v, w, bias)
+    assert not torch.allclose(out, whole)   # the documents are kept apart
+
+
 # ------------------------------------------------------------------ K4
 
 

@@ -124,6 +124,38 @@ def test_loss_and_grads_match_jax(case, dtype):
             assert _cosine(p.grad, want[name]) >= 0.99, name
 
 
+def test_segment_ids_loss_and_grads_match_jax():
+    """Packed documents (`segment_ids`) through the model's training forward
+    against the JAX model's, fp32: loss 1e-6 relative, grads 1e-5 of each
+    largest element."""
+    params, _ = _jax_side("gqa")
+    batch = _batch(seed=9)
+    segs = np.zeros((B, S), np.int32)
+    segs[0, 11:] = 1
+    segs[1, 20:] = 3
+    cfg = JaxConfig(**BASE, **MODEL_CASES["gqa"], mesh_dim=None, attn_impl="xla")
+    module = type(FlaxLLaMAForCausalLM(cfg, input_shape=(1, 8), seed=0, _do_init=False).module)(
+        cfg, dtype=jnp.float32)
+
+    def loss_fn(p):
+        logits = module.apply(p, jnp.asarray(batch["input_tokens"]),
+                              segment_ids=jnp.asarray(segs), deterministic=True).logits
+        return jax_cross_entropy(logits, jnp.asarray(batch["target_tokens"]),
+                                 jnp.asarray(batch["loss_masks"]))[0]
+
+    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    model = _port_model("gqa", params)
+    logits = model(torch.from_numpy(batch["input_tokens"]), segment_ids=torch.from_numpy(segs))
+    loss, _ = losses.cross_entropy_loss_and_accuracy(
+        logits, torch.from_numpy(batch["target_tokens"]), torch.from_numpy(batch["loss_masks"]))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-6)
+    want = convert_flax_params(jax.device_get(want_grads), model.config)
+    for name, p in model.named_parameters():
+        err = (p.grad - want[name]).abs().max().item()
+        assert err <= 1e-5 * want[name].abs().max().item(), (name, err)
+
+
 SCHEDULES = {
     "defaults": dict(),
     "run_train_text": dict(lr=8e-5, end_lr=8e-5, lr_warmup_steps=5, lr_decay_steps=200),
@@ -273,8 +305,9 @@ def test_training_refuses_what_is_not_ported():
     ids = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="dropout"):
         _port_model("mha", params, attn_pdrop=0.1)(ids)
-    with pytest.raises(NotImplementedError, match="segment ids"):
-        _port_model("mha", params)(ids, segment_ids=ids)
+    model = _port_model("mha", params)
+    with pytest.raises(ValueError, match="segment ids"):   # no cache forward takes them
+        model(ids, cache=model.init_cache(1, 8), position_ids=ids, segment_ids=ids)
     with pytest.raises(NotImplementedError, match="remat_block"):
         LLaMAConfig(remat_block="offload_flash")
     with pytest.raises(ValueError, match="unknown optimizer type"):
@@ -283,12 +316,15 @@ def test_training_refuses_what_is_not_ported():
         optim.OptimizerFactory.get_default_config({"adamw_optimizer": {"learning_rate": 1}})
     with torch.no_grad():   # not training: dropout is inactive, the forward runs
         _port_model("mha", params, resid_pdrop=0.1)(ids)
-    # the CLI refuses at the flag level, before it builds anything
-    for argv, match in [(["--mesh_dim=1,1,2,1"], "one device"),
-                        (["--sp_layout=striped"], "sp_layout"),
-                        (["--jax_distributed.initialize_jax_distributed"], "multi-process")]:
+    # the CLI refuses at the flag level, before it builds anything: fsdp
+    # and tp wait for the partition rules (ROADMAP A4)
+    for argv, match in [(["--mesh_dim=1,1,2,1"], "tp = 2.*ROADMAP A4"),
+                        (["--mesh_dim=!1,4,1,1"], "fsdp = 4.*ROADMAP A4")]:
         with pytest.raises(NotImplementedError, match=match):
             train.check_supported(train.parse_flags(train.DEFAULTS, argv, prog="train"))
+    with pytest.raises(ValueError, match="sp_layout"):
+        train.check_supported(train.parse_flags(train.DEFAULTS, ["--sp_layout=diagonal"],
+                                                prog="train"))
 
 
 def test_build_model_config():

@@ -209,11 +209,15 @@ def test_autoresume_continues_the_uninterrupted_run(workdir):
 
 def test_cli_refusals(workdir):
     base = _argv(workdir, "refused", total_steps=1)
-    for flag, match in [("--mesh_dim=1,2,1,1", "one device"),
+    for flag, match in [("--mesh_dim=1,2,1,1", "fsdp = 2.*ROADMAP A4"),
                         ("--train_dataset.type=huggingface", "datasets"),
-                        ("--sp_layout=striped", "A4")]:
-        with pytest.raises(NotImplementedError, match=match):
+                        ("--mesh_dim=1,1,1,2", None)]:
+        # a mesh of more ranks than the job has: the grammar's error
+        with pytest.raises(NotImplementedError if match else ValueError,
+                           match=match or "does not cover 1 devices"):
             train.main(base + [flag])
+    with pytest.raises(ValueError, match="sp_layout"):
+        train.main(base + ["--sp_layout=diagonal"])
     for flag, match in [("--train_dataset.json_dataset.bogus=1", "unknown flag"),
                         ("--bogus", "unknown flag"),
                         ("--optimizer.adamw_optimizer.lr=fast", "lr=fast"),
