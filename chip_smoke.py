@@ -22,7 +22,9 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      (0, BIG_NEG, 0)), at one slot of T 65536, and at the shared-prefix
      fold (all slots' query heads over one 32768-key prefix block: groups
      6, 8, 12, 16 and 32; and group 4 over the video QA path's 30976-row
-     block); every case timed.
+     block); every case timed. At the first five, `kv_len` also as an int32
+     tensor on the card, a scalar and one a row: held to the twin, the
+     scalar's output bit for bit the int's.
      Then K1's and K4's fp32 routes (the needle evals' dtype) at fp32 against
      the same twins within 1e-5 of the twin's largest value: K1 over the
      needle batch's cache (5120 queries over 6144 slots) and its edges, and
@@ -178,12 +180,20 @@ Phases; any failure raises and exits non-zero (there is no CPU path):
      launched exactly layers x steps. Then sequence-parallel training
      (phase_train_ring): two ranks share the card over gloo on a mesh of sp
      2 and train through lwm_tpu_torch.train's step in both layouts: the 7b
-     width at 4 layers, bf16, 1 x 8192, 3 steps, the losses held to a
+     width at 4 layers, bf16, 1 x 8192, 2 steps, the losses held to a
      one-rank run at the bf16 noise floor; the 32K stage's model (6 layers
      of 768, fp32, nothing_saveable) at 1 x 32768, 2 steps, step 1's loss
      and grads held to the float64 step beside a one-rank run's; each
      rank's exact K1/backward counts, step times, the gradients' all-reduce
-     and the ring's exchanges timed. Then run_context_extension_torch.sh's chain
+     and the ring's exchanges timed. In the same two ranks, inference on a
+     mesh (phase_serve_mesh): run_serve.sh's pool at tp 2 (bf16, 4 layers)
+     held row by row to one device at the bf16 noise floor, an sp 2 slot
+     pool (fp32, 16384 slots, a verify block across the shards) held to one
+     device in relative L2 and ring_attention_inference alone to K4/K1 over
+     the whole cache, eval_needle at !1,-1,2,1 (rank 0 alone writes; its
+     answers' token ids against one device's); exact K1/K4 counts a rank,
+     the decode rounds and the exchanges timed (host-staged). Then
+     run_context_extension_torch.sh's chain
      (phase_context_extension, at its widths: hidden 768, 6 layers, fp32,
      remat nothing_saveable): its data from the port's generators in a host
      process started after the build, 2 steps each of its 512, 2048 and
@@ -763,9 +773,34 @@ def _k4_check(name, args):
     return max(err, o_err)
 
 
+def _k4_kv_len_forms(name, args):
+    """K4 with `kv_len` on the card: a scalar int32 tensor (the same
+    launch as the int's, bit for bit) and one a row ([b]: each row's last
+    valid key + 1, at most the int), each held to its twin given the same
+    tensor. Returns the worst max|Δ| on o."""
+    from lwm_tpu_torch.ops.ring import local_kv_len
+
+    q, k, v, mask, kv_len, ks, vs = args
+    scalar = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    forms = (("device scalar", scalar),
+             (f"[{q.shape[0]}]", torch.minimum(local_kv_len(mask), scalar)))
+    base = decode.flash_decode(*args, return_partials=True)
+    worst = 0.0
+    for form, kl in forms:
+        a = (q, k, v, mask, kl, ks, vs)
+        worst = max(worst, _k4_check(f"{name} kv_len {form}", a))
+        same = all(torch.equal(x, y) for x, y in zip(decode.flash_decode(*a, return_partials=True),
+                                                      base))
+        log(f"K4 {name} kv_len {form}: bit for bit the int kv_len's output and partials: {same}")
+        if form == "device scalar" and not same:
+            raise AssertionError(f"K4 {name}: a device-scalar kv_len changed the output")
+    return worst
+
+
 def phase_k4(gen):
     """K4 at K4_CASES and K4_FOLD_CASES against its plain twin (output and
-    partials), with a row of no valid key at the 8-slot cases, each case
+    partials), with a row of no valid key at the 8-slot cases, and at
+    K4_CASES with `kv_len` on the card (_k4_kv_len_forms), each case
     timed. Returns (max_abs_err, ms, plain_ms, library_ms, bound_ms,
     bound_by) at the first case, and {name: dict(ms, plain_ms, library_ms,
     bound_ms, bound_by)} for the others."""
@@ -776,6 +811,8 @@ def phase_k4(gen):
         q, k, v, mask, kv_len, ks, vs = args
         h = q.shape[2]
         worst = max(worst, _k4_check(name, args))
+        if case in K4_CASES:
+            worst = max(worst, _k4_kv_len_forms(name, args))
         if b > K4_EMPTY_ROW:
             cleared = mask.clone()
             cleared[K4_EMPTY_ROW] = False
@@ -4532,7 +4569,7 @@ def f64_arm(what, ref, paths, held, plain=None):
 # alone (an upper bound of what the step spends on them: in the step they
 # overlap the kernels). Two ranks on one
 # card measure correctness and the exchange's cost, not multi-GPU speed.
-RING_A_LAYERS, RING_A_SEQ, RING_A_STEPS = 4, 8192, 3
+RING_A_LAYERS, RING_A_SEQ, RING_A_STEPS = 4, 8192, 2
 RING_B_STEPS = 2
 RING_LAYOUTS = ("contiguous", "striped")
 
@@ -4645,20 +4682,25 @@ def _timed_all_reduce(seconds):
     return timed
 
 
-def _ring_rank(rank, port, workdir):
-    """One of phase_train_ring's two ranks (spawned): every run of
-    _ring_runs on a mesh of sp 2, results to workdir."""
+def _ring_rank(rank, port, workdir, t_spawn):
+    """One of the two ranks that phase_train_ring and phase_serve_mesh share
+    (spawned once): every run of _ring_runs on a mesh of sp 2, then the
+    serving parts (serve_mesh_rank); results to workdir."""
     import torch.distributed as dist
 
     from lwm_tpu_torch.data.text import shard_batch
     from lwm_tpu_torch.ops.ring import RingExchange
     from lwm_tpu_torch.parallel.mesh import create_mesh, get_ranks_and_size
 
+    t_entry = time.time()
     torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=2)
     train_all_reduce = train.all_reduce_grads
-    results = {}
+    results = {"_spawn": dict(imports_s=t_entry - t_spawn, build_s=build_s)}
     try:
         for name, spec in _ring_runs():
             model, opt, batch = _ring_model(spec["kind"], BF16 if spec["dtype"] == "bf16"
@@ -4690,32 +4732,44 @@ def _ring_rank(rank, port, workdir):
             del model, grads, part
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+        results["_serve_mesh"] = serve_mesh_rank(rank, Path(workdir))
     finally:
         (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(results))
         dist.destroy_process_group()
 
 
-def phase_train_ring():
-    """See RING_* and ring_launches: the two ranks' runs, then the one-rank
-    runs and the float64 step they are held to. Returns the launch counts
-    of every rank's runs."""
+def spawn_mesh_ranks(work):
+    """The two ranks on the card (gloo) that phase_train_ring and
+    phase_serve_mesh read: one spawn, one import and one kernel load for
+    both. Writes phase_serve_mesh's eval inputs first. Returns (each rank's
+    results, the spawn's wall seconds)."""
     import socket
 
     import torch.multiprocessing as mp
 
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="lwm_ring_") as work, socket.socket() as sock:
+    write_mesh_eval_inputs(work)
+    with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-        sock.close()
-        t0 = time.perf_counter()
-        mp.spawn(_ring_rank, args=(port, work), nprocs=2, join=True)
-        wall = time.perf_counter() - t0
-        ranks = [json.loads((Path(work) / f"rank{r}.json").read_text()) for r in range(2)]
-        grads_b = {name: torch.load(Path(work) / f"{name}.pt")
-                   for name, spec in _ring_runs() if spec["kind"] == "b"}
-    log(f"train ring: two ranks on the card (gloo), {len(_ring_runs())} runs in {wall:.1f}s of "
-        "wall (imports, builds and exchange timings included)")
+    t0 = time.perf_counter()
+    mp.spawn(_ring_rank, args=(port, str(work), time.time()), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    spawn = [r["_spawn"] for r in ranks]
+    log(f"mesh ranks: two ranks on the card (gloo), {wall:.1f}s of wall: spawn and imports "
+        f"{max(x['imports_s'] for x in spawn):.1f}s, kernel loads "
+        f"{max(x['build_s'] for x in spawn):.2f}s (built once by phase_build), then the "
+        f"training runs and the serving parts [{card()}]")
+    return ranks, wall
+
+
+def phase_train_ring(ranks, work):
+    """See RING_* and ring_launches: the two ranks' runs (spawn_mesh_ranks),
+    then the one-rank runs and the float64 step they are held to. Returns
+    the launch counts of every rank's runs."""
+    grads_b = {name: torch.load(work / f"{name}.pt")
+               for name, spec in _ring_runs() if spec["kind"] == "b"}
     paths = []
     for name, spec in _ring_runs():
         for r in range(2):
@@ -4781,6 +4835,468 @@ def phase_train_ring():
         f"[{card()}]")
     del ref, f64_paths, grads_b, g_b
     torch.cuda.empty_cache()
+    return paths
+
+
+# phase_serve_mesh: inference on a mesh, run in the two ranks that
+# phase_train_ring spawns (spawn_mesh_ranks: one spawn, one import and one
+# kernel load for both phases), both on the one card over gloo, so every
+# exchange is staged through host memory (its times are gloo's, not
+# NVLink's):
+# (a) tp 2, bf16 ("1,1,2,1"): serving_config() at MESH_LAYERS layers (the
+#     7b width), run_serve.sh's pool (8 slots, cache 4096, buckets
+#     256/1024/2048, per_row) over the serving mix's first 8 requests,
+#     teacher-forced: every pick returns the next token of MESH_FORCED_SEED's
+#     stream, so the admissions' logits and MESH_ROUNDS decode rounds' are held
+#     row by row to the one-device port's run of the same weights and tokens
+#     at the bf16 noise floor that phase_serve uses (hold_to_noise_floor, an
+#     fp32 copy of the weights as the truth); K1 and K4 launches exact on each
+#     rank, and both ranks' logits equal;
+# (b) sp 2, fp32 ("1,1,1,2"): the same width at MESH_LAYERS layers in fp32,
+#     sp_slot_caches, 2 slots of MESH_B_CACHE, prompts of MESH_B_PROMPTS
+#     tokens (buckets 2048, 8192), an MESH_VERIFY-token verify block at each
+#     slot's frontier (slot 1's, 8188-8195, across the shards' boundary at
+#     8192), then MESH_ROUNDS decode rounds, teacher-forced; the decode
+#     rounds' logits within MESH_F32_RTOL relative L2 of the one-device fp32
+#     port's, the admissions' and the verify block's within that or
+#     FLOOR_RATIO x the fp32 floor of another row blocking (the one-device
+#     run against itself with its prompts admitted in MESH_B_FLOOR_CHUNK-token
+#     chunks: a rank's products take half the rows, which cuBLAS may sum in
+#     another order);
+#     ring_attention_inference alone at the 7b heads over the same cache
+#     length (a decode of 2 rows, and 2048 queries at q_offset 7168, across
+#     the boundary, split over sp) held to K4 / K1 over the whole cache on one
+#     device within F32_REL_TOL of the largest |value|;
+# (c) eval_needle at "!1,-1,2,1" in both ranks (fp32, MESH_EVAL_LAYERS layers of
+#     the 7b width saved by the port's writer, a tiny haystack, one grid point):
+#     only rank 0 opens a file to write; each answer's token ids are printed
+#     beside the one-device run's, and a difference fails unless the
+#     one-device run's top-2 margin at the first differing step is below
+#     MESH_TIE_GAP.
+MESH_LAYERS, MESH_EVAL_LAYERS, MESH_ROUNDS = 4, 2, 8
+MESH_FORCED_SEED = SEED + 30
+MESH_B_CACHE, MESH_B_PROMPTS, MESH_B_BUCKETS = 16384, (2048, 8188), (2048, 8192)
+MESH_VERIFY, MESH_B_Q_OFFSET, MESH_B_QUERIES, MESH_B_HEADS = 8, 7168, 2048, 32
+MESH_F32_RTOL = 1e-5
+MESH_B_FLOOR_CHUNK = 1024   # the floor's chunked admission
+MESH_TIE_GAP = 1e-3
+MESH_EVAL_BLOCK = 32
+
+
+def _mesh_model(cfg, dtype, seed, mesh=None):
+    """The model of `cfg` with random weights from `seed` (the same on every
+    process); on `mesh`, this rank's slices of them."""
+    from lwm_tpu_torch.parallel.partition import shard_state_dict
+
+    full = LLaMAForCausalLM(cfg, dtype=dtype, device="cuda")
+    full.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    if mesh is None:
+        return full
+    sd = shard_state_dict(full.state_dict(), mesh)
+    del full
+    return LLaMAForCausalLM.on_tensors(cfg, sd, dtype, mesh)
+
+
+def _forcing(forced, rows):
+    """A stand-in for InflightServer._pick: records the logits it is given
+    (fp32, on the host) in `rows` and returns the next tokens of `forced`."""
+    it = iter(forced)
+
+    def pick(logits, tau):
+        rows.append(logits.float().cpu())
+        return torch.tensor([next(it) for _ in range(logits.shape[0])], device=logits.device)
+
+    return pick
+
+
+def mesh_pool_run(model, mesh):
+    """(a)'s teacher-forced pool: (logits [8 + MESH_ROUNDS x 8, vocab],
+    the decode rounds' seconds, launches)."""
+    cfg = model.config
+    srv = InflightServer(model, slots=8, cache_len=4096, prompt_buckets=BUCKETS, seed=SEED,
+                         mesh=mesh)
+    for p in serving_requests(cfg)[0][:8]:
+        srv.submit(p, MESH_ROUNDS + 2)
+    rows = []
+    srv._pick = _forcing(np.random.default_rng(MESH_FORCED_SEED).integers(
+        2, cfg.vocab_size, 8 * (MESH_ROUNDS + 1)), rows)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    srv.step()   # the 8 admissions and the first round
+    rounds = []
+    for _ in range(MESH_ROUNDS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    return torch.cat(rows), rounds, launches
+
+
+def mesh_sp_run(model, mesh, admit_chunk=0):
+    """(b)'s teacher-forced sp pool: (logits [2 + 2 x MESH_VERIFY +
+    MESH_ROUNDS x 2, vocab], the decode rounds' seconds, launches); with
+    `admit_chunk`, the prompts admitted in chunks of it."""
+    cfg = model.config
+    srv = InflightServer(model, slots=2, cache_len=MESH_B_CACHE, prompt_buckets=MESH_B_BUCKETS,
+                         lookup_k=MESH_VERIFY - 1, seed=SEED, mesh=mesh, admit_chunk=admit_chunk)
+    rng = np.random.default_rng(MESH_FORCED_SEED + 1)
+    for n in MESH_B_PROMPTS:
+        srv.submit(rng.integers(2, cfg.vocab_size, n).tolist(), 32)
+    forced = rng.integers(2, cfg.vocab_size, (3 + MESH_ROUNDS, MESH_VERIFY))
+    rows = []
+    srv._pick = _forcing(forced[0, :2], rows)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    srv._admit()
+    while srv._pending:
+        srv._advance_pending()
+    toks = np.concatenate([srv.tokens[:, None], forced[1:3, 1:]], 1)
+    rows.append(srv._forward(toks, MESH_VERIFY).reshape(-1, cfg.vocab_size).cpu())
+    srv.lengths += MESH_VERIFY
+    srv.tokens[:] = forced[1:3, 0]
+    rounds = []
+    for r in range(MESH_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(srv._forward(srv.tokens[:, None], 1)[:, 0].cpu())
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+        srv.lengths += 1
+        srv.tokens[:] = forced[3 + r, :2]
+    launches = _launch_counts()
+    return torch.cat(rows), rounds, launches
+
+
+def mesh_layer_inputs():
+    """(b)'s ring_attention_inference inputs, fp32 on the card, the same on
+    every process: the whole cache k, v [2, MESH_B_HEADS, MESH_B_CACHE, 128],
+    a decode (q [2, 1, MESH_B_HEADS, 128], its rows' keys valid up to the
+    prompts' ends + 5 and + 12) and a prefill of MESH_B_QUERIES queries at
+    MESH_B_Q_OFFSET over row 0."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    T, h = MESH_B_CACHE, MESH_B_HEADS
+    k, v = (_randn((2, h, T, 128), gen, torch.float32) for _ in "kv")
+    q_dec = _randn((2, 1, h, 128), gen, torch.float32)
+    q_pre = _randn((1, MESH_B_QUERIES, h, 128), gen, torch.float32)
+    keys = torch.arange(T, device="cuda")
+    ends = torch.tensor([[MESH_B_PROMPTS[0] + 5], [MESH_B_PROMPTS[1] + 12]], device="cuda")
+    return k, v, q_dec, keys[None] < ends, q_pre, keys < MESH_B_Q_OFFSET + MESH_B_QUERIES
+
+
+def mesh_layer_check(mesh):
+    """ring_attention_inference on this rank's half of mesh_layer_inputs:
+    (decode out, prefill out gathered over sp)."""
+    from lwm_tpu_torch.ops.ring import ring_attention_inference
+
+    k, v, q_dec, mask, q_pre, pre_mask = mesh_layer_inputs()
+    n = k.shape[2] // mesh.sp
+    lo, hi = mesh.sp_rank * n, (mesh.sp_rank + 1) * n
+    k, v = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+    dec = ring_attention_inference(q_dec, k, v, mask[:, lo:hi].contiguous(), mesh=mesh,
+                                   kv_offset=lo)
+    per = MESH_B_QUERIES // mesh.sp
+    rows = slice(mesh.sp_rank * per, (mesh.sp_rank + 1) * per)
+    pre = ring_attention_inference(q_pre[:, rows].contiguous(), k[:1], v[:1],
+                                   pre_mask[None, lo:hi].contiguous(), mesh=mesh, kv_offset=lo,
+                                   q_offset=MESH_B_Q_OFFSET, q_sharded=True)
+    return dec, mesh.gather_sequence(pre)
+
+
+def mesh_eval_argv(work, out, mesh_dim):
+    return [*CLI_FLAGS, f"--load_llama_config={CLI_PRESET}",
+            f"--update_llama_config=dict(num_hidden_layers={MESH_EVAL_LAYERS},theta=10000000,"
+            f"max_sequence_length=131072,scan_query_chunk_size={MESH_EVAL_BLOCK},"
+            f"scan_key_chunk_size={MESH_EVAL_BLOCK})",
+            f"--tokenizer={FIXTURE_TOKENIZER}", f"--load_checkpoint=params::{work / 'mesh_params'}",
+            f"--haystack_file={work / 'mesh_haystack.jsonl'}", f"--output_file={out}",
+            f"--mesh_dim={mesh_dim}", "--context_lengths_min=1000", "--context_lengths_max=1000",
+            "--n_context_length_intervals=1", "--n_document_depth_intervals=1", "--n_rounds=1",
+            "--dtype=fp32"]
+
+
+def write_mesh_eval_inputs(work):
+    """(c)'s checkpoint (the 7b width at MESH_EVAL_LAYERS layers, bf16,
+    random from the seed) and haystack, in `work`."""
+    cfg = LLaMAConfig.load_config(CLI_PRESET).replace(num_hidden_layers=MESH_EVAL_LAYERS)
+    model = _mesh_model(cfg, BF16, SEED + 33)
+    checkpoint.save_tree(flax_params_tree(model.state_dict(), cfg), str(work / "mesh_params"))
+    del model
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 33)
+    (work / "mesh_haystack.jsonl").write_text("".join(
+        json.dumps({"text": _cli_text(rng, 300) + ". "}) + "\n" for _ in range(10)))
+
+
+@contextlib.contextmanager
+def recorded_picks(steps):
+    """generation._next_token recording each step's picks and top-2 margins
+    (host lists) in `steps`."""
+    real = generation._next_token
+
+    def next_token(logits, config, generator):
+        tok = real(logits, config, generator)
+        top = logits.float().topk(2, -1).values
+        steps.append((tok.tolist(), (top[:, 0] - top[:, 1]).tolist()))
+        return tok
+
+    generation._next_token = next_token
+    try:
+        yield
+    finally:
+        generation._next_token = real
+
+
+def mesh_eval_rank(rank, work):
+    """(c) in a rank: eval_needle's CLI in-process on the mesh; returns the
+    picks of rank 0's model group (the rows' tokens) and the files this
+    rank opened to write."""
+    writes, opener = [], eval_needle.open_file
+
+    def recording(path, mode="r", *a, **kw):
+        if "w" in mode:
+            writes.append(str(path))
+        return opener(path, mode, *a, **kw)
+
+    steps = []
+    eval_needle.open_file = recording
+    try:
+        with recorded_picks(steps):
+            eval_needle.main(mesh_eval_argv(work, work / "mesh_eval.json", "!1,-1,2,1"))
+    finally:
+        eval_needle.open_file = opener
+    return dict(steps=steps, writes=writes)
+
+
+def _timed_collectives(seconds):
+    """Mesh's collectives synchronised and timed into `seconds`; returns a
+    function that restores them."""
+    from lwm_tpu_torch.parallel.mesh import Mesh
+
+    real = {name: getattr(Mesh, name) for name in ("all_reduce", "all_gather", "broadcast")}
+
+    def timed(fn):
+        def call(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(Mesh, name, timed(fn))
+    return lambda: [setattr(Mesh, name, fn) for name, fn in real.items()]
+
+
+def serve_mesh_rank(rank, work):
+    """phase_serve_mesh's parts in one of the two ranks: (a), (b) and (c),
+    each part's wall and exchange seconds, launches and round times; the
+    logits to `work` (both ranks)."""
+    from lwm_tpu_torch.parallel.mesh import create_mesh
+
+    out = {}
+    for part, mesh_dim, cfg, dtype, seed, run in (
+            ("a", "1,1,2,1", serving_config().replace(num_hidden_layers=MESH_LAYERS), BF16, SEED,
+             mesh_pool_run),
+            ("b", "1,1,1,2", serving_config().replace(num_hidden_layers=MESH_LAYERS,
+                                                      max_sequence_length=MESH_B_CACHE),
+             torch.float32, SEED + 31, mesh_sp_run)):
+        t0 = time.perf_counter()
+        mesh = create_mesh(mesh_dim, "cuda")
+        model = _mesh_model(cfg, dtype, seed, mesh)
+        exch = []
+        restore = _timed_collectives(exch)
+        try:
+            if part == "b":
+                dec, pre = mesh_layer_check(mesh)
+                if rank == 0:
+                    torch.save(dict(dec=dec.cpu(), pre=pre.cpu()), work / "mesh_layer.pt")
+                del dec, pre
+            exch.clear()
+            t1 = time.perf_counter()
+            logits, rounds, launches = run(model, mesh)
+            run_s = time.perf_counter() - t1
+        finally:
+            restore()
+        torch.save(logits, work / f"mesh_{part}_rank{rank}.pt")
+        out[part] = dict(launches=launches, rounds=rounds, run_s=run_s, exchange_s=sum(exch),
+                         n_exchanges=len(exch), wall=time.perf_counter() - t0,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del model, logits
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    exch = []
+    restore = _timed_collectives(exch)
+    try:
+        _reset_launch_counts()
+        out["c"] = dict(mesh_eval_rank(rank, work), launches=_launch_counts())
+    finally:
+        restore()
+    out["c"].update(wall=time.perf_counter() - t0, exchange_s=sum(exch))
+    return out
+
+
+def hold_rows_to_noise_floor(got, one, truth, labels, what):
+    """The noise-floor rule over many logit rows: each row of `got` agrees
+    with the one-device bf16 run's at cosine >= COS_MIN; its argmax is the
+    one device's or the fp32 truth's, or a token whose fp32 logit is within
+    the one device's own rounding of that row (max|one - truth|) of the
+    truth's largest (a tie at bf16); summed over the rows, got's distance to
+    the truth (1 - cosine) is at most FLOOR_RATIO x the one-device run's
+    (each row's ratio scatters around 1: two bf16 paths, neither the
+    closer)."""
+    c_go = F.cosine_similarity(got, one, dim=-1)
+    d_got = 1 - F.cosine_similarity(got, truth, dim=-1)
+    d_one = 1 - F.cosine_similarity(one, truth, dim=-1)
+    pick = got.argmax(-1)
+    gap = truth.amax(-1) - truth.gather(-1, pick[:, None])[:, 0]
+    noise = (one - truth).abs().amax(-1)
+    other = (pick != one.argmax(-1)) & (pick != truth.argmax(-1))
+    miss = other & (gap > noise)
+    ratio = (d_got.sum() / d_one.sum()).item()
+    worst = int(c_go.argmin())
+    log(f"{what}: {len(labels)} rows; cosine to one device min {c_go.min().item():.6f} "
+        f"({labels[worst]}; min {COS_MIN}); distance to fp32 summed: {d_got.sum().item():.3e} "
+        f"vs one device's {d_one.sum().item():.3e}, ratio {ratio:.3f} (max {FLOOR_RATIO}); rows "
+        f"ratio {(d_got / d_one).min().item():.3f}-{(d_got / d_one).max().item():.3f}")
+    for i in torch.nonzero(other)[:, 0].tolist():
+        log(f"{what} {labels[i]}: argmax {int(pick[i])}, one device {int(one[i].argmax())}, fp32 "
+            f"{int(truth[i].argmax())}; fp32 logit {gap[i].item():.4f} below the top, the one "
+            f"device's rounding there {noise[i].item():.4f}: "
+            + ("a tie at bf16" if not miss[i] else "apart"))
+    failed = [labels[i] for i in range(len(labels)) if c_go[i] < COS_MIN or miss[i]]
+    if failed or not ratio <= FLOOR_RATIO:
+        raise AssertionError(f"{what}: off the bf16 noise floor (rows {failed}, summed distance "
+                             f"ratio {ratio:.3f})")
+
+
+def phase_serve_mesh(ranks, work):
+    """See MESH_*: the ranks' parts (spawn_mesh_ranks) held to one-device
+    runs here. Returns the launch counts of every rank's part."""
+    t_phase = time.perf_counter()
+    parts = [r["_serve_mesh"] for r in ranks]
+    paths = []
+    for r, p in enumerate(parts):
+        for part in ("a", "b", "c"):
+            paths.append(p[part]["launches"])
+        log(f"serve mesh rank {r}: (a) {p['a']['wall']:.1f}s ({p['a']['exchange_s']:.2f}s of "
+            f"{p['a']['n_exchanges']} exchanges), (b) {p['b']['wall']:.1f}s "
+            f"({p['b']['exchange_s']:.2f}s of {p['b']['n_exchanges']} exchanges), (c) "
+            f"{p['c']['wall']:.1f}s ({p['c']['exchange_s']:.2f}s of exchanges) of wall, "
+            "host-staged over gloo")
+
+    # (a): tp 2, bf16, against one device (bf16) and its fp32 copy (the truth)
+    cfg = serving_config().replace(num_hidden_layers=MESH_LAYERS)
+    model = _mesh_model(cfg, BF16, SEED)
+    one, one_rounds, one_launches = mesh_pool_run(model, None)
+    fp32 = type(model).on_tensors(cfg, fp32_weights(model), torch.float32)
+    del model
+    truth = mesh_pool_run(fp32, None)[0]
+    del fp32
+    torch.cuda.empty_cache()
+    mesh_rows = [torch.load(work / f"mesh_a_rank{r}.pt") for r in range(2)]
+    if not torch.equal(mesh_rows[0], mesh_rows[1]):
+        raise AssertionError("serve mesh (a): the two tp ranks' logits differ")
+    want = dict(flash_fwd=MESH_LAYERS * 8, flash_decode=MESH_LAYERS * MESH_ROUNDS)
+    for r, p in enumerate(parts):
+        got = {k: p["a"]["launches"][k] for k in want}
+        log(f"serve mesh (a) rank {r}: launches {got} (want {want}); decode rounds "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in p['a']['rounds'])} ms (tp 2, gloo) [{card()}]")
+        if got != want:
+            raise AssertionError(f"serve mesh (a) rank {r}: launches {got}, want {want}")
+    rounds = ", ".join(f"{1e3 * t:.1f}" for t in one_rounds)
+    log(f"serve mesh (a): one device's decode rounds {rounds} ms [{card()}]")
+    labels = [f"admission {i}" for i in range(8)] + [
+        f"round {i // 8 + 1} slot {i % 8}" for i in range(8 * MESH_ROUNDS)]
+    hold_rows_to_noise_floor(mesh_rows[0], one, truth, labels, "serve mesh (a) tp 2")
+
+    # (b): sp 2, fp32, against one device
+    k, v, q_dec, mask, q_pre, pre_mask = mesh_layer_inputs()
+    ref_dec = decode.flash_decode(q_dec, k, v, mask, MESH_B_CACHE)
+    bias = torch.where(pre_mask, 0.0, BIG_NEG)[None, None, None, :]
+    ref_pre = flash.flash_attention_fwd(q_pre, k[:1], v[:1], bias, causal=True,
+                                        q_offset=MESH_B_Q_OFFSET, kv_head_major=True)[0]
+    got = torch.load(work / "mesh_layer.pt")
+    for name, ref in (("decode", ref_dec), ("prefill", ref_pre)):
+        err = (got[name[:3]].cuda() - ref).abs().max().item() / ref.abs().max().item()
+        log(f"serve mesh (b) ring_attention_inference {name}: max|sp 2 - one device| / max|one "
+            f"device| {err:.3e} (tol {F32_REL_TOL})")
+        if not err <= F32_REL_TOL:
+            raise AssertionError(f"serve mesh (b): ring_attention_inference {name} leaves K4/K1 "
+                                 "over the whole cache")
+    del k, v, q_dec, q_pre, ref_dec, ref_pre, got
+    torch.cuda.empty_cache()
+    cfg = serving_config().replace(num_hidden_layers=MESH_LAYERS, max_sequence_length=MESH_B_CACHE)
+    model = _mesh_model(cfg, torch.float32, SEED + 31)
+    one, one_rounds, _ = mesh_sp_run(model, None)
+    chunked = mesh_sp_run(model, None, admit_chunk=MESH_B_FLOOR_CHUNK)[0]
+    del model
+    torch.cuda.empty_cache()
+    mesh_rows = [torch.load(work / f"mesh_b_rank{r}.pt") for r in range(2)]
+    if not torch.equal(mesh_rows[0], mesh_rows[1]):
+        raise AssertionError("serve mesh (b): the two sp ranks' logits differ")
+    rel = ((mesh_rows[0] - one).norm(dim=-1) / one.norm(dim=-1)).tolist()
+    floor = ((chunked - one).norm(dim=-1) / one.norm(dim=-1)).tolist()
+    cut = {"admissions": slice(0, 2), "verify block": slice(2, 2 + 2 * MESH_VERIFY),
+           "decode rounds": slice(2 + 2 * MESH_VERIFY, None)}
+    groups = {k: rel[c] for k, c in cut.items()}
+    log("serve mesh (b): the fp32 floor, one device against itself with the prompts admitted "
+        f"in {MESH_B_FLOOR_CHUNK}-token chunks (other row blocks in every product): " + "; ".join(
+            f"{k} largest {max(floor[c]):.2e}" for k, c in cut.items()))
+    want = dict(flash_fwd=MESH_LAYERS * 3, flash_fwd_f32=MESH_LAYERS * 3,
+                flash_decode=MESH_LAYERS * MESH_ROUNDS, flash_decode_f32=MESH_LAYERS * MESH_ROUNDS)
+    for r, p in enumerate(parts):
+        got = {k: p["b"]["launches"][k] for k in want}
+        log(f"serve mesh (b) rank {r}: launches {got} (want {want}); decode rounds "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in p['b']['rounds'])} ms (sp 2 over 16384 "
+            f"slots, gloo) [{card()}]")
+        if got != want:
+            raise AssertionError(f"serve mesh (b) rank {r}: launches {got}, want {want}")
+    log(f"serve mesh (b): relative L2 of the sp 2 logits to one device's: " + "; ".join(
+        f"{k} {', '.join(f'{x:.2e}' for x in v)}" for k, v in groups.items())
+        + f" (tol {MESH_F32_RTOL}); one device's decode rounds "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in one_rounds)} ms [{card()}]")
+    # the decode rounds at MESH_F32_RTOL; the prefills (admissions, the verify
+    # block), whose products run on each rank's half of the rows, at the fp32
+    # floor of another row blocking where that is above it
+    for k, c in cut.items():
+        tol = MESH_F32_RTOL if k == "decode rounds" else max(
+            MESH_F32_RTOL, FLOOR_RATIO * max(floor[c]))
+        if not max(rel[c]) <= tol:
+            raise AssertionError(f"serve mesh (b): the sp 2 {k}' logits leave the one-device "
+                                 f"run's ({max(rel[c]):.2e}, tol {tol:.2e})")
+
+    # (c): eval_needle on the mesh against one device
+    steps = []
+    with recorded_picks(steps):
+        run_cli_in_process(eval_needle.main, mesh_eval_argv(work, work / "one_eval.json",
+                                                            "1,-1,1,1"), "eval_needle one device")
+    mesh_steps = parts[0]["c"]["steps"]
+    writes = [p["c"]["writes"] for p in parts]
+    log(f"serve mesh (c): files opened to write, rank 0 {writes[0]}, rank 1 {writes[1]}")
+    if not writes[0] or writes[1] or any(w != str(work / "mesh_eval.json") for w in writes[0]):
+        raise AssertionError("serve mesh (c): rank 0 alone must write the results")
+    one_ids = [list(t) for t in zip(*(s[0] for s in steps))]
+    mesh_ids = [list(t) for t in zip(*(s[0] for s in mesh_steps))]
+    for row, (a, b) in enumerate(zip(mesh_ids, one_ids)):
+        log(f"serve mesh (c) answer {row}: tp 2 {a}; one device {b}")
+        diff = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if diff is None and len(a) == len(b):
+            continue
+        j = min(len(a), len(b)) if diff is None else diff
+        margin = steps[j][1][row] if j < len(steps) else math.inf
+        log(f"serve mesh (c) answer {row}: first difference at step {j}, one device's top-2 "
+            f"margin there {margin:.3e} (tie below {MESH_TIE_GAP})")
+        if not margin < MESH_TIE_GAP:
+            raise AssertionError(f"serve mesh (c): answer {row} differs from one device's")
+    if (json.loads((work / "mesh_eval.json").read_text()) != json.loads(
+            (work / "one_eval.json").read_text())) and mesh_ids == one_ids:
+        raise AssertionError("serve mesh (c): the same tokens wrote other results")
+    log(f"serve mesh: the phase's holds {time.perf_counter() - t_phase:.1f}s in this process "
+        f"[{card()}]")
     return paths
 
 
@@ -6153,9 +6669,14 @@ def main():
     path_launches.append(phase_train_f32())
     torch.cuda.empty_cache()
     mark("fp32 training")
-    path_launches.extend(phase_train_ring())
-    torch.cuda.empty_cache()
-    mark("ring training (two ranks on the card)")
+    with tempfile.TemporaryDirectory(prefix="lwm_mesh_") as work:
+        ranks, _ = spawn_mesh_ranks(Path(work))
+        path_launches.extend(phase_train_ring(ranks, Path(work)))
+        torch.cuda.empty_cache()
+        mark("ring training (two ranks on the card)")
+        path_launches.extend(phase_serve_mesh(ranks, Path(work)))
+        torch.cuda.empty_cache()
+        mark("serving, generate and the needle eval on a mesh (the same two ranks)")
     path_launches.extend(phase_vision_needle(ctx_data))
     torch.cuda.empty_cache()
     mark("the vision-needle bundle's path")

@@ -16,8 +16,10 @@ the same cities and numbers in both packages.
 
 The port keeps its own copies of the JAX module's prompt template, city
 list, `NeedleInserter` and tester (it imports nothing of the JAX package).
-Progress is printed (no tqdm). A `--mesh_dim` of more than one device
-raises: the port runs on one (ROADMAP A4).
+Progress is printed (no tqdm). On a mesh (`--mesh_dim` of more than one
+device, a process a device under `torchrun`, or `--jax_distributed.*`) every
+rank builds the same grid and runs the sampler over its share of each batch
+(`apps.sampler`); only rank 0 writes the results.
 
 Run: python -m lwm_tpu_torch.apps.eval_needle --haystack_file=haystack.jsonl \\
     --load_llama_config=7b --load_checkpoint=params::PATH --tokenizer=LOCAL_DIR
@@ -88,12 +90,8 @@ RANDOM_NEEDLE_CITIES = [
 
 def parse_eval_flags(defaults, argv, prog):
     """The flags as a namespace; `llama` holds the `--llama.<field>` values.
-    Multi-process runs raise, as meshes do (ROADMAP A4)."""
-    flags = parse_flags(defaults, argv, prog=prog, free=("llama",))
-    if flags.jax_distributed["initialize_jax_distributed"]:
-        raise NotImplementedError("multi-process evals come with the multi-GPU module "
-                                  "(ROADMAP A4)")
-    return flags
+    `--jax_distributed.*` joins a multi-process run (`apps.sampler`)."""
+    return parse_flags(defaults, argv, prog=prog, free=("llama",))
 
 
 def log(msg):
@@ -252,8 +250,9 @@ class LLMNeedleHaystackTester:
                 for c in self.read_context_files(self.flags.n_rounds)]
 
     def save(self, results):
-        with open_file(self.flags.output_file, "w") as f:
-            json.dump(results, f)
+        if getattr(self.model, "is_rank0", True):   # on a mesh, rank 0 writes
+            with open_file(self.flags.output_file, "w") as f:
+                json.dump(results, f)
 
     def run_test(self):
         flags = self.flags

@@ -13,8 +13,13 @@ decoded without special tokens and cut at the eos text and at each stop
 string.
 
 `block_size` = max(scan_query_chunk_size, scan_key_chunk_size) × sp and
-`data_dim` = dp × fsdp, with sp = dp = fsdp = 1: the port runs on one device,
-and a `mesh_dim` of more than one device raises (multi-GPU is ROADMAP A4).
+`data_dim` = dp × fsdp. On a mesh (`--mesh_dim` of more than one device, a
+process a device under `torchrun`; `--jax_distributed.*` or torchrun's
+environment join the group, as `parallel.mesh.initialize_distributed` says)
+each rank loads only its tp slice of the weights (`load_model`), takes its
+dp × fsdp share of the batch's rows (`sampler.py:55-65`: the batch over
+(dp, fsdp), the prompt over sp) and generates them over a cache split over
+sp; the ranks' tokens are gathered, so every rank returns every text.
 `--unscan_for_serving` is taken: the port reads scanned and unscanned trees
 alike. The model runs on `flags.device` (the card by default; "cpu" for the
 CPU), its draws from a `torch.Generator` seeded with `flags.seed`.
@@ -30,7 +35,9 @@ import torch
 from lwm_tpu_torch.checkpoint import load_trainstate_checkpoint
 from lwm_tpu_torch.generation import GenerationConfig, generate
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
-from lwm_tpu_torch.train import check_single_device_mesh, log
+from lwm_tpu_torch.parallel.mesh import create_mesh, initialize_distributed, mesh_of
+from lwm_tpu_torch.parallel.partition import check_tp
+from lwm_tpu_torch.train import log
 from lwm_tpu_torch.utils.convert import convert_flax_params
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
 from lwm_tpu_torch.utils.tokenizer import Tokenizer
@@ -63,19 +70,22 @@ def resolve_model_config(flags, tokenizer=None, config_cls=LLaMAConfig):
 
 
 def load_model(config, load_checkpoint, dtype, device, unscan_for_serving=False,
-               model_cls=LLaMAForCausalLM):
+               model_cls=LLaMAForCausalLM, mesh=None):
     """The checkpoint's params cast to `dtype` on `device`, as a `model_cls`
-    of `config` (`loading.py:load_sharded_params` on one device). Returns
-    (model, config)."""
+    of `config` (`loading.py:load_sharded_params`); on `mesh`, this rank's
+    slices only reach the device. Returns (model, config)."""
     t0 = time.perf_counter()
+    if mesh is not None:
+        check_tp(config, mesh.tp)
     _, params = load_trainstate_checkpoint(load_checkpoint, disallow_trainstate=True)
     if unscan_for_serving:
         config = config.replace(scan_layers=False)   # the reader takes either layout
     dtype = get_float_dtype_by_name(dtype)
-    sd = convert_flax_params(params, config, dtype=dtype, device=device)
+    sd = convert_flax_params(params, config, dtype=dtype, device=device, mesh=mesh)
     del params
     log(f"loaded {load_checkpoint} in {time.perf_counter() - t0:.1f}s")
-    return model_cls.on_tensors(config, sd, dtype), config
+    kw = {} if mesh is None else dict(mesh=mesh)
+    return model_cls.on_tensors(config, sd, dtype, **kw), config
 
 
 class TextSampler:
@@ -83,14 +93,16 @@ class TextSampler:
     note). `from_model` wraps a model and tokenizer already built."""
 
     def __init__(self, flags, greedy=True, stop_strings=()):
-        check_single_device_mesh(flags.mesh_dim)
         device = torch.device(getattr(flags, "device", "cuda"))
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: pass --device=cpu to run on the CPU")
+        initialize_distributed(getattr(flags, "jax_distributed", None), device)
+        mesh = create_mesh(flags.mesh_dim, device.type)
         tokenizer = Tokenizer(flags.tokenizer)
         config = resolve_model_config(flags, tokenizer)
         model, config = load_model(config, flags.load_checkpoint, flags.dtype, device,
-                                   getattr(flags, "unscan_for_serving", False))
+                                   getattr(flags, "unscan_for_serving", False),
+                                   mesh=mesh if mesh.size > 1 else None)
         self._setup(model, tokenizer, greedy, stop_strings, flags.seed)
         self.flags = flags
 
@@ -110,12 +122,22 @@ class TextSampler:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     @property
+    def mesh(self):
+        """The model's mesh when it has more than one rank, else None."""
+        return mesh_of(self.model)
+
+    @property
+    def is_rank0(self):
+        return self.mesh is None or self.mesh.is_rank0
+
+    @property
     def block_size(self):
-        return max(self.config.scan_query_chunk_size, self.config.scan_key_chunk_size)
+        sp = 1 if self.mesh is None else self.mesh.sp
+        return max(self.config.scan_query_chunk_size, self.config.scan_key_chunk_size) * sp
 
     @property
     def data_dim(self):
-        return 1
+        return 1 if self.mesh is None else self.mesh.batch
 
     def generation_config(self):
         """`sampler.py:74-83`."""
@@ -134,8 +156,18 @@ class TextSampler:
 
     def __call__(self, prompts, max_input_length):
         input_ids, attention_mask = self.encode(prompts, max_input_length)
+        mesh = self.mesh
+        if mesh is not None:   # this rank's rows; the batch shards' tokens gathered
+            if len(prompts) % mesh.batch:
+                raise ValueError(f"{len(prompts)} prompts do not split over dp*fsdp="
+                                 f"{mesh.batch}")
+            n = len(prompts) // mesh.batch
+            rows = slice(mesh.batch_rank * n, (mesh.batch_rank + 1) * n)
+            input_ids, attention_mask = input_ids[rows], attention_mask[rows]
         output = generate(self.model, input_ids, attention_mask, self.generation_config(),
                           self.generator)
+        if mesh is not None:
+            output = mesh.all_gather(output, "batch", 0)
         texts = []
         eos = self.tokenizer.eos_token
         for text in self.tokenizer.batch_decode(output.tolist(), skip_special_tokens=True):

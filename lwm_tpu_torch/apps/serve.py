@@ -25,8 +25,12 @@ Input modes:
 
 `--device` (default `cuda`) stands in for the JAX `--jax_platform`: the
 model runs on the card, or on the CPU with `--device=cpu`; without CUDA
-and without `--device=cpu` it raises. `--mesh_dim` other than `1,1,1,1`
-raises: the port serves on one device.
+and without `--device=cpu` it raises. `--mesh_dim` of more than one device
+runs as a process a device under `torchrun` (NCCL on cards, gloo on the
+CPU): each rank loads its tp slice of the weights, the server splits its
+slots over dp × fsdp and the cache over tp and sp (`serve.py`); every rank
+reads the requests and only rank 0 writes the completions and the log.
+Interactive mode runs on one device.
 
 Run: python -m lwm_tpu_torch.apps.serve --load_checkpoint='params::...' \\
     --tokenizer=LOCAL_DIR --slots=8 --cache_len=4096 [--quantize_weights]
@@ -37,15 +41,19 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lwm_tpu_torch.checkpoint import load_trainstate_checkpoint
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
 from lwm_tpu_torch.ops.quant import quantize_params_int8
+from lwm_tpu_torch.parallel.mesh import create_mesh, initialize_distributed
+from lwm_tpu_torch.parallel.partition import check_tp
 from lwm_tpu_torch.serve import InflightServer
 from lwm_tpu_torch.utils.convert import convert_flax_params
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
@@ -68,20 +76,25 @@ def parse_flags(argv):
                             free=("llama",))
 
 
+def _rank0():
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def log(msg):
-    print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
+    if _rank0():   # on a mesh, rank 0 logs
+        print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
 
 def load_model(flags):
-    """(model, tokenizer) as `lwm_tpu/apps/serve.py:load_model` builds them."""
-    if flags.mesh_dim.lstrip("!") not in ("1,1,1,1", ""):
-        raise NotImplementedError(
-            f"--mesh_dim={flags.mesh_dim}: the port serves on one device (meshes are not "
-            "ported yet)"
-        )
+    """(model, tokenizer) as `lwm_tpu/apps/serve.py:load_model` builds them;
+    on a mesh of more than one device the model holds this rank's slices and
+    `model.mesh` is the mesh."""
     device = torch.device(flags.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass --device=cpu to serve on the CPU")
+    initialize_distributed(None, device)
+    mesh = create_mesh(flags.mesh_dim or "1,1,1,1", device.type)
+    mesh = mesh if mesh.size > 1 else None
     enc = Tokenizer(flags.tokenizer)
     if flags.load_llama_config:
         config = LLaMAConfig.load_config(flags.load_llama_config)
@@ -98,10 +111,16 @@ def load_model(flags):
     )
     config = LLaMAConfig.from_dict({**dataclasses.asdict(config), **updates})
     dtype = get_float_dtype_by_name(flags.dtype)
+    if mesh is not None:
+        check_tp(config, mesh.tp)
+        if flags.quantize_weights:
+            raise NotImplementedError("int8 weights on a mesh come with a later multi-GPU "
+                                      "slice (ROADMAP A4): serve them on one device")
 
     t0 = time.perf_counter()
     _, params = load_trainstate_checkpoint(flags.load_checkpoint, disallow_trainstate=True)
-    sd = convert_flax_params(params, config, dtype=dtype)
+    sd = convert_flax_params(params, config, dtype=dtype, device=device if mesh else None,
+                             mesh=mesh)
     del params
     sd = {k: v.to(device) for k, v in sd.items()}
     log(f"loaded {flags.load_checkpoint} in {time.perf_counter() - t0:.1f}s")
@@ -109,7 +128,8 @@ def load_model(flags):
         log(f"quantizing dense weights to int8 ({flags.quant_dense})...")
         sd = quantize_params_int8(sd)
         config = config.replace(quant_dense=flags.quant_dense)
-    return LLaMAForCausalLM.on_tensors(config, sd, dtype), enc
+    kw = {} if mesh is None else dict(mesh=mesh)
+    return LLaMAForCausalLM.on_tensors(config, sd, dtype, **kw), enc
 
 
 def main(argv=None):
@@ -131,6 +151,7 @@ def main(argv=None):
         stop_tokens=stop, seed=flags.seed, prefix_ids=prefix_ids,
         prefix_chunk=flags.prefix_chunk, prefix_cache_path=flags.prefix_cache,
         lookup_k=flags.lookup_k, lookup_ngram=flags.lookup_ngram, admit_chunk=flags.admit_chunk,
+        mesh=model.mesh,
     )
 
     def encode(text):
@@ -142,6 +163,8 @@ def main(argv=None):
         return ids
 
     if not flags.input_file:
+        if model.mesh is not None:
+            raise ValueError("interactive mode runs on one device: give --input_file on a mesh")
         log("interactive mode — one prompt per line (EOF to quit)")
         for line in sys.stdin:
             line = line.strip()
@@ -166,7 +189,7 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     n_tokens = 0
-    with open(flags.output_file, "w", encoding="utf-8") as out:
+    with open(flags.output_file if _rank0() else os.devnull, "w", encoding="utf-8") as out:
         while srv.busy():
             for fin in srv.step():
                 n_tokens += len(fin.tokens)

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -114,6 +115,9 @@ def load_model(flags):
     device = torch.device(flags.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass --device=cpu to serve on the CPU")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError("VideoLLaMA serving runs as one process on one device; its "
+                                  "mesh comes with a later multi-GPU slice (ROADMAP A4)")
     enc = Tokenizer(flags.tokenizer)
     if flags.load_llama_config:
         config = VideoLLaMAConfig.load_config(flags.load_llama_config)

@@ -6,7 +6,10 @@
 // [b, h_kv, T] (k scales multiply the logits, v scales multiply p before p
 // is rounded to bf16 for p·v, the TPU kernel's order); a per-key bool mask
 // [b, T] (left-pad holes and per-row frontiers); keys at or past kv_len are
-// never read (kv_len is an upper bound; the mask does the exact part). The g
+// never read (kv_len is an upper bound; the mask does the exact part). kv_len
+// is an int32 on the card, one for every row or one a row [b], read by each
+// block, so a decode round neither syncs on it nor bakes it into the launch;
+// the grid stays sized by T. The g
 // query heads of a kv head share one read of its cache; a group other than
 // 1/2/4/8 (the shared-prefix fold gives slots x g) is covered in chunks of 8
 // query heads, a chunk a block, the chunks of a split side by side in the
@@ -81,7 +84,9 @@ struct DecParams {
   void* out;             // [b, 1, h, d] in q's type
   float* m_out;          // [b, h] or null
   float* l_out;
-  int h, h_kv, T, kv_len, split, n_split;
+  const int* kv_len;     // on the card: one bound, or one a row (kv_len_row 1)
+  int kv_len_row;
+  int h, h_kv, T, split, n_split;
   int g, n_chunk;        // query heads a kv head; chunks of at most G of them (chunked kernels)
   long long q_sb, q_sh, kv_sb, kv_sh, kv_ss;
   float scale;
@@ -168,7 +173,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
   const int bi = row / p.h_kv, kvh = row % p.h_kv;
   const int qh0 = kvh * (kChunked ? p.g : G) + chunk * G;  // the chunk's first query head
   const int key0 = split * p.split;
-  const int key_end = min(key0 + p.split, min(p.kv_len, p.T));  // keys at or past kv_len: never read
+  const int kv_len = max(p.kv_len[p.kv_len_row ? bi : 0], 0);
+  const int key_end = min(key0 + p.split, min(kv_len, p.T));  // keys at or past kv_len: never read
   const long long head_stride = (long long)p.n_split * (D + 2);
   float* part = p.part + ((long long)(bi * p.h + qh0) * p.n_split + split) * (D + 2);
 
@@ -493,12 +499,14 @@ cudaError_t launch_d(const DecParams& p, int b, int g, int kind, cudaStream_t st
 
 // part: fp32 scratch of [b, h, ceil(T / split), d + 2], written and read here
 // (no initial value); m_out, l_out: [b, h] fp32, or both null for o alone.
-// split: keys a block, a multiple of 256 up to 2048. kind: the cache's
+// kv_len: int32 on the card, [1] or (kv_len_row 1) [b]. split: keys a block,
+// a multiple of 256 up to 2048. kind: the cache's
 // type, 0 bf16 and 1 int8 (q and out bf16), 2 fp32 (q and out fp32).
 extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
                                 const void* k_scale, const void* v_scale, const void* mask,
                                 void* out, void* m_out, void* l_out, void* part, int b, int h,
-                                int h_kv, int T, int d, int kv_len, int kind, int split,
+                                int h_kv, int T, int d, const void* kv_len, int kv_len_row,
+                                int kind, int split,
                                 long long q_sb, long long q_sh, long long kv_sb, long long kv_sh,
                                 long long kv_ss, float scale, void* stream) {
   if (split <= 0 || split % kSplitStep || split > kMaxSplit) return cudaErrorInvalidValue;
@@ -519,7 +527,8 @@ extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
   p.h = h;
   p.h_kv = h_kv;
   p.T = T;
-  p.kv_len = kv_len;
+  p.kv_len = static_cast<const int*>(kv_len);
+  p.kv_len_row = kv_len_row;
   p.split = split;
   p.n_split = (T + split - 1) / split;
   p.g = h / h_kv;

@@ -24,6 +24,10 @@ transformers nor flax, so it keeps its own copy of those semantics:
   or when every row has finished. The result is the new tokens
   [b, max_new_tokens], `pad_token_id` past a row's end.
 
+On a mesh (the model's `mesh`, inference on dp × fsdp × tp × sp) the rows
+are this rank's batch shard; the ranks that compute them (the "model"
+group, tp × sp) take each token as its first rank picks it.
+
 Beam search (`num_beams` > 1) raises: no caller of the JAX package asks for
 it. The same seed draws other numbers than JAX's PRNG, so sampled tokens
 agree with JAX only where the draw is forced (top_k 1). Generic over the
@@ -39,6 +43,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from lwm_tpu_torch.parallel.mesh import mesh_of
 
 
 @dataclass
@@ -125,6 +131,7 @@ def generate(model, input_ids, attention_mask=None, config=None, generator=None,
         return out
     logits, kwargs = prefill(model, input_ids, attention_mask, config.max_new_tokens,
                              vision_masks)
+    mesh = mesh_of(model)
     finished = torch.zeros(b, dtype=torch.bool, device=input_ids.device)
     for i in range(config.max_new_tokens):
         if i:
@@ -132,6 +139,8 @@ def generate(model, input_ids, attention_mask=None, config=None, generator=None,
             logits = model(token[:, None], kwargs["attention_mask"], kwargs["position_ids"],
                            kwargs["cache"])[:, -1].float()
         token = torch.where(finished, pad, _next_token(logits, config, generator))
+        if mesh is not None:   # the model group's first rank picks
+            token = mesh.broadcast(token, "model")
         out[:, i] = token
         if config.eos_token_id is not None:
             finished |= token == config.eos_token_id

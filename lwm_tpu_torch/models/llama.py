@@ -1,5 +1,5 @@
-"""LWM-Text (LLaMA architecture) in PyTorch: the single-device serving and
-training forwards.
+"""LWM-Text (LLaMA architecture) in PyTorch: the serving and training
+forwards, on one device or a mesh.
 
 Counterpart of `lwm_tpu/models/llama.py`; each piece names its JAX source.
 Parameter names mirror the flax tree (`wte`, `h.{i}.attention.wq/wk/wv/wo`,
@@ -68,9 +68,33 @@ training forward takes this rank's rows and its slice of the sequence
 `llama.py:687-776`): position ids are global (rank i's slot r holds
 position i·s_local + r contiguous, i + r·sp striped), the per-key bias comes
 from the whole sequence's attention mask and the segment ids from the
-whole sequence's (each gathered over sp when given). A forward over a cache
-(serving) refuses a mesh of more than one device: `ring_attention_inference`
-comes with a later multi-GPU slice (ROADMAP A4).
+whole sequence's (each gathered over sp when given). Training on a tp mesh
+raises (FSDP2, ROADMAP A4.1).
+
+Inference on a mesh (`LLaMAForCausalLM(config, mesh=mesh)`, or `on_tensors`
+with this rank's slices from `parallel.partition`): each rank holds its tp
+slice of the weights, so attention runs on its h/tp query and h_kv/tp kv
+heads and the MLP on its f/tp features, one all-reduce after wo and one
+after w2 (in fp32), and the vocab-split logits are gathered over tp. Rows
+(the server's slots, generate's batch) are split over dp × fsdp by the
+caller: every [b, ...] argument is this rank's rows, every other argument
+whole. The cache a rank holds is [b_local, h_kv/tp, T/sp, d] (int8 scales
+[b_local, h_kv/tp, T/sp]) when its sequence is split over sp: the shared
+index's cache (`generate`), and the server's slots under `sp_slot_caches`;
+a shared-prefix model keeps its slots' caches whole and splits its prefix
+block over sp instead (`ops.prefix`). Over a split cache:
+- writes are routed: a token lands on the rank whose slice holds its
+  position, on the shared index and per row (a verify block of q ≤ 64
+  tokens unrolled a token at a time, so that a block across a shard
+  boundary lands exactly: `lwm_tpu/models/llama.py:590-620`);
+- attention is `ops.ring.ring_attention_inference`: K4's partials (decode)
+  or K1's (out, lse) over the local keys (a prefill: causal by global
+  position, the mask as K1's per-key or full-tile bias), merged over sp;
+- the query block is split over sp when its length divides (each rank runs
+  its rows through the layers and attention gathers them), else every rank
+  runs all of it (`lwm_tpu/models/llama.py:985-1018`); the final hidden
+  states are gathered over sp, so every rank returns the whole block's
+  logits.
 
 Not in this slice: dropout (`*_pdrop` > 0 raise in training).
 """
@@ -92,12 +116,17 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from lwm_tpu_torch.ops.decode import flash_decode
 from lwm_tpu_torch.ops.flash import flash_attention_fwd
-from lwm_tpu_torch.ops.prefix import combine_lse, decode_with_prefix
+from lwm_tpu_torch.ops.prefix import combine_lse, combine_raw_partials, decode_with_prefix
 from lwm_tpu_torch.ops.quant import (
     W8A8_EXCLUDE, int8_matmul, int8_matmul_dequant, w8a8_matmul,
 )
 from lwm_tpu_torch.ops.reference import BIG_NEG, reference_attention
-from lwm_tpu_torch.ops.ring import flash_attention, ring_attention, save_flash_policy
+from lwm_tpu_torch.ops.ring import (
+    flash_attention, local_kv_len, lse_partials, merge_partials, ring_attention,
+    ring_attention_inference, save_flash_policy,
+)
+from lwm_tpu_torch.parallel.mesh import mesh_of
+from lwm_tpu_torch.parallel.partition import check_tp
 
 REMAT_BLOCKS = ("none", "nothing_saveable", "save_flash")
 # quant_dense spelling → Int8Dense impl (`lwm_tpu/models/llama.py:385-396`)
@@ -146,9 +175,11 @@ JAX_ATTN_IMPL = {"xla": "plain", "pallas": "auto"}
 
 @dataclass
 class LLaMAConfig:
-    """`lwm_tpu/models/llama.py:93-302` without `PretrainedConfig` and without
-    the mesh fields (`mesh_dim`, `sp_slot_caches`, `sp_layout`): same field
-    names and defaults, so a JAX config dict or json loads unchanged.
+    """`lwm_tpu/models/llama.py:93-302` without `PretrainedConfig` and
+    without the mesh fields `mesh_dim` and `sp_layout` (the mesh is the
+    model's `mesh`): same field names and defaults, so a JAX config dict or
+    json loads unchanged. `sp_slot_caches` splits a per_row cache's
+    sequence over sp on a mesh, as the JAX field does.
 
     The port's forward reads the model shape, `rms_norm_eps`, `theta`,
     `tie_word_embeddings`, `kv_cache_dtype`, `quant_dense`, `attn_impl`, `decode_index`,
@@ -187,6 +218,7 @@ class LLaMAConfig:
     quant_dense: str = "none"
     attn_impl: str = "auto"        # "auto" (kernels) | "plain"; JAX_ATTN_IMPL map to them
     decode_index: str = "shared"   # "shared" (generate's cache) | "per_row" (the server's)
+    sp_slot_caches: bool = False   # per_row caches split over sp (the server's slot pool)
     prefix_len: int = 0
     prefix_tokens: int = 0
     logits_tail: int = 0
@@ -261,14 +293,19 @@ class LLaMAConfig:
         return self.hidden_size // self.num_attention_heads
 
 
-def round_cache_length(config, max_length):
-    """Single-device branch of `lwm_tpu/models/llama.py:1787-1808`: caches
-    longer than 1024 round up to a 1024 multiple (the padding is never
-    written and stays masked)."""
+def round_cache_length(config, max_length, sp=None):
+    """`lwm_tpu/models/llama.py:1787-1808`: on one device (`sp` None) caches
+    longer than 1024 round up to a 1024 multiple; on a mesh the cache is
+    split over `sp`, so it rounds to a multiple of sp·1024 from sp·1024 on,
+    else of sp (the padding is never written and stays masked)."""
     del config
-    if max_length > 1024:
-        return int(-(-max_length // 1024) * 1024)
-    return max_length
+    if sp is None:
+        if max_length > 1024:
+            return int(-(-max_length // 1024) * 1024)
+        return max_length
+    if max_length >= sp * 1024:
+        return int(-(-max_length // (sp * 1024)) * (sp * 1024))
+    return int(-(-max_length // sp) * sp)
 
 
 class RMSNorm(nn.Module):
@@ -439,10 +476,12 @@ class KVCache:
 
     layers: list
     index: int = 0
+    sp: int = 1     # the ranks its sequence is split over (a mesh's sp, else 1)
 
     @property
     def length(self):
-        return self.layers[0].k.shape[2]
+        """The whole cache's positions (a rank holds length / sp of them)."""
+        return self.layers[0].k.shape[2] * self.sp
 
     def slot(self, s):
         """Batch-1 view of row s (writes through to this cache), index 0."""
@@ -455,22 +494,77 @@ class KVCache:
                     c.prefix,
                 )
                 for c in self.layers
-            ]
+            ],
+            sp=self.sp,
         )
+
+
+@dataclass
+class ShardStep:
+    """One forward over a cache whose sequence is split over sp, as every
+    layer sees it (made once a forward by `LLaMAForCausalLM._shard_step`):
+    the local keys' mask (per key [b, T_loc], or the full tile [b, s, T_loc]
+    of a block of s ≤ 64 queries), the decode's local K4 bound `kv_len` ([b]
+    on the card), the global positions of the first local key (`kv_offset`)
+    and of the first query (`q_offset`), whether the queries are split over
+    sp (`q_sharded`), and the routed write (`writes`: host slices
+    (row or None, dst_lo, dst_hi, src_lo, src_hi), or per-token local
+    positions [b, s] and their hits on the card)."""
+
+    mask: torch.Tensor
+    kv_len: Optional[torch.Tensor]
+    kv_offset: int
+    q_offset: int
+    q_sharded: bool
+    writes: object
+
+
+def _write_shard(cache, k, v, step):
+    """Write k, v [b, s, h_kv, d] (the whole block) into this rank's slice
+    of the cache, each token on the rank that owns its position."""
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)   # [b, h_kv, s, d]
+    quant = cache.k_scale is not None
+    if quant:
+        kt, k_sc = quantize_kv(kt)
+        vt, v_sc = quantize_kv(vt)
+    pairs = [(cache.k, kt), (cache.v, vt)] + ([(cache.k_scale, k_sc), (cache.v_scale, v_sc)]
+                                               if quant else [])
+    if isinstance(step.writes, list):   # host slices: contiguous runs of the block
+        for row, dst_lo, dst_hi, src_lo, src_hi in step.writes:
+            rows = slice(None) if row is None else slice(row, row + 1)
+            for dst, src in pairs:
+                dst[rows, :, dst_lo:dst_hi] = src[rows, :, src_lo:src_hi].to(dst.dtype)
+        return
+    # a token a time (`lwm_tpu/models/llama.py:590-620`), in one scatter: a
+    # token this rank does not own is sent where the row's first owned token
+    # goes, with that token's value (or, in a row with none, to position 0
+    # with the value already there), so every write to an index is the same
+    local, hit = step.writes   # [b, s]
+    b, s = local.shape
+    rows = torch.arange(b, device=k.device)[:, None]
+    some = hit.any(1, keepdim=True)
+    first = hit.int().argmax(1, keepdim=True)
+    src = torch.where(hit, torch.arange(s, device=k.device)[None], first)
+    dest = torch.where(hit, local, torch.where(some, local.gather(1, first), 0))
+    for dst, new in pairs:
+        vals = new.transpose(1, 2)[rows, src].to(dst.dtype)           # [b, s, h_kv, ...]
+        keep = some.reshape((b, 1) + (1,) * (vals.ndim - 2))
+        dst[rows, :, dest] = torch.where(keep, vals, dst[rows, :, dest])
 
 
 class LLaMAAttention(nn.Module):
     """`FlaxLLaMAAttention` (`lwm_tpu/models/llama.py:402-1223`), the
-    single-device inference branches of `_inference_attn` (`:803-947`)."""
+    inference branches of `_inference_attn` (`:803-1018`), on this rank's
+    1/tp of the heads."""
 
-    def __init__(self, config, **kw):
+    def __init__(self, config, tp=1, **kw):
         super().__init__()
         self.config = config
         h, hkv, d = config.num_attention_heads, config.kv_heads, config.head_dim
-        self.wq = _dense_cls(config, "wq")(config.hidden_size, h * d, **kw)
-        self.wk = _dense_cls(config, "wk")(config.hidden_size, hkv * d, **kw)
-        self.wv = _dense_cls(config, "wv")(config.hidden_size, hkv * d, **kw)
-        self.wo = _dense_cls(config, "wo")(h * d, config.hidden_size, **kw)
+        self.wq = _dense_cls(config, "wq")(config.hidden_size, h * d // tp, **kw)
+        self.wk = _dense_cls(config, "wk")(config.hidden_size, hkv * d // tp, **kw)
+        self.wv = _dense_cls(config, "wv")(config.hidden_size, hkv * d // tp, **kw)
+        self.wo = _dense_cls(config, "wo")(h * d // tp, config.hidden_size, **kw)
 
     def _write_cache(self, cache, k, v, write_pos):
         """Write k, v [b, q, h_kv, d]: every row at write_pos + j when it is
@@ -496,16 +590,20 @@ class LLaMAAttention(nn.Module):
         cache.v[rows, :, idx] = v.to(cache.v.dtype)
 
     def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None,
-                segment_ids=None, mesh=None):
+                segment_ids=None, mesh=None, shard=None):
         """x [b, q, hidden]; rope (cos, sin) [b, q, d/2]. With layer_cache:
         mask bool [b, q, kv] (key validity ∧ causal), write_pos [b, q] the
         rows' cache positions (an int: every row's first, the shared
         index), kv_len bounds the keys any row reads, and
-        prefix_mask bool [P] the valid keys of a shared-prefix block. Without:
-        mask is the additive per-key bias [b, 1, 1, kv] and attention is
-        causal self-attention, within `segment_ids` [b, kv] when given, over
-        the ring of `mesh`'s sp ranks when it has more than one (mask and
-        segment ids then over the whole sequence)."""
+        prefix_mask bool [P] the valid keys of a shared-prefix block (this
+        rank's slice of it when the mesh splits it over sp). Over a cache
+        split over sp, `shard` (a ShardStep) stands for mask, write_pos and
+        kv_len. Without a cache: mask is the additive per-key bias
+        [b, 1, 1, kv] and attention is causal self-attention, within
+        `segment_ids` [b, kv] when given, over the ring of `mesh`'s sp ranks
+        when it has more than one (mask and segment ids then over the whole
+        sequence). Returns this rank's share of the output projection (a
+        partial sum over tp)."""
         cfg = self.config
         b, q, _ = x.shape
         d = cfg.head_dim
@@ -514,9 +612,17 @@ class LLaMAAttention(nn.Module):
         xv = self.wv(x).view(b, q, -1, d)
         if layer_cache is None:
             out = self._self_attend(xq, xk, xv, mask, segment_ids, mesh)
+        elif shard is not None:
+            if shard.q_sharded:   # the cache takes the whole block's keys
+                xk, xv = mesh.all_gather(xk, "sp", 1), mesh.all_gather(xv, "sp", 1)
+            _write_shard(layer_cache, xk, xv, shard)
+            out = ring_attention_inference(
+                xq, layer_cache.k, layer_cache.v, shard.mask, mesh=mesh,
+                kv_offset=shard.kv_offset, q_offset=shard.q_offset, k_scale=layer_cache.k_scale,
+                v_scale=layer_cache.v_scale, q_sharded=shard.q_sharded, kv_len=shard.kv_len)
         else:
             self._write_cache(layer_cache, xk, xv, write_pos)
-            out = self._attend(xq, layer_cache, mask, kv_len, prefix_mask)
+            out = self._attend(xq, layer_cache, mask, kv_len, prefix_mask, mesh)
         return self.wo(out.reshape(b, q, -1))
 
     def _self_attend(self, xq, xk, xv, bias, segment_ids=None, mesh=None):
@@ -533,23 +639,33 @@ class LLaMAAttention(nn.Module):
                                        kv_seg=segment_ids)[0]
         return flash_attention(xq, xk, xv, bias, segment_ids, causal=True)
 
-    def _attend(self, xq, layer_cache, mask, kv_len, prefix_mask=None):
+    def _attend(self, xq, layer_cache, mask, kv_len, prefix_mask=None, mesh=None):
         """xq [b, q, h, d] over the head-major cache [b, h_kv, kv, d], and
         over its shared-prefix block when it has one
-        (`lwm_tpu/models/llama.py:803-988`)."""
+        (`lwm_tpu/models/llama.py:803-988`); on a mesh with sp > 1 the
+        block is this rank's slice of the prefix, whose partials merge over
+        sp (`decode_with_prefix_sharded`, `lwm_tpu/ops/prefix.py:150-247`)."""
         keys, values = layer_cache.k, layer_cache.v
         k_sc, v_sc = layer_cache.k_scale, layer_cache.v_scale
         pre = layer_cache.prefix
+        sharded_prefix = pre is not None and mesh is not None and mesh.sp > 1
+        if sharded_prefix and self.config.attn_impl == "plain":
+            raise NotImplementedError("a prefix split over sp merges the kernels' partials: "
+                                      "attn_impl='auto'")
         dtype = xq.dtype
         q = xq.shape[1]
         if self.config.attn_impl != "plain" and q == 1:
             if pre is not None:
                 # two K4 calls: the slots' suffixes, then every slot's query
                 # folded over the prefix block (`:840-851`)
+                p_len = self.config.prefix_tokens
+                if sharded_prefix:   # the bound on this rank's slice of the prefix
+                    n = pre.k.shape[2]
+                    p_len = max(0, min(n, p_len - mesh.sp_rank * n))
                 return decode_with_prefix(
-                    xq, keys, values, mask[:, 0], kv_len, pre.k, pre.v, prefix_mask,
-                    self.config.prefix_tokens, k_scale=k_sc, v_scale=v_sc,
-                    pk_scale=pre.k_scale, pv_scale=pre.v_scale,
+                    xq, keys, values, mask[:, 0], kv_len, pre.k, pre.v, prefix_mask, p_len,
+                    k_scale=k_sc, v_scale=v_sc, pk_scale=pre.k_scale, pv_scale=pre.v_scale,
+                    mesh=mesh if sharded_prefix else None,
                 )
             return flash_decode(xq, keys, values, mask[:, 0], kv_len, k_sc, v_sc)
         if k_sc is not None:
@@ -596,39 +712,52 @@ class LLaMAAttention(nn.Module):
         )
         out_p = out_p.reshape(b, q, h, d)
         lse_p = lse_p.reshape(h, b, q).transpose(0, 1)
-        return combine_lse(out, lse, out_p, lse_p).to(dtype)
+        if not sharded_prefix:
+            return combine_lse(out, lse, out_p, lse_p).to(dtype)
+        # this rank's slice of the prefix: its partials merge over sp first
+        o_p, m_p, l_p = merge_partials(*lse_partials(out_p, lse_p), mesh)
+        return combine_raw_partials(*lse_partials(out, lse), o_p, m_p, l_p).to(dtype)
 
 
 class LLaMAMLP(nn.Module):
-    """SwiGLU (`lwm_tpu/models/llama.py:1226-1251`)."""
+    """SwiGLU (`lwm_tpu/models/llama.py:1226-1251`), on this rank's 1/tp of
+    the features (w2's output is then a partial sum over tp)."""
 
-    def __init__(self, config, **kw):
+    def __init__(self, config, tp=1, **kw):
         super().__init__()
-        self.w1 = _dense_cls(config, "w1")(config.hidden_size, config.intermediate_size, **kw)
-        self.w2 = _dense_cls(config, "w2")(config.intermediate_size, config.hidden_size, **kw)
-        self.w3 = _dense_cls(config, "w3")(config.hidden_size, config.intermediate_size, **kw)
+        f = config.intermediate_size // tp
+        self.w1 = _dense_cls(config, "w1")(config.hidden_size, f, **kw)
+        self.w2 = _dense_cls(config, "w2")(f, config.hidden_size, **kw)
+        self.w3 = _dense_cls(config, "w3")(config.hidden_size, f, **kw)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
+def _tp_sum(x, mesh):
+    """A partial product summed over tp, in fp32 (x itself off a tp mesh)."""
+    if mesh is None or mesh.tp == 1:
+        return x
+    return mesh.all_reduce(x.float(), "tp").to(x.dtype)
+
+
 class LLaMABlock(nn.Module):
     """`lwm_tpu/models/llama.py:1254-1336` (no dropout)."""
 
-    def __init__(self, config, **kw):
+    def __init__(self, config, tp=1, **kw):
         super().__init__()
         self.config = config
-        self.attention = LLaMAAttention(config, **kw)
-        self.feed_forward = LLaMAMLP(config, **kw)
+        self.attention = LLaMAAttention(config, tp, **kw)
+        self.feed_forward = LLaMAMLP(config, tp, **kw)
         self.attention_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         self.ffn_norm = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
     def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None,
-                segment_ids=None, mesh=None):
-        x = x + self.attention(
+                segment_ids=None, mesh=None, shard=None):
+        x = x + _tp_sum(self.attention(
             self.attention_norm(x), mask, write_pos, rope, layer_cache, kv_len, prefix_mask,
-            segment_ids, mesh,
-        )
+            segment_ids, mesh, shard,
+        ), mesh)
         h = self.ffn_norm(x)
         chunk = self.config.scan_mlp_chunk_size
         if (self.config.scan_mlp and torch.is_grad_enabled() and h.shape[1] >= chunk
@@ -639,7 +768,7 @@ class LLaMABlock(nn.Module):
                 [checkpoint(self.feed_forward, c, use_reentrant=False) for c in h.split(chunk, 1)],
                 dim=1,
             )
-        return x + self.feed_forward(h)
+        return x + _tp_sum(self.feed_forward(h), mesh)
 
 
 class LLaMAForCausalLM(nn.Module):
@@ -648,7 +777,8 @@ class LLaMAForCausalLM(nn.Module):
 
     takes_vision_masks = False   # whether `_embed` reads vision masks
 
-    def __init__(self, config, *, dtype=torch.float32, param_dtype=None, device="cuda"):
+    def __init__(self, config, *, dtype=torch.float32, param_dtype=None, device="cuda",
+                 mesh=None):
         super().__init__()
         if device is not None and torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -657,27 +787,51 @@ class LLaMAForCausalLM(nn.Module):
             )
         self.config = config
         self.dtype = dtype
+        tp = 1 if mesh is None else mesh.tp
+        check_tp(config, tp)
+        if mesh is not None and mesh.size > 1 and config.quant_dense != "none":
+            raise NotImplementedError("int8 weights on a mesh come with a later multi-GPU slice "
+                                      "(ROADMAP A4): serve int8 weights on one device")
         kw = dict(dtype=dtype, param_dtype=param_dtype or dtype, device=device)
         self.wte = Embed(config.vocab_size, config.hidden_size, **kw)
         self.h = nn.ModuleList(
-            LLaMABlock(config, **kw) for _ in range(config.num_hidden_layers)
+            LLaMABlock(config, tp, **kw) for _ in range(config.num_hidden_layers)
         )
         self.ln_f = RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
         # a tied head is the embedding's product and is never quantized
         self.lm_head = (
             None if config.tie_word_embeddings
-            else _dense_cls(config, "lm_head")(config.hidden_size, config.vocab_size, **kw)
+            else _dense_cls(config, "lm_head")(config.hidden_size, config.vocab_size // tp, **kw)
         )
         self._rope = {}  # device → factored RoPE table, built at first use
-        self.mesh = None  # a parallel.mesh.Mesh: the training forward's dp and sp ranks
+        # a parallel.mesh.Mesh: the training forward's dp and sp ranks, or
+        # the inference forward's (the weights are then this rank's tp slices)
+        self.mesh = mesh
 
     @classmethod
-    def on_tensors(cls, config, state_dict, dtype):
+    def on_tensors(cls, config, state_dict, dtype, mesh=None):
         """A model of `config` whose parameters are the tensors of
-        `state_dict` (not copies), in eval mode."""
-        model = cls(config, dtype=dtype, device="meta")
+        `state_dict` (not copies), in eval mode; on `mesh`, `state_dict`
+        holds this rank's slices (`parallel.partition.shard_state_dict`)."""
+        kw = {} if mesh is None else dict(mesh=mesh)
+        model = cls(config, dtype=dtype, device="meta", **kw)
         model.load_state_dict(state_dict, assign=True)
         return model.eval()
+
+    @property
+    def _mesh(self):
+        return mesh_of(self)
+
+    @property
+    def cache_sp(self):
+        """The ranks a cache's sequence is split over: the mesh's sp for the
+        shared index and for `sp_slot_caches` slots, 1 for a shared-prefix
+        model's slots (its prefix block is split instead) and off a mesh."""
+        mesh, cfg = self._mesh, self.config
+        if mesh is None or cfg.prefix_len or not (cfg.decode_index == "shared"
+                                                  or cfg.sp_slot_caches):
+            return 1
+        return mesh.sp
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -694,14 +848,24 @@ class LLaMAForCausalLM(nn.Module):
         """Zeroed head-major cache for `batch` rows of `length` positions.
         A `prefix_len` model's layers also hold the frozen batch-1 prefix
         block: `prefix` (one LayerCache a layer, adopted as it is, not
-        copied), else zeros of [1, h_kv, prefix_len, d]."""
+        copied), else zeros of [1, h_kv, prefix_len, d]. On a mesh `batch`
+        is this rank's rows and `length` the whole cache's: the rank holds
+        its h_kv/tp heads and, when `cache_sp` splits it, length/sp
+        positions (a prefix block: prefix_len/sp positions when sp > 1)."""
         cfg = self.config
+        mesh = self._mesh
+        tp = 1 if mesh is None else mesh.tp
+        sp = self.cache_sp
+        if length % sp:
+            raise ValueError(f"cache length {length} must be a multiple of sp={sp}")
+        length //= sp
+        p_len = cfg.prefix_len // (mesh.sp if mesh is not None and cfg.prefix_len else 1)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.wte.weight.device)
 
         def layer(rows, n):
-            shape = (rows, cfg.kv_heads, n, cfg.head_dim)
+            shape = (rows, cfg.kv_heads // tp, n, cfg.head_dim)
             if cfg.kv_cache_dtype == "int8":
                 return LayerCache(
                     zeros(shape, torch.int8), zeros(shape, torch.int8),
@@ -712,14 +876,15 @@ class LLaMAForCausalLM(nn.Module):
         layers = [layer(batch, length) for _ in range(cfg.num_hidden_layers)]
         if cfg.prefix_len:
             if prefix is None:
-                prefix = [layer(1, cfg.prefix_len) for _ in layers]
-            if len(prefix) != len(layers) or prefix[0].k.shape[2] != cfg.prefix_len:
-                raise ValueError(f"prefix blocks do not match prefix_len {cfg.prefix_len}")
+                prefix = [layer(1, p_len) for _ in layers]
+            if len(prefix) != len(layers) or prefix[0].k.shape[2] != p_len:
+                raise ValueError(f"prefix blocks do not match prefix_len {cfg.prefix_len} "
+                                 f"({p_len} positions a rank)")
             for c, p in zip(layers, prefix):
                 c.prefix = p
         elif prefix is not None:
             raise ValueError("a prefix block needs a model with prefix_len set")
-        return KVCache(layers)
+        return KVCache(layers, sp=sp)
 
     def prepare_inputs_for_generation(self, input_ids, max_length, attention_mask=None):
         """`generate`'s first inputs (`lwm_tpu/models/llama.py:1814-1834`): a
@@ -732,7 +897,9 @@ class LLaMAForCausalLM(nn.Module):
             raise ValueError("generate runs on a shared-index cache: decode_index='shared'")
         b, s = input_ids.shape
         dev = input_ids.device
-        cache_length = round_cache_length(self.config, max_length)
+        mesh = self._mesh
+        cache_length = round_cache_length(self.config, max_length,
+                                          None if mesh is None else mesh.sp)
         extended = torch.ones((b, cache_length), dtype=torch.bool, device=dev)
         if attention_mask is not None:
             position_ids = attention_mask.long().cumsum(-1) - 1
@@ -800,19 +967,21 @@ class LLaMAForCausalLM(nn.Module):
         return self.wte(input_ids)
 
     def _head(self, x):
-        """The logits of the final hidden states x."""
+        """The logits of the final hidden states x (on a tp mesh the rank's
+        vocabulary slices, gathered)."""
         if self.lm_head is None:
             return F.linear(x, self.wte.weight.to(self.dtype))
-        return self.lm_head(x)
+        logits = self.lm_head(x)
+        mesh = self._mesh
+        return logits if mesh is None else mesh.all_gather(logits, "tp", -1)
 
     def _hidden(self, input_ids, attention_mask, position_ids, cache, segment_ids,
                 vision_masks=None):
         cfg = self.config
-        mesh = self.mesh if self.mesh is not None and self.mesh.size > 1 else None
-        if mesh is not None and cache is not None:
-            raise NotImplementedError(
-                "a forward over a cache on a mesh of more than one device needs "
-                "ring_attention_inference, which comes with a later multi-GPU slice (ROADMAP A4)")
+        mesh = self._mesh
+        if mesh is not None and cache is None and mesh.tp > 1:
+            raise NotImplementedError("training on a tp mesh comes with FSDP2 (ROADMAP A4.1): "
+                                      "the port trains on dp and sp")
         if segment_ids is not None and cache is not None:
             raise ValueError("segment ids are for forwards without a cache")
         if self.training and torch.is_grad_enabled() and max(
@@ -822,7 +991,7 @@ class LLaMAForCausalLM(nn.Module):
                                       "(ROADMAP A3, A4)")
         b, s = input_ids.shape
         dev = input_ids.device
-        sp = 1 if mesh is None else mesh.sp
+        sp = 1 if mesh is None or cache is not None else mesh.sp   # the training ring's
         if s * sp > cfg.max_sequence_length:
             raise ValueError(f"input length {s * sp} > max_sequence_length "
                              f"{cfg.max_sequence_length}")
@@ -840,7 +1009,7 @@ class LLaMAForCausalLM(nn.Module):
         kv = s * sp if cache is None else cache.length
         if attention_mask is None:
             attention_mask = torch.ones(b, kv, dtype=torch.bool, device=dev)
-        write_pos, prefix_mask = position_ids, None
+        write_pos, prefix_mask, shard = position_ids, None, None
         if cache is not None:
             # mask construction (`lwm_tpu/models/llama.py:1124-1173`): global
             # positions for RoPE, suffix-local ones for the cache (`:581-586`)
@@ -857,12 +1026,18 @@ class LLaMAForCausalLM(nn.Module):
                 frontier = (cache.index + torch.arange(s, device=dev))[None, :, None]
             else:
                 raise ValueError(f"decode_index {cfg.decode_index!r}: use 'shared' or 'per_row'")
-            causal = torch.arange(kv, device=dev)[None, None, :] <= frontier
-            mask = attention_mask.bool()[:, None, :] & causal          # [b, s, kv]
             kv_len = cache.index + s
+            if cache.sp > 1:
+                shard = self._shard_step(cache, attention_mask, write_pos, frontier, kv_len, s)
+                mask = None
+            else:
+                causal = torch.arange(kv, device=dev)[None, None, :] <= frontier
+                mask = attention_mask.bool()[:, None, :] & causal          # [b, s, kv]
             pre = cache.layers[0].prefix
             if pre is not None:
-                prefix_mask = torch.arange(pre.k.shape[2], device=dev) < cfg.prefix_tokens
+                n = pre.k.shape[2]
+                first = 0 if mesh is None else mesh.sp_rank * n   # this rank's slice of it
+                prefix_mask = torch.arange(first, first + n, device=dev) < cfg.prefix_tokens
         else:
             # the training branch's per-key bias (`llama.py:1114-1119`)
             mask = torch.where(
@@ -870,19 +1045,56 @@ class LLaMAForCausalLM(nn.Module):
             )[:, None, None, :]
             kv_len = None
 
+        if shard is not None and shard.q_sharded:   # this rank's rows of the block
+            rows = slice(mesh.sp_rank * (s // mesh.sp), (mesh.sp_rank + 1) * (s // mesh.sp))
+            input_ids, position_ids = input_ids[:, rows], position_ids[:, rows]
+            vision_masks = None if vision_masks is None else vision_masks[:, rows]
         rope = take_freqs(self._rope_table(dev), position_ids)
         x = self._embed(input_ids, vision_masks)
         remat = cfg.remat_block != "none" and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
             args = (x, mask, write_pos, rope, None if cache is None else cache.layers[i], kv_len,
-                    prefix_mask, segment_ids, mesh)
+                    prefix_mask, segment_ids, mesh, shard)
             if remat:
                 x = checkpoint(block, *args, use_reentrant=False, context_fn=self._remat_context)
             else:
                 x = block(*args)
         if cache is not None:
             cache.index += s
+        if shard is not None and shard.q_sharded:
+            x = mesh.gather_sequence(x)
         return self.ln_f(x)
+
+    def _shard_step(self, cache, attention_mask, write_pos, frontier, kv_len, s):
+        """The ShardStep of a forward of s tokens over a cache split over sp:
+        this rank's keys are positions [kv_offset, kv_offset + T_loc) of the
+        whole cache; `attention_mask` [b, T] is over the whole cache."""
+        mesh = self._mesh
+        n = cache.layers[0].k.shape[2]
+        off = mesh.sp_rank * n
+        dev = attention_mask.device
+        valid = attention_mask[:, off:off + n].bool()
+        kpos = torch.arange(off, off + n, device=dev)
+        kv_len_loc = None
+        if s == 1:
+            mask = valid & (kpos[None] <= frontier[:, 0])
+            kv_len_loc = local_kv_len(mask)
+        elif s <= 64:   # short blocks may carry per-row frontiers: the full tile
+            mask = valid[:, None] & (kpos[None, None] <= frontier)
+        else:           # rows share the frontier: the last one's per key
+            mask = valid & (kpos[None] <= frontier[:, -1])
+        if not isinstance(write_pos, int) and s <= 64:   # a token at a time, on the card
+            local = write_pos[:, :1] - off + torch.arange(s, device=dev)[None]
+            writes = (local.clamp(0, n - 1), (local >= 0) & (local < n))
+        else:   # runs: the shared index, or an admission's rows (their starts read once)
+            starts = ([(None, write_pos)] if isinstance(write_pos, int)
+                      else list(enumerate(write_pos[:, 0].tolist())))
+            writes = []
+            for row, p in starts:
+                lo, hi = max(p, off), min(p + s, off + n)
+                if lo < hi:
+                    writes.append((row, lo - off, hi - off, lo - p, hi - p))
+        return ShardStep(mask, kv_len_loc, off, kv_len - s, s > 1 and s % mesh.sp == 0, writes)
 
     def _remat_context(self):
         """Checkpoint contexts of `remat_block` (`llama.py:1369-1394`)."""

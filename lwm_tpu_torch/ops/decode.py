@@ -11,10 +11,12 @@ across blocks (`SPLIT_KEYS` a block), each block writes its split's partial
 Ported: bf16 and int8 caches under bf16 q (k scales folded into the logits, v
 scales into p before p is rounded for p·v), fp32 caches under fp32 q (the
 same kernels instantiated for fp32, p not rounded: the needle evals' dtype;
-counted apart in `flash_decode.f32_launches`), per-key masks, the `kv_len` scan bound, GQA
-at any group g = h / h_kv (the g query heads of a kv head share one cache
-read; a group other than 1/2/4/8 runs in chunks of 8 heads, as the
-shared-prefix fold of `ops.prefix` gives slots·g), and `return_partials` (o
+counted apart in `flash_decode.f32_launches`), per-key masks, the `kv_len`
+scan bound (an int32 on the card, one or one a row, read by the kernel: no
+host sync and nothing baked into the launch), GQA at any group g = h /
+h_kv (the g query heads of a kv head share one cache read; a group other
+than 1/2/4/8 runs in chunks of 8 heads, as the shared-prefix fold of
+`ops.prefix` gives slots·g), and `return_partials` (o
 l-normalized, with the row's m and l, for the shared-prefix and
 sequence-sharded combines).
 
@@ -26,6 +28,8 @@ plain PyTorch (`split_partials_plain`, then `merge_partials_plain`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,16 +43,24 @@ CACHE_KINDS = {torch.bfloat16: {torch.bfloat16: 0, torch.int8: 1}, torch.float32
 SPLIT_KEYS = 512            # keys a block of the kernel's first pass (a multiple of 256, ≤ 2048)
 
 
+def _kv_bound(kv_len, device):
+    """kv_len (an int, or an int tensor: a scalar or [b]) as [b|1, 1] on
+    `device`, to compare with key positions."""
+    return torch.as_tensor(kv_len, device=device).reshape(-1, 1)
+
+
 def _masked_logits(q, k, mask, kv_len, k_scale, scale):
     """Scaled logits [b, h_kv, g, T] fp32 with BIG_NEG at masked keys and
-    at keys at or past kv_len, and the validity [b, 1, 1, T]."""
+    at keys at or past kv_len (an int, or a scalar or [b] int tensor), and
+    the validity [b, 1, 1, T]."""
     b, _, h, d = q.shape
     h_kv, T = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, h_kv, h // h_kv, d)
     logits = torch.einsum("bkgd,bktd->bkgt", qf, k.to(q.dtype).float()) * scale
     if k_scale is not None:
         logits = logits * k_scale.float()[:, :, None, :]
-    valid = mask.bool() & (torch.arange(T, device=q.device) < kv_len)[None, :]
+    keys = torch.arange(T, device=q.device)[None, :]
+    valid = mask.bool() & (keys < _kv_bound(kv_len, q.device))
     valid = valid[:, None, None, :]
     return torch.where(valid, logits, BIG_NEG), valid
 
@@ -130,6 +142,27 @@ def flash_decode_split_plain(q, k, v, mask, kv_len, k_scale=None, v_scale=None, 
     return merge_partials_plain(parts, q.dtype, return_partials)
 
 
+@functools.lru_cache(maxsize=4096)
+def _int_on_device(value, device):
+    """An int as an int32 tensor [1] on `device`, made once a value: every
+    layer of a round reads the same one, and a graph captured after a first
+    call replays it (a copy from the host cannot be captured)."""
+    return torch.tensor([value], dtype=torch.int32, device=device)
+
+
+def _kv_len_arg(kv_len, b, device):
+    """kv_len → (int32 contiguous tensor on `device`, one a row?): a Python
+    int through `_int_on_device`; a tensor is a scalar or [b]."""
+    if not isinstance(kv_len, torch.Tensor):
+        return _int_on_device(int(kv_len), device), 0
+    if kv_len.device != device:
+        raise ValueError(f"kv_len on {kv_len.device}, q on {device}")
+    if kv_len.dtype.is_floating_point or kv_len.numel() not in (1, b) or kv_len.ndim > 1:
+        raise ValueError(f"kv_len must be an int tensor, a scalar or [{b}]: got "
+                         f"{kv_len.dtype} {tuple(kv_len.shape)}")
+    return kv_len.to(torch.int32).reshape(-1).contiguous(), int(kv_len.numel() > 1)
+
+
 def check_decode_args(q, k, v, mask, k_scale, v_scale):
     """Raise on anything the CUDA kernel does not take: bf16 q over a bf16
     or int8 cache, or fp32 q over an fp32 cache."""
@@ -178,10 +211,12 @@ def check_decode_args(q, k, v, mask, k_scale, v_scale):
 def flash_decode(q, k, v, mask, kv_len, k_scale=None, v_scale=None, *, scale=None,
                  return_partials=False):
     """q: [b, 1, h, d]; k, v: head-major [b, h_kv, T, d] (bf16 q: bf16, or
-    int8 with k_scale/v_scale [b, h_kv, T] fp32; fp32 q: fp32); mask: bool [b, T], True = attend;
-    kv_len: int, keys at or past it are not read (an upper bound on every
-    row's frontier). Returns [b, 1, h, d] in q.dtype; a row with no valid
-    key gives 0. With `return_partials`, returns (o, m, l) as the JAX kernel
+    int8 with k_scale/v_scale [b, h_kv, T] fp32; fp32 q: fp32); mask: bool
+    [b, T], True = attend; kv_len: keys at or past it are not read (an upper
+    bound on every row's frontier): an int32 tensor on q's device, a scalar
+    or [b] (one a row), read by the kernel on the card; a Python int is
+    moved there (once a value). Returns [b, 1, h, d] in q.dtype; a row with
+    no valid key gives 0. With `return_partials`, returns (o, m, l) as the JAX kernel
     does: o as above (l-normalized), m the row's max scaled logit and l =
     Σ exp(s − m), both [b, h, 1] fp32; a row with no valid key gives
     (0, BIG_NEG, 0)."""
@@ -203,6 +238,7 @@ def flash_decode(q, k, v, mask, kv_len, k_scale=None, v_scale=None, *, scale=Non
     if return_partials:
         m = torch.empty((b, h, 1), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
+    kv_len, kv_len_row = _kv_len_arg(kv_len, b, q.device)
     lib = _build.load()
     rc = lib.lwm_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -210,7 +246,8 @@ def flash_decode(q, k, v, mask, kv_len, k_scale=None, v_scale=None, *, scale=Non
         mask.data_ptr(), out.data_ptr(),
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         part.data_ptr(),
-        b, h, h_kv, T, d, max(min(int(kv_len), T), 0), CACHE_KINDS[q.dtype][k.dtype], SPLIT_KEYS,
+        b, h, h_kv, T, d, kv_len.data_ptr(), kv_len_row, CACHE_KINDS[q.dtype][k.dtype],
+        SPLIT_KEYS,
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         float(scale), _build.stream_handle(q.device),
     )

@@ -1,16 +1,23 @@
 """Shared-prefix attention for serving: one document prefilled once into a
 frozen batch-1 KV block, every slot's cache holding only its own suffix.
 
-Counterpart of `lwm_tpu/ops/prefix.py:38-147, 250-262` (the sharded
-variants, `:150-247`, wait for meshes). Softmax over [prefix ++ suffix] is
+Counterpart of `lwm_tpu/ops/prefix.py:38-262`. Softmax over [prefix ++ suffix] is
 the merge of the two ranges' flash partials. A decode round reads the
 prefix once for the whole pool: every slot's queries fold into the
 query-head dim of one batch-1 K4 call ([b, 1, h, d] → [1, 1, h_kv·b·g, d],
 kv-head-major), so K4's group becomes b·g (`ops.decode` takes any group).
 
+On a mesh (`decode_with_prefix(..., mesh=)`, `decode_with_prefix_sharded`
+of `:150-247`) the prefix block is split over sp: each rank streams its
+P/sp slice, the prefix partials merge over sp (`ops.ring.merge_partials`:
+a max and a sum of [b, h, 1]-sized stats and of o), and the suffix, whose
+slot caches are whole on every sp rank, is computed alike on each. Rows are
+this rank's batch shard and heads its tp slice, which need no collective.
+
 Beside the JAX signatures, `decode_prefix_partials` and `decode_with_prefix`
-take the prefix's true token count `prefix_tokens` as a host int: it is the
-K4 `kv_len` of the prefix call (JAX derives it on the device from the mask).
+take the prefix's true token count `prefix_tokens` as a host int (on a
+mesh, the count within this rank's slice): it is the K4 `kv_len` of the
+prefix call (JAX derives it on the device from the mask).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 
 from lwm_tpu_torch.ops.decode import flash_decode
 from lwm_tpu_torch.ops.reference import MASK_GUARD
+from lwm_tpu_torch.ops.ring import merge_partials
 
 
 def _fold(q, h_kv):
@@ -40,8 +48,8 @@ def _unfold_ml(x, b, h_kv, g):
 
 def combine_raw_partials(o1, m1, l1, o2, m2, l2):
     """Merge two flash partials in the raw-accumulator convention (o = Σ
-    e^{s−m}·v, l = Σ e^{s−m}): o [b, 1, h, d], m and l [b, h, 1], fp32.
-    Returns the normalized output [b, 1, h, d] fp32; a range with no valid
+    e^{s−m}·v, l = Σ e^{s−m}): o [b, sq, h, d], m and l [b, h, sq], fp32.
+    Returns the normalized output [b, sq, h, d] fp32; a range with no valid
     key (m at BIG_NEG) contributes nothing."""
     m_glob = torch.maximum(m1, m2)
     c1 = torch.where(m1 > MASK_GUARD, torch.exp(m1 - m_glob), 0.0)
@@ -83,13 +91,17 @@ def decode_slot_partials(q, k, v, key_mask, kv_len, k_scale=None, v_scale=None):
 
 
 def decode_with_prefix(q, k, v, key_mask, kv_len, pk, pv, prefix_mask, prefix_tokens, *,
-                       k_scale=None, v_scale=None, pk_scale=None, pv_scale=None):
+                       k_scale=None, v_scale=None, pk_scale=None, pv_scale=None, mesh=None):
     """One decode step over [shared prefix ++ own suffix cache]: two K4
-    calls (the suffix, then the folded prefix) and the combine. Returns
-    [b, 1, h, d] in q.dtype."""
+    calls (the suffix, then the folded prefix) and the combine. With `mesh`
+    (sp > 1), pk/pv/prefix_mask are this rank's slice of the prefix and
+    its partials merge over sp first (`decode_with_prefix_sharded`,
+    `lwm_tpu/ops/prefix.py:150-247`). Returns [b, 1, h, d] in q.dtype."""
     o_s, m_s, l_s = decode_slot_partials(q, k, v, key_mask, kv_len, k_scale, v_scale)
     o_p, m_p, l_p = decode_prefix_partials(q, pk, pv, prefix_mask, prefix_tokens,
                                            pk_scale, pv_scale)
+    if mesh is not None:
+        o_p, m_p, l_p = merge_partials(o_p, m_p, l_p, mesh)
     return combine_raw_partials(o_s, m_s, l_s, o_p, m_p, l_p).to(q.dtype)
 
 

@@ -1,7 +1,9 @@
 """Training attention with hand-written backwards: the single-device
 `flash_attention` (the counterpart of `lwm_tpu/ops/ring.py:473-537`, the
 mesh-less branch of the JAX model's `_ring_train`, `llama.py:708-733`) and
-the sequence-parallel `ring_attention` (`lwm_tpu/ops/ring.py:191-465`).
+the sequence-parallel `ring_attention` (`lwm_tpu/ops/ring.py:191-465`); and
+inference over a KV cache split across sp, `ring_attention_inference`
+(`lwm_tpu/ops/ring.py:545-640`, at the end of this module).
 
 `FlashAttention` is a `torch.autograd.Function`. Its forward runs K1
 (`ops.flash.flash_attention_fwd`, seq-major kv) through the custom op
@@ -51,6 +53,7 @@ from torch.distributed.distributed_c10d import _resolve_process_group
 from torch.utils.checkpoint import CheckpointPolicy
 
 from lwm_tpu_torch.ops import flash
+from lwm_tpu_torch.ops.decode import flash_decode
 from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD
 
 
@@ -285,3 +288,95 @@ def ring_attention(q, k, v, bias=None, segment_ids=None, *, group, layout="conti
     if segment_ids is not None:
         segment_ids = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
     return RingAttention.apply(q, k, v, bias, segment_ids, group, layout == "striped")
+
+
+# ------------------------------------------------------- inference over sp
+
+
+def merge_partials(o, m, l, mesh, axis="sp"):
+    """Flash partials of the ranks of `axis` merged into the whole range's
+    (`lwm_tpu/ops/ring.py:621-632`): the max of m, then the sums of the
+    corrected l and o. Raw-accumulator convention (o = Σ e^{s−m}·v, l =
+    Σ e^{s−m}): o [b, sq, h, d], m and l [b, h, sq], fp32. A rank whose range
+    holds no valid key (m at BIG_NEG) contributes nothing. Returns the
+    merged (o, m, l) on every rank of `axis`: one max and one sum."""
+    m_glob = mesh.all_reduce(m, axis, "max")
+    c = torch.where(m > MASK_GUARD, torch.exp(m - m_glob), 0.0)
+    ct = c.transpose(1, 2)[..., None]
+    o = torch.where(ct > 0, o, 0.0) * ct
+    b, sq, h, d = o.shape
+    packed = mesh.all_reduce(torch.cat([o.reshape(b, -1), (l * c).reshape(b, -1)], 1), axis)
+    return (packed[:, :sq * h * d].reshape(b, sq, h, d), m_glob,
+            packed[:, sq * h * d:].reshape(b, h, sq))
+
+
+def finalize_partials(o, l, dtype):
+    """Raw partials → the normalized output in `dtype`; 0 where no key was
+    valid."""
+    lt = l.transpose(1, 2)[..., None]
+    return torch.where(lt > 0, o / lt.clamp_min(1e-30), 0.0).to(dtype)
+
+
+def lse_partials(out, lse):
+    """K1's normalized (out, lse) as raw partials (o, m, l)."""
+    l = (lse > MASK_GUARD).float()
+    return out.float() * l.transpose(1, 2)[..., None], lse, l
+
+
+def local_kv_len(mask):
+    """Each row's bound on the valid keys of a per-key mask [b, T]: one past
+    its last valid key, int32 [b] on the mask's device (computed there: no
+    host read)."""
+    pos = torch.arange(1, mask.shape[-1] + 1, device=mask.device, dtype=torch.int32)
+    return torch.where(mask, pos, 0).amax(-1).to(torch.int32)
+
+
+def ring_attention_inference(q, k, v, mask, *, mesh, kv_offset, q_offset=0, k_scale=None,
+                             v_scale=None, q_sharded=False, kv_len=None):
+    """Attention of a query block over a KV cache whose sequence is split
+    across the sp ranks of `mesh` (`lwm_tpu/ops/ring.py:545-640`): each rank
+    computes the partials of the whole block over its slice of the cache,
+    and they merge over sp (`merge_partials`).
+
+    q [b, sq, h, d]: the whole block on every sp rank, or with `q_sharded`
+    this rank's contiguous 1/sp of it (gathered here; the output is this
+    rank's rows again). k, v head-major [b, h_kv, T_loc, d]: this rank's
+    slice of the cache, its key j at global position kv_offset + j (bf16 or
+    fp32 as q, or int8 with k_scale, v_scale [b, h_kv, T_loc] fp32). mask
+    bool over the local keys: [b, T_loc] per key, or [b, sq, T_loc] a full
+    tile (the verify blocks' per-row frontiers).
+    - One query (decode): K4 with `return_partials` over the local slice,
+      its `kv_len` the local bound on the card (`kv_len`, [b] or a scalar,
+      else `local_kv_len` of the mask), the mask per key: validity ∧
+      frontier.
+    - More (a prefill): K1 over the local keys, causal by global position
+      (query i at q_offset + i, q_offset the cache index) plus the mask as
+      K1's bias: per key (validity ∧ the last query's frontier) or the full
+      tile. No mask over the whole cache is built.
+    The fp32 routes of K1 and K4 serve fp32 q. Returns [b, sq, h, d] in
+    q.dtype; a row with no valid key anywhere gives 0."""
+    sq_local = q.shape[1]
+    if q_sharded:
+        q = mesh.all_gather(q, "sp", 1)
+    b, sq, h, d = q.shape
+    key_mask = mask if mask.ndim == 2 else mask[:, -1]
+    if sq == 1:
+        if kv_len is None:
+            kv_len = local_kv_len(key_mask)
+        o, m, l = flash_decode(q, k, v, key_mask.contiguous(), kv_len, k_scale, v_scale,
+                               return_partials=True)
+        o = o.float() * l.transpose(1, 2)[..., None]
+    else:
+        if k_scale is not None:   # the prefill reads a dequantized slice
+            k = (k.float() * k_scale[..., None]).to(q.dtype)
+            v = (v.float() * v_scale[..., None]).to(q.dtype)
+        tile = mask[:, None] if mask.ndim == 3 else mask[:, None, None, :]
+        bias = torch.where(tile, 0.0, BIG_NEG)
+        out, lse = flash.flash_attention_fwd(q, k, v, bias, causal=True, q_offset=q_offset,
+                                             kv_offset=kv_offset, kv_head_major=True)
+        o, m, l = lse_partials(out, lse)
+    o, _, l = merge_partials(o, m, l, mesh)
+    out = finalize_partials(o, l, q.dtype)
+    if q_sharded:
+        out = out[:, mesh.sp_rank * sq_local:(mesh.sp_rank + 1) * sq_local]
+    return out

@@ -9,11 +9,23 @@ coordinate of r in row-major (dp, fsdp, tp, sp) order), so `!` changes
 nothing. One rank drives one card (or the CPU), so a mesh of n devices is a
 job of n processes, started by `torchrun`.
 
-What the port runs on a mesh: dp (each dp group takes its rows of the
-batch) and sp (each sp rank its slice of the sequence, attention by
-`ops.ring.ring_attention`; gradients summed over every rank). fsdp and tp
-> 1 raise: the partition rules (`lwm_tpu/parallel/partition.py`) come with
-a later multi-GPU slice (ROADMAP A4).
+What the port runs on a mesh:
+- training on dp (each dp group takes its rows of the batch) and sp (each sp
+  rank its slice of the sequence, attention by `ops.ring.ring_attention`;
+  gradients summed over every rank). fsdp or tp > 1 in training raises in
+  `train.check_mesh` (FSDP2 comes with ROADMAP A4.1);
+- inference on all four axes: the batch (the server's slots, generate's rows)
+  split over dp × fsdp, the weights split over tp (`parallel.partition`) and
+  replicated over dp × fsdp × sp, and the KV cache split over tp (its heads)
+  and sp (its sequence: `ops.ring.ring_attention_inference`).
+
+Beside the per-axis groups of the torch `DeviceMesh`, a mesh holds two
+groups of its own: "batch" (the dp × fsdp ranks that share a tp and sp
+coordinate) and "model" (the tp × sp ranks that share a batch shard, which
+compute the same rows). Its collectives (`all_reduce`, `all_gather`,
+`broadcast`) run over a named group; under gloo, which takes CPU tensors
+only, card tensors are staged through host memory (two ranks sharing one
+card), as the backend decides and never as a fallback.
 """
 
 from __future__ import annotations
@@ -88,16 +100,23 @@ def initialize_distributed(config=None, device="cuda", backend=None):
     return dist.get_world_size()
 
 
+# the mesh's own groups → the axes they span
+GROUP_AXES = {"batch": ("dp", "fsdp"), "model": ("tp", "sp")}
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A (dp, fsdp, tp, sp) mesh over the job's ranks and the sequence's
     layout over sp: "contiguous" (sp rank i holds positions [i·s, (i+1)·s)
     of a sequence of sp·s) or "striped" (positions i, i + sp, i + 2·sp, …;
-    `ops.striped`). `device_mesh` is the torch DeviceMesh, None on one rank."""
+    `ops.striped`). `device_mesh` is the torch DeviceMesh, None on one rank;
+    `groups` this rank's "batch" and "model" process groups."""
 
     dims: tuple
     device_mesh: object = None
     layout: str = "contiguous"
+    groups: dict = dataclasses.field(default_factory=dict, compare=False)
 
     @property
     def shape(self):
@@ -112,8 +131,27 @@ class Mesh:
         return self.shape["dp"]
 
     @property
+    def fsdp(self):
+        return self.shape["fsdp"]
+
+    @property
+    def tp(self):
+        return self.shape["tp"]
+
+    @property
     def sp(self):
         return self.shape["sp"]
+
+    @property
+    def batch(self):
+        """Batch shards: dp × fsdp."""
+        return self.dp * self.fsdp
+
+    def axis_size(self, axis=None):
+        """The ranks of `axis` (a mesh axis, "batch", "model", or None: all)."""
+        if axis is None:
+            return self.size
+        return math.prod(self.shape[a] for a in GROUP_AXES.get(axis, (axis,)))
 
     def _local_rank(self, axis):
         return 0 if self.device_mesh is None else self.device_mesh.get_local_rank(axis)
@@ -123,52 +161,114 @@ class Mesh:
         return self._local_rank("dp")
 
     @property
+    def tp_rank(self):
+        return self._local_rank("tp")
+
+    @property
     def sp_rank(self):
         return self._local_rank("sp")
 
+    @property
+    def batch_rank(self):
+        """This rank's batch shard: dp_rank · fsdp + fsdp_rank."""
+        return self.dp_rank * self.fsdp + self._local_rank("fsdp")
+
+    def rank_of(self, dp=0, fsdp=0, tp=0, sp=0):
+        """The global rank at a mesh coordinate (ranks in row-major order)."""
+        rank = 0
+        for size, i in zip(self.dims, (dp, fsdp, tp, sp)):
+            rank = rank * size + i
+        return rank
+
     def group(self, axis=None):
-        """The process group of `axis` ("dp" or "sp"), or of every rank."""
+        """The process group of `axis` (a mesh axis, "batch" or "model"), or
+        of every rank; None on one rank."""
         if self.device_mesh is None:
             return None
-        return dist.group.WORLD if axis is None else self.device_mesh.get_group(axis)
+        if axis is None:
+            return dist.group.WORLD
+        if axis in GROUP_AXES:
+            return self.groups[axis]
+        return self.device_mesh.get_group(axis)
+
+    @staticmethod
+    def _on_host(group, x):
+        return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+
+    def all_reduce(self, x, axis=None, op="sum"):
+        """x reduced ("sum" or "max") over the ranks of `axis`; a new tensor
+        on x's device (x itself when the axis has one rank)."""
+        if self.axis_size(axis) == 1:
+            return x
+        group = self.group(axis)
+        y = (x.cpu() if self._on_host(group, x) else x.clone()).contiguous()
+        dist.all_reduce(y, op=_OPS[op], group=group)
+        return y.to(x.device)
+
+    def all_gather(self, x, axis=None, dim=0):
+        """The ranks' x of `axis`, concatenated along `dim` in rank order."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
+        group = self.group(axis)
+        y = (x.cpu() if self._on_host(group, x) else x).contiguous()
+        parts = [torch.empty_like(y) for _ in range(n)]
+        dist.all_gather(parts, y, group=group)
+        return torch.cat(parts, dim).to(x.device)
+
+    def broadcast(self, x, axis=None, src=0):
+        """The x of the rank at index `src` of `axis`'s group, on every rank
+        of the group (a new tensor on x's device)."""
+        if self.axis_size(axis) == 1:
+            return x
+        group = self.group(axis)
+        y = (x.cpu() if self._on_host(group, x) else x.clone()).contiguous()
+        dist.broadcast(y, src=dist.get_global_rank(group, src), group=group)
+        return y.to(x.device)
 
     def gather_sequence(self, x):
         """This rank's [b, s_local, ...] slice → the sp group's [b, sp·s_local,
-        ...] in slot order (under gloo, which gathers CPU tensors only,
-        staged through host memory)."""
-        group = self.group("sp")
-        host = dist.get_backend(group) == "gloo"
-        y = (x.cpu() if host else x).contiguous()
-        parts = [torch.empty_like(y) for _ in range(self.sp)]
-        dist.all_gather(parts, y, group=group)
-        return torch.cat(parts, 1).to(x.device)
+        ...] in slot order."""
+        return self.all_gather(x, "sp", 1)
 
     @property
     def is_rank0(self):
         return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def mesh_of(model):
+    """`model.mesh` when it spans more than one rank, else None."""
+    mesh = getattr(model, "mesh", None)
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
 def create_mesh(mesh_dim, device="cuda", layout="contiguous"):
     """The mesh of `mesh_dim` over the job's ranks (`initialize_distributed`
     first when there are several), on `torch.distributed.device_mesh.
-    init_device_mesh` over the axes (dp, fsdp, tp, sp) in that order."""
+    init_device_mesh` over the axes (dp, fsdp, tp, sp) in that order, with
+    its "batch" and "model" groups. A `mesh_dim` the job's ranks do not cover
+    raises ValueError (a mesh of n devices runs as n processes: `torchrun`)."""
     if layout not in SP_LAYOUTS:
         raise ValueError(f"sp layout {layout!r}: use one of {SP_LAYOUTS}")
     world = dist.get_world_size() if dist.is_initialized() else 1
     dims, _ = parse_mesh_dims(mesh_dim, world)
-    shape = dict(zip(MESH_AXES, dims))
-    for axis in ("fsdp", "tp"):
-        if shape[axis] > 1:
-            raise NotImplementedError(
-                f"mesh_dim {mesh_dim!r}: {axis} = {shape[axis]} needs the partition rules, which "
-                "come with a later multi-GPU slice (ROADMAP A4); the port trains on dp and sp")
     if world == 1:
         return Mesh(tuple(dims), None, layout)
     from torch.distributed.device_mesh import init_device_mesh
 
     device_mesh = init_device_mesh(torch.device(device).type, tuple(dims),
                                    mesh_dim_names=MESH_AXES)
-    return Mesh(tuple(dims), device_mesh, layout)
+    mesh = Mesh(tuple(dims), device_mesh, layout)
+    grid = torch.arange(world).reshape(dims)
+    for name, axes in GROUP_AXES.items():
+        inner = [MESH_AXES.index(a) for a in axes]
+        outer = [i for i in range(4) if i not in inner]
+        rows = grid.permute(outer + inner).reshape(-1, math.prod(dims[i] for i in inner))
+        for ranks in rows.tolist():   # every rank makes every group, in one order
+            group = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                mesh.groups[name] = group
+    return mesh
 
 
 def get_ranks_and_size(mesh):

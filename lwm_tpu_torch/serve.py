@@ -45,7 +45,21 @@ may be the shared prefix (`prefix_vision_masks`, its codes embedded through
 vision_masks=)`); bucketed and chunked admissions pass the request's masks,
 decode and verify rounds pass none (all text).
 
-Not ported yet (raise NotImplementedError): meshes.
+On a mesh (`mesh=`, a `parallel.mesh.Mesh` of more than one rank, the
+model built on it: `lwm_tpu/serve.py:88-107, 440-535`) every rank runs this
+host loop over the same requests. The slots are split over dp × fsdp
+(`slots % (dp·fsdp)` must be 0): a rank holds the cache rows of its batch
+shard, [slots/(dp·fsdp), h_kv/tp, T, d], and with sp > 1 and no shared
+prefix each slot's sequence is split over sp too (`sp_slot_caches`:
+`cache_len % sp == 0`, `lookup_k ≤ 63`, routed writes a token at a time for
+a verify block; chunked admissions stage in a cache split the same way).
+With a shared prefix the prefix block is split over sp instead and the
+slots stay whole. An admission runs on the ranks of the slot's batch shard;
+a round on every rank. The ranks of a batch shard compute the same logits:
+its first rank (tp and sp 0) picks each token, and one collective a round
+(a broadcast an admission) gives every rank the pool's tokens, so every
+host loop takes the same decisions. VideoLLaMA pools and int8 weights stay
+on one device (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ import torch
 
 from lwm_tpu_torch import checkpoint
 from lwm_tpu_torch.models.llama import KVCache, LayerCache
+from lwm_tpu_torch.parallel.mesh import mesh_of
 
 
 def _bucket(n, buckets):
@@ -103,9 +118,12 @@ def prefill_logits(model, cache, prompt, bucket, pos0=0, vision_masks=None):
 
 
 def _with_config(model, **changes):
-    """The same weight tensors (not copies) under another config."""
+    """The same weight tensors (not copies) under another config (and the
+    same mesh)."""
+    kw = {} if model.mesh is None else dict(mesh=model.mesh)
     return type(model).on_tensors(model.config.replace(**changes), model.state_dict(),
-                                  model.dtype)
+                                  model.dtype, **kw)
+
 
 
 def _lookup_proposal(ctx, k, ngram):
@@ -144,17 +162,28 @@ def build_prefix_cache(model, prefix_ids, chunk=2048, prefix_vision_masks=None):
 
     Each chunk writes its rows at `cache.index = done` (the JAX builder's
     shared write index). The build cache is as long as the chunked tokens,
-    then cut to P_store: a chunk never runs past the cache."""
+    then cut to P_store: a chunk never runs past the cache.
+
+    On a mesh with sp > 1 the block is built in a cache split over sp (each
+    chunk's queries split too) and each rank keeps its P_store/sp slice
+    (P_store must be a multiple of sp, as JAX requires); a rank holds its
+    tp slice of the heads."""
     prefix_ids = np.asarray(prefix_ids, np.int64).reshape(-1)
     P_true = int(prefix_ids.shape[0])
     P_store = -(-P_true // 128) * 128
     cfg = model.config
+    mesh = mesh_of(model)
+    sp = 1 if mesh is None else mesh.sp
+    if P_store % sp:
+        raise ValueError(f"prefix storage length {P_store} must be a multiple of sp={sp} "
+                         "(prefix builds pad to kernel/mesh multiples)")
     chunk = int(min(chunk, P_store))
     padded = -(-P_true // chunk) * chunk
     builder = _with_config(model, prefix_len=0, prefix_tokens=0, attn_impl="auto",
-                           max_sequence_length=max(cfg.max_sequence_length, padded))
+                           max_sequence_length=max(cfg.max_sequence_length, padded),
+                           sp_slot_caches=sp > 1)
     dev = model.wte.weight.device
-    length = max(P_store, padded)
+    length = -(-max(P_store, padded) // sp) * sp
     cache = builder.init_cache(1, length)
     ids = torch.zeros(padded, dtype=torch.long)
     ids[:P_true] = torch.from_numpy(prefix_ids)
@@ -165,13 +194,18 @@ def build_prefix_cache(model, prefix_ids, chunk=2048, prefix_vision_masks=None):
         builder(ids[done:done + chunk].to(dev)[None], keys < done + chunk,
                 (torch.arange(chunk, device=dev) + done)[None], cache=cache,
                 vision_masks=None if vm is None else vm[:, done:done + chunk])
-    if length > P_store:
+    if length > P_store or sp > 1:
+        n = P_store // sp
         for c in cache.layers:
             for name in ("k", "v", "k_scale", "v_scale"):
                 t = getattr(c, name)
-                if t is not None:
-                    setattr(c, name, t[:, :, :P_store].clone())
+                if t is not None:   # a layer at a time: the whole block, cut, this rank's slice
+                    if sp > 1:
+                        t = mesh.gather_sequence(t.transpose(1, 2)).transpose(1, 2)
+                    r = 0 if mesh is None else mesh.sp_rank
+                    setattr(c, name, t[:, :, r * n:(r + 1) * n].clone())
     cache.index = padded
+    cache.sp = 1
     return cache, P_store, P_true
 
 
@@ -179,26 +213,39 @@ _LEAVES = {"cached_key": "k", "cached_key_scale": "k_scale", "cached_value": "v"
            "cached_value_scale": "v_scale"}
 
 
-def save_prefix_cache(path, cache, P_store, P_true):
+def _whole_block(t, mesh):
+    """A prefix leaf [1, h_kv(/tp), P(/sp), ...] gathered whole."""
+    if mesh is None:
+        return t
+    t = mesh.all_gather(t, "tp", 1)
+    return mesh.gather_sequence(t.transpose(1, 2)).transpose(1, 2)
+
+
+def save_prefix_cache(path, cache, P_store, P_true, mesh=None):
     """Persist a built prefix block (a document index) in the JAX
     package's stream format and tree names (`lwm_tpu/serve.py:203-215`):
     prefix/transformer/h/{i}/attention/{cache_index, cached_key, ...}, then
-    prefix_store and prefix_tokens, the leaves in the JAX tree's order."""
+    prefix_store and prefix_tokens, the leaves in the JAX tree's order. On
+    a mesh every rank gathers the whole block, a leaf at a time, and rank 0
+    writes it."""
     flat = {}
     for i in sorted(range(len(cache.layers)), key=str):
         c, at = cache.layers[i], ("prefix", "transformer", "h", str(i), "attention")
         flat[at + ("cache_index",)] = np.asarray(cache.index, np.int32)
         for leaf, name in _LEAVES.items():
             if getattr(c, name) is not None:
-                flat[at + (leaf,)] = getattr(c, name)
+                flat[at + (leaf,)] = _whole_block(getattr(c, name), mesh)
     flat[("prefix_store",)] = np.asarray(P_store, np.int32)
     flat[("prefix_tokens",)] = np.asarray(P_true, np.int32)
-    checkpoint.save_stream(flat, path)
+    if mesh is None or mesh.is_rank0:
+        checkpoint.save_stream(flat, path)
 
 
-def load_prefix_cache(path, device, dtype):
+def load_prefix_cache(path, device, dtype, mesh=None):
     """Inverse of `save_prefix_cache` (and of the JAX one) → (KVCache of one
-    row on `device`, P_store, P_true); float leaves cast to `dtype`."""
+    row on `device`, P_store, P_true); float leaves cast to `dtype`. On a
+    mesh, this rank's slice: its tp heads and, with sp > 1, its P_store/sp
+    positions."""
     tree = checkpoint.load_checkpoint(path)
     try:
         h = tree["prefix"]["transformer"]["h"]
@@ -207,7 +254,12 @@ def load_prefix_cache(path, device, dtype):
         raise ValueError(f"{path}: not an unscanned prefix index (missing {e})") from e
 
     def tensor(x):
-        t = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))).to(device)
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+        if mesh is not None:   # this rank's heads and positions
+            h, n = t.shape[1] // mesh.tp, t.shape[2] // mesh.sp
+            t = t[:, mesh.tp_rank * h:(mesh.tp_rank + 1) * h,
+                  mesh.sp_rank * n:(mesh.sp_rank + 1) * n].clone()
+        t = t.to(device)
         return t.to(dtype) if t.is_floating_point() and t.dim() == 4 else t   # k, v; not scales
 
     cache = KVCache([LayerCache(**{name: tensor(a[leaf]) for leaf, name in _LEAVES.items()
@@ -251,8 +303,13 @@ class InflightServer:
         stop_tokens=(), seed=0, prefix_ids=None, prefix_chunk=2048, prefix_vision_masks=None,
         prefix_cache_path="", lookup_k=0, lookup_ngram=3, admit_chunk=0, mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("the port serves on one device: meshes are not ported yet")
+        if mesh is not None and mesh.size > 1 and model.mesh is not mesh:
+            raise ValueError("the server's mesh must be its model's: build the model on it "
+                             "(LLaMAForCausalLM(config, mesh=mesh), or on_tensors with mesh=)")
+        mesh = mesh_of(model)
+        if mesh is not None and model.takes_vision_masks:
+            raise NotImplementedError("VideoLLaMA pools on a mesh come with a later multi-GPU "
+                                      "slice (ROADMAP A4): serve them on one device")
         cfg = model.config
         if cfg.decode_index != "per_row":
             raise ValueError(
@@ -288,7 +345,7 @@ class InflightServer:
         if loads_index:
             # a persisted document index: no build
             prefix, P_store, P_true = load_prefix_cache(prefix_cache_path, self.device,
-                                                        model.dtype)
+                                                        model.dtype, mesh)
             if prefix_ids is not None and len(prefix_ids) != P_true:
                 raise ValueError(
                     f"prefix cache at {prefix_cache_path} was built for {P_true} tokens, "
@@ -298,13 +355,30 @@ class InflightServer:
             prefix, P_store, P_true = build_prefix_cache(model, prefix_ids, prefix_chunk,
                                                          prefix_vision_masks)
             if prefix_cache_path:
-                save_prefix_cache(prefix_cache_path, prefix, P_store, P_true)
+                save_prefix_cache(prefix_cache_path, prefix, P_store, P_true, mesh)
         if prefix is not None:
             model = _with_config(
                 model, prefix_len=P_store, prefix_tokens=P_true,
                 max_sequence_length=max(cfg.max_sequence_length, P_true + cache_len),
             )
             self._pos0 = P_true
+        self._shards = 1 if mesh is None else mesh.batch
+        if slots % self._shards:
+            raise ValueError(f"slots={slots} must be a multiple of dp*fsdp={self._shards}")
+        if mesh is not None and mesh.sp > 1 and prefix is None:
+            # no shared prefix: sp splits each slot's cache (`lwm_tpu/serve.py:
+            # 486-515`); the routed write unrolls a verify block a token at a time
+            if lookup_k > 63:
+                raise ValueError("sp>1 per-slot caches support lookup_k <= 63 (the routed cache "
+                                 "write unrolls the 1+k verify block per token)")
+            if cache_len % mesh.sp:
+                raise ValueError(f"cache_len {cache_len} must divide the sp axis ({mesh.sp}) for "
+                                 "sp-sharded slot caches")
+            if not model.config.sp_slot_caches:
+                model = _with_config(model, sp_slot_caches=True)
+        self.mesh = mesh
+        self._local = slots // self._shards               # this rank's slots
+        self._first = 0 if mesh is None else mesh.batch_rank * self._local
         self._prefix = None if prefix is None else prefix.layers
         self._prefix_np = (np.asarray(prefix_ids, np.int64).reshape(-1)
                            if prefix_ids is not None else np.zeros(0, np.int64))
@@ -316,7 +390,7 @@ class InflightServer:
         self.cache_len = cache_len
         self.prompt_buckets = tuple(sorted(b for b in prompt_buckets if b <= cache_len))
         self.stop_tokens = set(int(t) for t in stop_tokens)
-        self.cache = model.init_cache(slots, cache_len, prefix=self._prefix)
+        self.cache = model.init_cache(self._local, cache_len, prefix=self._prefix)
         self.lengths = np.zeros(slots, np.int64)
         self.tokens = np.zeros(slots, np.int64)   # last emitted, per slot
         self.live: list[Optional[_Live]] = [None] * slots
@@ -398,16 +472,43 @@ class InflightServer:
                 self._pending[slot] = dict(
                     rid=rid, prompt=prompt, max_new=max_new, temp=temp, on_token=on_token,
                     ids=ids, vm=_padded_masks(vmask, len(ids), self.device), done=0,
-                    small=self.model.init_cache(1, self.cache_len, prefix=self._prefix),
+                    small=(self.model.init_cache(1, self.cache_len, prefix=self._prefix)
+                           if self._mine(slot) else None),
                 )
                 continue
             bucket = _bucket(len(prompt), self.prompt_buckets)
             t0 = time.perf_counter()
-            logits = prefill_logits(self.model, self.cache.slot(slot), prompt, bucket, self._pos0,
-                                    vmask)
-            tok = int(self._pick(logits[None], self._tau([temp]))[0])
+            tok = torch.zeros(1, dtype=torch.long, device=self.device)
+            if self._mine(slot):
+                logits = prefill_logits(self.model, self.cache.slot(slot - self._first), prompt,
+                                        bucket, self._pos0, vmask)
+                tok = self._pick(logits[None], self._tau([temp]))
+            tok = int(self._share(tok, slot)[0])
             self.stats["prefill_s"] += time.perf_counter() - t0
             self._start(slot, rid, prompt, max_new, temp, on_token, tok)
+
+    def _mine(self, slot):
+        """Whether this rank holds `slot`'s cache row."""
+        return self._first <= slot < self._first + self._local
+
+    def _picker(self, shard):
+        """The rank that picks batch shard `shard`'s tokens: its tp and sp 0."""
+        return self.mesh.rank_of(shard // self.mesh.fsdp, shard % self.mesh.fsdp)
+
+    def _share(self, x, slot):
+        """x as the picker of `slot`'s batch shard has it, on every rank."""
+        if self.mesh is None:
+            return x
+        return self.mesh.broadcast(x, None, self._picker(slot // self._local))
+
+    def _gather_slots(self, x):
+        """x [local slots, ...] → [slots, ...] on every rank: each batch
+        shard's rows as its picker has them."""
+        if self.mesh is None:
+            return x
+        every = self.mesh.all_gather(x[None], None, 0)           # [world, local, ...]
+        pickers = [self._picker(j) for j in range(self._shards)]
+        return every[pickers].reshape(self.slots, *x.shape[1:])
 
     def _advance_pending(self):
         """One chunk of every staged admission (`lwm_tpu/serve.py:678-785`);
@@ -417,21 +518,25 @@ class InflightServer:
         for slot, st in list(self._pending.items()):
             t0 = time.perf_counter()
             done, small, n, vm = st["done"], st["small"], len(st["prompt"]), st["vm"]
-            small.index = done
-            logits = self.model(
-                torch.from_numpy(st["ids"][done:done + C]).to(dev)[None],
-                torch.arange(T, device=dev)[None] < done + C,
-                (torch.arange(C, device=dev) + done + self._pos0)[None], cache=small,
-                vision_masks=None if vm is None else vm[:, done:done + C],
-            )
+            if small is not None:   # the ranks of the slot's batch shard
+                small.index = done
+                logits = self.model(
+                    torch.from_numpy(st["ids"][done:done + C]).to(dev)[None],
+                    torch.arange(T, device=dev)[None] < done + C,
+                    (torch.arange(C, device=dev) + done + self._pos0)[None], cache=small,
+                    vision_masks=None if vm is None else vm[:, done:done + C],
+                )
             st["done"] = done + C
             if st["done"] >= n:   # this chunk holds the prompt's last token
-                row = logits[0, n - 1 - done].float()
-                tok = int(self._pick(row[None], self._tau([st["temp"]]))[0])
-                for big, one in zip(self.cache.layers, small.layers):
-                    for name in ("k", "v", "k_scale", "v_scale"):
-                        if getattr(big, name) is not None:
-                            getattr(big, name)[slot] = getattr(one, name)[0]
+                tok = torch.zeros(1, dtype=torch.long, device=dev)
+                if small is not None:
+                    row = logits[0, n - 1 - done].float()
+                    tok = self._pick(row[None], self._tau([st["temp"]]))
+                    for big, one in zip(self.cache.layers, small.layers):
+                        for name in ("k", "v", "k_scale", "v_scale"):
+                            if getattr(big, name) is not None:
+                                getattr(big, name)[slot - self._first] = getattr(one, name)[0]
+                tok = int(self._share(tok, slot)[0])
                 del self._pending[slot]
                 self.stats["prefill_s"] += time.perf_counter() - t0
                 self._start(slot, st["rid"], st["prompt"], st["max_new"], st["temp"],
@@ -509,11 +614,13 @@ class InflightServer:
         valid through each row's last position. Returns fp32 logits
         [slots, width, vocab]."""
         dev, T = self.device, self.cache_len
-        lengths = torch.as_tensor(self.lengths, device=dev)
+        mine = slice(self._first, self._first + self._local)   # this rank's rows
+        lengths = torch.as_tensor(self.lengths[mine], device=dev)
         mask = torch.arange(T, device=dev)[None] <= lengths[:, None] + width - 1
         pos = lengths[:, None] + torch.arange(width, device=dev)[None] + self._pos0
         self.cache.index = int(self.lengths.max())
-        return self.model(torch.as_tensor(toks, device=dev), mask, pos, cache=self.cache).float()
+        return self.model(torch.as_tensor(toks[mine], device=dev), mask, pos,
+                          cache=self.cache).float()
 
     def _decode_round(self):
         """All slots decode one token (`lwm_tpu/serve.py:553-572, 946-971`);
@@ -521,7 +628,8 @@ class InflightServer:
         tau = self._tau([l.temperature if l else 0.0 for l in self.live])
         t0 = time.perf_counter()
         logits = self._forward(self.tokens[:, None], 1)
-        nxt = self._pick(logits[:, 0], tau).cpu().numpy()
+        mine = slice(self._first, self._first + self._local)
+        nxt = self._gather_slots(self._pick(logits[:, 0], tau[mine])).cpu().numpy()
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["rounds"] += 1
         for slot, live in enumerate(self.live):
@@ -547,14 +655,16 @@ class InflightServer:
                                       np.asarray(live.emitted, np.int64)])
                 prop = _lookup_proposal(ctx, K, self.lookup_ngram)
             toks[slot, 1:] = prop if prop is not None else self.tokens[slot]
-        tau = self._tau(temps)
+        mine = slice(self._first, self._first + self._local)
+        tau = self._tau(temps)[mine]
         t0 = time.perf_counter()
         logits = self._forward(toks, 1 + K)
         greedy = logits.argmax(-1)                                  # [S, 1 + K]
-        match = (greedy[:, :K] == torch.as_tensor(toks[:, 1:], device=self.device)).long()
+        match = (greedy[:, :K] == torch.as_tensor(toks[mine, 1:], device=self.device)).long()
         n_acc = torch.where(tau > 0, 0, match.cumprod(1).sum(1))
         greedy[:, 0] = self._pick(logits[:, 0], tau)     # sampled rows emit their sample
-        greedy, n_acc = greedy.cpu().numpy(), n_acc.cpu().numpy()
+        both = self._gather_slots(torch.cat([greedy, n_acc[:, None]], 1)).cpu().numpy()
+        greedy, n_acc = both[:, :-1], both[:, -1]
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["rounds"] += 1
         for slot, live in enumerate(self.live):

@@ -81,7 +81,7 @@ from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
 from lwm_tpu_torch.models.vision_llama import VideoLLaMAConfig, VideoLLaMAForCausalLM
 from lwm_tpu_torch.optim import OptimizerFactory, none_match
 from lwm_tpu_torch.parallel.mesh import (
-    SP_LAYOUTS, create_mesh, get_ranks_and_size, initialize_distributed,
+    SP_LAYOUTS, create_mesh, get_ranks_and_size, initialize_distributed, mesh_of,
 )
 from lwm_tpu_torch.utils.convert import flax_param_path
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
@@ -153,12 +153,6 @@ def create_train_state(model, optimizer_config=None, freeze_base=False):
         param_block=lambda name: flax_param_path(name, model.config)))
 
 
-def _mesh_of(model):
-    """The model's mesh when it has more than one rank, else None."""
-    mesh = getattr(model, "mesh", None)
-    return mesh if mesh is not None and mesh.size > 1 else None
-
-
 def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
     """The masked cross-entropy of a batch {"input_tokens",
     "target_tokens", "loss_masks"[, "input_vision_masks",
@@ -176,7 +170,7 @@ def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
     embedding when tied) in fp32 chunks of `loss_chunk_size` (2048 when
     0), with {"acc"}. On the model's mesh (`model.mesh`) the batch is this
     rank's part and the loss the whole batch's. Returns (loss, metrics)."""
-    mesh = _mesh_of(model)
+    mesh = mesh_of(model)
     if model.takes_vision_masks:
         out = model(batch["input_tokens"], vision_masks=batch["input_vision_masks"])
         return dual_cross_entropy(out.vision_logits, out.lm_logits, batch["target_tokens"],
@@ -244,7 +238,7 @@ def train_step(state, batch, loss_chunk_size=0, fused_lm_loss=False):
     loss, aux = compute_loss(model, batch, loss_chunk_size, fused_lm_loss)
     loss.backward()
     params = list(model.parameters())
-    if _mesh_of(model) is not None:
+    if mesh_of(model) is not None:
         all_reduce_grads(params, model.mesh.group())
     gradient_norm = global_norm([p.grad for p in params if p.grad is not None])
     state.optimizer.step()
@@ -327,12 +321,12 @@ def _mesh_dims(mesh_dim):
 
 def check_single_device_mesh(mesh_dim):
     """`mesh_dim` must resolve to one device (every axis 1, one of them
-    possibly -1): the serving, sampling and eval apps run on one (their
-    forwards over a cache wait for `ring_attention_inference`)."""
+    possibly -1): the vision apps run on one (their meshes come with a later
+    multi-GPU slice)."""
     if any(d not in (1, -1) for d in _mesh_dims(mesh_dim)):
         raise NotImplementedError(
             f"--mesh_dim={mesh_dim}: the port runs this on one device (a mesh such as "
-            "1,-1,1,1); meshes of more devices come with the multi-GPU module (ROADMAP A4)")
+            "1,-1,1,1); the vision apps' meshes come with a later multi-GPU slice (ROADMAP A4)")
 
 
 def check_mesh(mesh_dim):
@@ -341,8 +335,9 @@ def check_mesh(mesh_dim):
     for axis, size in zip(("fsdp", "tp"), _mesh_dims(mesh_dim)[1:3]):
         if size > 1:
             raise NotImplementedError(
-                f"--mesh_dim={mesh_dim}: {axis} = {size} needs the partition rules, which come "
-                "with a later multi-GPU slice (ROADMAP A4); the port trains on dp and sp")
+                f"--mesh_dim={mesh_dim}: {axis} = {size} in training needs FSDP2 weight sharding, "
+                "which comes with a later multi-GPU slice (ROADMAP A4.1); the port trains on dp "
+                "and sp")
 
 
 def check_supported(flags):

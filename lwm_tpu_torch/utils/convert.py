@@ -49,6 +49,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from lwm_tpu_torch.parallel.partition import local_slice
+
 from lwm_tpu_torch.utils.io import open_file
 
 
@@ -120,15 +122,25 @@ def _lookup(tree, path, scan_axis):
     return node
 
 
-def convert_flax_params(params, config, dtype=None, device=None):
+def convert_flax_params(params, config, dtype=None, device=None, mesh=None):
     """Returns {name: tensor} for `LLaMAForCausalLM.load_state_dict`
     (float weights cast to `dtype` when given; int8 weights and their
     scales keep their types). With `device`, each leaf is copied there as
     it is and transposed there: a card transposes a 7b's kernels in
-    milliseconds, a host in seconds. A tree that holds only some params
-    (optax's moments of a frozen-base finetune) gives only those."""
+    milliseconds, a host in seconds. On `mesh`, a leaf that is split over
+    tp is converted on the host and only this rank's slice
+    (`parallel.partition`) goes to `device`. A tree that holds only some
+    params (optax's moments of a frozen-base finetune) gives only those."""
     if "params" in params:
         params = params["params"]
+    if mesh is not None and mesh.tp > 1:   # a leaf at a time: converted, cut, placed
+        return {k: local_slice(k, v, mesh).to(device)
+                for k, v in _converted(params, config, dtype, None)}
+    return dict(_converted(params, config, dtype, device))
+
+
+def _converted(params, config, dtype, device):
+    """(name, tensor) of `convert_flax_params`, one leaf at a time."""
 
     def t(x, transpose=False, cast=True):
         if device is not None and not isinstance(x, torch.Tensor):
@@ -150,17 +162,15 @@ def convert_flax_params(params, config, dtype=None, device=None):
             x = x.to(torch.bfloat16)
         return x if device is None else x.to(device)
 
-    sd = {}
     for name in _candidate_names(config):
         path, dense = _flax_key(name)
         leaf = _lookup(params, path, config.param_scan_axis)
         if leaf is None:
             continue
         if path[-1] == "scale":   # of an int8 kernel from quantize_params_int8
-            sd[name] = t(leaf, cast=False).float()
+            yield name, t(leaf, cast=False).float()
         else:
-            sd[name] = t(leaf, transpose=dense)
-    return sd
+            yield name, t(leaf, transpose=dense)
 
 
 def _state_dict(node):

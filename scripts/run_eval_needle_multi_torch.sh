@@ -1,10 +1,10 @@
 #! /bin/bash
-# Multi-needle eval on one GPU (the PyTorch port's CLI,
+# Multi-needle eval on one GPU or a mesh of them (the PyTorch port's CLI,
 # lwm_tpu_torch/apps/eval_needle_multi.py): the bundle of
 # scripts/run_eval_needle_multi.sh with its flags (7b, fp32, theta 1e7,
 # max_sequence_length 131072, scan chunks 1024, 4 needles, 4 asked, 3
-# context lengths up to 32000 x 10 depths x 2 rounds), on one device instead
-# of its 4-way mesh, and a batch budget for one 80 GB card: see
+# context lengths up to 32000 x 10 depths x 2 rounds), on one device (its 4-way
+# mesh with NPROC=4, below), and a batch budget for one 80 GB card: see
 # scripts/run_eval_needle_torch.sh. TOKENIZER, CHECKPOINT and HAYSTACK as
 # there: local files, nothing is downloaded.
 export SCRIPT_DIR="$( cd -- "$( dirname -- "${BASH_SOURCE[0]}" )" &> /dev/null && pwd )"
@@ -17,7 +17,21 @@ if [ -z "${TOKENIZER:-}" ] || [ -z "${CHECKPOINT:-}" ] || [ -z "${HAYSTACK:-}" ]
     exit 2
 fi
 
-python3 -u -m lwm_tpu_torch.apps.eval_needle_multi \
+# NPROC > 1 runs it on a mesh of that many cards, a process a card under
+# torchrun (rendezvous on this host), with MESH_DIM in the JAX grammar
+# (dp,fsdp,tp,sp; default !1,-1,NPROC,1: tp over the cards, as the reference
+# bundle's !1,-1,4,1 at NPROC=4). The default, NPROC=1, runs on one card.
+NPROC="${NPROC:-1}"
+if [ "$NPROC" -gt 1 ]; then
+    LAUNCH=(torchrun --standalone --nproc_per_node="$NPROC" -m)
+    MESH_DIM="${MESH_DIM:-!1,-1,$NPROC,1}"
+else
+    LAUNCH=(python3 -u -m)
+    MESH_DIM="${MESH_DIM:-1,-1,1,1}"
+fi
+
+"${LAUNCH[@]}" lwm_tpu_torch.apps.eval_needle_multi \
+    --mesh_dim="$MESH_DIM" \
     --dtype='fp32' \
     --load_llama_config='7b' \
     --update_llama_config="dict(theta=10000000,max_sequence_length=131072,scan_attention=True,scan_query_chunk_size=1024,scan_key_chunk_size=1024,scan_mlp=True,scan_mlp_chunk_size=1024,scan_layers=True)" \

@@ -1,5 +1,5 @@
 #! /bin/bash
-# In-flight batching serving on the GPU (the PyTorch port's CLI,
+# In-flight batching serving on one GPU or a mesh of them (the PyTorch port's CLI,
 # lwm_tpu_torch/apps/serve.py): the bundle of scripts/run_serve.sh with the
 # same knobs. Requests from a JSONL file (or stdin when INPUT_FILE is empty)
 # through a slot pool. QUANTIZE=1 turns on int8 weight-only quantization at
@@ -20,7 +20,21 @@ if [ -z "${TOKENIZER:-}" ] || [ -z "${CHECKPOINT:-}" ]; then
     exit 2
 fi
 
-python3 -u -m lwm_tpu_torch.apps.serve \
+# NPROC > 1 runs it on a mesh of that many cards, a process a card under
+# torchrun (rendezvous on this host), with MESH_DIM in the JAX grammar
+# (dp,fsdp,tp,sp; default !1,-1,NPROC,1: tp over the cards, as the reference
+# bundle's !1,-1,4,1 at NPROC=4). The default, NPROC=1, runs on one card.
+NPROC="${NPROC:-1}"
+if [ "$NPROC" -gt 1 ]; then
+    LAUNCH=(torchrun --standalone --nproc_per_node="$NPROC" -m)
+    MESH_DIM="${MESH_DIM:-!1,-1,$NPROC,1}"
+else
+    LAUNCH=(python3 -u -m)
+    MESH_DIM="${MESH_DIM:-1,1,1,1}"
+fi
+
+"${LAUNCH[@]}" lwm_tpu_torch.apps.serve \
+    --mesh_dim="$MESH_DIM" \
     --input_file="${INPUT_FILE:-}" \
     --output_file="${OUTPUT_FILE:-completions.jsonl}" \
     --slots="${SLOTS:-8}" \

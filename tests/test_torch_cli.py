@@ -112,7 +112,7 @@ def test_flags_and_refusals(tmp_path):
     assert cli.parse_flags([]).tokenizer == "LargeWorldModel/LWM-Text-1M"
     with pytest.raises(SystemExit):
         cli.parse_flags(["--bogus=1"])
-    with pytest.raises(NotImplementedError, match="mesh_dim"):
+    with pytest.raises(ValueError, match="mesh_dim"):   # 2 devices, one process
         cli.main(FLAGS + ["--mesh_dim=1,1,2,1"])
     no_cpu = [f for f in FLAGS if f != "--device=cpu"]
     with pytest.raises(RuntimeError, match="--device=cpu"):

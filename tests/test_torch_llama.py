@@ -64,7 +64,8 @@ def _jax_padded_logits(case):
     ids = rng.integers(0, 128, (2, 16)).astype(np.int32)
     mask = np.ones((2, 16), np.int32)
     mask[1, :5] = 0                                   # left padding
-    want = np.asarray(jm(jnp.asarray(ids), attention_mask=jnp.asarray(mask)).logits)
+    want = np.asarray(jax.jit(lambda i, m: jm(i, attention_mask=m).logits)(   # eager is slow
+        jnp.asarray(ids), jnp.asarray(mask)))
     return jm, ids, mask, want
 
 
@@ -137,11 +138,20 @@ def test_logits_at_positions_past_4096():
 
 
 def _jax_cached(jm, cache, ids, mask, pos):
-    out, vars_ = jm.module.apply(
-        {"params": jm.params, "cache": cache}, jnp.asarray(ids), jnp.asarray(mask), None,
-        jnp.asarray(pos), True, False, False, False, True, mutable=["cache"],
-    )
-    return np.asarray(out.logits), vars_["cache"]
+    out, cache = _jax_apply(jm)(cache, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(pos))
+    return np.asarray(out), cache
+
+
+@functools.cache
+def _jax_apply(jm):
+    """The JAX model's forward over a cache, jitted (one compile a shape)."""
+    @jax.jit
+    def apply(cache, ids, mask, pos):
+        out, vars_ = jm.module.apply({"params": jm.params, "cache": cache}, ids, mask, None, pos,
+                                     True, False, False, False, True, mutable=["cache"])
+        return out.logits, vars_["cache"]
+
+    return apply
 
 
 # int8: one element landing on the other side of a rounding step in either

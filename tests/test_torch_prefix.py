@@ -6,6 +6,9 @@ groups b·g of 1, 6, 12 and 16; int8 in both ranges; a range with no valid
 key.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,10 +51,12 @@ def _both(q, k, v, key_mask, kv_len, pk, pv, p_true, *, quant=False, dtype="fp32
     cast_j = (lambda x: jnp.asarray(x)) if quant else (lambda x: jnp.asarray(x).astype(jdt))
     cast_t = (lambda x: torch.from_numpy(x)) if quant else (lambda x: torch.from_numpy(x).to(tdt))
     prefix_mask = np.arange(P) < p_true
-    want = jax_prefix.decode_with_prefix(
-        jnp.asarray(q).astype(jdt), cast_j(k), cast_j(v), jnp.asarray(key_mask), kv_len,
-        cast_j(pk), cast_j(pv), jnp.asarray(prefix_mask),
-        **{n: jnp.asarray(x) for n, x in sc.items()}, interpret=True,
+    # jitted: the interpret-mode kernels run op by op eagerly, many times slower
+    want = jax.jit(functools.partial(jax_prefix.decode_with_prefix, kv_len=kv_len,
+                                     interpret=True))(
+        jnp.asarray(q).astype(jdt), cast_j(k), cast_j(v), jnp.asarray(key_mask),
+        pk=cast_j(pk), pv=cast_j(pv), prefix_mask=jnp.asarray(prefix_mask),
+        **{n: jnp.asarray(x) for n, x in sc.items()},
     )
     got = prefix.decode_with_prefix(
         torch.from_numpy(q).to(tdt), cast_t(k), cast_t(v), torch.from_numpy(key_mask), kv_len,

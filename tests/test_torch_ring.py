@@ -107,10 +107,14 @@ def _jax_ring(case):
                   PS(("dp", "fsdp"), None)),
         out_specs=seq_spec, check_vma=False,
     )
-    with mesh:
+    @jax.jit   # jitted: an eager shard_map and its vjp take seconds a case
+    def out_and_grads(q, k, v, g):
         out, vjp = jax.vjp(lambda q, k, v: fn(q, k, v, jnp.asarray(bias), jnp.asarray(segs)),
-                           *(jnp.asarray(x) for x in (q, k, v)))
-        grads = vjp(jnp.asarray(g))
+                           q, k, v)
+        return out, vjp(g)
+
+    with mesh:
+        out, grads = out_and_grads(*(jnp.asarray(x) for x in (q, k, v, g)))
     return dict(out=out, dq=grads[0], dk=grads[1], dv=grads[2])
 
 

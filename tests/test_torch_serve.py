@@ -6,6 +6,7 @@ must repeat under one seed.
 """
 
 import functools
+import types
 
 import jax
 import numpy as np
@@ -139,8 +140,8 @@ def test_validation():
         srv.submit([1, 2, 3], max_new_tokens=126)
     with pytest.raises(ValueError, match="bucket"):
         srv.submit(list(range(9)), max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        InflightServer(pm, slots=1, cache_len=64, mesh=object())
+    with pytest.raises(ValueError, match="mesh"):   # a mesh the model is not on
+        InflightServer(pm, slots=1, cache_len=64, mesh=types.SimpleNamespace(size=2))
     look = InflightServer(pm, slots=1, cache_len=32, prompt_buckets=(8,), lookup_k=4)
     with pytest.raises(ValueError, match="lookup_k 4"):   # k rows of headroom
         look.submit([1, 2, 3], max_new_tokens=122)

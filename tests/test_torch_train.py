@@ -72,6 +72,7 @@ def _torch_batch(batch):
 
 
 @functools.cache
+@functools.cache   # one JAX model and compile a case, shared by the tests
 def _jax_side(case, dtype="fp32"):
     """(params as numpy, jitted value_and_grad of the JAX loss)."""
     cfg = JaxConfig(**BASE, **MODEL_CASES[case], mesh_dim=None, attn_impl="xla")
@@ -143,7 +144,7 @@ def test_segment_ids_loss_and_grads_match_jax():
         return jax_cross_entropy(logits, jnp.asarray(batch["target_tokens"]),
                                  jnp.asarray(batch["loss_masks"]))[0]
 
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)   # jitted: eager is slow
     model = _port_model("gqa", params)
     logits = model(torch.from_numpy(batch["input_tokens"]), segment_ids=torch.from_numpy(segs))
     loss, _ = losses.cross_entropy_loss_and_accuracy(

@@ -1,8 +1,9 @@
-"""Ranks of the port's sequence- and data-parallel tests: each a spawned
-process on the CPU, joined over gloo (`torch.distributed`), importing
-nothing of JAX. A test module spawns its ranks once (`spawn`) and reads
-what they wrote into its work directory."""
+"""Ranks of the port's mesh tests (training on dp × sp, inference on dp ×
+fsdp × tp × sp): each a spawned process on the CPU, joined over gloo
+(`torch.distributed`), importing nothing of JAX. A test module spawns its
+ranks once (`spawn`) and reads what they wrote into its work directory."""
 
+import json
 import os
 import socket
 import traceback
@@ -167,3 +168,153 @@ def train_cli_ranks(rank, world, workdir, argv):
     summary = train.main(list(argv))
     with open(os.path.join(workdir, f"cli_rank{rank}.txt"), "w") as f:
         f.write(summary["output_dir"])
+
+
+# ------------------------------------------------------- inference on a mesh
+
+
+def ring_inference_inputs(case):
+    """A ring_attention_inference case's global inputs, numpy fp32: q
+    [b, sq, h, d], the head-major cache k, v [b, h_kv, T, d] (int8 with
+    scales [b, h_kv, T] when case["int8"]), the key validity [b, T] and the
+    position of the first query (q_offset): query i sees the valid keys at
+    positions ≤ q_offset + i. case["dead_shard"] clears the validity of one
+    shard's keys."""
+    sp, h, h_kv, sq, T, d, seed = (case[k] for k in ("sp", "h", "h_kv", "sq", "T", "d", "seed"))
+    b = 2
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d), np.float32)
+    k = rng.standard_normal((b, h_kv, T, d), np.float32)
+    v = rng.standard_normal((b, h_kv, T, d), np.float32)
+    valid = rng.random((b, T)) > 0.2
+    valid[:, 0] = True
+    if case.get("dead_shard") is not None:
+        n = T // sp
+        valid[:, case["dead_shard"] * n:(case["dead_shard"] + 1) * n] = False
+    q_offset = case["q_offset"]
+    valid[:, q_offset + sq:] = False   # never written yet
+    scales = None
+    if case.get("int8"):
+        ks = np.abs(k).max(-1) / 127.0
+        vs = np.abs(v).max(-1) / 127.0
+        k = np.clip(np.round(k / ks[..., None]), -127, 127).astype(np.int8)
+        v = np.clip(np.round(v / vs[..., None]), -127, 127).astype(np.int8)
+        scales = (ks.astype(np.float32), vs.astype(np.float32))
+    return q, k, v, scales, valid, q_offset
+
+
+def ring_inference_ranks(rank, world, workdir, cases):
+    """The port's ring_attention_inference at each case: sp 2 cases on the sp
+    groups of a (1, 1, 2, 2) mesh, sp 4 cases on (1, 1, 1, 4); rank r's
+    output rows (its slice when the queries are split) written to workdir."""
+    from lwm_tpu_torch.ops.ring import ring_attention_inference
+    from lwm_tpu_torch.parallel.mesh import create_mesh
+
+    meshes = {2: create_mesh("1,1,2,2", "cpu"), 4: create_mesh("1,1,1,4", "cpu")}
+    for i, case in enumerate(cases):
+        mesh = meshes[case["sp"]]
+        q, k, v, scales, valid, q_offset = ring_inference_inputs(case)
+        sp, r = mesh.sp, mesh.sp_rank
+        T, sq = k.shape[2], q.shape[1]
+        n = T // sp
+        kpos = np.arange(r * n, (r + 1) * n)
+        frontier = q_offset + np.arange(sq)
+        if case["mask"] == "tile":
+            mask = valid[:, None, r * n:(r + 1) * n] & (kpos[None, None] <= frontier[None, :, None])
+        else:
+            mask = valid[:, r * n:(r + 1) * n] & (kpos[None] <= frontier[-1])
+        q_sharded = case.get("q_sharded", False)
+        qs = q[:, r * sq // sp:(r + 1) * sq // sp] if q_sharded else q
+        kw = {}
+        if scales is not None:
+            kw = dict(k_scale=torch.from_numpy(scales[0][:, :, r * n:(r + 1) * n].copy()),
+                      v_scale=torch.from_numpy(scales[1][:, :, r * n:(r + 1) * n].copy()))
+        out = ring_attention_inference(
+            torch.from_numpy(qs), torch.from_numpy(k[:, :, r * n:(r + 1) * n].copy()),
+            torch.from_numpy(v[:, :, r * n:(r + 1) * n].copy()), torch.from_numpy(mask),
+            mesh=mesh, kv_offset=r * n, q_offset=q_offset, q_sharded=q_sharded, **kw)
+        np.save(os.path.join(workdir, f"ri{i}_rank{rank}.npy"), out.numpy())
+
+
+def mesh_model(payload, mesh, **changes):
+    """The saved test model on `mesh`: this rank's slices of its weights."""
+    from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
+    from lwm_tpu_torch.parallel.partition import shard_state_dict
+
+    cfg = LLaMAConfig.from_dict({**payload["config"], **changes})
+    sd = torch.load(payload["weights"])
+    return LLaMAForCausalLM.on_tensors(cfg, shard_state_dict(sd, mesh), torch.float32, mesh)
+
+
+def drive_server(srv, script):
+    """Run a script of ('submit', prompt, max_new) / ('step', n) items,
+    then drain: {request id: emitted tokens}."""
+    for item in script:
+        if item[0] == "submit":
+            srv.submit(item[1], max_new_tokens=item[2])
+        else:
+            for _ in range(item[1]):
+                srv.step()
+    return {f.req_id: f.tokens.tolist() for f in srv.run()}
+
+
+def serve_mesh_ranks(rank, world, workdir, payload):
+    """The port's InflightServer, generate and one cache forward on meshes of
+    the world's ranks (payload: the saved model, the server runs, the cache
+    forward's inputs). Every rank writes its runs' tokens (each rank must
+    emit the same); rank 0 writes the cache forward's logits."""
+    from lwm_tpu_torch.generation import GenerationConfig, generate
+    from lwm_tpu_torch.parallel.mesh import create_mesh
+    from lwm_tpu_torch.serve import InflightServer
+
+    results = {}
+    for name, run in payload["runs"].items():
+        mesh = create_mesh(run["mesh"], "cpu")
+        model = mesh_model(payload, mesh, **run.get("config", {}))
+        if run["kind"] == "serve":
+            srv = InflightServer(model, mesh=mesh, **run["server"])
+            results[name] = drive_server(srv, run["script"])
+        else:   # generate: the batch's rows split over dp × fsdp
+            ids = torch.from_numpy(run["ids"])
+            mask = torch.from_numpy(run["mask"])
+            n = ids.shape[0] // mesh.batch
+            rows = slice(mesh.batch_rank * n, (mesh.batch_rank + 1) * n)
+            out = generate(model, ids[rows], mask[rows], GenerationConfig(
+                max_new_tokens=run["new"], eos_token_id=-1, pad_token_id=0))
+            results[name] = mesh.all_gather(out, "batch", 0).tolist()
+    with open(os.path.join(workdir, f"serve_rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+
+    fwd = payload["forward"]
+    mesh = create_mesh(fwd["mesh"], "cpu")
+    model = mesh_model(payload, mesh, **fwd["config"])
+    ids = torch.from_numpy(fwd["ids"])
+    b, s0 = ids.shape[0], fwd["prefill"]
+    cache = model.init_cache(b, fwd["cache"])
+    ones = torch.ones(b, fwd["cache"], dtype=torch.bool)
+    outs = [model(ids[:, :s0], ones, torch.arange(s0).expand(b, s0), cache=cache)]
+    for t in range(s0, ids.shape[1]):
+        outs.append(model(ids[:, t:t + 1], ones, torch.full((b, 1), t), cache=cache))
+    if rank == 0:
+        np.save(os.path.join(workdir, "forward.npy"), torch.cat(outs, 1).numpy())
+
+
+def eval_needle_ranks(rank, world, workdir, argv):
+    """eval_needle's CLI on every rank (a mesh of the world's ranks); each
+    rank records the files it opens for writing."""
+    from lwm_tpu_torch.apps import eval_needle
+
+    writes, opener = [], eval_needle.open_file
+
+    def recording(path, mode="r", *args, **kw):
+        if "w" in mode:
+            writes.append(str(path))
+        return opener(path, mode, *args, **kw)
+
+    eval_needle.open_file = recording
+    try:
+        eval_needle.main(list(argv))
+    finally:
+        eval_needle.open_file = opener
+        with open(os.path.join(workdir, f"writes_rank{rank}.json"), "w") as f:
+            json.dump(writes, f)
