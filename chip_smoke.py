@@ -4551,7 +4551,8 @@ def f64_arm(what, ref, paths, held, plain=None):
 # (gloo: NCCL refuses two ranks on one device; the ring's blocks are staged
 # through host memory) and train through lwm_tpu_torch.train's step on a
 # mesh of sp 2 (`1,1,1,2`), each reading the global batch and keeping its
-# slice, in both layouts:
+# slice, the weights and moments sharded over sp (`parallel.fsdp`), in both
+# layouts:
 # (a) the 7b width at RING_A_LAYERS layers, bf16 compute, save_flash, one row
 #     of RING_A_SEQ (RING_A_SEQ / 2 a rank), RING_A_STEPS AdamW steps
 #     (TRAIN_CLI_OPT), the losses held to a one-rank run of the same steps
@@ -4564,12 +4565,14 @@ def f64_arm(what, ref, paths, held, plain=None):
 #     the float64 step (f64_arm), both steps' losses to the one-rank run's
 #     at F32_LOSS_RTOL.
 # Each rank checks its exact K1 and backward launches (ring_launches); each
-# layout's step time is logged beside its exchanges' time: the gradients'
-# all-reduce timed inside the steps (synchronised), the ring's blocks timed
-# alone (an upper bound of what the step spends on them: in the step they
-# overlap the kernels). Two ranks on one
-# card measure correctness and the exchange's cost, not multi-GPU speed.
-RING_A_LAYERS, RING_A_SEQ, RING_A_STEPS = 4, 8192, 2
+# layout's step time is logged beside its exchanges' time: the weights'
+# gathers and the gradients' reduce-scatter (the Mesh collectives) timed
+# inside the steps (synchronised), the ring's blocks timed alone (an upper
+# bound of what the step spends on them: in the step they overlap the
+# kernels). Two ranks on one card measure correctness and the exchange's
+# cost, not multi-GPU speed. (a) runs 2 of the 7b's 32 layers for room: the
+# weights' host-staged gathers (~0.6 GB/s) set its step.
+RING_A_LAYERS, RING_A_SEQ, RING_A_STEPS = 2, 8192, 2
 RING_B_STEPS = 2
 RING_LAYOUTS = ("contiguous", "striped")
 
@@ -4625,9 +4628,11 @@ def _train_steps(model, opt, batch, steps, keep_grads=False):
     if keep_grads:
         step = state.optimizer.step
 
-        def keep():
+        def keep():   # whole over the ranks' shards (every rank gathers)
             if not grads:
-                grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+                places = model.placements
+                grads.update({n: places[n].whole(p.grad.detach()).clone()
+                              for n, p in model.named_parameters()})
             step()
 
         state.optimizer.step = keep
@@ -4683,8 +4688,9 @@ def _timed_all_reduce(seconds):
 
 
 def _ring_rank(rank, port, workdir, t_spawn):
-    """One of the two ranks that phase_train_ring and phase_serve_mesh share
-    (spawned once): every run of _ring_runs on a mesh of sp 2, then the
+    """One of the two ranks that phase_train_mesh, phase_train_ring and
+    phase_serve_mesh share (spawned once): the fsdp × tp parts
+    (train_mesh_rank), every run of _ring_runs on a mesh of sp 2, then the
     serving parts (serve_mesh_rank); results to workdir."""
     import torch.distributed as dist
 
@@ -4702,6 +4708,9 @@ def _ring_rank(rank, port, workdir, t_spawn):
     train_all_reduce = train.all_reduce_grads
     results = {"_spawn": dict(imports_s=t_entry - t_spawn, build_s=build_s)}
     try:
+        results["_train_mesh"] = train_mesh_rank(rank)
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
         for name, spec in _ring_runs():
             model, opt, batch = _ring_model(spec["kind"], BF16 if spec["dtype"] == "bf16"
                                             else torch.float32)
@@ -4711,10 +4720,11 @@ def _ring_rank(rank, port, workdir, t_spawn):
                 {k: batch[k] for k in ("input_tokens", "target_tokens", "loss_masks")},
                 get_ranks_and_size(mesh)).items()}
             _reset_launch_counts()
-            reduce_s = []
+            reduce_s, shard_s = [], []
             train.all_reduce_grads = _timed_all_reduce(reduce_s)
-            losses, times, grads = _train_steps(model, opt, part, spec["steps"],
-                                                keep_grads=spec["kind"] == "b")
+            with _timed_mesh_collectives(shard_s):
+                losses, times, grads = _train_steps(model, opt, part, spec["steps"],
+                                                    keep_grads=spec["kind"] == "b")
             train.all_reduce_grads = train_all_reduce
             launches = _launch_counts()
             ring_s = _ring_seconds(model, part["input_tokens"].shape,
@@ -4726,6 +4736,7 @@ def _ring_rank(rank, port, workdir, t_spawn):
                 want.update(flash_fwd_f32=want["flash_fwd"], flash_bwd_f32=want["flash_bwd"])
             results[name] = dict(losses=losses, times=times, launches=launches, want=want,
                                  ring_s=ring_s, reduce_s=reduce_s,
+                                 shard_s=sum(shard_s) / spec["steps"],
                                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
             if grads is not None and rank == 0:
                 torch.save({n: g.cpu() for n, g in grads.items()}, Path(workdir) / f"{name}.pt")
@@ -4739,7 +4750,7 @@ def _ring_rank(rank, port, workdir, t_spawn):
 
 
 def spawn_mesh_ranks(work):
-    """The two ranks on the card (gloo) that phase_train_ring and
+    """The two ranks on the card (gloo) that phase_train_mesh, phase_train_ring and
     phase_serve_mesh read: one spawn, one import and one kernel load for
     both. Writes phase_serve_mesh's eval inputs first. Returns (each rank's
     results, the spawn's wall seconds)."""
@@ -4778,8 +4789,10 @@ def phase_train_ring(ranks, work):
             step_s = float(np.median(got["times"][1:]))
             log(f"train ring {name} rank {r}: losses {[round(x, 6) for x in got['losses']]}, "
                 f"steps {', '.join(f'{t:.3f}' for t in got['times'])} s (median of steps 2-"
-                f"{spec['steps']} {step_s:.3f} s); a step's exchanges: the gradients' all-reduce "
-                f"{got['reduce_s']:.3f} s in the step ({100 * got['reduce_s'] / step_s:.1f}%), the "
+                f"{spec['steps']} {step_s:.3f} s); a step's exchanges: the weights' gathers and "
+                f"the gradients' reduce-scatter over sp (the Mesh collectives) {got['shard_s']:.3f} "
+                f"s a step ({100 * got['shard_s'] / step_s:.1f}%), of them the norms' gradients' "
+                f"all-reduce {got['reduce_s']:.3f} s, the "
                 f"ring's blocks {got['ring_s']:.3f} s timed alone ({100 * got['ring_s'] / step_s:.1f}"
                 f"%, overlapping the kernels in the step); peak "
                 f"{got['peak_gib']:.1f} GiB; launches {got['launches']} (want {got['want']}) "
@@ -4835,6 +4848,360 @@ def phase_train_ring(ranks, work):
         f"[{card()}]")
     del ref, f64_paths, grads_b, g_b
     torch.cuda.empty_cache()
+    return paths
+
+
+# phase_train_mesh: fsdp × tp training, run in the two ranks that
+# phase_train_ring spawns (spawn_mesh_ranks: no new spawn, import or kernel
+# load), both on the one card over gloo, so every exchange (the weights'
+# gathers and the gradients' reduce-scatter over fsdp, the blocks'
+# all-reduces and the logits' gather over tp) is staged through host memory:
+# its times are gloo's, not NVLink's. The 7b width at MESH_T_LAYERS layers,
+# MESH_T_BATCH × MESH_T_SEQ (the bundle's seq_length), save_flash, the weights
+# from MESH_T_SEED drawn whole and cut to each rank's part (`init_weights`):
+# (a) fsdp 2 ("1,2,1,1"), fp32, MESH_T_STEPS AdamW steps of MESH_T_OPT: each
+#     step's loss, whole gradients and whole params after it held to a
+#     one-rank run of the kernel path from the same seed and batch at
+#     MESH_T_TOL in relative L2 and in max |Δ| / max |want|; a gradient leaf
+#     that misses is held by the float64 step at the one-rank run's params
+#     of that step (the one-rank path's distance to it the floor: within
+#     FLOOR_RATIO × that floor where it exceeds MESH_T_TOL, `f64_arm`'s
+#     rule: no fp32 path reaches 1e-5 on the random init's wq and wk); MESH_T_OPT's lr keeps the sign of an
+#     Adam update whose gradient lies within float noise of 0 (±lr, the
+#     summation order's) below the params' bound;
+# (b) tp 2 ("1,1,2,1"): one fp32 step held as in (a), then MESH_T_BF16_STEPS
+#     bf16 steps with the bundle's AdamW settings (TRAIN_CLI_OPT), their
+#     losses held to a one-rank bf16 run at FLOOR_RATIO × the bf16 noise
+#     floor (the one-rank bf16 run against an fp32 one) + FUSED_SLACK, as
+#     phase_train_ring (a) holds its losses.
+# Each rank's parts are compared with the same parts of the one-rank run,
+# which each rank makes in turn (the other waits), so no rank holds two
+# whole states; the distances are summed (and maxed) over the ranks. Each
+# rank checks its exact K1 and backward launches; each part logs its step
+# time, its exchanges' seconds (every Mesh collective synchronised and
+# timed) and each rank's peak memory and state bytes beside the one-rank
+# run's.
+MESH_T_LAYERS, MESH_T_SEQ, MESH_T_BATCH, MESH_T_STEPS, MESH_T_BF16_STEPS = 4, 2048, 2, 2, 2
+MESH_T_SEED = SEED + 31
+MESH_T_TOL = 1e-5
+MESH_T_OPT = dict(adamw_optimizer=dict(init_lr=2e-7, lr=2e-7, end_lr=2e-7, lr_warmup_steps=1,
+                                       lr_decay_steps=10, weight_decay=0.1))
+
+
+def _mesh_t_config():
+    return train.build_model_config("7b", update_llama_config=dict(
+        num_hidden_layers=MESH_T_LAYERS, max_sequence_length=MESH_T_SEQ))
+
+
+def _mesh_t_model(dtype, mesh=None, opt=MESH_T_OPT):
+    """(state, the global batch) of a phase_train_mesh run: the model (on
+    `mesh`, sharded by create_train_state) from MESH_T_SEED, the optimizer
+    of `opt`."""
+    cfg = _mesh_t_config()
+    model = LLaMAForCausalLM(cfg, dtype=dtype, param_dtype=torch.float32, device="cuda",
+                             mesh=mesh)
+    state = train.create_train_state(model, opt)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(MESH_T_SEED))
+    return state, _lm_batch(MESH_T_BATCH, MESH_T_SEQ, cfg.vocab_size, MESH_T_SEED)
+
+
+@contextlib.contextmanager
+def _timed_mesh_collectives(seconds, by_kind=None):
+    """Every Mesh collective synchronised, its seconds appended to `seconds`
+    (and summed by its name into `by_kind`, when given)."""
+    from lwm_tpu_torch.parallel.mesh import Mesh
+
+    names = ("all_reduce", "all_gather", "reduce_scatter")
+    real = {n: getattr(Mesh, n) for n in names}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if by_kind is not None:
+                by_kind[fn.__name__] = by_kind.get(fn.__name__, 0.0) + seconds[-1]
+            return out
+        return call
+
+    for n in names:
+        setattr(Mesh, n, timed(real[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(Mesh, n, real[n])
+
+
+def _mesh_t_steps(state, batch, steps, keep=None):
+    """`steps` train steps; `keep(i, kind, {name: tensor})`, when given,
+    sees step i's gradients ("grad", before the update) and params
+    ("param", after it), this rank's parts. Returns (losses, step seconds)."""
+    opt, model = state.optimizer, state.model
+    real, at = opt.step, [0]
+
+    def step():
+        keep(at[0], "grad", {n: p.grad for n, p in model.named_parameters()})
+        real()
+
+    if keep is not None:
+        opt.step = step
+    losses, times = [], []
+    try:
+        for i in range(steps):
+            at[0] = i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+            if keep is not None:
+                keep(i, "param", dict(model.named_parameters()))
+    finally:
+        if keep is not None:
+            del opt.step   # no cycle through a bound method: the state frees when dropped
+    return losses, times
+
+
+def _free_card():
+    """Collect what the card's tensors' last references left (cycles too)
+    and give the cache back, so the other rank sharing the card has it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _state_gib(state):
+    """The bytes of this rank's params, gradients' size and moments (GiB)."""
+    params = list(state.model.parameters())
+    n = sum(2 * p.numel() * p.element_size() for p in params)   # the param and its gradient
+    n += sum(t.numel() * t.element_size() for st in state.optimizer.state.values()
+             for t in st.values())
+    return n / 2**30
+
+
+# the columns of a distance row: sums over the ranks, the others maxima
+_DIST_SUMS = (0, 1, 4, 5, 8)
+
+
+def _part_distance(pl, rank, a, b, c=None):
+    """This rank's part `a` of a leaf against the same part `b` of the
+    one-rank run (and `c` of the float64 step): [Σ(a−b)², Σb², max|a−b|,
+    max|b|, Σ(b−c)², Σc², max|b−c|, max|c|, Σ(a−c)², max|a−c|] (the last
+    six 0 without `c`), float64 on the host; zeros where another rank
+    counts the same part (a leaf held whole)."""
+    if not (pl.over_tp or pl.over_shard or rank == 0):
+        return torch.zeros(10, dtype=torch.float64)
+    a, b = a.double(), b.double()
+    d = a - b
+    out = [d.square().sum(), b.square().sum(), d.abs().max(), b.abs().max()]
+    if c is None:
+        out += [torch.zeros((), device=a.device, dtype=torch.float64)] * 6
+    else:
+        c = c.double()
+        bc, ac = b - c, a - c
+        out += [bc.square().sum(), c.square().sum(), bc.abs().max(), c.abs().max(),
+                ac.square().sum(), ac.abs().max()]
+    return torch.stack(out).cpu()
+
+
+def _distances(rows):
+    """{key: the whole leaf's (rel L2, max/max) of the mesh from the one-rank
+    run, and with the float64 step the one-rank run's and the mesh's from
+    it} from rows summed and maxed over the two ranks."""
+    import torch.distributed as dist
+
+    keys = sorted(rows)
+    stats = torch.stack([rows[k] for k in keys])
+    s, m = stats.clone(), stats.clone()
+    dist.all_reduce(s)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+    stats = torch.where(torch.tensor([c in _DIST_SUMS for c in range(10)]), s, m)
+    out = {}
+    for k, x in zip(keys, stats.tolist()):
+        d = dict(l2=(x[0] / max(x[1], 1e-300)) ** 0.5, max=x[2] / max(x[3], 1e-300))
+        if x[5] > 0:   # the float64 step
+            d.update(ref_l2=(x[4] / x[5]) ** 0.5, ref_max=x[6] / x[7],
+                     f64_l2=(x[8] / x[5]) ** 0.5, f64_max=x[9] / x[7])
+        out[k] = d
+    return out
+
+
+def _mesh_t_part(rank, mesh_dim, dtype, opt, steps, held):
+    """One part's mesh run and, with `held`, its holds: this rank's parts of
+    each step's gradients and params against the one-rank run's (and each
+    step's gradients against the float64 step), the one-rank run made by
+    each rank in turn. Returns the part's readings."""
+    import torch.distributed as dist
+
+    from lwm_tpu_torch.data.text import shard_batch
+    from lwm_tpu_torch.parallel.mesh import create_mesh, get_ranks_and_size
+
+    mesh = create_mesh(mesh_dim, "cuda")
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    state, batch = _mesh_t_model(dtype, mesh, opt)
+    part = {k: torch.from_numpy(v).cuda() for k, v in shard_batch(
+        {k: v.cpu().numpy() for k, v in batch.items()}, get_ranks_and_size(mesh)).items()}
+    _reset_launch_counts()
+    exchange, records, by_kind = [], {}, {}
+
+    def record(i, kind, named):
+        records[(i, kind)] = {n: t.detach().clone() for n, t in named.items()}
+
+    with _timed_mesh_collectives(exchange, by_kind):
+        losses, times = _mesh_t_steps(state, part, steps, record if held else None)
+    got = dict(losses=losses, times=times, exchange_s=sum(exchange), exchanges=len(exchange),
+               exchange_by_kind=by_kind,
+               launches=_launch_counts(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               state_gib=_state_gib(state))
+    places = state.model.placements
+    del state, part
+    _free_card()
+    rows = {}
+    for turn in range(2):   # the one-rank run, one rank at a time
+        dist.barrier()
+        if rank != turn or not (held or rank == 0):
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        ref_state, _ = _mesh_t_model(dtype, None, opt)
+        f64, f64_losses = {}, []
+
+        def float64(i):   # this rank's parts of the float64 step's gradients at step i
+            loss, grads = f64_step(ref_state.model, batch)
+            f64_losses.append(loss)
+            f64[i] = {n: places[n].local_part(g) for n, g in grads.items()}
+            del grads
+            _free_card()
+
+        def compare(i, kind, named):   # the one-rank run's whole tensors, as they come
+            mine = records.pop((i, kind))
+            ref = f64.pop(i) if kind == "grad" else {}
+            for n, pl in places.items():
+                rows[f"{kind} {i + 1} {n}"] = _part_distance(
+                    pl, rank, mine[n], pl.local_part(named[n].detach()), ref.get(n))
+            del ref
+            if kind == "param" and i + 1 < steps:
+                float64(i + 1)
+
+        if held:
+            float64(0)
+        r_losses, r_times = _mesh_t_steps(ref_state, batch, steps, compare if held else None)
+        got.update(ref_losses=r_losses, ref_times=r_times, f64_losses=f64_losses,
+                   ref_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   ref_state_gib=_state_gib(ref_state))
+        del ref_state, f64
+        _free_card()
+    if held:
+        got["distances"] = _distances(rows)
+    if rank == 0 and dtype == BF16:   # the bf16 floor's fp32 one-rank run
+        ref_state, _ = _mesh_t_model(torch.float32, None, opt)
+        got["ref_fp32_losses"] = _mesh_t_steps(ref_state, batch, steps)[0]
+        del ref_state
+        _free_card()
+    dist.barrier()
+    return got
+
+
+def train_mesh_rank(rank):
+    """This rank's side of phase_train_mesh (see MESH_T_*)."""
+    t0 = time.perf_counter()
+    out = {"a_fsdp2": _mesh_t_part(rank, "1,2,1,1", torch.float32, MESH_T_OPT,
+                                   MESH_T_STEPS, held=True),
+           "b_tp2_fp32": _mesh_t_part(rank, "1,1,2,1", torch.float32, MESH_T_OPT,
+                                      1, held=True),
+           "b_tp2_bf16": _mesh_t_part(rank, "1,1,2,1", BF16,
+                                      dict(adamw_optimizer=TRAIN_CLI_OPT), MESH_T_BF16_STEPS,
+                                      held=False)}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_t_held(what, distances):
+    """Hold every whole leaf: the mesh within MESH_T_TOL of the one-rank run
+    in relative L2 and in max/max; a step-1 gradient that misses, by the
+    float64 step at the one-rank run's params (f64_arm's rule). Logs the
+    largest distances."""
+    over = []
+    for kind in ("grad", "param"):
+        ks = [k for k in distances if k.startswith(kind)]
+        for m in ("l2", "max"):
+            worst = max(ks, key=lambda k: distances[k][m])
+            log(f"train mesh {what}: largest {kind} {m} distance from the one-rank run "
+                f"{distances[worst][m]:.3e} ({worst}; tol {MESH_T_TOL})")
+    for k, d in sorted(distances.items()):
+        for m in ("l2", "max"):
+            if d[m] <= MESH_T_TOL:
+                continue
+            if "ref_" + m not in d:
+                over.append((k, m, d[m]))
+                continue
+            floor = d["ref_" + m]
+            limit = FLOOR_RATIO * floor if floor > MESH_T_TOL else MESH_T_TOL
+            log(f"train mesh {what}: {k} {m} {d[m]:.3e} from the one-rank run; from float64 "
+                f"the mesh {d['f64_' + m]:.3e}, the one-rank run {floor:.3e} (limit {limit:.3e})")
+            if not d["f64_" + m] <= limit:
+                over.append((k, m, d[m], d["f64_" + m], limit))
+    if over:
+        raise AssertionError(f"train mesh {what}: leaves off the one-rank run: {over}")
+
+
+def phase_train_mesh(ranks):
+    """See MESH_T_*: the two ranks' parts (spawn_mesh_ranks), their holds
+    and launches. Returns the launch counts of every rank's parts."""
+    paths = []
+    for r in range(2):
+        got = ranks[r]["_train_mesh"]
+        for name in ("a_fsdp2", "b_tp2_fp32", "b_tp2_bf16"):
+            part = got[name]
+            steps = len(part["losses"])
+            want = dict(flash_fwd=MESH_T_LAYERS * steps, flash_bwd=MESH_T_LAYERS * steps)
+            if "fp32" in name or name.startswith("a"):
+                want.update(flash_fwd_f32=want["flash_fwd"], flash_bwd_f32=want["flash_bwd"])
+            step_s = float(np.median(part["times"]))
+            log(f"train mesh {name} rank {r}: losses {[round(x, 6) for x in part['losses']]}, "
+                f"steps {', '.join(f'{t:.3f}' for t in part['times'])} s; exchanges (host-staged "
+                f"gloo, two ranks on one card: not multi-GPU speed) {part['exchange_s']:.3f} s "
+                f"over {part['exchanges']} collectives ({100 * part['exchange_s'] / sum(part['times']):.1f}% "
+                f"of the steps; by kind {({k: round(v, 3) for k, v in part['exchange_by_kind'].items()})}); peak {part['peak_gib']:.2f} GiB, state {part['state_gib']:.2f} "
+                f"GiB" + (f" (one rank: peak {part['ref_peak_gib']:.2f}, state "
+                          f"{part['ref_state_gib']:.2f} GiB, step "
+                          f"{float(np.median(part['ref_times'])):.3f} s)" if "ref_peak_gib" in part
+                          else "") + f"; median step {step_s:.3f} s; launches "
+                f"{part['launches']} (want {want}) [{card()}]")
+            if any(part["launches"][k] != v for k, v in want.items()):
+                raise AssertionError(f"train mesh {name} rank {r}: launches {part['launches']}, "
+                                     f"want {want}")
+            paths.append(part["launches"])
+    a, b32, b16 = (ranks[0]["_train_mesh"][n] for n in ("a_fsdp2", "b_tp2_fp32", "b_tp2_bf16"))
+    for name, part in (("a_fsdp2", a), ("b_tp2_fp32", b32)):
+        for i, (got, want) in enumerate(zip(part["losses"], part["ref_losses"])):
+            rel = abs(got - want) / abs(want)
+            log(f"train mesh {name} step {i + 1}: loss {got:.8f}, one rank {want:.8f} (relative "
+                f"{rel:.3e}, tol {MESH_T_TOL}); float64 at the one-rank run's params "
+                f"{part['f64_losses'][i]:.8f}")
+            if not (math.isfinite(got) and rel <= MESH_T_TOL):
+                raise AssertionError(f"train mesh {name}: step {i + 1}'s loss leaves the one-rank "
+                                     "run's")
+        _mesh_t_held(name, part["distances"])
+    for i, (got, one, f32) in enumerate(zip(b16["losses"], b16["ref_losses"],
+                                           b16["ref_fp32_losses"])):
+        floor = abs(one - f32)
+        log(f"train mesh b_tp2_bf16 step {i + 1}: loss tp 2 {got:.6f}, one rank {one:.6f}, one "
+            f"rank fp32 {f32:.6f}: |tp 2 - one rank| {abs(got - one):.2e}, the bf16 floor "
+            f"{floor:.2e} (limit {FLOOR_RATIO} x floor + {FUSED_SLACK})")
+        if not (math.isfinite(got) and abs(got - one) <= FLOOR_RATIO * floor + FUSED_SLACK):
+            raise AssertionError(f"train mesh b_tp2_bf16: step {i + 1}'s loss leaves the one-rank "
+                                 "run's by more than the bf16 noise floor")
+    for r in range(2):
+        if ranks[r]["_train_mesh"]["a_fsdp2"]["losses"] != a["losses"]:
+            raise AssertionError("train mesh a_fsdp2: the ranks' losses differ")
+    log(f"train mesh: the phase's ranks {max(x['_train_mesh']['wall_s'] for x in ranks):.1f} s "
+        f"of wall (parts, one-rank runs and holds) [{card()}]")
     return paths
 
 
@@ -6674,6 +7041,8 @@ def main():
         path_launches.extend(phase_train_ring(ranks, Path(work)))
         torch.cuda.empty_cache()
         mark("ring training (two ranks on the card)")
+        path_launches.extend(phase_train_mesh(ranks))
+        mark("fsdp x tp training (the same two ranks)")
         path_launches.extend(phase_serve_mesh(ranks, Path(work)))
         torch.cuda.empty_cache()
         mark("serving, generate and the needle eval on a mesh (the same two ranks)")

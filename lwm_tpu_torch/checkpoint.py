@@ -27,16 +27,24 @@ bfloat16). `load_trainstate_checkpoint` dispatches the `params::`,
 suffix; the train state is the JAX trainer's tree (`train_state_tree`:
 flax's `to_state_dict` of a `TrainState` — `step`, `params/params/...`,
 `opt_state/...`) and its stream is the JAX writer's bytes for the same
-state. `load_into` reads any spec into a model and its optimizer, each
-leaf cast to its tensor's own dtype, as the JAX trainer's shard functions
-cast to their target's. The default `float_dtype="bf16"` rounds every float
-leaf on save, the optimizer's moments included, as the reference does.
-A `trainstate::` load holds the decoded stream on the host before it is
-copied to the device.
+state. `load_into` reads any spec into a model and its optimizer one leaf
+at a time (`iter_stream`; a `flax_params::` file is one blob): each leaf is
+converted, cast to its tensor's own dtype, as the JAX trainer's shard
+functions cast to their target's, and placed before the next is read. The
+default `float_dtype="bf16"` rounds every float leaf on save, the
+optimizer's moments included, as the reference does.
+
+On a mesh whose ranks hold parts of the leaves (tp slices, shards over
+fsdp × sp: `parallel.fsdp`) the stream is the one device's: every rank
+walks the tree in the writer's order and each leaf, params and moments,
+is gathered from the ranks' parts as rank 0 writes it and freed after
+(`checkpoint_gathers`); a load cuts each whole leaf to the rank's part.
+So a checkpoint saved on any mesh loads on any other, and on one device.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -44,9 +52,9 @@ import numpy as np
 import torch
 
 from lwm_tpu_torch.utils import msgpack
-from lwm_tpu_torch.utils.convert import (
-    convert_flax_params, convert_optax_state, flax_params_tree, optax_state_tree,
-)
+from lwm_tpu_torch.parallel.fsdp import placements
+from lwm_tpu_torch.parallel.mesh import mesh_of
+from lwm_tpu_torch.utils.convert import flax_params_tree, leaf_params, optax_state_tree
 from lwm_tpu_torch.utils.dtypes import get_float_dtype_by_name
 from lwm_tpu_torch.utils.flags import merge_config
 from lwm_tpu_torch.utils.io import save_pickle
@@ -256,21 +264,104 @@ def load_trainstate_checkpoint(load_from, disallow_trainstate=False):
     return None, {"params": params}
 
 
+def checkpoint_gathers(state):
+    """Whether saving `state` (a `train.TrainState`) gathers leaves from
+    the ranks' parts, so that every rank takes part in it."""
+    mesh = mesh_of(state.model)
+    return mesh is not None and any(
+        pl.over_tp or pl.over_shard for pl in placements(state.model).values())
+
+
+def _whole(pl, part):
+    """A lazy leaf: the whole leaf of `part` (gathered when it is made)."""
+    if pl is None or not (pl.over_tp or pl.over_shard):
+        return part
+    return functools.partial(pl.whole, part)
+
+
+def _params_for_saving(model):
+    """{name: the whole param, or a callable gathering it} (`_whole`)."""
+    places = placements(model) if mesh_of(model) is not None else {}
+    return {n: _whole(places.get(n), p) for n, p in model.named_parameters()}
+
+
 def train_state_tree(state):
     """`train.TrainState` (model, optimizer, step) → the JAX trainer's train
     state tree: {"step": int32, "params": {"params": flax tree},
-    "opt_state": optax tree} (`utils/convert.py`), its stacked leaves and
-    unmade moments lazy."""
+    "opt_state": optax tree} (`utils/convert.py`), its stacked leaves, its
+    unmade moments and, on a mesh, its gathered leaves lazy."""
     model, opt = state.model, state.optimizer
-    params = dict(model.named_parameters())
+    named = opt.named_state()
+    params = {opt.names[p]: p for p in opt.params}
+    if opt.placement is not None:   # parts → whole leaves, made as they are written
+        for key in (*opt.MOMENTS, "acc"):
+            if key not in named or (key == "acc" and opt.k == 1):
+                continue
+            got = named[key]
+            dtype = opt.mu_dtype if key == opt.MOMENTS[0] else None
+            named[key] = {
+                n: _whole(opt.placement[p], got[n]) if n in got else functools.partial(
+                    torch.zeros, opt.placement[p].shape, dtype=dtype or p.dtype, device=p.device)
+                for n, p in params.items()}
     return {
         "step": np.int32(state.step),
-        "params": {"params": flax_params_tree(params, model.config)},
+        "params": {"params": flax_params_tree(_params_for_saving(model), model.config)},
         "opt_state": optax_state_tree(
-            opt.named_state(), {opt.names[p]: p for p in opt.params}, model.config,
+            named, params, model.config,
             kind=opt.KIND, mu_dtype=opt.mu_dtype, accumulate_gradient_steps=opt.k,
             multi_transform=opt.multi_transform),
     }
+
+
+def _drain(tree):
+    """Make every lazy leaf of `tree` in the writer's order and drop it: a
+    rank that does not write takes part in the gathers rank 0's writer
+    makes."""
+    for value in flatten_dict(tree).values():
+        if callable(value):
+            value()
+
+
+def _stream_records(load_type, path):
+    """(key, leaf) of a spec's file, a leaf at a time: a param's key is
+    ("params", its flax path...), a train state's other keys as written
+    ("step", "opt_state/..."); a `flax_params::` file is one blob, decoded
+    whole."""
+    if load_type == "flax_params":
+        params = load_flax_checkpoint(path)
+        yield from flatten_dict(params.get("params", params), ("params",)).items()
+        return
+    for key, leaf in iter_stream(path):
+        if load_type == "params":
+            yield (key if key[:1] == ("params",) else ("params", *key)), leaf
+        elif key[:2] == ("params", "params"):   # a train state's params
+            yield key[1:], leaf
+        elif load_type == "trainstate":
+            yield key, leaf
+
+
+def _opt_record(key):
+    """A train state's key under "opt_state" → (what, param path): a count
+    ("count", "mini_step", "gradient_step"; path None), a moment ("mu",
+    "nu", "v", "ema", "acc"; its path under the params), or None (optax's
+    other counts and `v_row`/`v_col` placeholders). The layout is
+    `utils.convert.optax_state_tree`'s."""
+    k = list(key)
+    if k[:3] == ["inner_states", "False", "inner_state"]:
+        k = k[3:]
+    if k[:1] in (["mini_step"], ["gradient_step"]):
+        return k[0], None
+    if k[:2] == ["acc_grads", "params"]:
+        return "acc", tuple(k[2:])
+    if k[:1] == ["inner_opt_state"]:
+        k = k[1:]
+    if k[:3] == ["1", "0", "count"]:
+        return "count", None
+    if k[:2] == ["1", "0"] and len(k) > 3 and k[2] in ("mu", "nu", "v") and k[3] == "params":
+        return k[2], tuple(k[4:])
+    if k[:3] == ["1", "3", "ema"] and k[3:4] == ["params"]:
+        return "ema", tuple(k[4:])
+    return None
 
 
 class StreamingCheckpointer:
@@ -299,17 +390,24 @@ class StreamingCheckpointer:
             save_pickle(obj, os.path.join(self.checkpoint_dir, filename))
 
     def save_all(self, state, metadata=None, dataset=None, milestone=False):
-        """Returns the seconds the state's stream took to write."""
+        """Returns the seconds the state's stream took to write. A rank that
+        does not write (`enable` False) takes part in the gathers when the
+        state's leaves are parts (`checkpoint_gathers`) and else returns."""
+        if not self.enable and not checkpoint_gathers(state):
+            return 0.0
         if self.config["save_optimizer_state"]:
             tree, name = train_state_tree(state), "streaming_train_state"
         else:
-            tree = flax_params_tree(dict(state.model.named_parameters()), state.model.config)
+            tree = flax_params_tree(_params_for_saving(state.model), state.model.config)
             name = "streaming_params"
         suffix = f"_{state.step}" if milestone else ""   # milestones are kept
         self.save_pickle(metadata, f"metadata{suffix}.pkl")
         self.save_pickle(dataset, f"dataset{suffix}.pkl")
         t0 = time.perf_counter()
-        self.save_checkpoint(tree, f"{name}{suffix}")
+        if self.enable:
+            self.save_checkpoint(tree, f"{name}{suffix}")
+        else:
+            _drain(tree)
         return time.perf_counter() - t0
 
     @staticmethod
@@ -317,23 +415,55 @@ class StreamingCheckpointer:
     def load_into(load_from, state):
         """Load a 'TYPE::PATH' spec into `state` (train.TrainState): the
         params of any spec into the model; with `trainstate::`, also the
-        optimizer's state and the step count. Returns the spec's type."""
-        model = state.model
+        optimizer's state (`optim` `load_moment`, then its counts through
+        `load_named_state`) and the step count. A leaf at a time: each is
+        converted, cut to this rank's part on a mesh, and placed before the
+        next is read. Returns the spec's type."""
+        load_type, sep, path = load_from.partition("::")
+        if not sep:
+            raise ValueError(f"checkpoint spec {load_from!r} has no TYPE:: prefix")
+        if load_type not in ("trainstate", "trainstate_params", "params", "flax_params"):
+            raise ValueError(f"invalid load_from type: {load_type}")
+        model, opt = state.model, state.optimizer
+        cfg = model.config
         device = model.wte.weight.device
-        train_tree, params = load_trainstate_checkpoint(load_from)
-        if train_tree is not None:
-            params = train_tree["params"]
-            state.optimizer.load_named_state(
-                convert_optax_state(train_tree.pop("opt_state"), model.config, device))
-            state.step = int(np.asarray(train_tree["step"]))
-        sd = convert_flax_params(params, model.config, device=device)
-        missing = dict(model.named_parameters()).keys() - sd.keys()
+        named = dict(model.named_parameters())
+        places = placements(model)
+        on_mesh = mesh_of(model) is not None
+        loaded, counts, kinds = set(), {}, set()
+        opt_names = set(opt.names.values())
+        for key, leaf in _stream_records(load_type, path):
+            if key[:1] == ("step",):
+                state.step = int(np.asarray(leaf))
+            elif key[:1] == ("params",):
+                for name, value in leaf_params(key[1:], leaf, cfg, device=device):
+                    if name not in named:
+                        raise ValueError(f"{load_from}: {name} is not a parameter of the model")
+                    p = named[name]
+                    if on_mesh:
+                        value = places[name].local_part(value)
+                    if value.shape != p.shape:
+                        raise ValueError(f"{load_from}: {name} is {tuple(value.shape)}, the "
+                                         f"model's {tuple(p.shape)}")
+                    p.copy_(value)
+                    loaded.add(name)
+            elif key[:1] == ("opt_state",):
+                got = _opt_record(key[1:])
+                if got is None:
+                    continue
+                what, sub = got
+                if sub is None:
+                    counts[what] = int(np.asarray(leaf))
+                    continue
+                kinds.add(what)
+                if what not in (*opt.MOMENTS, "acc"):
+                    continue   # the other optimizer's: load_named_state below refuses it
+                for name, value in leaf_params(sub, leaf, cfg, device=device):
+                    if name in opt_names:
+                        opt.load_moment(what, name, value)
+        missing = named.keys() - loaded
         if missing:
             raise ValueError(f"{load_from}: no weights for {sorted(missing)}")
-        for name, p in model.named_parameters():
-            value = torch.as_tensor(sd.pop(name))
-            if value.shape != p.shape:
-                raise ValueError(f"{load_from}: {name} is {tuple(value.shape)}, the model's "
-                                 f"{tuple(p.shape)}")
-            p.copy_(value)
-        return load_from.partition("::")[0]
+        if load_type == "trainstate":
+            opt.load_named_state({**counts, **{k: {} for k in kinds}})
+        return load_type

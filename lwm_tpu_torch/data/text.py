@@ -182,7 +182,8 @@ def shard_batch(batch, node_info):
     `sp_layout` "striped" the sequence first goes into the stripe-slot order
     (`ops.striped.stripe_permute`), then the rank keeps rows
     [dp_rank·b/dp, (dp_rank + 1)·b/dp) and columns [sp_rank·s/sp, (sp_rank
-    + 1)·s/sp) (`lwm_tpu/data/text.py:160-172`). `node_info` is
+    + 1)·s/sp) (`lwm_tpu/data/text.py:160-172`); on a mesh `dp_size` is
+    its batch shards (dp × fsdp) and `dp_rank` this rank's. `node_info` is
     `parallel.mesh.get_ranks_and_size`'s; without dp/sp sizes (one device)
     the batch is returned as it is."""
     dp, sp = node_info.get("dp_size", 1), node_info.get("sp_size", 1)
@@ -190,7 +191,7 @@ def shard_batch(batch, node_info):
         return batch
     b, s = next(iter(batch.values())).shape[:2]
     if b % dp or s % sp:
-        raise ValueError(f"a batch of {b} x {s} does not split over dp {dp} x sp {sp}")
+        raise ValueError(f"a batch of {b} x {s} does not split over dp x fsdp {dp} x sp {sp}")
     if node_info["sp_layout"] == "striped":
         batch = {k: stripe_permute(v, sp, axis=1) for k, v in batch.items()}
     rows = slice(node_info["dp_rank"] * (b // dp), (node_info["dp_rank"] + 1) * (b // dp))

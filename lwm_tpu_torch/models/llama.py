@@ -68,8 +68,12 @@ training forward takes this rank's rows and its slice of the sequence
 `llama.py:687-776`): position ids are global (rank i's slot r holds
 position i·s_local + r contiguous, i + r·sp striped), the per-key bias comes
 from the whole sequence's attention mask and the segment ids from the
-whole sequence's (each gathered over sp when given). Training on a tp mesh
-raises (FSDP2, ROADMAP A4.1).
+whole sequence's (each gathered over sp when given). On a tp mesh (the
+model built with `mesh=`) the blocks run on the rank's heads and features
+between `parallel.mesh.TPEntry` and `TPExit`, and the vocab-split head's
+logits are gathered (`GatherLast`); `parallel.fsdp.shard_model` (the
+trainer's `create_train_state`) splits the weights over fsdp × sp, each
+block gathering its own as its forward starts.
 
 Inference on a mesh (`LLaMAForCausalLM(config, mesh=mesh)`, or `on_tensors`
 with this rank's slices from `parallel.partition`): each rank holds its tp
@@ -125,7 +129,8 @@ from lwm_tpu_torch.ops.ring import (
     flash_attention, local_kv_len, lse_partials, merge_partials, ring_attention,
     ring_attention_inference, save_flash_policy,
 )
-from lwm_tpu_torch.parallel.mesh import mesh_of
+from lwm_tpu_torch.parallel.fsdp import full_weight, gather_weights, placements
+from lwm_tpu_torch.parallel.mesh import gather_tp, mesh_of, tp_enter, tp_exit
 from lwm_tpu_torch.parallel.partition import check_tp
 
 REMAT_BLOCKS = ("none", "nothing_saveable", "save_flash")
@@ -326,14 +331,17 @@ class RMSNorm(nn.Module):
 
 class Dense(nn.Linear):
     """Bias-free `nn.Linear` holding its weight in `param_dtype` and
-    multiplying in `dtype` (flax `nn.Dense(dtype, param_dtype)`)."""
+    multiplying in `dtype` (flax `nn.Dense(dtype, param_dtype)`). `weight`
+    is the whole weight when the block gathered it from its shards
+    (`parallel.fsdp`); a head gathers its own."""
 
     def __init__(self, d_in, d_out, *, dtype, param_dtype=None, device=None):
         super().__init__(d_in, d_out, bias=False, dtype=param_dtype or dtype, device=device)
         self.dtype = dtype
 
-    def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+    def forward(self, x, weight=None):
+        weight = full_weight(self) if weight is None else weight
+        return F.linear(x.to(self.dtype), weight.to(self.dtype))
 
 
 class Int8Dense(nn.Module):
@@ -353,7 +361,9 @@ class Int8Dense(nn.Module):
         self.register_buffer("weight", torch.zeros(d_out, d_in, dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(d_out, dtype=torch.float32, device=device))
 
-    def forward(self, x):
+    def forward(self, x, weight=None):
+        if weight is not None:
+            raise NotImplementedError("int8 weights are not sharded (ROADMAP A4)")
         x = x.to(self.dtype)
         if self.impl == "xla":
             return int8_matmul_dequant(x, self.weight, self.scale)
@@ -381,7 +391,7 @@ class Embed(nn.Embedding):
         self.dtype = dtype
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight.to(self.dtype))
+        return F.embedding(ids, full_weight(self).to(self.dtype))
 
 
 FREQS_FACTOR = 4096  # fine-table period of the factored RoPE table
@@ -590,8 +600,10 @@ class LLaMAAttention(nn.Module):
         cache.v[rows, :, idx] = v.to(cache.v.dtype)
 
     def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None,
-                segment_ids=None, mesh=None, shard=None):
-        """x [b, q, hidden]; rope (cos, sin) [b, q, d/2]. With layer_cache:
+                segment_ids=None, mesh=None, shard=None, weights=None):
+        """x [b, q, hidden]; rope (cos, sin) [b, q, d/2]; `weights` the
+        block's gathered whole weights by path (`parallel.fsdp`), or None.
+        With layer_cache:
         mask bool [b, q, kv] (key validity ∧ causal), write_pos [b, q] the
         rows' cache positions (an int: every row's first, the shared
         index), kv_len bounds the keys any row reads, and
@@ -607,9 +619,10 @@ class LLaMAAttention(nn.Module):
         cfg = self.config
         b, q, _ = x.shape
         d = cfg.head_dim
-        xq = apply_rotary(self.wq(x).view(b, q, -1, d), *rope)
-        xk = apply_rotary(self.wk(x).view(b, q, -1, d), *rope)
-        xv = self.wv(x).view(b, q, -1, d)
+        w = weights or {}
+        xq = apply_rotary(self.wq(x, w.get("attention.wq")).view(b, q, -1, d), *rope)
+        xk = apply_rotary(self.wk(x, w.get("attention.wk")).view(b, q, -1, d), *rope)
+        xv = self.wv(x, w.get("attention.wv")).view(b, q, -1, d)
         if layer_cache is None:
             out = self._self_attend(xq, xk, xv, mask, segment_ids, mesh)
         elif shard is not None:
@@ -623,7 +636,7 @@ class LLaMAAttention(nn.Module):
         else:
             self._write_cache(layer_cache, xk, xv, write_pos)
             out = self._attend(xq, layer_cache, mask, kv_len, prefix_mask, mesh)
-        return self.wo(out.reshape(b, q, -1))
+        return self.wo(out.reshape(b, q, -1), w.get("attention.wo"))
 
     def _self_attend(self, xq, xk, xv, bias, segment_ids=None, mesh=None):
         """Causal self-attention, seq-major kv [b, s, h_kv, d] (the JAX
@@ -730,19 +743,18 @@ class LLaMAMLP(nn.Module):
         self.w2 = _dense_cls(config, "w2")(f, config.hidden_size, **kw)
         self.w3 = _dense_cls(config, "w3")(config.hidden_size, f, **kw)
 
-    def forward(self, x):
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
-
-
-def _tp_sum(x, mesh):
-    """A partial product summed over tp, in fp32 (x itself off a tp mesh)."""
-    if mesh is None or mesh.tp == 1:
-        return x
-    return mesh.all_reduce(x.float(), "tp").to(x.dtype)
+    def forward(self, x, weights=None):
+        w = weights or {}
+        return self.w2(F.silu(self.w1(x, w.get("feed_forward.w1")))
+                       * self.w3(x, w.get("feed_forward.w3")), w.get("feed_forward.w2"))
 
 
 class LLaMABlock(nn.Module):
-    """`lwm_tpu/models/llama.py:1254-1336` (no dropout)."""
+    """`lwm_tpu/models/llama.py:1254-1336` (no dropout). On a tp mesh its
+    attention and MLP run on the rank's heads and features between
+    `TPEntry` (the backward's all-reduce) and `TPExit` (the forward's, in
+    fp32); sharded over fsdp × sp, it gathers its weights as its forward
+    starts (`parallel.fsdp.gather_weights`)."""
 
     def __init__(self, config, tp=1, **kw):
         super().__init__()
@@ -754,21 +766,22 @@ class LLaMABlock(nn.Module):
 
     def forward(self, x, mask, write_pos, rope, layer_cache=None, kv_len=None, prefix_mask=None,
                 segment_ids=None, mesh=None, shard=None):
-        x = x + _tp_sum(self.attention(
-            self.attention_norm(x), mask, write_pos, rope, layer_cache, kv_len, prefix_mask,
-            segment_ids, mesh, shard,
+        weights = gather_weights(self)
+        x = x + tp_exit(self.attention(
+            tp_enter(self.attention_norm(x), mesh), mask, write_pos, rope, layer_cache, kv_len,
+            prefix_mask, segment_ids, mesh, shard, weights,
         ), mesh)
-        h = self.ffn_norm(x)
+        h = tp_enter(self.ffn_norm(x), mesh)
         chunk = self.config.scan_mlp_chunk_size
         if (self.config.scan_mlp and torch.is_grad_enabled() and h.shape[1] >= chunk
                 and h.shape[1] % chunk == 0):
             # sequence chunks, each rematerialized (`llama.py:1308-1327`);
             # the same values, only fewer MLP activations kept at a time
-            return x + torch.cat(
-                [checkpoint(self.feed_forward, c, use_reentrant=False) for c in h.split(chunk, 1)],
-                dim=1,
-            )
-        return x + _tp_sum(self.feed_forward(h), mesh)
+            return x + tp_exit(torch.cat(
+                [checkpoint(self.feed_forward, c, weights, use_reentrant=False)
+                 for c in h.split(chunk, 1)], dim=1,
+            ), mesh)
+        return x + tp_exit(self.feed_forward(h, weights), mesh)
 
 
 class LLaMAForCausalLM(nn.Module):
@@ -836,11 +849,23 @@ class LLaMAForCausalLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator):
         """Random weights as the JAX init draws them: every dense kernel and
-        the embedding ~ N(0, initializer_range), norm scales 1."""
+        the embedding ~ N(0, initializer_range), norm scales 1. On a mesh
+        each leaf is drawn whole from `generator` in the one-device order,
+        this rank keeps its part (its tp slice, its shard: `parallel.fsdp`)
+        and the rest is freed, so a mesh run and a one-device run from one
+        seed start equal and no rank holds the whole model."""
         std = self.config.initializer_range
-        for mod in self.modules():
+        places = placements(self)
+        for name, mod in self.named_modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=generator)
+                pl = places[f"{name}.weight"]
+                if tuple(mod.weight.shape) == pl.shape:
+                    mod.weight.normal_(0.0, std, generator=generator)
+                else:
+                    whole = torch.empty(pl.shape, dtype=mod.weight.dtype,
+                                        device=mod.weight.device)
+                    mod.weight.copy_(pl.local_part(whole.normal_(0.0, std, generator=generator)))
+                    del whole
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
 
@@ -968,27 +993,31 @@ class LLaMAForCausalLM(nn.Module):
 
     def _head(self, x):
         """The logits of the final hidden states x (on a tp mesh the rank's
-        vocabulary slices, gathered)."""
+        vocabulary slices, gathered: `GatherLast`)."""
         if self.lm_head is None:
-            return F.linear(x, self.wte.weight.to(self.dtype))
-        logits = self.lm_head(x)
+            return F.linear(x, full_weight(self.wte).to(self.dtype))
         mesh = self._mesh
-        return logits if mesh is None else mesh.all_gather(logits, "tp", -1)
+        return gather_tp(self.lm_head(tp_enter(x, mesh)), mesh)
+
+    def head_weight(self):
+        """The logits head's whole weight [vocab, hidden] (the embedding's
+        when tied), differentiable: gathered over the shard group when
+        sharded, and over tp when its vocab is split (`--fused_lm_loss`)."""
+        if self.lm_head is None:
+            return full_weight(self.wte)
+        return gather_tp(full_weight(self.lm_head), self._mesh, 0)
 
     def _hidden(self, input_ids, attention_mask, position_ids, cache, segment_ids,
                 vision_masks=None):
         cfg = self.config
         mesh = self._mesh
-        if mesh is not None and cache is None and mesh.tp > 1:
-            raise NotImplementedError("training on a tp mesh comes with FSDP2 (ROADMAP A4.1): "
-                                      "the port trains on dp and sp")
         if segment_ids is not None and cache is not None:
             raise ValueError("segment ids are for forwards without a cache")
         if self.training and torch.is_grad_enabled() and max(
             cfg.attn_pdrop, cfg.embd_pdrop, cfg.resid_pdrop
         ) > 0:
             raise NotImplementedError("dropout in training is not ported yet: K1 has no dropout "
-                                      "(ROADMAP A3, A4)")
+                                      "(ROADMAP A3, A4: in-kernel dropout)")
         b, s = input_ids.shape
         dev = input_ids.device
         sp = 1 if mesh is None or cache is not None else mesh.sp   # the training ring's

@@ -27,7 +27,10 @@ two hooks, `_embed` and `_head`.
 Training (`lwm_tpu/train.py:273-296`): a forward without a cache under
 autograd returns `sample_mode="all"`'s pair for the dual loss
 (`utils.losses.dual_cross_entropy`), its blocks rematerialized as the text
-model's; `init_weights` draws `vte` and `vision_head` N(0,
+model's; on a mesh `vte` is split over fsdp × sp and kept whole over tp
+as `wte` is, the `vision_head` split over tp by vocab (its logits
+gathered) and over fsdp × sp, as `lwm_tpu/models/vision_llama.py:80-86`
+shards them; `init_weights` draws `vte` and `vision_head` N(0,
 initializer_range) as the JAX init does; `--freeze_base` trains only the
 two (`LLaMAConfig.get_frozen_param_exclusions`).
 
@@ -51,6 +54,8 @@ import torch.nn.functional as F
 
 from lwm_tpu_torch.generation import GenerationConfig, warp_logits
 from lwm_tpu_torch.models.llama import Embed, LLaMAConfig, LLaMAForCausalLM, _dense_cls
+from lwm_tpu_torch.parallel.fsdp import full_weight
+from lwm_tpu_torch.parallel.mesh import gather_tp, tp_enter
 
 EOF, EOV = 8192, 8193   # the frame and video ends among the vision specials
 TOKENS_PER_FRAME = 257  # 256 VQ codes and the EOF that closes the frame
@@ -95,14 +100,16 @@ class VideoLLaMAForCausalLM(LLaMAForCausalLM):
 
     takes_vision_masks = True
 
-    def __init__(self, config, *, dtype=torch.float32, param_dtype=None, device="cuda"):
-        super().__init__(config, dtype=dtype, param_dtype=param_dtype, device=device)
+    def __init__(self, config, *, dtype=torch.float32, param_dtype=None, device="cuda",
+                 mesh=None):
+        super().__init__(config, dtype=dtype, param_dtype=param_dtype, device=device, mesh=mesh)
         kw = dict(dtype=dtype, param_dtype=param_dtype or dtype, device=device)
+        tp = 1 if mesh is None else mesh.tp
         self.vte = Embed(config.vision_vocab_size, config.hidden_size, **kw)
         self.vision_head = (
             None if config.tie_vision_embeddings
             else _dense_cls(config, "vision_head")(config.hidden_size,
-                                                   config.vision_vocab_size, **kw)
+                                                   config.vision_vocab_size // tp, **kw)
         )
 
     def _embed(self, input_ids, vision_masks):
@@ -123,8 +130,9 @@ class VideoLLaMAForCausalLM(LLaMAForCausalLM):
 
     def _vision_logits(self, x):
         if self.vision_head is None:
-            return F.linear(x, self.vte.weight.to(self.dtype))
-        return self.vision_head(x)
+            return F.linear(x, full_weight(self.vte).to(self.dtype))
+        mesh = self._mesh
+        return gather_tp(self.vision_head(tp_enter(x, mesh)), mesh)
 
     def _head(self, x):
         mode = self.config.sample_mode

@@ -51,11 +51,21 @@ The update is a loop over tensors with per-tensor temporaries (no
 a 7b-width model on one card cannot afford). `named_state` and
 `load_named_state` carry the state by parameter name, the layout
 `utils/convert.py` maps to and from optax's.
+
+On a mesh (`placements`: each parameter's `parallel.fsdp.Placement`) the
+parameters are this rank's parts of the whole leaves, and so are the
+moments: the updates run on the parts as they are elementwise; the clip
+norm is the whole leaves' (`utils.losses.global_norm`, summed over the
+shard group and tp), and PaLM's per-block rms is the whole leaf's, its
+squares and sizes summed over the shard group and, for the leaves split
+over tp, over tp. `named_state` gives the parts; `load_named_state` and
+`load_moment` take whole leaves and keep this rank's parts.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 import re
 
 import numpy as np
@@ -123,8 +133,12 @@ class _Optimizer:
 
     def __init__(self, named_params, *, learning_rate_schedule, b1, b2, weight_decay,
                  clip_gradient, mu_dtype=torch.float32, accumulate_gradient_steps=1,
-                 weight_decay_mask=None, multi_transform=False, param_block=None):
+                 weight_decay_mask=None, multi_transform=False, param_block=None,
+                 placements=None):
         named_params = list(named_params)
+        # param → its Placement on a mesh (None on one device)
+        self.placement = None if placements is None else {p: placements[n]
+                                                          for n, p in named_params}
         # the leaf of the JAX tree each param lies in (params of one share it)
         self.block = {p: n if param_block is None else param_block(n) for n, p in named_params}
         self.params = [p for _, p in named_params]   # none when every param is frozen
@@ -167,7 +181,8 @@ class _Optimizer:
                 return
             grads = [self.state[p]["acc"] for p in params]
         if params:
-            norm = global_norm(grads)
+            norm = global_norm(grads, None if self.placement is None
+                               else [self.placement[p] for p in params])
             clip = None if bool(norm < self.clip_gradient) else (norm, self.clip_gradient)
             self._update(params, grads, clip)
         self.count += 1
@@ -176,6 +191,13 @@ class _Optimizer:
                 g.zero_()
             self.mini_step = 0
             self.gradient_step += 1
+
+    def _local(self, p, value):
+        """A whole leaf of param `p`'s shape → this rank's part of it."""
+        value = torch.as_tensor(value)
+        if self.placement is None or tuple(value.shape) == tuple(p.shape):
+            return value
+        return self.placement[p].local_part(value)
 
     @staticmethod
     def _clipped(g, clip):
@@ -203,21 +225,34 @@ class _Optimizer:
         (and the MultiSteps accumulator) by parameter name, each copied to
         its parameter's device in the optimizer's own dtype (mu_dtype for
         the momentum, the parameter's for the rest), as the JAX trainer
-        casts a loaded state to its target's dtypes. A moment missing from
-        `named` is left unset (zeros at the first update); a state of the
-        other optimizer raises."""
+        casts a loaded state to its target's dtypes; a whole leaf on a mesh
+        is cut to this rank's part. A moment missing from `named` is left
+        unset (zeros at the first update); a state of the other optimizer
+        raises."""
         if not set(self.MOMENTS) <= named.keys():
             raise ValueError(f"{type(self).__name__} cannot load an optimizer state holding "
                              f"{sorted(k for k in named if isinstance(named[k], dict))}")
+        self.load_counts(named)
+        by_name = {n: p for p, n in self.names.items()}
+        for key in (*self.MOMENTS, "acc"):
+            for name, value in named.get(key, {}).items():
+                if name in by_name:
+                    self.load_moment(key, name, value)
+
+    def load_counts(self, named):
+        """The counts of a `named_state` ("count", "mini_step", "gradient_step")."""
         self.count = int(named["count"])
         self.mini_step = int(named.get("mini_step", 0))
         self.gradient_step = int(named.get("gradient_step", 0))
-        for p in self.params:
-            for key in (*self.MOMENTS, "acc"):
-                value = named.get(key, {}).get(self.names[p])
-                if value is not None:
-                    dtype = self.mu_dtype if key == self.MOMENTS[0] else p.dtype
-                    self.state[p][key] = torch.as_tensor(value).to(p.device, dtype, copy=True)
+
+    @torch.no_grad()
+    def load_moment(self, key, name, value):
+        """Set moment `key` of parameter `name` from its whole leaf `value`
+        (this rank's part of it, on the parameter's device, in the
+        optimizer's dtype: see `load_named_state`)."""
+        p = next(q for q, n in self.names.items() if n == name)
+        dtype = self.mu_dtype if key == self.MOMENTS[0] else p.dtype
+        self.state[p][key] = self._local(p, value).to(p.device, dtype, copy=True)
 
 
 class AdamW(_Optimizer):
@@ -255,12 +290,7 @@ class Palm(_Optimizer):
         decay = f32(1) - f32(self.count + 1) ** f32(-self.b2)
         lr = f32(self.schedule(self.count))
         wd = float(f32(-(self.weight_decay / 1e-4)) * (lr * lr))
-        squares, sizes = {}, {}   # each block's sum of squares and size, before any update
-        for p in params:
-            b = self.block[p]
-            squares[b] = squares.get(b, 0.0) + p.float().square().sum()
-            sizes[b] = sizes.get(b, 0) + p.numel()
-        rms = {b: (squares[b] / sizes[b]).sqrt().clamp_min(MIN_PARAM_RMS) for b in squares}
+        rms = self._block_rms(params)
         for p, g in zip(params, grads):
             g = self._clipped(g, clip)
             v = self._moment(p, "v")
@@ -274,6 +304,29 @@ class Palm(_Optimizer):
             if p in self.decayed:
                 update.add_(p * wd)
             p.add_(update)
+
+
+    def _block_rms(self, params):
+        """{block: max(rms of its whole leaf, MIN_PARAM_RMS)} before any
+        update; on a mesh the squares and sizes of the parts are summed over
+        the shard group and, for leaves split over tp, over tp."""
+        squares, sizes, split = {}, {}, {}   # each block's sum of squares, size, splits
+        for p in params:
+            b = self.block[p]
+            squares[b] = squares.get(b, 0.0) + p.float().square().sum()
+            pl = None if self.placement is None else self.placement[p]
+            sizes[b] = sizes.get(b, 0) + (p.numel() if pl is None else math.prod(pl.shape))
+            split[b] = (False, False) if pl is None else (pl.over_tp, pl.over_shard)
+        blocks = list(squares)
+        mesh = None if self.placement is None or not blocks else self.placement[params[0]].mesh
+        if mesh is not None:
+            sums = torch.stack([squares[b] for b in blocks])
+            for axis, m, n in (("shard", 1, mesh.shard), ("tp", 0, mesh.tp)):
+                if n > 1:
+                    on = torch.tensor([split[b][m] for b in blocks], device=sums.device)
+                    sums = torch.where(on, mesh.all_reduce(sums, axis), sums)
+            squares = dict(zip(blocks, sums.unbind(0)))
+        return {b: (squares[b] / sizes[b]).sqrt().clamp_min(MIN_PARAM_RMS) for b in blocks}
 
 
 ADAMW_DEFAULTS = dict(
@@ -298,21 +351,23 @@ class OptimizerFactory:
 
     @classmethod
     def get_optimizer(cls, config, named_params, weight_decay_mask=None,
-                      frozen_param_mask=None, param_block=None):
+                      frozen_param_mask=None, param_block=None, placements=None):
         """The optimizer of `config["type"]` over `named_params` ((name,
         tensor) pairs): `weight_decay_mask(name)` says whether a param is
         decayed (all when None), `frozen_param_mask(name)` whether it is
         frozen (none when None; frozen params are left out),
         `param_block(name)` names the JAX tree leaf a param lies in (PaLM's
-        parameter scale is one a leaf; each param its own when None). Its
-        schedule is `.schedule`."""
+        parameter scale is one a leaf; each param its own when None),
+        `placements` ({name: `parallel.fsdp.Placement`}) how a mesh holds
+        them (the module note). Its schedule is `.schedule`."""
         config = cls.get_default_config(config)
         named_params = list(named_params)
         if frozen_param_mask is not None:
             named_params = [(n, p) for n, p in named_params if not frozen_param_mask(n)]
         common = dict(accumulate_gradient_steps=config["accumulate_gradient_steps"],
                       weight_decay_mask=weight_decay_mask,
-                      multi_transform=frozen_param_mask is not None, param_block=param_block)
+                      multi_transform=frozen_param_mask is not None, param_block=param_block,
+                      placements=placements)
         if config["type"] == "adamw":
             c = config["adamw_optimizer"]
             schedule = warmup_cosine_decay_schedule(

@@ -10,22 +10,27 @@ nothing. One rank drives one card (or the CPU), so a mesh of n devices is a
 job of n processes, started by `torchrun`.
 
 What the port runs on a mesh:
-- training on dp (each dp group takes its rows of the batch) and sp (each sp
-  rank its slice of the sequence, attention by `ops.ring.ring_attention`;
-  gradients summed over every rank). fsdp or tp > 1 in training raises in
-  `train.check_mesh` (FSDP2 comes with ROADMAP A4.1);
+- training on all four axes: the batch's rows split over dp × fsdp, the
+  sequence over sp (attention by `ops.ring.ring_attention`), the weights
+  and the optimizer's moments split over tp and over the shard group
+  (fsdp × sp) by the partition rules (`parallel.partition`,
+  `parallel.fsdp`), tensor-parallel blocks through `TPEntry`/`TPExit`;
 - inference on all four axes: the batch (the server's slots, generate's rows)
   split over dp × fsdp, the weights split over tp (`parallel.partition`) and
   replicated over dp × fsdp × sp, and the KV cache split over tp (its heads)
   and sp (its sequence: `ops.ring.ring_attention_inference`).
 
-Beside the per-axis groups of the torch `DeviceMesh`, a mesh holds two
-groups of its own: "batch" (the dp × fsdp ranks that share a tp and sp
-coordinate) and "model" (the tp × sp ranks that share a batch shard, which
-compute the same rows). Its collectives (`all_reduce`, `all_gather`,
-`broadcast`) run over a named group; under gloo, which takes CPU tensors
-only, card tensors are staged through host memory (two ranks sharing one
-card), as the backend decides and never as a fallback.
+Beside the per-axis groups of the torch `DeviceMesh`, a mesh holds groups
+of its own: "batch" (the dp × fsdp ranks that share a tp and sp
+coordinate), "model" (the tp × sp ranks that share a batch shard, which
+compute the same rows) and "shard" (the fsdp × sp ranks that share a dp
+and a tp coordinate: the rule table's ("fsdp", "sp"), over which a
+weight's shards are gathered). Its collectives (`all_reduce`, `all_gather`,
+`reduce_scatter`, `broadcast`) run over a named group; under gloo, which
+takes CPU tensors only, card tensors are staged through host memory (two
+ranks sharing one card), as the backend decides and never as a fallback.
+The differentiable ones (`TPEntry`, `TPExit`, `GatherLast`,
+`GatherShards`) are autograd Functions over them.
 """
 
 from __future__ import annotations
@@ -101,7 +106,7 @@ def initialize_distributed(config=None, device="cuda", backend=None):
 
 
 # the mesh's own groups → the axes they span
-GROUP_AXES = {"batch": ("dp", "fsdp"), "model": ("tp", "sp")}
+GROUP_AXES = {"batch": ("dp", "fsdp"), "model": ("tp", "sp"), "shard": ("fsdp", "sp")}
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -173,6 +178,17 @@ class Mesh:
         """This rank's batch shard: dp_rank · fsdp + fsdp_rank."""
         return self.dp_rank * self.fsdp + self._local_rank("fsdp")
 
+    @property
+    def shard(self):
+        """The weights' shard group's ranks: fsdp × sp."""
+        return self.fsdp * self.sp
+
+    @property
+    def shard_rank(self):
+        """This rank's index in the shard group: fsdp_rank · sp + sp_rank
+        (a leaf's ("fsdp", "sp") dim is split in this order, as JAX's)."""
+        return self._local_rank("fsdp") * self.sp + self.sp_rank
+
     def rank_of(self, dp=0, fsdp=0, tp=0, sp=0):
         """The global rank at a mesh coordinate (ranks in row-major order)."""
         rank = 0
@@ -195,6 +211,17 @@ class Mesh:
     def _on_host(group, x):
         return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
+    @staticmethod
+    def _ring(group):
+        """(this rank's index, n, the next rank, the previous rank) of the
+        ring over `group`'s ranks. Under gloo the gathers and reduce-scatters
+        run as rings of point-to-point sends on the host, which move host
+        memory faster than gloo's own all-gather, reduce-scatter or
+        all-reduce do (PERF.md §5)."""
+        ranks = dist.get_process_group_ranks(group)
+        i, n = ranks.index(dist.get_rank()), len(ranks)
+        return i, n, ranks[(i + 1) % n], ranks[(i - 1) % n]
+
     def all_reduce(self, x, axis=None, op="sum"):
         """x reduced ("sum" or "max") over the ranks of `axis`; a new tensor
         on x's device (x itself when the axis has one rank)."""
@@ -211,10 +238,40 @@ class Mesh:
         if n == 1:
             return x
         group = self.group(axis)
+        if dist.get_backend(group) == "gloo" and x.dtype != torch.bool:   # sends on the host
+            i, n, nxt, prv = self._ring(group)
+            whole = torch.empty((n, *x.shape), dtype=x.dtype)
+            whole[i] = x
+            for step in range(n - 1):   # pass on the part received the step before
+                _exchange(whole[(i - step) % n], nxt, whole[(i - step - 1) % n], prv, group)
+            out = (whole.view(-1, *x.shape[1:]) if x.dim() and dim % x.dim() == 0
+                   else torch.cat(whole.unbind(0), dim))
+            return out.to(x.device)
         y = (x.cpu() if self._on_host(group, x) else x).contiguous()
         parts = [torch.empty_like(y) for _ in range(n)]
         dist.all_gather(parts, y, group=group)
         return torch.cat(parts, dim).to(x.device)
+
+    def reduce_scatter(self, x, axis=None):
+        """x [n·m, ...] summed over the n ranks of `axis`; this rank keeps
+        rows [i·m, (i + 1)·m) of the sum, i its index in the group."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
+        group = self.group(axis)
+        m = x.shape[0] // n
+        if dist.get_backend(group) == "gloo":   # a ring of sends on the host (`_ring`)
+            i, n, nxt, prv = self._ring(group)
+            parts = x.to("cpu", copy=True).contiguous().view(n, -1)
+            got = torch.empty_like(parts[0])
+            for step in range(n - 1):   # add the partial sum received to this rank's own
+                _exchange(parts[(i - step - 1) % n], nxt, got, prv, group)
+                parts[(i - step - 2) % n] += got
+            return parts[i].view(m, *x.shape[1:]).to(x.device)
+        y = x.contiguous()
+        out = y.new_empty((m, *y.shape[1:]))
+        dist.reduce_scatter_tensor(out, y, group=group)
+        return out
 
     def broadcast(self, x, axis=None, src=0):
         """The x of the rank at index `src` of `axis`'s group, on every rank
@@ -234,6 +291,115 @@ class Mesh:
     @property
     def is_rank0(self):
         return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _exchange(send, to, recv, frm, group):
+    """Send `send` to global rank `to` while receiving `recv` from `frm`."""
+    ops = [dist.P2POp(dist.isend, send, to, group), dist.P2POp(dist.irecv, recv, frm, group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+
+
+class TPEntry(torch.autograd.Function):
+    """A tensor-parallel block's input: the identity forward; the backward
+    sums the ranks' partial gradients over tp (each rank's heads or
+    features see all of x)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.float(), "tp").to(g.dtype), None
+
+
+class TPExit(torch.autograd.Function):
+    """A tensor-parallel block's output: the ranks' partial products summed
+    over tp in fp32; the backward passes the gradient through (every rank
+    holds the whole sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.float(), "tp").to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherLast(torch.autograd.Function):
+    """The ranks' slices along `dim` gathered over `axis` (the vocab-split
+    logits or head over tp); the backward keeps this rank's slice of the
+    gradient (every rank computes the same function of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, x.shape[dim]
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        rank = ctx.mesh.tp_rank if ctx.axis == "tp" else ctx.mesh.shard_rank
+        return g.narrow(ctx.dim, rank * ctx.n, ctx.n).contiguous(), None, None, None
+
+
+def tp_enter(x, mesh):
+    """`TPEntry` on a tp mesh, else x."""
+    return x if mesh is None or mesh.tp == 1 else TPEntry.apply(x, mesh)
+
+
+def tp_exit(x, mesh):
+    """`TPExit` on a tp mesh, else x."""
+    return x if mesh is None or mesh.tp == 1 else TPExit.apply(x, mesh)
+
+
+def gather_tp(x, mesh, dim=-1):
+    """`GatherLast` over tp along `dim` on a tp mesh, else x."""
+    if mesh is None or mesh.tp == 1:
+        return x
+    return GatherLast.apply(x, mesh, "tp", dim % x.dim())
+
+
+class GatherShards(torch.autograd.Function):
+    """Whole (tp-local) weights from this rank's shards, gathered over the
+    shard group in one flat all-gather: `shards` are this rank's slices,
+    each of its leaf's dim `dims[i]`. The backward reduce-scatters the
+    whole weights' gradients (a sum over the shard group) in one flat
+    collective, so each shard's gradient is the shard group's."""
+
+    @staticmethod
+    def forward(ctx, mesh, dims, *shards):
+        ctx.mesh, ctx.dims = mesh, dims
+        ctx.shapes = [s.shape for s in shards]
+        ctx.like = dict(dtype=shards[0].dtype, device=shards[0].device)
+        n = mesh.shard
+        flat = torch.cat([s.reshape(-1) for s in shards])
+        whole = mesh.all_gather(flat[None], "shard", 0)   # [n, Σ numel]
+        out, at = [], 0
+        for s, dim in zip(shards, dims):
+            part = whole[:, at:at + s.numel()].reshape(n, *s.shape)
+            at += s.numel()
+            out.append(torch.cat(part.unbind(0), dim) if dim else part.reshape(-1, *s.shape[1:]))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.mesh.shard
+        parts = []
+        for g, shape, dim in zip(grads, ctx.shapes, ctx.dims):
+            if g is None:   # a weight this forward did not use
+                parts.append(torch.zeros((n, math.prod(shape)), **ctx.like))
+            else:
+                parts.append(torch.stack(g.chunk(n, dim)).reshape(n, -1))
+        summed = ctx.mesh.reduce_scatter(torch.cat(parts, 1), "shard")[0]   # this rank's row
+        out, at = [], 0
+        for shape in ctx.shapes:
+            k = math.prod(shape)
+            out.append(summed[at:at + k].view(shape))
+            at += k
+        return (None, None, *out)
 
 
 def mesh_of(model):
@@ -275,9 +441,11 @@ def get_ranks_and_size(mesh):
     """What this rank's loader reads and keeps (`lwm_tpu/parallel/mesh.py:
     74-93` is the JAX host's): every rank reads the whole global batch, as
     JAX's one host does, so the loader's line sharding is one node of one
-    (`dp_node_size` 1, `mp_node_size` 1); the rank keeps its dp rows and
-    sp columns (`data.text.shard_batch`): `dp_size`/`dp_rank`, `sp_size`/
-    `sp_rank` and the `sp_layout`."""
+    (`dp_node_size` 1, `mp_node_size` 1); the rank keeps its rows of the
+    batch, split over dp × fsdp as JAX's `PS(("dp", "fsdp"), "sp")`, and
+    its sp columns (`data.text.shard_batch`): `dp_size`/`dp_rank` (the
+    batch shards and this rank's), `sp_size`/`sp_rank` and the
+    `sp_layout`."""
     return dict(shard_on_batch=False, dp_node_size=1, dp_node_rank=0, mp_node_size=1,
-                mp_node_rank=0, dp_size=mesh.dp, dp_rank=mesh.dp_rank, sp_size=mesh.sp,
+                mp_node_rank=0, dp_size=mesh.batch, dp_rank=mesh.batch_rank, sp_size=mesh.sp,
                 sp_rank=mesh.sp_rank, sp_layout=mesh.layout)

@@ -9,6 +9,8 @@
 
     torchrun --nproc_per_node=4 -m lwm_tpu_torch.train --mesh_dim=2,1,1,2 \
         --sp_layout=striped ...          # dp 2 x sp 2, one rank a card
+    torchrun --nproc_per_node=4 -m lwm_tpu_torch.train --mesh_dim='!1,-1,2,2' \
+        ...                              # tp 2 x sp 2 (run_train_text.sh's mesh)
 
 (`scripts/run_train_torch.sh` and, for vision-text, `scripts/
 run_train_vision_torch.sh` are the bundles.) The flags are the JAX
@@ -46,20 +48,29 @@ not read there, as in JAX), its log-softmax in chunks of 2048 rows unless
 `gradient_norm` counts every gradient, frozen ones included, as JAX's
 does. Metrics stay on the device until a log reads them.
 
-On a mesh (`--mesh_dim` over the job's ranks, `parallel.mesh`; the process
-group from torchrun's environment, or from `--jax_distributed.*` when
-`initialize_jax_distributed` is set; NCCL on the card, gloo on the CPU)
-every rank reads the same global batch and keeps its dp rows and sp columns
-(`data.text.shard_batch`, after the stripe permutation under
-`--sp_layout=striped`); the model runs its sp slice through the ring
-(`ops.ring.ring_attention`), the loss is the one-device mean on every rank
-(`utils.losses`), and the gradients are summed over every rank before the
-optimizer (`all_reduce_grads`), so every rank holds the same parameters.
+On a mesh (`--mesh_dim` over the job's ranks, dp × fsdp × tp × sp,
+`parallel.mesh`; the process group from torchrun's environment, or from
+`--jax_distributed.*` when `initialize_jax_distributed` is set; NCCL on the
+card, gloo on the CPU) every rank reads the same global batch and keeps its
+rows (split over dp × fsdp) and sp columns (`data.text.shard_batch`, after
+the stripe permutation under `--sp_layout=striped`), as JAX's
+`PS(("dp", "fsdp"), "sp")` (`lwm_tpu/train.py:300`); the model is built at
+its tp width and `create_train_state` shards it over fsdp × sp by the rule
+table (`parallel.fsdp`: params and moments alike, `lwm_tpu/train.py:
+322-359`); the model runs its sp slice through the ring
+(`ops.ring.ring_attention`), its blocks on the rank's heads and features,
+the loss is the one-device mean on every rank (`utils.losses`), a sharded
+leaf's gradient is reduce-scattered over fsdp × sp in the backward, and the
+gradients are summed over dp (a leaf held whole over fsdp × sp first over
+it) before the optimizer (`reduce_gradients`), never over tp. `param_norm`
+and `gradient_norm` are the whole leaves' (`lwm_tpu/train.py:307-310`).
 Only rank 0 logs (unless `log_all_worker`), writes metrics and saves
-checkpoints (`lwm_tpu/train.py:132`, `:332`); autoresume reads on every rank.
+checkpoints (`lwm_tpu/train.py:132`, `:332`), each leaf gathered from the
+ranks' parts as it is written; autoresume reads on every rank, each leaf
+cut to the rank's part as it is read (`checkpoint`).
 
-Refused, naming what they wait for: fsdp or tp > 1 (the partition rules,
-ROADMAP A4); the `huggingface` dataset type and `gs://` paths.
+Refused, naming what they wait for: dropout and the other remat policies
+(ROADMAP A3); the `huggingface` dataset type and `gs://` paths.
 """
 
 from __future__ import annotations
@@ -74,12 +85,13 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from lwm_tpu_torch.checkpoint import StreamingCheckpointer
+from lwm_tpu_torch.checkpoint import StreamingCheckpointer, checkpoint_gathers
 from lwm_tpu_torch.data import DatasetFactory
 from lwm_tpu_torch.data.text import shard_batch
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
 from lwm_tpu_torch.models.vision_llama import VideoLLaMAConfig, VideoLLaMAForCausalLM
 from lwm_tpu_torch.optim import OptimizerFactory, none_match
+from lwm_tpu_torch.parallel.fsdp import shard_model
 from lwm_tpu_torch.parallel.mesh import (
     SP_LAYOUTS, create_mesh, get_ranks_and_size, initialize_distributed, mesh_of,
 )
@@ -146,11 +158,16 @@ class TrainState:
 def create_train_state(model, optimizer_config=None, freeze_base=False):
     """The model with the optimizer of `optimizer_config` over its params,
     decayed and frozen as its config's exclusions say (`param_masks`), each
-    param in the block of its JAX tree leaf (`flax_param_path`)."""
+    param in the block of its JAX tree leaf (`flax_param_path`). On the
+    model's mesh the params are sharded over fsdp × sp first
+    (`parallel.fsdp.shard_model`), so the optimizer's moments are parts
+    too."""
     decayed, frozen = param_masks(model.config, freeze_base)
+    shard_model(model)
     return TrainState(model, OptimizerFactory.get_optimizer(
         optimizer_config, model.named_parameters(), decayed, frozen,
-        param_block=lambda name: flax_param_path(name, model.config)))
+        param_block=lambda name: flax_param_path(name, model.config),
+        placements=model.placements if mesh_of(model) is not None else None))
 
 
 def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
@@ -178,7 +195,7 @@ def compute_loss(model, batch, loss_chunk_size=0, fused_lm_loss=False):
                                   chunk_size=loss_chunk_size or 2048, mesh=mesh)
     if fused_lm_loss:
         hidden = model.forward_hidden(batch["input_tokens"])
-        weight = model.wte.weight if model.lm_head is None else model.lm_head.weight
+        weight = model.head_weight()
         loss, acc = fused_lm_cross_entropy(hidden, weight, batch["target_tokens"],
                                            batch["loss_masks"], chunk_size=loss_chunk_size or 2048,
                                            mesh=mesh)
@@ -226,28 +243,53 @@ def all_reduce_grads(params, group=None):
         finish()
 
 
+def reduce_gradients(model):
+    """Sum the gradients of a model on a mesh where the ranks computed
+    parts of them: a leaf held whole over fsdp × sp over that group, then
+    every leaf over dp (a sharded leaf's gradient was reduce-scattered over
+    fsdp × sp in the backward: `parallel.mesh.GatherShards`); nothing over
+    tp, whose ranks hold their own slices or the same whole gradient."""
+    mesh = model.mesh
+    places = model.placements
+    named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+    if mesh.shard > 1:
+        all_reduce_grads([p for n, p in named if not places[n].over_shard], mesh.group("shard"))
+    if mesh.dp > 1:
+        all_reduce_grads([p for _, p in named], mesh.group("dp"))
+
+
+def _norm(model, tensors):
+    """The global norm of `tensors` (one for each of the model's params, or
+    None), over the whole leaves on the model's mesh."""
+    named = [(n, t) for (n, _), t in zip(model.named_parameters(), tensors) if t is not None]
+    places = model.placements if mesh_of(model) is not None else None
+    return global_norm([t for _, t in named], None if places is None
+                       else [places[n] for n, _ in named])
+
+
 def train_step(state, batch, loss_chunk_size=0, fused_lm_loss=False):
     """One forward, backward and optimizer step, updating `state` in place.
     Returns the JAX step's metrics as 0-dim tensors: loss, the loss's
     metrics (`compute_loss`), learning_rate (the schedule at the new step
     count), param_norm (after the update) and gradient_norm (of every
-    gradient, frozen params' included). On the model's mesh the gradients
-    are summed over its ranks before the optimizer."""
+    gradient, frozen params' included), both over the whole leaves. On the
+    model's mesh the gradients are summed over its ranks before the
+    optimizer (`reduce_gradients`)."""
     model = state.model
     model.zero_grad(set_to_none=True)
     loss, aux = compute_loss(model, batch, loss_chunk_size, fused_lm_loss)
     loss.backward()
     params = list(model.parameters())
     if mesh_of(model) is not None:
-        all_reduce_grads(params, model.mesh.group())
-    gradient_norm = global_norm([p.grad for p in params if p.grad is not None])
+        reduce_gradients(model)
+    gradient_norm = _norm(model, [p.grad for p in params])
     state.optimizer.step()
     model.zero_grad(set_to_none=True)
     state.step += 1
     return dict(
         loss=loss.detach(),
         learning_rate=torch.tensor(state.optimizer.schedule(state.step)),
-        param_norm=global_norm(params),
+        param_norm=_norm(model, params),
         gradient_norm=gradient_norm,
         **{k: v.detach() for k, v in aux.items()},
     )
@@ -330,14 +372,10 @@ def check_single_device_mesh(mesh_dim):
 
 
 def check_mesh(mesh_dim):
-    """`mesh_dim` in the grammar, fsdp and tp 1: what the port trains on.
-    The sizes are checked against the job's ranks when the mesh is built."""
-    for axis, size in zip(("fsdp", "tp"), _mesh_dims(mesh_dim)[1:3]):
-        if size > 1:
-            raise NotImplementedError(
-                f"--mesh_dim={mesh_dim}: {axis} = {size} in training needs FSDP2 weight sharding, "
-                "which comes with a later multi-GPU slice (ROADMAP A4.1); the port trains on dp "
-                "and sp")
+    """`mesh_dim` in the grammar (four axis sizes, at most one -1); the port
+    trains on every axis. The sizes are checked against the job's ranks
+    when the mesh is built."""
+    _mesh_dims(mesh_dim)
 
 
 def check_supported(flags):
@@ -428,8 +466,7 @@ def _main(flags, device):
             f"sample_mode='{config.sample_mode}' — 'vision'/'text' are sampling-time modes "
             "(set them at generation, not here)")
     model = model_cls(config, dtype=get_float_dtype_by_name(flags.dtype),
-                      param_dtype=torch.float32, device=device)
-    model.mesh = mesh
+                      param_dtype=torch.float32, device=device, mesh=mesh)
     state = create_train_state(model, flags.optimizer, flags.freeze_base)
     checkpointer = StreamingCheckpointer(flags.checkpointer, output_dir, enable=mesh.is_rank0)
     summary = dict(output_dir=output_dir, loaded=None, load_seconds=None, save_seconds=[])
@@ -443,14 +480,16 @@ def _main(flags, device):
     summary["start_step"] = start_step = state.step
 
     def save_checkpoint(milestone=False):
-        if not mesh.is_rank0:
+        # a mesh holding parts of the leaves gathers each one as rank 0 writes it
+        if not mesh.is_rank0 and not checkpoint_gathers(state):
             return
         metadata = dict(step=state.step, variant=variant, flags=variant,
                         llama_config=dataclasses.asdict(config))
         seconds = checkpointer.save_all(state, metadata=metadata,
                                         dataset=dataset.get_state_dict(), milestone=milestone)
-        summary["save_seconds"].append(seconds)
-        log(f"saved step {state.step}{' (milestone)' if milestone else ''} in {seconds:.1f}s")
+        if mesh.is_rank0:
+            summary["save_seconds"].append(seconds)
+            log(f"saved step {state.step}{' (milestone)' if milestone else ''} in {seconds:.1f}s")
 
     if flags.save_model_freq > 0:
         save_checkpoint()

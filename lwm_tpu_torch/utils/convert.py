@@ -139,6 +139,16 @@ def convert_flax_params(params, config, dtype=None, device=None, mesh=None):
     return dict(_converted(params, config, dtype, device))
 
 
+def leaf_params(path, leaf, config, dtype=None, device=None):
+    """(name, tensor) of the port's parameters in ONE leaf of a flax param
+    tree: `path` its keys under "params" (scanned or not: a scanned leaf
+    gives one tensor a layer), converted as `convert_flax_params` converts
+    (the checkpoint's leaf-by-leaf load)."""
+    tree = {}
+    _insert(tree, tuple(path), leaf)
+    return _converted(tree, config, dtype, device)
+
+
 def _converted(params, config, dtype, device):
     """(name, tensor) of `convert_flax_params`, one leaf at a time."""
 

@@ -6,11 +6,12 @@ step); `dual_cross_entropy` is the VideoLLaMA step's pair of them
 product inside the loss, one rematerialized sequence chunk at a time, so
 the [b, s, vocab] logits never exist.
 
-On a mesh (`mesh`, a `parallel.mesh.Mesh`; each rank holding its dp rows
-and its sp slice of the sequence) each loss sums a row's target log-probs,
-correct argmaxes and counted tokens locally, sums them over the sp ranks,
-takes each row's mean and sums the rows over the dp ranks: the value, on
-every rank, is the one-device mean over all rows. The sums pass their
+On a mesh (`mesh`, a `parallel.mesh.Mesh`; each rank holding its rows of
+the batch, split over dp × fsdp, and its sp slice of the sequence) each
+loss sums a row's target log-probs, correct argmaxes and counted tokens
+locally, sums them over the sp ranks, takes each row's mean and sums the
+rows over the batch group (dp × fsdp; each tp group counts its rows once):
+the value, on every rank, is the one-device mean over all rows. The sums pass their
 gradient straight through (`SumOverRanks`), so each rank's backward gives
 the gradient of that one value with respect to its own tokens, and the
 trainer's sum of the ranks' gradients is the one-device gradient.
@@ -49,10 +50,11 @@ def _mean_over_rows(log_prob_sum, correct_sum, valid, mesh=None):
             torch.stack([log_prob_sum, correct_sum, count]), mesh.group("sp"))
     count = count.clamp_min(1e-10)
     loss_rows, acc_rows = -(log_prob_sum / count), correct_sum / count
-    if mesh is None or mesh.dp == 1:
+    if mesh is None or mesh.batch == 1:
         return loss_rows.mean(), acc_rows.mean()
-    total = SumOverRanks.apply(torch.stack([loss_rows.sum(), acc_rows.sum()]), mesh.group("dp"))
-    total = total / (loss_rows.shape[0] * mesh.dp)
+    total = SumOverRanks.apply(torch.stack([loss_rows.sum(), acc_rows.sum()]),
+                               mesh.group("batch"))
+    total = total / (loss_rows.shape[0] * mesh.batch)
     return total[0], total[1]
 
 
@@ -137,7 +139,9 @@ def fused_lm_cross_entropy(hidden, weight, tokens, valid=None, chunk_size=2048, 
     backward (`torch.utils.checkpoint`, the JAX `nothing_saveable` policy),
     so neither pass holds more than one chunk's logits. hidden [b, s, H]
     (any float dtype; the model's ln_f output); weight [vocab, H], the
-    lm_head's weight or, when tied, the embedding's; tokens, valid [b, s].
+    lm_head's weight or, when tied, the embedding's, whole (on a mesh the
+    model's `head_weight()`: gathered over tp and the shard group, so every
+    tp rank computes the one-device loss of its rows); tokens, valid [b, s].
     The chunk is `chunk_size` capped at s, and the whole sequence when it
     does not divide s. Gradients flow to hidden and weight. On a `mesh`,
     the mean over its ranks' rows and sequence. Returns (loss, accuracy)
@@ -160,14 +164,33 @@ def fused_lm_cross_entropy(hidden, weight, tokens, valid=None, chunk_size=2048, 
     return _mean_over_rows(log_prob_sum, correct_sum, valid, mesh)
 
 
-def global_norm(tensors):
-    """L2 norm over all tensors, summed in fp32 without a full-size temporary."""
-    total = None
-    for x in tensors:
+def global_norm(tensors, placements=None):
+    """L2 norm over all tensors, summed in fp32 without a full-size
+    temporary. With `placements` (each tensor's `parallel.fsdp.Placement`
+    on a mesh) the tensors are this rank's parts of whole leaves: the
+    squares of the parts split over the shard group are summed over it,
+    those split over tp over tp, and a leaf held whole counts once, so the
+    norm is the whole leaves', on every rank."""
+    totals = {}   # (over_tp, over_shard) → this rank's sum of squares
+    for i, x in enumerate(tensors):
         v = x.detach().reshape(-1).float()
+        pl = None if placements is None else placements[i]
+        key = (False, False) if pl is None else (pl.over_tp, pl.over_shard)
         sq = torch.dot(v, v)
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+        totals[key] = sq if key not in totals else totals[key] + sq
+    mesh = None if not placements else placements[0].mesh
+    if mesh is None:
+        return torch.sqrt(sum(totals.values()))
+    keys = [(t, s) for t in (False, True) for s in (False, True)]
+    zero = next(iter(totals.values())).new_zeros(())
+    sums = torch.stack([totals.get(k, zero) for k in keys])
+    over_shard = torch.tensor([s for _, s in keys], device=sums.device)
+    over_tp = torch.tensor([t for t, _ in keys], device=sums.device)
+    if mesh.shard > 1:
+        sums = torch.where(over_shard, mesh.all_reduce(sums, "shard"), sums)
+    if mesh.tp > 1:
+        sums = torch.where(over_tp, mesh.all_reduce(sums, "tp"), sums)
+    return torch.sqrt(sums.sum())
 
 
 def average_metrics(metrics):

@@ -1,7 +1,7 @@
 #! /bin/bash
-# Vision-text (VideoLLaMA) training on one GPU (the PyTorch port's trainer,
-# lwm_tpu_torch/train.py): the bundle of scripts/run_train_vision_text.sh with
-# the same flags, on a mesh of one device and without the TPU's
+# Vision-text (VideoLLaMA) training on one GPU or a mesh of them (the PyTorch
+# port's trainer, lwm_tpu_torch/train.py): the bundle of
+# scripts/run_train_vision_text.sh with the same flags, without the TPU's
 # LIBTPU_INIT_ARGS. TOKENIZER must be a local directory (tokenizer.json and
 # tokenizer_config.json, as save_pretrained writes them; a hub name is refused:
 # nothing is downloaded), DATASET a local JSONL file of pre-tokenized VQ codes
@@ -22,10 +22,25 @@ if [ -z "${TOKENIZER:-}" ] || [ -z "${DATASET:-}" ] || [ -z "${OUTPUT_DIR:-}" ];
 fi
 
 # batch_size: one device's batch, 1 row of 32768 tokens (run_train_vision_text.sh's
-# 16 rows are the batch of a whole TPU mesh).
-python3 -u -m lwm_tpu_torch.train \
+# 16 rows are the batch of a whole TPU mesh); on a mesh the global batch, its
+# rows split over dp x fsdp (a multiple of dp x fsdp).
+# NPROC > 1 runs it on a mesh of that many cards, a process a card under
+# torchrun (rendezvous on this host, NCCL), with MESH_DIM in the JAX grammar
+# (dp,fsdp,tp,sp; default !1,-1,2,2 as run_train_vision_text.sh: tp 2 x sp 2, fsdp
+# taking the rest; the weights and optimizer state sharded over fsdp x sp).
+# The default, NPROC=1, runs on one card (mesh 1,-1,1,1).
+NPROC="${NPROC:-1}"
+if [ "$NPROC" -gt 1 ]; then
+    LAUNCH=(torchrun --standalone --nproc_per_node="$NPROC" -m)
+    MESH_DIM="${MESH_DIM:-!1,-1,2,2}"
+else
+    LAUNCH=(python3 -u -m)
+    MESH_DIM="${MESH_DIM:-1,-1,1,1}"
+fi
+
+"${LAUNCH[@]}" lwm_tpu_torch.train \
     --modality='vision,text' \
-    --mesh_dim='1,-1,1,1' \
+    --mesh_dim="$MESH_DIM" \
     --dtype='bf16' \
     --total_steps=200 \
     --log_freq=1 \

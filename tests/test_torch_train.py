@@ -317,12 +317,14 @@ def test_training_refuses_what_is_not_ported():
         optim.OptimizerFactory.get_default_config({"adamw_optimizer": {"learning_rate": 1}})
     with torch.no_grad():   # not training: dropout is inactive, the forward runs
         _port_model("mha", params, resid_pdrop=0.1)(ids)
-    # the CLI refuses at the flag level, before it builds anything: fsdp
-    # and tp wait for the partition rules (ROADMAP A4)
-    for argv, match in [(["--mesh_dim=1,1,2,1"], "tp = 2.*ROADMAP A4"),
-                        (["--mesh_dim=!1,4,1,1"], "fsdp = 4.*ROADMAP A4")]:
-        with pytest.raises(NotImplementedError, match=match):
-            train.check_supported(train.parse_flags(train.DEFAULTS, argv, prog="train"))
+    # the flag check takes every axis of the grammar, fsdp and tp included
+    # (they train on a mesh: tests/test_torch_train_fsdp.py), and refuses a
+    # mesh_dim outside it before anything is built
+    for argv in (["--mesh_dim=1,1,2,1"], ["--mesh_dim=!1,4,1,1"], ["--mesh_dim=!1,-1,2,2"]):
+        train.check_supported(train.parse_flags(train.DEFAULTS, argv, prog="train"))
+    with pytest.raises(ValueError, match="at most one of them -1"):
+        train.check_supported(train.parse_flags(train.DEFAULTS, ["--mesh_dim=-1,-1,2,1"],
+                                                prog="train"))
     with pytest.raises(ValueError, match="sp_layout"):
         train.check_supported(train.parse_flags(train.DEFAULTS, ["--sp_layout=diagonal"],
                                                 prog="train"))

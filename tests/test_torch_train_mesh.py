@@ -4,20 +4,22 @@ The port's ranks (gloo, the CPU, spawned once for the module's runs at
 world 4) train one step of a tiny model at dp 2 × sp 2 (`2,1,1,2`) and at sp
 4 (`1,1,1,4`), each in the contiguous and the striped layout: every rank
 reads the same global batch and keeps its part (`data.text.shard_batch`),
-attention runs over the ring, the loss is the whole batch's and the
-gradients are summed over the ranks. JAX trains the same step on the forced
+attention runs over the ring, the loss is the whole batch's, the weights
+are sharded over sp and their gradients reduce-scattered over it
+(`parallel.fsdp`), gathered whole for the comparison. JAX trains the same step on the forced
 CPU mesh `2,1,1,4` (its ring under `shard_map`, the batch permuted as its
 loader permutes it for the striped layout). The step's math does not depend
 on the mesh: loss, accuracy, the step's metrics, every gradient and every
 parameter after one AdamW step hold at fp32 1e-5 (gradients max |Δ| ≤
 1e-5 · max |grad|, parameters 1e-5 absolute, as `tests/test_torch_train.py`
-holds the one-device step), and every rank ends with the same parameters.
+holds the one-device step), and every rank ends with the same whole
+parameters.
 A VideoLLaMA (the vision trainer's model: only its embedding and heads
 differ) trains on the same ring: its dual loss, metrics and gradients on
 the mesh hold to the one-device port's (itself held to JAX by
 `tests/test_torch_train_vision.py`) at 1e-5. A CLI run at world 2 (sp 2,
-striped) saves a checkpoint that the one-device port loads, and only rank
-0 writes its metrics and checkpoints.
+striped; 2 of the spawn's ranks, regrouped) saves a checkpoint that the
+one-device port loads, and only rank 0 writes its metrics and checkpoints.
 """
 
 import json
@@ -57,6 +59,7 @@ RUNS = [("2,1,1,2", "contiguous"), ("2,1,1,2", "striped"), ("1,1,1,4", "contiguo
         ("1,1,1,4", "striped")]
 VISION_MODEL = dict(MODEL, vocab_size=457, num_key_value_heads=None, scan_layers=True)
 VISION_RUNS = [("1,1,1,4", "striped"), ("2,1,1,2", "contiguous")]
+CLI_MODEL = dict(MODEL, vocab_size=256, num_key_value_heads=None)
 REL = 1e-5
 # parameters after the AdamW step, absolute (`tests/test_torch_train.py`
 # FP32_STATE_TOL): Adam's update m/√v is about lr in size whatever the
@@ -94,10 +97,31 @@ def _jax_params():
                                                           seed=0).params)}
 
 
+def _cli_argv(work):
+    """The CLI run's flags at world 2 (sp 2, striped) over a JSONL it writes."""
+    data = work / "train.jsonl"
+    rng = np.random.default_rng(0)
+    words = ["the", "magic", "number", "needle", "haystack", "model", "is", "blue"]
+    with open(data, "w") as f:
+        for _ in range(60):
+            f.write(json.dumps({"text": " ".join(rng.choice(words, rng.integers(4, 30)))}) + "\n")
+    return ["--device=cpu", "--mesh_dim=1,1,1,2", "--sp_layout=striped", "--total_steps=2",
+            "--log_freq=1", "--save_model_freq=2", "--dtype=fp32",
+            f"--update_llama_config=dict({', '.join(f'{k}={v!r}' for k, v in CLI_MODEL.items())})",
+            "--tokenizer=tests/fixtures/tokenizer", "--train_dataset.type=json",
+            "--train_dataset.text_processor.fields=text",
+            f"--train_dataset.json_dataset.path={data}",
+            f"--train_dataset.json_dataset.seq_length={S}",
+            f"--train_dataset.json_dataset.batch_size={B}",
+            f"--logger.output_dir={work / 'out'}", "--logger.experiment_id=mesh",
+            "--optimizer.adamw_optimizer.init_lr=1e-3"]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX init, the port's four runs (one spawn of 4 ranks) and the
-    JAX step on `2,1,1,4` in each layout."""
+    """The JAX init, the port's four runs, its vision runs and the CLI run
+    (one spawn of 4 ranks, the CLI on 2 of them) and the JAX step on
+    `2,1,1,4` in each layout."""
     work = tmp_path_factory.mktemp("train_mesh")
     params = _jax_params()
     cfg = LLaMAConfig.from_dict(MODEL)
@@ -111,7 +135,8 @@ def runs(tmp_path_factory):
 
     workers.spawn(workers.train_mesh_all_ranks, 4, work, dict(
         config=MODEL, runs=RUNS, optimizer=OPTIMIZER,
-        vision=dict(config=VISION_MODEL, runs=VISION_RUNS)))
+        vision=dict(config=VISION_MODEL, runs=VISION_RUNS),
+        port2=workers._free_port(), cli=_cli_argv(work)))
     return params, batch, work
 
 
@@ -186,32 +211,15 @@ def test_mesh_vision_step_matches_one_device(runs, i):
         assert np.abs(a - w).max() <= REL * max(np.abs(w).max(), 1e-30), name
 
 
-def test_cli_on_two_ranks_saves_a_checkpoint_the_one_device_port_loads(tmp_path):
-    data = tmp_path / "train.jsonl"
-    rng = np.random.default_rng(0)
-    words = ["the", "magic", "number", "needle", "haystack", "model", "is", "blue"]
-    with open(data, "w") as f:
-        for _ in range(60):
-            f.write(json.dumps({"text": " ".join(rng.choice(words, rng.integers(4, 30)))}) + "\n")
-    model_cfg = dict(MODEL, vocab_size=256, num_key_value_heads=None)
-    argv = ["--device=cpu", "--mesh_dim=1,1,1,2", "--sp_layout=striped", "--total_steps=2",
-            "--log_freq=1", "--save_model_freq=2", "--dtype=fp32",
-            f"--update_llama_config=dict({', '.join(f'{k}={v!r}' for k, v in model_cfg.items())})",
-            "--tokenizer=tests/fixtures/tokenizer", "--train_dataset.type=json",
-            "--train_dataset.text_processor.fields=text",
-            f"--train_dataset.json_dataset.path={data}",
-            f"--train_dataset.json_dataset.seq_length={S}",
-            f"--train_dataset.json_dataset.batch_size={B}",
-            f"--logger.output_dir={tmp_path / 'out'}", "--logger.experiment_id=mesh",
-            "--optimizer.adamw_optimizer.init_lr=1e-3"]
-    workers.spawn(workers.train_cli_ranks, 2, tmp_path, argv)
-    dirs = {(tmp_path / f"cli_rank{r}.txt").read_text() for r in range(2)}
+def test_cli_on_two_ranks_saves_a_checkpoint_the_one_device_port_loads(runs):
+    _, _, work = runs
+    dirs = {(work / f"cli_rank{r}.txt").read_text() for r in range(2)}
     assert len(dirs) == 1, "the ranks disagree on the output directory"
     out = dirs.pop()
     records = [json.loads(line) for line in open(f"{out}/metrics.jsonl")]
     assert [r["step"] for r in records] == [1, 2]        # one rank wrote them
     assert all(np.isfinite(r["loss"]) for r in records)
-    cfg = train.build_model_config(update_llama_config=dict(model_cfg, vocab_size=457))
+    cfg = train.build_model_config(update_llama_config=dict(CLI_MODEL, vocab_size=457))
     model = LLaMAForCausalLM(cfg, device="cpu")
     state = train.create_train_state(model)
     assert checkpoint.StreamingCheckpointer.load_into(f"params::{out}/streaming_params",

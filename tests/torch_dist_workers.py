@@ -1,5 +1,5 @@
-"""Ranks of the port's mesh tests (training on dp × sp, inference on dp ×
-fsdp × tp × sp): each a spawned process on the CPU, joined over gloo
+"""Ranks of the port's mesh tests (training and inference on dp × fsdp × tp
+× sp): each a spawned process on the CPU, joined over gloo
 (`torch.distributed`), importing nothing of JAX. A test module spawns its
 ranks once (`spawn`) and reads what they wrote into its work directory."""
 
@@ -31,13 +31,26 @@ def _entry(rank, world, port, fn, workdir, payload):
             f.write(traceback.format_exc())
         raise
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def spawn(fn, world, workdir, payload):
     """Run fn(rank, world, workdir, payload) on `world` gloo ranks (CPU)."""
     mp.spawn(_entry, args=(world, _free_port(), fn, str(workdir), payload), nprocs=world,
              join=True)
+
+
+def regroup(rank, world, port):
+    """Leave the job's process group; ranks below `world` join a new one of
+    `world` ranks at `port` (a spawn's ranks reused for a smaller job).
+    Returns whether this rank is in it."""
+    dist.destroy_process_group()
+    if rank >= world:
+        return False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    return True
 
 
 # ------------------------------------------------------------------ the ring
@@ -94,12 +107,31 @@ def ring_ranks(rank, world, workdir, cases):
 # ------------------------------------------------------------- the trainer
 
 
+def whole(model, tensors):
+    """{name: the whole leaf as numpy} of `tensors` ({name: this rank's part
+    of parameter name's leaf}), gathered over the model's mesh."""
+    from lwm_tpu_torch.parallel.fsdp import placements
+
+    places = placements(model)
+    return {n: places[n].whole(t.detach()).numpy().copy() for n, t in tensors.items()}
+
+
+def load_whole(model, sd):
+    """Copy this rank's parts of the whole state dict `sd` into `model`."""
+    from lwm_tpu_torch.parallel.fsdp import placements
+
+    places = placements(model)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(places[n].local_part(sd[n]))
+
+
 def train_mesh_ranks(rank, world, workdir, payload):
     """The port's train step at each of payload["runs"] (mesh_dim, layout)
     from the saved initial state dict: loss, accuracy and gradients of the
-    whole batch (summed over the ranks), then the metrics and parameters
-    after one AdamW step; rank 0 writes them, every rank its parameters'
-    checksum."""
+    whole batch (reduced over the ranks and gathered whole), then the
+    metrics and the whole parameters after one AdamW step; rank 0 writes
+    them, every rank its whole parameters' checksum."""
     from lwm_tpu_torch import train
     from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
     from lwm_tpu_torch.parallel.mesh import create_mesh, get_ranks_and_size
@@ -110,17 +142,16 @@ def train_mesh_ranks(rank, world, workdir, payload):
     for i, (mesh_dim, layout) in enumerate(payload["runs"]):
         mesh = create_mesh(mesh_dim, "cpu", layout)
         part = train._on_device(batch, "cpu", get_ranks_and_size(mesh))
-        model = LLaMAForCausalLM(cfg, device="cpu")
-        model.load_state_dict(init)
-        model.mesh = mesh
+        model = LLaMAForCausalLM(cfg, device="cpu", mesh=mesh)
         state = train.create_train_state(model, payload["optimizer"])
+        load_whole(model, init)
         loss, aux = train.compute_loss(model, part)
         loss.backward()
-        train.all_reduce_grads(list(model.parameters()), mesh.group())
-        grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+        train.reduce_gradients(model)
+        grads = whole(model, {n: p.grad for n, p in model.named_parameters()})
         model.zero_grad(set_to_none=True)
         metrics = train.train_step(state, part)
-        params = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+        params = whole(model, dict(model.named_parameters()))
         np.save(os.path.join(workdir, f"run{i}_rank{rank}_sum.npy"),
                 np.asarray([float(np.abs(v).sum()) for v in params.values()]))
         if rank == 0:
@@ -142,23 +173,28 @@ def train_mesh_vision_ranks(rank, world, workdir, payload):
     cfg = VideoLLaMAConfig.from_dict(payload["config"])
     for i, (mesh_dim, layout) in enumerate(payload["runs"]):
         mesh = create_mesh(mesh_dim, "cpu", layout)
-        model = VideoLLaMAForCausalLM(cfg, device="cpu")
-        model.load_state_dict(init)
-        model.mesh = mesh
+        model = VideoLLaMAForCausalLM(cfg, device="cpu", mesh=mesh)
+        train.create_train_state(model)
+        load_whole(model, init)
         loss, aux = train.compute_loss(model, train._on_device(batch, "cpu",
                                                               get_ranks_and_size(mesh)))
         loss.backward()
-        train.all_reduce_grads(list(model.parameters()), mesh.group())
+        train.reduce_gradients(model)
+        grads = whole(model, {n: p.grad for n, p in model.named_parameters()})
         if rank == 0:
             np.savez(os.path.join(workdir, f"vision{i}.npz"), loss=loss.item(),
                      **{f"metric/{k}": v.item() for k, v in aux.items()},
-                     **{f"grad/{n}": p.grad.numpy() for n, p in model.named_parameters()})
+                     **{f"grad/{n}": g for n, g in grads.items()})
 
 
 def train_mesh_all_ranks(rank, world, workdir, payload):
-    """`train_mesh_ranks`, then `train_mesh_vision_ranks` on payload["vision"]."""
+    """`train_mesh_ranks`, then `train_mesh_vision_ranks` on payload["vision"],
+    then `train_cli_ranks` on payload["cli"] on the first 2 ranks (regrouped
+    at payload["port2"])."""
     train_mesh_ranks(rank, world, workdir, payload)
     train_mesh_vision_ranks(rank, world, workdir, payload["vision"])
+    if regroup(rank, 2, payload["port2"]):
+        train_cli_ranks(rank, 2, workdir, payload["cli"])
 
 
 def train_cli_ranks(rank, world, workdir, argv):
@@ -318,3 +354,125 @@ def eval_needle_ranks(rank, world, workdir, argv):
         eval_needle.open_file = opener
         with open(os.path.join(workdir, f"writes_rank{rank}.json"), "w") as f:
             json.dump(writes, f)
+
+
+# ------------------------------------------------ fsdp × tp training
+
+
+def _model_of(kind, config, mesh):
+    if kind == "vision":
+        from lwm_tpu_torch.models.vision_llama import VideoLLaMAConfig, VideoLLaMAForCausalLM
+
+        return VideoLLaMAForCausalLM(VideoLLaMAConfig.from_dict(config), device="cpu", mesh=mesh)
+    from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
+
+    return LLaMAForCausalLM(LLaMAConfig.from_dict(config), device="cpu", mesh=mesh)
+
+
+def moments(state):
+    """{f"{key}/{name}": this rank's part of each optimizer moment}."""
+    opt = state.optimizer
+    return {f"{k}/{opt.names[p]}": v for p, st in opt.state.items() for k, v in st.items()}
+
+
+def train_steps_record(state, batch, steps, fused=False, between=None, before_update=None):
+    """`steps` train steps on `batch` (this rank's part): per step the
+    metrics, the whole gradients (before the optimizer), the whole params
+    and moments after it, and this rank's element counts of each param and
+    moment; `before_update(i)`, when given, runs after step i's gradients
+    are recorded and before its update, `between(i)` after step i's record.
+    Every rank gathers; the caller writes rank 0's."""
+    from lwm_tpu_torch import train
+
+    model, opt = state.model, state.optimizer
+    out, step, at = {}, opt.step, [0]
+    grads = {}
+
+    def keep():
+        grads.update(whole(model, {n: p.grad for n, p in model.named_parameters()}))
+        if before_update is not None:
+            before_update(at[0])
+        step()
+
+    opt.step = keep
+    places = model.placements
+    for i in range(steps):
+        at[0] = i
+        metrics = train.train_step(state, batch, fused_lm_loss=fused)
+        out.update({f"s{i}/metric/{k}": v.item() for k, v in metrics.items()})
+        out.update({f"s{i}/grad/{n}": g for n, g in grads.items()})
+        out.update({f"s{i}/param/{n}": v for n, v in whole(
+            model, dict(model.named_parameters())).items()})
+        names = {f"{k}/{opt.names[p]}": opt.names[p] for p, st in opt.state.items() for k in st}
+        out.update({f"s{i}/moment/{k}": places[names[k]].whole(v).float().numpy().copy()
+                    for k, v in moments(state).items()})
+        if between is not None:
+            between(i)
+    del opt.step
+    out.update({f"numel/{n}": p.numel() for n, p in model.named_parameters()})
+    out.update({f"numel_moment/{k}": v.numel() for k, v in moments(state).items()})
+    return out
+
+
+def fsdp_ranks(rank, world, workdir, payload):
+    """Each of payload["runs"] (name, mesh, layout, kind, config, optimizer,
+    steps): the model on the mesh sharded by `create_train_state`, the
+    saved whole init cut to this rank's parts, `steps` train steps on this
+    rank's part of the saved global batch (`train_steps_record`); rank 0
+    writes <name>.npz, every rank its element counts to <name>_rank<r>.npz.
+    Then payload["init"] (mesh, kind, config, seed): a seeded
+    `init_weights` on the mesh, its whole params written by rank 0."""
+    from lwm_tpu_torch import train
+    from lwm_tpu_torch.parallel.mesh import create_mesh, get_ranks_and_size
+
+    for run in payload["runs"]:
+        mesh = create_mesh(run["mesh"], "cpu", run["layout"])
+        model = _model_of(run["kind"], run["config"], mesh)
+        state = train.create_train_state(model, run["optimizer"])
+        load_whole(model, torch.load(os.path.join(workdir, f"{run['kind']}_init.pt")))
+        batch = dict(np.load(os.path.join(workdir, f"{run['kind']}_batch.npz")))
+        got = train_steps_record(state, train._on_device(batch, "cpu", get_ranks_and_size(mesh)),
+                                 run["steps"], run.get("fused", False))
+        counts = {k: v for k, v in got.items() if k.startswith("numel")}
+        np.savez(os.path.join(workdir, f"{run['name']}_rank{rank}.npz"), **counts)
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{run['name']}.npz"), **got)
+    for name, init in payload["init"].items():
+        mesh = create_mesh(init["mesh"], "cpu")
+        model = _model_of(init["kind"], init["config"], mesh)
+        train.create_train_state(model)
+        model.init_weights(torch.Generator().manual_seed(init["seed"]))
+        params = whole(model, dict(model.named_parameters()))
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"{name}.npz"), **params)
+
+
+def fsdp_all_ranks(rank, world, workdir, payload):
+    """`fsdp_ranks` on the spawn's 4 ranks, then `fsdp_checkpoint_ranks` on
+    its first 2 (regrouped at payload["port2"])."""
+    fsdp_ranks(rank, world, workdir, payload)
+    if regroup(rank, 2, payload["port2"]):
+        fsdp_checkpoint_ranks(rank, 2, workdir, payload["checkpoint"])
+
+
+def fsdp_checkpoint_ranks(rank, world, workdir, payload):
+    """World 2: the training CLI at payload["argv"] (a `1,2,1,1` run that
+    saves its train state), then the one-device train state
+    payload["trainstate"] loaded into a `1,1,2,1` model and trained
+    payload["steps"] steps with `--fused_lm_loss` (`train_steps_record`;
+    rank 0 writes loaded.npz)."""
+    from lwm_tpu_torch import checkpoint, train
+    from lwm_tpu_torch.parallel.mesh import create_mesh, get_ranks_and_size
+
+    summary = train.main(list(payload["argv"]))
+    with open(os.path.join(workdir, f"cli_rank{rank}.txt"), "w") as f:
+        f.write(summary["output_dir"])
+    mesh = create_mesh("1,1,2,1", "cpu")
+    model = _model_of("text", payload["config"], mesh)
+    state = train.create_train_state(model, payload["optimizer"])
+    assert checkpoint.StreamingCheckpointer.load_into(payload["trainstate"], state) == "trainstate"
+    batch = dict(np.load(os.path.join(workdir, "text_batch.npz")))
+    got = train_steps_record(state, train._on_device(batch, "cpu", get_ranks_and_size(mesh)),
+                             payload["steps"], fused=True)
+    if rank == 0:
+        np.savez(os.path.join(workdir, "loaded.npz"), step=state.step, **got)
