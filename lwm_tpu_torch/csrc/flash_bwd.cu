@@ -53,6 +53,11 @@
 // Tried and slower there: TMA loads from a producer warpgroup with
 // `setmaxnreg` (384 threads: ptxas kept the 168-register budget for the
 // consumers, which need 250, spilled and serialized the wgmmas).
+// Head dims: 64 and 128 as above; any other d ≤ 128 with d % 4 == 0 (the
+// 3b preset's 100) on the tiles of the next of the two (kCols), q, g, k and
+// v copied 8 bytes at a time (a bf16 head of 100 is 200 bytes) with the
+// columns past d zero, so that every product over the tile's width adds
+// nothing there; dq, dk and dv are written up to d.
 
 #include "hopper.cuh"
 
@@ -82,6 +87,7 @@ struct BwdParams {
   float scale;
   const int* q_seg;   // [b, sq] or null
   const int* kv_seg;  // [b, skv]
+  int d;              // the head dim: D, or (kCols) d < D on D-wide tiles
 };
 
 // Shared memory of one block, byte offsets from a 1024-aligned base; tiles
@@ -103,7 +109,10 @@ struct Smem {
 // ----------------------------------------------------------------- kernel
 // (accumulator and A-fragment layout: hopper.cuh)
 
-template <int D>
+// kCols: a head dim d = p.d other than D (hopper.cuh, load_tile_cols): q, g,
+// k and v copied 8 bytes at a time, columns past d zero; dq, dk and dv
+// written up to d
+template <int D, bool kCols>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams p) {
   using L = Smem<D>;
   constexpr int kHalves = D / 64;
@@ -118,6 +127,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
   const int group = p.h / p.h_kv;
   const int k0 = blockIdx.y * kBK;
   const float* bias_g = p.bias ? p.bias + bi * p.bias_sb : nullptr;
+  const int d = kCols ? p.d : D;
 
   // the (group member, query tile) walk: from the first query that sees
   // any key of this tile
@@ -130,12 +140,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
   auto load_q = [&](int it, int s) {
     const int qh = kvh * group + it / per, q0 = (qt0 + it % per) * kBQ;
     const int rows = min(kBQ, p.sq - q0);
-    load_tile<D, kBQ, kThreads>(base + L::kQ + s * L::kQG,
-                                p.q + bi * p.q_sb + (long long)q0 * p.q_ss + qh * p.q_sh, p.q_ss,
-                                rows, tid);
-    load_tile<D, kBQ, kThreads>(base + L::kG + s * L::kQG,
-                                p.g + bi * p.g_sb + (long long)q0 * p.g_ss + qh * p.g_sh, p.g_ss,
-                                rows, tid);
+    load_tile_d<D, kBQ, kThreads, kCols>(
+        base + L::kQ + s * L::kQG, p.q + bi * p.q_sb + (long long)q0 * p.q_ss + qh * p.q_sh,
+        p.q_ss, rows, d, tid);
+    load_tile_d<D, kBQ, kThreads, kCols>(
+        base + L::kG + s * L::kQG, p.g + bi * p.g_sb + (long long)q0 * p.g_ss + qh * p.g_sh,
+        p.g_ss, rows, d, tid);
     if (tid < 2 * kBQ) {  // lse (threads 0..63) and delta (64..127)
       const int r = tid % kBQ;
       const float* src = (tid < kBQ ? p.lse : p.delta) + ((long long)bi * p.h + qh) * p.sq + q0;
@@ -144,12 +154,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
     }
   };
 
-  load_tile<D, kBK, kThreads>(base + L::kK,
-                              p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss,
-                              min(kBK, p.skv - k0), tid);
-  load_tile<D, kBK, kThreads>(base + L::kV,
-                              p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss,
-                              min(kBK, p.skv - k0), tid);
+  load_tile_d<D, kBK, kThreads, kCols>(
+      base + L::kK, p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh, p.k_ss,
+      min(kBK, p.skv - k0), d, tid);
+  load_tile_d<D, kBK, kThreads, kCols>(
+      base + L::kV, p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh, p.v_ss,
+      min(kBK, p.skv - k0), d, tid);
   if (n_iter > 0) load_q(0, 0);
   cp_async_commit();
 
@@ -292,9 +302,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
     for (int i = 0; i < 32; i += 2) {
       const int qrow = q0 + warp * 16 + g8 + 8 * ((i >> 1) & 1);
       const int col = col0 + 8 * (i >> 2) + 2 * t4;
-      if (qrow < p.sq)
+      if (qrow < p.sq && (!kCols || col < d))
         atomicAdd(reinterpret_cast<float2*>(p.dq_accum +
-                                            (((long long)bi * p.sq + qrow) * p.h + qh) * D + col),
+                                            (((long long)bi * p.sq + qrow) * p.h + qh) * d + col),
                   make_float2(qa[i], qa[i + 1]));
     }
   }
@@ -311,28 +321,29 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(const BwdParams 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= p.skv) continue;
-    const long long off = (((long long)bi * p.skv + key[r]) * p.h_kv + kvh) * D;
+    const long long off = (((long long)bi * p.skv + key[r]) * p.h_kv + kvh) * d;
 #pragma unroll
     for (int hh = 0; hh < kHalves; ++hh)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = hh * 64 + 8 * j + 2 * t4, i = 4 * j + 2 * r;
+        if (kCols && col >= d) continue;
         *reinterpret_cast<uint32_t*>(p.dk + off + col) = pack_bf16(dk[hh][i], dk[hh][i + 1]);
         *reinterpret_cast<uint32_t*>(p.dv + off + col) = pack_bf16(dv[hh][i], dv[hh][i + 1]);
       }
   }
 }
 
-template <int D>
+template <int D, bool kCols = false>
 cudaError_t launch(const BwdParams& p, int b, cudaStream_t stream) {
   constexpr int smem = Smem<D>::kAlloc;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<D, kCols>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // blockIdx.x walks (b, kv head), blockIdx.y the key tiles: the heaviest
   // (causal) tiles of every head first
   const dim3 grid(b * p.h_kv, (p.skv + kBK - 1) / kBK);
-  flash_bwd_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_bwd_kernel<D, kCols><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -386,14 +397,10 @@ extern "C" int lwm_flash_bwd(const void* q, const void* k, const void* v, const 
   p.scale = scale;
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
+  p.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || skv <= 0) return cudaSuccess;  // nothing to write (dq stays 0)
-  switch (d) {
-    case 64:
-      return launch<64>(p, b, s);
-    case 128:
-      return launch<128>(p, b, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_head_dim(d, [&](auto D, auto cols) {
+    return launch<decltype(D)::value, decltype(cols)::value>(p, b, s);
+  });
 }

@@ -70,6 +70,10 @@
 // atomics take ~5.6 ms of 16.0, the two cross products 3.8; grouping heads
 // so that dq's rows in flight fit the L2, and deriving addresses anew each
 // stage, were slower (more spills).
+// Head dims: any d ≤ 128 with d % 4 == 0 (fp32 rows then 16-byte aligned)
+// on the tiles of 64 or 128 (kCols below 128 and not 64): q, g, k and v
+// read up to d, the tiles' columns past it zero, so that every product over
+// the tile's width adds nothing there; dq, dk and dv written up to d.
 
 #include "tf32.cuh"
 
@@ -99,6 +103,7 @@ struct BwdF32Params {
   float scale;
   const int* q_seg;   // [b, sq] or null
   const int* kv_seg;  // [b, skv]
+  int d;              // the head dim: D, or (kCols) d < D on D-wide tiles
 };
 
 // Shared memory of one block, byte offsets from a 1024-aligned base, every
@@ -181,7 +186,9 @@ __device__ __forceinline__ void product_over_queries(float (&t)[32], const uint8
   fence_acc(t);
 }
 
-template <int D>
+// kCols: a head dim d = p.d other than D: q, g, k and v read up to d (the
+// tiles' columns past it zero), dq, dk and dv written up to d
+template <int D, bool kCols>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32Params p) {
   using L = Smem<D>;
   constexpr int kD4 = D / 4;                        // float4 chunks of a row
@@ -203,6 +210,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
   const int k0 = blockIdx.y * kBK;
   const int keys = min(kBK, p.skv - k0);
   const float* bias_g = p.bias ? p.bias + bi * p.bias_sb : nullptr;
+  const int d = kCols ? p.d : D;
 
   // the (group member, query stage) walk: from the first query that sees
   // any key of this tile
@@ -218,7 +226,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
     const float* vg = p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh;
     for (int i = tid; i < kBK * kD4; i += kThreads) {
       const int r = i / kD4, c = i % kD4;
-      const bool in = r < keys;
+      const bool in = r < keys && 4 * c < d;
       const int off = swz32<kBK>(r, 4 * c);
       cp_async16(base + L::kKHi + off, in ? kg + r * p.k_ss + 4 * c : kg, in ? 16 : 0);
       cp_async16(base + L::kVHi + off, in ? vg + r * p.v_ss + 4 * c : vg, in ? 16 : 0);
@@ -232,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
     const int qh = kvh * group + it / per, q0 = (qt0 + it % per) * kBQ;
     constexpr int kLines = D / 32;   // of a row
     const int i = tid % (kBQ * kLines), r = i / kLines, c = 32 * (i % kLines);
-    if (tid < 2 * kBQ * kLines && q0 + r < p.sq) {
+    if (tid < 2 * kBQ * kLines && q0 + r < p.sq && c < d) {
       const float* src = tid < kBQ * kLines
                              ? p.q + bi * p.q_sb + (long long)(q0 + r) * p.q_ss + qh * p.q_sh
                              : p.g + bi * p.g_sb + (long long)(q0 + r) * p.g_ss + qh * p.g_sh;
@@ -252,8 +260,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
       const int i = tid + j * kThreads;
       const int r = (i % kStage4) / kD4, c = i % kD4;
       const float* src = i < kStage4 ? qg + r * p.q_ss : gg + r * p.g_ss;
-      x[j] = r < rows ? __ldg(reinterpret_cast<const float4*>(src + 4 * c))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[j] = r < rows && 4 * c < d ? __ldg(reinterpret_cast<const float4*>(src + 4 * c))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     if (tid < 2 * kBQ) {
       const int r = tid % kBQ;
@@ -492,9 +500,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
           const float4 y = *reinterpret_cast<const float4*>(dq_s + (kBQ + r) * kDqRow + c);
           x = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
         }
-        if (q0 + r < p.sq)
+        if (q0 + r < p.sq && c < d)
           atomicAdd(reinterpret_cast<float4*>(p.dq_accum +
-                                              (((long long)bi * p.sq + q0 + r) * p.h + qh) * D + c),
+                                              (((long long)bi * p.sq + q0 + r) * p.h + qh) * d + c),
                     x);
       }
     }
@@ -507,25 +515,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_f32_kernel(const BwdF32
 
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-    if (key >= p.skv) continue;
-    const long long off = (((long long)bi * p.skv + key) * p.h_kv + kvh) * D + c_row +
-                          8 * ((i >> 1) & 1);
+    const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1), col = c_row + 8 * ((i >> 1) & 1);
+    if (key >= p.skv || col >= d) continue;
+    const long long off = (((long long)bi * p.skv + key) * p.h_kv + kvh) * d + col;
     if (kHalves || wg == 0) p.dv[off] = acc_v[i];
     if (kHalves || wg == 1) p.dk[off] = acc_k[i];
   }
 }
 
-template <int D>
+template <int D, bool kCols = false>
 cudaError_t launch(const BwdF32Params& p, int b, cudaStream_t stream) {
   constexpr int smem = Smem<D>::kAlloc;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_f32_kernel<D, kCols>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // blockIdx.x walks (b, kv head), blockIdx.y the key tiles: the heaviest
   // (causal) tiles of every head first
   const dim3 grid(b * p.h_kv, (p.skv + kBK - 1) / kBK);
-  flash_bwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_bwd_f32_kernel<D, kCols><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -582,14 +589,10 @@ extern "C" int lwm_flash_bwd_f32(const void* q, const void* k, const void* v, co
   p.scale = scale;
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
+  p.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || skv <= 0) return cudaSuccess;  // nothing to write (dq stays 0)
-  switch (d) {
-    case 64:
-      return launch<64>(p, b, s);
-    case 128:
-      return launch<128>(p, b, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_head_dim(d, [&](auto D, auto cols) {
+    return launch<decltype(D)::value, decltype(cols)::value>(p, b, s);
+  });
 }

@@ -42,19 +42,26 @@
 //   card's slow int→float instruction); each lane group keeps its own online
 //   softmax (m, l, acc) for the g heads in log2 units (ex2), taking its keys
 //   of a tile together, and the block merges its groups and writes the
-//   split's unnormalized o, m and l to fp32 scratch [b, h, n_split, d + 2].
+//   split's unnormalized o, m and l to fp32 scratch [b, h, n_split, D + 2]
+//   at the tile width D.
 // - A merge kernel, one block per (batch row, query head), weighs the
 //   non-empty splits by exp(m_i − max m) and writes o (and m, l).
 // Measured (PERF.md §6): 78% of the bound at 8 slots of a 4096 cache, 87% at
 // one slot of 65536 keys, 28-50% with GQA (g = 4), where the bytes do not
 // set the pace: each key's softmax is repeated on its d/8 lanes (§7); at the
 // prefix fold's groups 8-32, 10-42%: the per-head products on CUDA cores.
+// Head dims: 64 and 128 as above; any other d ≤ 128 with d % 4 == 0 (the
+// 3b preset's 100) on the rows of the next of the two in the ring (kCols):
+// the cache, read where it lies, is copied 4 elements at a time (a bf16
+// row of 100 is 200 bytes, an int8 one 100: 8- and 4-byte aligned), the
+// columns past d zero-filled, so the products over the row's width add
+// nothing there; o is written up to d.
 
 #include "hopper.cuh"
 
 namespace {
 
-using lwm::cp_async16;
+using lwm::cp_async;
 using lwm::cp_async4;
 using lwm::cp_async_commit;
 using lwm::cp_async_wait;
@@ -64,6 +71,7 @@ using lwm::i8x4_to_f32;
 using lwm::kBigNeg;
 using lwm::kLog2e;
 using lwm::kMaskGuard;
+using lwm::launch_head_dim;
 using lwm::smem_addr;
 
 constexpr int kWarps = 8;
@@ -80,7 +88,7 @@ struct DecParams {
   const float* k_scale;
   const float* v_scale;
   const uint8_t* mask;
-  float* part;           // [b, h, n_split, d + 2]: unnormalized o, then m, l
+  float* part;           // [b, h, n_split, D + 2]: unnormalized o, then m, l
   void* out;             // [b, 1, h, d] in q's type
   float* m_out;          // [b, h] or null
   float* l_out;
@@ -90,6 +98,7 @@ struct DecParams {
   int g, n_chunk;        // query heads a kv head; chunks of at most G of them (chunked kernels)
   long long q_sb, q_sh, kv_sb, kv_sh, kv_ss;
   float scale;
+  int d;                 // the head dim: D, or (kCols) d < D on D-wide tiles
 };
 
 // p rounded to q's type before p·v (the TPU kernel's order): bf16, or fp32 as it is
@@ -123,6 +132,18 @@ __device__ __forceinline__ void load8(const int8_t* src, float (&dst)[8]) {
   i8x4_to_f32(raw.y, *reinterpret_cast<float(*)[4]>(dst + 4));
 }
 
+// 4 consecutive q elements (8 bytes bf16, 16 fp32) → dst[0..3]
+__device__ __forceinline__ void load4(const __nv_bfloat16* src, float* dst) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  dst[0] = a.x, dst[1] = a.y, dst[2] = b.x, dst[3] = b.y;
+}
+__device__ __forceinline__ void load4(const float* src, float* dst) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  dst[0] = a.x, dst[1] = a.y, dst[2] = a.z, dst[3] = a.w;
+}
+
 // shared-memory plan of the split kernel: a ring of stages, each a k tile,
 // a v tile and (int8) their scale slices; after the loop the same bytes hold
 // the lane groups' states for the block's merge
@@ -148,18 +169,23 @@ constexpr int kMinBlocks = G <= 4 ? 2 : 1;
 // kChunked: a group g other than G = 1/2/4/8 is covered in chunks of G = 8
 // query heads, one chunk a block, the chunks of a split next to each other
 // in the grid (so a split's repeated k/v reads come from L2); the heads of
-// a ragged last chunk past g are computed on zero q and never written
-template <int D, int G, typename KV, typename QT, bool kChunked>
+// a ragged last chunk past g are computed on zero q and never written.
+// kCols: a head dim d = p.d other than D (d % 4 == 0) on D-wide rows in the
+// ring: a cache row of d is copied 4 elements at a time (a bf16 row of 100
+// is 200 bytes, an int8 one 100: 8- and 4-byte aligned), the columns past d
+// zero-filled, q read 4 elements at a time and zero past d; o written up to d
+template <int D, int G, typename KV, typename QT, bool kChunked, bool kCols>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(const DecParams p) {
   using P = Plan<D, G, KV>;
   constexpr int kLanesPerKey = D / 8;
   constexpr int kKeysPerWarp = 32 / kLanesPerKey;
   constexpr int kGroups = kWarps * kKeysPerWarp;
   constexpr int kPer = kTileKeys / kGroups;  // keys of a tile a lane group takes
-  constexpr int kChunksPerRow = P::kRowBytes / 16;
-  constexpr int kChunks = 2 * kTileKeys * kChunksPerRow;  // k and v of a tile, 16 bytes each
-  constexpr int kElemsPerChunk = 16 / (int)sizeof(KV);
-  static_assert(kLanesPerKey < 32 && kChunks % kThreads == 0, "d = 64 or 128");
+  constexpr int kElemsPerChunk = kCols ? 4 : 16 / (int)sizeof(KV);
+  constexpr int kChunkBytes = kElemsPerChunk * (int)sizeof(KV);
+  constexpr int kChunksPerRow = D / kElemsPerChunk;
+  constexpr int kChunks = 2 * kTileKeys * kChunksPerRow;  // k and v of a tile
+  static_assert(kLanesPerKey < 32 && kChunks % kThreads == 0, "D = 64 or 128");
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint32_t valid_bits[kMaxSplit / kTileKeys];
@@ -227,10 +253,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
         const int c = tid + j * kThreads;
         const int which = c / (kTileKeys * kChunksPerRow);  // 0: k, 1: v
         const int r = (c / kChunksPerRow) % kTileKeys, ch = c % kChunksPerRow;
-        const bool ok = (bits >> r) & 1u;
+        const bool ok = ((bits >> r) & 1u) && (!kCols || ch * kElemsPerChunk < p.d);
         const KV* src = (which ? v_row : k_row) + (kb + r) * p.kv_ss + ch * kElemsPerChunk;
-        cp_async16(stage + which * P::kTileBytes + r * P::kRowBytes + ch * 16,
-                   ok ? (const void*)src : p.k, ok ? 16 : 0);
+        cp_async<kChunkBytes>(stage + which * P::kTileBytes + r * P::kRowBytes + ch * kChunkBytes,
+                              ok ? (const void*)src : p.k, ok ? kChunkBytes : 0);
       }
       if (P::kQuant && tid < 2 * kTileKeys) {
         const int r = tid % kTileKeys;
@@ -251,8 +277,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
   float qr[G][8];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
-    if (!kChunked || j < nh) {
-      load8(static_cast<const QT*>(p.q) + bi * p.q_sb + (qh0 + j) * p.q_sh + li * 8, qr[j]);
+    const QT* q_j = static_cast<const QT*>(p.q) + bi * p.q_sb + (qh0 + j) * p.q_sh + li * 8;
+    if (kCols && (!kChunked || j < nh)) {  // rows 8-byte aligned at best: 4 elements a load
+#pragma unroll
+      for (int e = 0; e < 8; e += 4) {
+        if (li * 8 + e < p.d) {
+          load4(q_j + e, qr[j] + e);
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) qr[j][e + x] = 0.f;
+        }
+      }
+    } else if (!kChunked || j < nh) {
+      load8(q_j, qr[j]);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) qr[j][e] = 0.f;
@@ -389,12 +426,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<G>) decode_split_kernel(c
 // one block per (batch row, query head): o = Σ w_i o_i / Σ w_i l_i over the
 // splits with a valid key, w_i = exp(m_i − max m); empty splits are skipped
 // by their m (their o was never written)
-template <int D, typename QT>
+template <int D, typename QT, bool kCols>
 __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(const DecParams p) {
-  constexpr int kCols = D / 2;                     // a float2 of o a thread
-  constexpr int kGroups = kMergeThreads / kCols;   // splits walked in parallel
+  constexpr int kPairs = D / 2;                    // a float2 of o a thread
+  constexpr int kGroups = kMergeThreads / kPairs;  // splits walked in parallel
   __shared__ float red[kMergeThreads / 32];
-  __shared__ float2 sum_o[kGroups][kCols];
+  __shared__ float2 sum_o[kGroups][kPairs];
   __shared__ float sum_l[kGroups];
 
   const int bh = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -410,7 +447,7 @@ __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(const DecPa
 #pragma unroll
   for (int w = 1; w < kMergeThreads / 32; ++w) mx = fmaxf(mx, red[w]);
 
-  const int col = tid % kCols, g = tid / kCols;
+  const int col = tid % kPairs, g = tid / kPairs;
   float2 o = make_float2(0.f, 0.f);
   float lsum = 0.f;
 #pragma unroll 8
@@ -436,11 +473,13 @@ __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(const DecPa
     lsum += sum_l[s];
   }
   const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-  QT* out = static_cast<QT*>(p.out) + (long long)bh * D + 2 * col;
-  if constexpr (sizeof(QT) == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(o.x * inv, o.y * inv);
-  } else {
-    *reinterpret_cast<float2*>(out) = make_float2(o.x * inv, o.y * inv);
+  QT* out = static_cast<QT*>(p.out) + (long long)bh * (kCols ? p.d : D) + 2 * col;
+  if (!kCols || 2 * col < p.d) {
+    if constexpr (sizeof(QT) == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(o.x * inv, o.y * inv);
+    } else {
+      *reinterpret_cast<float2*>(out) = make_float2(o.x * inv, o.y * inv);
+    }
   }
   if (p.m_out != nullptr && col == 0) {
     p.m_out[bh] = lsum > 0.f ? mx : kBigNeg;
@@ -448,56 +487,57 @@ __global__ void __launch_bounds__(kMergeThreads) decode_merge_kernel(const DecPa
   }
 }
 
-template <int D, int G, typename KV, typename QT, bool kChunked>
+template <int D, int G, typename KV, typename QT, bool kChunked, bool kCols>
 cudaError_t launch_kv(const DecParams& p, int b, cudaStream_t stream) {
   constexpr int smem = Plan<D, G, KV>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<D, G, KV, QT, kChunked>,
+  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<D, G, KV, QT, kChunked, kCols>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  decode_split_kernel<D, G, KV, QT, kChunked>
+  decode_split_kernel<D, G, KV, QT, kChunked, kCols>
       <<<dim3(p.n_split * p.n_chunk, b * p.h_kv), kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<D, QT><<<b * p.h, kMergeThreads, 0, stream>>>(p);
+  decode_merge_kernel<D, QT, kCols><<<b * p.h, kMergeThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 // kind: the cache's type, kCacheBf16 / kCacheInt8 (bf16 q) or kCacheF32 (fp32 q)
 constexpr int kCacheBf16 = 0, kCacheInt8 = 1, kCacheF32 = 2;
 
-template <int D, int G, bool kChunked = false>
+template <int D, bool kCols, int G, bool kChunked = false>
 cudaError_t launch_g(const DecParams& p, int b, int kind, cudaStream_t stream) {
   switch (kind) {
     case kCacheBf16:
-      return launch_kv<D, G, __nv_bfloat16, __nv_bfloat16, kChunked>(p, b, stream);
+      return launch_kv<D, G, __nv_bfloat16, __nv_bfloat16, kChunked, kCols>(p, b, stream);
     case kCacheInt8:
-      return launch_kv<D, G, int8_t, __nv_bfloat16, kChunked>(p, b, stream);
+      return launch_kv<D, G, int8_t, __nv_bfloat16, kChunked, kCols>(p, b, stream);
     case kCacheF32:
-      return launch_kv<D, G, float, float, kChunked>(p, b, stream);
+      return launch_kv<D, G, float, float, kChunked, kCols>(p, b, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <int D>
+template <int D, bool kCols = false>
 cudaError_t launch_d(const DecParams& p, int b, int g, int kind, cudaStream_t stream) {
   switch (g) {
     case 1:
-      return launch_g<D, 1>(p, b, kind, stream);
+      return launch_g<D, kCols, 1>(p, b, kind, stream);
     case 2:
-      return launch_g<D, 2>(p, b, kind, stream);
+      return launch_g<D, kCols, 2>(p, b, kind, stream);
     case 4:
-      return launch_g<D, 4>(p, b, kind, stream);
+      return launch_g<D, kCols, 4>(p, b, kind, stream);
     case 8:
-      return launch_g<D, 8>(p, b, kind, stream);
+      return launch_g<D, kCols, 8>(p, b, kind, stream);
     default:  // any other group: chunks of 8 query heads
-      return launch_g<D, 8, true>(p, b, kind, stream);
+      return launch_g<D, kCols, 8, true>(p, b, kind, stream);
   }
 }
 
 }  // namespace
 
-// part: fp32 scratch of [b, h, ceil(T / split), d + 2], written and read here
+// part: fp32 scratch of [b, h, ceil(T / split), D + 2], D = d at d 64 and 128,
+// else the next of the two (the tile width), written and read here
 // (no initial value); m_out, l_out: [b, h] fp32, or both null for o alone.
 // kv_len: int32 on the card, [1] or (kv_len_row 1) [b]. split: keys a block,
 // a multiple of 256 up to 2048. kind: the cache's
@@ -539,14 +579,10 @@ extern "C" int lwm_flash_decode(const void* q, const void* k, const void* v,
   p.kv_sh = kv_sh;
   p.kv_ss = kv_ss;
   p.scale = scale;
+  p.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int g = p.g;
-  switch (d) {
-    case 64:
-      return launch_d<64>(p, b, g, kind, s);
-    case 128:
-      return launch_d<128>(p, b, g, kind, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_head_dim(d, [&](auto D, auto cols) {
+    return launch_d<decltype(D)::value, decltype(cols)::value>(p, b, g, kind, s);
+  });
 }

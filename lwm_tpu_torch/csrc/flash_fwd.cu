@@ -58,6 +58,12 @@
 // change), warpgroups decoupled by mbarrier stage release (2-6% faster, not
 // worth its protocol) and a ping-pong of the two warpgroups on top (no
 // faster). Not yet: a producer warpgroup.
+// Head dims: 64 and 128 as above; any other d ≤ 128 with d % 4 == 0 (the
+// 3b preset's 100) runs on the tiles of the next of the two (kCols), with
+// q, k and v copied by 8-byte cp.async from every thread instead of TMA: a
+// bf16 head of 100 is 200 bytes, and a tensor map takes only 16-byte
+// strides. Columns past d are zero in shared memory, so q·kᵀ over the
+// tile's width adds nothing; p·v's columns past d are never stored.
 
 #include "hopper.cuh"
 
@@ -84,6 +90,7 @@ struct FwdParams {
   const int* q_seg;   // [b, sq] or null
   const int* kv_seg;  // [b, skv]
   int k_dim[3], v_dim[3];  // the tensor maps' dims of (seq, head, batch), 1..3
+  int d;                   // the head dim: D, or (kCols) d < D on D-wide tiles
 };
 
 // Shared memory of one block, byte offsets from a 1024-aligned base; tiles
@@ -111,7 +118,10 @@ __device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, 
       : "memory");
 }
 
-template <int D>
+// kCols: a head dim d = p.d other than D (hopper.cuh, load_tile_cols): q, k
+// and v by 8-byte cp.async from every thread, columns past d zero; o stored
+// up to d
+template <int D, bool kCols>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map, const FwdParams p) {
@@ -151,7 +161,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   auto load_kv = [&](int j) {
     const int k0 = j * kBN, rows = min(kBN, p.skv - k0);
-    if (tid == 0) {
+    if constexpr (kCols) {
+      load_tile_cols<D, kBN, kThreads>(base + L::kK + (j & 1) * L::kTile,
+                                       p.k + bi * p.k_sb + (long long)k0 * p.k_ss + kvh * p.k_sh,
+                                       p.k_ss, rows, p.d, tid);
+      load_tile_cols<D, kBN, kThreads>(base + L::kV + (j % 3) * L::kTile,
+                                       p.v + bi * p.v_sb + (long long)k0 * p.v_ss + kvh * p.v_sh,
+                                       p.v_ss, rows, p.d, tid);
+    } else if (tid == 0) {
       const uint32_t bar = base + L::kBar + (j & 1) * 8;
       mbar_expect_tx(bar, 2 * L::kTile);
 #pragma unroll
@@ -177,9 +194,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  load_tile<D, kBM, kThreads>(base + L::kQ,
-                              p.q + bi * p.q_sb + (long long)q0 * p.q_ss + hi * p.q_sh, p.q_ss,
-                              min(kBM, p.sq - q0), tid);
+  const __nv_bfloat16* q_g = p.q + bi * p.q_sb + (long long)q0 * p.q_ss + hi * p.q_sh;
+  load_tile_d<D, kBM, kThreads, kCols>(base + L::kQ, q_g, p.q_ss, min(kBM, p.sq - q0), p.d, tid);
   if (n_tiles > 0) load_kv(0);
   cp_async_commit();
 
@@ -221,8 +237,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the products
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBN;
-    cp_async_wait_all();  // this thread's copies of the bias of tile j (and of q)
-    mbar_wait(base + L::kBar + (j & 1) * 8, (j >> 1) & 1);  // k and v of tile j
+    cp_async_wait_all();  // this thread's copies of the bias of tile j (and of q; kCols: k, v)
+    if constexpr (!kCols) mbar_wait(base + L::kBar + (j & 1) * 8, (j >> 1) & 1);  // k and v of tile j
     fence_async_smem();
     __syncthreads();      // tile j complete; step j − 1 is done with its stages
     if (j + 1 < n_tiles) load_kv(j + 1);
@@ -335,14 +351,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qrow = row + 8 * r;
     if (qrow >= p.sq) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* o_g = p.out + (((long long)bi * p.sq + qrow) * p.h + hi) * D;
+    const int d = kCols ? p.d : D;
+    __nv_bfloat16* o_g = p.out + (((long long)bi * p.sq + qrow) * p.h + hi) * d;
 #pragma unroll
     for (int hh = 0; hh < kHalves; ++hh)
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
-        const int i = 4 * jj + 2 * r;
-        *reinterpret_cast<uint32_t*>(o_g + hh * 64 + 8 * jj + 2 * t4) =
-            pack_bf16(o[hh][i] * inv, o[hh][i + 1] * inv);
+        const int i = 4 * jj + 2 * r, col = hh * 64 + 8 * jj + 2 * t4;
+        if (!kCols || col < d)
+          *reinterpret_cast<uint32_t*>(o_g + col) = pack_bf16(o[hh][i] * inv, o[hh][i + 1] * inv);
       }
     if (t4 == 0)
       p.lse[((long long)bi * p.h + hi) * p.sq + qrow] = l[r] > 0.f ? m[r] + logf(l[r]) : kBigNeg;
@@ -380,20 +397,22 @@ cudaError_t kv_map(CUtensorMap* map, int (&dim)[3], const void* ptr, int d, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, bool kCols = false>
 cudaError_t launch(FwdParams& p, int b, cudaStream_t stream) {
-  CUtensorMap k_map, v_map;
-  cudaError_t e = kv_map(&k_map, p.k_dim, p.k, D, p.skv, p.h_kv, b, p.k_ss, p.k_sh, p.k_sb);
-  if (e == cudaSuccess)
-    e = kv_map(&v_map, p.v_dim, p.v, D, p.skv, p.h_kv, b, p.v_ss, p.v_sh, p.v_sb);
-  if (e != cudaSuccess) return e;
+  CUtensorMap k_map = {}, v_map = {};  // kCols: unused
+  if constexpr (!kCols) {
+    cudaError_t e = kv_map(&k_map, p.k_dim, p.k, D, p.skv, p.h_kv, b, p.k_ss, p.k_sh, p.k_sb);
+    if (e == cudaSuccess)
+      e = kv_map(&v_map, p.v_dim, p.v, D, p.skv, p.h_kv, b, p.v_ss, p.v_sh, p.v_sb);
+    if (e != cudaSuccess) return e;
+  }
   constexpr int smem = Smem<D>::kAlloc;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, kCols>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // blockIdx.x walks (b, head), blockIdx.y the query tiles, heaviest first
   const dim3 grid(b * p.h, (p.sq + kBM - 1) / kBM);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(k_map, v_map, p);
+  flash_fwd_kernel<D, kCols><<<grid, kThreads, smem, stream>>>(k_map, v_map, p);
   return cudaGetLastError();
 }
 
@@ -437,14 +456,10 @@ extern "C" int lwm_flash_fwd(const void* q, const void* k, const void* v, const 
   p.scale = scale;
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
+  p.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sq <= 0 || b <= 0) return cudaSuccess;
-  switch (d) {
-    case 64:
-      return launch<64>(p, b, s);
-    case 128:
-      return launch<128>(p, b, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_head_dim(d, [&](auto D, auto cols) {
+    return launch<decltype(D)::value, decltype(cols)::value>(p, b, s);
+  });
 }

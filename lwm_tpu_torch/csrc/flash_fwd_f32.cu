@@ -66,6 +66,11 @@
 // whose two warpgroups share each key tile (1.3× slower: they wait on each
 // other at every tile's split); the next tile's split overlapped with p·v
 // (no gain).
+// Head dims: any d ≤ 128 with d % 4 == 0 (an fp32 row is then 16-byte
+// aligned) on the tiles of 64 or 128 (hopper.cuh, launch_head_dim): the
+// tensor maps end at d, so the boxes' columns past it arrive as zeros, and
+// every product over the tile's width adds nothing there; o is stored up
+// to d. One instance a tile width serves each d on it.
 
 #include "tf32.cuh"
 
@@ -92,6 +97,7 @@ struct F32Params {
   const int* q_seg;   // [b, sq] or null
   const int* kv_seg;  // [b, skv]
   int q_dim[3], k_dim[3], v_dim[3];  // the tensor maps' dims of (seq, head, batch), 1..3
+  int d;                             // the head dim, d ≤ D
 };
 
 // Shared memory of one block, byte offsets from a 1024-aligned base (224 KB
@@ -366,11 +372,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (!rows_in[r]) continue;
     const int qi = row + 8 * r;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    float* o_g = p.out + (((long long)bi * p.sq + qi) * p.h + qh) * D;
+    float* o_g = p.out + (((long long)bi * p.sq + qi) * p.h + qh) * p.d;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(o_g + 8 * n + 2 * t4) =
-          make_float2(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+      if (8 * n + 2 * t4 < p.d)
+        *reinterpret_cast<float2*>(o_g + 8 * n + 2 * t4) =
+            make_float2(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
     if (t4 == 0)
       p.lse[((long long)bi * p.h + qh) * p.sq + qi] = l[r] > 0.f ? m[r] + logf(l[r]) : kBigNeg;
   }
@@ -410,11 +417,11 @@ cudaError_t map4(CUtensorMap* map, int (&dim)[3], const void* ptr, int d, int se
 template <int D>
 cudaError_t launch(F32Params& p, int b, cudaStream_t stream) {
   CUtensorMap q_map, k_map = {}, v_map = {};  // no keys: no kv tile is loaded
-  cudaError_t e = map4(&q_map, p.q_dim, p.q, D, p.sq, p.h, b, p.q_ss, p.q_sh, p.q_sb, kBQ);
+  cudaError_t e = map4(&q_map, p.q_dim, p.q, p.d, p.sq, p.h, b, p.q_ss, p.q_sh, p.q_sb, kBQ);
   if (e == cudaSuccess && p.skv > 0)
-    e = map4(&k_map, p.k_dim, p.k, D, p.skv, p.h_kv, b, p.k_ss, p.k_sh, p.k_sb, kBK);
+    e = map4(&k_map, p.k_dim, p.k, p.d, p.skv, p.h_kv, b, p.k_ss, p.k_sh, p.k_sb, kBK);
   if (e == cudaSuccess && p.skv > 0)
-    e = map4(&v_map, p.v_dim, p.v, D, p.skv, p.h_kv, b, p.v_ss, p.v_sh, p.v_sb, kBK);
+    e = map4(&v_map, p.v_dim, p.v, p.d, p.skv, p.h_kv, b, p.v_ss, p.v_sh, p.v_sb, kBK);
   if (e != cudaSuccess) return e;
   constexpr int smem = Smem<D>::kAlloc;
   e = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -472,13 +479,7 @@ extern "C" int lwm_flash_fwd_f32(const void* q, const void* k, const void* v, co
   p.scale = scale;
   p.q_seg = static_cast<const int*>(q_seg);
   p.kv_seg = static_cast<const int*>(kv_seg);
+  p.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return launch<64>(p, b, s);
-    case 128:
-      return launch<128>(p, b, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_head_dim(d, [&](auto D, auto) { return launch<decltype(D)::value>(p, b, s); });
 }

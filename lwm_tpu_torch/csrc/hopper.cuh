@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace lwm {
 
 constexpr float kBigNeg = -1e30f;     // a masked logit
@@ -71,6 +73,17 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src
                "r"(src_bytes)
                : "memory");
 }
+// an N-byte copy (4, 8 or 16), src_bytes of it read and the rest zero-filled
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  if constexpr (N == 16) {
+    cp_async16(dst, src, src_bytes);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(N),
+                 "r"(src_bytes)
+                 : "memory");
+  }
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -102,6 +115,65 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
     const bool in = r < rows_valid;
     cp_async16(dst + swz<ROWS>(r, c), src + (in ? r * row_stride + c : 0), in ? 16 : 0);
   }
+}
+
+// Head dims other than 64 and 128 (d ≤ 128, d % 4 == 0: 32, 80, 100, ..)
+// run on the tiles of the next of those, D, in the same layout: columns at
+// or past d are zero in shared memory, so that a product over D adds
+// nothing past d, and nothing past d is stored. Such a row is 8-byte
+// aligned in bf16 at best (a head of 100 is 200 bytes), so it is copied 8
+// bytes at a time.
+//
+// load_tile for rows of d ≤ D bf16: 8 bytes per thread per step, columns
+// at or past d and rows at or past `rows_valid` zero-filled. A thread keeps
+// one column and steps over rows a multiple of 8 apart, so its swizzled
+// offset moves by whole 1024-byte row groups: one add a copy, few registers
+// (the kernels that call it hold ~160 live accumulator registers)
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile_cols(uint32_t dst, const __nv_bfloat16* src,
+                                               long long row_stride, int rows_valid, int d,
+                                               int tid) {
+  constexpr int kChunks = D / 4;                 // 8-byte chunks of a row
+  constexpr int kRowStep = THREADS / kChunks;    // rows apart of a thread's copies
+  static_assert(THREADS % kChunks == 0 && kRowStep % 8 == 0 && ROWS % kRowStep == 0,
+                "whole steps of 8 bytes a thread, rows a multiple of 8 apart");
+  const int r0 = tid / kChunks, c = (tid % kChunks) * 4;
+  const bool col_in = c < d;
+  const uint32_t dst0 = dst + swz<ROWS>(r0, c);
+  const __nv_bfloat16* src0 = src + c;
+#pragma unroll
+  for (int j = 0; j < ROWS / kRowStep; ++j) {
+    const int r = r0 + j * kRowStep;
+    const bool in = col_in && r < rows_valid;
+    cp_async<8>(dst0 + j * kRowStep * 128, in ? src0 + r * row_stride : src, in ? 8 : 0);
+  }
+}
+
+// load_tile_cols for a head dim d other than D (kCols), else load_tile
+template <int D, int ROWS, int THREADS, bool kCols>
+__device__ __forceinline__ void load_tile_d(uint32_t dst, const __nv_bfloat16* src,
+                                            long long row_stride, int rows_valid, int d,
+                                            int tid) {
+  if constexpr (kCols)
+    load_tile_cols<D, ROWS, THREADS>(dst, src, row_stride, rows_valid, d, tid);
+  else
+    load_tile<D, ROWS, THREADS>(dst, src, row_stride, rows_valid, tid);
+}
+
+// The tile width that runs head dim d, as a launch's template arguments:
+// 64 and 128 on their own tiles (kCols false), any other d ≤ 128 with
+// d % 4 == 0 on the next of them (kCols true); any other d is refused.
+// `launch(D, kCols)` gets both as std::integral_constant values.
+// (ops/flash.py tile_dim is the same rule.)
+template <typename Launch>
+cudaError_t launch_head_dim(int d, Launch&& launch) {
+  using std::false_type, std::true_type;
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  if (d == 64) return launch(D64{}, false_type{});
+  if (d == 128) return launch(D128{}, false_type{});
+  if (d <= 0 || d > 128 || d % 4) return cudaErrorInvalidValue;
+  return d < 64 ? launch(D64{}, true_type{}) : launch(D128{}, true_type{});
 }
 
 // ------------------------------------------------------------------ wgmma

@@ -18,7 +18,8 @@ h_kv (the g query heads of a kv head share one cache read; a group other
 than 1/2/4/8 runs in chunks of 8 heads, as the shared-prefix fold of
 `ops.prefix` gives slots·g), and `return_partials` (o
 l-normalized, with the row's m and l, for the shared-prefix and
-sequence-sharded combines).
+sequence-sharded combines), and any head dim d ≤ 128 with d % 4 == 0
+(`ops.flash.check_head_dim`; the cache is read where it lies, rows of d).
 
 `flash_decode` launches the kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain twin `flash_decode_plain`,
@@ -34,9 +35,8 @@ import functools
 import torch
 
 from lwm_tpu_torch.ops import _build
+from lwm_tpu_torch.ops.flash import check_head_dim, check_rows, tile_dim
 from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD
-
-HEAD_DIMS = (64, 128)
 # q dtype → the caches it reads, each with its kernel's `kind` (the C entry's
 # cache type: bf16, int8 or fp32)
 CACHE_KINDS = {torch.bfloat16: {torch.bfloat16: 0, torch.int8: 1}, torch.float32: {torch.float32: 2}}
@@ -185,8 +185,7 @@ def check_decode_args(q, k, v, mask, k_scale, v_scale):
     _, h_kv, T, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"cache {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    check_head_dim(d)
     if h % h_kv:
         raise ValueError(f"{h} query heads do not group over {h_kv} kv heads")
     if b * h_kv > 65535:  # the kernel's grid.y
@@ -194,12 +193,7 @@ def check_decode_args(q, k, v, mask, k_scale, v_scale):
     if k.stride() != v.stride():
         raise ValueError("k and v caches must share strides")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        rows = (s * x.element_size() for s in x.stride()[:-1])
-        if x.stride(-1) != 1 or any(s % 16 for s in rows) or x.data_ptr() % 16:
-            raise ValueError(
-                f"{name}: head dim must be contiguous with 16-byte aligned rows "
-                f"(strides {x.stride()})"
-            )
+        check_rows(name, x, d)
     if mask.shape != (b, T) or not mask.is_contiguous():
         raise ValueError(f"mask must be contiguous [{b}, {T}], got {tuple(mask.shape)}")
     if quant:
@@ -233,7 +227,8 @@ def flash_decode(q, k, v, mask, kv_len, k_scale=None, v_scale=None, *, scale=Non
     quant = k.dtype == torch.int8
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    part = torch.empty((b, h, -(-T // SPLIT_KEYS), d + 2), dtype=torch.float32, device=q.device)
+    part = torch.empty((b, h, -(-T // SPLIT_KEYS), tile_dim(d) + 2), dtype=torch.float32,
+                       device=q.device)
     m = l = None
     if return_partials:
         m = torch.empty((b, h, 1), dtype=torch.float32, device=q.device)

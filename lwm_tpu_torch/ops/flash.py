@@ -21,8 +21,10 @@ Ported: causal or not, `q_offset`/`kv_offset` and `pos_stride` (query i
 at q_offset + i·pos_stride, key j at kv_offset + j·pos_stride: the striped
 layout of the ring's steps), segment ids (`q_seg` [b, sq], `kv_seg` [b,
 skv]: a logit is kept only where they are equal), per-key and full-tile
-additive bias, GQA, seq-major or head-major kv, lse. Not ported yet:
-dropout, per-head bias.
+additive bias, GQA, seq-major or head-major kv, lse, any head dim d ≤ 128
+with d % 4 == 0 (`check_head_dim`: 64 and 128 on their own tiles, another
+d on the tiles of the next of them). Not ported yet: dropout, per-head
+bias, d > 128 and d % 4 ≠ 0.
 
 Each wrapper (`flash_attention_fwd`, `flash_attention_bwd`) launches its
 kernel for CUDA tensors and raises on what it does not take; for CPU
@@ -40,7 +42,38 @@ import torch
 from lwm_tpu_torch.ops import _build
 from lwm_tpu_torch.ops.reference import BIG_NEG, MASK_GUARD, attention_mask, reference_attention
 
-HEAD_DIMS = (64, 128)
+TILE_DIMS = (64, 128)   # the kernels' tile widths: each other head dim runs on the next of them
+HEAD_DIM_MAX = 128
+
+
+def check_head_dim(d):
+    """Raise unless the attention kernels (K1, the backward, K4) take head
+    dim d: d ≤ 128 with d % 4 == 0, as the JAX kernels take any d that their
+    block shape holds (`pallas_flash.py:210`, `pallas_decode.py:66`). 64 and
+    128 run on their own tiles, any other d (the 3b preset's 100) on the
+    tiles of the next of them, the columns past d zero."""
+    if not (0 < d <= HEAD_DIM_MAX and d % 4 == 0):
+        raise ValueError(f"head_dim {d} not taken: the kernels take d <= {HEAD_DIM_MAX} "
+                         "with d % 4 == 0")
+
+
+def tile_dim(d):
+    """The tile width the kernels run head dim d on: d itself at 64 and
+    128, else the next of them (csrc/hopper.cuh `launch_head_dim`)."""
+    check_head_dim(d)
+    return d if d in TILE_DIMS else next(t for t in TILE_DIMS if t > d)
+
+
+def check_rows(name, x, d):
+    """Raise unless x's head dim is contiguous and its rows and data pointer
+    are aligned as the kernels' copies need: to 16 bytes at d 64 and 128
+    (TMA boxes, 16-byte copies), else to 4 elements (8 bytes in bf16, 4 in
+    int8, 16 in fp32: a bf16 head of 100 is 200 bytes)."""
+    align = 16 if d in TILE_DIMS else 4 * x.element_size()
+    rows = (s * x.element_size() for s in x.stride()[:-1])
+    if x.stride(-1) != 1 or any(s % align for s in rows) or x.data_ptr() % align:
+        raise ValueError(f"{name}: head dim must be contiguous with {align}-byte aligned rows "
+                         f"(strides {x.stride()})")
 
 
 def flash_attention_fwd_plain(
@@ -122,17 +155,11 @@ def check_fwd_args(q, k, v, kv_head_major, dtypes=FWD_DTYPES, name="flash_attent
     skv, h_kv = (k.shape[2], k.shape[1]) if kv_head_major else (k.shape[1], k.shape[2])
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    check_head_dim(d)
     if h % h_kv:
         raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
-    row = 16 // q.element_size()   # elements a 16-byte step
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(-1) != 1 or any(s % row for s in x.stride()[:-1]) or x.data_ptr() % 16:
-            raise ValueError(
-                f"{name}: head dim must be contiguous with 16-byte aligned rows "
-                f"(strides {x.stride()})"
-            )
+        check_rows(name, x, d)
     return skv, h_kv
 
 
@@ -240,9 +267,7 @@ def _bwd_launch(outs, q, k, v, g, lse, delta, bias, causal, q_offset, kv_offset,
     b, sq, h, d = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q {tuple(q.shape)} {q.dtype}")
-    row = 16 // g.element_size()   # elements a 16-byte step
-    if g.stride(-1) != 1 or any(s % row for s in g.stride()[:-1]) or g.data_ptr() % 16:
-        raise ValueError(f"g: head dim must be contiguous with 16-byte aligned rows ({g.stride()})")
+    check_rows("g", g, d)
     for name, x in (("lse", lse), ("delta", delta)):
         if (x.shape != (b, h, sq) or x.dtype != torch.float32 or not x.is_contiguous()
                 or x.device != q.device):

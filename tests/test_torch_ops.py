@@ -148,8 +148,14 @@ def test_fully_masked_rows_give_zero():
     assert torch.all(out[0, 0] == 0) and torch.all(out[0, 1] != 0)
 
 
-def test_k1_twin_bf16_matches_pallas_kernel():
-    q, k, v, bias = _k1_inputs(8, 2, 32, 256, True, 224, 0, "holes", seed=2)
+# head dims beside the tiles' own 64 and 128: the kernels run any d ≤ 128
+# with d % 4 == 0 on the next tile width (the 3b preset's 100)
+OTHER_HEAD_DIMS = [32, 80, 100]
+
+
+@pytest.mark.parametrize("d", [64] + OTHER_HEAD_DIMS)
+def test_k1_twin_bf16_matches_pallas_kernel(d):
+    q, k, v, bias = _k1_inputs(8, 2, 32, 256, True, 224, 0, "holes", seed=2, d=d)
     bf = [x.astype(jnp.bfloat16) for x in map(jnp.asarray, (q, k, v))]
     want, want_lse = flash_attention_fwd_pallas(
         *bf, jnp.asarray(bias), causal=True, q_offset=224, block_k=128, interpret=True,
@@ -176,11 +182,12 @@ BWD_CASES = {
 }
 
 
-def _bwd_inputs(case, seed):
+def _bwd_inputs(case, seed, d=64):
     """(q, k, v, g, lse, delta, bias) in numpy fp32, lse and delta from the
     fp32 forward twin (held to the JAX kernel above), fed to both packages."""
     h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind = BWD_CASES[case]
-    q, k, v, bias = _k1_inputs(h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind, seed=seed)
+    q, k, v, bias = _k1_inputs(h, h_kv, sq, skv, causal, q_off, kv_off, bias_kind, seed=seed,
+                               d=d)
     g = np.random.default_rng(seed + 100).standard_normal(q.shape, np.float32)
     out, lse = flash.flash_attention_fwd_plain(
         _t(q), _t(k), _t(v), None if bias is None else _t(bias),
@@ -195,11 +202,12 @@ def _bwd_inputs(case, seed):
 BWD_TOL = {"fp32": FP32_TOL, "bf16": dict(atol=2e-2, rtol=2e-2)}
 
 
+@pytest.mark.parametrize("d", [64, 100])
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
 @pytest.mark.parametrize("case", sorted(BWD_CASES))
-def test_k2_k3_twin_matches_pallas_kernels(case, dt):
+def test_k2_k3_twin_matches_pallas_kernels(case, dt, d):
     h, h_kv, sq, skv, causal, q_off, kv_off, _ = BWD_CASES[case]
-    q, k, v, g, lse, delta, bias = _bwd_inputs(case, seed=len(case))
+    q, k, v, g, lse, delta, bias = _bwd_inputs(case, seed=len(case), d=d)
     jdt, tdt = (jnp.float32, torch.float32) if dt == "fp32" else (jnp.bfloat16, torch.bfloat16)
     kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
     want = flash_attention_bwd_pallas(
@@ -462,10 +470,11 @@ def _k4_inputs(h, h_kv, seed=0, b=3, T=512, d=64):
     return q, k, v, mask, lengths
 
 
+@pytest.mark.parametrize("d", [64, 100])
 @pytest.mark.parametrize("case", sorted(K4_CASES))
-def test_k4_twin_matches_pallas_kernel(case):
+def test_k4_twin_matches_pallas_kernel(case, d):
     h, h_kv, quant, dt, skip = K4_CASES[case]
-    q, k, v, mask, lengths = _k4_inputs(h, h_kv, seed=len(case))
+    q, k, v, mask, lengths = _k4_inputs(h, h_kv, seed=len(case), d=d)
     T = k.shape[2]
     kv_len = int(lengths.max()) + 1 if skip else T
     ks = vs = None
@@ -645,8 +654,18 @@ def test_kernel_argument_checks():
     assert flash.check_fwd_args(q, k, k, kv_head_major=True) == (32, 2)
     with pytest.raises(TypeError):
         flash.check_fwd_args(q.double(), k.double(), k.double(), True)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash.check_fwd_args(q[..., :48], k[..., :48], k[..., :48], True)
+    # any d ≤ 128 with d % 4 == 0, its bf16 rows 8-byte aligned (200 bytes at
+    # d 100); 130 and 98 are refused
+    q100, k100 = torch.zeros((1, 8, 4, 100), dtype=bf), torch.zeros((1, 2, 32, 100), dtype=bf)
+    assert flash.check_fwd_args(q100, k100, k100, kv_head_major=True) == (32, 2)
+    assert flash.check_fwd_args(q[..., :48], k[..., :48], k[..., :48], True) == (32, 2)
+    for d in (130, 98):
+        qd, kd = torch.zeros((1, 8, 4, d), dtype=bf), torch.zeros((1, 2, 32, d), dtype=bf)
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            flash.check_fwd_args(qd, kd, kd, True)
+    with pytest.raises(ValueError, match="8-byte aligned rows"):
+        k_odd = torch.zeros((1, 2, 32, 102), dtype=bf)[..., :100]   # 204-byte rows
+        flash.check_fwd_args(q100, k_odd, k_odd, True)
     with pytest.raises(ValueError, match="multiple"):
         flash.check_fwd_args(torch.zeros((1, 8, 3, 64), dtype=bf), k, k, True)
     with pytest.raises(ValueError, match="contiguous"):
@@ -676,6 +695,13 @@ def test_kernel_argument_checks():
     k8 = k.to(torch.int8)
     sc = torch.ones((1, 2, 32))
     decode.check_decode_args(q[:, :1], k8, k8, mask, sc, sc)
+    # d 100: bf16 rows of 200 bytes, int8 ones of 100 (4-byte aligned)
+    k8_100 = k100.to(torch.int8)
+    decode.check_decode_args(q100[:, :1], k100, k100, mask, None, None)
+    decode.check_decode_args(q100[:, :1], k8_100, k8_100, mask, sc, sc)
+    with pytest.raises(ValueError, match="head_dim 98"):
+        k98 = torch.zeros((1, 2, 32, 98), dtype=bf)
+        decode.check_decode_args(torch.zeros((1, 1, 4, 98), dtype=bf), k98, k98, mask, None, None)
     with pytest.raises(ValueError, match="exactly when"):
         decode.check_decode_args(q[:, :1], k8, k8, mask, None, None)
     # any group g = h / h_kv is taken (16 here: a shared-prefix fold); h must divide
@@ -702,13 +728,14 @@ def test_kernel_argument_checks():
 # give them
 
 
-def test_k1_fp32_route_over_a_cache_matches_pallas_kernel():
+@pytest.mark.parametrize("d", [64] + OTHER_HEAD_DIMS)
+def test_k1_fp32_route_over_a_cache_matches_pallas_kernel(d):
     """K1 as a left-padded prefill calls it at fp32 (through the wrapper):
     40 queries at q_offset 24 (the cache index) over a head-major 256-slot
     cache, GQA (8 heads over 2), the per-key bias of left-pad holes and of
     the slots past the frontier."""
     rng = np.random.default_rng(21)
-    b, h, h_kv, sq, T, d, q_off = 2, 8, 2, 40, 256, 64, 24
+    b, h, h_kv, sq, T, q_off = 2, 8, 2, 40, 256, 24
     q = rng.standard_normal((b, sq, h, d), np.float32)
     k = rng.standard_normal((b, h_kv, T, d), np.float32)
     v = rng.standard_normal((b, h_kv, T, d), np.float32)
@@ -978,8 +1005,8 @@ class _FakeKernels:
 def test_fp32_route_argument_checks(monkeypatch):
     """fp32 q, k and v take K1's fp32 route, fp32 q over an fp32 cache
     K4's, and fp32 q, k, v and g the backward's (`lwm_flash_bwd_f32`, with
-    lwm_flash_bwd's arguments); fp16, mixed types and a head dim outside
-    HEAD_DIMS still raise, and K4 mixed types."""
+    lwm_flash_bwd's arguments), at d 64 and 100; fp16, mixed types and a
+    head dim the kernels do not take still raise, and K4 mixed types."""
     q = torch.zeros((1, 8, 4, 64))
     k = torch.zeros((1, 2, 32, 64))
     assert flash.check_fwd_args(q, k, k, kv_head_major=True) == (32, 2)
@@ -1002,13 +1029,19 @@ def test_fp32_route_argument_checks(monkeypatch):
         flash._bwd_launch((q, k16, k16), h16, k16, k16, h16, lse, lse, None, **kw)
     with pytest.raises(TypeError, match="flash_attention_bwd kernel"):
         flash._bwd_launch((q, ks, ks), q, ks.bfloat16(), ks, q, lse, lse, None, **kw)
-    with pytest.raises(ValueError, match="head_dim 96"):
-        q96, k96 = torch.zeros((1, 8, 4, 96)), torch.zeros((1, 32, 2, 96))
-        flash._bwd_launch((q96, k96, k96), q96, k96, k96, q96, lse, lse, None, **kw)
+    # d 100 (the 3b preset's) takes both routes with the same arguments
+    q100, k100 = torch.zeros((1, 8, 4, 100)), torch.zeros((1, 32, 2, 100))
+    for dt, entry in ((torch.float32, "lwm_flash_bwd_f32"), (torch.bfloat16, "lwm_flash_bwd")):
+        qd, kd = q100.to(dt), k100.to(dt)
+        flash._bwd_launch((q100, kd, kd), qd, kd, kd, qd, lse, lse, None, **kw)
+        assert lib.calls[-1] == (entry, len(flash._build._SIGNATURES["lwm_flash_bwd"]))
+    with pytest.raises(ValueError, match="head_dim 98"):
+        q98, k98 = torch.zeros((1, 8, 4, 98)), torch.zeros((1, 32, 2, 98))
+        flash._bwd_launch((q98, k98, k98), q98, k98, k98, q98, lse, lse, None, **kw)
     with pytest.raises(ValueError, match="g: head dim"):
         g_strided = torch.zeros((1, 8, 4, 66))[..., :64]       # 264-byte rows: not 16-aligned
         flash._bwd_launch((q, ks, ks), q, ks, ks, g_strided, lse, lse, None, **kw)
-    assert len(lib.calls) == 2
+    assert len(lib.calls) == 4
     mask = torch.ones((1, 32), dtype=torch.bool)
     decode.check_decode_args(q[:, :1], k, k, mask, None, None)
     with pytest.raises(TypeError, match="float32 cache"):

@@ -8,10 +8,18 @@ heads, 2 layers: every split dim divides by 4) for 2 steps at `1,2,2,1`,
 blocks, `1,4,1,1`, and a VideoLLaMA one step at `1,2,2,1`: the weights and
 the optimizer's moments sharded over fsdp × sp and split over tp by the
 rule table (`parallel.fsdp`, `parallel.partition`), the blocks
-tensor-parallel. Every step's metrics, whole (gathered) gradients, params
-after the step and moments hold at fp32 1e-5 to the one-device port's
-(itself held to JAX by `tests/test_torch_train.py`): metrics relative,
-gradients and moments max |Δ| ≤ 1e-5 · max |want|, params 1e-5 absolute.
+tensor-parallel. Every step's metrics, params after the step and moments
+hold at fp32 1e-5 to the one-device port's (itself held to JAX by
+`tests/test_torch_train.py`), whose updates take the mesh's gradients and
+whose steps after the first start from the mesh's params and moments
+(`_one_device`'s `resync`): metrics relative, moments max |Δ| ≤ 1e-5 ·
+max |want|, params 1e-5 absolute. Each whole (gathered) gradient is held
+to the same step in float64 (`_f64_grads`, from the same params): its max
+|Δ| within 1e-5 of max |float64|, or within 1.25× the one-device fp32
+port's own distance where that is larger. fp32 sums whose order depends on
+the host's threads leave ~1e-5 of a gradient's max between two fp32 runs,
+and Adam's first update turns float noise in a near-zero gradient into a
+difference of up to lr: so neither run is held to the other's noise.
 Each rank holds 1/(fsdp·sp) of a split leaf's tp-local elements, params and
 moments alike; a leaf held whole over tp has one device's gradient (summed
 over tp it would be twice that). A seeded init on a mesh gives the
@@ -32,6 +40,8 @@ raises.
 import json
 import types
 
+import torch.nn.functional as F
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +59,7 @@ from lwm_tpu.parallel.partition import (
 )
 from lwm_tpu.utils import cross_entropy_loss_and_accuracy as jax_cross_entropy
 from lwm_tpu_torch import checkpoint, train
+from lwm_tpu_torch.models import llama as llama_module
 from lwm_tpu_torch.models.llama import LLaMAConfig, LLaMAForCausalLM
 from lwm_tpu_torch.models.vision_llama import VideoLLaMAConfig, VideoLLaMAForCausalLM
 from lwm_tpu_torch.parallel import fsdp, partition
@@ -86,6 +97,7 @@ INITS = {"init_text": dict(mesh="1,2,2,1", kind="text", config=MODEL, seed=7),
          "init_vision": dict(mesh="1,4,1,1", kind="vision", config=VISION_MODEL, seed=8)}
 REL = 1e-5
 PARAM_TOL = 1e-5
+FLOOR_RATIO = 1.25   # a gradient's distance to float64 against the one-device fp32 port's
 FUSED_STEPS = 2
 
 
@@ -127,14 +139,14 @@ def _model(kind, config, **kw):
 def _one_device(work, run, trainstate=None, fused=False, resync=None):
     """The one-device port's `train_steps_record` of a run (from the saved
     init, or from `trainstate`). With `resync` (a mesh run's record) each
-    update takes the mesh run's gradients (held to these at 1e-5 apart) and
+    update takes the mesh run's gradients (each held to float64 apart) and
     each step after the first starts from the mesh run's params and
-    moments: PaLM's update g/√v · lr · rms is ±lr·rms for any gradient at
-    step 1 and divides an element's gradient by its own history after, so
-    an element whose gradient is within float noise of 0 takes its sign or
-    size from the summation order; given the same gradients, the sharded
-    optimizer (its block rms and clip norm summed over the ranks) must give
-    one device's update."""
+    moments: Adam's first update g/√v · lr is ±lr for any gradient, PaLM's
+    ±lr·rms, and both divide an element's gradient by its own history
+    after, so an element whose gradient is within float noise of 0 takes
+    its sign or size from the summation order; given the same gradients,
+    the sharded optimizer (its block rms and clip norm summed over the
+    ranks) must give one device's update."""
     model = _model(run["kind"], run["config"])
     state = train.create_train_state(model, run["optimizer"])
     if trainstate is None:
@@ -214,8 +226,99 @@ def work(tmp_path_factory):
     return work, params
 
 
-def _hold(got, want, what):
-    """Metrics relative, grads and moments by max, params absolute."""
+def _attend_f64(q, k, v):
+    """Causal softmax attention in float64; q [b, s, h, d], k, v [b, s,
+    h_kv, d] (kv head i serves query heads i·g .. i·g + g − 1)."""
+    s, h, d = q.shape[1:]
+    k, v = (x.repeat_interleave(h // x.shape[2], 2) for x in (k, v))
+    x = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+    x = x.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(x, -1), v)
+
+
+def _ce_f64(logits, tokens, valid):
+    """`cross_entropy_loss_and_accuracy`'s loss in float64."""
+    lp = torch.log_softmax(logits, -1).gather(-1, tokens.long()[..., None])[..., 0]
+    lp = torch.where(valid > 0, lp, 0.0)
+    return -(lp.sum(-1) / valid.double().sum(-1).clamp_min(1e-10)).mean()
+
+
+def _f64_grads(run, params, batch):
+    """The gradients {name: float64} of one train step of the run's model
+    at `params` ({name: fp32 array}, the whole model) on the global
+    `batch`: the model's arithmetic in plain torch, every operation in
+    float64 (LLaMA, or VideoLLaMA with its dual loss); RoPE from the
+    model's own fp32 table."""
+    model = _model(run["kind"], run["config"])
+    cfg, f64 = model.config, torch.float64
+    w = {n: torch.from_numpy(np.asarray(params[n])).to(f64).requires_grad_()
+         for n, _ in model.named_parameters()}
+    ids = torch.from_numpy(batch["input_tokens"]).long()
+    b, s = ids.shape
+    h, d = cfg.num_attention_heads, cfg.head_dim
+    cos, sin = (t.to(f64)[:, :, None, :] for t in llama_module.take_freqs(
+        model._rope_table(ids.device), torch.arange(s).expand(b, s)))
+
+    def norm(x, name):
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + cfg.rms_norm_eps) * w[name]
+
+    def rope(x):
+        x0, x1 = x.reshape(*x.shape[:-1], -1, 2).unbind(-1)
+        return torch.stack([x0 * cos - x1 * sin, x0 * sin + x1 * cos], -1).reshape(x.shape)
+
+    def dense(x, name):
+        return x @ w[name].T
+
+    if model.takes_vision_masks:
+        vm = torch.from_numpy(batch["input_vision_masks"]).bool()
+        x = torch.where(vm[..., None], w["vte.weight"][torch.where(vm, ids, 0)],
+                        w["wte.weight"][torch.where(vm, 0, ids)])
+    else:
+        x = w["wte.weight"][ids]
+    for i in range(cfg.num_hidden_layers):
+        p = f"h.{i}."
+        y = norm(x, p + "attention_norm.weight")
+        q = rope(dense(y, p + "attention.wq.weight").view(b, s, h, d))
+        k = rope(dense(y, p + "attention.wk.weight").view(b, s, -1, d))
+        v = dense(y, p + "attention.wv.weight").view(b, s, -1, d)
+        x = x + dense(_attend_f64(q, k, v).reshape(b, s, h * d), p + "attention.wo.weight")
+        y = norm(x, p + "ffn_norm.weight")
+        x = x + dense(F.silu(dense(y, p + "feed_forward.w1.weight"))
+                      * dense(y, p + "feed_forward.w3.weight"), p + "feed_forward.w2.weight")
+    x = norm(x, "ln_f.weight")
+    logits = x @ w["lm_head.weight" if "lm_head.weight" in w else "wte.weight"].T
+    tokens = torch.from_numpy(batch["target_tokens"])
+    valid = torch.from_numpy(batch["loss_masks"]).double()
+    if model.takes_vision_masks:
+        tv = torch.from_numpy(batch["target_vision_masks"]).bool()
+        vlogits = x @ w["vision_head.weight" if "vision_head.weight" in w else "vte.weight"].T
+        loss = 0.5 * (_ce_f64(vlogits, torch.where(tv, tokens, 0), valid * tv)
+                      + _ce_f64(logits, torch.where(tv, 0, tokens), valid * ~tv))
+    else:
+        loss = _ce_f64(logits, tokens, valid)
+    loss.backward()
+    return {n: t.grad.numpy() for n, t in w.items()}
+
+
+def _f64_steps(work, run, got):
+    """{step: float64 gradients} of a mesh run's record `got`, each from
+    the params that step started from: the saved init at step 0, the mesh
+    run's params after the step before (as the resynced one-device run)."""
+    batch = dict(np.load(work / f"{run['kind']}_batch.npz"))
+    init = {n: t.numpy() for n, t in torch.load(work / f"{run['kind']}_init.pt").items()}
+    out = {}
+    for i in range(run["steps"]):
+        params = init if i == 0 else {k.split("/", 2)[2]: got[k] for k in got.files
+                                      if k.startswith(f"s{i - 1}/param/")}
+        out[i] = _f64_grads(run, params, batch)
+    return out
+
+
+def _hold(got, want, what, f64=None):
+    """Metrics relative, moments by max, params absolute; grads to the
+    float64 step `f64` ({step: {name: grad}}) within REL of its max, or
+    within FLOOR_RATIO × the one-device port's own distance to it (without
+    `f64`, to the one-device port's by max)."""
     keys = {k for k in want if not k.startswith("numel")}
     assert keys == {k for k in got.files if not k.startswith("numel")}, what
     for key in sorted(keys):
@@ -224,6 +327,14 @@ def _hold(got, want, what):
             np.testing.assert_allclose(float(a), float(w), rtol=REL, err_msg=f"{what} {key}")
         elif "/param/" in key:
             np.testing.assert_allclose(a, w, atol=PARAM_TOL, err_msg=f"{what} {key}")
+        elif "/grad/" in key and f64 is not None:
+            step, _, name = key.split("/", 2)
+            g64 = f64[int(step[1:])][name]
+            top = max(np.abs(g64).max(), 1e-300)
+            mesh, one = (np.abs(x.astype(np.float64) - g64).max() / top for x in (a, w))
+            assert mesh <= max(REL, FLOOR_RATIO * one), (
+                f"{what} {key}: max|Δ| from float64 {mesh:.3e} of its max, the one-device "
+                f"port's {one:.3e}")
         else:
             assert np.abs(a - w).max() <= REL * max(np.abs(w).max(), 1e-30), f"{what} {key}"
 
@@ -232,19 +343,19 @@ _ONE_DEVICE = {}   # run name → the one-device port's record
 
 
 def _one_device_of(work, run):
-    """The one-device reference of a run (PaLM's from the mesh's gradients
-    and states: `_one_device`), made once."""
+    """The one-device reference of a run, from the mesh's gradients and
+    states (`_one_device`'s `resync`), made once."""
     if run["name"] not in _ONE_DEVICE:
         got = np.load(work / f"{run['name']}.npz")
-        palm = run["optimizer"].get("type") == "palm"
-        _ONE_DEVICE[run["name"]] = _one_device(work, run, resync=got if palm else None)
+        _ONE_DEVICE[run["name"]] = _one_device(work, run, resync=got)
     return _ONE_DEVICE[run["name"]]
 
 
 @pytest.mark.parametrize("run", RUNS, ids=[r["name"] for r in RUNS])
 def test_mesh_steps_match_one_device(work, run):
     work, _ = work
-    _hold(np.load(work / f"{run['name']}.npz"), _one_device_of(work, run), run["name"])
+    got = np.load(work / f"{run['name']}.npz")
+    _hold(got, _one_device_of(work, run), run["name"], _f64_steps(work, run, got))
 
 
 @pytest.mark.parametrize("run", RUNS, ids=[r["name"] for r in RUNS])

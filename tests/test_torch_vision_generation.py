@@ -211,14 +211,30 @@ args = json.loads(sys.argv[1])
 from lwm_tpu.apps import vision_generation as vg
 from lwm_tpu.models import vqgan
 real = vg.VQGAN
-vg.VQGAN = lambda path, replicate=False: real(path, replicate,
-                                              config_updates=args["vqgan"])
+decoded = []
+
+
+def small_vqgan(path, replicate=False):
+    vq = real(path, replicate, config_updates=args["vqgan"])
+    decode = vq.decode
+
+    def recorded(codes):
+        pixels = decode(codes)
+        decoded.append(dict(codes=np.asarray(codes).tolist(),
+                            pixels=np.asarray(pixels, np.float32).tolist()))
+        return pixels
+
+    vq.decode = recorded
+    return vq
+
+
+vg.VQGAN = small_vqgan
 frames = []
 vg.write_video = lambda path, f, fps=4: frames.append(np.asarray(f).tolist())
 for argv in args["runs"]:
     vg.FLAGS(["prog"] + argv)
     vg.main([])
-print(json.dumps(frames))
+print(json.dumps(dict(frames=frames, decoded=decoded)))
 '''
 
 
@@ -245,9 +261,27 @@ def app_argv(tmp, out, n_frames):
             + ")"]
 
 
+def _hold_pixels(got, want, want_float, what):
+    """uint8 pixels `got` equal the JAX app's `want` except where the JAX
+    app's float (x + 1) · 127.5, truncated to give `want`, lies within the
+    fp32 tolerance of an integer: there one ulp across it flips the pixel
+    by 1."""
+    y = (want_float.astype(np.float64) + 1) * 127.5
+    near = np.abs(y - np.round(y)) <= 127.5 * (FP32_TOL["atol"]
+                                               + FP32_TOL["rtol"] * np.abs(want_float))
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert got.shape == want.shape, what
+    assert not np.any(diff[~near]), f"{what}: {int((diff[~near] > 0).sum())} pixels differ"
+    assert diff.max() <= 1, what
+
+
 def test_cli_matches_the_jax_app(app_files, monkeypatch):
-    """`main` with `--top_k_image=1` writes the JAX app's PNG (read back with
-    PIL), and at n_frames=2 hands `write_video` the JAX app's frames."""
+    """`main` with `--top_k_image=1` samples the JAX app's VQ codes (held
+    exactly), decodes them to the JAX app's floats (held at fp32 1e-5) and
+    writes the JAX app's PNG (read back with PIL), and at n_frames=2 hands
+    `write_video` the JAX app's frames: both truncate (x + 1) · 127.5 to
+    uint8, so the pixels are held equal except where JAX's float lies
+    within that tolerance of an integer (`_hold_pixels`)."""
     from PIL import Image
 
     tmp = app_files
@@ -260,23 +294,42 @@ def test_cli_matches_the_jax_app(app_files, monkeypatch):
                  XLA_FLAGS=os.environ.get("XLA_FLAGS", "").replace(
                      "--xla_force_host_platform_device_count=8", "")))
     assert proc.returncode == 0, proc.stderr[-3000:]
-    want_frames = np.asarray(json.loads(proc.stdout.strip().splitlines()[-1]), np.uint8)
+    jax_run = json.loads(proc.stdout.strip().splitlines()[-1])
+    want_frames = np.asarray(jax_run["frames"], np.uint8)
 
     from lwm_tpu_torch.models import vqgan as port_vqgan
 
     real = port_vqgan.VQGAN
-    monkeypatch.setattr(app, "VQGAN", lambda path, replicate=False, device="cuda": real(
-        path, replicate, config_updates=SMALL_VQGAN, device=device))
+    decoded = []
+
+    def small_vqgan(path, replicate=False, device="cuda"):
+        vq = real(path, replicate, config_updates=SMALL_VQGAN, device=device)
+        decode = vq.decode
+
+        def recorded(codes):
+            pixels = decode(codes)
+            decoded.append((np.asarray(codes), pixels.float().cpu().numpy()))
+            return pixels
+
+        vq.decode = recorded
+        return vq
+
+    monkeypatch.setattr(app, "VQGAN", small_vqgan)
     frames = []
     monkeypatch.setattr(app, "write_video", lambda path, f, fps=4: frames.append(f))
     app.main(list(map(str, app_argv(tmp, tmp / "port.png", 1))) + ["--device=cpu"])
-    want = np.asarray(Image.open(tmp / "jax.png"))
-    np.testing.assert_array_equal(np.asarray(Image.open(tmp / "port.png")), want)
-    assert want.shape == (32, 32, 3)
     app.main(list(map(str, app_argv(tmp, tmp / "port.mp4", 2))) + ["--device=cpu"])
+    assert len(decoded) == len(jax_run["decoded"]) == 2
+    for (codes, pixels), want_dec in zip(decoded, jax_run["decoded"]):
+        np.testing.assert_array_equal(codes, np.asarray(want_dec["codes"]))
+        np.testing.assert_allclose(pixels, np.asarray(want_dec["pixels"], np.float32), **FP32_TOL)
+    image_float, video_float = (np.asarray(x["pixels"], np.float32) for x in jax_run["decoded"])
+    want = np.asarray(Image.open(tmp / "jax.png"))
+    assert want.shape == (32, 32, 3)
+    _hold_pixels(np.asarray(Image.open(tmp / "port.png")), want, image_float[0], "png")
     assert want_frames.shape == (1, 2, 32, 32, 3)
-    np.testing.assert_array_equal(np.stack(frames), want_frames)
-    np.testing.assert_array_equal(frames[0][0], want)
+    _hold_pixels(np.stack(frames), want_frames, video_float[None], "frames")
+    _hold_pixels(frames[0][0], want, image_float[0], "first frame")
 
 
 @pytest.mark.parametrize("argv, err", [
